@@ -4,19 +4,26 @@
 Run from the repository root with no arguments: `python3 chip_smoke.py`. It
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the CUDA kernels from `rpt_tpu_torch/csrc` with nvcc;
-3. holds each kernel against its plain torch version on the card, on the
-   `dragon` workload's own rays: the 960x540 camera rays and every
-   wavefront of a 1-spp, 2-bounce render;
-4. renders a small `dragon` on the CPU and on the card with the same seed
-   and compares the images;
-5. renders the `dragon` workload (120k-triangle trefoil, 960x540, 2 bounces,
-   4 samples) through `Renderer.render_buffer` with the kernels' launch
-   counters set to 0 just before, checks the image and the counters, and
-   prints Mrays/s;
-6. prints one JSON line `{"kernels": [...]}` with each kernel's time per
-   launch, its plain version's time and its bound, then the last line
-   `{"ok": true, "device": {...}}`.
+2. builds the CUDA kernels from `rpt_tpu_torch/csrc` with nvcc, one process
+   per source, all at once, and prints each build's ptxas report;
+3. for each workload, `dragon` (the baked-mesh path: a 120k-triangle
+   trefoil, 960x540, 2 bounces, through the two bvh8 kernels) and then
+   `lego` (the instanced path: the 768-instance brick city, 960x540, 5
+   bounces, through the two tlas8 kernels):
+   a. compiles the scene and prints its sizes;
+   b. holds each of the path's kernels against its plain torch version on
+      the workload's own rays: the camera rays and every wavefront of a
+      1-spp render;
+   c. renders a small image on the CPU and on the card with the same seed
+      and compares them;
+   d. drives the main path, `Renderer.render_buffer` at full size, with
+      every kernel's launch counter set to 0 just before and read just
+      after, checks the image and the counters, and prints Mrays/s;
+   e. profiles one sample (device-busy share, the kernels' share);
+   f. times each of the path's kernels per launch beside its plain
+      version and its bound;
+4. prints one JSON line `{"kernels": [...]}` with all four kernels, then the
+   last line `{"ok": true, "device": {...}}`.
 
 A failed phase prints FAIL and exits nonzero with no result. It imports
 nothing of JAX or of the JAX package.
@@ -30,17 +37,33 @@ import subprocess
 import sys
 import time
 
-WIDTH, HEIGHT, BOUNCES, SPP = 960, 540, 2, 4
+WIDTH, HEIGHT = 960, 540
 SMALL_W, SMALL_H = 64, 48
-SHADOW_RAYS = 2  # the two sphere lights; the ambient light casts none
+SHADOW_RAYS = 2  # per path vertex: dragon's two sphere lights; lego's sphere light and point light
 DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3 rate.
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
 PARITY_MIN = 0.9999
 T_TOL = 2e-5
-REPLACES = "rpt_tpu/ops/bvh8_pallas.py:368"
-SOURCE = "rpt_tpu_torch/csrc/bvh8.cu"
+
+# Per kernel: the scene module's wrapper that calls it, its source, the TPU
+# kernel it replaces, and the bytes per ray it must read and write.
+KERNELS = {
+    "bvh8_closest": dict(wrapper="bvh8_closest_hit", source="rpt_tpu_torch/csrc/bvh8.cu",
+                         replaces="rpt_tpu/ops/bvh8_pallas.py:368", in_bytes=24 + 1, out_bytes=8),
+    "bvh8_occluded": dict(wrapper="bvh8_occluded", source="rpt_tpu_torch/csrc/bvh8.cu",
+                          replaces="rpt_tpu/ops/bvh8_pallas.py:368", in_bytes=24 + 1 + 4, out_bytes=1),
+    "tlas8_closest": dict(wrapper="tlas8_closest_hit", source="rpt_tpu_torch/csrc/tlas8.cu",
+                          replaces="rpt_tpu/ops/tlas8_pallas.py:330", in_bytes=24 + 1, out_bytes=12),
+    "tlas8_occluded": dict(wrapper="tlas8_occluded", source="rpt_tpu_torch/csrc/tlas8.cu",
+                           replaces="rpt_tpu/ops/tlas8_pallas.py:330", in_bytes=24 + 1 + 4, out_bytes=1),
+}
+# name -> (bounces, samples of the main path, its two kernels)
+WORKLOADS = {
+    "dragon": (2, 4, ("bvh8_closest", "bvh8_occluded")),
+    "lego": (5, 2, ("tlas8_closest", "tlas8_occluded")),
+}
 
 
 def fail(msg: str):
@@ -62,13 +85,14 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, inputs, reps: int) -> float:
+def time_ms(fn, inputs, reps: int, warmup: bool = True) -> float:
     """Mean milliseconds of one call, on CUDA events, over `reps` passes
-    through `inputs` after one warm-up pass."""
+    through `inputs` (after one warm-up pass unless the caller made one)."""
     import torch
 
-    for args in inputs:
-        fn(*args)
+    if warmup:
+        for args in inputs:
+            fn(*args)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -80,32 +104,33 @@ def time_ms(fn, inputs, reps: int) -> float:
     return start.elapsed_time(end) / (reps * len(inputs))
 
 
-def record_wavefronts(scene_mod, render):
-    """Run `render()` and return the inputs it handed the two bvh8 wrappers."""
-    rec = {"bvh8_closest": [], "bvh8_occluded": []}
-    orig_c, orig_o = scene_mod.bvh8_closest_hit, scene_mod.bvh8_occluded
+def record_wavefronts(scene_mod, names, render):
+    """Run `render()` and return the rays it handed the wrappers of the
+    kernels `names`: {name: [(o, d, t_min[, t_max], active), ...]}."""
+    rec = {name: [] for name in names}
+    orig = {name: getattr(scene_mod, KERNELS[name]["wrapper"]) for name in names}
 
-    def closest(bvh, pack, o, d, t_min, active=None):
-        rec["bvh8_closest"].append((o, d, t_min, active))
-        return orig_c(bvh, pack, o, d, t_min, active)
+    def recorder(name):
+        def wrapped(tree, pack, o, d, t_min, *rest, active=None):
+            rec[name].append((o, d, t_min, *rest, active))
+            return orig[name](tree, pack, o, d, t_min, *rest, active=active)
+        return wrapped
 
-    def occluded(bvh, pack, o, d, t_min, t_max, active=None):
-        rec["bvh8_occluded"].append((o, d, t_min, t_max, active))
-        return orig_o(bvh, pack, o, d, t_min, t_max, active)
-
-    scene_mod.bvh8_closest_hit, scene_mod.bvh8_occluded = closest, occluded
+    for name in names:
+        setattr(scene_mod, KERNELS[name]["wrapper"], recorder(name))
     try:
         render()
     finally:
-        scene_mod.bvh8_closest_hit, scene_mod.bvh8_occluded = orig_c, orig_o
+        for name in names:
+            setattr(scene_mod, KERNELS[name]["wrapper"], orig[name])
     return rec
 
 
-def profile_sample(render):
+def profile_sample(render, kernel_tag: str):
     """Where one main-path sample spends the card's time: device-busy share
-    of the profiled window, the bvh8 kernels' share of device time, and the
-    heaviest kernels. Reads CUDA kernel events from torch.profiler; prints
-    'not measured' if the profiler records none."""
+    of the profiled window, the share of device time of the kernels whose
+    name holds `kernel_tag`, and the heaviest kernels. Reads CUDA kernel
+    events from torch.profiler; prints 'not measured' if it records none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -127,62 +152,207 @@ def profile_sample(render):
             end = e
     by_name = {}
     for e in kernels:
-        # "void (anonymous namespace)::bvh8_walk<false>(float4 const*, ...)" -> "bvh8_walk<false>"
+        # "void (anonymous namespace)::tlas8_walk<false>(float4 const*, ...)" -> "tlas8_walk<false>"
         name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0][-60:]
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     total = sum(by_name.values())
-    bvh8_us = sum(v for k, v in by_name.items() if "bvh8_walk" in k)
+    walk_us = sum(v for k, v in by_name.items() if kernel_tag in k)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     say("profile", window_ms=f"{wall_us / 1e3:.2f}", device_busy_ms=f"{busy / 1e3:.2f}",
         idle_share=f"{1.0 - busy / wall_us:.3f}", kernel_launches=len(kernels),
-        bvh8_share_of_device_time=f"{bvh8_us / total:.3f}")
+        **{f"{kernel_tag}_share_of_device_time": f"{walk_us / total:.3f}"})
     for name, us in top:
         say("profile", kernel=json.dumps(name), device_ms=f"{us / 1e3:.3f}", share=f"{us / total:.3f}")
 
 
-def check_closest(name, bvh, pack, o, d, t_min, active) -> float:
-    """Kernel vs plain closest hit; returns the largest |t| difference."""
+def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active) -> float:
+    """Kernel vs plain closest hit; returns the largest |t| difference.
+    `mat_of(outputs, hit mask)` gives the material ids of the hits; an
+    instance id, where the kernel returns one, must agree too."""
     import torch
-    from rpt_tpu_torch.ops import bvh8
 
-    t_k, id_k = bvh8.bvh8_closest_kernel(pack, o, d, t_min, active)
-    t_p, id_p = bvh8.bvh8_closest_plain(pack, o, d, t_min, active)
+    out_k = kern(o, d, t_min, active)
+    out_p = plain(o, d, t_min, active)
     torch.cuda.synchronize()
+    t_k, t_p = out_k[0], out_p[0]
     hit_k, hit_p = t_k < 1e38, t_p < 1e38
     agree = (hit_k == hit_p).float().mean().item()
     both = hit_k & hit_p
     err = (t_k[both] - t_p[both]).abs().max().item() if bool(both.any()) else 0.0
     t_ok = bool(torch.allclose(t_k[both], t_p[both], rtol=T_TOL, atol=T_TOL))
-    mat_k = bvh.mat_id[id_k.long().clamp(0, bvh.num_tris - 1)]
-    mat_p = bvh.mat_id[id_p.long().clamp(0, bvh.num_tris - 1)]
-    mat_ok = bool((mat_k[both] == mat_p[both]).all())
-    say("parity", kernel="bvh8_closest", rays=name, n=o.shape[0], hits=int(hit_p.sum()),
-        mask_agree=f"{agree:.7f}", max_abs_t_err=err, mat_ok=mat_ok)
-    if agree < PARITY_MIN or not t_ok or not mat_ok:
-        fail(f"bvh8_closest kernel disagrees with its plain version on {name}")
+    mat_ok = bool((mat_of(out_k, both) == mat_of(out_p, both)).all())
+    inst_ok = len(out_k) < 3 or bool((out_k[2][both] == out_p[2][both]).all())
+    say("parity", kernel=name, rays=rays, n=o.shape[0], hits=int(hit_p.sum()), mask_agree=f"{agree:.7f}",
+        max_abs_t_err=err, mat_ok=mat_ok, **({} if len(out_k) < 3 else {"inst_ok": inst_ok}))
+    if agree < PARITY_MIN or not t_ok or not mat_ok or not inst_ok:
+        fail(f"{name} kernel disagrees with its plain version on {rays}")
     return err
 
 
-def check_occluded(name, pack, o, d, t_min, t_max, active) -> float:
+def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, active) -> float:
     """Kernel vs plain any-hit, and vs the closest-hit rule t <= t_max;
     returns the share of rays where kernel and plain version disagree."""
     import torch
-    from rpt_tpu_torch.ops import bvh8
 
-    occ_k = bvh8.bvh8_occluded_kernel(pack, o, d, t_min, t_max, active)
-    occ_p = bvh8.bvh8_occluded_plain(pack, o, d, t_min, t_max, active)
-    t_p, _ = bvh8.bvh8_closest_plain(pack, o, d, t_min, active)
+    occ_k = kern(o, d, t_min, t_max, active)
+    occ_p = plain(o, d, t_min, t_max, active)
+    t_p = closest_plain(o, d, t_min, active)[0]
     torch.cuda.synchronize()
     rule = t_p <= t_max  # t_p is 3e38 on a miss; the lights' t_max are finite
     if active is not None:
         rule = rule & active
     disagree = (occ_k != occ_p).float().mean().item()
     agree_rule = (occ_k == rule).float().mean().item()
-    say("parity", kernel="bvh8_occluded", rays=name, n=o.shape[0], occluded=int(occ_p.sum()),
+    say("parity", kernel=name, rays=rays, n=o.shape[0], occluded=int(occ_p.sum()),
         agree_plain=f"{1.0 - disagree:.7f}", agree_closest_rule=f"{agree_rule:.7f}")
     if 1.0 - disagree < PARITY_MIN or agree_rule < PARITY_MIN:
-        fail(f"bvh8_occluded kernel disagrees on {name}")
+        fail(f"{name} kernel disagrees on {rays}")
     return disagree
+
+
+def run_workload(workload: str, card: str) -> list:
+    """Phases a-f of one workload; returns its kernels' rows of the
+    `kernels` line."""
+    import numpy as np
+    import torch
+
+    import rpt_tpu_torch.scene as scene_mod
+    from rpt_tpu_torch import Renderer
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.ops import bvh8, tlas8
+    from rpt_tpu_torch.renderer import camera_rays_tiled, pixel_ndc_tiled
+    from rpt_tpu_torch.scenes import build_brick_city, build_dragon_scene, dragon_camera, lego_camera
+
+    bounces, spp, (closest, occluded) = WORKLOADS[workload]
+    counters = {
+        "bvh8_closest": bvh8.bvh8_closest_hit, "bvh8_occluded": bvh8.bvh8_occluded,
+        "tlas8_closest": tlas8.tlas8_closest_hit, "tlas8_occluded": tlas8.tlas8_occluded,
+    }
+
+    # a. Compile.
+    t0 = time.perf_counter()
+    if workload == "dragon":
+        scene, camera = build_dragon_scene(), dragon_camera()
+        sd = scene.compile(device=DEVICE)
+        pack = sd.bvh8
+        say("compile", workload=workload, tris=sd.bvh.num_tris, wide_nodes=pack.num_nodes,
+            stack_need=pack.stack_need, pack_mb=f"{pack.nbytes / 2**20:.2f}",
+            seconds=f"{time.perf_counter() - t0:.2f}")
+        kern = {closest: bvh8.bvh8_closest_kernel, occluded: bvh8.bvh8_occluded_kernel}
+        plain = {closest: bvh8.bvh8_closest_plain, occluded: bvh8.bvh8_occluded_plain}
+        bvh = sd.bvh
+
+        def mat_of(out, hit):
+            return bvh.mat_id[out[1].long().clamp(0, bvh.num_tris - 1)][hit]
+    else:
+        scene, camera = build_brick_city(), lego_camera()
+        sd = scene.compile(device=DEVICE)
+        pack, im = sd.tlas8, sd.instanced
+        say("compile", workload=workload, instances=im.inst_inv.shape[0],
+            unique_meshes=len(set(im.inst_root.tolist())), unique_tris=im.verts.shape[0],
+            tri_rows=pack.tris.shape[0], wide_nodes=pack.num_nodes, stack_need=pack.stack_need,
+            materials=sd.materials.color.shape[0], pack_mb=f"{pack.nbytes / 2**20:.2f}",
+            seconds=f"{time.perf_counter() - t0:.2f}")
+        kern = {closest: tlas8.tlas8_closest_kernel, occluded: tlas8.tlas8_occluded_kernel}
+        plain = {closest: tlas8.tlas8_closest_plain, occluded: tlas8.tlas8_occluded_plain}
+
+        def mat_of(out, hit):
+            return im.inst_mat[out[2].long().clamp(0, im.inst_mat.shape[0] - 1)][hit]
+
+    def bound(name):
+        return lambda *a, **kw: kern[name](pack, *a, **kw)
+
+    def bound_plain(name):
+        return lambda *a, **kw: plain[name](pack, *a, **kw)
+
+    # b. Kernel parity at main-path size: the camera rays, then every
+    # wavefront of a 1-spp render.
+    renderer = Renderer(scene, camera, width=WIDTH, height=HEIGHT, max_bounces=bounces, num_samples=1,
+                        device=DEVICE)
+    t_min = float(np.float32(renderer.epsilon))
+    o, d, _ = camera_rays_tiled(camera.to(DEVICE), rnd.fold_in(rnd.PRNGKey(0), 0),
+                                pixel_ndc_tiled(WIDTH, HEIGHT, DEVICE))
+    check_closest(closest, "camera", bound(closest), bound_plain(closest), mat_of, o, d, t_min, None)
+    rec = record_wavefronts(scene_mod, (closest, occluded), renderer.render_buffer)
+    n_closest, n_occluded = len(rec[closest]), len(rec[occluded])
+    if n_closest != bounces + 1 or n_occluded != SHADOW_RAYS * (bounces + 1):
+        fail(f"a 1-spp {workload} render made {n_closest} closest-hit and {n_occluded} any-hit calls")
+    err = {closest: 0.0, occluded: 0.0}
+    for depth, args in enumerate(rec[closest]):
+        err[closest] = max(err[closest], check_closest(closest, f"depth{depth}", bound(closest),
+                                                       bound_plain(closest), mat_of, *args))
+    for j, args in enumerate(rec[occluded]):
+        err[occluded] = max(err[occluded], check_occluded(occluded, f"shadow{j}", bound(occluded),
+                                                          bound_plain(occluded), bound_plain(closest), *args))
+
+    # c. The port on the CPU against the port on the card, same seed.
+    small = {}
+    for dev in ("cpu", DEVICE):
+        r = Renderer(scene, camera, width=SMALL_W, height=SMALL_H, max_bounces=bounces, num_samples=1, device=dev)
+        small[dev] = r.render_buffer().mean_image().cpu().numpy()
+    a, b = small["cpu"], small[DEVICE]
+    close = np.isclose(b, a, rtol=1e-3, atol=1e-4).all(-1).mean()
+    mean_rel = abs(float(b.mean()) - float(a.mean())) / max(abs(float(a.mean())), 1e-12)
+    say("cpu_vs_card", workload=workload, size=f"{SMALL_W}x{SMALL_H}", pixels_close=f"{close:.5f}",
+        mean_rel=f"{mean_rel:.3e}")
+    if not (np.isfinite(b).all() and close >= 0.99 and mean_rel <= 1e-3):
+        fail(f"the CPU and card renders of {workload} disagree")
+
+    # d. The main path at full size: a warm-up sample, then every counter
+    # to 0, drive, read.
+    renderer.render_buffer()
+    torch.cuda.synchronize()
+    renderer.num_samples = spp
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    buf = renderer.render_buffer()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    img = buf.mean_image()
+    rays = (bounces + 1) * (1 + SHADOW_RAYS) * WIDTH * HEIGHT * spp
+    say("main_path", workload=workload, size=f"{WIDTH}x{HEIGHT}", bounces=bounces, spp=spp, seconds=f"{dt:.4f}",
+        mrays_per_s=f"{rays / dt / 1e6:.3f}", image_mean=f"{float(img.mean()):.6f}",
+        launches=json.dumps(launches), card=json.dumps(card))
+    if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
+        fail(f"the {workload} main-path image is not finite or is black")
+    want = {name: 0 for name in counters}
+    want[closest], want[occluded] = (bounces + 1) * spp, SHADOW_RAYS * (bounces + 1) * spp
+    if launches != want:
+        fail(f"the {workload} main path launched {launches}, not {want}")
+    renderer.num_samples = 1
+    profile_sample(renderer.render_buffer, closest.split("_")[0] + "_walk")
+
+    # f. Each kernel at the main path's shapes (the wavefronts of b): time
+    # per launch, the plain version's time, and the bound.
+    rows = []
+    for name in (closest, occluded):
+        spec = KERNELS[name]
+        args = rec[name]
+        ms = time_ms(bound(name), args, reps=10)
+        stats = {}
+        for a in args:  # also the plain version's warm-up
+            plain[name](pack, *a, stats=stats)
+        plain_ms = time_ms(bound_plain(name), args, reps=1, warmup=False)
+        n_rays = sum(a[0].shape[0] for a in args)
+        # Bytes: each ray's inputs and outputs once, and the whole pack once.
+        bytes_per = n_rays * (spec["in_bytes"] + spec["out_bytes"]) / len(args) + pack.nbytes
+        ops = (stats["box_tests"] * bvh8.BOX_TEST_OPS + stats["tri_tests"] * bvh8.TRI_TEST_OPS
+               + stats.get("inst_entries", 0) * tlas8.INST_ENTRY_OPS)
+        t_bytes, t_ops = bytes_per / PEAK_BYTES * 1e3, ops / len(args) / PEAK_F32_OPS * 1e3
+        rows.append({
+            "name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
+            "launches": launches[name], "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "workload": workload, "launches_per_sample": launches[name] / spp,
+            "box_tests_per_launch": stats["box_tests"] / len(args),
+            "tri_tests_per_launch": stats["tri_tests"] / len(args),
+            "inst_entries_per_launch": stats.get("inst_entries", 0) / len(args),
+        })
+        say("timing", kernel=name, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+            bound_ms=f"{rows[-1]['bound_ms']:.5f}", bound_by=rows[-1]["bound_by"], card=json.dumps(card))
+    return rows
 
 
 def main():
@@ -190,7 +360,6 @@ def main():
     if not os.path.isfile(os.path.join(root, "rpt_tpu_torch", "__init__.py")):
         fail("rpt_tpu_torch/ is not beside chip_smoke.py; run it from the repository")
     sys.path.insert(0, root)
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -201,109 +370,25 @@ def main():
     print(card, flush=True)
     say("card", torch=torch.__version__, cuda=torch.version.cuda, python=sys.version.split()[0])
 
-    import rpt_tpu_torch.scene as scene_mod
-    from rpt_tpu_torch import Renderer, kernels
-    from rpt_tpu_torch import random as rnd
-    from rpt_tpu_torch.ops import bvh8
-    from rpt_tpu_torch.renderer import camera_rays_tiled, pixel_ndc_tiled
-    from rpt_tpu_torch.scenes import build_dragon_scene, dragon_camera
+    from rpt_tpu_torch import kernels
 
-    # 2. Build the kernels from the checkout's sources.
+    # 2. Build every kernel from the checkout's sources, all at once.
+    t0 = time.perf_counter()
     info = kernels.build(force=True)
-    kernels.load_library()
-    say("build", source=SOURCE, seconds=f"{info['seconds']:.2f}", flags=json.dumps(" ".join(kernels.NVCC_FLAGS)))
-    for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            say("ptxas", line=json.dumps(line.strip()))
+    for name in kernels.sources():
+        kernels.load_library(name)
+    say("build", sources=",".join(f"rpt_tpu_torch/csrc/{n}.cu" for n in info), wall_seconds=f"{time.perf_counter() - t0:.2f}",
+        flags=json.dumps(" ".join(kernels.NVCC_FLAGS)))
+    for name, res in info.items():
+        say("build", source=f"rpt_tpu_torch/csrc/{name}.cu", seconds=f"{res['seconds']:.2f}")
+        for line in res["log"].splitlines():
+            if "registers" in line or "spill" in line or "stack frame" in line:
+                say("ptxas", source=name, line=json.dumps(line.strip()))
 
-    # 3. Kernel parity at main-path size.
-    t0 = time.perf_counter()
-    scene = build_dragon_scene()
-    sd = scene.compile(device=DEVICE)
-    say("compile", tris=sd.bvh.num_tris, wide_nodes=sd.bvh8.num_nodes, stack_need=sd.bvh8.stack_need,
-        pack_mb=f"{sd.bvh8.nbytes / 2**20:.2f}", seconds=f"{time.perf_counter() - t0:.2f}")
-    camera = dragon_camera()
-    renderer = Renderer(scene, camera, width=WIDTH, height=HEIGHT, max_bounces=BOUNCES, num_samples=1,
-                        device=DEVICE)
-    t_min = float(np.float32(renderer.epsilon))
-    o, d, _ = camera_rays_tiled(camera.to(DEVICE), rnd.fold_in(rnd.PRNGKey(0), 0),
-                                pixel_ndc_tiled(WIDTH, HEIGHT, DEVICE))
-    check_closest("camera", sd.bvh, sd.bvh8, o, d, t_min, None)
-    rec = record_wavefronts(scene_mod, renderer.render_buffer)
-    n_closest, n_occluded = len(rec["bvh8_closest"]), len(rec["bvh8_occluded"])
-    if n_closest != BOUNCES + 1 or n_occluded != SHADOW_RAYS * (BOUNCES + 1):
-        fail(f"a 1-spp render made {n_closest} closest-hit and {n_occluded} any-hit calls")
-    err = {"bvh8_closest": 0.0, "bvh8_occluded": 0.0}
-    for depth, args in enumerate(rec["bvh8_closest"]):
-        err["bvh8_closest"] = max(err["bvh8_closest"], check_closest(f"depth{depth}", sd.bvh, sd.bvh8, *args))
-    for j, args in enumerate(rec["bvh8_occluded"]):
-        err["bvh8_occluded"] = max(err["bvh8_occluded"], check_occluded(f"shadow{j}", sd.bvh8, *args))
-
-    # 4. The port on the CPU against the port on the card, same seed.
-    small = {}
-    for dev in ("cpu", DEVICE):
-        r = Renderer(scene, camera, width=SMALL_W, height=SMALL_H, max_bounces=BOUNCES, num_samples=1, device=dev)
-        small[dev] = r.render_buffer().mean_image().cpu().numpy()
-    a, b = small["cpu"], small[DEVICE]
-    close = np.isclose(b, a, rtol=1e-3, atol=1e-4).all(-1).mean()
-    mean_rel = abs(float(b.mean()) - float(a.mean())) / max(abs(float(a.mean())), 1e-12)
-    say("cpu_vs_card", size=f"{SMALL_W}x{SMALL_H}", pixels_close=f"{close:.5f}", mean_rel=f"{mean_rel:.3e}")
-    if not (np.isfinite(b).all() and close >= 0.99 and mean_rel <= 1e-3):
-        fail("the CPU and card renders disagree")
-
-    # 5. The main path at full size: a warm-up sample, then counters to 0,
-    # drive, read.
-    renderer.render_buffer()
-    torch.cuda.synchronize()
-    renderer.num_samples = SPP
-    bvh8.bvh8_closest_hit.launches = 0
-    bvh8.bvh8_occluded.launches = 0
-    t0 = time.perf_counter()
-    buf = renderer.render_buffer()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {"bvh8_closest": bvh8.bvh8_closest_hit.launches, "bvh8_occluded": bvh8.bvh8_occluded.launches}
-    img = buf.mean_image()
-    rays = (BOUNCES + 1) * (1 + SHADOW_RAYS) * WIDTH * HEIGHT * SPP
-    say("main_path", size=f"{WIDTH}x{HEIGHT}", bounces=BOUNCES, spp=SPP, seconds=f"{dt:.4f}",
-        mrays_per_s=f"{rays / dt / 1e6:.3f}", image_mean=f"{float(img.mean()):.6f}",
-        launches=json.dumps(launches), card=json.dumps(card))
-    if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
-        fail("the main-path image is not finite or is black")
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was not launched: {launches}")
-    renderer.num_samples = 1
-    profile_sample(renderer.render_buffer)
-
-    # 6. Each kernel at the main path's shapes (the wavefronts of step 3):
-    # time per launch, the plain version's time, and the bound.
-    pack_bytes = sd.bvh8.nbytes
+    # 3. Each workload's path.
     rows = []
-    for name, kern, plain, ray_bytes, out_bytes in (
-        ("bvh8_closest", bvh8.bvh8_closest_kernel, bvh8.bvh8_closest_plain, 24 + 1, 8),
-        ("bvh8_occluded", bvh8.bvh8_occluded_kernel, bvh8.bvh8_occluded_plain, 24 + 1 + 4, 1),
-    ):
-        args = [(sd.bvh8, *a) for a in rec[name]]
-        ms = time_ms(kern, args, reps=10)
-        plain_ms = time_ms(plain, args, reps=1)
-        stats = {}
-        for a in args:
-            plain(*a, stats=stats)
-        n_rays = sum(a[1].shape[0] for a in args)
-        # Bytes: each ray's inputs and outputs once, and the whole pack once.
-        bytes_per = n_rays * (ray_bytes + out_bytes) / len(args) + pack_bytes
-        ops_per = (stats["box_tests"] * bvh8.BOX_TEST_OPS + stats["tri_tests"] * bvh8.TRI_TEST_OPS) / len(args)
-        t_bytes, t_ops = bytes_per / PEAK_BYTES * 1e3, ops_per / PEAK_F32_OPS * 1e3
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES,
-            "launches": launches[name], "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "launches_per_sample": launches[name] / SPP,
-            "box_tests_per_launch": stats["box_tests"] / len(args),
-            "tri_tests_per_launch": stats["tri_tests"] / len(args),
-        })
-        say("timing", kernel=name, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
-            bound_ms=f"{rows[-1]['bound_ms']:.5f}", bound_by=rows[-1]["bound_by"], card=json.dumps(card))
+    for workload in WORKLOADS:
+        rows += run_workload(workload, card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

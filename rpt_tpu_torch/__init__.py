@@ -2,10 +2,11 @@
 
 A second package beside the JAX reference `rpt_tpu`, with the same module
 layout and public names for the parts ported so far: scene building and
-compilation, the masked wavefront integrator, and the many-sample renderer.
-Mesh traversal runs in hand-written CUDA kernels for Hopper
-(`csrc/bvh8.cu`) on a CUDA card, and in their plain torch versions on the
-CPU. Entry points run on the card unless the caller passes device="cpu".
+compilation (baked and instanced meshes), the masked wavefront integrator,
+and the many-sample renderer. Mesh traversal runs in hand-written CUDA
+kernels for Hopper (`csrc/bvh8.cu`, `csrc/tlas8.cu`) on a CUDA card, and in
+their plain torch versions on the CPU. Entry points run on the card unless
+the caller passes device="cpu".
 """
 
 from .buffer import Buffer, Filter

@@ -6,8 +6,10 @@ field names of the JAX package's `SceneData` (materials, spheres, cubes,
 planes, triangles, bvh, lights, environment), with the lights as a list of
 dicts tagged with their class name under "type", and rebuilds the port's
 `SceneData` on a device. The wide-BVH kernel layout is packed afresh from
-the given binary BVH; TPU kernel layouts in the dict are ignored. So both
-packages can be run on the very same compiled scene and BVH.
+the given binary BVH, and the two-level wide layout from the given
+instanced meshes (the 16 fields of `InstancedMeshes` under "instanced");
+TPU kernel layouts in the dict are ignored. So both packages can be run on
+the very same compiled scene, BVH and two-level tree.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from .camera import Camera
 from .materials import MaterialTable
 from .ops.bvh import bvh_from_arrays
 from .ops.bvh8 import pack_bvh8
+from .ops.tlas import instanced_from_arrays
+from .ops.tlas8 import pack_tlas8
 from .scene import PlaneArrays, PrimXf, SceneData, TriangleArrays
 from .utils.device import resolve_device
 
@@ -37,7 +41,7 @@ _LIGHTS = {
     cls.__name__: cls
     for cls in (PointLightData, AmbientLightData, DirectionalLightData, SphereLightData, CubeLightData, MeshLightData)
 }
-_UNPORTED = ("monomials", "instanced")
+_UNPORTED = ("monomials",)
 
 
 def _tensors(d: dict, device, ints=("mat_id",)) -> dict:
@@ -74,6 +78,10 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
     if tree.get("bvh") is not None:
         bvh = bvh_from_arrays(tree["bvh"], device)
         bvh8 = pack_bvh8(bvh, device=device)
+    instanced = tlas8 = None
+    if tree.get("instanced") is not None:
+        instanced = instanced_from_arrays(tree["instanced"], device)
+        tlas8 = pack_tlas8(instanced, device=device)
     return SceneData(
         materials=MaterialTable(**_tensors(tree["materials"], device, ints=())),
         spheres=group(PrimXf, "spheres"),
@@ -82,6 +90,8 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
         triangles=group(TriangleArrays, "triangles"),
         bvh=bvh,
         bvh8=bvh8,
+        instanced=instanced,
+        tlas8=tlas8,
         lights=tuple(lights),
         environment=Environment.from_color(env["color"]),
         device=device,

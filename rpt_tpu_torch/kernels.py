@@ -1,73 +1,122 @@
 """Build and load the package's CUDA kernels (`csrc/*.cu`).
 
-Each source is compiled by nvcc for sm_90a into a shared library with a
-plain C interface in the package's git-ignored `_build/` directory, at first
-use, and loaded with ctypes. A missing nvcc or a failed build raises; there
-is no stand-in. The build runs only where kernels are launched (a machine
-with a CUDA card): importing this module compiles nothing.
+Each source `csrc/<name>.cu` is compiled by nvcc for sm_90a into its own
+shared library `_build/lib<name>.so` with a plain C interface, at first use,
+and loaded with ctypes. The nvcc processes of all stale sources run at once.
+A library is stale when its source or any shared header (`csrc/*.cuh`) is
+newer. A missing nvcc or a failed build raises; there is no stand-in. The
+build runs only where kernels are launched (a machine with a CUDA card):
+importing this module compiles nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
 import threading
 import time
 
-__all__ = ["build", "load_library", "NVCC_FLAGS"]
+__all__ = ["build", "load_library", "sources", "NVCC_FLAGS"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_PKG, "csrc", "bvh8.cu")
+_CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-_LIB = os.path.join(_BUILD, "libbvh8.so")
 # -fmad=false: no multiply-add contraction, so the kernels agree bit for
-# bit with their plain torch versions (see csrc/bvh8.cu).
+# bit with their plain torch versions (see csrc/walk.cuh).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
+_P, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+# argtypes of every entry point, by library: c_void_p for each pointer and
+# the stream, so ctypes never cuts a pointer to 32 bits.
+_SIGNATURES = {
+    "bvh8": {
+        "rpt_bvh8_closest": [_P] * 6 + [_I64, _F32] + [_P] * 3,
+        "rpt_bvh8_occluded": [_P] * 7 + [_I64, _F32] + [_P] * 2,
+    },
+    "tlas8": {
+        "rpt_tlas8_closest": [_P] * 8 + [_I64, _F32] + [_P] * 4,
+        "rpt_tlas8_occluded": [_P] * 9 + [_I64, _F32] + [_P] * 2,
+    },
+}
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
+
+
+def sources() -> dict:
+    """{name: path} of every csrc/<name>.cu."""
+    paths = sorted(glob.glob(os.path.join(_CSRC, "*.cu")))
+    return {os.path.splitext(os.path.basename(p))[0]: p for p in paths}
+
+
+def _lib_path(name: str) -> str:
+    return os.path.join(_BUILD, f"lib{name}.so")
+
+
+def _stale(name: str, src: str) -> bool:
+    lib = _lib_path(name)
+    if not os.path.exists(lib):
+        return True
+    newest = max(os.path.getmtime(p) for p in [src, *glob.glob(os.path.join(_CSRC, "*.cuh"))])
+    return os.path.getmtime(lib) < newest
 
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the bvh8 CUDA kernels cannot be built")
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
     return path
 
 
 def build(force: bool = False) -> dict:
-    """Compile csrc/bvh8.cu into _build/ unless a fresh library is there.
-    Returns {"seconds": build time, "log": ptxas register/spill report}."""
-    if not force and os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC):
-        return {"seconds": 0.0, "log": "cached"}
+    """Compile every stale csrc/*.cu (all when `force`) into _build/, one
+    nvcc process per source, all started together. Returns {name:
+    {"seconds": build time, "log": ptxas register/spill report}}, with
+    seconds 0.0 and log "cached" for a library that was fresh."""
+    todo = {n: s for n, s in sources().items() if force or _stale(n, s)}
+    out = {n: {"seconds": 0.0, "log": "cached"} for n in sources() if n not in todo}
+    if not todo:
+        return out
     os.makedirs(_BUILD, exist_ok=True)
-    tmp = f"{_LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, _LIB)
-    return {"seconds": seconds, "log": (proc.stdout + proc.stderr).strip()}
+    nvcc = _nvcc()
+    procs = {}
+    for name, src in todo.items():
+        tmp = f"{_lib_path(name)}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, src]
+        procs[name] = (tmp, time.perf_counter(),
+                       subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (tmp, t0, proc) in procs.items():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {todo[name]}:\n{stdout}\n{stderr}")
+            continue
+        os.replace(tmp, _lib_path(name))
+        out[name] = {"seconds": seconds, "log": (stdout + stderr).strip()}
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
-def load_library():
-    """The loaded kernel library, built first if needed."""
-    global _lib
+def load_library(name: str):
+    """The loaded library of csrc/<name>.cu, built first if needed."""
     with _lock:
-        if _lib is not None:
-            return _lib
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
         build()
-        lib = ctypes.CDLL(_LIB)
-        p = ctypes.c_void_p
-        lib.rpt_bvh8_closest.restype = ctypes.c_int
-        lib.rpt_bvh8_closest.argtypes = [p, p, p, p, p, p, ctypes.c_int64, ctypes.c_float, p, p, p]
-        lib.rpt_bvh8_occluded.restype = ctypes.c_int
-        lib.rpt_bvh8_occluded.argtypes = [p, p, p, p, p, p, p, ctypes.c_int64, ctypes.c_float, p, p]
-        _lib = lib
+        lib = ctypes.CDLL(_lib_path(name))
+        for fn, argtypes in _SIGNATURES[name].items():
+            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).argtypes = argtypes
+        _libs[name] = lib
         return lib

@@ -36,7 +36,9 @@ leaf. The any-hit walk stops at its first triangle in [t_min, t_max].
 The plain version repeats the kernel's arithmetic op for op (the kernels
 are built with -fmad=false so nvcc contracts nothing into FMAs), so the two
 agree bit for bit, not only within the 2e-5 bar the reference holds its
-own kernels to.
+own kernels to. The slab and triangle tests are shared with the two-level
+kernels (`csrc/walk.cuh`), and so is the plain walk: `_walk_plain` also
+walks the instanced table of `ops/tlas8.py`.
 """
 
 from __future__ import annotations
@@ -66,9 +68,12 @@ __all__ = [
 ]
 
 BRANCH = 8
-STACK_CAP = 128  # must equal kStackCap in csrc/bvh8.cu
-TRI_STRIDE = 20  # floats per triangle row, as in csrc/bvh8.cu
+STACK_CAP = 128  # must equal kStackCap in csrc/walk.cuh
+TRI_STRIDE = 20  # floats per triangle row, as in csrc/walk.cuh
 _BIG = 3.0e38  # in-kernel miss sentinel
+EMPTY = -1  # meta b of an empty child slot
+INST_CHILD = -2  # meta b of an instance child (two-level tables, ops/tlas8.py)
+TAG_LOCAL, TAG_INST = 1, 2  # two-level stack entry tags (0: a node in world space)
 _EPS_PAR = float(np.float32(1e-8))
 
 # Floating-point operations per test, counted from the kernel source (the
@@ -216,30 +221,40 @@ def pack_bvh8(bvh: BvhData, device=None) -> Bvh8Pack:
     need = _stack_need(ca, cb)
     if need > STACK_CAP:
         raise ValueError(f"wide BVH needs a stack of {need} > {STACK_CAP} entries")
-    Mw = bidx.shape[0]
     valid = bidx >= 0
     bi = np.where(valid, bidx, 0)
-    lo = np.where(valid[..., None], node_min[bi], _BIG).astype(np.float32)  # (Mw, 8, 3)
-    hi = np.where(valid[..., None], node_max[bi], -_BIG).astype(np.float32)
-    bounds = np.concatenate([lo.transpose(0, 2, 1), hi.transpose(0, 2, 1)], axis=1)  # (Mw, 6, 8)
+    bounds, meta = _emit_wide(node_min[bi], node_max[bi], valid, ca, cb)
+    return Bvh8Pack(
+        bounds=torch.as_tensor(bounds, device=device),
+        meta=torch.as_tensor(meta, device=device),
+        tris=torch.as_tensor(_tri_rows(bvh.verts.cpu().numpy()), device=device),
+        stack_need=need,
+    )
+
+
+def _emit_wide(lo: np.ndarray, hi: np.ndarray, valid: np.ndarray, ca: np.ndarray, cb: np.ndarray):
+    """Wide nodes in the kernels' layout from per-slot child boxes lo, hi
+    (Mw, 8, 3) f32, a mask of the filled slots and the meta word pairs
+    (Mw, 8) each: (bounds (Mw, 48) f32, meta (Mw, 24) i32). Empty slots get
+    inverted boxes and the pair (0, -1)."""
+    Mw = lo.shape[0]
+    lo_b = np.where(valid[..., None], lo, _BIG).astype(np.float32)
+    hi_b = np.where(valid[..., None], hi, -_BIG).astype(np.float32)
+    bounds = np.concatenate([lo_b.transpose(0, 2, 1), hi_b.transpose(0, 2, 1)], axis=1)  # (Mw, 6, 8)
 
     # Near-to-far child order per direction octant: ascending centroid
     # projection onto the octant's sign vector, empty slots last.
     signs = np.array([[-1.0 if (o >> a) & 1 else 1.0 for a in range(3)] for o in range(8)])
-    cent = 0.5 * (node_min[bi] + node_max[bi])
+    cent = 0.5 * (lo + hi)
     keys = np.einsum("mcx,ox->moc", cent, signs)
     keys = np.where(valid[:, None, :], keys, np.inf)
     order = np.argsort(keys, axis=-1, kind="stable")
     words = (order << (4 * np.arange(BRANCH))[None, None, :]).sum(-1)
 
-    meta = np.concatenate([ca, cb, words.astype(np.int32)], axis=1)  # (Mw, 24)
-    tris = _tri_rows(bvh.verts.cpu().numpy())
-    return Bvh8Pack(
-        bounds=torch.as_tensor(np.ascontiguousarray(bounds.reshape(Mw, 48)), device=device),
-        meta=torch.as_tensor(np.ascontiguousarray(meta, np.int32), device=device),
-        tris=torch.as_tensor(tris, device=device),
-        stack_need=need,
-    )
+    ca = np.where(valid, ca, 0)
+    cb = np.where(valid, cb, EMPTY)
+    meta = np.concatenate([ca, cb, words], axis=1).astype(np.int32)  # (Mw, 24)
+    return np.ascontiguousarray(bounds.reshape(Mw, 48)), np.ascontiguousarray(meta)
 
 
 # ---------------------------------------------------------------------------
@@ -269,41 +284,80 @@ def _leaf_t(rows, o, d, t_min):
     return t, ok
 
 
-def _walk_plain(pack: Bvh8Pack, o, d, t_min, t_max, active, occl: bool, stats: Optional[dict]):
-    """Lockstep version of the kernels' per-ray walk. Each step pops one node
-    for every ray whose stack is not empty. Returns (t_raw, tri) for the
-    closest hit (t_raw = BIG on a miss) or the any-hit bool."""
+def _walk_plain(bounds, meta, tris, o, d, t_min, t_max, active, occl: bool, stats: Optional[dict],
+                inst=None, inst_root=None):
+    """Lockstep version of the kernels' per-ray walk: csrc/bvh8.cu over one
+    wide tree, or csrc/tlas8.cu over a two-level table when the instance
+    rows `inst` (K, 12) and BLAS roots `inst_root` (K,) are given. Each step
+    pops one stack entry for every ray whose stack is not empty. Returns
+    (t_raw, tri, instance) for the closest hit (t_raw = BIG on a miss) or
+    the any-hit bool. `stats` accumulates box tests (filled child slots of
+    each popped node), triangle tests and instance entries."""
     dev = o.device
     N = o.shape[0]
     t_min = float(np.float32(t_min))
     inv = _safe_inv(d)
     octant = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
-    bounds = pack.bounds.view(-1, 6, BRANCH)
-    ca = pack.meta[:, 0:8].long()
-    cb = pack.meta[:, 8:16].long()
-    words = pack.meta[:, 16:24].long()
+    bounds = bounds.view(-1, 6, BRANCH)
+    ca = meta[:, 0:8].long()
+    cb = meta[:, 8:16].long()
+    words = meta[:, 16:24].long()
     shifts = 4 * torch.arange(BRANCH, device=dev)
     kk = torch.arange(BRANCH, device=dev)
 
     t_best = torch.full((N,), _BIG, dtype=torch.float32, device=dev)
     best = torch.zeros(N, dtype=torch.int64, device=dev)
+    best_inst = torch.zeros(N, dtype=torch.int64, device=dev)
     occ = torch.zeros(N, dtype=torch.bool, device=dev)
     stack = torch.zeros((N, STACK_CAP), dtype=torch.int64, device=dev)
     sp = torch.ones(N, dtype=torch.int64, device=dev)
     if active is not None:
         sp = sp * active.long()
+    two_level = inst is not None
+    if two_level:
+        # Each ray's current instance and its local ray; entries are tagged
+        # node << 2 | tag, and the TLAS root is entry 0 (node 0, world tag).
+        aff = inst.view(-1, 3, 4)
+        roots = inst_root.long()
+        o_loc, d_loc, inv_loc = torch.zeros_like(o), torch.zeros_like(d), torch.zeros_like(d)
+        cur_inst = torch.zeros(N, dtype=torch.int64, device=dev)
     n_box = torch.zeros((), dtype=torch.int64, device=dev)
     n_tri = torch.zeros((), dtype=torch.int64, device=dev)
+    n_inst = 0
 
     while True:
         live = torch.nonzero(sp > 0)[:, 0]
         if live.numel() == 0:
             break
-        L = live.numel()
         sp_l = sp[live] - 1
         w = stack[live, sp_l]
+        if two_level:
+            tag, w = w & 3, w >> 2
+            enter = tag == TAG_INST
+            if bool(enter.any()):
+                # Instance entries: the world ray in the instance's frame,
+                # direction unnormalized; the entry becomes the BLAS root.
+                ray, k = live[enter], w[enter]
+                A = aff[k]
+                ow, dw = o[ray], d[ray]
+                ol = ((A[:, :, 0] * ow[:, 0:1] + A[:, :, 1] * ow[:, 1:2]) + A[:, :, 2] * ow[:, 2:3]) + A[:, :, 3]
+                dl = (A[:, :, 0] * dw[:, 0:1] + A[:, :, 1] * dw[:, 1:2]) + A[:, :, 2] * dw[:, 2:3]
+                o_loc[ray], d_loc[ray], inv_loc[ray] = ol, dl, _safe_inv(dl)
+                cur_inst[ray] = k
+                stack[ray, sp_l[enter]] = (roots[k] << 2) | TAG_LOCAL
+                n_inst += ray.numel()
+                keep = ~enter
+                live, sp_l, tag, w = live[keep], sp_l[keep], tag[keep], w[keep]
+                if live.numel() == 0:
+                    continue
+            local = (tag == TAG_LOCAL)[:, None]
+            ol = torch.where(local, o_loc[live], o[live])
+            dl = torch.where(local, d_loc[live], d[live])
+            il = torch.where(local, inv_loc[live], inv[live])
+        else:
+            ol, dl, il = o[live], d[live], inv[live]
+        L = live.numel()
         b = bounds[w]  # (L, 6, 8)
-        ol, il = o[live], inv[live]
         t1x = (b[:, 0] - ol[:, 0:1]) * il[:, 0:1]
         t2x = (b[:, 3] - ol[:, 0:1]) * il[:, 0:1]
         t1y = (b[:, 1] - ol[:, 1:2]) * il[:, 1:2]
@@ -320,15 +374,19 @@ def _walk_plain(pack: Bvh8Pack, o, d, t_min, t_max, active, occl: bool, stats: O
         b_r = torch.gather(cb[w], 1, ck)
         hit_r = torch.gather(hit, 1, ck)
         if stats is not None:
-            n_box += (cb[w] >= 0).sum()
+            n_box += (cb[w] != EMPTY).sum()
 
-        # Push hit internal children far first: rank k lands above every
-        # pushed child of a larger rank, so the nearest is popped next.
-        push = (hit_r & (b_r == 0)).long()
+        # Push hit internal (and instance) children far first: rank k lands
+        # above every pushed child of a larger rank, so the nearest is
+        # popped next. An internal child keeps its parent's frame.
+        push = (hit_r & ((b_r == 0) | (b_r == INST_CHILD))).long()
         above = torch.flip(torch.cumsum(torch.flip(push, [1]), 1), [1]) - push
         pos = sp_l[:, None] + above
         pm = push.bool()
-        stack[live[:, None].expand(-1, BRANCH)[pm], pos[pm]] = a_r[pm]
+        entry = a_r
+        if two_level:
+            entry = (a_r << 2) | torch.where(b_r == INST_CHILD, TAG_INST, tag[:, None])
+        stack[live[:, None].expand(-1, BRANCH)[pm], pos[pm]] = entry[pm]
         sp[live] = sp_l + push.sum(1)
 
         leaf = hit_r & (b_r > 0)
@@ -337,9 +395,9 @@ def _walk_plain(pack: Bvh8Pack, o, d, t_min, t_max, active, occl: bool, stats: O
             continue
         start = a_r[li, lk]
         count = b_r[li, lk]
-        rows = pack.tris[start[:, None] + kk]  # (P, 8, 20); leaves are 8-aligned
+        rows = tris[start[:, None] + kk]  # (P, 8, 20); leaves are 8-aligned
         ray = live[li]
-        t, ok = _leaf_t(rows, o[ray], d[ray], t_min)
+        t, ok = _leaf_t(rows, ol[li], dl[li], t_min)
         ok = ok & (kk < count[:, None])
         if stats is not None:
             n_tri += count.sum()
@@ -365,26 +423,31 @@ def _walk_plain(pack: Bvh8Pack, o, d, t_min, t_max, active, occl: bool, stats: O
         better = m < tb
         t_best[live] = torch.where(better, m, tb)
         best[live] = torch.where(better, torch.gather(ids, 1, r_best.clamp(max=BRANCH - 1)[:, None])[:, 0], best[live])
+        if two_level:
+            best_inst[live] = torch.where(better, cur_inst[live], best_inst[live])
 
     if stats is not None:
         stats["box_tests"] = stats.get("box_tests", 0) + int(n_box)
         stats["tri_tests"] = stats.get("tri_tests", 0) + int(n_tri)
+        if two_level:
+            stats["inst_entries"] = stats.get("inst_entries", 0) + n_inst
     if occl:
         return occ
-    return t_best, best.to(torch.int32)
+    return t_best, best.to(torch.int32), best_inst.to(torch.int32)
 
 
 def bvh8_closest_plain(pack: Bvh8Pack, o, d, t_min, active=None, stats=None):
     """Plain version of the closest-hit kernel: (t_raw (N,) f32 with BIG on
     a miss, triangle id (N,) i32). `stats`, if given, accumulates the box
     and triangle tests the walk made."""
-    return _walk_plain(pack, o, d, t_min, None, active, occl=False, stats=stats)
+    t_raw, tri, _ = _walk_plain(pack.bounds, pack.meta, pack.tris, o, d, t_min, None, active, False, stats)
+    return t_raw, tri
 
 
 def bvh8_occluded_plain(pack: Bvh8Pack, o, d, t_min, t_max, active=None, stats=None):
     """Plain version of the any-hit kernel: True iff some triangle lies in
     [t_min, t_max] along the ray."""
-    return _walk_plain(pack, o, d, t_min, t_max, active, occl=True, stats=stats)
+    return _walk_plain(pack.bounds, pack.meta, pack.tris, o, d, t_min, t_max, active, True, stats)
 
 
 # ---------------------------------------------------------------------------
@@ -396,26 +459,32 @@ def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
-def _check_rays(pack: Bvh8Pack, o, d, active):
+def _check_rays(pack, o, d, active, t_max=None):
+    """Refuse what the kernels do not take; returns (o, d, active, t_max)
+    contiguous."""
     if not (o.is_cuda and d.is_cuda and pack.bounds.is_cuda):
-        raise ValueError("bvh8 kernels need the rays and the pack on a CUDA device")
+        raise ValueError("the wide-BVH kernels need the rays and the pack on a CUDA device")
     if o.dtype != torch.float32 or d.dtype != torch.float32:
-        raise TypeError("bvh8 kernels take float32 rays")
+        raise TypeError("the wide-BVH kernels take float32 rays")
     if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
-        raise ValueError(f"bvh8 kernels take (N, 3) rays, got {tuple(o.shape)}, {tuple(d.shape)}")
+        raise ValueError(f"the wide-BVH kernels take (N, 3) rays, got {tuple(o.shape)}, {tuple(d.shape)}")
     if active is not None and (active.dtype != torch.bool or active.shape != o.shape[:1]):
         raise ValueError("active must be a bool (N,) mask")
+    if t_max is not None:
+        if t_max.shape != o.shape[:1] or t_max.device != o.device:
+            raise ValueError("t_max must be an (N,) tensor on the rays' device")
+        t_max = t_max.to(torch.float32).contiguous()
     if o.shape[0] >= 2**31:
         raise ValueError("too many rays for one launch")
-    return o.contiguous(), d.contiguous(), None if active is None else active.contiguous()
+    return o.contiguous(), d.contiguous(), None if active is None else active.contiguous(), t_max
 
 
 def bvh8_closest_kernel(pack: Bvh8Pack, o, d, t_min, active=None):
     """Launch the closest-hit kernel: (t_raw, triangle id) as the plain version."""
     from ..kernels import load_library
 
-    lib = load_library()
-    o, d, active = _check_rays(pack, o, d, active)
+    lib = load_library("bvh8")
+    o, d, active, _ = _check_rays(pack, o, d, active)
     n = o.shape[0]
     t_out = torch.empty(n, dtype=torch.float32, device=o.device)
     id_out = torch.empty(n, dtype=torch.int32, device=o.device)
@@ -433,10 +502,9 @@ def bvh8_occluded_kernel(pack: Bvh8Pack, o, d, t_min, t_max, active=None):
     """Launch the any-hit kernel: bool (N,) as the plain version."""
     from ..kernels import load_library
 
-    lib = load_library()
-    o, d, active = _check_rays(pack, o, d, active)
+    lib = load_library("bvh8")
+    o, d, active, t_max = _check_rays(pack, o, d, active, t_max)
     n = o.shape[0]
-    t_max = t_max.to(torch.float32).contiguous()
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     err = lib.rpt_bvh8_occluded(
         _ptr(pack.bounds), _ptr(pack.meta), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
@@ -453,7 +521,7 @@ def _on_cpu(o: torch.Tensor) -> bool:
         return True
     if o.is_cuda:
         return False
-    raise ValueError(f"bvh8: unsupported device {o.device}")
+    raise ValueError(f"wide-BVH walk: unsupported device {o.device}")
 
 
 # ---------------------------------------------------------------------------

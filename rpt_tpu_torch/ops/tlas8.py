@@ -1,0 +1,338 @@
+"""Two-level wide-BVH traversal over instanced meshes: closest hit and any
+hit, as CUDA kernels.
+
+Replaces the two TPU kernels of `rpt_tpu/ops/tlas8_pallas.py`:
+`_make_kernel_t8(occl=False, resident)` (closest hit, reached through
+`tlas8_closest_hit_pallas`) and `_make_kernel_t8(occl=True, resident)` (any
+hit, reached through `tlas8_occluded_pallas`). The kernels are in
+`rpt_tpu_torch/csrc/tlas8.cu`; this module holds the host pack, the plain
+torch versions with the same contract, the wrappers that choose between
+them by the device of the rays, and the hit finalize.
+
+Layout. ONE wide-node table holds both levels, in the row layout of the
+one-level pack (`ops/bvh8.py`): the binary TLAS over instances collapsed
+into wide nodes from node 0 on, then one wide BLAS per unique mesh segment
+(`inst_root`, `inst_end`), shared by every instance of the mesh. Both are
+collapsed with the reference's smallest-subtree-first frontier expansion
+(`_collapse_wide`, copied).
+
+- `bounds` (Mw, 48) f32: child boxes, world space in the TLAS part and
+  local space in the BLAS parts.
+- `meta` (Mw, 24) i32 `[a(8), b(8), octant words(8)]`: b == -2 an instance
+  child (a = instance id), b > 0 a leaf of b triangles at packed row a,
+  b == 0 an internal child (a = its wide index), b == -1 an empty slot.
+- `inst` (K, 12) f32 world->local affine rows and `inst_root` (K,) i32 the
+  wide BLAS root of each instance.
+- `tris` (L*8, 20) f32: the 20-float rows (`ops/bvh8._tri_rows`) of the
+  local-space triangles, leaf-contiguous and 8-aligned, a short leaf padded
+  with its first triangle (the reference's packing); `p_verts`, `p_norms`
+  the same triangles for the finalize.
+
+The TPU-only budgets are not carried over: no resident/dma modes, no
+node-count gate, no (8, 128) tiles. The exact worst-case stack need of the
+two-level walk is checked against the kernels' STACK_CAP, and the pack
+raises above it (the reference falls back to its binary two-level kernel
+there, which is not ported yet).
+
+Walk: `csrc/tlas8.cu` and its plain version `ops/bvh8._walk_plain` keep a
+per-ray stack of tagged entries `node << 2 | tag` (0: a node in world
+space, 1: a node in the current instance's space, 2: an instance entry that
+re-expresses the ray in the instance's frame, direction unnormalized so
+local t == world t, and becomes its BLAS root). The two agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+from ..utils.vmath import normalize
+from .bvh import LEAF_SIZE, _tri_hit_t
+from .bvh8 import BRANCH, EMPTY, INST_CHILD, STACK_CAP, _check_rays, _emit_wide, _on_cpu, _ptr, _tri_rows, _walk_plain
+from .intersect import INF, Hit
+from .tlas import InstancedMeshes, _affine
+
+__all__ = [
+    "Tlas8Pack",
+    "pack_tlas8",
+    "tlas8_closest_hit",
+    "tlas8_occluded",
+    "tlas8_closest_plain",
+    "tlas8_occluded_plain",
+    "tlas8_closest_kernel",
+    "tlas8_occluded_kernel",
+    "INST_ENTRY_OPS",
+]
+
+# Floating-point operations of one instance entry, counted from
+# csrc/tlas8.cu: origin 9 mul + 9 add, direction 9 mul + 6 add, and per axis
+# of the inverse direction a compare and a divide.
+INST_ENTRY_OPS = 39
+_MAX_INDEX = 2**29  # node and instance ids are shifted left by 2 in a 32-bit entry
+
+
+@dataclasses.dataclass(frozen=True)
+class Tlas8Pack:
+    bounds: torch.Tensor  # (Mw, 48) f32
+    meta: torch.Tensor  # (Mw, 24) i32
+    inst: torch.Tensor  # (K, 12) f32 world->local rows
+    inst_root: torch.Tensor  # (K,) i32 wide BLAS root
+    tris: torch.Tensor  # (L*8, 20) f32
+    p_verts: torch.Tensor  # (L*8, 3, 3) packed local-space triangles
+    p_norms: torch.Tensor  # (L*8, 3, 3)
+    stack_need: int  # worst-case stack depth over every child order
+
+    @property
+    def num_nodes(self) -> int:
+        return self.bounds.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the tables the kernels read."""
+        return sum(t.numel() * t.element_size() for t in (self.bounds, self.meta, self.inst, self.inst_root, self.tris))
+
+
+# ---------------------------------------------------------------------------
+# Host pack
+# ---------------------------------------------------------------------------
+
+
+def _collapse_wide(skip, is_leaf, payload_a, payload_b, root, out_nodes, node_min, node_max) -> int:
+    """Collapse the binary preorder subtree rooted at `root` into wide nodes
+    appended to out_nodes (copied from rpt_tpu/ops/tlas8_pallas.py). Leaf
+    children become (box, payload_a[f], payload_b[f]); internal children
+    (box, global wide index, 0). Returns the wide root index."""
+
+    def expand(b):
+        # Frontier of <= BRANCH binary descendants, smallest subtree first.
+        if is_leaf[b]:
+            return [b]
+        frontier = [b]
+        while len(frontier) < BRANCH:
+            cand = [j for j in frontier if not is_leaf[j]]
+            if not cand:
+                break
+            j = min(cand, key=lambda n: int(skip[n]) - n)
+            frontier.remove(j)
+            frontier.extend([j + 1, int(skip[j + 1])])
+        return frontier
+
+    base = len(out_nodes)
+    windex = {}
+    frontiers = []
+    stack = [root]
+    while stack:
+        b = stack.pop()
+        windex[b] = base + len(frontiers)
+        fr = expand(b)
+        frontiers.append(fr)
+        for f in reversed(fr):
+            if not is_leaf[f]:
+                stack.append(f)
+    for fr in frontiers:
+        out_nodes.append([
+            (node_min[f], node_max[f], int(payload_a[f]), int(payload_b[f])) if is_leaf[f]
+            else (node_min[f], node_max[f], windex[f], 0)
+            for f in fr
+        ])
+    return base
+
+
+def _tlas_stack_need(out_nodes, inst_blas_root) -> int:
+    """Exact worst-case stack need of the two-level walk (the reference's
+    bound, `tlas8_pallas._tlas_stack_need`). Popping a node pushes its hit
+    internal and instance children; an instance entry replaces itself with
+    its BLAS root, so an instance child needs what its BLAS root needs.
+    Children sit at larger indices than their parents and every BLAS after
+    the TLAS, so one reverse pass sees each child before its parent."""
+    need = np.zeros(len(out_nodes), np.int64)
+    for w in range(len(out_nodes) - 1, -1, -1):
+        targets = [a if b == 0 else inst_blas_root[a] for (_, _, a, b) in out_nodes[w] if b in (0, INST_CHILD)]
+        if targets:
+            n = len(targets)
+            need[w] = max(n, n - 1 + int(need[targets].max()))
+    return max(1, 1 + int(need[0]))
+
+
+def pack_tlas8(im: InstancedMeshes, device=None) -> Tlas8Pack:
+    """The kernels' table for an instanced scene (module docstring). Raises
+    if the walk could need a deeper stack than the kernels carry."""
+    t_min, t_max = im.t_min.cpu().numpy(), im.t_max.cpu().numpy()
+    t_skip, t_leaf_inst = im.t_skip.cpu().numpy().astype(np.int64), im.t_leaf_inst.cpu().numpy().astype(np.int64)
+    b_min, b_max = im.b_min.cpu().numpy(), im.b_max.cpu().numpy()
+    b_skip = im.b_skip.cpu().numpy().astype(np.int64)
+    b_leaf_tris = im.b_leaf_tris.cpu().numpy().astype(np.int64)
+    inst_root, inst_end = im.inst_root.cpu().numpy(), im.inst_end.cpu().numpy()
+    K = inst_root.shape[0]
+
+    # Leaf-contiguous, 8-aligned local-space triangles: one block of
+    # LEAF_SIZE rows per BLAS leaf (leaf lists are filled from the front).
+    leaves = np.flatnonzero(b_leaf_tris[:, 0] >= 0)
+    rows = b_leaf_tris[leaves]
+    b_leaf_count = np.zeros(b_min.shape[0], np.int64)
+    b_leaf_count[leaves] = (rows >= 0).sum(1)
+    b_leaf_start = np.zeros(b_min.shape[0], np.int64)
+    b_leaf_start[leaves] = LEAF_SIZE * np.arange(leaves.shape[0])
+    perm = np.where(rows >= 0, rows, rows[:, :1]).reshape(-1)
+    p_verts = im.verts.cpu().numpy()[perm]
+    p_norms = im.norms.cpu().numpy()[perm]
+
+    out_nodes: list = []
+    # The TLAS first (root = wide node 0): its leaves are instances.
+    _collapse_wide(t_skip, t_leaf_inst >= 0, t_leaf_inst, np.full_like(t_leaf_inst, INST_CHILD), 0, out_nodes,
+                   t_min, t_max)
+    # One wide BLAS per unique mesh segment; instances share by (root, end).
+    wide_root_of = {
+        seg: _collapse_wide(b_skip, b_leaf_count > 0, b_leaf_start, b_leaf_count, seg[0], out_nodes, b_min, b_max)
+        for seg in sorted(set(zip(inst_root.tolist(), inst_end.tolist())))
+    }
+    inst_blas_root = [wide_root_of[(int(r), int(e))] for r, e in zip(inst_root, inst_end)]
+    need = _tlas_stack_need(out_nodes, inst_blas_root)
+    if need > STACK_CAP:
+        raise ValueError(f"the two-level wide BVH needs a stack of {need} > {STACK_CAP} entries")
+    Mw = len(out_nodes)
+    if Mw >= _MAX_INDEX or K >= _MAX_INDEX:
+        raise ValueError(f"{Mw} wide nodes or {K} instances overflow the kernels' tagged 32-bit stack entries")
+
+    lo = np.zeros((Mw, BRANCH, 3), np.float32)
+    hi = np.zeros((Mw, BRANCH, 3), np.float32)
+    ca = np.zeros((Mw, BRANCH), np.int64)
+    cb = np.full((Mw, BRANCH), EMPTY, np.int64)
+    for w, children in enumerate(out_nodes):
+        for c, (bmn, bmx, a, b) in enumerate(children):
+            lo[w, c], hi[w, c], ca[w, c], cb[w, c] = bmn, bmx, a, b
+    bounds, meta = _emit_wide(lo, hi, cb != EMPTY, ca, cb)
+
+    def t(a, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+
+    return Tlas8Pack(
+        bounds=t(bounds), meta=t(meta, torch.int32),
+        inst=t(im.inst_inv.cpu().numpy().reshape(K, 12)), inst_root=t(inst_blas_root, torch.int32),
+        tris=t(_tri_rows(p_verts)), p_verts=t(p_verts), p_norms=t(p_norms),
+        stack_need=need,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain torch versions (CPU tensors, tests, and the reference on the card)
+# ---------------------------------------------------------------------------
+
+
+def tlas8_closest_plain(pack: Tlas8Pack, o, d, t_min, active=None, stats=None):
+    """Plain version of the closest-hit kernel: (t_raw (N,) f32 with BIG on
+    a miss, packed triangle id (N,) i32, instance id (N,) i32). `stats`, if
+    given, accumulates the box tests, triangle tests and instance entries."""
+    return _walk_plain(pack.bounds, pack.meta, pack.tris, o, d, t_min, None, active, False, stats,
+                       pack.inst, pack.inst_root)
+
+
+def tlas8_occluded_plain(pack: Tlas8Pack, o, d, t_min, t_max, active=None, stats=None):
+    """Plain version of the any-hit kernel: True iff some instanced triangle
+    lies in [t_min, t_max] along the ray."""
+    return _walk_plain(pack.bounds, pack.meta, pack.tris, o, d, t_min, t_max, active, True, stats,
+                       pack.inst, pack.inst_root)
+
+
+# ---------------------------------------------------------------------------
+# Kernel launches
+# ---------------------------------------------------------------------------
+
+
+def tlas8_closest_kernel(pack: Tlas8Pack, o, d, t_min, active=None):
+    """Launch the closest-hit kernel: (t_raw, triangle id, instance id) as
+    the plain version."""
+    from ..kernels import load_library
+
+    lib = load_library("tlas8")
+    o, d, active, _ = _check_rays(pack, o, d, active)
+    n = o.shape[0]
+    t_out = torch.empty(n, dtype=torch.float32, device=o.device)
+    id_out = torch.empty(n, dtype=torch.int32, device=o.device)
+    inst_out = torch.empty(n, dtype=torch.int32, device=o.device)
+    err = lib.rpt_tlas8_closest(
+        _ptr(pack.bounds), _ptr(pack.meta), _ptr(pack.inst), _ptr(pack.inst_root), _ptr(pack.tris),
+        _ptr(o), _ptr(d), _ptr(active), n, float(np.float32(t_min)), _ptr(t_out), _ptr(id_out), _ptr(inst_out),
+        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"tlas8 closest-hit kernel launch failed: CUDA error {err}")
+    return t_out, id_out, inst_out
+
+
+def tlas8_occluded_kernel(pack: Tlas8Pack, o, d, t_min, t_max, active=None):
+    """Launch the any-hit kernel: bool (N,) as the plain version."""
+    from ..kernels import load_library
+
+    lib = load_library("tlas8")
+    o, d, active, t_max = _check_rays(pack, o, d, active, t_max)
+    n = o.shape[0]
+    occ = torch.empty(n, dtype=torch.bool, device=o.device)
+    err = lib.rpt_tlas8_occluded(
+        _ptr(pack.bounds), _ptr(pack.meta), _ptr(pack.inst), _ptr(pack.inst_root), _ptr(pack.tris),
+        _ptr(o), _ptr(d), _ptr(active), _ptr(t_max), n, float(np.float32(t_min)), _ptr(occ),
+        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
+    )
+    if err != 0:
+        raise RuntimeError(f"tlas8 any-hit kernel launch failed: CUDA error {err}")
+    return occ
+
+
+# ---------------------------------------------------------------------------
+# Wrappers (what SceneData.intersect / occluded call)
+# ---------------------------------------------------------------------------
+
+
+def _finalize(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, t_raw, tri, inst) -> Hit:
+    """The Hit of each ray's winner: barycentrics in its instance's frame,
+    the interpolated normal lifted by the instance's normal matrix, and the
+    instance's material (as `tlas8_closest_hit_pallas` finalizes)."""
+    tri = torch.clamp(tri.long(), 0, pack.p_verts.shape[0] - 1)
+    inst = torch.clamp(inst.long(), 0, pack.inst.shape[0] - 1)
+    A = pack.inst[inst].view(-1, 3, 4)
+    tv, tn = pack.p_verts[tri], pack.p_norms[tri]
+    _, (u, v, w) = _tri_hit_t(_affine(A, o, 1), _affine(A, d, 0), tv[:, 0], tv[:, 1], tv[:, 2], t_min)
+    n_local = u[:, None] * tn[:, 0] + v[:, None] * tn[:, 1] + w[:, None] * tn[:, 2]
+    n_world = normalize(torch.einsum("nij,nj->ni", im.inst_nmat[inst], n_local))
+    t = torch.where(t_raw >= 1.0e38, torch.full_like(t_raw, INF), t_raw)
+    return Hit(t=t, normal=n_world, mat_id=im.inst_mat[inst])
+
+
+def tlas8_closest_hit(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, active=None) -> Hit:
+    """Closest hit over every instance (t = inf on a miss, smooth normal,
+    material id). CUDA rays launch the kernel; CPU rays take the plain walk."""
+    if _on_cpu(o):
+        t_raw, tri, inst = tlas8_closest_plain(pack, o, d, t_min, active)
+    else:
+        t_raw, tri, inst = tlas8_closest_kernel(pack, o, d, t_min, active)
+        tlas8_closest_hit.launches += 1
+    hit = _finalize(im, pack, o, d, t_min, t_raw, tri, inst)
+    if active is not None:
+        hit = Hit(t=torch.where(active, hit.t, torch.full_like(hit.t, INF)), normal=hit.normal, mat_id=hit.mat_id)
+    return hit
+
+
+tlas8_closest_hit.launches = 0
+
+
+def tlas8_occluded(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
+    """Shadow query over every instance, boolean-equal to
+    `tlas8_closest_hit(...).t <= t_max`, also for t_max = +inf (a miss then
+    counts as occluded, as in the reference and `bvh8_occluded`)."""
+    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (o.shape[0],))
+    if _on_cpu(o):
+        occ = tlas8_occluded_plain(pack, o, d, t_min, t_max, active)
+    else:
+        occ = tlas8_occluded_kernel(pack, o, d, t_min, t_max, active)
+        tlas8_occluded.launches += 1
+    occ = occ | (t_max == math.inf)
+    if active is not None:
+        occ = occ & active
+    return occ
+
+
+tlas8_occluded.launches = 0

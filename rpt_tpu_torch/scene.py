@@ -7,13 +7,18 @@ per-object calls. `SceneData.intersect` is the scene-level closest hit, the
 running min over per-type closest hits; `SceneData.occluded` is the shadow
 query, boolean-equal to `intersect(...).t <= t_max`.
 
-Meshes are baked into world-space triangles: fewer than BVH_THRESHOLD go
-to the brute-force batch, the rest into one SAH BVH traversed by the
-wide-BVH kernels (`ops/bvh8.py`) on the card and by their plain versions on
-the CPU. Unlike the reference, which keeps the binary kernel for meshes
-under 16384 triangles, every BVH mesh takes the wide walk until the binary
-kernel is ported. Shared (instanced) meshes, monomial surfaces and HDRI
-environments are not ported yet and raise NotImplementedError.
+Meshes take the reference's layout decision. When every mesh is used once
+and the bake stays under BAKE_TRI_LIMIT triangles, they are baked into
+world-space triangles: fewer than BVH_THRESHOLD go to the brute-force batch,
+the rest into one SAH BVH traversed by the wide-BVH kernels (`ops/bvh8.py`).
+Shared geometry, or a larger bake, goes through the two-level instanced BVH
+(`ops/tlas.py`) traversed by the two-level wide kernels (`ops/tlas8.py`).
+The kernels run on the card, their plain versions on the CPU. Unlike the
+reference, which keeps its binary kernels for meshes under 16384 triangles
+and as the fallback of a wide pack that refuses a tree, every mesh takes a
+wide walk, and such a pack raises, until the binary kernels are ported.
+Monomial surfaces and HDRI environments are not ported yet and raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from .materials import Material, MaterialTable
 from .ops import intersect as ops
 from .ops.bvh import BvhData, build_bvh
 from .ops.bvh8 import Bvh8Pack, bvh8_closest_hit, bvh8_occluded, pack_bvh8
+from .ops.tlas import InstancedMeshes, build_instanced
+from .ops.tlas8 import Tlas8Pack, pack_tlas8, tlas8_closest_hit, tlas8_occluded
 from .shapes import Cube, Group, Mesh, MonomialSurface, Plane, Shape, Sphere, Transformed, unwrap_transform
 from .utils.device import resolve_device
 
@@ -214,6 +221,8 @@ class SceneData:
     triangles: Optional[TriangleArrays]  # small meshes, brute force
     bvh: Optional[BvhData]  # large meshes: triangle data for finalize_hit
     bvh8: Optional[Bvh8Pack]  # the wide-BVH kernels' layout of `bvh`
+    instanced: Optional[InstancedMeshes]  # shared meshes: two-level BVH
+    tlas8: Optional[Tlas8Pack]  # the two-level wide kernels' layout of `instanced`
     lights: tuple
     environment: Environment
     device: torch.device
@@ -225,6 +234,8 @@ class SceneData:
         hit = self._analytic_hit(o, d, t_min)
         if self.bvh is not None:
             hit = ops.merge_hits(hit, bvh8_closest_hit(self.bvh, self.bvh8, o, d, t_min, active=active))
+        if self.instanced is not None:
+            hit = ops.merge_hits(hit, tlas8_closest_hit(self.instanced, self.tlas8, o, d, t_min, active=active))
         if active is not None:
             hit = ops.Hit(
                 t=torch.where(active, hit.t, torch.full_like(hit.t, ops.INF)),
@@ -240,6 +251,8 @@ class SceneData:
         occ = self._analytic_occluded(o, d, t_min, t_max)
         if self.bvh is not None:
             occ = occ | bvh8_occluded(self.bvh, self.bvh8, o, d, t_min, t_max, active=active)
+        if self.instanced is not None:
+            occ = occ | tlas8_occluded(self.instanced, self.tlas8, o, d, t_min, t_max, active=active)
         if active is not None:
             occ = occ & active
         return occ
@@ -397,16 +410,29 @@ def compile_scene(scene: Scene, device=None, digest: str = "") -> SceneData:
         else:
             raise TypeError(f"Unsupported shape type: {type(base)}")
 
+    # Mesh layout decision: bake transforms into world-space triangles when
+    # every mesh is used once and the total stays small; shared geometry or
+    # very large bakes go through the instanced TLAS + BLAS.
     tri_verts, tri_norms, tri_mats = [], [], []
+    instanced = tlas8 = None
     if mesh_uses:
         shared = len({id(m) for m, _, _ in mesh_uses}) < len(mesh_uses)
         if shared or sum(m.num_triangles for m, _, _ in mesh_uses) > BAKE_TRI_LIMIT:
-            raise NotImplementedError("instanced (shared or oversized) meshes are not ported yet")
-        for m, matrix, mid in mesh_uses:
-            verts, norms = _bake_mesh(m, matrix)
-            tri_verts.append(verts)
-            tri_norms.append(norms)
-            tri_mats.append(np.full(verts.shape[0], mid, np.int32))
+            uniq: List[Mesh] = []
+            slot = {}
+            for m, _, _ in mesh_uses:
+                if id(m) not in slot:
+                    slot[id(m)] = len(uniq)
+                    uniq.append(m)
+            instances = [(slot[id(m)], matrix, mid) for m, matrix, mid in mesh_uses]
+            instanced = build_instanced(uniq, instances, device=device)
+            tlas8 = pack_tlas8(instanced, device=device)
+        else:
+            for m, matrix, mid in mesh_uses:
+                verts, norms = _bake_mesh(m, matrix)
+                tri_verts.append(verts)
+                tri_norms.append(norms)
+                tri_mats.append(np.full(verts.shape[0], mid, np.int32))
 
     def pack_primxf(rows) -> Optional[PrimXf]:
         if not rows:
@@ -448,6 +474,8 @@ def compile_scene(scene: Scene, device=None, digest: str = "") -> SceneData:
         triangles=triangles,
         bvh=bvh,
         bvh8=bvh8,
+        instanced=instanced,
+        tlas8=tlas8,
         lights=tuple(_compile_light(l, device) for l in scene.lights),
         environment=scene.environment,
         device=device,

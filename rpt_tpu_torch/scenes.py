@@ -1,9 +1,15 @@
-"""The dragon workload's scene, built from this package alone.
+"""The `dragon` and `lego` workloads' scenes, built from this package alone.
 
-A copy of `examples/dragon.py` (`trefoil_mesh`, `build_scene` and its
-camera) without the JAX imports: a procedural trefoil-knot stand-in for the
-871k-triangle dragon (~120k triangles by default), a specular green mesh, a
-diffuse floor plane, an ambient light and two sphere area lights.
+- `dragon`: a copy of `examples/dragon.py` (`trefoil_mesh`, `build_scene`
+  and its camera) without the JAX imports: a procedural trefoil-knot
+  stand-in for the 871k-triangle dragon (~120k triangles by default), a
+  specular green mesh, a diffuse floor plane, an ambient light and two
+  sphere area lights.
+- `lego`: a copy of `examples/lego.py`'s `build_brick_city` (the same
+  `default_rng(seed)` draws, so the same scene) and `bench.py`'s camera for
+  it: 768 instances of studded-brick meshes shared by many transforms,
+  dozens of metallic, glass and specular materials, a ground plane, a
+  sphere area light and a point light.
 """
 
 from __future__ import annotations
@@ -14,12 +20,12 @@ import numpy as np
 
 from .camera import Camera
 from .color import hex_color
-from .lights import AmbientLight, ObjectLight
+from .lights import AmbientLight, ObjectLight, PointLight
 from .materials import Material
 from .scene import Object, Scene
-from .shapes import plane, sphere, triangle_mesh
+from .shapes import Mesh, Transformed, plane, sphere, triangle_mesh
 
-__all__ = ["trefoil_mesh", "build_dragon_scene", "dragon_camera"]
+__all__ = ["trefoil_mesh", "build_dragon_scene", "dragon_camera", "build_brick_city", "lego_camera"]
 
 
 def trefoil_mesh(segments: int = 600, sides: int = 100, radius: float = 0.09):
@@ -82,3 +88,104 @@ def build_dragon_scene(segments: int = 600, sides: int = 100) -> Scene:
 
 def dragon_camera() -> Camera:
     return Camera.look_at((-2.5, 4.0, 6.5), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), math.pi / 6)
+
+
+def _stud_brick_tris(nx, nz, segments):
+    """(T, 3, 3) float64 triangles for an nx x nz studded brick at the
+    origin (unit stud pitch). Distinct (nx, nz, segments) give
+    content-distinct meshes, each with its own BLAS."""
+    tris = []
+
+    def quad(a, b, c, d):
+        tris.append([a, b, c])
+        tris.append([a, c, d])
+
+    def box(x0, y0, z0, x1, y1, z1):
+        v = [
+            (x0, y0, z0), (x1, y0, z0), (x1, y1, z0), (x0, y1, z0),
+            (x0, y0, z1), (x1, y0, z1), (x1, y1, z1), (x0, y1, z1),
+        ]
+        quad(v[0], v[3], v[2], v[1])
+        quad(v[4], v[5], v[6], v[7])
+        quad(v[0], v[1], v[5], v[4])
+        quad(v[1], v[2], v[6], v[5])
+        quad(v[2], v[3], v[7], v[6])
+        quad(v[3], v[0], v[4], v[7])
+
+    h = 1.2
+    box(0.0, 0.0, 0.0, float(nx), h, float(nz))
+    r, top = 0.3, h + 0.35
+    for i in range(nx):
+        for j in range(nz):
+            cx, cz = i + 0.5, j + 0.5
+            for k in range(segments):
+                a0 = 2.0 * math.pi * k / segments
+                a1 = 2.0 * math.pi * (k + 1) / segments
+                p0 = (cx + r * math.cos(a0), h, cz + r * math.sin(a0))
+                p1 = (cx + r * math.cos(a1), h, cz + r * math.sin(a1))
+                q0 = (p0[0], top, p0[2])
+                q1 = (p1[0], top, p1[2])
+                quad(p0, p1, q1, q0)
+                tris.append([(cx, top, cz), q0, q1])
+    return np.asarray(tris, np.float64)
+
+
+def build_brick_city(n_instances: int = 768, seed: int = 0) -> Scene:
+    """The `lego` workload's instanced scene: 192 studded-brick meshes (all
+    (nx, nz, segments) combinations), towers of transformed instances drawn
+    from them, 48 drawn materials (metallic, clear glass, specular), a
+    ground plane, a sphere area light and a point light."""
+    rng = np.random.default_rng(seed)
+    meshes = [
+        Mesh(_stud_brick_tris(nx, nz, seg))
+        for nx in (1, 2, 3, 4)
+        for nz in (1, 2)
+        for seg in range(14, 38)
+    ]
+    mats = []
+    for m in range(48):
+        col = tuple(0.25 + 0.7 * rng.random(3))
+        if m % 7 == 0:
+            mats.append(Material.metallic_mat(col, 0.2 + 0.3 * rng.random()))
+        elif m % 11 == 0:
+            mats.append(Material.clear(1.5, 0.05))
+        else:
+            mats.append(Material.specular(col, 0.1 + 0.5 * rng.random()))
+
+    scene = Scene()
+    # Brick-wall towers on a grid: stacked rows with per-instance transforms.
+    per_tower = 48
+    n_towers = max(1, n_instances // per_tower)
+    idx = 0
+    for t in range(n_towers):
+        bx = (t % 4 - 1.5) * 8.0
+        bz = (t // 4 - 1.5) * 8.0
+        for row in range(12):
+            for col in range(4):
+                if idx >= n_instances:
+                    break
+                mesh = meshes[rng.integers(len(meshes))]
+                mat = mats[rng.integers(len(mats))]
+                s = 0.45 + 0.15 * rng.random()
+                node = (
+                    Transformed(mesh, np.eye(4))
+                    .scale([s, s, s])
+                    .rotate_y(float(rng.random() * 0.3 - 0.15))
+                    .translate([bx + col * 2.0 + 0.2 * rng.random(), row * 0.8, bz + 0.2 * rng.random()])
+                )
+                scene.add(Object(node, mat))
+                idx += 1
+    scene.add(Object(plane([0.0, 1.0, 0.0], 0.0)).material(Material.diffuse((0.6, 0.6, 0.62))))
+    scene.add(
+        ObjectLight(
+            Object(sphere().scale([5.0, 5.0, 5.0]).translate([10.0, 30.0, 20.0])).material(
+                Material.light((1.0, 1.0, 1.0), 40.0)
+            )
+        )
+    )
+    scene.add(PointLight((30.0, 30.0, 30.0), [-12.0, 18.0, -8.0]))
+    return scene
+
+
+def lego_camera() -> Camera:
+    return Camera.look_at((18.0, 14.0, 26.0), (0.0, 4.0, 0.0), (0.0, 1.0, 0.0), math.pi / 5)

@@ -11,9 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from rpt_tpu_torch import Material, Object, Scene, triangle_mesh
-from rpt_tpu_torch.ops import bvh8
+from rpt_tpu_torch import Material, Object, Scene, Transformed, triangle_mesh
+from rpt_tpu_torch.ops import bvh8, tlas8
 from rpt_tpu_torch.ops.bvh import build_bvh
+from rpt_tpu_torch.ops.tlas import build_instanced
 
 T_MIN = 1e-3
 
@@ -21,7 +22,7 @@ T_MIN = 1e-3
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the bvh8 kernels are CUDA C++ with no CPU mode")
+        pytest.skip("needs a CUDA card: the wide-BVH kernels are CUDA C++ with no CPU mode")
     return torch.device("cuda")
 
 
@@ -89,3 +90,85 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         bvh8.bvh8_closest_kernel(pack, o, d, T_MIN)  # rays on the CPU
     with pytest.raises(TypeError):
         bvh8.bvh8_closest_kernel(pack, o.double().to(card), d.double().to(card), T_MIN)
+
+
+def _instanced_and_rays(n_meshes, n_instances, n_rays, seed=0):
+    """Random triangle soups shared by randomly rotated, scaled and moved
+    instances, and rays aimed at the instances' world-space centroids."""
+    rng = np.random.default_rng(seed)
+    meshes = [triangle_mesh(*_mesh_and_rays(60, 1, seed=seed + i)[0][:2]) for i in range(n_meshes)]
+    instances = []
+    for _ in range(n_instances):
+        q = rng.normal(size=4)
+        w, x, y, z = q / np.linalg.norm(q)
+        rot = np.array([[1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+                        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+                        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)]])
+        m = np.eye(4)
+        m[:3, :3] = rot @ np.diag(rng.uniform(0.5, 1.8, 3))
+        m[:3, 3] = rng.uniform(-3.0, 3.0, 3)
+        instances.append((int(rng.integers(0, n_meshes)), m, int(rng.integers(0, 4))))
+    cents = np.concatenate([meshes[k].vertices.mean(axis=1) @ m[:3, :3].T + m[:3, 3] for k, m, _ in instances])
+    o = rng.normal(size=(n_rays, 3))
+    o = 10.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    target = cents[rng.integers(0, cents.shape[0], n_rays)] + rng.uniform(-0.01, 0.01, (n_rays, 3))
+    d = (target - o) / np.linalg.norm(target - o, axis=-1, keepdims=True)
+    return meshes, instances, torch.as_tensor(o, dtype=torch.float32), torch.as_tensor(d, dtype=torch.float32)
+
+
+def test_tlas8_kernels_match_plain_walks(card):
+    """Built with -fmad=false, the two-level kernels repeat the plain walk's
+    f32 arithmetic op for op, the instance transform included."""
+    meshes, instances, o, d = _instanced_and_rays(3, 40, 5000)
+    pack = tlas8.pack_tlas8(build_instanced(meshes, instances, device="cpu"), device=card)
+    o, d = o.to(card), d.to(card)
+    active = torch.arange(o.shape[0], device=card) % 3 != 0
+    t_k, id_k, inst_k = tlas8.tlas8_closest_kernel(pack, o, d, T_MIN, active)
+    t_p, id_p, inst_p = tlas8.tlas8_closest_plain(pack, o, d, T_MIN, active)
+    torch.cuda.synchronize()
+    hit = t_p < 1e38
+    assert hit.float().mean() > 0.3
+    assert torch.equal(t_k, t_p)
+    assert torch.equal(id_k, id_p)
+    assert torch.equal(inst_k, inst_p)
+    t_max = torch.where(hit, t_p, torch.full_like(t_p, 12.0))  # closed interval: t == t_max counts
+    t_max[::5] = 8.0
+    occ_k = tlas8.tlas8_occluded_kernel(pack, o, d, T_MIN, t_max, active)
+    occ_p = tlas8.tlas8_occluded_plain(pack, o, d, T_MIN, t_max, active)
+    torch.cuda.synchronize()
+    assert torch.equal(occ_k, occ_p)
+    assert torch.equal(occ_k, (t_p <= t_max) & active)
+
+
+def test_shared_mesh_scene_on_the_card_goes_through_the_tlas8_kernels(card):
+    meshes, instances, o, d = _instanced_and_rays(2, 12, 2000, seed=3)
+    scene = Scene()
+    for k, m, mat in instances:
+        scene.add(Object(Transformed(meshes[k], m)).material(Material.diffuse((0.2 + 0.2 * mat, 0.5, 0.5))))
+    sd = scene.compile()  # the default device is the card
+    assert sd.bvh is None and sd.tlas8.bounds.is_cuda
+    closest, occluded = tlas8.tlas8_closest_hit.launches, tlas8.tlas8_occluded.launches
+    before = (bvh8.bvh8_closest_hit.launches, bvh8.bvh8_occluded.launches)
+    hit = sd.intersect(o.to(card), d.to(card), T_MIN)
+    occ = sd.occluded(o.to(card), d.to(card), T_MIN, 9.0)
+    assert tlas8.tlas8_closest_hit.launches == closest + 1
+    assert tlas8.tlas8_occluded.launches == occluded + 1
+    assert (bvh8.bvh8_closest_hit.launches, bvh8.bvh8_occluded.launches) == before
+    cpu = scene.compile(device="cpu")
+    want = cpu.intersect(o, d, T_MIN)
+    torch.testing.assert_close(hit.t.cpu(), want.t, rtol=0, atol=0)
+    assert torch.equal(hit.mat_id.cpu(), want.mat_id)
+    assert torch.equal(occ.cpu(), cpu.occluded(o, d, T_MIN, 9.0))
+
+
+def test_tlas8_wrappers_refuse_what_the_kernels_do_not_take(card):
+    meshes, instances, o, d = _instanced_and_rays(1, 5, 64)
+    pack = tlas8.pack_tlas8(build_instanced(meshes, instances, device="cpu"), device=card)
+    with pytest.raises(ValueError):
+        tlas8.tlas8_closest_kernel(pack, o, d, T_MIN)  # rays on the CPU
+    with pytest.raises(TypeError):
+        tlas8.tlas8_closest_kernel(pack, o.double().to(card), d.double().to(card), T_MIN)
+    with pytest.raises(ValueError):
+        tlas8.tlas8_closest_kernel(pack, o.to(card)[:, :2], d.to(card)[:, :2], T_MIN)
+    with pytest.raises(ValueError):
+        tlas8.tlas8_occluded_kernel(pack, o.to(card), d.to(card), T_MIN, torch.ones(3, device=card))

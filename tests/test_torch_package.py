@@ -12,6 +12,7 @@ import torch
 
 import rpt_tpu_torch
 from rpt_tpu_torch import Renderer, Scene
+from rpt_tpu_torch.scenes import build_brick_city
 from rpt_tpu_torch.utils.device import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -65,3 +66,12 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     # Asking for the CPU is the one way onto it.
     assert Renderer(scene, device="cpu").device.type == "cpu"
     assert scene.compile(device="cpu").device.type == "cpu"
+
+
+def test_instanced_scene_compile_raises_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = build_brick_city(n_instances=48)  # one tower: some bricks share a mesh
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scene.compile()
+    sd = scene.compile(device="cpu")
+    assert sd.instanced is not None and sd.tlas8.bounds.device.type == "cpu"

@@ -9,9 +9,10 @@ different random walk from there on. The render tolerance (rtol 1e-3, atol
 1e-4 on at least 99% of pixels, the image mean to 1e-3 relative) leaves room
 for those few pixels and no more.
 
-`dragon` runs twice: once through each package's own `Scene.compile`, and
-once with the JAX package's compiled scene and BVH carried into the port by
-`convert.scene_data_from_arrays`.
+`dragon` (a baked mesh) and the `lego` brick city (instanced meshes, 46
+materials) run twice each: once through each package's own
+`Scene.compile`, and once with the JAX package's compiled scene, BVH or
+two-level tree carried into the port by `convert.scene_data_from_arrays`.
 """
 
 import dataclasses
@@ -29,7 +30,8 @@ import rpt_tpu
 import rpt_tpu_torch
 from rpt_tpu.renderer import pixel_ndc_tiled as ref_pixel_ndc_tiled
 from rpt_tpu_torch import convert
-from rpt_tpu_torch.scenes import build_dragon_scene, dragon_camera
+from rpt_tpu_torch.ops.tlas8 import tlas8_closest_hit
+from rpt_tpu_torch.scenes import build_brick_city, build_dragon_scene, dragon_camera, lego_camera
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
 W, H = 64, 48
@@ -114,7 +116,7 @@ def reference_tree(sd) -> dict:
         monomials=_fields(sd.monomials),
         triangles=_fields(sd.triangles),
         bvh=_fields(sd.bvh),
-        instanced=None if sd.instanced is None else "instanced",
+        instanced=_fields(sd.instanced),
         lights=[dict(type=type(l).__name__, **_fields(l)) for l in sd.lights],
         environment=dict(color=np.asarray(sd.environment.color), hdri=sd.environment.hdri),
         digest=sd.digest,
@@ -206,6 +208,62 @@ def test_dragon_converted_scene_matches_reference():
     assert_depth0_agrees(ref, got)
     got_img = render_port(port_scene, cam, eps, 1, scene_data=port_sd)
     assert_images_agree(got_img, render_ref(ref_scene, ref_cam, eps, 1))
+
+
+def brick_city_scenes():
+    """The `lego` workload's brick city cut to two towers of 48 instances,
+    the fewest that use more than 32 materials (39): the JAX example's own
+    builder, and the port's copy of it."""
+    sys.path.insert(0, EXAMPLES)
+    import lego
+
+    ref = lego.build_brick_city(n_instances=96)
+    cam = rpt_tpu.Camera.look_at((18.0, 14.0, 26.0), (0.0, 4.0, 0.0), (0.0, 1.0, 0.0), math.pi / 5)
+    return (ref, cam, 1e-3), (build_brick_city(n_instances=96), lego_camera(), 1e-3)
+
+
+@pytest.fixture(scope="module")
+def brick_city_ref():
+    """The JAX package's scene, compiled scene and 1-spp image, made once."""
+    (ref_scene, ref_cam, eps), _ = brick_city_scenes()
+    return dict(scene=ref_scene, cam=ref_cam, eps=eps, sd=ref_scene.compile(),
+                img=render_ref(ref_scene, ref_cam, eps, 1))
+
+
+def assert_instances_seen(port_sd, ref):
+    """Some camera rays hit a brick: the instanced walk is on the path."""
+    key = jax.random.fold_in(jax.random.PRNGKey(SEED), 0)
+    xg, yg, _, _ = ref_pixel_ndc_tiled(W, H)
+    o, d = ref["cam"].cast_rays(xg, yg, key)
+    hit = tlas8_closest_hit(port_sd.instanced, port_sd.tlas8, torch.as_tensor(np.array(o)),
+                            torch.as_tensor(np.array(d)), ref["eps"])
+    assert torch.isfinite(hit.t).sum() > 100
+
+
+def test_brick_city_own_compile_matches_reference(brick_city_ref):
+    ref = brick_city_ref
+    _, (port_scene, port_cam, eps) = brick_city_scenes()
+    port_sd = port_scene.compile(device="cpu")
+    assert port_sd.instanced is not None and port_sd.bvh is None
+    assert port_sd.materials.color.shape[0] > 32  # past the reference's one-hot material gather
+    assert_instances_seen(port_sd, ref)
+    ref_hit, got = depth0_hits(ref["scene"], ref["cam"], port_sd, eps)
+    assert_depth0_agrees(ref_hit, got)
+    assert_images_agree(render_port(port_scene, port_cam, eps, 1), ref["img"])
+
+
+def test_brick_city_converted_scene_matches_reference(brick_city_ref):
+    ref = brick_city_ref
+    _, (port_scene, _, eps) = brick_city_scenes()
+    port_sd = convert.scene_data_from_arrays(reference_tree(ref["sd"]), device="cpu")
+    # The carried-over two-level tree is the reference's, array for array.
+    for f in dataclasses.fields(ref["sd"].instanced):
+        np.testing.assert_array_equal(getattr(port_sd.instanced, f.name).numpy(),
+                                      np.asarray(getattr(ref["sd"].instanced, f.name)))
+    cam = convert.camera_from_arrays(reference_camera(ref["cam"]))
+    ref_hit, got = depth0_hits(ref["scene"], ref["cam"], port_sd, eps)
+    assert_depth0_agrees(ref_hit, got)
+    assert_images_agree(render_port(port_scene, cam, eps, 1, scene_data=port_sd), ref["img"])
 
 
 def test_buffer_statistics_match_reference():
