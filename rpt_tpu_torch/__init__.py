@@ -2,10 +2,11 @@
 
 A second package beside the JAX reference `rpt_tpu`, with the same module
 layout and public names for the parts ported so far: scene building and
-compilation (baked and instanced meshes), the masked wavefront integrator,
-and the many-sample renderer. Mesh traversal runs in hand-written CUDA
-kernels for Hopper (`csrc/bvh8.cu`, `csrc/tlas8.cu`) on a CUDA card, and in
-their plain torch versions on the CPU. Entry points run on the card unless
+compilation (baked and instanced meshes), OBJ+MTL loading, the masked
+wavefront integrator, and the many-sample renderer. Mesh traversal runs in
+hand-written CUDA kernels for Hopper (`csrc/bvh8.cu`, `csrc/tlas8.cu`,
+`csrc/bvh2.cu`, `csrc/tlas2.cu`) on a CUDA card, and in their plain torch
+versions on the CPU. Entry points run on the card unless
 the caller passes device="cpu".
 """
 
@@ -13,6 +14,7 @@ from .buffer import Buffer, Filter
 from .camera import Camera
 from .color import SRGB_GAMMA, color_bytes, hex_color
 from .environment import Environment
+from .io.obj import load_obj, load_obj_with_mtl
 from .lights import AmbientLight, DirectionalLight, ObjectLight, PointLight
 from .materials import Material
 from .renderer import Renderer
@@ -64,4 +66,6 @@ __all__ = [
     "polygon",
     "sphere",
     "triangle_mesh",
+    "load_obj",
+    "load_obj_with_mtl",
 ]

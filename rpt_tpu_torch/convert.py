@@ -5,10 +5,12 @@ the leaves of a compiled scene as a nested dict of numpy arrays keyed by the
 field names of the JAX package's `SceneData` (materials, spheres, cubes,
 planes, triangles, bvh, lights, environment), with the lights as a list of
 dicts tagged with their class name under "type", and rebuilds the port's
-`SceneData` on a device. The wide-BVH kernel layout is packed afresh from
-the given binary BVH, and the two-level wide layout from the given
-instanced meshes (the 16 fields of `InstancedMeshes` under "instanced");
-TPU kernel layouts in the dict are ignored. So both packages can be run on
+`SceneData` on a device. The kernels' layouts are packed afresh from the
+given binary BVH, and from the given instanced meshes (the 16 fields of
+`InstancedMeshes` under "instanced"), by the same decision as
+`Scene.compile` (`scene.choose_bvh_pack`, `scene.choose_instanced_pack`), so
+a converted scene takes the same kernels as a compiled one. TPU kernel
+layouts in the dict are ignored. So both packages can be run on
 the very same compiled scene, BVH and two-level tree.
 """
 
@@ -29,10 +31,8 @@ from .lights import (
 from .camera import Camera
 from .materials import MaterialTable
 from .ops.bvh import bvh_from_arrays
-from .ops.bvh8 import pack_bvh8
 from .ops.tlas import instanced_from_arrays
-from .ops.tlas8 import pack_tlas8
-from .scene import PlaneArrays, PrimXf, SceneData, TriangleArrays
+from .scene import PlaneArrays, PrimXf, SceneData, TriangleArrays, choose_bvh_pack, choose_instanced_pack
 from .utils.device import resolve_device
 
 __all__ = ["scene_data_from_arrays", "camera_from_arrays"]
@@ -74,14 +74,14 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
             raise NotImplementedError("this light type is not ported yet")
         lights.append(cls(**_tensors(spec, device, ints=())))
 
-    bvh = bvh8 = None
+    bvh = bvh8 = bvh2 = None
     if tree.get("bvh") is not None:
         bvh = bvh_from_arrays(tree["bvh"], device)
-        bvh8 = pack_bvh8(bvh, device=device)
-    instanced = tlas8 = None
+        bvh8, bvh2 = choose_bvh_pack(bvh, device=device)
+    instanced = tlas8 = tlas2 = None
     if tree.get("instanced") is not None:
         instanced = instanced_from_arrays(tree["instanced"], device)
-        tlas8 = pack_tlas8(instanced, device=device)
+        tlas8, tlas2 = choose_instanced_pack(instanced, device=device)
     return SceneData(
         materials=MaterialTable(**_tensors(tree["materials"], device, ints=())),
         spheres=group(PrimXf, "spheres"),
@@ -90,8 +90,10 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
         triangles=group(TriangleArrays, "triangles"),
         bvh=bvh,
         bvh8=bvh8,
+        bvh2=bvh2,
         instanced=instanced,
         tlas8=tlas8,
+        tlas2=tlas2,
         lights=tuple(lights),
         environment=Environment.from_color(env["color"]),
         device=device,

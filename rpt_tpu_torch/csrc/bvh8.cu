@@ -42,7 +42,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "walk.cuh"  // Ray, safe_inv, child_mask, tri_t and the layout constants
+#include "walk.cuh"  // Ray, load_ray, child_mask, leaf_closest, leaf_any, layout constants
 
 namespace {
 
@@ -64,17 +64,7 @@ bvh8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta,
     }
     return;
   }
-  Ray r;
-  r.ox = o[3 * i + 0];
-  r.oy = o[3 * i + 1];
-  r.oz = o[3 * i + 2];
-  r.dx = d[3 * i + 0];
-  r.dy = d[3 * i + 1];
-  r.dz = d[3 * i + 2];
-  r.ix = safe_inv(r.dx);
-  r.iy = safe_inv(r.dy);
-  r.iz = safe_inv(r.dz);
-  r.oct = (r.dx < 0.0f ? 1 : 0) | (r.dy < 0.0f ? 2 : 0) | (r.dz < 0.0f ? 4 : 0);
+  const Ray r = load_ray(o, d, i);
 
   // Closest hit: `upper` is the running best t. Any hit: it is t_max.
   float upper = kOccl ? t_max[i] : kBig;
@@ -101,26 +91,13 @@ bvh8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta,
       const int start = __ldg(m + ck);
       const float4* tr = tris + (size_t)start * kTriStride4;
       if (kOccl) {
-        for (int j = 0; j < cnt; ++j) {
-          bool ok;
-          const float t = tri_t(tr + j * kTriStride4, r, t_min, &ok);
-          if (ok && t <= upper) {
-            occ_out[i] = true;
-            return;
-          }
+        if (leaf_any(tr, cnt, r, t_min, upper)) {
+          occ_out[i] = true;
+          return;
         }
       } else {
-        float t_leaf = kBig;
-        int kb = 0;
-        for (int j = 0; j < cnt; ++j) {
-          bool ok;
-          float t = tri_t(tr + j * kTriStride4, r, t_min, &ok);
-          t = ok ? t : kBig;
-          if (t < t_leaf) {
-            t_leaf = t;
-            kb = j;
-          }
-        }
+        int kb;
+        const float t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
         if (t_leaf < upper) {
           upper = t_leaf;
           best = start + kb;

@@ -29,7 +29,8 @@
 //       tag 0: a wide node slabbed with the world ray (the TLAS part);
 //       tag 1: a wide node slabbed with the current instance's local ray;
 //       tag 2: an instance entry: load the 3x4 world->local affine as three
-//              float4, re-express the ray with the direction NOT normalized
+//              float4 (walk.cuh to_local), re-express the ray with the
+//              direction NOT normalized
 //              (so local t == world t and the running-best prune holds at
 //              both levels), and replace the entry with the mesh's BLAS
 //              root, tag 1.
@@ -54,11 +55,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "walk.cuh"  // Ray, safe_inv, child_mask, tri_t and the layout constants
+#include "walk.cuh"  // Ray, load_ray, to_local, child_mask, leaf_closest, leaf_any
 
 namespace {
 
-constexpr int kInst4 = 3;       // float4 per instance: the 3x4 world->local rows
 constexpr int kInstChild = -2;  // meta b of an instance child (a = instance id)
 constexpr int kTagWorld = 0;
 constexpr int kTagLocal = 1;
@@ -84,17 +84,7 @@ tlas8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta,
     }
     return;
   }
-  Ray w;  // the world ray
-  w.ox = o[3 * i + 0];
-  w.oy = o[3 * i + 1];
-  w.oz = o[3 * i + 2];
-  w.dx = d[3 * i + 0];
-  w.dy = d[3 * i + 1];
-  w.dz = d[3 * i + 2];
-  w.ix = safe_inv(w.dx);
-  w.iy = safe_inv(w.dy);
-  w.iz = safe_inv(w.dz);
-  w.oct = (w.dx < 0.0f ? 1 : 0) | (w.dy < 0.0f ? 2 : 0) | (w.dz < 0.0f ? 4 : 0);
+  const Ray w = load_ray(o, d, i);  // the world ray
   Ray l = w;  // the current instance's local ray, set at each instance entry
 
   // Closest hit: `upper` is the running best t. Any hit: it is t_max.
@@ -110,19 +100,7 @@ tlas8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta,
     const int tag = e & 3;
     const int idx = e >> 2;
     if (tag == kTagInst) {
-      const float4* a = inst + (size_t)idx * kInst4;
-      const float4 r0 = __ldg(a + 0);
-      const float4 r1 = __ldg(a + 1);
-      const float4 r2 = __ldg(a + 2);
-      l.ox = ((r0.x * w.ox + r0.y * w.oy) + r0.z * w.oz) + r0.w;
-      l.oy = ((r1.x * w.ox + r1.y * w.oy) + r1.z * w.oz) + r1.w;
-      l.oz = ((r2.x * w.ox + r2.y * w.oy) + r2.z * w.oz) + r2.w;
-      l.dx = (r0.x * w.dx + r0.y * w.dy) + r0.z * w.dz;
-      l.dy = (r1.x * w.dx + r1.y * w.dy) + r1.z * w.dz;
-      l.dz = (r2.x * w.dx + r2.y * w.dy) + r2.z * w.dz;
-      l.ix = safe_inv(l.dx);
-      l.iy = safe_inv(l.dy);
-      l.iz = safe_inv(l.dz);
+      to_local(inst + (size_t)idx * kInst4, w, &l);
       cur_inst = idx;
       stack[sp++] = (__ldg(inst_root + idx) << 2) | kTagLocal;
       continue;
@@ -150,26 +128,13 @@ tlas8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta,
       const int start = __ldg(m + ck);
       const float4* tr = tris + (size_t)start * kTriStride4;
       if (kOccl) {
-        for (int j = 0; j < cnt; ++j) {
-          bool ok;
-          const float t = tri_t(tr + j * kTriStride4, r, t_min, &ok);
-          if (ok && t <= upper) {
-            occ_out[i] = true;
-            return;
-          }
+        if (leaf_any(tr, cnt, r, t_min, upper)) {
+          occ_out[i] = true;
+          return;
         }
       } else {
-        float t_leaf = kBig;
-        int kb = 0;
-        for (int j = 0; j < cnt; ++j) {
-          bool ok;
-          float t = tri_t(tr + j * kTriStride4, r, t_min, &ok);
-          t = ok ? t : kBig;
-          if (t < t_leaf) {
-            t_leaf = t;
-            kb = j;
-          }
-        }
+        int kb;
+        const float t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
         if (t_leaf < upper) {
           upper = t_leaf;
           best = start + kb;

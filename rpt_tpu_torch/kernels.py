@@ -42,6 +42,14 @@ _SIGNATURES = {
         "rpt_tlas8_closest": [_P] * 8 + [_I64, _F32] + [_P] * 4,
         "rpt_tlas8_occluded": [_P] * 9 + [_I64, _F32] + [_P] * 2,
     },
+    "bvh2": {
+        "rpt_bvh2_closest": [_P, _P, _I64] + [_P] * 4 + [_I64, _F32] + [_P] * 3,
+        "rpt_bvh2_occluded": [_P, _P, _I64] + [_P] * 5 + [_I64, _F32] + [_P] * 2,
+    },
+    "tlas2": {
+        "rpt_tlas2_closest": [_P, _P, _I64] + [_P] * 8 + [_I64, _F32] + [_P] * 4,
+        "rpt_tlas2_occluded": [_P, _P, _I64] + [_P] * 9 + [_I64, _F32] + [_P] * 2,
+    },
 }
 _lock = threading.Lock()
 _libs: dict = {}

@@ -1,10 +1,11 @@
-"""Native SAH BVH builder, compiled with g++ at first use and loaded via ctypes.
+"""Native host-side code, compiled with g++ at first use and loaded via ctypes.
 
-`bvh_builder.cpp` is a copy of the JAX package's builder, so both packages
-build array-identical trees (same nodes, same triangle permutation) from the
-same triangles. The shared library goes into the package's git-ignored
-`_build/` directory. A missing compiler or a failed build raises: there is
-no slower stand-in builder, because it would give other trees.
+`bvh_builder.cpp` (the binned-SAH BVH builder) and `obj_parser.cpp` (the
+Wavefront .OBJ parser) are copies of the JAX package's, so both packages
+build array-identical trees and load identical triangles from the same
+input. Each source becomes its own shared library in the package's
+git-ignored `_build/` directory. A missing compiler or a failed build
+raises: there is no slower stand-in, because it would give other results.
 """
 
 from __future__ import annotations
@@ -16,40 +17,49 @@ import threading
 
 import numpy as np
 
-__all__ = ["build_bvh_sah", "BUILD_DIR"]
+__all__ = ["build_bvh_sah", "parse_obj", "BUILD_DIR"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_DIR, "bvh_builder.cpp")
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
-_LIB = os.path.join(BUILD_DIR, "librpt_bvh.so")
+_P, _I64 = ctypes.c_void_p, ctypes.c_int64
+_PP, _PI64 = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int64)
+# name -> (source, {entry point: (restype, argtypes)})
+_LIBS = {
+    "bvh": ("bvh_builder.cpp", {
+        "rpt_build_bvh_sah": (ctypes.c_int, [_P, _P, _I64, ctypes.c_int] + [_P] * 7 + [_I64, _I64, _P, _P]),
+    }),
+    "obj": ("obj_parser.cpp", {
+        "rpt_parse_obj": (ctypes.c_int, [ctypes.c_char_p, _I64, _PP, _PP, _PP, _PP, _PI64, _PI64]),
+        "rpt_obj_free": (None, [_P]),
+    }),
+}
 _lock = threading.Lock()
-_lib = None
+_loaded: dict = {}
 
 
-def _load():
-    global _lib
+def _load(name: str):
+    """The loaded library `_build/librpt_<name>.so`, built first when it is
+    missing or older than its source."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        fresh = os.path.exists(_LIB) and os.path.getmtime(_LIB) >= os.path.getmtime(_SRC)
-        if not fresh:
+        lib = _loaded.get(name)
+        if lib is not None:
+            return lib
+        src_name, entries = _LIBS[name]
+        src = os.path.join(_DIR, src_name)
+        path = os.path.join(BUILD_DIR, f"librpt_{name}.so")
+        if not (os.path.exists(path) and os.path.getmtime(path) >= os.path.getmtime(src)):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{_LIB}.{os.getpid()}.tmp"
-            cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp, _SRC]
+            tmp = f"{path}.{os.getpid()}.tmp"
+            cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", tmp, src]
             proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
             if proc.returncode != 0:
-                raise RuntimeError(f"g++ failed building {_SRC}:\n{proc.stderr}")
-            os.replace(tmp, _LIB)
-        lib = ctypes.CDLL(_LIB)
-        fn = lib.rpt_build_bvh_sah
-        fn.restype = ctypes.c_int
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        _lib = lib
+                raise RuntimeError(f"g++ failed building {src}:\n{proc.stderr}")
+            os.replace(tmp, path)
+        lib = ctypes.CDLL(path)
+        for fn, (restype, argtypes) in entries.items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _loaded[name] = lib
         return lib
 
 
@@ -60,7 +70,7 @@ def build_bvh_sah(tri_min: np.ndarray, tri_max: np.ndarray, leaf_size: int):
     leaf_start i32, leaf_count i32, perm (P,) i64), where perm is the
     leaf-contiguous, leaf_size-padded triangle permutation.
     """
-    lib = _load()
+    lib = _load("bvh")
     T = int(tri_min.shape[0])
     if T <= 0:
         raise ValueError("build_bvh_sah needs at least one triangle")
@@ -91,3 +101,36 @@ def build_bvh_sah(tri_min: np.ndarray, tri_max: np.ndarray, leaf_size: int):
         node_min[:M], node_max[:M], is_leaf[:M], skip[:M],
         leaf_start[:M], leaf_count[:M], perm[:P],
     )
+
+
+def parse_obj(data: bytes):
+    """Parse OBJ text -> (verts (T,3,3) f64, norms (T,3,3) f64, run (T,)
+    i32, names list[str]): fan triangulation, negative indices, flat-normal
+    fill, usemtl runs (run 0 = before any usemtl; names[i] is run i+1's
+    material). Raises ValueError on malformed input."""
+    lib = _load("obj")
+    pv, pn, pr, pnm = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_void_p()
+    n_tris, n_runs = ctypes.c_int64(), ctypes.c_int64()
+    rc = lib.rpt_parse_obj(
+        data, len(data), ctypes.byref(pv), ctypes.byref(pn), ctypes.byref(pr),
+        ctypes.byref(pnm), ctypes.byref(n_tris), ctypes.byref(n_runs),
+    )
+    if rc != 0:
+        raise ValueError(f"malformed .OBJ (native parser rc={rc})")
+    try:
+        T = n_tris.value
+
+        def doubles(p):
+            arr = np.ctypeslib.as_array(ctypes.cast(p, ctypes.POINTER(ctypes.c_double)), (max(T, 1) * 9,))
+            return arr[: T * 9].reshape(T, 3, 3).copy()
+
+        verts, norms = doubles(pv), doubles(pn)
+        run = np.ctypeslib.as_array(ctypes.cast(pr, ctypes.POINTER(ctypes.c_int32)), (max(T, 1),))[:T].copy()
+        names_raw = ctypes.cast(pnm, ctypes.c_char_p).value or b""
+        names = names_raw.decode("utf-8").split("\n") if names_raw else []
+    finally:
+        for p in (pv, pn, pr, pnm):
+            lib.rpt_obj_free(p)
+    if len(names) != n_runs.value:
+        raise RuntimeError(f"native OBJ parser returned {len(names)} run names for {n_runs.value} runs")
+    return verts, norms, run, names

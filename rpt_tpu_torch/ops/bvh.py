@@ -7,9 +7,10 @@ on a miss it jumps to skip[i]. Triangles are permuted so each leaf's
 triangles are contiguous and 8-aligned, which is what the wide-BVH kernels
 (`ops/bvh8.py`) rely on; triangle ids are indices into that permuted order.
 
-`bvh_closest_hit` is the plain torch walk of the binary tree (the analog of
-the reference's XLA while-loop); `finalize_hit` turns a traversal's
-(t, triangle id) into a `Hit` with the smooth interpolated normal.
+The binary tree is walked by the skip-link kernels of `ops/bvh2.py` or,
+collapsed, by the wide kernels of `ops/bvh8.py`, each with a plain torch
+version; `finalize_hit` turns a walk's (t, triangle id) into a `Hit` with
+the smooth interpolated normal.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from ..native import build_bvh_sah
 from ..utils.vmath import cross, dot, normalize
 from .intersect import INF, Hit
 
-__all__ = ["BvhData", "build_bvh", "bvh_closest_hit", "finalize_hit", "LEAF_SIZE"]
+__all__ = ["BvhData", "build_bvh", "finalize_hit", "LEAF_SIZE"]
 
 LEAF_SIZE = 8
 
@@ -116,50 +117,6 @@ def _tri_hit_t(o, d, v0, v1, v2, t_min):
 def _safe_inv(d: torch.Tensor) -> torch.Tensor:
     tiny = torch.where(d < 0, -1e-20, 1e-20).to(d.dtype)
     return 1.0 / torch.where(torch.abs(d) > 1e-20, d, tiny)
-
-
-def bvh_closest_hit(bvh: BvhData, o: torch.Tensor, d: torch.Tensor, t_min, active=None) -> Hit:
-    """Closest hit of N rays by a lockstep skip-link walk of the binary tree.
-
-    Each live ray advances one node per step: to ptr+1 when it enters an
-    internal node's box, else to skip[ptr]; boxes are pruned on the running
-    best hit. Lanes with `active=False` never start.
-    """
-    N = o.shape[0]
-    M = bvh.num_nodes
-    inv_d = _safe_inv(d)
-    ptr = torch.zeros(N, dtype=torch.int64, device=o.device)
-    if active is not None:
-        ptr = torch.where(active, ptr, torch.full_like(ptr, M))
-    t_best = torch.full((N,), INF, dtype=o.dtype, device=o.device)
-    best_tri = torch.zeros(N, dtype=torch.int64, device=o.device)
-    is_leaf = bvh.is_leaf.bool()
-    skip = bvh.skip.long()
-    leaf_tris = bvh.leaf_tris.long()
-    while True:
-        live = torch.nonzero(ptr < M)[:, 0]
-        if live.numel() == 0:
-            break
-        p = ptr[live]
-        ol, il, dl = o[live], inv_d[live], d[live]
-        t1 = (bvh.node_min[p] - ol) * il
-        t2 = (bvh.node_max[p] - ol) * il
-        lo = torch.amax(torch.minimum(t1, t2), dim=-1)
-        hi = torch.amin(torch.maximum(t1, t2), dim=-1)
-        tb = t_best[live]
-        box_hit = (lo <= hi) & (hi >= t_min) & (lo <= tb)
-        leaf = is_leaf[p]
-        tris = leaf_tris[p]
-        tid = torch.clamp(tris, min=0)
-        tv = bvh.verts[tid]  # (L, K, 3, 3)
-        th, _ = _tri_hit_t(ol[:, None, :], dl[:, None, :], tv[:, :, 0], tv[:, :, 1], tv[:, :, 2], t_min)
-        th = torch.where((tris >= 0) & (leaf & box_hit)[:, None], th, torch.full_like(th, INF))
-        t_leaf, k_best = torch.min(th, dim=1)
-        better = t_leaf < tb
-        t_best[live] = torch.where(better, t_leaf, tb)
-        best_tri[live] = torch.where(better, torch.gather(tid, 1, k_best[:, None])[:, 0], best_tri[live])
-        ptr[live] = torch.where(box_hit & ~leaf, p + 1, skip[p])
-    return finalize_hit(bvh, o, d, t_min, t_best, best_tri)
 
 
 def finalize_hit(bvh: BvhData, o, d, t_min, t_best, best_tri) -> Hit:

@@ -56,6 +56,7 @@ from .intersect import INF, Hit
 
 __all__ = [
     "Bvh8Pack",
+    "WidePackRefused",
     "pack_bvh8",
     "bvh8_closest_hit",
     "bvh8_occluded",
@@ -84,6 +85,13 @@ BOX_TEST_OPS = 25
 # Triangle test: cos 5, t 6 + 1 div, hit point 6, minus v0 3, d20 and d21
 # 10, v and w 8, u 2, |cos| and 5 compares 7.
 TRI_TEST_OPS = 48
+
+
+class WidePackRefused(ValueError):
+    """A wide pack cannot carry this tree: its walk could need a deeper
+    stack than the kernels hold, or an id overflows their entries. The
+    scene compiler then takes the binary pack (`ops/bvh2.py`,
+    `ops/tlas2.py`), as the reference falls back to its binary kernels."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -208,8 +216,8 @@ def _tri_rows(verts: np.ndarray) -> np.ndarray:
 
 def pack_bvh8(bvh: BvhData, device=None) -> Bvh8Pack:
     """Collapse a built binary BVH into the kernels' wide layout (see the
-    module docstring). Raises if the tree needs a deeper stack than the
-    kernels carry."""
+    module docstring). Raises WidePackRefused if the tree needs a deeper
+    stack than the kernels carry."""
     node_min = bvh.node_min.cpu().numpy()
     node_max = bvh.node_max.cpu().numpy()
     skip = bvh.skip.cpu().numpy().astype(np.int64)
@@ -220,7 +228,7 @@ def pack_bvh8(bvh: BvhData, device=None) -> Bvh8Pack:
     bidx, ca, cb = _collapse_range(skip, is_leaf, leaf_start, leaf_count, 0, bvh.num_nodes)
     need = _stack_need(ca, cb)
     if need > STACK_CAP:
-        raise ValueError(f"wide BVH needs a stack of {need} > {STACK_CAP} entries")
+        raise WidePackRefused(f"the wide BVH needs a stack of {need} > {STACK_CAP} entries")
     valid = bidx >= 0
     bi = np.where(valid, bidx, 0)
     bounds, meta = _emit_wide(node_min[bi], node_max[bi], valid, ca, cb)
@@ -284,6 +292,15 @@ def _leaf_t(rows, o, d, t_min):
     return t, ok
 
 
+def _to_local(A, o, d):
+    """World rays o, d (P, 3) in the frames of the world->local rows A
+    (P, 3, 4), as csrc/walk.cuh `to_local` computes them: the direction
+    unnormalized. Returns (o_local, d_local, inverse of d_local)."""
+    ol = ((A[:, :, 0] * o[:, 0:1] + A[:, :, 1] * o[:, 1:2]) + A[:, :, 2] * o[:, 2:3]) + A[:, :, 3]
+    dl = (A[:, :, 0] * d[:, 0:1] + A[:, :, 1] * d[:, 1:2]) + A[:, :, 2] * d[:, 2:3]
+    return ol, dl, _safe_inv(dl)
+
+
 def _walk_plain(bounds, meta, tris, o, d, t_min, t_max, active, occl: bool, stats: Optional[dict],
                 inst=None, inst_root=None):
     """Lockstep version of the kernels' per-ray walk: csrc/bvh8.cu over one
@@ -338,11 +355,7 @@ def _walk_plain(bounds, meta, tris, o, d, t_min, t_max, active, occl: bool, stat
                 # Instance entries: the world ray in the instance's frame,
                 # direction unnormalized; the entry becomes the BLAS root.
                 ray, k = live[enter], w[enter]
-                A = aff[k]
-                ow, dw = o[ray], d[ray]
-                ol = ((A[:, :, 0] * ow[:, 0:1] + A[:, :, 1] * ow[:, 1:2]) + A[:, :, 2] * ow[:, 2:3]) + A[:, :, 3]
-                dl = (A[:, :, 0] * dw[:, 0:1] + A[:, :, 1] * dw[:, 1:2]) + A[:, :, 2] * dw[:, 2:3]
-                o_loc[ray], d_loc[ray], inv_loc[ray] = ol, dl, _safe_inv(dl)
+                o_loc[ray], d_loc[ray], inv_loc[ray] = _to_local(aff[k], o[ray], d[ray])
                 cur_inst[ray] = k
                 stack[ray, sp_l[enter]] = (roots[k] << 2) | TAG_LOCAL
                 n_inst += ray.numel()
@@ -461,13 +474,14 @@ def _ptr(t: Optional[torch.Tensor]):
 
 def _check_rays(pack, o, d, active, t_max=None):
     """Refuse what the kernels do not take; returns (o, d, active, t_max)
-    contiguous."""
-    if not (o.is_cuda and d.is_cuda and pack.bounds.is_cuda):
-        raise ValueError("the wide-BVH kernels need the rays and the pack on a CUDA device")
+    contiguous. Every pack of the BVH kernels has its triangle rows in
+    `tris`."""
+    if not (o.is_cuda and d.is_cuda and pack.tris.is_cuda):
+        raise ValueError("the BVH kernels need the rays and the pack on a CUDA device")
     if o.dtype != torch.float32 or d.dtype != torch.float32:
-        raise TypeError("the wide-BVH kernels take float32 rays")
+        raise TypeError("the BVH kernels take float32 rays")
     if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
-        raise ValueError(f"the wide-BVH kernels take (N, 3) rays, got {tuple(o.shape)}, {tuple(d.shape)}")
+        raise ValueError(f"the BVH kernels take (N, 3) rays, got {tuple(o.shape)}, {tuple(d.shape)}")
     if active is not None and (active.dtype != torch.bool or active.shape != o.shape[:1]):
         raise ValueError("active must be a bool (N,) mask")
     if t_max is not None:
@@ -521,12 +535,39 @@ def _on_cpu(o: torch.Tensor) -> bool:
         return True
     if o.is_cuda:
         return False
-    raise ValueError(f"wide-BVH walk: unsupported device {o.device}")
+    raise ValueError(f"BVH walk: unsupported device {o.device}")
 
 
 # ---------------------------------------------------------------------------
 # Wrappers (what SceneData.intersect / occluded call)
 # ---------------------------------------------------------------------------
+
+
+def finish_closest(bvh: BvhData, o, d, t_min, t_raw, tri, active) -> Hit:
+    """The Hit of a one-level walk's (t_raw, triangle id): t = inf on a miss
+    and on an inactive lane, the id clamped into the triangle table, then
+    `finalize_hit` for the smooth normal and the material."""
+    t_best = torch.where(t_raw >= 1.0e38, torch.full_like(t_raw, INF), t_raw)
+    if active is not None:
+        t_best = torch.where(active, t_best, torch.full_like(t_best, INF))
+    tri = torch.clamp(tri, 0, bvh.num_tris - 1)
+    return finalize_hit(bvh, o, d, t_min, t_best, tri)
+
+
+def ray_t_max(t_max, o) -> torch.Tensor:
+    """A scalar or (N,) t_max as an (N,) f32 tensor on the rays' device."""
+    return torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (o.shape[0],))
+
+
+def finish_occluded(occ, t_max, active) -> torch.Tensor:
+    """The any-hit walks' result under the closest-hit rule
+    `closest.t <= t_max`: a ray whose t_max is +inf counts as occluded even
+    with no hit, since inf <= inf (a directional light's distance is +inf;
+    the reference behaves the same); an inactive lane never is."""
+    occ = occ | (t_max == math.inf)
+    if active is not None:
+        occ = occ & active
+    return occ
 
 
 def bvh8_closest_hit(bvh: BvhData, pack: Bvh8Pack, o, d, t_min, active=None) -> Hit:
@@ -537,11 +578,7 @@ def bvh8_closest_hit(bvh: BvhData, pack: Bvh8Pack, o, d, t_min, active=None) -> 
     else:
         t_raw, tri = bvh8_closest_kernel(pack, o, d, t_min, active)
         bvh8_closest_hit.launches += 1
-    t_best = torch.where(t_raw >= 1.0e38, torch.full_like(t_raw, INF), t_raw)
-    if active is not None:
-        t_best = torch.where(active, t_best, torch.full_like(t_best, INF))
-    tri = torch.clamp(tri, 0, bvh.num_tris - 1)
-    return finalize_hit(bvh, o, d, t_min, t_best, tri)
+    return finish_closest(bvh, o, d, t_min, t_raw, tri, active)
 
 
 bvh8_closest_hit.launches = 0
@@ -549,19 +586,14 @@ bvh8_closest_hit.launches = 0
 
 def bvh8_occluded(bvh: BvhData, pack: Bvh8Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query through the wide BVH, boolean-equal to
-    `bvh8_closest_hit(...).t <= t_max`: a ray whose t_max is +inf counts as
-    occluded even with no hit, since inf <= inf (a directional light's
-    distance is +inf; the reference behaves the same)."""
-    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (o.shape[0],))
+    `bvh8_closest_hit(...).t <= t_max` (see `finish_occluded`)."""
+    t_max = ray_t_max(t_max, o)
     if _on_cpu(o):
         occ = bvh8_occluded_plain(pack, o, d, t_min, t_max, active)
     else:
         occ = bvh8_occluded_kernel(pack, o, d, t_min, t_max, active)
         bvh8_occluded.launches += 1
-    occ = occ | (t_max == math.inf)
-    if active is not None:
-        occ = occ & active
-    return occ
+    return finish_occluded(occ, t_max, active)
 
 
 bvh8_occluded.launches = 0

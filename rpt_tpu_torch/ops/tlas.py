@@ -10,9 +10,8 @@ O(instances x triangles) for a bake.
 
 Both trees come from the native SAH builder (a copy of the JAX package's),
 so `build_instanced` gives arrays identical to the reference's on the same
-meshes and instances. `instanced_closest_hit` is the plain lockstep
-two-level skip-link walk (the counterpart of the reference's XLA
-while-loop); the wide kernels of `ops/tlas8.py` walk the same instances.
+meshes and instances. The skip-link kernels of `ops/tlas2.py` walk the two
+trees as built; the wide kernels of `ops/tlas8.py` walk them collapsed.
 """
 
 from __future__ import annotations
@@ -24,11 +23,9 @@ import numpy as np
 import torch
 
 from ..native import build_bvh_sah
-from ..utils.vmath import normalize
-from .bvh import LEAF_SIZE, _safe_inv, _tri_hit_t
-from .intersect import INF, Hit
+from .bvh import LEAF_SIZE
 
-__all__ = ["InstancedMeshes", "build_instanced", "instanced_closest_hit", "instanced_from_arrays"]
+__all__ = ["InstancedMeshes", "build_instanced", "instanced_from_arrays", "packed_leaves"]
 
 _FLOAT_FIELDS = ("t_min", "t_max", "b_min", "b_max", "verts", "norms", "inst_inv", "inst_nmat")
 
@@ -166,98 +163,26 @@ def build_instanced(
     ), device)
 
 
-def _slab(bmin, bmax, o, inv_d, t_min, t_best):
-    t1 = (bmin - o) * inv_d
-    t2 = (bmax - o) * inv_d
-    lo = torch.amax(torch.minimum(t1, t2), dim=-1)
-    hi = torch.amin(torch.maximum(t1, t2), dim=-1)
-    return (lo <= hi) & (hi >= t_min) & (lo <= t_best)
+def packed_leaves(im: InstancedMeshes):
+    """The kernels' triangle order (the reference's `pack_tlas_for_pallas`
+    packing, shared by `ops/tlas8.py` and `ops/tlas2.py`): local-space
+    triangles leaf-contiguous and 8-aligned, one block of LEAF_SIZE rows per
+    BLAS leaf in node order, a short leaf padded with its first triangle.
+    Returns (leaf_start (Mb,), leaf_count (Mb,), 0 at internal nodes;
+    p_verts, p_norms (L*8, 3, 3))."""
+    b_leaf_tris = im.b_leaf_tris.cpu().numpy().astype(np.int64)
+    Mb = b_leaf_tris.shape[0]
+    leaves = np.flatnonzero(b_leaf_tris[:, 0] >= 0)  # leaf lists are filled from the front
+    rows = b_leaf_tris[leaves]
+    leaf_count = np.zeros(Mb, np.int64)
+    leaf_count[leaves] = (rows >= 0).sum(1)
+    leaf_start = np.zeros(Mb, np.int64)
+    leaf_start[leaves] = LEAF_SIZE * np.arange(leaves.shape[0])
+    perm = np.where(rows >= 0, rows, rows[:, :1]).reshape(-1)
+    return leaf_start, leaf_count, im.verts.cpu().numpy()[perm], im.norms.cpu().numpy()[perm]
 
 
 def _affine(A, p, w: float):
     """A (N, 3, 4) applied to points (w = 1) or directions (w = 0)."""
     out = torch.einsum("nij,nj->ni", A[:, :, :3], p)
     return out + A[:, :, 3] if w else out
-
-
-def instanced_closest_hit(im: InstancedMeshes, o: torch.Tensor, d: torch.Tensor, t_min, active=None) -> Hit:
-    """Closest hit of N rays against every mesh instance.
-
-    Each step, a ray takes either a TLAS step (world ray against an
-    instance box) or a BLAS step (local ray against the current instance's
-    node and leaf triangles), by its mode flag. Local directions are not
-    normalized, so hit times stay in the world parameterization and the
-    running-best prune holds at both levels. Lanes with `active=False` park
-    at the TLAS sentinel and come back as misses.
-    """
-    N = o.shape[0]
-    dev = o.device
-    Mt = im.num_tlas_nodes
-    Mb = im.b_min.shape[0]
-    inv_d = _safe_inv(d)
-    t_leaf_inst, t_skip = im.t_leaf_inst.long(), im.t_skip.long()
-    b_is_leaf, b_skip, b_leaf_tris = im.b_is_leaf.bool(), im.b_skip.long(), im.b_leaf_tris.long()
-    inst_root, inst_end = im.inst_root.long(), im.inst_end.long()
-
-    zeros = torch.zeros(N, dtype=torch.int64, device=dev)
-    in_blas = torch.zeros(N, dtype=torch.bool, device=dev)
-    tptr = zeros.clone() if active is None else torch.where(active, zeros, torch.full_like(zeros, Mt))
-    bptr, bend, inst = zeros.clone(), zeros.clone(), zeros.clone()
-    o_l, d_l, inv_dl = torch.zeros_like(o), torch.ones_like(d), torch.ones_like(d)
-    t_best = torch.full((N,), INF, dtype=o.dtype, device=dev)
-    best_tri, best_inst = zeros.clone(), zeros.clone()
-
-    while bool((in_blas | (tptr < Mt)).any()):
-        # TLAS step (rays not inside a BLAS)
-        t_active = ~in_blas & (tptr < Mt)
-        p = torch.clamp(tptr, max=Mt - 1)
-        hit_box = _slab(im.t_min[p], im.t_max[p], o, inv_d, t_min, t_best)
-        leaf_inst = t_leaf_inst[p]
-        is_leaf_t = leaf_inst >= 0
-        enter = t_active & is_leaf_t & hit_box
-        descend = t_active & ~is_leaf_t & hit_box
-        tptr = torch.where(t_active, torch.where(descend, p + 1, t_skip[p]), tptr)
-
-        # Entering rays: into instance-local space
-        e_inst = torch.clamp(leaf_inst, min=0)
-        A = im.inst_inv[e_inst]
-        d_e = _affine(A, d, 0)
-        inst = torch.where(enter, e_inst, inst)
-        o_l = torch.where(enter[:, None], _affine(A, o, 1), o_l)
-        d_l = torch.where(enter[:, None], d_e, d_l)
-        inv_dl = torch.where(enter[:, None], _safe_inv(d_e), inv_dl)
-        bptr = torch.where(enter, inst_root[e_inst], bptr)
-        bend = torch.where(enter, inst_end[e_inst], bend)
-        in_blas = in_blas | enter
-
-        # BLAS step (rays inside a BLAS; entering rays start next step)
-        b_active = in_blas & ~enter
-        q = torch.clamp(bptr, max=Mb - 1)
-        hit_b = _slab(im.b_min[q], im.b_max[q], o_l, inv_dl, t_min, t_best)
-        leaf_b = b_is_leaf[q]
-        process = b_active & leaf_b & hit_b
-        tris = b_leaf_tris[q]
-        tid = torch.clamp(tris, min=0)
-        tv = im.verts[tid]  # (N, K, 3, 3)
-        t_hits, _ = _tri_hit_t(o_l[:, None, :], d_l[:, None, :], tv[:, :, 0], tv[:, :, 1], tv[:, :, 2], t_min)
-        t_hits = torch.where((tris >= 0) & process[:, None], t_hits, torch.full_like(t_hits, INF))
-        t_leaf, k_best = torch.min(t_hits, dim=1)
-        better = t_leaf < t_best
-        t_best = torch.where(better, t_leaf, t_best)
-        best_tri = torch.where(better, torch.gather(tid, 1, k_best[:, None])[:, 0], best_tri)
-        best_inst = torch.where(better, inst, best_inst)
-
-        go_deeper = b_active & ~leaf_b & hit_b
-        bptr = torch.where(b_active, torch.where(go_deeper, q + 1, b_skip[q]), bptr)
-        # BLAS finished: back to the TLAS (tptr already points past the leaf)
-        in_blas = in_blas & ~(b_active & (bptr >= bend))
-
-    # Barycentrics of the winner in its instance's frame, the interpolated
-    # shading normal, lifted by the inverse-transpose.
-    A = im.inst_inv[best_inst]
-    tv = im.verts[best_tri]
-    _, (u, v, w) = _tri_hit_t(_affine(A, o, 1), _affine(A, d, 0), tv[:, 0], tv[:, 1], tv[:, 2], t_min)
-    tn = im.norms[best_tri]
-    n_local = u[:, None] * tn[:, 0] + v[:, None] * tn[:, 1] + w[:, None] * tn[:, 2]
-    n_world = normalize(torch.einsum("nij,nj->ni", im.inst_nmat[best_inst], n_local))
-    return Hit(t=t_best, normal=n_world, mat_id=im.inst_mat[best_inst])

@@ -31,8 +31,9 @@ collapsed with the reference's smallest-subtree-first frontier expansion
 The TPU-only budgets are not carried over: no resident/dma modes, no
 node-count gate, no (8, 128) tiles. The exact worst-case stack need of the
 two-level walk is checked against the kernels' STACK_CAP, and the pack
-raises above it (the reference falls back to its binary two-level kernel
-there, which is not ported yet).
+raises WidePackRefused above it; the scene compiler then takes the binary
+two-level kernels (`ops/tlas2.py`), as the reference falls back to its
+binary two-level kernel there.
 
 Walk: `csrc/tlas8.cu` and its plain version `ops/bvh8._walk_plain` keep a
 per-ray stack of tagged entries `node << 2 | tag` (0: a node in world
@@ -45,16 +46,29 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import math
 
 import numpy as np
 import torch
 
 from ..utils.vmath import normalize
-from .bvh import LEAF_SIZE, _tri_hit_t
-from .bvh8 import BRANCH, EMPTY, INST_CHILD, STACK_CAP, _check_rays, _emit_wide, _on_cpu, _ptr, _tri_rows, _walk_plain
+from .bvh import _tri_hit_t
+from .bvh8 import (
+    BRANCH,
+    EMPTY,
+    INST_CHILD,
+    STACK_CAP,
+    WidePackRefused,
+    _check_rays,
+    _emit_wide,
+    _on_cpu,
+    _ptr,
+    _tri_rows,
+    _walk_plain,
+    finish_occluded,
+    ray_t_max,
+)
 from .intersect import INF, Hit
-from .tlas import InstancedMeshes, _affine
+from .tlas import InstancedMeshes, _affine, packed_leaves
 
 __all__ = [
     "Tlas8Pack",
@@ -160,26 +174,15 @@ def _tlas_stack_need(out_nodes, inst_blas_root) -> int:
 
 def pack_tlas8(im: InstancedMeshes, device=None) -> Tlas8Pack:
     """The kernels' table for an instanced scene (module docstring). Raises
-    if the walk could need a deeper stack than the kernels carry."""
+    WidePackRefused if the walk could need a deeper stack than the kernels
+    carry, or an id overflows their tagged entries."""
     t_min, t_max = im.t_min.cpu().numpy(), im.t_max.cpu().numpy()
     t_skip, t_leaf_inst = im.t_skip.cpu().numpy().astype(np.int64), im.t_leaf_inst.cpu().numpy().astype(np.int64)
     b_min, b_max = im.b_min.cpu().numpy(), im.b_max.cpu().numpy()
     b_skip = im.b_skip.cpu().numpy().astype(np.int64)
-    b_leaf_tris = im.b_leaf_tris.cpu().numpy().astype(np.int64)
     inst_root, inst_end = im.inst_root.cpu().numpy(), im.inst_end.cpu().numpy()
     K = inst_root.shape[0]
-
-    # Leaf-contiguous, 8-aligned local-space triangles: one block of
-    # LEAF_SIZE rows per BLAS leaf (leaf lists are filled from the front).
-    leaves = np.flatnonzero(b_leaf_tris[:, 0] >= 0)
-    rows = b_leaf_tris[leaves]
-    b_leaf_count = np.zeros(b_min.shape[0], np.int64)
-    b_leaf_count[leaves] = (rows >= 0).sum(1)
-    b_leaf_start = np.zeros(b_min.shape[0], np.int64)
-    b_leaf_start[leaves] = LEAF_SIZE * np.arange(leaves.shape[0])
-    perm = np.where(rows >= 0, rows, rows[:, :1]).reshape(-1)
-    p_verts = im.verts.cpu().numpy()[perm]
-    p_norms = im.norms.cpu().numpy()[perm]
+    b_leaf_start, b_leaf_count, p_verts, p_norms = packed_leaves(im)
 
     out_nodes: list = []
     # The TLAS first (root = wide node 0): its leaves are instances.
@@ -193,10 +196,10 @@ def pack_tlas8(im: InstancedMeshes, device=None) -> Tlas8Pack:
     inst_blas_root = [wide_root_of[(int(r), int(e))] for r, e in zip(inst_root, inst_end)]
     need = _tlas_stack_need(out_nodes, inst_blas_root)
     if need > STACK_CAP:
-        raise ValueError(f"the two-level wide BVH needs a stack of {need} > {STACK_CAP} entries")
+        raise WidePackRefused(f"the two-level wide BVH needs a stack of {need} > {STACK_CAP} entries")
     Mw = len(out_nodes)
     if Mw >= _MAX_INDEX or K >= _MAX_INDEX:
-        raise ValueError(f"{Mw} wide nodes or {K} instances overflow the kernels' tagged 32-bit stack entries")
+        raise WidePackRefused(f"{Mw} wide nodes or {K} instances overflow the kernels' tagged 32-bit stack entries")
 
     lo = np.zeros((Mw, BRANCH, 3), np.float32)
     hi = np.zeros((Mw, BRANCH, 3), np.float32)
@@ -322,17 +325,14 @@ tlas8_closest_hit.launches = 0
 def tlas8_occluded(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query over every instance, boolean-equal to
     `tlas8_closest_hit(...).t <= t_max`, also for t_max = +inf (a miss then
-    counts as occluded, as in the reference and `bvh8_occluded`)."""
-    t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (o.shape[0],))
+    counts as occluded, as in the reference; `bvh8.finish_occluded`)."""
+    t_max = ray_t_max(t_max, o)
     if _on_cpu(o):
         occ = tlas8_occluded_plain(pack, o, d, t_min, t_max, active)
     else:
         occ = tlas8_occluded_kernel(pack, o, d, t_min, t_max, active)
         tlas8_occluded.launches += 1
-    occ = occ | (t_max == math.inf)
-    if active is not None:
-        occ = occ & active
-    return occ
+    return finish_occluded(occ, t_max, active)
 
 
 tlas8_occluded.launches = 0

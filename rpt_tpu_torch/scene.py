@@ -10,13 +10,22 @@ query, boolean-equal to `intersect(...).t <= t_max`.
 Meshes take the reference's layout decision. When every mesh is used once
 and the bake stays under BAKE_TRI_LIMIT triangles, they are baked into
 world-space triangles: fewer than BVH_THRESHOLD go to the brute-force batch,
-the rest into one SAH BVH traversed by the wide-BVH kernels (`ops/bvh8.py`).
-Shared geometry, or a larger bake, goes through the two-level instanced BVH
-(`ops/tlas.py`) traversed by the two-level wide kernels (`ops/tlas8.py`).
-The kernels run on the card, their plain versions on the CPU. Unlike the
-reference, which keeps its binary kernels for meshes under 16384 triangles
-and as the fallback of a wide pack that refuses a tree, every mesh takes a
-wide walk, and such a pack raises, until the binary kernels are ported.
+the rest into one SAH BVH. Shared geometry, or a larger bake, goes through
+the two-level instanced BVH (`ops/tlas.py`).
+
+Which kernels walk a tree is the reference's choice too, made once at
+compile time by `choose_bvh_pack` / `choose_instanced_pack` (which
+`convert.py` calls as well) from the module globals `_BVH_KERNEL`
+(env `RPT_BVH_KERNEL`, "wide" or "binary") and `WIDE_KERNEL_MIN_TRIS` (env
+`RPT_WIDE_MIN_TRIS`): a BVH of at least WIDE_KERNEL_MIN_TRIS triangle rows
+takes the wide kernels (`ops/bvh8.py`) under "wide", any other the binary
+skip-link kernels (`ops/bvh2.py`); an instanced scene takes the two-level
+wide kernels (`ops/tlas8.py`) under "wide", else the binary two-level ones
+(`ops/tlas2.py`). A wide pack that refuses a tree falls back to the binary
+one with a warning, as the reference does. The reference's TPU budgets
+(SMEM and node-count eligibility) are not carried over: the binary
+two-level kernels take every scene, where the reference falls back to its
+XLA loop. The kernels run on the card, their plain versions on the CPU.
 Monomial surfaces and HDRI environments are not ported yet and raise
 NotImplementedError.
 """
@@ -25,6 +34,8 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import os
+import warnings
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -46,13 +57,15 @@ from .lights import (
 from .materials import Material, MaterialTable
 from .ops import intersect as ops
 from .ops.bvh import BvhData, build_bvh
-from .ops.bvh8 import Bvh8Pack, bvh8_closest_hit, bvh8_occluded, pack_bvh8
+from .ops.bvh2 import Bvh2Pack, bvh2_closest_hit, bvh2_occluded, pack_bvh2
+from .ops.bvh8 import Bvh8Pack, WidePackRefused, bvh8_closest_hit, bvh8_occluded, pack_bvh8
 from .ops.tlas import InstancedMeshes, build_instanced
+from .ops.tlas2 import Tlas2Pack, pack_tlas2, tlas2_closest_hit, tlas2_occluded
 from .ops.tlas8 import Tlas8Pack, pack_tlas8, tlas8_closest_hit, tlas8_occluded
 from .shapes import Cube, Group, Mesh, MonomialSurface, Plane, Shape, Sphere, Transformed, unwrap_transform
 from .utils.device import resolve_device
 
-__all__ = ["Object", "Scene", "SceneData", "compile_scene"]
+__all__ = ["Object", "Scene", "SceneData", "compile_scene", "choose_bvh_pack", "choose_instanced_pack"]
 
 # Meshes with at least this many triangles get a BVH; smaller ones are
 # brute-forced.
@@ -62,6 +75,12 @@ BVH_THRESHOLD = 64
 PRIM_CHUNK = 256
 # Above this many baked triangles the reference switches to instancing.
 BAKE_TRI_LIMIT = 2_000_000
+# Mesh traversal kernels: "wide" (default) walks a BVH of at least
+# WIDE_KERNEL_MIN_TRIS triangle rows, and every instanced scene, with the
+# 8-ary kernels; "binary" sends every mesh through the skip-link kernels
+# (the reference's A/B switch, read at compile time).
+_BVH_KERNEL = os.environ.get("RPT_BVH_KERNEL", "wide")
+WIDE_KERNEL_MIN_TRIS = int(os.environ.get("RPT_WIDE_MIN_TRIS", "16384"))
 
 
 class Object:
@@ -87,7 +106,7 @@ class Scene:
         self.objects: List[Object] = []
         self.lights: List[Union[PointLight, AmbientLight, DirectionalLight, ObjectLight]] = []
         self.environment: Environment = Environment.black()
-        self._compiled: Dict[str, Tuple[str, "SceneData"]] = {}  # device -> (digest, data)
+        self._compiled: Dict[str, tuple] = {}  # device -> ((digest, kernel choice), data)
 
     def add(self, node) -> None:
         self._compiled = {}
@@ -104,17 +123,19 @@ class Scene:
 
     def compile(self, dtype=torch.float32, device=None) -> "SceneData":
         """Compile onto `device` (the CUDA card when None; raises without one).
-        Cached per device on a content digest of the scene, so in-place
-        edits recompile."""
+        Cached per device on a content digest of the scene and on the kernel
+        choice (`_BVH_KERNEL`, `WIDE_KERNEL_MIN_TRIS`), so in-place edits and
+        a changed choice recompile."""
         if dtype != torch.float32:
             raise NotImplementedError("only float32 scenes are ported")
         device = resolve_device(device)
         digest = _scene_digest(self)
+        key = (digest, _BVH_KERNEL, WIDE_KERNEL_MIN_TRIS)
         cached = self._compiled.get(str(device))
-        if cached is not None and cached[0] == digest:
+        if cached is not None and cached[0] == key:
             return cached[1]
         data = compile_scene(self, device, digest=digest)
-        self._compiled[str(device)] = (digest, data)
+        self._compiled[str(device)] = (key, data)
         return data
 
 
@@ -220,9 +241,11 @@ class SceneData:
     planes: Optional[PlaneArrays]
     triangles: Optional[TriangleArrays]  # small meshes, brute force
     bvh: Optional[BvhData]  # large meshes: triangle data for finalize_hit
-    bvh8: Optional[Bvh8Pack]  # the wide-BVH kernels' layout of `bvh`
+    bvh8: Optional[Bvh8Pack]  # the wide-BVH kernels' layout of `bvh`, or
+    bvh2: Optional[Bvh2Pack]  # the binary kernels' layout (one of the two)
     instanced: Optional[InstancedMeshes]  # shared meshes: two-level BVH
-    tlas8: Optional[Tlas8Pack]  # the two-level wide kernels' layout of `instanced`
+    tlas8: Optional[Tlas8Pack]  # the two-level wide kernels' layout of `instanced`, or
+    tlas2: Optional[Tlas2Pack]  # the two-level binary kernels' layout (one of the two)
     lights: tuple
     environment: Environment
     device: torch.device
@@ -232,10 +255,14 @@ class SceneData:
         """Closest hit of N rays against the whole scene. Lanes with
         `active=False` never walk the BVH and come back as misses."""
         hit = self._analytic_hit(o, d, t_min)
-        if self.bvh is not None:
+        if self.bvh8 is not None:
             hit = ops.merge_hits(hit, bvh8_closest_hit(self.bvh, self.bvh8, o, d, t_min, active=active))
-        if self.instanced is not None:
+        if self.bvh2 is not None:
+            hit = ops.merge_hits(hit, bvh2_closest_hit(self.bvh, self.bvh2, o, d, t_min, active=active))
+        if self.tlas8 is not None:
             hit = ops.merge_hits(hit, tlas8_closest_hit(self.instanced, self.tlas8, o, d, t_min, active=active))
+        if self.tlas2 is not None:
+            hit = ops.merge_hits(hit, tlas2_closest_hit(self.instanced, self.tlas2, o, d, t_min, active=active))
         if active is not None:
             hit = ops.Hit(
                 t=torch.where(active, hit.t, torch.full_like(hit.t, ops.INF)),
@@ -249,10 +276,14 @@ class SceneData:
         at t_min, as intersect() is); the mesh walk stops at the first hit."""
         t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=o.dtype, device=o.device), (o.shape[0],))
         occ = self._analytic_occluded(o, d, t_min, t_max)
-        if self.bvh is not None:
+        if self.bvh8 is not None:
             occ = occ | bvh8_occluded(self.bvh, self.bvh8, o, d, t_min, t_max, active=active)
-        if self.instanced is not None:
+        if self.bvh2 is not None:
+            occ = occ | bvh2_occluded(self.bvh, self.bvh2, o, d, t_min, t_max, active=active)
+        if self.tlas8 is not None:
             occ = occ | tlas8_occluded(self.instanced, self.tlas8, o, d, t_min, t_max, active=active)
+        if self.tlas2 is not None:
+            occ = occ | tlas2_occluded(self.instanced, self.tlas2, o, d, t_min, t_max, active=active)
         if active is not None:
             occ = occ & active
         return occ
@@ -337,6 +368,33 @@ def _maybe_chunked_occl(occl_fn, prim_arrays: tuple, o, d, t_min, t_max, chunk: 
 # ---------------------------------------------------------------------------
 
 
+def choose_bvh_pack(bvh: BvhData, device=None) -> Tuple[Optional[Bvh8Pack], Optional[Bvh2Pack]]:
+    """(bvh8, bvh2), one of them set: the wide pack for a BVH of at least
+    WIDE_KERNEL_MIN_TRIS triangle rows under RPT_BVH_KERNEL=wide, else the
+    binary pack; also the binary pack, with a warning, where the wide pack
+    refuses the tree (the reference's decision, `rpt_tpu/scene.py:736-754`)."""
+    if _BVH_KERNEL == "wide" and bvh.num_tris >= WIDE_KERNEL_MIN_TRIS:
+        try:
+            return pack_bvh8(bvh, device=device), None
+        except WidePackRefused as e:
+            warnings.warn(f"{e}; falling back to the binary BVH kernels", stacklevel=2)
+    return None, pack_bvh2(bvh, device=device)
+
+
+def choose_instanced_pack(im: InstancedMeshes, device=None) -> Tuple[Optional[Tlas8Pack], Optional[Tlas2Pack]]:
+    """(tlas8, tlas2), one of them set: the two-level wide pack under
+    RPT_BVH_KERNEL=wide, else the binary one; also the binary one, with a
+    warning, where the wide pack refuses the scene (as the reference's
+    `pack_tlas8_for_pallas` falls back to its binary two-level kernel)."""
+    if _BVH_KERNEL == "wide":
+        try:
+            return pack_tlas8(im, device=device), None
+        except WidePackRefused as e:
+            warnings.warn(f"{e}; falling back to the binary two-level kernels", stacklevel=2)
+    return None, pack_tlas2(im, device=device)
+
+
+
 def _affine_parts(matrix: np.ndarray):
     inv = np.linalg.inv(matrix)
     inv_tf = inv[:3, :4]
@@ -414,7 +472,7 @@ def compile_scene(scene: Scene, device=None, digest: str = "") -> SceneData:
     # every mesh is used once and the total stays small; shared geometry or
     # very large bakes go through the instanced TLAS + BLAS.
     tri_verts, tri_norms, tri_mats = [], [], []
-    instanced = tlas8 = None
+    instanced = tlas8 = tlas2 = None
     if mesh_uses:
         shared = len({id(m) for m, _, _ in mesh_uses}) < len(mesh_uses)
         if shared or sum(m.num_triangles for m, _, _ in mesh_uses) > BAKE_TRI_LIMIT:
@@ -426,7 +484,7 @@ def compile_scene(scene: Scene, device=None, digest: str = "") -> SceneData:
                     uniq.append(m)
             instances = [(slot[id(m)], matrix, mid) for m, matrix, mid in mesh_uses]
             instanced = build_instanced(uniq, instances, device=device)
-            tlas8 = pack_tlas8(instanced, device=device)
+            tlas8, tlas2 = choose_instanced_pack(instanced, device=device)
         else:
             for m, matrix, mid in mesh_uses:
                 verts, norms = _bake_mesh(m, matrix)
@@ -451,14 +509,14 @@ def compile_scene(scene: Scene, device=None, digest: str = "") -> SceneData:
             mat_id=_t(np.asarray([r[2] for r in plane_rows], np.int32), i32, device),
         )
 
-    triangles = bvh = bvh8 = None
+    triangles = bvh = bvh8 = bvh2 = None
     if tri_verts:
         verts = np.concatenate(tri_verts)
         norms = np.concatenate(tri_norms)
         mats = np.concatenate(tri_mats)
         if verts.shape[0] >= BVH_THRESHOLD:
             bvh = build_bvh(verts, norms, mats, device=device)
-            bvh8 = pack_bvh8(bvh, device=device)
+            bvh8, bvh2 = choose_bvh_pack(bvh, device=device)
         else:
             triangles = TriangleArrays(
                 verts=_t(verts.astype(np.float32), f32, device),
@@ -474,8 +532,10 @@ def compile_scene(scene: Scene, device=None, digest: str = "") -> SceneData:
         triangles=triangles,
         bvh=bvh,
         bvh8=bvh8,
+        bvh2=bvh2,
         instanced=instanced,
         tlas8=tlas8,
+        tlas2=tlas2,
         lights=tuple(_compile_light(l, device) for l in scene.lights),
         environment=scene.environment,
         device=device,

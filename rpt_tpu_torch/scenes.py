@@ -10,10 +10,16 @@
   it: 768 instances of studded-brick meshes shared by many transforms,
   dozens of metallic, glass and specular materials, a ground plane, a
   sphere area light and a point light.
+- `lego_toy`: a copy of `examples/lego.py`'s scene without `--zip`: a
+  procedural toy brick plane written as OBJ + MTL text, loaded through
+  `load_obj_with_mtl` (one object per `usemtl` run: 108 triangles, four
+  materials, one of them transparent), scaled and moved as the example
+  does, under one sphere area light, with the example's camera.
 """
 
 from __future__ import annotations
 
+import io
 import math
 
 import numpy as np
@@ -25,7 +31,17 @@ from .materials import Material
 from .scene import Object, Scene
 from .shapes import Mesh, Transformed, plane, sphere, triangle_mesh
 
-__all__ = ["trefoil_mesh", "build_dragon_scene", "dragon_camera", "build_brick_city", "lego_camera"]
+__all__ = [
+    "trefoil_mesh",
+    "build_dragon_scene",
+    "dragon_camera",
+    "build_brick_city",
+    "lego_camera",
+    "TOY_MTL",
+    "toy_plane_obj",
+    "build_toy_plane_scene",
+    "toy_plane_camera",
+]
 
 
 def trefoil_mesh(segments: int = 600, sides: int = 100, radius: float = 0.09):
@@ -189,3 +205,79 @@ def build_brick_city(n_instances: int = 768, seed: int = 0) -> Scene:
 
 def lego_camera() -> Camera:
     return Camera.look_at((18.0, 14.0, 26.0), (0.0, 4.0, 0.0), (0.0, 1.0, 0.0), math.pi / 5)
+
+
+TOY_MTL = """
+newmtl red_brick
+Kd 0.8 0.1 0.1
+Ks 0.5 0.5 0.5
+Ns 96
+newmtl white_brick
+Kd 0.9 0.9 0.9
+Ks 0.4 0.4 0.4
+Ns 250
+newmtl window
+Kd 0.9 0.95 1.0
+Ni 1.5
+d 0.2
+newmtl gray_metal
+Kd 0.6 0.6 0.65
+Ks 0.9 0.9 0.9
+Ns 600
+"""
+
+
+def _box_obj(lines, x0, y0, z0, x1, y1, z1, base):
+    """Append an axis-aligned box to OBJ text; returns the next vertex base."""
+    vs = [
+        (x0, y0, z0), (x1, y0, z0), (x1, y1, z0), (x0, y1, z0),
+        (x0, y0, z1), (x1, y0, z1), (x1, y1, z1), (x0, y1, z1),
+    ]
+    for v in vs:
+        lines.append(f"v {v[0]} {v[1]} {v[2]}")
+    for f in ((1, 4, 3, 2), (5, 6, 7, 8), (1, 2, 6, 5), (2, 3, 7, 6), (3, 4, 8, 7), (4, 1, 5, 8)):
+        lines.append("f " + " ".join(str(base + i) for i in f))
+    return base + 8
+
+
+def toy_plane_obj() -> str:
+    """OBJ text of a blocky toy airplane: fuselage, wings, tail, windows,
+    engines, in four `usemtl` runs."""
+    lines = ["# procedural toy brick plane"]
+    b = 0
+    lines.append("usemtl red_brick")
+    b = _box_obj(lines, -120, 80, -40, 280, 160, 40, b)      # fuselage
+    b = _box_obj(lines, 240, 120, -30, 330, 200, 30, b)      # nose/cockpit top
+    lines.append("usemtl white_brick")
+    b = _box_obj(lines, -40, 120, -300, 120, 150, 300, b)    # main wing
+    b = _box_obj(lines, -160, 150, -110, -90, 180, 110, b)   # tail wing
+    b = _box_obj(lines, -160, 150, -15, -100, 280, 15, b)    # tail fin
+    lines.append("usemtl window")
+    b = _box_obj(lines, 150, 130, -45, 230, 170, 45, b)      # canopy
+    lines.append("usemtl gray_metal")
+    b = _box_obj(lines, 10, 90, -210, 110, 130, -150, b)     # engine L
+    b = _box_obj(lines, 10, 90, 150, 110, 130, 210, b)       # engine R
+    b = _box_obj(lines, -20, 40, -60, 40, 85, 60, b)         # landing gear
+    return "\n".join(lines)
+
+
+def build_toy_plane_scene() -> Scene:
+    """The toy plane loaded through the OBJ+MTL path, each object scaled by
+    0.002 and moved as the example does, and one sphere area light."""
+    from .io.obj import load_obj_with_mtl
+
+    scene = Scene()
+    for obj in load_obj_with_mtl(io.StringIO(toy_plane_obj()), io.StringIO(TOY_MTL)):
+        scene.add(Object(obj.shape.scale([0.002, 0.002, 0.002]).translate([-0.720, -0.243, -0.770]), obj.mat))
+    scene.add(
+        ObjectLight(
+            Object(sphere().scale([6.0, 6.0, 6.0]).translate([0.0, 20.0, 30.0])).material(
+                Material.light((1.0, 1.0, 1.0), 25.0)
+            )
+        )
+    )
+    return scene
+
+
+def toy_plane_camera() -> Camera:
+    return Camera.look_at((2.5, 2.0, 1.5), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), math.pi / 6)

@@ -19,7 +19,7 @@ from rpt_tpu.ops.bvh import build_bvh as ref_build_bvh
 from rpt_tpu.ops.bvh import bvh_closest_hit as ref_bvh_closest_hit
 from rpt_tpu.ops.bvh8_pallas import bvh8_closest_hit_pallas
 from rpt_tpu_torch.ops import bvh8
-from rpt_tpu_torch.ops.bvh import build_bvh, bvh_closest_hit
+from rpt_tpu_torch.ops.bvh import build_bvh
 from test_bvh_pallas import _random_mesh, _rays_at_mesh
 
 T_MIN = 1e-3
@@ -84,8 +84,6 @@ def test_closest_matches_reference_walks(n_tris):
     got = bvh8.bvh8_closest_hit(bvh, bvh8.pack_bvh8(bvh), to, td, T_MIN)
     _assert_hits_agree(got, np.asarray(xla.t), np.asarray(xla.mat_id))
     _assert_hits_agree(got, np.asarray(pallas.t), np.asarray(pallas.mat_id))
-    # The port's plain binary walk holds the same contract.
-    _assert_hits_agree(bvh_closest_hit(bvh, to, td, T_MIN), np.asarray(xla.t), np.asarray(xla.mat_id))
 
 
 def test_closest_normals_match_reference():

@@ -11,8 +11,9 @@ import numpy as np
 import pytest
 import torch
 
+import rpt_tpu_torch.scene as scene_mod
 from rpt_tpu_torch import Material, Object, Scene, Transformed, triangle_mesh
-from rpt_tpu_torch.ops import bvh8, tlas8
+from rpt_tpu_torch.ops import bvh2, bvh8, tlas2, tlas8
 from rpt_tpu_torch.ops.bvh import build_bvh
 from rpt_tpu_torch.ops.tlas import build_instanced
 
@@ -22,7 +23,7 @@ T_MIN = 1e-3
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the wide-BVH kernels are CUDA C++ with no CPU mode")
+        pytest.skip("needs a CUDA card: the BVH kernels are CUDA C++ with no CPU mode")
     return torch.device("cuda")
 
 
@@ -66,21 +67,69 @@ def test_kernels_match_plain_walks(card):
     assert torch.equal(occ_k, (t_p <= t_max) & active)
 
 
+def _counts():
+    return {name: fn.launches for name, fn in (
+        ("bvh8_closest", bvh8.bvh8_closest_hit), ("bvh8_occluded", bvh8.bvh8_occluded),
+        ("bvh2_closest", bvh2.bvh2_closest_hit), ("bvh2_occluded", bvh2.bvh2_occluded),
+        ("tlas8_closest", tlas8.tlas8_closest_hit), ("tlas8_occluded", tlas8.tlas8_occluded),
+        ("tlas2_closest", tlas2.tlas2_closest_hit), ("tlas2_occluded", tlas2.tlas2_occluded))}
+
+
+def _assert_goes_through(scene, family, o, d, t_max):
+    """The scene compiled on the card answers through `family`'s two
+    kernels, one launch each and no other, and equals its CPU compile."""
+    sd = scene.compile()  # the default device is the card
+    assert getattr(sd, family).tris.is_cuda
+    before = _counts()
+    hit = sd.intersect(o.to("cuda"), d.to("cuda"), T_MIN)
+    occ = sd.occluded(o.to("cuda"), d.to("cuda"), T_MIN, t_max)
+    after = _counts()
+    want = {name: n + (name.startswith(family + "_")) for name, n in before.items()}
+    assert after == want
+    cpu = scene.compile(device="cpu")
+    expect = cpu.intersect(o, d, T_MIN)
+    torch.testing.assert_close(hit.t.cpu(), expect.t, rtol=0, atol=0)
+    assert torch.equal(hit.mat_id.cpu(), expect.mat_id)
+    assert torch.equal(occ.cpu(), cpu.occluded(o, d, T_MIN, t_max))
+
+
 def test_scene_on_the_card_goes_through_the_kernels(card):
+    """A 500-triangle mesh is under WIDE_KERNEL_MIN_TRIS: the binary kernels."""
     (verts, norms, _), o, d = _mesh_and_rays(500, 2000, seed=3)
     scene = Scene()
     scene.add(Object(triangle_mesh(verts, norms)).material(Material.diffuse((0.5, 0.5, 0.5))))
-    sd = scene.compile()  # the default device is the card
-    assert sd.bvh8.bounds.is_cuda
-    closest, occluded = bvh8.bvh8_closest_hit.launches, bvh8.bvh8_occluded.launches
-    hit = sd.intersect(o.to(card), d.to(card), T_MIN)
-    occ = sd.occluded(o.to(card), d.to(card), T_MIN, 3.0)
-    assert bvh8.bvh8_closest_hit.launches == closest + 1
-    assert bvh8.bvh8_occluded.launches == occluded + 1
-    cpu = scene.compile(device="cpu")
-    want = cpu.intersect(o, d, T_MIN)
-    torch.testing.assert_close(hit.t.cpu(), want.t, rtol=0, atol=0)
-    assert torch.equal(occ.cpu(), cpu.occluded(o, d, T_MIN, 3.0))
+    _assert_goes_through(scene, "bvh2", o, d, 3.0)
+
+
+def test_scene_over_the_wide_threshold_goes_through_the_bvh8_kernels(card, monkeypatch):
+    (verts, norms, _), o, d = _mesh_and_rays(500, 2000, seed=3)
+    monkeypatch.setattr(scene_mod, "WIDE_KERNEL_MIN_TRIS", 256)
+    scene = Scene()
+    scene.add(Object(triangle_mesh(verts, norms)).material(Material.diffuse((0.5, 0.5, 0.5))))
+    _assert_goes_through(scene, "bvh8", o, d, 3.0)
+
+
+def test_bvh2_kernels_match_plain_walks(card):
+    """Built with -fmad=false, the binary kernels repeat the plain walks'
+    f32 arithmetic op for op: hit times and triangle ids agree exactly."""
+    (verts, norms, mats), o, d = _mesh_and_rays(3000, 5000)
+    pack = bvh2.pack_bvh2(build_bvh(verts, norms, mats, device="cpu"), device=card)
+    o, d = o.to(card), d.to(card)
+    active = torch.arange(o.shape[0], device=card) % 3 != 0
+    t_k, id_k = bvh2.bvh2_closest_kernel(pack, o, d, T_MIN, active)
+    t_p, id_p = bvh2.bvh2_closest_plain(pack, o, d, T_MIN, active)
+    torch.cuda.synchronize()
+    hit = t_p < 1e38
+    assert hit.float().mean() > 0.3
+    assert torch.equal(t_k, t_p)
+    assert torch.equal(id_k, id_p)
+    t_max = torch.where(hit, t_p, torch.full_like(t_p, 4.0))  # closed interval: t == t_max counts
+    t_max[::5] = 2.0
+    occ_k = bvh2.bvh2_occluded_kernel(pack, o, d, T_MIN, t_max, active)
+    occ_p = bvh2.bvh2_occluded_plain(pack, o, d, T_MIN, t_max, active)
+    torch.cuda.synchronize()
+    assert torch.equal(occ_k, occ_p)
+    assert torch.equal(occ_k, (t_p <= t_max) & active)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -90,6 +139,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         bvh8.bvh8_closest_kernel(pack, o, d, T_MIN)  # rays on the CPU
     with pytest.raises(TypeError):
         bvh8.bvh8_closest_kernel(pack, o.double().to(card), d.double().to(card), T_MIN)
+
+
+def test_bvh2_wrappers_refuse_what_the_kernels_do_not_take(card):
+    (verts, norms, mats), o, d = _mesh_and_rays(100, 64)
+    pack = bvh2.pack_bvh2(build_bvh(verts, norms, mats, device="cpu"), device=card)
+    with pytest.raises(ValueError):
+        bvh2.bvh2_closest_kernel(pack, o, d, T_MIN)  # rays on the CPU
+    with pytest.raises(TypeError):
+        bvh2.bvh2_closest_kernel(pack, o.double().to(card), d.double().to(card), T_MIN)
+    with pytest.raises(ValueError):
+        bvh2.bvh2_occluded_kernel(pack, o.to(card), d.to(card), T_MIN, torch.ones(3, device=card))
 
 
 def _instanced_and_rays(n_meshes, n_instances, n_rays, seed=0):
@@ -140,25 +200,60 @@ def test_tlas8_kernels_match_plain_walks(card):
     assert torch.equal(occ_k, (t_p <= t_max) & active)
 
 
-def test_shared_mesh_scene_on_the_card_goes_through_the_tlas8_kernels(card):
-    meshes, instances, o, d = _instanced_and_rays(2, 12, 2000, seed=3)
+def _shared_mesh_scene(seed=3):
+    meshes, instances, o, d = _instanced_and_rays(2, 12, 2000, seed=seed)
     scene = Scene()
     for k, m, mat in instances:
         scene.add(Object(Transformed(meshes[k], m)).material(Material.diffuse((0.2 + 0.2 * mat, 0.5, 0.5))))
-    sd = scene.compile()  # the default device is the card
-    assert sd.bvh is None and sd.tlas8.bounds.is_cuda
-    closest, occluded = tlas8.tlas8_closest_hit.launches, tlas8.tlas8_occluded.launches
-    before = (bvh8.bvh8_closest_hit.launches, bvh8.bvh8_occluded.launches)
-    hit = sd.intersect(o.to(card), d.to(card), T_MIN)
-    occ = sd.occluded(o.to(card), d.to(card), T_MIN, 9.0)
-    assert tlas8.tlas8_closest_hit.launches == closest + 1
-    assert tlas8.tlas8_occluded.launches == occluded + 1
-    assert (bvh8.bvh8_closest_hit.launches, bvh8.bvh8_occluded.launches) == before
-    cpu = scene.compile(device="cpu")
-    want = cpu.intersect(o, d, T_MIN)
-    torch.testing.assert_close(hit.t.cpu(), want.t, rtol=0, atol=0)
-    assert torch.equal(hit.mat_id.cpu(), want.mat_id)
-    assert torch.equal(occ.cpu(), cpu.occluded(o, d, T_MIN, 9.0))
+    return scene, o, d
+
+
+def test_shared_mesh_scene_on_the_card_goes_through_the_tlas8_kernels(card):
+    scene, o, d = _shared_mesh_scene()
+    _assert_goes_through(scene, "tlas8", o, d, 9.0)
+
+
+def test_binary_choice_takes_the_tlas2_kernels(card, monkeypatch):
+    monkeypatch.setattr(scene_mod, "_BVH_KERNEL", "binary")
+    scene, o, d = _shared_mesh_scene()
+    _assert_goes_through(scene, "tlas2", o, d, 9.0)
+
+
+def test_tlas2_kernels_match_plain_walks(card):
+    """Built with -fmad=false, the binary two-level kernels repeat the plain
+    walk's f32 arithmetic op for op, the instance transform included."""
+    meshes, instances, o, d = _instanced_and_rays(3, 40, 5000)
+    pack = tlas2.pack_tlas2(build_instanced(meshes, instances, device="cpu"), device=card)
+    o, d = o.to(card), d.to(card)
+    active = torch.arange(o.shape[0], device=card) % 3 != 0
+    t_k, id_k, inst_k = tlas2.tlas2_closest_kernel(pack, o, d, T_MIN, active)
+    t_p, id_p, inst_p = tlas2.tlas2_closest_plain(pack, o, d, T_MIN, active)
+    torch.cuda.synchronize()
+    hit = t_p < 1e38
+    assert hit.float().mean() > 0.3
+    assert torch.equal(t_k, t_p)
+    assert torch.equal(id_k, id_p)
+    assert torch.equal(inst_k, inst_p)
+    t_max = torch.where(hit, t_p, torch.full_like(t_p, 12.0))  # closed interval: t == t_max counts
+    t_max[::5] = 8.0
+    occ_k = tlas2.tlas2_occluded_kernel(pack, o, d, T_MIN, t_max, active)
+    occ_p = tlas2.tlas2_occluded_plain(pack, o, d, T_MIN, t_max, active)
+    torch.cuda.synchronize()
+    assert torch.equal(occ_k, occ_p)
+    assert torch.equal(occ_k, (t_p <= t_max) & active)
+
+
+def test_tlas2_wrappers_refuse_what_the_kernels_do_not_take(card):
+    meshes, instances, o, d = _instanced_and_rays(1, 5, 64)
+    pack = tlas2.pack_tlas2(build_instanced(meshes, instances, device="cpu"), device=card)
+    with pytest.raises(ValueError):
+        tlas2.tlas2_closest_kernel(pack, o, d, T_MIN)  # rays on the CPU
+    with pytest.raises(TypeError):
+        tlas2.tlas2_closest_kernel(pack, o.double().to(card), d.double().to(card), T_MIN)
+    with pytest.raises(ValueError):
+        tlas2.tlas2_closest_kernel(pack, o.to(card)[:, :2], d.to(card)[:, :2], T_MIN)
+    with pytest.raises(ValueError):
+        tlas2.tlas2_occluded_kernel(pack, o.to(card), d.to(card), T_MIN, torch.ones(3, device=card))
 
 
 def test_tlas8_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -13,6 +13,10 @@ for those few pixels and no more.
 materials) run twice each: once through each package's own
 `Scene.compile`, and once with the JAX package's compiled scene, BVH or
 two-level tree carried into the port by `convert.scene_data_from_arrays`.
+Both run again under each kernel choice (`RPT_BVH_KERNEL` binary, a lowered
+`WIDE_KERNEL_MIN_TRIS`) and through the wide packs' fallback to the binary
+kernels; the toy brick plane of `examples/lego.py` runs through the OBJ+MTL
+loader of each package.
 """
 
 import dataclasses
@@ -28,10 +32,18 @@ import torch
 
 import rpt_tpu
 import rpt_tpu_torch
+import rpt_tpu_torch.scene as scene_mod
 from rpt_tpu.renderer import pixel_ndc_tiled as ref_pixel_ndc_tiled
 from rpt_tpu_torch import convert
-from rpt_tpu_torch.ops.tlas8 import tlas8_closest_hit
-from rpt_tpu_torch.scenes import build_brick_city, build_dragon_scene, dragon_camera, lego_camera
+from rpt_tpu_torch.ops import bvh8, tlas8
+from rpt_tpu_torch.scenes import (
+    build_brick_city,
+    build_dragon_scene,
+    build_toy_plane_scene,
+    dragon_camera,
+    lego_camera,
+    toy_plane_camera,
+)
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
 W, H = 64, 48
@@ -235,8 +247,8 @@ def assert_instances_seen(port_sd, ref):
     key = jax.random.fold_in(jax.random.PRNGKey(SEED), 0)
     xg, yg, _, _ = ref_pixel_ndc_tiled(W, H)
     o, d = ref["cam"].cast_rays(xg, yg, key)
-    hit = tlas8_closest_hit(port_sd.instanced, port_sd.tlas8, torch.as_tensor(np.array(o)),
-                            torch.as_tensor(np.array(d)), ref["eps"])
+    hit = tlas8.tlas8_closest_hit(port_sd.instanced, port_sd.tlas8, torch.as_tensor(np.array(o)),
+                                  torch.as_tensor(np.array(d)), ref["eps"])
     assert torch.isfinite(hit.t).sum() > 100
 
 
@@ -264,6 +276,96 @@ def test_brick_city_converted_scene_matches_reference(brick_city_ref):
     ref_hit, got = depth0_hits(ref["scene"], ref["cam"], port_sd, eps)
     assert_depth0_agrees(ref_hit, got)
     assert_images_agree(render_port(port_scene, cam, eps, 1, scene_data=port_sd), ref["img"])
+
+
+# ---------------------------------------------------------------------------
+# The kernel choice, its fallback, and the OBJ+MTL toy plane
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def dragon_ref():
+    """The JAX package's 5k dragon, compiled scene and 1-spp image, made once.
+    Its own RPT_BVH_KERNEL switch picks among TPU kernels only: on the CPU it
+    always walks its XLA loop, so one reference image serves every choice."""
+    (ref_scene, ref_cam, eps), _ = dragon_scenes()
+    return dict(scene=ref_scene, cam=ref_cam, eps=eps, img=render_ref(ref_scene, ref_cam, eps, 1))
+
+
+def assert_port_dragon_matches(ref, family):
+    _, (port_scene, port_cam, eps) = dragon_scenes()
+    port_sd = port_scene.compile(device="cpu")
+    assert {f for f in ("bvh8", "bvh2") if getattr(port_sd, f) is not None} == {family}
+    ref_hit, got = depth0_hits(ref["scene"], ref["cam"], port_sd, eps)
+    assert_depth0_agrees(ref_hit, got)
+    assert_images_agree(render_port(port_scene, port_cam, eps, 1), ref["img"])
+
+
+@pytest.mark.parametrize("choice", ["binary", "wide"])
+def test_dragon_kernel_choice_matches_reference(dragon_ref, choice, monkeypatch):
+    """RPT_BVH_KERNEL=binary takes the binary kernels; under "wide" a BVH
+    over a lowered WIDE_KERNEL_MIN_TRIS takes the wide ones. The 5k dragon
+    (5,456 rows) is under the default 16,384, so "wide" alone would also
+    take the binary kernels."""
+    if choice == "binary":
+        monkeypatch.setattr(scene_mod, "_BVH_KERNEL", "binary")
+    else:
+        monkeypatch.setattr(scene_mod, "WIDE_KERNEL_MIN_TRIS", 4096)
+    assert_port_dragon_matches(dragon_ref, "bvh8" if choice == "wide" else "bvh2")
+
+
+def test_dragon_wide_pack_refusal_falls_back_to_binary(dragon_ref, monkeypatch):
+    """A wide pack that refuses the tree (its stack need over the cap)
+    warns and leaves the BVH to the binary kernels, which render the same
+    image."""
+    monkeypatch.setattr(scene_mod, "WIDE_KERNEL_MIN_TRIS", 4096)
+    monkeypatch.setattr(bvh8, "STACK_CAP", 2)
+    with pytest.warns(UserWarning, match="falling back to the binary BVH kernels"):
+        assert_port_dragon_matches(dragon_ref, "bvh2")
+
+
+def assert_port_city_matches(ref, family):
+    _, (port_scene, port_cam, eps) = brick_city_scenes()
+    port_sd = port_scene.compile(device="cpu")
+    assert {f for f in ("tlas8", "tlas2") if getattr(port_sd, f) is not None} == {family}
+    ref_hit, got = depth0_hits(ref["scene"], ref["cam"], port_sd, eps)
+    assert_depth0_agrees(ref_hit, got)
+    assert_images_agree(render_port(port_scene, port_cam, eps, 1), ref["img"])
+
+
+def test_brick_city_binary_choice_matches_reference(brick_city_ref, monkeypatch):
+    monkeypatch.setattr(scene_mod, "_BVH_KERNEL", "binary")
+    assert_port_city_matches(brick_city_ref, "tlas2")
+
+
+def test_brick_city_wide_pack_refusal_falls_back_to_binary(brick_city_ref, monkeypatch):
+    monkeypatch.setattr(tlas8, "STACK_CAP", 4)
+    with pytest.warns(UserWarning, match="falling back to the binary two-level kernels"):
+        assert_port_city_matches(brick_city_ref, "tlas2")
+
+
+def toy_plane_scenes():
+    """The toy brick plane of `examples/lego.py` (no `--zip`): the JAX
+    example's own builder, and the port's copy, each through its package's
+    OBJ+MTL loader."""
+    sys.path.insert(0, EXAMPLES)
+    import lego
+
+    ref = lego.build_scene()
+    cam = rpt_tpu.Camera.look_at((2.5, 2.0, 1.5), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), math.pi / 6)
+    return (ref, cam, 1e-3), (build_toy_plane_scene(), toy_plane_camera(), 1e-3)
+
+
+def test_toy_plane_matches_reference():
+    (ref_scene, ref_cam, eps), (port_scene, port_cam, _) = toy_plane_scenes()
+    port_sd = port_scene.compile(device="cpu")
+    # 108 triangles in four usemtl runs, baked into one 160-row BVH: the
+    # binary kernels, as in the reference.
+    assert port_sd.bvh2 is not None and port_sd.bvh.num_tris == 160
+    assert port_sd.materials.color.shape[0] == 4 and float(port_sd.materials.transparent.max()) == 1.0
+    ref_hit, got = depth0_hits(ref_scene, ref_cam, port_sd, eps)
+    assert_depth0_agrees(ref_hit, got)
+    assert_images_agree(render_port(port_scene, port_cam, eps, 2), render_ref(ref_scene, ref_cam, eps, 2))
 
 
 def test_buffer_statistics_match_reference():

@@ -1,9 +1,10 @@
 """The port's instanced meshes against the JAX package.
 
 `build_instanced` must give the reference's arrays exactly. The plain
-two-level walks (`instanced_closest_hit`, and `tlas8_closest_plain` /
-`tlas8_occluded_plain`, which carry the contract of the CUDA kernels in
-`rpt_tpu_torch/csrc/tlas8.cu`) are held to the reference's own bar
+two-level walks (`tlas8_closest_plain` / `tlas8_occluded_plain`, which
+carry the contract of the CUDA kernels in `rpt_tpu_torch/csrc/tlas8.cu`;
+the binary two-level walks are in `tests/test_torch_tlas2.py`) are held to
+the reference's own bar
 (`tests/test_tlas8_pallas.py`): exact hit mask and material id, `t` to
 rtol/atol 2e-5, normals to 1e-3, and the any-hit query exactly equal to
 `closest.t <= t_max`. The kernels themselves are held against the plain
@@ -20,7 +21,7 @@ from rpt_tpu.ops import tlas8_pallas as ref_t8
 from rpt_tpu.ops.tlas import build_instanced as ref_build_instanced
 from rpt_tpu.ops.tlas import instanced_closest_hit as ref_instanced_closest_hit
 from rpt_tpu_torch.ops import tlas8
-from rpt_tpu_torch.ops.tlas import build_instanced, instanced_closest_hit
+from rpt_tpu_torch.ops.tlas import build_instanced
 from test_tlas_pallas import _build_instanced_scene, _rays_at_instances
 
 T_MIN = 1e-3
@@ -68,8 +69,6 @@ def test_closest_matches_reference_walks(n_meshes, n_instances):
     got = tlas8.tlas8_closest_hit(im, pack, to, td, T_MIN)
     _assert_hits_agree(got, xla)
     _assert_hits_agree(got, pallas)
-    # The port's plain binary two-level walk holds the same contract.
-    _assert_hits_agree(instanced_closest_hit(im, to, td, T_MIN), xla)
 
 
 def test_pack_matches_reference_structure():
@@ -161,8 +160,6 @@ def test_active_mask_parks_lanes():
     got = tlas8.tlas8_closest_hit(im, pack, to, td, T_MIN, active=active)
     assert not torch.isfinite(got.t[1::2]).any()
     np.testing.assert_array_equal(got.t[0::2].numpy(), full.t[0::2].numpy())
-    plain = instanced_closest_hit(im, to, td, T_MIN, active=active)
-    assert not torch.isfinite(plain.t[1::2]).any()
     occ = tlas8.tlas8_occluded(im, pack, to, td, T_MIN, 100.0, active=active)
     assert not occ[1::2].any()
     np.testing.assert_array_equal(occ[0::2].numpy(), torch.isfinite(full.t[0::2]).numpy())
