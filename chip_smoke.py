@@ -31,6 +31,14 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    e. profiles one sample (device-busy share, the kernels' share);
    f. times each of the path's kernels per launch beside its plain
       version and its bound;
+   on `lego` also:
+   g. `[tlas8_vs_exact]`: the tlas8 kernels (node-group stack) against the
+      walk of the previous layout (one stack entry per hit child,
+      `tlas8.exact_table`) on every wavefront;
+   h. `[tlas8_before_after]`: the tlas8 kernels and the hit finalize of other
+      trees of the repository (`RPT_TLAS8_COMPARE=label=dir,...`, e.g. a
+      `git archive` of the parent commit), timed in turns with this tree's
+      on the same wavefronts; skipped when no tree is named;
 4. prints one JSON line `{"kernels": [...]}` with one row for each of the
    eight kernels, then the last line `{"ok": true, "device": {...}}`.
 
@@ -40,6 +48,8 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import importlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -177,15 +187,16 @@ def profile_sample(render, kernel_tag: str):
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     total = sum(by_name.values())
     walk_us = sum(v for k, v in by_name.items() if kernel_tag in k)
+    gemv_us = sum(v for k, v in by_name.items() if "gemv" in k.lower())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     say("profile", window_ms=f"{wall_us / 1e3:.2f}", device_busy_ms=f"{busy / 1e3:.2f}",
-        idle_share=f"{1.0 - busy / wall_us:.3f}", kernel_launches=len(kernels),
+        idle_share=f"{1.0 - busy / wall_us:.3f}", kernel_launches=len(kernels), gemv_ms=f"{gemv_us / 1e3:.3f}",
         **{f"{kernel_tag}_share_of_device_time": f"{walk_us / total:.3f}"})
     for name, us in top:
         say("profile", kernel=json.dumps(name), device_ms=f"{us / 1e3:.3f}", share=f"{us / total:.3f}")
 
 
-def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active) -> float:
+def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active, phase="parity") -> float:
     """Kernel vs plain closest hit; returns the largest |t| difference.
     `mat_of(outputs, hit mask)` gives the material ids of the hits; an
     instance id, where the kernel returns one, must agree too."""
@@ -202,7 +213,7 @@ def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active) -> float
     t_ok = bool(torch.allclose(t_k[both], t_p[both], rtol=T_TOL, atol=T_TOL))
     mat_ok = bool((mat_of(out_k, both) == mat_of(out_p, both)).all())
     inst_ok = len(out_k) < 3 or bool((out_k[2][both] == out_p[2][both]).all())
-    say("parity", kernel=name, rays=rays, n=o.shape[0], hits=int(hit_p.sum()), mask_agree=f"{agree:.7f}",
+    say(phase, kernel=name, rays=rays, n=o.shape[0], hits=int(hit_p.sum()), mask_agree=f"{agree:.7f}",
         max_abs_t_err=err, mat_ok=mat_ok, **({} if len(out_k) < 3 else {"inst_ok": inst_ok}))
     if agree < PARITY_MIN or not t_ok or not mat_ok or not inst_ok:
         fail(f"{name} kernel disagrees with its plain version on {rays}")
@@ -284,6 +295,7 @@ def _run_workload(workload: str, card: str) -> list:
     if pack is None:
         fail(f"{workload} compiled without a {family} pack")
     sizes = dict(nodes=pack.num_nodes, stack_need=getattr(pack, "stack_need", "none (stackless)"),
+                 **{k: getattr(pack, k) for k in ("group_depth", "node_bytes") if hasattr(pack, k)},
                  materials=sd.materials.color.shape[0], pack_mb=f"{pack.nbytes / 2**20:.3f}", seconds=f"{seconds:.2f}")
     if family in ("bvh8", "bvh2"):
         bvh = sd.bvh
@@ -327,6 +339,11 @@ def _run_workload(workload: str, card: str) -> list:
                                                           bound_plain(occluded), bound_plain(closest), *args))
     if workload == "dragon_binary":
         binary_vs_wide(sd, pack, rec, mat_of, card)
+    exact = None
+    if family == "tlas8":
+        exact = tlas8.exact_table(im, device=DEVICE)
+        tlas8_vs_exact(pack, exact, rec, mat_of)
+        tlas8_before_after(im, pack, rec, card)
 
     # c. The port on the CPU against the port on the card, same seed.
     small = {}
@@ -378,7 +395,15 @@ def _run_workload(workload: str, card: str) -> list:
         for a in args:  # also the plain version's warm-up
             plain[name](pack, *a, stats=stats)
         plain_ms = time_ms(bound_plain(name), args, reps=1, warmup=False)
-        t_bytes, t_ops = bound_ms(spec, pack, args, stats)
+        walk_stats, table = stats, pack
+        if exact is not None:
+            # The bound counts the work of the exact f32-box walk on the same
+            # rays, whatever layout the kernel reads.
+            exact_walk = getattr(tlas8, name + "_exact")
+            stats, table = {}, exact
+            for a in args:
+                exact_walk(exact, *a, stats=stats)
+        t_bytes, t_ops = bound_ms(spec, table, args, stats)
         rows.append({
             "name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
             "launches": launches[name], "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
@@ -388,6 +413,15 @@ def _run_workload(workload: str, card: str) -> list:
             "tri_tests_per_launch": stats["tri_tests"] / len(args),
             "inst_entries_per_launch": stats.get("inst_entries", 0) / len(args),
         })
+        if exact is not None:
+            rows[-1].update({
+                "bound_counts": "the exact f32-box walk (tlas8.exact_table)",
+                "walk_box_tests_per_launch": walk_stats["box_tests"] / len(args),
+                "walk_tri_tests_per_launch": walk_stats["tri_tests"] / len(args),
+                "walk_inst_entries_per_launch": walk_stats["inst_entries"] / len(args),
+                "walk_max_group_depth": walk_stats["max_group_depth"], "group_depth": pack.group_depth,
+                "node_bytes": pack.node_bytes, "pack_mb": pack.nbytes / 2**20,
+            })
         say("timing", workload=workload, kernel=name, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
             bound_ms=f"{rows[-1]['bound_ms']:.5f}", bound_by=rows[-1]["bound_by"],
             box_tests_per_launch=f"{rows[-1]['box_tests_per_launch']:.0f}",
@@ -453,6 +487,120 @@ def binary_vs_wide(sd, pack2, rec, mat_of, card):
             card=json.dumps(card))
 
 
+def tlas8_vs_exact(pack, exact, rec, mat_of):
+    """lego only: the tlas8 kernels, which walk a node-group stack, against
+    the walk of the previous layout (one stack entry per hit child,
+    `tlas8.exact_table`) on every recorded wavefront: hit mask on
+    PARITY_MIN of rays, t to T_TOL, equal material and instance ids, and the
+    any hit on PARITY_MIN of rays. Both test the same f32 boxes in the same
+    order, so they agree bit for bit. These launches go around the counted
+    wrappers."""
+    from rpt_tpu_torch.ops import tlas8
+
+    for depth, args in enumerate(rec["tlas8_closest"]):
+        check_closest("tlas8_closest vs exact", f"depth{depth}", lambda *a: tlas8.tlas8_closest_kernel(pack, *a),
+                      lambda *a: tlas8.tlas8_closest_exact(exact, *a), mat_of, *args, phase="tlas8_vs_exact")
+    for j, (o, d, t_min, t_max, active) in enumerate(rec["tlas8_occluded"]):
+        occ_k = tlas8.tlas8_occluded_kernel(pack, o, d, t_min, t_max, active)
+        occ_x = tlas8.tlas8_occluded_exact(exact, o, d, t_min, t_max, active)
+        differ = int((occ_k != occ_x).sum())
+        say("tlas8_vs_exact", kernel="tlas8_occluded vs exact", rays=f"shadow{j}", n=o.shape[0],
+            occluded=int(occ_x.sum()), agree=f"{1.0 - differ / o.shape[0]:.7f}", differ=differ)
+        if 1.0 - differ / o.shape[0] < PARITY_MIN:
+            fail(f"the tlas8 any-hit kernel disagrees with the exact walk on shadow{j}")
+
+
+def load_tree(label: str, root: str):
+    """The `rpt_tpu_torch` package of another tree of the repository (e.g. a
+    `git archive` of the parent commit), imported as its own package
+    `rpt_tpu_torch_<label>`, with its CUDA kernels built from its own
+    sources into its own `_build/`. Prints the build's ptxas lines."""
+    name = f"rpt_tpu_torch_{label}"
+    pkg = os.path.join(os.path.abspath(root), "rpt_tpu_torch")
+    if not os.path.isfile(os.path.join(pkg, "__init__.py")):
+        fail(f"RPT_TLAS8_COMPARE names {root}, which holds no rpt_tpu_torch package")
+    spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
+                                                  submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    kernels = importlib.import_module(f"{name}.kernels")
+    info = kernels.build(force=True)
+    for line in info["tlas8"]["log"].splitlines():
+        if any(k in line for k in ("entry function", "registers", "spill", "stack frame")):
+            say("ptxas", source=f"{label}:tlas8", line=json.dumps(line.strip()))
+    return importlib.import_module(f"{name}.ops.tlas8")
+
+
+def tlas8_before_after(im, pack, rec, card):
+    """lego only, and self-contained (a later PR may delete it whole): the
+    tlas8 kernels and the hit finalize of the trees named in
+    RPT_TLAS8_COMPARE (`label=dir,...`), each with its own pack of the same
+    scene, against this tree's, on the recorded wavefronts, timed in turns
+    (trees, this, this, trees reversed) on one card, with each pack's node
+    bytes, size and group-stack depth. These launches go around the counted
+    wrappers."""
+    import torch
+
+    from rpt_tpu_torch.ops import tlas8
+
+    trees = [item.split("=", 1) for item in os.environ.get("RPT_TLAS8_COMPARE", "").split(",") if item]
+    if not trees:
+        say("tlas8_before_after", skipped="RPT_TLAS8_COMPARE names no tree")
+        return
+    mods = {"this": tlas8}
+    packs = {"this": pack}
+    for label, root in trees:
+        mods[label] = load_tree(label, root)
+        packs[label] = mods[label].pack_tlas8(im, device=DEVICE)
+    labels = [label for label, _ in trees]
+    turns = labels + ["this", "this"] + labels[::-1]
+    for label, p in packs.items():
+        node_bytes = getattr(p, "node_bytes", None) or sum(getattr(p, f).shape[1] * 4 for f in ("bounds", "meta"))
+        say("tlas8_before_after", tree=label, node_bytes=node_bytes, pack_mb=f"{p.nbytes / 2**20:.3f}",
+            group_depth=getattr(p, "group_depth", "none (one entry per child)"), stack_need=p.stack_need)
+
+    def kernel(label, kind):
+        fn, p = getattr(mods[label], f"tlas8_{kind}_kernel"), packs[label]
+        return lambda *a: fn(p, *a)
+
+    for kind in ("closest", "occluded"):
+        args = rec[f"tlas8_{kind}"]
+        ref = [kernel("this", kind)(*a) for a in args]
+        for label in labels:  # every tree gives the same answers on these rays
+            out = [kernel(label, kind)(*a) for a in args]
+            agree = min(float((x[0] == y[0]).float().mean()) if kind == "closest" else float((x == y).float().mean())
+                        for x, y in zip(out, ref))
+            say("tlas8_before_after", kind=kind, tree=label, agree_with_this=f"{agree:.7f}")
+        times = {label: [] for label in turns}
+        for label in turns:
+            times[label].append(time_ms(kernel(label, kind), args, reps=10))
+        ms = {label: sum(v) / len(v) for label, v in times.items()}
+        say("tlas8_before_after", kind=kind, launches=len(args),
+            **{f"{label}_ms": f"{ms[label]:.4f}" for label in ms},
+            **{f"{label}_turns_ms": json.dumps([round(t, 5) for t in times[label]]) for label in ms},
+            **{f"{label}_over_this": f"{ms[label] / ms['this']:.3f}" for label in labels}, card=json.dumps(card))
+
+    # The hit finalize: this tree's elementwise 3x3 products against each
+    # tree's own, on the closest-hit wavefronts' winners.
+    fin_args = []
+    for o, d, t_min, active in rec["tlas8_closest"]:
+        fin_args.append((o, d, t_min, *tlas8.tlas8_closest_kernel(pack, o, d, t_min, active)))
+
+    def finalize(label):
+        return lambda *a: mods[label]._finalize(im, pack, *a)
+
+    for label in labels:
+        dn = max(float((finalize(label)(*a).normal - finalize("this")(*a).normal).abs().max()) for a in fin_args)
+        say("tlas8_before_after", finalize_tree=label, max_abs_normal_diff=f"{dn:.3e}")
+    times = {label: [] for label in turns}
+    for label in turns:
+        times[label].append(time_ms(finalize(label), fin_args, reps=5))
+    torch.cuda.synchronize()
+    say("tlas8_before_after", finalize_calls=len(fin_args),
+        **{f"{label}_finalize_ms": f"{sum(v) / len(v):.4f}" for label, v in times.items()}, card=json.dumps(card))
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isfile(os.path.join(root, "rpt_tpu_torch", "__init__.py")):
@@ -480,7 +628,7 @@ def main():
     for name, res in info.items():
         say("build", source=f"rpt_tpu_torch/csrc/{name}.cu", seconds=f"{res['seconds']:.2f}")
         for line in res["log"].splitlines():
-            if "registers" in line or "spill" in line or "stack frame" in line:
+            if any(k in line for k in ("entry function", "registers", "spill", "stack frame")):
                 say("ptxas", source=name, line=json.dumps(line.strip()))
 
     # 3. Each workload's path. One row per kernel: a kernel on several

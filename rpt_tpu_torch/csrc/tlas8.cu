@@ -9,48 +9,59 @@
 // One kernel covers both TPU memory modes: the "resident" and "dma" modes,
 // the ring of node copies and the pending-leaf double buffer exist only to
 // fit the TPU's VMEM and hide its DMA latency. Here the whole table sits in
-// device memory (the 768-instance brick city packs into ~5.5 MB, which the
+// device memory (the 768-instance brick city packs into a few MB, which the
 // 50 MB L2 holds). The pack layout is documented in
 // rpt_tpu_torch/ops/tlas8.py, which also holds the plain torch versions
 // these kernels are tested against.
 //
-// What bounds it on this card: as for the one-level walk (bvh8.cu), a BVH
-// walk is neither a streaming nor a dense-math workload. Per ray it does a
-// few tens of box tests, a few instance entries (an 18-multiply affine
-// transform each) and a few triangle tests, separated by dependent loads of
-// node, instance and triangle rows. The least time the card could take is
-// that of the f32 operations or of reading the rays and the pack once,
-// microseconds either way; the kernel is held back by load latency and by
-// warp divergence (PERF.md has the measured times beside the bound).
+// What bounds it on this card: a BVH walk is neither a streaming nor a
+// dense-math workload. Per ray it does a few tens of box tests, a few
+// instance entries (an 18-multiply affine transform each) and a few
+// triangle tests, separated by dependent loads of node, instance and
+// triangle rows from L2. The least time the card could take is that of the
+// f32 operations or of reading the rays and the pack once, microseconds
+// either way; the kernel is held back by load latency, which only more
+// warps in flight hide, and by warp divergence (PERF.md has the measured
+// times beside the bound).
 //
-// What this design does about it (right and simple first):
-//   - one ray per thread and a per-thread stack of tagged entries
-//     `node << 2 | tag`:
-//       tag 0: a wide node slabbed with the world ray (the TLAS part);
-//       tag 1: a wide node slabbed with the current instance's local ray;
-//       tag 2: an instance entry: load the 3x4 world->local affine as three
-//              float4 (walk.cuh to_local), re-express the ray with the
-//              direction NOT normalized
-//              (so local t == world t and the running-best prune holds at
-//              both levels), and replace the entry with the mesh's BLAS
-//              root, tag 1.
-//     LIFO order guarantees that every tag-1 entry above an instance entry
-//     belongs to that instance, so one local ray per thread suffices;
-//   - triangle leaves are tested at once, in the current local frame;
-//   - children are visited near to far by the world direction's octant at
-//     both levels (far-first pushes of internal and instance children, then
-//     near-first leaves); the order changes nothing but exact ties;
+// What this design does about it: one ray per thread and a node-group
+// stack (Ylitie, Karras and Laine, HPG 2017):
+//   - visiting a node slab-tests its 8 children against the best hit so
+//     far, tests its hit triangle leaves at once, near first, in the
+//     current frame, and makes its hit wide-node and instance children one
+//     group, held in registers: (node, 8-bit mask of them by rank in the
+//     world direction's octant order);
+//   - the walk enters the group's lowest rank and pushes the group back as
+//     one 32-bit entry `node << 8 | mask` while bits remain, so the stack
+//     holds at most one entry per tree level. Its exact worst-case depth,
+//     the pack's `group_depth`, sizes it in dynamic shared memory, indexed
+//     [level][thread] so that neighbouring lanes fall in different banks;
+//     no per-thread local-memory stack;
+//   - an instance child loads the 3x4 world->local affine (walk.cuh
+//     to_local), re-expresses the ray with the direction NOT normalized (so
+//     local t == world t and the running-best prune holds at both levels)
+//     and enters its BLAS root. LIFO order means one ray per thread, in the
+//     frame of the nodes being visited, suffices: the world ray is loaded
+//     again at an instance entry and on the return to a TLAS group;
 //   - pruning on the running best hit (closest) or on t_max (any hit); the
 //     any-hit walk returns at its first occluder.
-// Warp-coherent scheduling (ray sorting, persistent threads) is later work.
+// The visit order is that of a stack with one entry per hit child, pushed
+// far first: a node's leaves, then its children near to far, each subtree
+// whole before the next sibling. The nodes keep their f32 child boxes: a
+// 128-byte node with 8-bit boxes decoded in the kernel was measured slower
+// on the brick city, whose triangle rows, not its nodes, make up the bytes
+// (PERF.md, Findings). Warp-coherent scheduling (ray sorting, persistent
+// threads) is later work.
 //
 // Numerics: every expression is written in the same order as the plain
-// torch version (ops/bvh8.py `_walk_plain`), the instance transform as
+// torch version (ops/tlas8.py `_group_walk`), the instance transform as
 // ((a0*ox + a1*oy) + a2*oz) + a3, and the build uses -fmad=false: the
 // kernel and the plain version agree bit for bit.
 //
 // C interface for ctypes: each entry point launches on the given stream,
-// allocates nothing, and returns cudaGetLastError() after the launch.
+// allocates nothing, and returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue if the stack does not fit in one block's shared
+// memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,19 +70,22 @@
 
 namespace {
 
-constexpr int kInstChild = -2;  // meta b of an instance child (a = instance id)
-constexpr int kTagWorld = 0;
-constexpr int kTagLocal = 1;
-constexpr int kTagInst = 2;
+constexpr int kMetaT8 = 16;  // int32 per node: 8 child references, 8 octant words
+constexpr int kKindNode = 1;  // reference kinds (ops/tlas8.py): 0 empty, 1 node, 2 instance, 3 leaf
+constexpr int kKindInst = 2;
+constexpr int kKindLeaf = 3;
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may hold (227 KB)
 
 template <bool kOccl>
 __global__ void __launch_bounds__(kBlock)
-tlas8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta,
+tlas8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta, int n_tlas,
            const float4* __restrict__ inst, const int* __restrict__ inst_root,
            const float4* __restrict__ tris, const float* __restrict__ o,
            const float* __restrict__ d, const bool* __restrict__ active,
            const float* __restrict__ t_max, int n, float t_min, float* __restrict__ t_out,
            int* __restrict__ id_out, int* __restrict__ inst_out, bool* __restrict__ occ_out) {
+  extern __shared__ unsigned group_stack[];  // [level][threadIdx.x]
+  unsigned* stack = group_stack + threadIdx.x;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   if (active != nullptr && !active[i]) {
@@ -84,48 +98,48 @@ tlas8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta,
     }
     return;
   }
-  const Ray w = load_ray(o, d, i);  // the world ray
-  Ray l = w;  // the current instance's local ray, set at each instance entry
+  // The ray in the frame of the nodes being visited. The world ray is not
+  // kept beside it: it is loaded again where the walk needs it (an instance
+  // entry, a return to the TLAS), which saves the registers of a second ray.
+  Ray r = load_ray(o, d, i);
+  bool local = false;
 
   // Closest hit: `upper` is the running best t. Any hit: it is t_max.
   float upper = kOccl ? t_max[i] : kBig;
   int best = 0;
   int best_inst = 0;
   int cur_inst = 0;
-  int stack[kStackCap];
-  int sp = 1;
-  stack[0] = kTagWorld;  // the TLAS root, wide node 0
-  while (sp > 0) {
-    const int e = stack[--sp];
-    const int tag = e & 3;
-    const int idx = e >> 2;
-    if (tag == kTagInst) {
-      to_local(inst + (size_t)idx * kInst4, w, &l);
-      cur_inst = idx;
-      stack[sp++] = (__ldg(inst_root + idx) << 2) | kTagLocal;
-      continue;
-    }
-    const Ray r = (tag == kTagLocal) ? l : w;
-    const unsigned mask = child_mask(bounds + (size_t)idx * kNode4, r, t_min, upper);
-    const int* m = meta + (size_t)idx * kMeta;
-    const int word = __ldg(m + 16 + w.oct);
-    // Hit internal and instance children, far first, so the nearest is
-    // popped next. An internal child keeps its parent's frame.
+  int sp = 0;
+  int node = 0;  // the TLAS root
+  while (true) {
+    // Visit `node`, in r's frame.
+    const unsigned hit = child_mask(bounds + (size_t)node * kNode4, r, t_min, upper);
+    const int* m = meta + (size_t)node * kMetaT8;
+    const int4 ra = __ldg(reinterpret_cast<const int4*>(m));
+    const int4 rb = __ldg(reinterpret_cast<const int4*>(m) + 1);
+    const int kind[8] = {ra.x & 3, ra.y & 3, ra.z & 3, ra.w & 3, rb.x & 3, rb.y & 3, rb.z & 3, rb.w & 3};
+    unsigned leaves = 0, groups = 0;  // by slot
 #pragma unroll
-    for (int k = 7; k >= 0; --k) {
-      const int ck = (word >> (4 * k)) & 7;
-      const int b = __ldg(m + 8 + ck);
-      if (((mask >> ck) & 1u) && (b == 0 || b == kInstChild)) {
-        stack[sp++] = (__ldg(m + ck) << 2) | (b == kInstChild ? kTagInst : tag);
-      }
+    for (int c = 0; c < 8; ++c) {
+      const unsigned h = (hit >> c) & 1u;
+      leaves |= (h && kind[c] == kKindLeaf) << c;
+      groups |= (h && (kind[c] == kKindNode || kind[c] == kKindInst)) << c;
     }
-    // Hit triangle leaves (BLAS part only), near first, each against the
-    // best hit so far, in the current instance's frame.
+    const int word = __ldg(m + 8 + r.oct);
+    unsigned lmask = 0, gmask = 0;  // by rank
+#pragma unroll
     for (int k = 0; k < 8; ++k) {
       const int ck = (word >> (4 * k)) & 7;
-      const int cnt = __ldg(m + 8 + ck);
-      if (!((mask >> ck) & 1u) || cnt <= 0) continue;
-      const int start = __ldg(m + ck);
+      lmask |= ((leaves >> ck) & 1u) << k;
+      gmask |= ((groups >> ck) & 1u) << k;
+    }
+    // Hit triangle leaves, near first, each against the best hit so far.
+    while (lmask) {
+      const int k = __ffs(lmask) - 1;
+      lmask &= lmask - 1;
+      const int payload = __ldg(m + ((word >> (4 * k)) & 7)) >> 2;
+      const int start = (payload >> 3) << 3;
+      const int cnt = (payload & 7) + 1;
       const float4* tr = tris + (size_t)start * kTriStride4;
       if (kOccl) {
         if (leaf_any(tr, cnt, r, t_min, upper)) {
@@ -142,6 +156,34 @@ tlas8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta,
         }
       }
     }
+    // Move on: this node's group, else the group on top of the stack.
+    int g_node = node;
+    int g_word = word;
+    if (gmask == 0) {
+      if (sp == 0) break;
+      const unsigned e = stack[(--sp) * kBlock];
+      g_node = (int)(e >> 8);
+      gmask = e & 255u;
+      g_word = __ldg(meta + (size_t)g_node * kMetaT8 + 8 + r.oct);
+    }
+    const int k = __ffs(gmask) - 1;
+    gmask &= gmask - 1;
+    if (gmask) stack[(sp++) * kBlock] = ((unsigned)g_node << 8) | gmask;
+    // A TLAS group's children are entered in the world frame. A BLAS
+    // group's frame is still r's: LIFO order pops every group of an
+    // instance's BLAS before any TLAS group below it.
+    if (g_node < n_tlas && local) {
+      r = load_ray(o, d, i);
+      local = false;
+    }
+    const int ref = __ldg(meta + (size_t)g_node * kMetaT8 + ((g_word >> (4 * k)) & 7));
+    node = ref >> 2;
+    if ((ref & 3) == kKindInst) {
+      to_local(inst + (size_t)node * kInst4, load_ray(o, d, i), &r);
+      local = true;
+      cur_inst = node;
+      node = __ldg(inst_root + cur_inst);
+    }
   }
   if (kOccl) {
     occ_out[i] = false;
@@ -152,32 +194,45 @@ tlas8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta,
   }
 }
 
+// Launch on `stream` with a group stack of `depth` levels per thread.
+template <bool kOccl>
+int launch(int depth, int64_t n, cudaStream_t stream, const float* bounds, const int* meta, int n_tlas,
+           const float* inst, const int* inst_root, const float* tris, const float* o, const float* d,
+           const bool* active, const float* t_max, float t_min, float* t_out, int* id_out,
+           int* inst_out, bool* occ_out) {
+  if (n <= 0) return 0;
+  const size_t smem = (size_t)kBlock * (size_t)(depth > 0 ? depth : 0) * sizeof(unsigned);
+  if (depth < 0 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        tlas8_walk<kOccl>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  tlas8_walk<kOccl><<<grid_for(n), kBlock, smem, stream>>>(
+      reinterpret_cast<const float4*>(bounds), meta, n_tlas, reinterpret_cast<const float4*>(inst),
+      inst_root, reinterpret_cast<const float4*>(tris), o, d, active, t_max, (int)n, t_min, t_out,
+      id_out, inst_out, occ_out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int rpt_tlas8_closest(const float* bounds, const int* meta, const float* inst,
+int rpt_tlas8_closest(const float* bounds, const int* meta, int n_tlas, int depth, const float* inst,
                       const int* inst_root, const float* tris, const float* o, const float* d,
                       const bool* active, int64_t n, float t_min, float* t_out, int* id_out,
                       int* inst_out, void* stream) {
-  if (n <= 0) return 0;
-  tlas8_walk<false><<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(bounds), meta, reinterpret_cast<const float4*>(inst),
-      inst_root, reinterpret_cast<const float4*>(tris), o, d, active, nullptr, (int)n, t_min,
-      t_out, id_out, inst_out, nullptr);
-  return (int)cudaGetLastError();
+  return launch<false>(depth, n, (cudaStream_t)stream, bounds, meta, n_tlas, inst, inst_root, tris, o,
+                       d, active, nullptr, t_min, t_out, id_out, inst_out, nullptr);
 }
 
-int rpt_tlas8_occluded(const float* bounds, const int* meta, const float* inst,
+int rpt_tlas8_occluded(const float* bounds, const int* meta, int n_tlas, int depth, const float* inst,
                        const int* inst_root, const float* tris, const float* o, const float* d,
                        const bool* active, const float* t_max, int64_t n, float t_min,
                        bool* occ_out, void* stream) {
-  if (n <= 0) return 0;
-  tlas8_walk<true><<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(bounds), meta, reinterpret_cast<const float4*>(inst),
-      inst_root, reinterpret_cast<const float4*>(tris), o, d, active, t_max, (int)n, t_min,
-      nullptr, nullptr, nullptr, occ_out);
-  return (int)cudaGetLastError();
+  return launch<true>(depth, n, (cudaStream_t)stream, bounds, meta, n_tlas, inst, inst_root, tris, o,
+                      d, active, t_max, t_min, nullptr, nullptr, nullptr, occ_out);
 }
 
 }  // extern "C"

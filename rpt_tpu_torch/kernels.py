@@ -30,7 +30,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
-_P, _I64, _F32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float
+_P, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # argtypes of every entry point, by library: c_void_p for each pointer and
 # the stream, so ctypes never cuts a pointer to 32 bits.
 _SIGNATURES = {
@@ -39,8 +39,8 @@ _SIGNATURES = {
         "rpt_bvh8_occluded": [_P] * 7 + [_I64, _F32] + [_P] * 2,
     },
     "tlas8": {
-        "rpt_tlas8_closest": [_P] * 8 + [_I64, _F32] + [_P] * 4,
-        "rpt_tlas8_occluded": [_P] * 9 + [_I64, _F32] + [_P] * 2,
+        "rpt_tlas8_closest": [_P, _P, _I32, _I32] + [_P] * 6 + [_I64, _F32] + [_P] * 4,
+        "rpt_tlas8_occluded": [_P, _P, _I32, _I32] + [_P] * 7 + [_I64, _F32] + [_P] * 2,
     },
     "bvh2": {
         "rpt_bvh2_closest": [_P, _P, _I64] + [_P] * 4 + [_I64, _F32] + [_P] * 3,

@@ -183,6 +183,7 @@ def packed_leaves(im: InstancedMeshes):
 
 
 def _affine(A, p, w: float):
-    """A (N, 3, 4) applied to points (w = 1) or directions (w = 0)."""
-    out = torch.einsum("nij,nj->ni", A[:, :, :3], p)
+    """A (N, 3, 4) applied to points (w = 1) or directions (w = 0), written
+    out elementwise (an einsum runs as a batched gemv on the card)."""
+    out = (A[:, :, :3] * p[:, None, :]).sum(-1)
     return out + A[:, :, 3] if w else out

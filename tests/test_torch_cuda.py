@@ -7,6 +7,8 @@ runs where only PyTorch is installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -198,6 +200,43 @@ def test_tlas8_kernels_match_plain_walks(card):
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p)
     assert torch.equal(occ_k, (t_p <= t_max) & active)
+
+
+def test_tlas8_kernels_match_plain_walks_at_the_deepest_group_stack(card):
+    """Of a few instanced scenes, the one with the deepest node-group stack:
+    the plain walk reaches the pack's exact `group_depth` on these rays, and
+    both kernels agree with it bit for bit."""
+    cases = [_instanced_and_rays(m, k, 6000, seed=s) for m, k, s in ((3, 40, 0), (2, 150, 1), (4, 400, 2))]
+    packs = [tlas8.pack_tlas8(build_instanced(meshes, inst, device="cpu"), device=card) for meshes, inst, _, _ in cases]
+    deepest = max(range(len(cases)), key=lambda j: packs[j].group_depth)
+    pack, (_, _, o, d) = packs[deepest], cases[deepest]
+    assert pack.group_depth >= 3
+    o, d = o.to(card), d.to(card)
+    stats = {}
+    t_p, id_p, inst_p = tlas8.tlas8_closest_plain(pack, o, d, T_MIN, stats=stats)
+    t_k, id_k, inst_k = tlas8.tlas8_closest_kernel(pack, o, d, T_MIN)
+    torch.cuda.synchronize()
+    assert stats["max_group_depth"] == pack.group_depth
+    assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p) and torch.equal(inst_k, inst_p)
+    t_max = torch.where(t_p < 1e38, t_p, torch.full_like(t_p, 30.0))
+    t_max[1::4] = 9.0
+    occ_k = tlas8.tlas8_occluded_kernel(pack, o, d, T_MIN, t_max)
+    occ_p = tlas8.tlas8_occluded_plain(pack, o, d, T_MIN, t_max)
+    torch.cuda.synchronize()
+    assert torch.equal(occ_k, occ_p)
+    assert torch.equal(occ_k, t_p <= t_max)
+
+
+def test_tlas8_kernels_refuse_a_stack_deeper_than_a_block_holds(card):
+    """The group stack lives in one block's shared memory: a depth past its
+    227 KB is refused at launch, never truncated."""
+    meshes, instances, o, d = _instanced_and_rays(1, 5, 64)
+    pack = tlas8.pack_tlas8(build_instanced(meshes, instances, device="cpu"), device=card)
+    deep = dataclasses.replace(pack, group_depth=1000)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tlas8.tlas8_closest_kernel(deep, o.to(card), d.to(card), T_MIN)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tlas8.tlas8_occluded_kernel(deep, o.to(card), d.to(card), T_MIN, torch.full((64,), 9.0, device=card))
 
 
 def _shared_mesh_scene(seed=3):

@@ -78,7 +78,7 @@ def test_pack_matches_reference_structure():
     (meshes, instances), im, _, _ = _case(2, 6, tris_per_mesh=30)
     pack = tlas8.pack_tlas8(im)
     ref_pack = ref_t8.pack_tlas8_for_pallas(ref_build_instanced(meshes, instances))
-    ca, cb = pack.meta[:, 0:8].numpy(), pack.meta[:, 8:16].numpy()
+    ca, cb = tlas8._decode_refs(pack.refs.numpy().astype(np.int64))
     np.testing.assert_array_equal(np.sort(ca[cb == tlas8.INST_CHILD]), np.arange(6))
     leaves = cb > 0
     assert leaves.any()
@@ -163,6 +163,40 @@ def test_active_mask_parks_lanes():
     occ = tlas8.tlas8_occluded(im, pack, to, td, T_MIN, 100.0, active=active)
     assert not occ[1::2].any()
     np.testing.assert_array_equal(occ[0::2].numpy(), torch.isfinite(full.t[0::2]).numpy())
+
+
+@pytest.mark.parametrize("kind", ["closest", "any_hit"])
+@pytest.mark.parametrize("seed", [3, 4])
+def test_group_walk_properties(seed, kind):
+    """On random instanced scenes: the group-stack walk tests the exact
+    f32 boxes of the previous layout; `group_depth` is the deepest group
+    stack the walk reaches; and the walk equals the exact walk of the
+    previous layout (`bvh8._walk_plain` on the `_emit_wide` table) in hit
+    mask, t, triangle id and instance id, or in the any-hit bool."""
+    meshes, instances = _build_instanced_scene(3, 60, seed=seed)
+    o, d = _rays_at_instances(3000, meshes, instances, seed=seed + 10)
+    to, td = torch.as_tensor(np.array(o)), torch.as_tensor(np.array(d))
+    im = build_instanced(meshes, instances, device="cpu")
+    pack, exact = tlas8.pack_tlas8(im), tlas8.exact_table(im)
+    np.testing.assert_array_equal(pack.bounds.numpy(), exact.bounds.numpy())
+    stats = {}
+    if kind == "closest":
+        t, tri, inst = tlas8.tlas8_closest_plain(pack, to, td, T_MIN, stats=stats)
+        t_x, tri_x, inst_x = tlas8.tlas8_closest_exact(exact, to, td, T_MIN)
+        hit = t_x < 1e38
+        assert hit.sum() > 1000 and (~hit).any()
+        np.testing.assert_array_equal((t < 1e38).numpy(), hit.numpy())
+        np.testing.assert_array_equal(t.numpy(), t_x.numpy())
+        np.testing.assert_array_equal(tri[hit].numpy(), tri_x[hit].numpy())
+        np.testing.assert_array_equal(inst[hit].numpy(), inst_x[hit].numpy())
+    else:
+        t_max = torch.as_tensor(np.random.default_rng(seed).uniform(6.0, 14.0, to.shape[0]), dtype=torch.float32)
+        occ = tlas8.tlas8_occluded_plain(pack, to, td, T_MIN, t_max, stats=stats)
+        occ_x = tlas8.tlas8_occluded_exact(exact, to, td, T_MIN, t_max)
+        assert occ_x.any() and (~occ_x).any()
+        np.testing.assert_array_equal(occ.numpy(), occ_x.numpy())
+    assert pack.group_depth >= 2
+    assert stats["max_group_depth"] == pack.group_depth
 
 
 def test_plain_walk_counts_its_tests():
