@@ -31,14 +31,14 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    e. profiles one sample (device-busy share, the kernels' share);
    f. times each of the path's kernels per launch beside its plain
       version and its bound;
-   on `lego` also:
-   g. `[tlas8_vs_exact]`: the tlas8 kernels (node-group stack) against the
-      walk of the previous layout (one stack entry per hit child,
-      `tlas8.exact_table`) on every wavefront;
-   h. `[tlas8_before_after]`: the tlas8 kernels and the hit finalize of other
-      trees of the repository (`RPT_TLAS8_COMPARE=label=dir,...`, e.g. a
-      `git archive` of the parent commit), timed in turns with this tree's
-      on the same wavefronts; skipped when no tree is named;
+   on `dragon` and `lego`, the wide paths, also:
+   g. `[bvh8_vs_exact]` / `[tlas8_vs_exact]`: the kernels (node-group
+      stack) against the walk of the previous layout (one stack entry per
+      hit child, `exact_table`) on every wavefront, bit for bit;
+   h. `[before_after]`: the same kernels of other trees of the repository
+      (`RPT_COMPARE=label=dir,...`, e.g. a `git archive` of the parent
+      commit), timed in turns with this tree's on the same wavefronts;
+      skipped when no tree is named;
 4. prints one JSON line `{"kernels": [...]}` with one row for each of the
    eight kernels, then the last line `{"ok": true, "device": {...}}`.
 
@@ -196,10 +196,16 @@ def profile_sample(render, kernel_tag: str):
         say("profile", kernel=json.dumps(name), device_ms=f"{us / 1e3:.3f}", share=f"{us / total:.3f}")
 
 
-def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active, phase="parity") -> float:
+def active_share(o, active) -> str:
+    """The share of a wavefront's rays that are still walking."""
+    return "1.0000000" if active is None else f"{active.float().mean().item():.7f}"
+
+
+def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active, phase="parity", strict=False) -> float:
     """Kernel vs plain closest hit; returns the largest |t| difference.
     `mat_of(outputs, hit mask)` gives the material ids of the hits; an
-    instance id, where the kernel returns one, must agree too."""
+    instance id, where the kernel returns one, must agree too. `strict`:
+    every output must be equal bit for bit."""
     import torch
 
     out_k = kern(o, d, t_min, active)
@@ -213,16 +219,19 @@ def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active, phase="p
     t_ok = bool(torch.allclose(t_k[both], t_p[both], rtol=T_TOL, atol=T_TOL))
     mat_ok = bool((mat_of(out_k, both) == mat_of(out_p, both)).all())
     inst_ok = len(out_k) < 3 or bool((out_k[2][both] == out_p[2][both]).all())
-    say(phase, kernel=name, rays=rays, n=o.shape[0], hits=int(hit_p.sum()), mask_agree=f"{agree:.7f}",
-        max_abs_t_err=err, mat_ok=mat_ok, **({} if len(out_k) < 3 else {"inst_ok": inst_ok}))
-    if agree < PARITY_MIN or not t_ok or not mat_ok or not inst_ok:
+    bit_equal = all(torch.equal(x, y) for x, y in zip(out_k, out_p))
+    say(phase, kernel=name, rays=rays, n=o.shape[0], active_share=active_share(o, active), hits=int(hit_p.sum()),
+        mask_agree=f"{agree:.7f}", max_abs_t_err=err, mat_ok=mat_ok, bit_equal=bit_equal,
+        **({} if len(out_k) < 3 else {"inst_ok": inst_ok}))
+    if agree < PARITY_MIN or not t_ok or not mat_ok or not inst_ok or (strict and not bit_equal):
         fail(f"{name} kernel disagrees with its plain version on {rays}")
     return err
 
 
-def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, active) -> float:
+def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, active, strict=False) -> float:
     """Kernel vs plain any-hit, and vs the closest-hit rule t <= t_max;
-    returns the share of rays where kernel and plain version disagree."""
+    returns the share of rays where kernel and plain version disagree.
+    `strict`: they must agree on every ray."""
     import torch
 
     occ_k = kern(o, d, t_min, t_max, active)
@@ -234,9 +243,9 @@ def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, a
         rule = rule & active
     disagree = (occ_k != occ_p).float().mean().item()
     agree_rule = (occ_k == rule).float().mean().item()
-    say("parity", kernel=name, rays=rays, n=o.shape[0], occluded=int(occ_p.sum()),
+    say("parity", kernel=name, rays=rays, n=o.shape[0], active_share=active_share(o, active), occluded=int(occ_p.sum()),
         agree_plain=f"{1.0 - disagree:.7f}", agree_closest_rule=f"{agree_rule:.7f}")
-    if 1.0 - disagree < PARITY_MIN or agree_rule < PARITY_MIN:
+    if 1.0 - disagree < PARITY_MIN or agree_rule < PARITY_MIN or (strict and disagree > 0.0):
         fail(f"{name} kernel disagrees on {rays}")
     return disagree
 
@@ -319,13 +328,15 @@ def _run_workload(workload: str, card: str) -> list:
         return lambda *a, **kw: plain[name](pack, *a, **kw)
 
     # b. Kernel parity at main-path size: the camera rays, then every
-    # wavefront of a 1-spp render.
+    # wavefront of a 1-spp render. The wide kernels run the plain group
+    # walk's float operations in its order: they must equal it bit for bit.
+    strict = family in ("bvh8", "tlas8")
     renderer = Renderer(scene, camera, width=WIDTH, height=HEIGHT, max_bounces=bounces, num_samples=1,
                         device=DEVICE)
     t_min = float(np.float32(renderer.epsilon))
     o, d, _ = camera_rays_tiled(camera.to(DEVICE), rnd.fold_in(rnd.PRNGKey(0), 0),
                                 pixel_ndc_tiled(WIDTH, HEIGHT, DEVICE))
-    check_closest(closest, "camera", bound(closest), bound_plain(closest), mat_of, o, d, t_min, None)
+    check_closest(closest, "camera", bound(closest), bound_plain(closest), mat_of, o, d, t_min, None, strict=strict)
     rec = record_wavefronts(scene_mod, (closest, occluded), renderer.render_buffer)
     n_closest, n_occluded = len(rec[closest]), len(rec[occluded])
     if n_closest != bounces + 1 or n_occluded != shadow * (bounces + 1):
@@ -333,17 +344,19 @@ def _run_workload(workload: str, card: str) -> list:
     err = {closest: 0.0, occluded: 0.0}
     for depth, args in enumerate(rec[closest]):
         err[closest] = max(err[closest], check_closest(closest, f"depth{depth}", bound(closest),
-                                                       bound_plain(closest), mat_of, *args))
+                                                       bound_plain(closest), mat_of, *args, strict=strict))
     for j, args in enumerate(rec[occluded]):
         err[occluded] = max(err[occluded], check_occluded(occluded, f"shadow{j}", bound(occluded),
-                                                          bound_plain(occluded), bound_plain(closest), *args))
+                                                          bound_plain(occluded), bound_plain(closest), *args,
+                                                          strict=strict))
     if workload == "dragon_binary":
         binary_vs_wide(sd, pack, rec, mat_of, card)
     exact = None
-    if family == "tlas8":
-        exact = tlas8.exact_table(im, device=DEVICE)
-        tlas8_vs_exact(pack, exact, rec, mat_of)
-        tlas8_before_after(im, pack, rec, card)
+    if family in ("bvh8", "tlas8"):
+        tree = sd.bvh if family == "bvh8" else im
+        exact = mod.exact_table(tree, device=DEVICE)
+        vs_exact(family, mod, pack, exact, rec, mat_of)
+        before_after(family, mod, tree, pack, rec, card)
 
     # c. The port on the CPU against the port on the card, same seed.
     small = {}
@@ -395,15 +408,19 @@ def _run_workload(workload: str, card: str) -> list:
         for a in args:  # also the plain version's warm-up
             plain[name](pack, *a, stats=stats)
         plain_ms = time_ms(bound_plain(name), args, reps=1, warmup=False)
-        walk_stats, table = stats, pack
+        walk_stats = stats
         if exact is not None:
-            # The bound counts the work of the exact f32-box walk on the same
-            # rays, whatever layout the kernel reads.
-            exact_walk = getattr(tlas8, name + "_exact")
-            stats, table = {}, exact
+            # The operations bound counts the work of the exact f32-box walk
+            # on the same rays, whatever layout the kernel reads (the group
+            # walk's counts equal it); the bytes bound reads the kernel's pack.
+            exact_walk = getattr(mod, name + "_exact")
+            stats = {}
             for a in args:
                 exact_walk(exact, *a, stats=stats)
-        t_bytes, t_ops = bound_ms(spec, table, args, stats)
+            counted = ("box_tests", "tri_tests", "inst_entries")
+            if any(stats.get(k, 0) != walk_stats.get(k, 0) for k in counted):
+                fail(f"the group walk and the exact walk count different work for {name} on {workload}")
+        t_bytes, t_ops = bound_ms(spec, pack, args, stats)
         rows.append({
             "name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
             "launches": launches[name], "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
@@ -415,10 +432,10 @@ def _run_workload(workload: str, card: str) -> list:
         })
         if exact is not None:
             rows[-1].update({
-                "bound_counts": "the exact f32-box walk (tlas8.exact_table)",
+                "bound_counts": f"operations of the exact f32-box walk ({family}.exact_table), bytes of the pack",
                 "walk_box_tests_per_launch": walk_stats["box_tests"] / len(args),
                 "walk_tri_tests_per_launch": walk_stats["tri_tests"] / len(args),
-                "walk_inst_entries_per_launch": walk_stats["inst_entries"] / len(args),
+                "walk_inst_entries_per_launch": walk_stats.get("inst_entries", 0) / len(args),
                 "walk_max_group_depth": walk_stats["max_group_depth"], "group_depth": pack.group_depth,
                 "node_bytes": pack.node_bytes, "pack_mb": pack.nbytes / 2**20,
             })
@@ -487,118 +504,99 @@ def binary_vs_wide(sd, pack2, rec, mat_of, card):
             card=json.dumps(card))
 
 
-def tlas8_vs_exact(pack, exact, rec, mat_of):
-    """lego only: the tlas8 kernels, which walk a node-group stack, against
-    the walk of the previous layout (one stack entry per hit child,
-    `tlas8.exact_table`) on every recorded wavefront: hit mask on
-    PARITY_MIN of rays, t to T_TOL, equal material and instance ids, and the
-    any hit on PARITY_MIN of rays. Both test the same f32 boxes in the same
-    order, so they agree bit for bit. These launches go around the counted
-    wrappers."""
-    from rpt_tpu_torch.ops import tlas8
-
-    for depth, args in enumerate(rec["tlas8_closest"]):
-        check_closest("tlas8_closest vs exact", f"depth{depth}", lambda *a: tlas8.tlas8_closest_kernel(pack, *a),
-                      lambda *a: tlas8.tlas8_closest_exact(exact, *a), mat_of, *args, phase="tlas8_vs_exact")
-    for j, (o, d, t_min, t_max, active) in enumerate(rec["tlas8_occluded"]):
-        occ_k = tlas8.tlas8_occluded_kernel(pack, o, d, t_min, t_max, active)
-        occ_x = tlas8.tlas8_occluded_exact(exact, o, d, t_min, t_max, active)
+def vs_exact(family, mod, pack, exact, rec, mat_of):
+    """dragon (bvh8) and lego (tlas8): the kernels, which walk a node-group
+    stack, against the walk of the previous layout (one stack entry per hit
+    child, `exact_table`) on every recorded wavefront. Both test the same
+    f32 boxes in the same order, so every output must agree bit for bit:
+    t, triangle and instance ids, and the any hit. These launches go around
+    the counted wrappers."""
+    kern, exact_walk = getattr(mod, f"{family}_closest_kernel"), getattr(mod, f"{family}_closest_exact")
+    for depth, args in enumerate(rec[f"{family}_closest"]):
+        check_closest(f"{family}_closest vs exact", f"depth{depth}", lambda *a: kern(pack, *a),
+                      lambda *a: exact_walk(exact, *a), mat_of, *args, phase=f"{family}_vs_exact", strict=True)
+    kern, exact_walk = getattr(mod, f"{family}_occluded_kernel"), getattr(mod, f"{family}_occluded_exact")
+    for j, (o, d, t_min, t_max, active) in enumerate(rec[f"{family}_occluded"]):
+        occ_k = kern(pack, o, d, t_min, t_max, active)
+        occ_x = exact_walk(exact, o, d, t_min, t_max, active)
         differ = int((occ_k != occ_x).sum())
-        say("tlas8_vs_exact", kernel="tlas8_occluded vs exact", rays=f"shadow{j}", n=o.shape[0],
-            occluded=int(occ_x.sum()), agree=f"{1.0 - differ / o.shape[0]:.7f}", differ=differ)
-        if 1.0 - differ / o.shape[0] < PARITY_MIN:
-            fail(f"the tlas8 any-hit kernel disagrees with the exact walk on shadow{j}")
+        say(f"{family}_vs_exact", kernel=f"{family}_occluded vs exact", rays=f"shadow{j}", n=o.shape[0],
+            active_share=active_share(o, active), occluded=int(occ_x.sum()), differ=differ)
+        if differ:
+            fail(f"the {family} any-hit kernel disagrees with the exact walk on shadow{j}")
 
 
 def load_tree(label: str, root: str):
     """The `rpt_tpu_torch` package of another tree of the repository (e.g. a
-    `git archive` of the parent commit), imported as its own package
+    `git archive` of the parent commit), imported once as its own package
     `rpt_tpu_torch_<label>`, with its CUDA kernels built from its own
-    sources into its own `_build/`. Prints the build's ptxas lines."""
+    sources into its own `_build/`. Prints the build's ptxas lines of its
+    wide kernels."""
     name = f"rpt_tpu_torch_{label}"
+    if name in sys.modules:
+        return name
     pkg = os.path.join(os.path.abspath(root), "rpt_tpu_torch")
     if not os.path.isfile(os.path.join(pkg, "__init__.py")):
-        fail(f"RPT_TLAS8_COMPARE names {root}, which holds no rpt_tpu_torch package")
+        fail(f"RPT_COMPARE names {root}, which holds no rpt_tpu_torch package")
     spec = importlib.util.spec_from_file_location(name, os.path.join(pkg, "__init__.py"),
                                                   submodule_search_locations=[pkg])
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    kernels = importlib.import_module(f"{name}.kernels")
-    info = kernels.build(force=True)
-    for line in info["tlas8"]["log"].splitlines():
-        if any(k in line for k in ("entry function", "registers", "spill", "stack frame")):
-            say("ptxas", source=f"{label}:tlas8", line=json.dumps(line.strip()))
-    return importlib.import_module(f"{name}.ops.tlas8")
+    info = importlib.import_module(f"{name}.kernels").build(force=True)
+    for source in ("bvh8", "tlas8"):
+        for line in info[source]["log"].splitlines():
+            if any(k in line for k in ("entry function", "registers", "spill", "stack frame")):
+                say("ptxas", source=f"{label}:{source}", line=json.dumps(line.strip()))
+    return name
 
 
-def tlas8_before_after(im, pack, rec, card):
-    """lego only, and self-contained (a later PR may delete it whole): the
-    tlas8 kernels and the hit finalize of the trees named in
-    RPT_TLAS8_COMPARE (`label=dir,...`), each with its own pack of the same
-    scene, against this tree's, on the recorded wavefronts, timed in turns
-    (trees, this, this, trees reversed) on one card, with each pack's node
-    bytes, size and group-stack depth. These launches go around the counted
+def before_after(family, mod, tree, pack, rec, card):
+    """dragon (bvh8) and lego (tlas8), and self-contained (a later PR may
+    delete it whole): the `family` kernels of the trees named in
+    RPT_COMPARE (`label=dir,...`), each with its own pack of the same scene,
+    against this tree's, on the recorded wavefronts, timed in turns (trees,
+    this, this, trees reversed; 30 passes through the wavefronts each) on
+    one card, with each pack's node bytes,
+    size and group-stack depth. These launches go around the counted
     wrappers."""
     import torch
 
-    from rpt_tpu_torch.ops import tlas8
-
-    trees = [item.split("=", 1) for item in os.environ.get("RPT_TLAS8_COMPARE", "").split(",") if item]
+    trees = [item.split("=", 1) for item in os.environ.get("RPT_COMPARE", "").split(",") if item]
     if not trees:
-        say("tlas8_before_after", skipped="RPT_TLAS8_COMPARE names no tree")
+        say("before_after", family=family, skipped="RPT_COMPARE names no tree")
         return
-    mods = {"this": tlas8}
+    mods = {"this": mod}
     packs = {"this": pack}
     for label, root in trees:
-        mods[label] = load_tree(label, root)
-        packs[label] = mods[label].pack_tlas8(im, device=DEVICE)
+        mods[label] = importlib.import_module(f"{load_tree(label, root)}.ops.{family}")
+        packs[label] = getattr(mods[label], f"pack_{family}")(tree, device=DEVICE)
     labels = [label for label, _ in trees]
     turns = labels + ["this", "this"] + labels[::-1]
     for label, p in packs.items():
         node_bytes = getattr(p, "node_bytes", None) or sum(getattr(p, f).shape[1] * 4 for f in ("bounds", "meta"))
-        say("tlas8_before_after", tree=label, node_bytes=node_bytes, pack_mb=f"{p.nbytes / 2**20:.3f}",
+        say("before_after", family=family, tree=label, node_bytes=node_bytes, pack_mb=f"{p.nbytes / 2**20:.3f}",
             group_depth=getattr(p, "group_depth", "none (one entry per child)"), stack_need=p.stack_need)
 
     def kernel(label, kind):
-        fn, p = getattr(mods[label], f"tlas8_{kind}_kernel"), packs[label]
+        fn, p = getattr(mods[label], f"{family}_{kind}_kernel"), packs[label]
         return lambda *a: fn(p, *a)
 
     for kind in ("closest", "occluded"):
-        args = rec[f"tlas8_{kind}"]
+        args = rec[f"{family}_{kind}"]
         ref = [kernel("this", kind)(*a) for a in args]
         for label in labels:  # every tree gives the same answers on these rays
             out = [kernel(label, kind)(*a) for a in args]
-            agree = min(float((x[0] == y[0]).float().mean()) if kind == "closest" else float((x == y).float().mean())
-                        for x, y in zip(out, ref))
-            say("tlas8_before_after", kind=kind, tree=label, agree_with_this=f"{agree:.7f}")
+            same = all(all(map(torch.equal, o, r)) if kind == "closest" else torch.equal(o, r) for o, r in zip(out, ref))
+            say("before_after", family=family, kind=kind, tree=label, bit_equal_to_this=same)
         times = {label: [] for label in turns}
         for label in turns:
-            times[label].append(time_ms(kernel(label, kind), args, reps=10))
+            times[label].append(time_ms(kernel(label, kind), args, reps=30))
         ms = {label: sum(v) / len(v) for label, v in times.items()}
-        say("tlas8_before_after", kind=kind, launches=len(args),
+        say("before_after", family=family, kind=kind, launches=len(args),
             **{f"{label}_ms": f"{ms[label]:.4f}" for label in ms},
             **{f"{label}_turns_ms": json.dumps([round(t, 5) for t in times[label]]) for label in ms},
             **{f"{label}_over_this": f"{ms[label] / ms['this']:.3f}" for label in labels}, card=json.dumps(card))
-
-    # The hit finalize: this tree's elementwise 3x3 products against each
-    # tree's own, on the closest-hit wavefronts' winners.
-    fin_args = []
-    for o, d, t_min, active in rec["tlas8_closest"]:
-        fin_args.append((o, d, t_min, *tlas8.tlas8_closest_kernel(pack, o, d, t_min, active)))
-
-    def finalize(label):
-        return lambda *a: mods[label]._finalize(im, pack, *a)
-
-    for label in labels:
-        dn = max(float((finalize(label)(*a).normal - finalize("this")(*a).normal).abs().max()) for a in fin_args)
-        say("tlas8_before_after", finalize_tree=label, max_abs_normal_diff=f"{dn:.3e}")
-    times = {label: [] for label in turns}
-    for label in turns:
-        times[label].append(time_ms(finalize(label), fin_args, reps=5))
-    torch.cuda.synchronize()
-    say("tlas8_before_after", finalize_calls=len(fin_args),
-        **{f"{label}_finalize_ms": f"{sum(v) / len(v):.4f}" for label, v in times.items()}, card=json.dumps(card))
 
 
 def main():

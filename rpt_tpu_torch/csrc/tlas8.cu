@@ -14,49 +14,11 @@
 // rpt_tpu_torch/ops/tlas8.py, which also holds the plain torch versions
 // these kernels are tested against.
 //
-// What bounds it on this card: a BVH walk is neither a streaming nor a
-// dense-math workload. Per ray it does a few tens of box tests, a few
-// instance entries (an 18-multiply affine transform each) and a few
-// triangle tests, separated by dependent loads of node, instance and
-// triangle rows from L2. The least time the card could take is that of the
-// f32 operations or of reading the rays and the pack once, microseconds
-// either way; the kernel is held back by load latency, which only more
-// warps in flight hide, and by warp divergence (PERF.md has the measured
-// times beside the bound).
-//
-// What this design does about it: one ray per thread and a node-group
-// stack (Ylitie, Karras and Laine, HPG 2017):
-//   - visiting a node slab-tests its 8 children against the best hit so
-//     far, tests its hit triangle leaves at once, near first, in the
-//     current frame, and makes its hit wide-node and instance children one
-//     group, held in registers: (node, 8-bit mask of them by rank in the
-//     world direction's octant order);
-//   - the walk enters the group's lowest rank and pushes the group back as
-//     one 32-bit entry `node << 8 | mask` while bits remain, so the stack
-//     holds at most one entry per tree level. Its exact worst-case depth,
-//     the pack's `group_depth`, sizes it in dynamic shared memory, indexed
-//     [level][thread] so that neighbouring lanes fall in different banks;
-//     no per-thread local-memory stack;
-//   - an instance child loads the 3x4 world->local affine (walk.cuh
-//     to_local), re-expresses the ray with the direction NOT normalized (so
-//     local t == world t and the running-best prune holds at both levels)
-//     and enters its BLAS root. LIFO order means one ray per thread, in the
-//     frame of the nodes being visited, suffices: the world ray is loaded
-//     again at an instance entry and on the return to a TLAS group;
-//   - pruning on the running best hit (closest) or on t_max (any hit); the
-//     any-hit walk returns at its first occluder.
-// The visit order is that of a stack with one entry per hit child, pushed
-// far first: a node's leaves, then its children near to far, each subtree
-// whole before the next sibling. The nodes keep their f32 child boxes: a
-// 128-byte node with 8-bit boxes decoded in the kernel was measured slower
-// on the brick city, whose triangle rows, not its nodes, make up the bytes
-// (PERF.md, Findings). Warp-coherent scheduling (ray sorting, persistent
-// threads) is later work.
-//
-// Numerics: every expression is written in the same order as the plain
-// torch version (ops/tlas8.py `_group_walk`), the instance transform as
-// ((a0*ox + a1*oy) + a2*oz) + a3, and the build uses -fmad=false: the
-// kernel and the plain version agree bit for bit.
+// The walk itself is csrc/group_walk.cuh, instantiated two-level here and
+// one-level in bvh8.cu: one ray per thread, a node-group stack in shared
+// memory sized by the pack's exact `group_depth`, an instance child
+// re-expressing the ray in its frame (that header says what bounds the
+// walk on this card and what the design does about it).
 //
 // C interface for ctypes: each entry point launches on the given stream,
 // allocates nothing, and returns cudaGetLastError() after the launch, or
@@ -66,15 +28,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "walk.cuh"  // Ray, load_ray, to_local, child_mask, leaf_closest, leaf_any
+#include "group_walk.cuh"  // group_walk, group_stack_smem
 
 namespace {
-
-constexpr int kMetaT8 = 16;  // int32 per node: 8 child references, 8 octant words
-constexpr int kKindNode = 1;  // reference kinds (ops/tlas8.py): 0 empty, 1 node, 2 instance, 3 leaf
-constexpr int kKindInst = 2;
-constexpr int kKindLeaf = 3;
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may hold (227 KB)
 
 template <bool kOccl>
 __global__ void __launch_bounds__(kBlock)
@@ -84,114 +40,8 @@ tlas8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta, int 
            const float* __restrict__ d, const bool* __restrict__ active,
            const float* __restrict__ t_max, int n, float t_min, float* __restrict__ t_out,
            int* __restrict__ id_out, int* __restrict__ inst_out, bool* __restrict__ occ_out) {
-  extern __shared__ unsigned group_stack[];  // [level][threadIdx.x]
-  unsigned* stack = group_stack + threadIdx.x;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (active != nullptr && !active[i]) {
-    if (kOccl) {
-      occ_out[i] = false;
-    } else {
-      t_out[i] = kBig;
-      id_out[i] = 0;
-      inst_out[i] = 0;
-    }
-    return;
-  }
-  // The ray in the frame of the nodes being visited. The world ray is not
-  // kept beside it: it is loaded again where the walk needs it (an instance
-  // entry, a return to the TLAS), which saves the registers of a second ray.
-  Ray r = load_ray(o, d, i);
-  bool local = false;
-
-  // Closest hit: `upper` is the running best t. Any hit: it is t_max.
-  float upper = kOccl ? t_max[i] : kBig;
-  int best = 0;
-  int best_inst = 0;
-  int cur_inst = 0;
-  int sp = 0;
-  int node = 0;  // the TLAS root
-  while (true) {
-    // Visit `node`, in r's frame.
-    const unsigned hit = child_mask(bounds + (size_t)node * kNode4, r, t_min, upper);
-    const int* m = meta + (size_t)node * kMetaT8;
-    const int4 ra = __ldg(reinterpret_cast<const int4*>(m));
-    const int4 rb = __ldg(reinterpret_cast<const int4*>(m) + 1);
-    const int kind[8] = {ra.x & 3, ra.y & 3, ra.z & 3, ra.w & 3, rb.x & 3, rb.y & 3, rb.z & 3, rb.w & 3};
-    unsigned leaves = 0, groups = 0;  // by slot
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const unsigned h = (hit >> c) & 1u;
-      leaves |= (h && kind[c] == kKindLeaf) << c;
-      groups |= (h && (kind[c] == kKindNode || kind[c] == kKindInst)) << c;
-    }
-    const int word = __ldg(m + 8 + r.oct);
-    unsigned lmask = 0, gmask = 0;  // by rank
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int ck = (word >> (4 * k)) & 7;
-      lmask |= ((leaves >> ck) & 1u) << k;
-      gmask |= ((groups >> ck) & 1u) << k;
-    }
-    // Hit triangle leaves, near first, each against the best hit so far.
-    while (lmask) {
-      const int k = __ffs(lmask) - 1;
-      lmask &= lmask - 1;
-      const int payload = __ldg(m + ((word >> (4 * k)) & 7)) >> 2;
-      const int start = (payload >> 3) << 3;
-      const int cnt = (payload & 7) + 1;
-      const float4* tr = tris + (size_t)start * kTriStride4;
-      if (kOccl) {
-        if (leaf_any(tr, cnt, r, t_min, upper)) {
-          occ_out[i] = true;
-          return;
-        }
-      } else {
-        int kb;
-        const float t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
-        if (t_leaf < upper) {
-          upper = t_leaf;
-          best = start + kb;
-          best_inst = cur_inst;
-        }
-      }
-    }
-    // Move on: this node's group, else the group on top of the stack.
-    int g_node = node;
-    int g_word = word;
-    if (gmask == 0) {
-      if (sp == 0) break;
-      const unsigned e = stack[(--sp) * kBlock];
-      g_node = (int)(e >> 8);
-      gmask = e & 255u;
-      g_word = __ldg(meta + (size_t)g_node * kMetaT8 + 8 + r.oct);
-    }
-    const int k = __ffs(gmask) - 1;
-    gmask &= gmask - 1;
-    if (gmask) stack[(sp++) * kBlock] = ((unsigned)g_node << 8) | gmask;
-    // A TLAS group's children are entered in the world frame. A BLAS
-    // group's frame is still r's: LIFO order pops every group of an
-    // instance's BLAS before any TLAS group below it.
-    if (g_node < n_tlas && local) {
-      r = load_ray(o, d, i);
-      local = false;
-    }
-    const int ref = __ldg(meta + (size_t)g_node * kMetaT8 + ((g_word >> (4 * k)) & 7));
-    node = ref >> 2;
-    if ((ref & 3) == kKindInst) {
-      to_local(inst + (size_t)node * kInst4, load_ray(o, d, i), &r);
-      local = true;
-      cur_inst = node;
-      node = __ldg(inst_root + cur_inst);
-    }
-  }
-  if (kOccl) {
-    occ_out[i] = false;
-  } else {
-    t_out[i] = upper;
-    id_out[i] = best;
-    inst_out[i] = best_inst;
-  }
+  group_walk<kOccl, true>(bounds, meta, n_tlas, inst, inst_root, tris, o, d, active, t_max, n, t_min, t_out,
+                          id_out, inst_out, occ_out);
 }
 
 // Launch on `stream` with a group stack of `depth` levels per thread.
@@ -201,13 +51,9 @@ int launch(int depth, int64_t n, cudaStream_t stream, const float* bounds, const
            const bool* active, const float* t_max, float t_min, float* t_out, int* id_out,
            int* inst_out, bool* occ_out) {
   if (n <= 0) return 0;
-  const size_t smem = (size_t)kBlock * (size_t)(depth > 0 ? depth : 0) * sizeof(unsigned);
-  if (depth < 0 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tlas8_walk<kOccl>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  size_t smem;
+  const cudaError_t err = group_stack_smem(tlas8_walk<kOccl>, depth, &smem);
+  if (err != cudaSuccess) return (int)err;
   tlas8_walk<kOccl><<<grid_for(n), kBlock, smem, stream>>>(
       reinterpret_cast<const float4*>(bounds), meta, n_tlas, reinterpret_cast<const float4*>(inst),
       inst_root, reinterpret_cast<const float4*>(tris), o, d, active, t_max, (int)n, t_min, t_out,

@@ -1,7 +1,8 @@
-// Pieces shared by the walks of bvh8.cu, tlas8.cu, bvh2.cu and tlas2.cu:
-// the ray and its load, the slab test of one box (of a binary node, or of
-// each of a wide node's 8 children), the instance transform, and the
-// triangle tests on the precomputed 20-float rows. The layouts are
+// Pieces shared by the walks of bvh8.cu, tlas8.cu (through
+// group_walk.cuh), bvh2.cu and tlas2.cu: the ray and its load, the slab
+// test of one box (of a binary node, or of each of a wide node's 8
+// children), the instance transform, and the triangle tests on the
+// precomputed 20-float rows. The layouts are
 // documented in rpt_tpu_torch/ops/bvh8.py and ops/bvh2.py, whose plain
 // torch walks repeat this arithmetic op for op (the sources are built with
 // -fmad=false).
@@ -17,10 +18,8 @@
 namespace {
 
 constexpr float kBig = 3.0e38f;
-constexpr int kStackCap = 128;  // ops/bvh8.py STACK_CAP; the packs check the need
 constexpr int kTriStride4 = 5;  // float4 per triangle row (20 floats)
 constexpr int kNode4 = 12;      // float4 of child bounds per wide node
-constexpr int kMeta = 24;       // int32 of meta per wide node
 constexpr int kInst4 = 3;       // float4 per instance: the 3x4 world->local rows
 constexpr int kBlock = 128;
 

@@ -35,8 +35,8 @@ _P, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_f
 # the stream, so ctypes never cuts a pointer to 32 bits.
 _SIGNATURES = {
     "bvh8": {
-        "rpt_bvh8_closest": [_P] * 6 + [_I64, _F32] + [_P] * 3,
-        "rpt_bvh8_occluded": [_P] * 7 + [_I64, _F32] + [_P] * 2,
+        "rpt_bvh8_closest": [_P, _P, _I32] + [_P] * 4 + [_I64, _F32] + [_P] * 3,
+        "rpt_bvh8_occluded": [_P, _P, _I32] + [_P] * 5 + [_I64, _F32] + [_P] * 2,
     },
     "tlas8": {
         "rpt_tlas8_closest": [_P, _P, _I32, _I32] + [_P] * 6 + [_I64, _F32] + [_P] * 4,

@@ -6,7 +6,9 @@ Replaces the two TPU kernels of `rpt_tpu/ops/bvh8_pallas.py`:
 reached through `bvh8_occluded_pallas`). The kernels themselves are in
 `rpt_tpu_torch/csrc/bvh8.cu`; this module holds the host pack, the plain
 torch versions with the same contract, and the wrappers that choose between
-them by the device of the rays.
+them by the device of the rays. The node layout, the node-group walk and
+its plain version are shared with the two-level kernels of `ops/tlas8.py`
+(`csrc/group_walk.cuh`).
 
 Layout. The binary SAH tree (`ops/bvh.py`) is collapsed into ONE wide tree
 with the reference's smallest-subtree-first frontier expansion
@@ -17,28 +19,45 @@ carried over: the whole tree sits in device memory. Per wide node:
 - `bounds` (Mw, 48) f32: the 8 child boxes as rows lo.x, lo.y, lo.z, hi.x,
   hi.y, hi.z of 8 slots each, so a thread reads a node with 12 16-byte
   loads. Empty slots hold inverted boxes (+BIG min, -BIG max).
-- `meta` (Mw, 24) i32: per slot the word pair (a, b) -- b > 0: a leaf of b
-  triangles starting at triangle a; b == 0: an internal child, a = its wide
-  index; b == -1: empty -- then 8 octant words: for direction octant
-  (dx<0) | (dy<0)<<1 | (dz<0)<<2, the slots in near-to-far order, 4 bits
-  per rank.
+- `meta` (Mw, 16) i32: 8 child references, then 8 octant words. A
+  reference is `payload << 2 | kind`: kind 0 an empty slot, 1 a wide node
+  (payload its index), 3 a leaf (payload `start / 8 << 3 | count - 1`: a
+  leaf's triangle rows are 8-aligned and at most 8); kind 2, an instance,
+  occurs only in the two-level table. An octant word gives, for direction
+  octant (dx<0) | (dy<0)<<1 | (dz<0)<<2, the slots in near-to-far order, 4
+  bits per rank. A thread reads the references with two 16-byte loads.
 - `tris` (T, 20) f32: the reference's 17 precomputed fields per triangle
   (`_swizzle_tris`: v0, e1, e2, unit plane normal, plane offset, d00, d01,
   d11, 1/denominator, computed in f64), padded to five 16-byte loads.
 
-Walk. One ray per thread (or per lane of the plain version), a stack of
-wide-node ids, each ray near-to-far by its own direction octant. A popped
-node tests its 8 child boxes against [t_min, upper] (upper = running best
-hit, or t_max for the any-hit query), pushes hit internal children far
-first, then tests hit leaves near first, updating the best hit after each
-leaf. The any-hit walk stops at its first triangle in [t_min, t_max].
+Walk: a node-group stack (Ylitie, Karras and Laine, HPG 2017), one ray per
+thread (or per lane of the plain version), near to far by its own
+direction octant. Visiting a node slab-tests its 8 children against
+[t_min, upper] (upper = running best hit, or t_max for the any-hit query),
+tests its hit leaves at once, near first, each against the best hit so far,
+and makes its hit wide-node children one group: (node, 8-bit mask of them
+by rank). The walk enters the group's lowest rank and pushes the group back
+as one entry while bits remain, so the stack holds at most one entry per
+tree level. The any-hit walk stops at its first triangle in [t_min, t_max].
+The visit order is exactly that of a stack with one entry per hit child,
+pushed far first (a node's leaves, then its children near to far, each
+subtree whole before the next sibling): the walk of the previous layout,
+which `bvh8_closest_exact` keeps as the yardstick (`exact_table`,
+`_walk_plain`); the two agree bit for bit.
 
-The plain version repeats the kernel's arithmetic op for op (the kernels
+`group_depth` is the exact worst-case depth of the group stack, which sizes
+it in the kernel's shared memory; `stack_need` the reference's bound for a
+stack of single children, which decides, as in the reference, whether the
+wide pack is taken: above STACK_CAP the pack raises WidePackRefused and the
+scene compiler takes the binary kernels (`ops/bvh2.py`). Every group on the
+stack stands for at least one child the other stack would hold, so
+group_depth <= stack_need.
+
+The plain versions repeat the kernels' arithmetic op for op (the kernels
 are built with -fmad=false so nvcc contracts nothing into FMAs), so the two
 agree bit for bit, not only within the 2e-5 bar the reference holds its
-own kernels to. The slab and triangle tests are shared with the two-level
-kernels (`csrc/walk.cuh`), and so is the plain walk: `_walk_plain` also
-walks the instanced table of `ops/tlas8.py`.
+own kernels to. The slab and triangle tests are shared with every kernel
+(`csrc/walk.cuh`).
 """
 
 from __future__ import annotations
@@ -51,11 +70,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .bvh import BvhData, _safe_inv, finalize_hit
+from .bvh import LEAF_SIZE, BvhData, _safe_inv, finalize_hit
 from .intersect import INF, Hit
 
 __all__ = [
     "Bvh8Pack",
+    "WideExact",
     "WidePackRefused",
     "pack_bvh8",
     "bvh8_closest_hit",
@@ -64,17 +84,23 @@ __all__ = [
     "bvh8_occluded_plain",
     "bvh8_closest_kernel",
     "bvh8_occluded_kernel",
+    "exact_table",
+    "bvh8_closest_exact",
+    "bvh8_occluded_exact",
     "BOX_TEST_OPS",
     "TRI_TEST_OPS",
 ]
 
 BRANCH = 8
-STACK_CAP = 128  # must equal kStackCap in csrc/walk.cuh
+STACK_CAP = 128  # the reference's stack cap (bvh8_pallas.STACK_CAP)
 TRI_STRIDE = 20  # floats per triangle row, as in csrc/walk.cuh
 _BIG = 3.0e38  # in-kernel miss sentinel
-EMPTY = -1  # meta b of an empty child slot
-INST_CHILD = -2  # meta b of an instance child (two-level tables, ops/tlas8.py)
-TAG_LOCAL, TAG_INST = 1, 2  # two-level stack entry tags (0: a node in world space)
+EMPTY = -1  # (a, b) pair b of an empty child slot (the exact table's meta)
+INST_CHILD = -2  # b of an instance child (two-level tables, ops/tlas8.py)
+TAG_LOCAL, TAG_INST = 1, 2  # the exact two-level walk's stack entry tags (0: a node in world space)
+KIND_EMPTY, KIND_NODE, KIND_INST, KIND_LEAF = 0, 1, 2, 3  # child reference kinds
+_MAX_NODES = 2**24  # a group stack entry is node << 8 | rank mask in 32 bits
+_MAX_PAYLOAD = 2**30  # a reference is payload << 2 | kind in 32 bits
 _EPS_PAR = float(np.float32(1e-8))
 
 # Floating-point operations per test, counted from the kernel source (the
@@ -89,24 +115,47 @@ TRI_TEST_OPS = 48
 
 class WidePackRefused(ValueError):
     """A wide pack cannot carry this tree: its walk could need a deeper
-    stack than the kernels hold, or an id overflows their entries. The
-    scene compiler then takes the binary pack (`ops/bvh2.py`,
-    `ops/tlas2.py`), as the reference falls back to its binary kernels."""
+    stack than the reference's kernels hold, or an id overflows the
+    kernels' entries. The scene compiler then takes the binary pack
+    (`ops/bvh2.py`, `ops/tlas2.py`), as the reference falls back to its
+    binary kernels."""
 
 
-@dataclasses.dataclass(frozen=True)
-class Bvh8Pack:
-    bounds: torch.Tensor  # (Mw, 48) f32
-    meta: torch.Tensor  # (Mw, 24) i32
-    tris: torch.Tensor  # (T, TRI_STRIDE) f32
-    stack_need: int  # worst-case stack depth over every child order
+class WideNodes:
+    """The wide-node table of the group-walk packs (`Bvh8Pack`, and
+    `ops/tlas8.Tlas8Pack`): `bounds` (Mw, 48) f32 and `meta` (Mw, 16) i32."""
 
     @property
     def num_nodes(self) -> int:
         return self.bounds.shape[0]
 
     @property
+    def refs(self) -> torch.Tensor:
+        """(Mw, 8) i32 child references, by slot."""
+        return self.meta[:, 0:8]
+
+    @property
+    def words(self) -> torch.Tensor:
+        """(Mw, 8) i32 octant words."""
+        return self.meta[:, 8:16]
+
+    @property
+    def node_bytes(self) -> int:
+        """Bytes of one wide node: its boxes and its references and words."""
+        return self.bounds.shape[1] * self.bounds.element_size() + self.meta.shape[1] * self.meta.element_size()
+
+
+@dataclasses.dataclass(frozen=True)
+class Bvh8Pack(WideNodes):
+    bounds: torch.Tensor  # (Mw, 48) f32
+    meta: torch.Tensor  # (Mw, 16) i32: child references, octant words
+    tris: torch.Tensor  # (T, TRI_STRIDE) f32
+    group_depth: int  # worst-case depth of the walk's node-group stack
+    stack_need: int  # the reference's worst-case stack of single children
+
+    @property
     def nbytes(self) -> int:
+        """Bytes of the tables the kernels read."""
         return sum(t.numel() * t.element_size() for t in (self.bounds, self.meta, self.tris))
 
 
@@ -185,6 +234,67 @@ def _stack_need(ca: np.ndarray, cb: np.ndarray) -> int:
     return int(max(1, need[0]))
 
 
+def _group_depth(meta: np.ndarray, inst_blas_root: Optional[np.ndarray] = None) -> int:
+    """Exact worst-case depth of the node-group stack of the table `meta`
+    (Mw, 16) over every octant and every subset of hit children. Entering
+    child C of a node leaves the node's group on the stack iff a group
+    child of a later rank could be hit, i.e. C is not the last group child
+    in the octant's order; so need(node) = max over its group children C of
+    [C not last] + need(C), 0 for a node without any (an instance child's
+    need is its BLAS root's, `inst_blas_root` (K,) in a two-level table).
+    Iterated to its fixed point, one level per pass."""
+    ref, words = meta[:, 0:8].astype(np.int64), meta[:, 8:16].astype(np.int64)
+    kind = ref & 3
+    grp = (kind == KIND_NODE) | (kind == KIND_INST)
+    payload = ref >> 2
+    target = np.where(kind == KIND_NODE, payload, 0)
+    if inst_blas_root is not None:
+        target = np.where(kind == KIND_INST, inst_blas_root[np.where(kind == KIND_INST, payload, 0)], target)
+    slots = (words[:, :, None] >> (4 * np.arange(BRANCH))) & 7  # (Mw, oct, rank) -> slot
+    rank = np.argsort(slots, axis=-1)  # (Mw, oct, slot) -> rank
+    last = np.where(grp[:, None, :], rank, -1).max(-1, keepdims=True)
+    stays = grp[:, None, :] & (rank != last)  # (Mw, oct, slot)
+    need = np.zeros((ref.shape[0], 8), np.int64)  # (Mw, oct)
+    while True:
+        child = need[target].transpose(0, 2, 1)  # (Mw, oct, slot)
+        new = np.where(grp[:, None, :], stays + child, 0).max(-1)
+        if np.array_equal(new, need):
+            return int(need[0].max())
+        need = new
+
+
+def _encode_refs(ca: np.ndarray, cb: np.ndarray) -> np.ndarray:
+    """Child references `payload << 2 | kind` (module docstring) from the
+    (a, b) pairs: b == 0 a wide node a, b == -2 an instance a, b > 0 a leaf
+    of b rows at row a, b == -1 an empty slot."""
+    leaf = cb > 0
+    if (ca[leaf] % LEAF_SIZE).any() or (cb[leaf] > LEAF_SIZE).any():
+        raise ValueError("leaves must start 8-aligned and hold at most 8 triangles")
+    ca, cb = ca.astype(np.int64), cb.astype(np.int64)
+    payload = np.where(leaf, (ca // LEAF_SIZE) << 3 | (cb - 1), ca)
+    kind = np.select([cb == 0, cb == INST_CHILD, leaf], [KIND_NODE, KIND_INST, KIND_LEAF], KIND_EMPTY)
+    return np.where(kind == KIND_EMPTY, 0, payload << 2 | kind)
+
+
+def _decode_refs(ref) -> tuple:
+    """The (a, b) pairs of `_encode_refs`' input back from references
+    (numpy or torch): a = node, instance or first row, b = 0, -2, the
+    leaf's row count, or -1 for an empty slot."""
+    kind, payload = ref & 3, ref >> 2
+    leaf = kind == KIND_LEAF
+    a = (payload >> 3) * LEAF_SIZE * leaf + payload * (kind == KIND_NODE) + payload * (kind == KIND_INST)
+    b = ((payload & 7) + 1) * leaf + INST_CHILD * (kind == KIND_INST) + EMPTY * (kind == KIND_EMPTY)
+    return a, b
+
+
+def _refuse_overflow(n_nodes: int, n_rows: int, n_inst: int = 0):
+    """Raise WidePackRefused if a node id, an instance id or a leaf's row
+    overflows the kernels' 32-bit references and group stack entries."""
+    if n_nodes >= _MAX_NODES or n_inst >= _MAX_PAYLOAD or n_rows // LEAF_SIZE >= _MAX_PAYLOAD >> 3:
+        raise WidePackRefused(f"{n_nodes} wide nodes, {n_inst} instances or {n_rows} rows overflow the kernels' "
+                              "32-bit references and stack entries")
+
+
 def _tri_rows(verts: np.ndarray) -> np.ndarray:
     """(T, 3, 3) leaf-contiguous triangles -> (T, TRI_STRIDE) f32 rows of the
     reference's precomputed fields (rpt_tpu/ops/bvh_pallas.py `_swizzle_tris`)."""
@@ -214,37 +324,45 @@ def _tri_rows(verts: np.ndarray) -> np.ndarray:
     return rows
 
 
-def pack_bvh8(bvh: BvhData, device=None) -> Bvh8Pack:
-    """Collapse a built binary BVH into the kernels' wide layout (see the
-    module docstring). Raises WidePackRefused if the tree needs a deeper
-    stack than the kernels carry."""
-    node_min = bvh.node_min.cpu().numpy()
-    node_max = bvh.node_max.cpu().numpy()
+def _collapse(bvh: BvhData):
+    """The wide tree of `bvh`: per-slot child boxes lo, hi (Mw, 8, 3) f32,
+    the filled-slot mask and the (a, b) pairs (Mw, 8) of `_collapse_range`."""
     skip = bvh.skip.cpu().numpy().astype(np.int64)
     is_leaf = bvh.is_leaf.cpu().numpy().astype(bool)
     leaf_start = bvh.leaf_start.cpu().numpy().astype(np.int64)
     leaf_count = bvh.leaf_count.cpu().numpy().astype(np.int64)
-
     bidx, ca, cb = _collapse_range(skip, is_leaf, leaf_start, leaf_count, 0, bvh.num_nodes)
+    valid = bidx >= 0
+    bi = np.where(valid, bidx, 0)
+    return bvh.node_min.cpu().numpy()[bi], bvh.node_max.cpu().numpy()[bi], valid, ca, cb
+
+
+def pack_bvh8(bvh: BvhData, device=None) -> Bvh8Pack:
+    """Collapse a built binary BVH into the kernels' wide layout (see the
+    module docstring). Raises WidePackRefused if the reference's walk could
+    need a deeper stack than STACK_CAP, or an id overflows the kernels'
+    32-bit references and stack entries."""
+    lo, hi, valid, ca, cb = _collapse(bvh)
     need = _stack_need(ca, cb)
     if need > STACK_CAP:
         raise WidePackRefused(f"the wide BVH needs a stack of {need} > {STACK_CAP} entries")
-    valid = bidx >= 0
-    bi = np.where(valid, bidx, 0)
-    bounds, meta = _emit_wide(node_min[bi], node_max[bi], valid, ca, cb)
+    _refuse_overflow(ca.shape[0], bvh.num_tris)
+    bounds, meta = _emit_group(lo, hi, valid, ca, cb)
     return Bvh8Pack(
         bounds=torch.as_tensor(bounds, device=device),
         meta=torch.as_tensor(meta, device=device),
         tris=torch.as_tensor(_tri_rows(bvh.verts.cpu().numpy()), device=device),
+        group_depth=_group_depth(meta),
         stack_need=need,
     )
 
 
 def _emit_wide(lo: np.ndarray, hi: np.ndarray, valid: np.ndarray, ca: np.ndarray, cb: np.ndarray):
-    """Wide nodes in the kernels' layout from per-slot child boxes lo, hi
-    (Mw, 8, 3) f32, a mask of the filled slots and the meta word pairs
-    (Mw, 8) each: (bounds (Mw, 48) f32, meta (Mw, 24) i32). Empty slots get
-    inverted boxes and the pair (0, -1)."""
+    """Wide nodes in the exact walk's layout from per-slot child boxes lo,
+    hi (Mw, 8, 3) f32, a mask of the filled slots and the (a, b) pairs
+    (Mw, 8) each: (bounds (Mw, 48) f32, meta (Mw, 24) i32: the a words, the
+    b words, the octant words). Empty slots get inverted boxes and the pair
+    (0, -1)."""
     Mw = lo.shape[0]
     lo_b = np.where(valid[..., None], lo, _BIG).astype(np.float32)
     hi_b = np.where(valid[..., None], hi, -_BIG).astype(np.float32)
@@ -265,13 +383,21 @@ def _emit_wide(lo: np.ndarray, hi: np.ndarray, valid: np.ndarray, ca: np.ndarray
     return np.ascontiguousarray(bounds.reshape(Mw, 48)), np.ascontiguousarray(meta)
 
 
+def _emit_group(lo, hi, valid, ca, cb):
+    """Wide nodes in the group walk's layout (module docstring), from the
+    same inputs as `_emit_wide`: (bounds (Mw, 48) f32, meta (Mw, 16) i32)."""
+    bounds, exact_meta = _emit_wide(lo, hi, valid, ca, cb)
+    meta = np.concatenate([_encode_refs(ca, cb), exact_meta[:, 16:24]], axis=1)
+    return bounds, np.ascontiguousarray(meta.astype(np.int32))
+
+
 # ---------------------------------------------------------------------------
 # Plain torch versions (CPU tensors, tests, and the reference on the card)
 # ---------------------------------------------------------------------------
 
 
 def _leaf_t(rows, o, d, t_min):
-    """Triangle test of csrc/bvh8.cu `tri_t`, op for op. rows (P, K, 20);
+    """Triangle test of csrc/walk.cuh `tri_t`, op for op. rows (P, K, 20);
     o, d (P, 3). Returns (t, ok), each (P, K)."""
     ox, oy, oz = (o[:, i:i + 1] for i in range(3))
     dx, dy, dz = (d[:, i:i + 1] for i in range(3))
@@ -301,15 +427,50 @@ def _to_local(A, o, d):
     return ol, dl, _safe_inv(dl)
 
 
+def _slab_hit(b, ol, il, t_min, upper):
+    """Slab test of csrc/walk.cuh `box_hit` for the 8 children of each row's
+    node: b (L, 6, 8) boxes, ol, il (L, 3) ray origin and inverse
+    direction, upper (L, 1). Returns (L, 8) bool by slot."""
+    t1x = (b[:, 0] - ol[:, 0:1]) * il[:, 0:1]
+    t2x = (b[:, 3] - ol[:, 0:1]) * il[:, 0:1]
+    t1y = (b[:, 1] - ol[:, 1:2]) * il[:, 1:2]
+    t2y = (b[:, 4] - ol[:, 1:2]) * il[:, 1:2]
+    t1z = (b[:, 2] - ol[:, 2:3]) * il[:, 2:3]
+    t2z = (b[:, 5] - ol[:, 2:3]) * il[:, 2:3]
+    lo = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)), torch.minimum(t1z, t2z))
+    hi = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)), torch.maximum(t1z, t2z))
+    return (lo <= hi) & (hi >= t_min) & (lo <= upper)
+
+
+def _best_of_leaves(t, ok, start, li, lk, L, kk):
+    """The closest hit of one visit's leaves, tested near first, each
+    against the best so far: t, ok (P, 8) of the P hit leaves (row li,
+    rank lk) with first rows `start`. Returns (m, id) (L,): the first leaf
+    in rank order that holds the node's minimum m (BIG if none) and its
+    triangle id."""
+    dev = t.device
+    th = torch.where(ok, t, torch.full_like(t, _BIG))
+    t_leaf = th.min(1).values
+    k_best = torch.where(th == t_leaf[:, None], kk, BRANCH).min(1).values
+    tl = torch.full((L, BRANCH), _BIG, dtype=torch.float32, device=dev)
+    tl[li, lk] = t_leaf
+    ids = torch.zeros((L, BRANCH), dtype=torch.int64, device=dev)
+    ids[li, lk] = start + k_best
+    m = tl.min(1).values
+    r_best = torch.where(tl == m[:, None], kk, BRANCH).min(1).values
+    return m, torch.gather(ids, 1, r_best.clamp(max=BRANCH - 1)[:, None])[:, 0]
+
+
 def _walk_plain(bounds, meta, tris, o, d, t_min, t_max, active, occl: bool, stats: Optional[dict],
                 inst=None, inst_root=None):
-    """Lockstep version of the kernels' per-ray walk: csrc/bvh8.cu over one
-    wide tree, or csrc/tlas8.cu over a two-level table when the instance
-    rows `inst` (K, 12) and BLAS roots `inst_root` (K,) are given. Each step
-    pops one stack entry for every ray whose stack is not empty. Returns
-    (t_raw, tri, instance) for the closest hit (t_raw = BIG on a miss) or
-    the any-hit bool. `stats` accumulates box tests (filled child slots of
-    each popped node), triangle tests and instance entries."""
+    """Lockstep walk of the exact table (`exact_table`, `_emit_wide`'s
+    (Mw, 24) meta), one stack entry per hit child, pushed far first: over
+    one wide tree, or over a two-level table when the instance rows `inst`
+    (K, 12) and BLAS roots `inst_root` (K,) are given. Each step pops one
+    stack entry for every ray whose stack is not empty. Returns (t_raw,
+    tri, instance) for the closest hit (t_raw = BIG on a miss) or the
+    any-hit bool. `stats` accumulates box tests (filled child slots of each
+    popped node), triangle tests and instance entries."""
     dev = o.device
     N = o.shape[0]
     t_min = float(np.float32(t_min))
@@ -370,17 +531,8 @@ def _walk_plain(bounds, meta, tris, o, d, t_min, t_max, active, occl: bool, stat
         else:
             ol, dl, il = o[live], d[live], inv[live]
         L = live.numel()
-        b = bounds[w]  # (L, 6, 8)
-        t1x = (b[:, 0] - ol[:, 0:1]) * il[:, 0:1]
-        t2x = (b[:, 3] - ol[:, 0:1]) * il[:, 0:1]
-        t1y = (b[:, 1] - ol[:, 1:2]) * il[:, 1:2]
-        t2y = (b[:, 4] - ol[:, 1:2]) * il[:, 1:2]
-        t1z = (b[:, 2] - ol[:, 2:3]) * il[:, 2:3]
-        t2z = (b[:, 5] - ol[:, 2:3]) * il[:, 2:3]
-        lo = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)), torch.minimum(t1z, t2z))
-        hi = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)), torch.maximum(t1z, t2z))
         upper = (t_max[live] if occl else t_best[live])[:, None]
-        hit = (lo <= hi) & (hi >= t_min) & (lo <= upper)  # (L, 8) by slot
+        hit = _slab_hit(bounds[w], ol, il, t_min, upper)  # (L, 8) by slot
 
         ck = (words[w, octant[live]][:, None] >> shifts) & 7  # (L, 8) slot by rank
         a_r = torch.gather(ca[w], 1, ck)
@@ -420,22 +572,11 @@ def _walk_plain(bounds, meta, tris, o, d, t_min, t_max, active, occl: bool, stat
             occ[hit_rows] = True
             sp[hit_rows] = 0  # early exit
             continue
-        th = torch.where(ok, t, torch.full_like(t, _BIG))
-        t_leaf = th.min(1).values
-        k_best = torch.where(th == t_leaf[:, None], kk, BRANCH).min(1).values
-        # Leaves of one node are tested near first, each against the best
-        # hit so far: the winner is the first leaf (in rank order) that
-        # holds the node's minimum, if it beats the previous best.
-        tl = torch.full((L, BRANCH), _BIG, dtype=torch.float32, device=dev)
-        tl[li, lk] = t_leaf
-        ids = torch.zeros((L, BRANCH), dtype=torch.int64, device=dev)
-        ids[li, lk] = start + k_best
-        m = tl.min(1).values
-        r_best = torch.where(tl == m[:, None], kk, BRANCH).min(1).values
+        m, m_id = _best_of_leaves(t, ok, start, li, lk, L, kk)
         tb = t_best[live]
         better = m < tb
         t_best[live] = torch.where(better, m, tb)
-        best[live] = torch.where(better, torch.gather(ids, 1, r_best.clamp(max=BRANCH - 1)[:, None])[:, 0], best[live])
+        best[live] = torch.where(better, m_id, best[live])
         if two_level:
             best_inst[live] = torch.where(better, cur_inst[live], best_inst[live])
 
@@ -449,18 +590,212 @@ def _walk_plain(bounds, meta, tris, o, d, t_min, t_max, active, occl: bool, stat
     return t_best, best.to(torch.int32), best_inst.to(torch.int32)
 
 
+# Index of the lowest set bit of each byte (0 has none: 8).
+_LOWEST_BIT = torch.tensor([8] + [(v & -v).bit_length() - 1 for v in range(1, 256)])
+
+
+def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: Optional[dict]):
+    """Lockstep version of csrc/group_walk.cuh over the table of `pack`
+    (its bounds, refs, words, tris and group_depth): each step visits one
+    node for every ray still walking, then moves it to its next node
+    (module docstring). One wide tree, or, where the pack carries instance
+    rows `inst` (K, 12) and BLAS roots `inst_root` (K,), a two-level table
+    whose nodes below `n_tlas` are the TLAS (ops/tlas8.py). Returns (t_raw, tri,
+    instance) for the closest hit (t_raw = BIG on a miss) or the any-hit
+    bool. `stats` accumulates box tests (filled slots of each visited
+    node), triangle tests, instance entries (two-level) and the deepest
+    group stack reached (`max_group_depth`)."""
+    dev = o.device
+    N = o.shape[0]
+    t_min = float(np.float32(t_min))
+    inv = _safe_inv(d)
+    octant = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
+    boxes = pack.bounds.view(-1, 6, BRANCH)
+    refs = pack.refs.long()
+    words = pack.words.long()
+    kinds = refs & 3
+    two_level = getattr(pack, "inst", None) is not None
+    if two_level:
+        aff = pack.inst.view(-1, 3, 4)
+        roots = pack.inst_root.long()
+        n_tlas = pack.n_tlas
+        o_loc, d_loc, inv_loc = torch.zeros_like(o), torch.zeros_like(d), torch.zeros_like(d)
+        cur_inst = torch.zeros(N, dtype=torch.int64, device=dev)
+    lowest = _LOWEST_BIT.to(dev)
+    shifts = 4 * torch.arange(BRANCH, device=dev)
+    kk = torch.arange(BRANCH, device=dev)
+
+    t_best = torch.full((N,), _BIG, dtype=torch.float32, device=dev)
+    best = torch.zeros(N, dtype=torch.int64, device=dev)
+    best_inst = torch.zeros(N, dtype=torch.int64, device=dev)
+    occ = torch.zeros(N, dtype=torch.bool, device=dev)
+    node = torch.zeros(N, dtype=torch.int64, device=dev)  # the next node to visit; the root first
+    stack = torch.zeros((N, max(pack.group_depth, 1)), dtype=torch.int64, device=dev)
+    sp = torch.zeros(N, dtype=torch.int64, device=dev)
+    walking = torch.ones(N, dtype=torch.bool, device=dev) if active is None else active.clone()
+    n_box = torch.zeros((), dtype=torch.int64, device=dev)
+    n_tri = torch.zeros((), dtype=torch.int64, device=dev)
+    n_inst = torch.zeros((), dtype=torch.int64, device=dev)
+    max_sp = torch.zeros((), dtype=torch.int64, device=dev)
+
+    while True:
+        live = torch.nonzero(walking)[:, 0]
+        if live.numel() == 0:
+            break
+        L = live.numel()
+        w = node[live]
+        if two_level:
+            local = (w >= n_tlas)[:, None]
+            ol = torch.where(local, o_loc[live], o[live])
+            dl = torch.where(local, d_loc[live], d[live])
+            il = torch.where(local, inv_loc[live], inv[live])
+        else:
+            ol, dl, il = o[live], d[live], inv[live]
+
+        # Visit: slab-test the 8 children against the best hit so far.
+        upper = (t_max[live] if occl else t_best[live])[:, None]
+        kind = kinds[w]
+        hit = _slab_hit(boxes[w], ol, il, t_min, upper) & (kind != KIND_EMPTY)  # (L, 8) by slot
+        if stats is not None:
+            n_box += (kind != KIND_EMPTY).sum()
+        word = words[w, octant[live]]
+        ck = (word[:, None] >> shifts) & 7  # (L, 8) slot by rank
+        hit_r = torch.gather(hit, 1, ck)
+        kind_r = torch.gather(kind, 1, ck)
+        ref_r = torch.gather(refs[w], 1, ck)
+
+        # Hit leaves, near first, each against the best hit so far.
+        li, lk = torch.nonzero(hit_r & (kind_r == KIND_LEAF), as_tuple=True)
+        if li.numel():
+            payload = ref_r[li, lk] >> 2
+            start = (payload >> 3) * LEAF_SIZE
+            count = (payload & 7) + 1
+            rows = pack.tris[start[:, None] + kk]  # (P, 8, 20)
+            ray = live[li]
+            t, ok = _leaf_t(rows, ol[li], dl[li], t_min)
+            ok = ok & (kk < count[:, None])
+            if stats is not None:
+                n_tri += count.sum()
+            if occl:
+                stop = ray[(ok & (t <= t_max[ray][:, None])).any(1)]
+                occ[stop] = True
+                walking[stop] = False  # early exit
+            else:
+                m, m_id = _best_of_leaves(t, ok, start, li, lk, L, kk)
+                tb = t_best[live]
+                better = m < tb
+                t_best[live] = torch.where(better, m, tb)
+                best[live] = torch.where(better, m_id, best[live])
+                if two_level:
+                    best_inst[live] = torch.where(better, cur_inst[live], best_inst[live])
+
+        # The node's group: its hit wide-node and instance children by rank.
+        grp = hit_r & ((kind_r == KIND_NODE) | (kind_r == KIND_INST))
+        g_node, g_mask, g_word = w, (grp.long() << kk).sum(1), word
+        keep = walking[live]
+        live, g_node, g_mask, g_word = live[keep], g_node[keep], g_mask[keep], g_word[keep]
+
+        # Move on: an empty group pops the stack, an empty stack ends the walk.
+        pop = (g_mask == 0) & (sp[live] > 0)
+        if bool(pop.any()):
+            r = live[pop]
+            sp[r] -= 1
+            e = stack[r, sp[r]]
+            g_node[pop], g_mask[pop] = e >> 8, e & 255
+            g_word[pop] = words[e >> 8, octant[r]]
+        done = g_mask == 0
+        walking[live[done]] = False
+        go = ~done
+        live, g_node, g_mask, g_word = live[go], g_node[go], g_mask[go], g_word[go]
+        if live.numel() == 0:
+            continue
+        k = lowest[g_mask]
+        rest = g_mask & (g_mask - 1)
+        back = rest != 0
+        if bool(back.any()):
+            r = live[back]
+            stack[r, sp[r]] = (g_node[back] << 8) | rest[back]
+            sp[r] += 1
+            max_sp = torch.maximum(max_sp, sp[r].max())
+        ref = refs[g_node, (g_word >> (4 * k)) & 7]
+        payload = ref >> 2
+        node[live] = payload
+        if two_level:
+            enter = (ref & 3) == KIND_INST
+            if bool(enter.any()):
+                # Instance children: the world ray in the instance's frame,
+                # direction unnormalized; then its BLAS root.
+                r, k_inst = live[enter], payload[enter]
+                o_loc[r], d_loc[r], inv_loc[r] = _to_local(aff[k_inst], o[r], d[r])
+                cur_inst[r] = k_inst
+                node[r] = roots[k_inst]
+                n_inst += r.numel()
+
+    if stats is not None:
+        stats["box_tests"] = stats.get("box_tests", 0) + int(n_box)
+        stats["tri_tests"] = stats.get("tri_tests", 0) + int(n_tri)
+        if two_level:
+            stats["inst_entries"] = stats.get("inst_entries", 0) + int(n_inst)
+        stats["max_group_depth"] = max(stats.get("max_group_depth", 0), int(max_sp))
+    if occl:
+        return occ
+    return t_best, best.to(torch.int32), best_inst.to(torch.int32)
+
+
 def bvh8_closest_plain(pack: Bvh8Pack, o, d, t_min, active=None, stats=None):
     """Plain version of the closest-hit kernel: (t_raw (N,) f32 with BIG on
-    a miss, triangle id (N,) i32). `stats`, if given, accumulates the box
-    and triangle tests the walk made."""
-    t_raw, tri, _ = _walk_plain(pack.bounds, pack.meta, pack.tris, o, d, t_min, None, active, False, stats)
+    a miss, triangle id (N,) i32). `stats`, if given, accumulates the
+    counts of `_group_walk`."""
+    t_raw, tri, _ = _group_walk(pack, o, d, t_min, None, active, False, stats)
     return t_raw, tri
 
 
 def bvh8_occluded_plain(pack: Bvh8Pack, o, d, t_min, t_max, active=None, stats=None):
     """Plain version of the any-hit kernel: True iff some triangle lies in
     [t_min, t_max] along the ray."""
-    return _walk_plain(pack.bounds, pack.meta, pack.tris, o, d, t_min, t_max, active, True, stats)
+    return _group_walk(pack, o, d, t_min, t_max, active, True, stats)
+
+
+# ---------------------------------------------------------------------------
+# The exact walk: the yardstick the kernels are held and bounded by
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class WideExact:
+    """The previous layout of a wide table, one stack entry per hit child:
+    the same f32 child boxes and `_emit_wide`'s (Mw, 24) meta, with
+    `_walk_plain` as its walk; `inst` and `inst_root` for a two-level
+    table (`ops/tlas8.exact_table`)."""
+
+    bounds: torch.Tensor
+    meta: torch.Tensor
+    tris: torch.Tensor
+    inst: Optional[torch.Tensor] = None
+    inst_root: Optional[torch.Tensor] = None
+
+    @property
+    def nbytes(self) -> int:
+        tables = (self.bounds, self.meta, self.tris, self.inst, self.inst_root)
+        return sum(t.numel() * t.element_size() for t in tables if t is not None)
+
+
+def exact_table(bvh: BvhData, device=None) -> WideExact:
+    """The f32-box, one-entry-per-child table of `bvh` (`_emit_wide`)."""
+    bounds, meta = _emit_wide(*_collapse(bvh))
+    return WideExact(bounds=torch.as_tensor(bounds, device=device), meta=torch.as_tensor(meta, device=device),
+                     tris=torch.as_tensor(_tri_rows(bvh.verts.cpu().numpy()), device=device))
+
+
+def bvh8_closest_exact(table: WideExact, o, d, t_min, active=None, stats=None):
+    """The exact walk's closest hit, as `bvh8_closest_plain`."""
+    t_raw, tri, _ = _walk_plain(table.bounds, table.meta, table.tris, o, d, t_min, None, active, False, stats)
+    return t_raw, tri
+
+
+def bvh8_occluded_exact(table: WideExact, o, d, t_min, t_max, active=None, stats=None):
+    """The exact walk's any hit, as `bvh8_occluded_plain`."""
+    return _walk_plain(table.bounds, table.meta, table.tris, o, d, t_min, t_max, active, True, stats)
 
 
 # ---------------------------------------------------------------------------
@@ -494,7 +829,9 @@ def _check_rays(pack, o, d, active, t_max=None):
 
 
 def bvh8_closest_kernel(pack: Bvh8Pack, o, d, t_min, active=None):
-    """Launch the closest-hit kernel: (t_raw, triangle id) as the plain version."""
+    """Launch the closest-hit kernel: (t_raw, triangle id) as the plain
+    version. Raises if the group stack does not fit one block's shared
+    memory."""
     from ..kernels import load_library
 
     lib = load_library("bvh8")
@@ -503,7 +840,7 @@ def bvh8_closest_kernel(pack: Bvh8Pack, o, d, t_min, active=None):
     t_out = torch.empty(n, dtype=torch.float32, device=o.device)
     id_out = torch.empty(n, dtype=torch.int32, device=o.device)
     err = lib.rpt_bvh8_closest(
-        _ptr(pack.bounds), _ptr(pack.meta), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
+        _ptr(pack.bounds), _ptr(pack.meta), pack.group_depth, _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
         n, float(np.float32(t_min)), _ptr(t_out), _ptr(id_out),
         ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
@@ -521,7 +858,7 @@ def bvh8_occluded_kernel(pack: Bvh8Pack, o, d, t_min, t_max, active=None):
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     err = lib.rpt_bvh8_occluded(
-        _ptr(pack.bounds), _ptr(pack.meta), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
+        _ptr(pack.bounds), _ptr(pack.meta), pack.group_depth, _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
         _ptr(t_max), n, float(np.float32(t_min)), _ptr(occ),
         ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )

@@ -15,14 +15,10 @@ space), then one wide BLAS per unique mesh segment (local space), shared by
 every instance of the mesh. Both are collapsed with the reference's
 smallest-subtree-first frontier expansion (`_collapse_wide`, copied).
 
-- `bounds` (Mw, 48) f32: child boxes as in the one-level pack
-  (`ops/bvh8.py`), rows lo.x, lo.y, lo.z, hi.x, hi.y, hi.z of 8 slots.
-- `meta` (Mw, 16) i32: 8 child references, then 8 octant words (for
-  direction octant (dx<0) | (dy<0)<<1 | (dz<0)<<2, the slots near to far, 4
-  bits per rank). A reference is `payload << 2 | kind`: kind 0 an empty
-  slot, 1 a wide node (payload its index), 2 an instance (payload its id),
-  3 a leaf (payload `start / 8 << 3 | count - 1`: its triangle rows are
-  8-aligned).
+- `bounds` (Mw, 48) f32 and `meta` (Mw, 16) i32: the one-level pack's
+  node layout (`ops/bvh8.py`): 8 child boxes, 8 child references
+  `payload << 2 | kind` and 8 octant words; here a reference may also be
+  kind 2, an instance (payload its id).
 - `inst` (K, 12) f32 world->local affine rows and `inst_root` (K,) i32 the
   wide BLAS root of each instance.
 - `tris` (L*8, 20) f32: the 20-float rows (`ops/bvh8._tri_rows`) of the
@@ -30,19 +26,15 @@ smallest-subtree-first frontier expansion (`_collapse_wide`, copied).
   with its first triangle (the reference's packing); `p_verts`, `p_norms`
   the same triangles for the finalize.
 
-Walk: a node-group stack. Visiting a node slab-tests its 8 children, tests
-its hit leaves at once, near first, and makes its hit wide-node and
-instance children one group: (node, 8-bit mask of them by rank). The walk
-enters the group's lowest rank and pushes the group back while bits remain,
-so the stack holds at most one entry per level of the tree, in shared
-memory (`csrc/tlas8.cu`). An instance child re-expresses the world ray in
-its frame (direction unnormalized, so local t == world t) and enters its
-BLAS root; a node's frame is its index (`>= n_tlas` is local), and LIFO
-order means one local ray serves. The visit order is exactly that of a
-stack with one entry per hit child (a node's leaves, then its children
-near to far, each subtree whole before the next sibling): the walk of the
-previous layout, which `tlas8_closest_exact` keeps as the yardstick
-(`exact_table`, `bvh8._walk_plain`); the two agree bit for bit.
+Walk: the one-level node-group walk (`ops/bvh8.py` `_group_walk`,
+`csrc/group_walk.cuh`, shared with the one-level kernels) over both
+levels. An instance child re-expresses the world ray in its frame
+(direction unnormalized, so local t == world t) and enters its BLAS root; a
+node's frame is its index (`>= n_tlas` is local), and LIFO order means one
+local ray serves. The visit order is exactly that of a stack with one entry
+per hit child: the walk of the previous layout, which `tlas8_closest_exact`
+keeps as the yardstick (`exact_table`, `bvh8._walk_plain`); the two agree
+bit for bit.
 
 `group_depth` is the exact worst-case depth of that stack; `stack_need`
 the reference's bound for a stack of single children, which decides, as in
@@ -50,8 +42,9 @@ the reference, whether the wide pack is taken: above STACK_CAP the pack
 raises WidePackRefused and the scene compiler takes the binary two-level
 kernels (`ops/tlas2.py`). Every group on the stack stands for at least one
 child the other stack would hold, so group_depth <= stack_need <= 128
-levels: at most 64 KB of shared memory for a block of 128 rays. The TPU-only budgets are not carried over: no
-resident/dma modes, no node-count gate, no (8, 128) tiles.
+levels: at most 64 KB of shared memory for a block of 128 rays. The
+TPU-only budgets are not carried over: no resident/dma modes, no
+node-count gate, no (8, 128) tiles.
 """
 
 from __future__ import annotations
@@ -63,19 +56,23 @@ import numpy as np
 import torch
 
 from ..utils.vmath import normalize
-from .bvh import LEAF_SIZE, _safe_inv, _tri_hit_t
+from .bvh import _tri_hit_t
 from .bvh8 import (
     BRANCH,
     EMPTY,
     INST_CHILD,
     STACK_CAP,
+    WideExact,
+    WideNodes,
     WidePackRefused,
     _check_rays,
+    _emit_group,
     _emit_wide,
-    _leaf_t,
+    _group_depth,
+    _group_walk,
     _on_cpu,
     _ptr,
-    _to_local,
+    _refuse_overflow,
     _tri_rows,
     _walk_plain,
     finish_occluded,
@@ -103,14 +100,10 @@ __all__ = [
 # csrc/tlas8.cu: origin 9 mul + 9 add, direction 9 mul + 6 add, and per axis
 # of the inverse direction a compare and a divide.
 INST_ENTRY_OPS = 39
-KIND_EMPTY, KIND_NODE, KIND_INST, KIND_LEAF = 0, 1, 2, 3
-_MAX_NODES = 2**24  # a stack entry is node << 8 | rank mask in 32 bits
-_MAX_PAYLOAD = 2**30  # a reference is payload << 2 | kind in 32 bits
-_BIG = 3.0e38
 
 
 @dataclasses.dataclass(frozen=True)
-class Tlas8Pack:
+class Tlas8Pack(WideNodes):
     bounds: torch.Tensor  # (Mw, 48) f32
     meta: torch.Tensor  # (Mw, 16) i32: child references, octant words
     inst: torch.Tensor  # (K, 12) f32 world->local rows
@@ -121,25 +114,6 @@ class Tlas8Pack:
     n_tlas: int  # wide nodes 0..n_tlas-1 are the TLAS (world space)
     group_depth: int  # worst-case depth of the walk's node-group stack
     stack_need: int  # the reference's worst-case stack of single children
-
-    @property
-    def num_nodes(self) -> int:
-        return self.bounds.shape[0]
-
-    @property
-    def refs(self) -> torch.Tensor:
-        """(Mw, 8) i32 child references, by slot."""
-        return self.meta[:, 0:8]
-
-    @property
-    def words(self) -> torch.Tensor:
-        """(Mw, 8) i32 octant words."""
-        return self.meta[:, 8:16]
-
-    @property
-    def node_bytes(self) -> int:
-        """Bytes of one wide node: its boxes and its references and words."""
-        return (self.bounds.shape[1] * self.bounds.element_size() + self.meta.shape[1] * self.meta.element_size())
 
     @property
     def nbytes(self) -> int:
@@ -210,32 +184,6 @@ def _tlas_stack_need(out_nodes, inst_blas_root) -> int:
     return max(1, 1 + int(need[0]))
 
 
-def _group_depth(ref: np.ndarray, words: np.ndarray, inst_blas_root: np.ndarray) -> int:
-    """Exact worst-case depth of the node-group stack over every octant and
-    every subset of hit children. Entering child C of a node leaves the
-    node's group on the stack iff a group child of a later rank could be
-    hit, i.e. C is not the last group child in the octant's order; so
-    need(node) = max over its group children C of [C not last] + need(C),
-    0 for a node without any (an instance child's need is its BLAS
-    root's). Iterated to its fixed point, one level per pass."""
-    kind = ref & 3
-    grp = (kind == KIND_NODE) | (kind == KIND_INST)
-    payload = ref >> 2
-    target = np.where(kind == KIND_NODE, payload, 0)
-    target = np.where(kind == KIND_INST, inst_blas_root[np.where(kind == KIND_INST, payload, 0)], target)
-    slots = (words[:, :, None] >> (4 * np.arange(BRANCH))) & 7  # (Mw, oct, rank) -> slot
-    rank = np.argsort(slots, axis=-1)  # (Mw, oct, slot) -> rank
-    last = np.where(grp[:, None, :], rank, -1).max(-1, keepdims=True)
-    stays = grp[:, None, :] & (rank != last)  # (Mw, oct, slot)
-    need = np.zeros((ref.shape[0], 8), np.int64)  # (Mw, oct)
-    while True:
-        child = need[target].transpose(0, 2, 1)  # (Mw, oct, slot)
-        new = np.where(grp[:, None, :], stays + child, 0).max(-1)
-        if np.array_equal(new, need):
-            return int(need[0].max())
-        need = new
-
-
 def _collapse_instanced(im: InstancedMeshes):
     """The TLAS and every unique BLAS collapsed into one list of wide nodes
     (TLAS first). Returns (out_nodes, n_tlas, inst_blas_root (K,), p_verts,
@@ -275,29 +223,6 @@ def _slot_arrays(out_nodes):
     return lo, hi, cb != EMPTY, ca, cb
 
 
-def _encode_refs(ca: np.ndarray, cb: np.ndarray) -> np.ndarray:
-    """Child references `payload << 2 | kind` (module docstring) from the
-    (a, b) pairs: b == 0 a wide node a, b == -2 an instance a, b > 0 a leaf
-    of b rows at row a, b == -1 an empty slot."""
-    leaf = cb > 0
-    if (ca[leaf] % LEAF_SIZE).any() or (cb[leaf] > LEAF_SIZE).any():
-        raise ValueError("leaves must start 8-aligned and hold at most 8 triangles")
-    payload = np.where(leaf, (ca // LEAF_SIZE) << 3 | (cb - 1), ca)
-    kind = np.select([cb == 0, cb == INST_CHILD, leaf], [KIND_NODE, KIND_INST, KIND_LEAF], KIND_EMPTY)
-    return np.where(kind == KIND_EMPTY, 0, payload << 2 | kind)
-
-
-def _decode_refs(ref) -> tuple:
-    """The (a, b) pairs of `_encode_refs`' input back from references
-    (numpy or torch): a = node, instance or first row, b = 0, -2, the
-    leaf's row count, or -1 for an empty slot."""
-    kind, payload = ref & 3, ref >> 2
-    leaf = kind == KIND_LEAF
-    a = (payload >> 3) * LEAF_SIZE * leaf + payload * (kind == KIND_NODE) + payload * (kind == KIND_INST)
-    b = ((payload & 7) + 1) * leaf + INST_CHILD * (kind == KIND_INST) + EMPTY * (kind == KIND_EMPTY)
-    return a, b
-
-
 def pack_tlas8(im: InstancedMeshes, device=None) -> Tlas8Pack:
     """The kernels' table for an instanced scene (module docstring). Raises
     WidePackRefused if the reference's walk could need a deeper stack than
@@ -307,16 +232,9 @@ def pack_tlas8(im: InstancedMeshes, device=None) -> Tlas8Pack:
     need = _tlas_stack_need(out_nodes, inst_blas_root)
     if need > STACK_CAP:
         raise WidePackRefused(f"the two-level wide BVH needs a stack of {need} > {STACK_CAP} entries")
-    Mw, K = len(out_nodes), inst_blas_root.shape[0]
-    if Mw >= _MAX_NODES or K >= _MAX_PAYLOAD or p_verts.shape[0] // LEAF_SIZE >= _MAX_PAYLOAD >> 3:
-        raise WidePackRefused(f"{Mw} wide nodes, {K} instances or {p_verts.shape[0]} rows overflow the kernels' "
-                              "32-bit references and stack entries")
-
-    lo, hi, valid, ca, cb = _slot_arrays(out_nodes)
-    bounds, old_meta = _emit_wide(lo, hi, valid, ca, cb)
-    ref = _encode_refs(ca, cb)
-    words = old_meta[:, 16:24].astype(np.int64)
-    meta = np.concatenate([ref, words], axis=1).astype(np.int32)
+    K = inst_blas_root.shape[0]
+    _refuse_overflow(len(out_nodes), p_verts.shape[0], K)
+    bounds, meta = _emit_group(*_slot_arrays(out_nodes))
 
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
@@ -325,171 +243,13 @@ def pack_tlas8(im: InstancedMeshes, device=None) -> Tlas8Pack:
         bounds=t(bounds), meta=t(meta, torch.int32),
         inst=t(im.inst_inv.cpu().numpy().reshape(K, 12)), inst_root=t(inst_blas_root, torch.int32),
         tris=t(_tri_rows(p_verts)), p_verts=t(p_verts), p_norms=t(p_norms),
-        n_tlas=n_tlas, group_depth=_group_depth(ref, words, inst_blas_root), stack_need=need,
+        n_tlas=n_tlas, group_depth=_group_depth(meta, inst_blas_root), stack_need=need,
     )
 
 
 # ---------------------------------------------------------------------------
 # Plain torch versions (CPU tensors, tests, and the reference on the card)
 # ---------------------------------------------------------------------------
-
-# Index of the lowest set bit of each byte (0 has none: 8).
-_LOWEST_BIT = torch.tensor([8] + [(v & -v).bit_length() - 1 for v in range(1, 256)])
-
-
-def _group_walk(pack: Tlas8Pack, o, d, t_min, t_max, active, occl: bool, stats):
-    """Lockstep version of csrc/tlas8.cu: each step visits one node for
-    every ray still walking, then moves it to its next node (module
-    docstring). Returns (t_raw, tri, instance) for the closest hit (t_raw =
-    BIG on a miss) or the any-hit bool. `stats` accumulates box tests
-    (filled slots of each visited node), triangle tests, instance entries
-    and the deepest group stack reached (`max_group_depth`)."""
-    dev = o.device
-    N = o.shape[0]
-    t_min = float(np.float32(t_min))
-    inv = _safe_inv(d)
-    octant = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
-    boxes = pack.bounds.view(-1, 6, BRANCH)
-    refs = pack.refs.long()
-    words = pack.words.long()
-    kinds = refs & 3
-    aff = pack.inst.view(-1, 3, 4)
-    roots = pack.inst_root.long()
-    lowest = _LOWEST_BIT.to(dev)
-    shifts = 4 * torch.arange(BRANCH, device=dev)
-    kk = torch.arange(BRANCH, device=dev)
-
-    t_best = torch.full((N,), _BIG, dtype=torch.float32, device=dev)
-    best = torch.zeros(N, dtype=torch.int64, device=dev)
-    best_inst = torch.zeros(N, dtype=torch.int64, device=dev)
-    occ = torch.zeros(N, dtype=torch.bool, device=dev)
-    o_loc, d_loc, inv_loc = torch.zeros_like(o), torch.zeros_like(d), torch.zeros_like(d)
-    cur_inst = torch.zeros(N, dtype=torch.int64, device=dev)
-    node = torch.zeros(N, dtype=torch.int64, device=dev)  # the next node to visit; the TLAS root first
-    stack = torch.zeros((N, max(pack.group_depth, 1)), dtype=torch.int64, device=dev)
-    sp = torch.zeros(N, dtype=torch.int64, device=dev)
-    walking = torch.ones(N, dtype=torch.bool, device=dev) if active is None else active.clone()
-    n_box = torch.zeros((), dtype=torch.int64, device=dev)
-    n_tri = torch.zeros((), dtype=torch.int64, device=dev)
-    n_inst = torch.zeros((), dtype=torch.int64, device=dev)
-    max_sp = torch.zeros((), dtype=torch.int64, device=dev)
-
-    while True:
-        live = torch.nonzero(walking)[:, 0]
-        if live.numel() == 0:
-            break
-        L = live.numel()
-        w = node[live]
-        local = (w >= pack.n_tlas)[:, None]
-        ol = torch.where(local, o_loc[live], o[live])
-        dl = torch.where(local, d_loc[live], d[live])
-        il = torch.where(local, inv_loc[live], inv[live])
-
-        # Visit: slab-test the 8 children against the best hit so far.
-        b = boxes[w]  # (L, 6, 8)
-        t1x = (b[:, 0] - ol[:, 0:1]) * il[:, 0:1]
-        t2x = (b[:, 3] - ol[:, 0:1]) * il[:, 0:1]
-        t1y = (b[:, 1] - ol[:, 1:2]) * il[:, 1:2]
-        t2y = (b[:, 4] - ol[:, 1:2]) * il[:, 1:2]
-        t1z = (b[:, 2] - ol[:, 2:3]) * il[:, 2:3]
-        t2z = (b[:, 5] - ol[:, 2:3]) * il[:, 2:3]
-        lo = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)), torch.minimum(t1z, t2z))
-        hi = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)), torch.maximum(t1z, t2z))
-        upper = (t_max[live] if occl else t_best[live])[:, None]
-        kind = kinds[w]
-        hit = (lo <= hi) & (hi >= t_min) & (lo <= upper) & (kind != KIND_EMPTY)  # (L, 8) by slot
-        if stats is not None:
-            n_box += (kind != KIND_EMPTY).sum()
-        word = words[w, octant[live]]
-        ck = (word[:, None] >> shifts) & 7  # (L, 8) slot by rank
-        hit_r = torch.gather(hit, 1, ck)
-        kind_r = torch.gather(kind, 1, ck)
-        ref_r = torch.gather(refs[w], 1, ck)
-
-        # Hit leaves, near first, each against the best hit so far.
-        li, lk = torch.nonzero(hit_r & (kind_r == KIND_LEAF), as_tuple=True)
-        if li.numel():
-            payload = ref_r[li, lk] >> 2
-            start = (payload >> 3) * LEAF_SIZE
-            count = (payload & 7) + 1
-            rows = pack.tris[start[:, None] + kk]  # (P, 8, 20)
-            ray = live[li]
-            t, ok = _leaf_t(rows, ol[li], dl[li], t_min)
-            ok = ok & (kk < count[:, None])
-            if stats is not None:
-                n_tri += count.sum()
-            if occl:
-                stop = ray[(ok & (t <= t_max[ray][:, None])).any(1)]
-                occ[stop] = True
-                walking[stop] = False  # early exit
-            else:
-                th = torch.where(ok, t, torch.full_like(t, _BIG))
-                t_leaf = th.min(1).values
-                k_best = torch.where(th == t_leaf[:, None], kk, BRANCH).min(1).values
-                # The winner is the first leaf (in rank order) that holds
-                # the node's minimum, if it beats the previous best.
-                tl = torch.full((L, BRANCH), _BIG, dtype=torch.float32, device=dev)
-                tl[li, lk] = t_leaf
-                ids = torch.zeros((L, BRANCH), dtype=torch.int64, device=dev)
-                ids[li, lk] = start + k_best
-                m = tl.min(1).values
-                r_best = torch.where(tl == m[:, None], kk, BRANCH).min(1).values
-                tb = t_best[live]
-                better = m < tb
-                t_best[live] = torch.where(better, m, tb)
-                best[live] = torch.where(better, torch.gather(ids, 1, r_best.clamp(max=BRANCH - 1)[:, None])[:, 0],
-                                         best[live])
-                best_inst[live] = torch.where(better, cur_inst[live], best_inst[live])
-
-        # The node's group: its hit wide-node and instance children by rank.
-        grp = hit_r & ((kind_r == KIND_NODE) | (kind_r == KIND_INST))
-        g_node, g_mask, g_word = w, (grp.long() << kk).sum(1), word
-        keep = walking[live]
-        live, g_node, g_mask, g_word = live[keep], g_node[keep], g_mask[keep], g_word[keep]
-
-        # Move on: an empty group pops the stack, an empty stack ends the walk.
-        pop = (g_mask == 0) & (sp[live] > 0)
-        if bool(pop.any()):
-            r = live[pop]
-            sp[r] -= 1
-            e = stack[r, sp[r]]
-            g_node[pop], g_mask[pop] = e >> 8, e & 255
-            g_word[pop] = words[e >> 8, octant[r]]
-        done = g_mask == 0
-        walking[live[done]] = False
-        go = ~done
-        live, g_node, g_mask, g_word = live[go], g_node[go], g_mask[go], g_word[go]
-        if live.numel() == 0:
-            continue
-        k = lowest[g_mask]
-        rest = g_mask & (g_mask - 1)
-        back = rest != 0
-        if bool(back.any()):
-            r = live[back]
-            stack[r, sp[r]] = (g_node[back] << 8) | rest[back]
-            sp[r] += 1
-            max_sp = torch.maximum(max_sp, sp[r].max())
-        ref = refs[g_node, (g_word >> (4 * k)) & 7]
-        payload = ref >> 2
-        enter = (ref & 3) == KIND_INST
-        node[live] = payload
-        if bool(enter.any()):
-            # Instance children: the world ray in the instance's frame,
-            # direction unnormalized; then its BLAS root.
-            r, inst = live[enter], payload[enter]
-            o_loc[r], d_loc[r], inv_loc[r] = _to_local(aff[inst], o[r], d[r])
-            cur_inst[r] = inst
-            node[r] = roots[inst]
-            n_inst += r.numel()
-
-    if stats is not None:
-        stats["box_tests"] = stats.get("box_tests", 0) + int(n_box)
-        stats["tri_tests"] = stats.get("tri_tests", 0) + int(n_tri)
-        stats["inst_entries"] = stats.get("inst_entries", 0) + int(n_inst)
-        stats["max_group_depth"] = max(stats.get("max_group_depth", 0), int(max_sp))
-    if occl:
-        return occ
-    return t_best, best.to(torch.int32), best_inst.to(torch.int32)
 
 
 def tlas8_closest_plain(pack: Tlas8Pack, o, d, t_min, active=None, stats=None):
@@ -510,24 +270,7 @@ def tlas8_occluded_plain(pack: Tlas8Pack, o, d, t_min, t_max, active=None, stats
 # ---------------------------------------------------------------------------
 
 
-@dataclasses.dataclass(frozen=True)
-class Tlas8Exact:
-    """The previous layout of the same scene, one stack entry per hit
-    child: f32 child boxes and the `ops/bvh8.py` meta (Mw, 24), with
-    `_walk_plain` as its walk."""
-
-    bounds: torch.Tensor
-    meta: torch.Tensor
-    inst: torch.Tensor
-    inst_root: torch.Tensor
-    tris: torch.Tensor
-
-    @property
-    def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.bounds, self.meta, self.inst, self.inst_root, self.tris))
-
-
-def exact_table(im: InstancedMeshes, device=None) -> Tlas8Exact:
+def exact_table(im: InstancedMeshes, device=None) -> WideExact:
     """The f32-box, one-entry-per-child table of `im` (`_emit_wide`)."""
     out_nodes, _, inst_blas_root, p_verts, _ = _collapse_instanced(im)
     bounds, meta = _emit_wide(*_slot_arrays(out_nodes))
@@ -535,17 +278,17 @@ def exact_table(im: InstancedMeshes, device=None) -> Tlas8Exact:
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
-    return Tlas8Exact(bounds=t(bounds), meta=t(meta, torch.int32), inst=t(im.inst_inv.cpu().numpy().reshape(-1, 12)),
-                      inst_root=t(inst_blas_root, torch.int32), tris=t(_tri_rows(p_verts)))
+    return WideExact(bounds=t(bounds), meta=t(meta, torch.int32), tris=t(_tri_rows(p_verts)),
+                     inst=t(im.inst_inv.cpu().numpy().reshape(-1, 12)), inst_root=t(inst_blas_root, torch.int32))
 
 
-def tlas8_closest_exact(table: Tlas8Exact, o, d, t_min, active=None, stats=None):
+def tlas8_closest_exact(table: WideExact, o, d, t_min, active=None, stats=None):
     """The exact f32-box walk's closest hit, as `tlas8_closest_plain`."""
     return _walk_plain(table.bounds, table.meta, table.tris, o, d, t_min, None, active, False, stats,
                        table.inst, table.inst_root)
 
 
-def tlas8_occluded_exact(table: Tlas8Exact, o, d, t_min, t_max, active=None, stats=None):
+def tlas8_occluded_exact(table: WideExact, o, d, t_min, t_max, active=None, stats=None):
     """The exact f32-box walk's any hit, as `tlas8_occluded_plain`."""
     return _walk_plain(table.bounds, table.meta, table.tris, o, d, t_min, t_max, active, True, stats,
                        table.inst, table.inst_root)

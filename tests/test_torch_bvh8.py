@@ -54,7 +54,7 @@ def test_build_bvh_matches_reference(n_tris):
 def test_pack_covers_every_leaf_once():
     _, bvh, _, _ = _case(500, seed=2)
     pack = bvh8.pack_bvh8(bvh)
-    starts, counts = pack.meta[:, 0:8].numpy(), pack.meta[:, 8:16].numpy()
+    starts, counts = bvh8._decode_refs(pack.refs.numpy().astype(np.int64))
     leaf_count = bvh.leaf_count.numpy()
     want = bvh.leaf_start.numpy()[leaf_count > 0]
     np.testing.assert_array_equal(np.sort(starts[counts > 0]), np.sort(want))
@@ -126,6 +126,52 @@ def test_plain_walk_counts_its_tests():
     stats = {}
     bvh8.bvh8_closest_plain(bvh8.pack_bvh8(bvh), to, td, T_MIN, stats=stats)
     assert stats["box_tests"] > to.shape[0] and stats["tri_tests"] > 0
+
+
+@pytest.mark.parametrize("kind", ["closest", "any_hit"])
+@pytest.mark.parametrize("n_tris,seed", [(40, 11), (700, 12), (3000, 13)])
+def test_group_walk_equals_the_exact_walk(n_tris, seed, kind):
+    """The node-group walk (the kernels' plain version) on the pack against
+    the previous one-entry-per-child walk on the exact table: the same f32
+    boxes, the same hits bit for bit (t, triangle id, any-hit bool) and the
+    same box and triangle tests."""
+    _, bvh, _, (to, td) = _case(n_tris, seed=seed, n_rays=2000, ray_seed=seed + 1)
+    pack, exact = bvh8.pack_bvh8(bvh), bvh8.exact_table(bvh)
+    np.testing.assert_array_equal(pack.bounds.numpy(), exact.bounds.numpy())
+    active = torch.arange(to.shape[0]) % 5 != 0
+    got, want = {}, {}
+    if kind == "closest":
+        t, tri = bvh8.bvh8_closest_plain(pack, to, td, T_MIN, active, stats=got)
+        t_x, tri_x = bvh8.bvh8_closest_exact(exact, to, td, T_MIN, active, stats=want)
+        hit = t_x < 1e38
+        assert hit.any() and (~hit[active]).any()
+        np.testing.assert_array_equal(t.numpy(), t_x.numpy())
+        np.testing.assert_array_equal(tri.numpy(), tri_x.numpy())
+    else:
+        t_max = torch.as_tensor(np.random.default_rng(seed).uniform(1.0, 6.0, to.shape[0]), dtype=torch.float32)
+        occ = bvh8.bvh8_occluded_plain(pack, to, td, T_MIN, t_max, active, stats=got)
+        occ_x = bvh8.bvh8_occluded_exact(exact, to, td, T_MIN, t_max, active, stats=want)
+        assert occ_x.any() and (~occ_x[active]).any()
+        np.testing.assert_array_equal(occ.numpy(), occ_x.numpy())
+    assert (got["box_tests"], got["tri_tests"]) == (want["box_tests"], want["tri_tests"])
+
+
+def test_group_depth_is_exact():
+    """`group_depth` is the deepest group stack the walk reaches on rays
+    from every side of a random mesh, and never above `stack_need`."""
+    _, bvh, _, (to, td) = _case(2000, seed=2, n_rays=3000, ray_seed=3)
+    pack = bvh8.pack_bvh8(bvh)
+    stats = {}
+    bvh8.bvh8_closest_plain(pack, to, td, T_MIN, stats=stats)
+    assert pack.group_depth >= 3
+    assert stats["max_group_depth"] == pack.group_depth <= pack.stack_need
+
+
+def test_pack_refuses_ids_that_overflow_the_references(monkeypatch):
+    _, bvh, _, _ = _case(300, seed=4)
+    monkeypatch.setattr(bvh8, "_MAX_NODES", bvh8.pack_bvh8(bvh).num_nodes)
+    with pytest.raises(bvh8.WidePackRefused, match="overflow"):
+        bvh8.pack_bvh8(bvh)
 
 
 

@@ -69,6 +69,47 @@ def test_kernels_match_plain_walks(card):
     assert torch.equal(occ_k, (t_p <= t_max) & active)
 
 
+def test_bvh8_kernels_match_plain_walks_at_the_deepest_group_stack(card):
+    """Of a few meshes, the one with the deepest node-group stack: the plain
+    walk reaches the pack's exact `group_depth` on these rays, and both
+    kernels agree with it, and with the exact walk of the previous layout,
+    bit for bit."""
+    cases = [_mesh_and_rays(n, 6000, seed=s) for n, s in ((500, 4), (3000, 5), (5000, 7))]
+    bvhs = [build_bvh(verts, norms, mats, device="cpu") for (verts, norms, mats), _, _ in cases]
+    packs = [bvh8.pack_bvh8(bvh, device=card) for bvh in bvhs]
+    deepest = max(range(len(cases)), key=lambda j: packs[j].group_depth)
+    pack, exact, (_, o, d) = packs[deepest], bvh8.exact_table(bvhs[deepest], device=card), cases[deepest]
+    assert pack.group_depth >= 3
+    o, d = o.to(card), d.to(card)
+    stats = {}
+    t_p, id_p = bvh8.bvh8_closest_plain(pack, o, d, T_MIN, stats=stats)
+    t_k, id_k = bvh8.bvh8_closest_kernel(pack, o, d, T_MIN)
+    t_x, id_x = bvh8.bvh8_closest_exact(exact, o, d, T_MIN)
+    torch.cuda.synchronize()
+    assert stats["max_group_depth"] == pack.group_depth
+    assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
+    assert torch.equal(t_k, t_x) and torch.equal(id_k, id_x)
+    t_max = torch.where(t_p < 1e38, t_p, torch.full_like(t_p, 8.0))
+    t_max[1::4] = 3.0
+    occ_k = bvh8.bvh8_occluded_kernel(pack, o, d, T_MIN, t_max)
+    occ_p = bvh8.bvh8_occluded_plain(pack, o, d, T_MIN, t_max)
+    torch.cuda.synchronize()
+    assert torch.equal(occ_k, occ_p)
+    assert torch.equal(occ_k, t_p <= t_max)
+
+
+def test_bvh8_kernels_refuse_a_stack_deeper_than_a_block_holds(card):
+    """The group stack lives in one block's shared memory: a depth past its
+    227 KB is refused at launch, never truncated."""
+    (verts, norms, mats), o, d = _mesh_and_rays(100, 64)
+    pack = bvh8.pack_bvh8(build_bvh(verts, norms, mats, device="cpu"), device=card)
+    deep = dataclasses.replace(pack, group_depth=1000)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bvh8.bvh8_closest_kernel(deep, o.to(card), d.to(card), T_MIN)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        bvh8.bvh8_occluded_kernel(deep, o.to(card), d.to(card), T_MIN, torch.full((64,), 3.0, device=card))
+
+
 def _counts():
     return {name: fn.launches for name, fn in (
         ("bvh8_closest", bvh8.bvh8_closest_hit), ("bvh8_occluded", bvh8.bvh8_occluded),

@@ -20,7 +20,7 @@ import torch
 from rpt_tpu.ops import tlas8_pallas as ref_t8
 from rpt_tpu.ops.tlas import build_instanced as ref_build_instanced
 from rpt_tpu.ops.tlas import instanced_closest_hit as ref_instanced_closest_hit
-from rpt_tpu_torch.ops import tlas8
+from rpt_tpu_torch.ops import bvh8, tlas8
 from rpt_tpu_torch.ops.tlas import build_instanced
 from test_tlas_pallas import _build_instanced_scene, _rays_at_instances
 
@@ -78,7 +78,7 @@ def test_pack_matches_reference_structure():
     (meshes, instances), im, _, _ = _case(2, 6, tris_per_mesh=30)
     pack = tlas8.pack_tlas8(im)
     ref_pack = ref_t8.pack_tlas8_for_pallas(ref_build_instanced(meshes, instances))
-    ca, cb = tlas8._decode_refs(pack.refs.numpy().astype(np.int64))
+    ca, cb = bvh8._decode_refs(pack.refs.numpy().astype(np.int64))
     np.testing.assert_array_equal(np.sort(ca[cb == tlas8.INST_CHILD]), np.arange(6))
     leaves = cb > 0
     assert leaves.any()
