@@ -1,0 +1,186 @@
+// The walk over child-pair nodes of the binary two-level kernels
+// (tlas2.cu): a binary TLAS over instances and one binary BLAS per mesh, in
+// one node table.
+//
+// What bounds it on this card: a BVH walk is neither a streaming nor a
+// dense-math workload. Per ray it does tens of box tests, a few triangle
+// tests and a few instance entries (an 18-multiply affine transform each),
+// separated by dependent loads of node, instance and triangle rows from L2
+// (the 768-instance brick city's tables, about 6 MB, fit in the 50 MB L2).
+// The least time the card could take is that of the f32 operations or of
+// reading the rays and the tables once, microseconds either way; the walk
+// is held back by load latency and by warp divergence (PERF.md has the
+// measured times beside the bound).
+//
+// What this design does about it: one ray per thread, and per visit one
+// 64-byte pair node, four independent 16-byte loads, that carries both
+// children's boxes and references:
+//   - both children are slab-tested against [t_min, upper] (upper = the
+//     running best hit, or t_max for the any hit; inclusive, as in the
+//     reference), so one round trip to L2 buys two box tests;
+//   - a hit triangle leaf is tested at once; of two hit node or instance
+//     children the closest-hit walk enters the nearer (by entry distance,
+//     A on a tie) and pushes the farther, so it shrinks its running best
+//     before it reaches the far subtrees; the any-hit walk, whose t_max does
+//     not shrink, enters A (left first measured 7.7% faster than near first
+//     on the brick city, PERF.md); one hit child is entered; with none, the
+//     walk pops;
+//   - an instance child (payload its TLAS leaf rank) loads a 64-byte record:
+//     the 3x4 world->local affine (walk.cuh to_local, direction NOT
+//     normalized, so local t == world t and the prune on the running best
+//     holds at both levels), its BLAS root and its instance id. LIFO order
+//     means one ray, in the frame of the nodes being visited, suffices: the
+//     world ray is loaded again at an instance entry and when a TLAS node
+//     (index < n_tlas) is popped in a local frame;
+//   - the stack holds one 32-bit reference per pushed far child. Its exact
+//     worst-case depth, the pack's `stack_depth`, sizes it; it lives in
+//     dynamic shared memory indexed [level][thread] (neighbouring lanes in
+//     different banks), or, for a tree too deep for one block's shared
+//     memory, in a global scratch buffer indexed the same way (the launch
+//     plan is ops/tlas2.py `launch_plan`). No per-thread local-memory array;
+//   - ties: the reference takes, among equal t, the leaf it visits first in
+//     preorder. A leaf's hit replaces the best on t < best, or on t == best
+//     with a smaller key (TLAS leaf rank, packed row), which is that order.
+//     The any-hit walk returns at its first occluder.
+//
+// Numerics: every expression is written in the same order as the plain torch
+// version (ops/tlas2.py `_pair_walk`), and the build uses -fmad=false: the
+// kernels and the plain version agree bit for bit.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "walk.cuh"  // Ray, load_ray, to_local, box_entry, leaf_closest, leaf_any
+
+namespace {
+
+constexpr int kPair4 = 4;  // float4 per pair node: 2 boxes, then [refA, refB, 0, 0]
+constexpr int kRec4 = 4;   // float4 per instance record: 3x4 rows, then [BLAS root, id, 0, 0]
+constexpr int kRefInst = 2;  // reference kinds (ops/bvh8.py): 0 empty, 1 node, 2 instance, 3 leaf
+constexpr int kRefLeaf = 3;
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may hold (227 KB)
+
+// Test the triangle leaf `ref` in r's frame. Any hit: true on an occluder in
+// [t_min, upper]. Closest: the leaf's best row replaces the running best on
+// a smaller (t, rank, row).
+template <bool kOccl>
+__device__ __forceinline__ bool pair_leaf(const float4* __restrict__ tris, int ref, const Ray& r,
+                                          float t_min, int rank, float* upper, int* best,
+                                          int* best_rank) {
+  const int payload = ref >> 2;
+  const int start = (payload >> 3) << 3;
+  const int cnt = (payload & 7) + 1;
+  const float4* tr = tris + (size_t)start * kTriStride4;
+  if (kOccl) return leaf_any(tr, cnt, r, t_min, *upper);
+  int kb;
+  const float t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
+  const int row = start + kb;
+  if (t_leaf < *upper ||
+      (t_leaf == *upper && *upper < kBig && (rank < *best_rank || (rank == *best_rank && row < *best)))) {
+    *upper = t_leaf;
+    *best = row;
+    *best_rank = rank;
+  }
+  return false;
+}
+
+// The walk of ray i = blockIdx.x * blockDim.x + threadIdx.x from pair node
+// 0. The stack: dynamic shared memory, or (kGlobalStack) `depth` levels per
+// thread of `global_stack`. kOccl: writes occ_out; else t_out, id_out and
+// inst_out.
+template <bool kOccl, bool kGlobalStack>
+__device__ __forceinline__ void pair_walk(
+    const float4* __restrict__ nodes, int n_tlas, const float4* __restrict__ inst,
+    const float4* __restrict__ tris, const float* __restrict__ o, const float* __restrict__ d,
+    const bool* __restrict__ active, const float* __restrict__ t_max, int n, float t_min,
+    unsigned* __restrict__ global_stack, int depth, float* __restrict__ t_out,
+    int* __restrict__ id_out, int* __restrict__ inst_out, bool* __restrict__ occ_out) {
+  extern __shared__ unsigned pair_stack[];  // [level][threadIdx.x]
+  unsigned* stack = kGlobalStack
+                        ? global_stack + (size_t)blockIdx.x * blockDim.x * depth + threadIdx.x
+                        : pair_stack + threadIdx.x;
+  const int stride = blockDim.x;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (active != nullptr && !active[i]) {
+    if (kOccl) {
+      occ_out[i] = false;
+    } else {
+      t_out[i] = kBig;
+      id_out[i] = 0;
+      inst_out[i] = 0;
+    }
+    return;
+  }
+  Ray r = load_ray(o, d, i);  // in the frame of the nodes being visited
+  bool local = false;
+
+  // Closest hit: `upper` is the running best t. Any hit: it is t_max.
+  float upper = kOccl ? t_max[i] : kBig;
+  int best = 0;
+  int best_rank = -1;
+  int rank = 0;  // the current instance's TLAS leaf rank
+  int sp = 0;
+  int node = 0;  // the TLAS root
+  while (true) {
+    // Visit `node`, in r's frame: both children's boxes, then its leaves.
+    const float4* nb = nodes + (size_t)node * kPair4;
+    const float4 a = __ldg(nb + 0);
+    const float4 b = __ldg(nb + 1);
+    const float4 c = __ldg(nb + 2);
+    const int4 m = __ldg(reinterpret_cast<const int4*>(nb + 3));
+    float lo_a, lo_b;
+    const bool hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, upper, &lo_a);
+    const bool hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, upper, &lo_b) && m.y != 0;
+    const bool leaf_a = (m.x & 3) == kRefLeaf;
+    const bool leaf_b = (m.y & 3) == kRefLeaf;
+    if (hit_a && leaf_a && pair_leaf<kOccl>(tris, m.x, r, t_min, rank, &upper, &best, &best_rank)) {
+      occ_out[i] = true;
+      return;
+    }
+    if (hit_b && leaf_b && pair_leaf<kOccl>(tris, m.y, r, t_min, rank, &upper, &best, &best_rank)) {
+      occ_out[i] = true;
+      return;
+    }
+    // Move on: of two hit children the nearer (closest hit) or A (any
+    // hit), the other pushed; the one hit child; else the top of the stack.
+    const bool go_a = hit_a && !leaf_a;
+    const bool go_b = hit_b && !leaf_b;
+    int next;
+    if (go_a && go_b) {
+      const bool b_first = !kOccl && lo_b < lo_a;
+      stack[(sp++) * stride] = (unsigned)(b_first ? m.x : m.y);
+      next = b_first ? m.y : m.x;
+    } else if (go_a || go_b) {
+      next = go_a ? m.x : m.y;
+    } else {
+      if (sp == 0) break;
+      next = (int)stack[(--sp) * stride];
+    }
+    node = next >> 2;
+    if ((next & 3) == kRefInst) {
+      // An instance: the world ray in its frame, then its BLAS root.
+      const float4* rec = inst + (size_t)node * kRec4;
+      to_local(rec, load_ray(o, d, i), &r);
+      local = true;
+      rank = node;
+      node = __ldg(reinterpret_cast<const int*>(rec + 3));
+    } else if (node < n_tlas && local) {
+      // A TLAS node popped in a local frame: every BLAS node of the
+      // instance has been popped (LIFO), so back to the world ray.
+      r = load_ray(o, d, i);
+      local = false;
+    }
+  }
+  if (kOccl) {
+    occ_out[i] = false;
+  } else {
+    t_out[i] = upper;
+    id_out[i] = best;
+    inst_out[i] = best_rank >= 0 ? __ldg(reinterpret_cast<const int*>(inst + (size_t)best_rank * kRec4 + 3) + 1) : 0;
+  }
+}
+
+}  // namespace

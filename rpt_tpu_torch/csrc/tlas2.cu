@@ -1,178 +1,105 @@
-// Two-level binary-BVH ray traversal by skip links for instanced meshes on
-// NVIDIA Hopper (sm_90a): a binary TLAS with one instance per leaf, and one
-// shared binary BLAS per mesh.
+// Two-level binary-BVH ray traversal for instanced meshes on NVIDIA Hopper
+// (sm_90a): a binary TLAS with one instance per leaf and one shared binary
+// BLAS per mesh, walked over child-pair nodes (the closest hit near first).
 //
 // Replaces the TPU kernels of rpt_tpu/ops/tlas_pallas.py:
 //   rpt_tlas2_closest  <- _kernel,      via _traverse and tlas_closest_hit_pallas
 //   rpt_tlas2_occluded <- _kernel_occl, via _traverse_occl and tlas_occluded_pallas
 // The TPU kernel keeps every table in SMEM and so refuses scenes past a
 // 700,000-byte budget (tlas_pallas_eligible); here the tables sit in device
-// memory and no scene is refused. The layout is documented in
-// rpt_tpu_torch/ops/tlas2.py, which also holds the plain torch versions
-// these kernels are tested against.
+// memory. These kernels are the last resort for instanced scenes (the
+// scene compiler takes them where the wide two-level pack is refused), so
+// they take every scene: a stack too deep for a 128-ray block's shared
+// memory runs in a smaller block or, past what one block holds, in a
+// global scratch buffer. The pack layout is documented in
+// rpt_tpu_torch/ops/tlas2.py, which also holds the plain torch version and
+// the launch plan.
 //
-// What bounds it on this card: as for the other walks, neither bytes nor
-// arithmetic. Per ray it does tens of box tests at both levels, a few
-// instance entries (an 18-multiply affine transform each) and a few leaf
-// tests, each behind a dependent load; the 768-instance brick city's tables
-// (0.9 MB of nodes and instances, 5.1 MB of triangle rows) sit in the 50 MB
-// L2. The least time the card could take is that of the f32 operations or
-// of reading the rays and the tables once, 6-11 us per 518,400-ray launch
-// there; the kernel is held back by load latency and warp divergence
-// (PERF.md has the measured times beside the bound).
+// The walk itself is csrc/pair_walk.cuh: one ray per thread, a 64-byte
+// child-pair node per visit, on a stack sized by the pack's
+// exact `stack_depth` (that header says what bounds the walk on this card
+// and what the design does about it). The kernels below are its thin
+// wrappers, one per query and stack space.
 //
-// What this design does about it (right and simple first):
-//   - one ray per thread and no stack at all. The outer walk follows the
-//     TLAS's skip links in world space; at a leaf whose box the ray hits it
-//     loads the instance's 3x4 world->local affine (walk.cuh to_local,
-//     direction NOT normalized, so local t == world t and the prune on the
-//     running best holds at both levels), walks the instance's BLAS range
-//     [root, end) by its own skip links in local space, and resumes the
-//     TLAS at the leaf's skip link. That is why it is the fallback for a
-//     wide two-level table whose stack bound is too deep (ops/tlas8.py);
-//   - a node is two 16-byte loads of bounds and one of meta; an instance
-//     three 16-byte loads of its affine and one 8-byte load of its range;
-//   - a leaf's triangles are tested at once against the best hit so far;
-//     the any-hit walk returns at its first occluder.
-//
-// Numerics: the slab, transform and triangle tests are those of the wide
-// kernels (walk.cuh), written in the same order as the plain torch version
-// (ops/tlas2.py), and the build uses -fmad=false: the kernel and the plain
-// version agree bit for bit.
-//
-// C interface for ctypes: each entry point launches on the given stream,
-// allocates nothing, and returns cudaGetLastError() after the launch.
+// C interface for ctypes: each entry point launches on the given stream
+// with `block` threads per block, allocates nothing (the caller passes the
+// global stack, or null for the shared one), and returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// block size or shared stack the launch cannot take.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "walk.cuh"  // Ray, load_ray, to_local, node_hit, leaf_closest, leaf_any
+#include "pair_walk.cuh"  // pair_walk, kMaxSmem
 
 namespace {
 
-struct Tables {
-  const float4* t_bounds;  // (Mt, 8) f32 world space
-  const int4* t_meta;      // (Mt, 4) i32 [skip, instance id (-1 internal), 0, 0]
-  const float4* b_bounds;  // (Mb, 8) f32 local space
-  const int4* b_meta;      // (Mb, 4) i32 [skip (global), first triangle row, count, 0]
-  const float4* inst;      // (K, 12) f32 world->local rows
-  const int2* inst_range;  // (K, 2) i32 [BLAS root, one past its last node]
-  const float4* tris;      // (L*8, 20) f32 local-space triangle rows
-  int num_tlas;
-};
-
-template <bool kOccl>
-__global__ void __launch_bounds__(kBlock)
-tlas2_walk(const Tables tb, const float* __restrict__ o, const float* __restrict__ d,
+// No launch bound or register cap: under __launch_bounds__(128) ptxas holds
+// the closest hit to 64 registers and spills 16 bytes (the any hit 8), under
+// __maxnreg__(72) and (80) it spills or runs slower; without either it takes
+// 70-72 (closest) and 60-61 (any hit) registers and spills nothing, at
+// 1.027x and 1.009x the spilling build's time in turns on the brick city
+// (PERF.md).
+template <bool kOccl, bool kGlobalStack>
+__global__ void
+tlas2_walk(const float4* __restrict__ nodes, int n_tlas, const float4* __restrict__ inst,
+           const float4* __restrict__ tris, const float* __restrict__ o, const float* __restrict__ d,
            const bool* __restrict__ active, const float* __restrict__ t_max, int n, float t_min,
-           float* __restrict__ t_out, int* __restrict__ id_out, int* __restrict__ inst_out,
-           bool* __restrict__ occ_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (active != nullptr && !active[i]) {
-    if (kOccl) {
-      occ_out[i] = false;
-    } else {
-      t_out[i] = kBig;
-      id_out[i] = 0;
-      inst_out[i] = 0;
-    }
-    return;
-  }
-  const Ray w = load_ray(o, d, i);  // the world ray
-  Ray l = w;                        // the current instance's local ray
-
-  // Closest hit: `upper` is the running best t. Any hit: it is t_max.
-  float upper = kOccl ? t_max[i] : kBig;
-  int best = 0;
-  int best_inst = 0;
-  int tptr = 0;
-  while (tptr < tb.num_tlas) {
-    const int4 tm = __ldg(tb.t_meta + tptr);
-    if (!node_hit(tb.t_bounds + 2 * (size_t)tptr, w, t_min, upper)) {
-      tptr = tm.x;
-      continue;
-    }
-    if (tm.y < 0) {  // internal: into the left child
-      ++tptr;
-      continue;
-    }
-    const int k = tm.y;
-    to_local(tb.inst + (size_t)k * kInst4, w, &l);
-    const int2 range = __ldg(tb.inst_range + k);
-    int bptr = range.x;
-    while (bptr < range.y) {
-      const int4 bm = __ldg(tb.b_meta + bptr);
-      if (!node_hit(tb.b_bounds + 2 * (size_t)bptr, l, t_min, upper)) {
-        bptr = bm.x;
-        continue;
-      }
-      if (bm.z == 0) {
-        ++bptr;
-        continue;
-      }
-      const float4* tr = tb.tris + (size_t)bm.y * kTriStride4;
-      if (kOccl) {
-        if (leaf_any(tr, bm.z, l, t_min, upper)) {
-          occ_out[i] = true;
-          return;
-        }
-      } else {
-        int kb;
-        const float t_leaf = leaf_closest(tr, bm.z, l, t_min, &kb);
-        if (t_leaf < upper) {
-          upper = t_leaf;
-          best = bm.y + kb;
-          best_inst = k;
-        }
-      }
-      bptr = bm.x;
-    }
-    tptr = tm.x;
-  }
-  if (kOccl) {
-    occ_out[i] = false;
-  } else {
-    t_out[i] = upper;
-    id_out[i] = best;
-    inst_out[i] = best_inst;
-  }
+           unsigned* __restrict__ global_stack, int depth, float* __restrict__ t_out,
+           int* __restrict__ id_out, int* __restrict__ inst_out, bool* __restrict__ occ_out) {
+  pair_walk<kOccl, kGlobalStack>(nodes, n_tlas, inst, tris, o, d, active, t_max, n, t_min, global_stack,
+                                 depth, t_out, id_out, inst_out, occ_out);
 }
 
-Tables tables(const float* t_bounds, const int* t_meta, int64_t num_tlas, const float* b_bounds,
-              const int* b_meta, const float* inst, const int* inst_range, const float* tris) {
-  return Tables{reinterpret_cast<const float4*>(t_bounds), reinterpret_cast<const int4*>(t_meta),
-                reinterpret_cast<const float4*>(b_bounds), reinterpret_cast<const int4*>(b_meta),
-                reinterpret_cast<const float4*>(inst),     reinterpret_cast<const int2*>(inst_range),
-                reinterpret_cast<const float4*>(tris),     (int)num_tlas};
+// Launch on `stream`: `block` threads per block and a stack of `depth`
+// levels per thread, in `global_stack` if given, else in dynamic shared
+// memory (its limit raised past 48 KB where needed).
+template <bool kOccl>
+int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t stream, const float* nodes,
+           int n_tlas, const float* inst, const float* tris, const float* o, const float* d,
+           const bool* active, const float* t_max, float t_min, float* t_out, int* id_out,
+           int* inst_out, bool* occ_out) {
+  if (n <= 0) return 0;
+  if (block <= 0 || block > kBlock || depth < 0) return (int)cudaErrorInvalidValue;
+  const int grid = (int)((n + block - 1) / block);
+  const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
+  const float4* inst4 = reinterpret_cast<const float4*>(inst);
+  const float4* tris4 = reinterpret_cast<const float4*>(tris);
+  if (global_stack != nullptr) {
+    tlas2_walk<kOccl, true><<<grid, block, 0, stream>>>(nodes4, n_tlas, inst4, tris4, o, d, active, t_max,
+                                                        (int)n, t_min, global_stack, depth, t_out, id_out,
+                                                        inst_out, occ_out);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)block * (size_t)depth * sizeof(unsigned);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(tlas2_walk<kOccl, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  tlas2_walk<kOccl, false><<<grid, block, smem, stream>>>(nodes4, n_tlas, inst4, tris4, o, d, active, t_max,
+                                                          (int)n, t_min, nullptr, depth, t_out, id_out,
+                                                          inst_out, occ_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int rpt_tlas2_closest(const float* t_bounds, const int* t_meta, int64_t num_tlas,
-                      const float* b_bounds, const int* b_meta, const float* inst,
-                      const int* inst_range, const float* tris, const float* o, const float* d,
-                      const bool* active, int64_t n, float t_min, float* t_out, int* id_out,
-                      int* inst_out, void* stream) {
-  if (n <= 0) return 0;
-  tlas2_walk<false><<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-      tables(t_bounds, t_meta, num_tlas, b_bounds, b_meta, inst, inst_range, tris), o, d, active,
-      nullptr, (int)n, t_min, t_out, id_out, inst_out, nullptr);
-  return (int)cudaGetLastError();
+int rpt_tlas2_closest(const float* nodes, int n_tlas, const float* inst, const float* tris, const float* o,
+                      const float* d, const bool* active, int64_t n, float t_min, float* t_out, int* id_out,
+                      int* inst_out, int block, int depth, unsigned* global_stack, void* stream) {
+  return launch<false>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, n_tlas, inst, tris, o, d,
+                       active, nullptr, t_min, t_out, id_out, inst_out, nullptr);
 }
 
-int rpt_tlas2_occluded(const float* t_bounds, const int* t_meta, int64_t num_tlas,
-                       const float* b_bounds, const int* b_meta, const float* inst,
-                       const int* inst_range, const float* tris, const float* o, const float* d,
-                       const bool* active, const float* t_max, int64_t n, float t_min,
-                       bool* occ_out, void* stream) {
-  if (n <= 0) return 0;
-  tlas2_walk<true><<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-      tables(t_bounds, t_meta, num_tlas, b_bounds, b_meta, inst, inst_range, tris), o, d, active,
-      t_max, (int)n, t_min, nullptr, nullptr, nullptr, occ_out);
-  return (int)cudaGetLastError();
+int rpt_tlas2_occluded(const float* nodes, int n_tlas, const float* inst, const float* tris, const float* o,
+                       const float* d, const bool* active, const float* t_max, int64_t n, float t_min,
+                       bool* occ_out, int block, int depth, unsigned* global_stack, void* stream) {
+  return launch<true>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, n_tlas, inst, tris, o, d,
+                      active, t_max, t_min, nullptr, nullptr, nullptr, occ_out);
 }
 
 }  // extern "C"

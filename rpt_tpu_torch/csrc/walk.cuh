@@ -1,9 +1,10 @@
 // Pieces shared by the walks of bvh8.cu, tlas8.cu (through
-// group_walk.cuh), bvh2.cu and tlas2.cu: the ray and its load, the slab
-// test of one box (of a binary node, or of each of a wide node's 8
-// children), the instance transform, and the triangle tests on the
-// precomputed 20-float rows. The layouts are
-// documented in rpt_tpu_torch/ops/bvh8.py and ops/bvh2.py, whose plain
+// group_walk.cuh), bvh2.cu and tlas2.cu (through pair_walk.cuh): the ray
+// and its load, the slab test of one box (of a binary node, of each child
+// of a pair node, or of each of a wide node's 8 children), the instance
+// transform, and the triangle tests on the precomputed 20-float rows. The
+// layouts are documented in rpt_tpu_torch/ops/bvh8.py, ops/bvh2.py and
+// ops/tlas2.py, whose plain
 // torch walks repeat this arithmetic op for op (the sources are built with
 // -fmad=false).
 //
@@ -34,8 +35,10 @@ __device__ __forceinline__ float safe_inv(float c) {
 }
 
 // Slab test of one box: does [lo, hi] overlap [t_min, upper] along the ray?
-__device__ __forceinline__ bool box_hit(float lox, float loy, float loz, float hix, float hiy,
-                                        float hiz, const Ray& r, float t_min, float upper) {
+// *entry gets the ray's entry distance into the box (the slabs' lower end).
+__device__ __forceinline__ bool box_entry(float lox, float loy, float loz, float hix, float hiy,
+                                          float hiz, const Ray& r, float t_min, float upper,
+                                          float* entry) {
   float t1x = (lox - r.ox) * r.ix;
   float t2x = (hix - r.ox) * r.ix;
   float t1y = (loy - r.oy) * r.iy;
@@ -44,7 +47,14 @@ __device__ __forceinline__ bool box_hit(float lox, float loy, float loz, float h
   float t2z = (hiz - r.oz) * r.iz;
   float lo = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
   float hi = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+  *entry = lo;
   return lo <= hi && hi >= t_min && lo <= upper;
+}
+
+__device__ __forceinline__ bool box_hit(float lox, float loy, float loz, float hix, float hiy,
+                                        float hiz, const Ray& r, float t_min, float upper) {
+  float entry;
+  return box_entry(lox, loy, loz, hix, hiy, hiz, r, t_min, upper, &entry);
 }
 
 // Slab test of the 8 child boxes of one wide node: bit c set if child c's

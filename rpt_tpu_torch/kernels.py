@@ -47,8 +47,8 @@ _SIGNATURES = {
         "rpt_bvh2_occluded": [_P, _P, _I64] + [_P] * 5 + [_I64, _F32] + [_P] * 2,
     },
     "tlas2": {
-        "rpt_tlas2_closest": [_P, _P, _I64] + [_P] * 8 + [_I64, _F32] + [_P] * 4,
-        "rpt_tlas2_occluded": [_P, _P, _I64] + [_P] * 9 + [_I64, _F32] + [_P] * 2,
+        "rpt_tlas2_closest": [_P, _I32] + [_P] * 5 + [_I64, _F32] + [_P] * 3 + [_I32, _I32, _P, _P],
+        "rpt_tlas2_occluded": [_P, _I32] + [_P] * 6 + [_I64, _F32, _P, _I32, _I32, _P, _P],
     },
 }
 _lock = threading.Lock()

@@ -41,9 +41,7 @@ as one entry while bits remain, so the stack holds at most one entry per
 tree level. The any-hit walk stops at its first triangle in [t_min, t_max].
 The visit order is exactly that of a stack with one entry per hit child,
 pushed far first (a node's leaves, then its children near to far, each
-subtree whole before the next sibling): the walk of the previous layout,
-which `bvh8_closest_exact` keeps as the yardstick (`exact_table`,
-`_walk_plain`); the two agree bit for bit.
+subtree whole before the next sibling).
 
 `group_depth` is the exact worst-case depth of the group stack, which sizes
 it in the kernel's shared memory; `stack_need` the reference's bound for a
@@ -75,7 +73,6 @@ from .intersect import INF, Hit
 
 __all__ = [
     "Bvh8Pack",
-    "WideExact",
     "WidePackRefused",
     "pack_bvh8",
     "bvh8_closest_hit",
@@ -84,9 +81,6 @@ __all__ = [
     "bvh8_occluded_plain",
     "bvh8_closest_kernel",
     "bvh8_occluded_kernel",
-    "exact_table",
-    "bvh8_closest_exact",
-    "bvh8_occluded_exact",
     "BOX_TEST_OPS",
     "TRI_TEST_OPS",
 ]
@@ -95,9 +89,8 @@ BRANCH = 8
 STACK_CAP = 128  # the reference's stack cap (bvh8_pallas.STACK_CAP)
 TRI_STRIDE = 20  # floats per triangle row, as in csrc/walk.cuh
 _BIG = 3.0e38  # in-kernel miss sentinel
-EMPTY = -1  # (a, b) pair b of an empty child slot (the exact table's meta)
+EMPTY = -1  # (a, b) pair b of an empty child slot
 INST_CHILD = -2  # b of an instance child (two-level tables, ops/tlas8.py)
-TAG_LOCAL, TAG_INST = 1, 2  # the exact two-level walk's stack entry tags (0: a node in world space)
 KIND_EMPTY, KIND_NODE, KIND_INST, KIND_LEAF = 0, 1, 2, 3  # child reference kinds
 _MAX_NODES = 2**24  # a group stack entry is node << 8 | rank mask in 32 bits
 _MAX_PAYLOAD = 2**30  # a reference is payload << 2 | kind in 32 bits
@@ -357,12 +350,11 @@ def pack_bvh8(bvh: BvhData, device=None) -> Bvh8Pack:
     )
 
 
-def _emit_wide(lo: np.ndarray, hi: np.ndarray, valid: np.ndarray, ca: np.ndarray, cb: np.ndarray):
-    """Wide nodes in the exact walk's layout from per-slot child boxes lo,
-    hi (Mw, 8, 3) f32, a mask of the filled slots and the (a, b) pairs
-    (Mw, 8) each: (bounds (Mw, 48) f32, meta (Mw, 24) i32: the a words, the
-    b words, the octant words). Empty slots get inverted boxes and the pair
-    (0, -1)."""
+def _emit_group(lo: np.ndarray, hi: np.ndarray, valid: np.ndarray, ca: np.ndarray, cb: np.ndarray):
+    """Wide nodes in the group walk's layout (module docstring) from
+    per-slot child boxes lo, hi (Mw, 8, 3) f32, a mask of the filled slots
+    and the (a, b) pairs (Mw, 8) each: (bounds (Mw, 48) f32, meta (Mw, 16)
+    i32). Empty slots get inverted boxes and reference 0."""
     Mw = lo.shape[0]
     lo_b = np.where(valid[..., None], lo, _BIG).astype(np.float32)
     hi_b = np.where(valid[..., None], hi, -_BIG).astype(np.float32)
@@ -377,18 +369,8 @@ def _emit_wide(lo: np.ndarray, hi: np.ndarray, valid: np.ndarray, ca: np.ndarray
     order = np.argsort(keys, axis=-1, kind="stable")
     words = (order << (4 * np.arange(BRANCH))[None, None, :]).sum(-1)
 
-    ca = np.where(valid, ca, 0)
-    cb = np.where(valid, cb, EMPTY)
-    meta = np.concatenate([ca, cb, words], axis=1).astype(np.int32)  # (Mw, 24)
+    meta = np.concatenate([_encode_refs(ca, np.where(valid, cb, EMPTY)), words], axis=1).astype(np.int32)
     return np.ascontiguousarray(bounds.reshape(Mw, 48)), np.ascontiguousarray(meta)
-
-
-def _emit_group(lo, hi, valid, ca, cb):
-    """Wide nodes in the group walk's layout (module docstring), from the
-    same inputs as `_emit_wide`: (bounds (Mw, 48) f32, meta (Mw, 16) i32)."""
-    bounds, exact_meta = _emit_wide(lo, hi, valid, ca, cb)
-    meta = np.concatenate([_encode_refs(ca, cb), exact_meta[:, 16:24]], axis=1)
-    return bounds, np.ascontiguousarray(meta.astype(np.int32))
 
 
 # ---------------------------------------------------------------------------
@@ -427,10 +409,11 @@ def _to_local(A, o, d):
     return ol, dl, _safe_inv(dl)
 
 
-def _slab_hit(b, ol, il, t_min, upper):
-    """Slab test of csrc/walk.cuh `box_hit` for the 8 children of each row's
-    node: b (L, 6, 8) boxes, ol, il (L, 3) ray origin and inverse
-    direction, upper (L, 1). Returns (L, 8) bool by slot."""
+def _slab(b, ol, il):
+    """The slabs of csrc/walk.cuh `box_entry` for the C children of each
+    row's node: b (L, 6, C) boxes (rows lo.x, lo.y, lo.z, hi.x, hi.y, hi.z),
+    ol, il (L, 3) ray origin and inverse direction. Returns (lo, hi), each
+    (L, C): the ray's entry and exit distances."""
     t1x = (b[:, 0] - ol[:, 0:1]) * il[:, 0:1]
     t2x = (b[:, 3] - ol[:, 0:1]) * il[:, 0:1]
     t1y = (b[:, 1] - ol[:, 1:2]) * il[:, 1:2]
@@ -439,6 +422,13 @@ def _slab_hit(b, ol, il, t_min, upper):
     t2z = (b[:, 5] - ol[:, 2:3]) * il[:, 2:3]
     lo = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)), torch.minimum(t1z, t2z))
     hi = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)), torch.maximum(t1z, t2z))
+    return lo, hi
+
+
+def _slab_hit(b, ol, il, t_min, upper):
+    """Slab test of csrc/walk.cuh `box_hit` for the children of each row's
+    node (`_slab`'s arguments), upper (L, 1). Returns (L, C) bool by slot."""
+    lo, hi = _slab(b, ol, il)
     return (lo <= hi) & (hi >= t_min) & (lo <= upper)
 
 
@@ -459,135 +449,6 @@ def _best_of_leaves(t, ok, start, li, lk, L, kk):
     m = tl.min(1).values
     r_best = torch.where(tl == m[:, None], kk, BRANCH).min(1).values
     return m, torch.gather(ids, 1, r_best.clamp(max=BRANCH - 1)[:, None])[:, 0]
-
-
-def _walk_plain(bounds, meta, tris, o, d, t_min, t_max, active, occl: bool, stats: Optional[dict],
-                inst=None, inst_root=None):
-    """Lockstep walk of the exact table (`exact_table`, `_emit_wide`'s
-    (Mw, 24) meta), one stack entry per hit child, pushed far first: over
-    one wide tree, or over a two-level table when the instance rows `inst`
-    (K, 12) and BLAS roots `inst_root` (K,) are given. Each step pops one
-    stack entry for every ray whose stack is not empty. Returns (t_raw,
-    tri, instance) for the closest hit (t_raw = BIG on a miss) or the
-    any-hit bool. `stats` accumulates box tests (filled child slots of each
-    popped node), triangle tests and instance entries."""
-    dev = o.device
-    N = o.shape[0]
-    t_min = float(np.float32(t_min))
-    inv = _safe_inv(d)
-    octant = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
-    bounds = bounds.view(-1, 6, BRANCH)
-    ca = meta[:, 0:8].long()
-    cb = meta[:, 8:16].long()
-    words = meta[:, 16:24].long()
-    shifts = 4 * torch.arange(BRANCH, device=dev)
-    kk = torch.arange(BRANCH, device=dev)
-
-    t_best = torch.full((N,), _BIG, dtype=torch.float32, device=dev)
-    best = torch.zeros(N, dtype=torch.int64, device=dev)
-    best_inst = torch.zeros(N, dtype=torch.int64, device=dev)
-    occ = torch.zeros(N, dtype=torch.bool, device=dev)
-    stack = torch.zeros((N, STACK_CAP), dtype=torch.int64, device=dev)
-    sp = torch.ones(N, dtype=torch.int64, device=dev)
-    if active is not None:
-        sp = sp * active.long()
-    two_level = inst is not None
-    if two_level:
-        # Each ray's current instance and its local ray; entries are tagged
-        # node << 2 | tag, and the TLAS root is entry 0 (node 0, world tag).
-        aff = inst.view(-1, 3, 4)
-        roots = inst_root.long()
-        o_loc, d_loc, inv_loc = torch.zeros_like(o), torch.zeros_like(d), torch.zeros_like(d)
-        cur_inst = torch.zeros(N, dtype=torch.int64, device=dev)
-    n_box = torch.zeros((), dtype=torch.int64, device=dev)
-    n_tri = torch.zeros((), dtype=torch.int64, device=dev)
-    n_inst = 0
-
-    while True:
-        live = torch.nonzero(sp > 0)[:, 0]
-        if live.numel() == 0:
-            break
-        sp_l = sp[live] - 1
-        w = stack[live, sp_l]
-        if two_level:
-            tag, w = w & 3, w >> 2
-            enter = tag == TAG_INST
-            if bool(enter.any()):
-                # Instance entries: the world ray in the instance's frame,
-                # direction unnormalized; the entry becomes the BLAS root.
-                ray, k = live[enter], w[enter]
-                o_loc[ray], d_loc[ray], inv_loc[ray] = _to_local(aff[k], o[ray], d[ray])
-                cur_inst[ray] = k
-                stack[ray, sp_l[enter]] = (roots[k] << 2) | TAG_LOCAL
-                n_inst += ray.numel()
-                keep = ~enter
-                live, sp_l, tag, w = live[keep], sp_l[keep], tag[keep], w[keep]
-                if live.numel() == 0:
-                    continue
-            local = (tag == TAG_LOCAL)[:, None]
-            ol = torch.where(local, o_loc[live], o[live])
-            dl = torch.where(local, d_loc[live], d[live])
-            il = torch.where(local, inv_loc[live], inv[live])
-        else:
-            ol, dl, il = o[live], d[live], inv[live]
-        L = live.numel()
-        upper = (t_max[live] if occl else t_best[live])[:, None]
-        hit = _slab_hit(bounds[w], ol, il, t_min, upper)  # (L, 8) by slot
-
-        ck = (words[w, octant[live]][:, None] >> shifts) & 7  # (L, 8) slot by rank
-        a_r = torch.gather(ca[w], 1, ck)
-        b_r = torch.gather(cb[w], 1, ck)
-        hit_r = torch.gather(hit, 1, ck)
-        if stats is not None:
-            n_box += (cb[w] != EMPTY).sum()
-
-        # Push hit internal (and instance) children far first: rank k lands
-        # above every pushed child of a larger rank, so the nearest is
-        # popped next. An internal child keeps its parent's frame.
-        push = (hit_r & ((b_r == 0) | (b_r == INST_CHILD))).long()
-        above = torch.flip(torch.cumsum(torch.flip(push, [1]), 1), [1]) - push
-        pos = sp_l[:, None] + above
-        pm = push.bool()
-        entry = a_r
-        if two_level:
-            entry = (a_r << 2) | torch.where(b_r == INST_CHILD, TAG_INST, tag[:, None])
-        stack[live[:, None].expand(-1, BRANCH)[pm], pos[pm]] = entry[pm]
-        sp[live] = sp_l + push.sum(1)
-
-        leaf = hit_r & (b_r > 0)
-        li, lk = torch.nonzero(leaf, as_tuple=True)
-        if li.numel() == 0:
-            continue
-        start = a_r[li, lk]
-        count = b_r[li, lk]
-        rows = tris[start[:, None] + kk]  # (P, 8, 20); leaves are 8-aligned
-        ray = live[li]
-        t, ok = _leaf_t(rows, ol[li], dl[li], t_min)
-        ok = ok & (kk < count[:, None])
-        if stats is not None:
-            n_tri += count.sum()
-        if occl:
-            any_hit = (ok & (t <= t_max[ray][:, None])).any(1)
-            hit_rows = ray[any_hit]
-            occ[hit_rows] = True
-            sp[hit_rows] = 0  # early exit
-            continue
-        m, m_id = _best_of_leaves(t, ok, start, li, lk, L, kk)
-        tb = t_best[live]
-        better = m < tb
-        t_best[live] = torch.where(better, m, tb)
-        best[live] = torch.where(better, m_id, best[live])
-        if two_level:
-            best_inst[live] = torch.where(better, cur_inst[live], best_inst[live])
-
-    if stats is not None:
-        stats["box_tests"] = stats.get("box_tests", 0) + int(n_box)
-        stats["tri_tests"] = stats.get("tri_tests", 0) + int(n_tri)
-        if two_level:
-            stats["inst_entries"] = stats.get("inst_entries", 0) + n_inst
-    if occl:
-        return occ
-    return t_best, best.to(torch.int32), best_inst.to(torch.int32)
 
 
 # Index of the lowest set bit of each byte (0 has none: 8).
@@ -754,48 +615,6 @@ def bvh8_occluded_plain(pack: Bvh8Pack, o, d, t_min, t_max, active=None, stats=N
     """Plain version of the any-hit kernel: True iff some triangle lies in
     [t_min, t_max] along the ray."""
     return _group_walk(pack, o, d, t_min, t_max, active, True, stats)
-
-
-# ---------------------------------------------------------------------------
-# The exact walk: the yardstick the kernels are held and bounded by
-# ---------------------------------------------------------------------------
-
-
-@dataclasses.dataclass(frozen=True)
-class WideExact:
-    """The previous layout of a wide table, one stack entry per hit child:
-    the same f32 child boxes and `_emit_wide`'s (Mw, 24) meta, with
-    `_walk_plain` as its walk; `inst` and `inst_root` for a two-level
-    table (`ops/tlas8.exact_table`)."""
-
-    bounds: torch.Tensor
-    meta: torch.Tensor
-    tris: torch.Tensor
-    inst: Optional[torch.Tensor] = None
-    inst_root: Optional[torch.Tensor] = None
-
-    @property
-    def nbytes(self) -> int:
-        tables = (self.bounds, self.meta, self.tris, self.inst, self.inst_root)
-        return sum(t.numel() * t.element_size() for t in tables if t is not None)
-
-
-def exact_table(bvh: BvhData, device=None) -> WideExact:
-    """The f32-box, one-entry-per-child table of `bvh` (`_emit_wide`)."""
-    bounds, meta = _emit_wide(*_collapse(bvh))
-    return WideExact(bounds=torch.as_tensor(bounds, device=device), meta=torch.as_tensor(meta, device=device),
-                     tris=torch.as_tensor(_tri_rows(bvh.verts.cpu().numpy()), device=device))
-
-
-def bvh8_closest_exact(table: WideExact, o, d, t_min, active=None, stats=None):
-    """The exact walk's closest hit, as `bvh8_closest_plain`."""
-    t_raw, tri, _ = _walk_plain(table.bounds, table.meta, table.tris, o, d, t_min, None, active, False, stats)
-    return t_raw, tri
-
-
-def bvh8_occluded_exact(table: WideExact, o, d, t_min, t_max, active=None, stats=None):
-    """The exact walk's any hit, as `bvh8_occluded_plain`."""
-    return _walk_plain(table.bounds, table.meta, table.tris, o, d, t_min, t_max, active, True, stats)
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,9 @@ O(instances x triangles) for a bake.
 
 Both trees come from the native SAH builder (a copy of the JAX package's),
 so `build_instanced` gives arrays identical to the reference's on the same
-meshes and instances. The skip-link kernels of `ops/tlas2.py` walk the two
-trees as built; the wide kernels of `ops/tlas8.py` walk them collapsed.
+meshes and instances. The binary kernels of `ops/tlas2.py` walk the two
+trees as built, each internal node re-encoded with both children's boxes;
+the wide kernels of `ops/tlas8.py` walk them collapsed.
 """
 
 from __future__ import annotations

@@ -1,40 +1,73 @@
-"""Two-level binary-BVH traversal by skip links over instanced meshes:
-closest hit and any hit, as CUDA kernels.
+"""Two-level binary-BVH traversal over instanced meshes on child-pair
+nodes: closest hit (near first) and any hit, as CUDA kernels.
 
 Replaces the two TPU kernels of `rpt_tpu/ops/tlas_pallas.py`: `_kernel`
 (closest hit, reached through `tlas_closest_hit_pallas`) and `_kernel_occl`
 (any hit, reached through `tlas_occluded_pallas`). The kernels are in
-`rpt_tpu_torch/csrc/tlas2.cu`; this module holds the host pack, the plain
-torch versions with the same contract, and the wrappers that choose between
-them by the device of the rays. The hit finalize is the wide two-level
-one (`ops/tlas8._finalize`): both packs keep the same packed triangle order.
+`rpt_tpu_torch/csrc/tlas2.cu`, the walk in `csrc/pair_walk.cuh`; this module
+holds the host pack, the plain torch version of the walk, the launch plan
+and the wrappers that choose between kernel and plain walk by the device of
+the rays. The hit finalize is the wide two-level one (`ops/tlas8._finalize`):
+both packs keep the same packed triangle order.
 
 The scene compiler takes these kernels for an instanced scene under
 `RPT_BVH_KERNEL=binary`, and where the wide two-level pack refuses the
-scene (`scene.choose_instanced_pack`). The reference keeps its tables in
-SMEM and falls back to an XLA loop past a 700,000-byte budget; these tables
-sit in device memory, and no scene is refused.
+scene (`scene.choose_instanced_pack`), so they take every scene. The
+reference keeps its tables in SMEM and falls back to an XLA loop past a
+700,000-byte budget; these tables sit in device memory, and the stack goes
+where it fits (`launch_plan`).
 
-Layout. The two binary trees of `InstancedMeshes` as they are built, in
-preorder with skip links, in the row format of `ops/bvh2.py`:
+Layout. The two binary trees of `InstancedMeshes` as they are built (the
+same nodes, leaves, instance rows and packed triangles), re-encoded as
+child-pair nodes: one record per internal node, holding both children's
+boxes and references.
 
-- `t_bounds` (Mt, 8) f32 world-space boxes; `t_meta` (Mt, 4) i32
-  `[skip, instance id (-1 at an internal node), 0, 0]`;
-- `b_bounds` (Mb, 8) f32 local-space boxes of every BLAS, concatenated;
-  `b_meta` (Mb, 4) i32 `[skip, first packed triangle row, count, 0]`, the
-  skip links global indices into the concatenation, as built;
-- `inst` (K, 12) f32 world->local rows and `inst_range` (K, 2) i32
-  `[BLAS root, one past the BLAS's last node]`;
-- `tris` (L*8, 20) f32: the 20-float rows of the local-space triangles in
-  the kernels' packed order (`tlas.packed_leaves`); `p_verts`, `p_norms`
-  the same triangles for the finalize.
+- `nodes` (M, 16) f32, 64 bytes, four 16-byte loads per node:
+  `[loA.xyz, hiA.x] [hiA.yz, loB.xy] [loB.z, hiB.xyz] [refA, refB, 0, 0]`,
+  the references as int32 bits. A reference is `payload << 2 | kind`, with
+  the kinds of `ops/bvh8.py`: 1 a pair node (payload its index), 2 an
+  instance (payload its TLAS leaf rank, the leaf's position among the TLAS
+  leaves in preorder), 3 a triangle leaf (payload `start / 8 << 3 |
+  count - 1`; leaves are 8-aligned and hold at most 8 rows), 0 an empty
+  slot (inverted box). Nodes `0..n_tlas-1` are the TLAS's internal nodes in
+  preorder (world space), then every BLAS's in the order they were built
+  (local space). An internal root is its own pair node and its box is never
+  tested (its children's lie inside it); a root that is a leaf is wrapped
+  in a pair node with that one child and an empty slot.
+- `inst_rows` (K, 16) f32, by TLAS leaf rank: the instance's 3x4
+  world->local rows, then `[BLAS root pair node, instance id, 0, 0]` as
+  int32 bits.
+- `inst` (K, 12) f32, the world->local rows by instance id, and `tris`
+  (L*8, 20) f32 with `p_verts`, `p_norms`: the local-space triangles in the
+  packed order of `tlas.packed_leaves`, as `ops/tlas8.py` has them.
 
-Walk: the TLAS by its skip links with the world ray; at a leaf whose box
-the ray hits, the ray re-expressed in the instance's frame (direction
-unnormalized, so local t == world t), the BLAS range [root, end) by its
-skip links, then the TLAS again from the leaf's skip link. No stack. The
-plain version repeats the kernel's arithmetic op for op; the two agree bit
-for bit.
+Walk. One ray per thread (per lane of the plain version). Visiting a pair
+node slab-tests both children against [t_min, upper] (upper = the running
+best hit, or t_max for the any hit; inclusive, as in the reference), tests
+a hit triangle leaf at once (A, then B), and goes on: of two hit node or
+instance children, into the nearer for the closest hit (by entry
+distance, A on a tie) and into A for the any hit (left first: its t_max
+does not shrink, and it measured faster), pushing the other; into the one
+hit child; or to the top of the stack.
+An instance re-expresses the world ray in its frame (direction
+unnormalized, so local t == world t) and enters its BLAS root; a node's
+frame is its index (`>= n_tlas` is local), and LIFO order means one local
+ray serves. The any-hit walk stops at its first occluder.
+
+Ties. The reference takes, among equal t, the leaf it visits first in
+preorder. The walk keeps that choice: a leaf's best row replaces the best
+hit on t < best, or on t == best with a smaller key (TLAS leaf rank, packed
+row). Packed rows follow BLAS node order, so the key is the preorder visit
+order.
+
+`stack_depth` is the exact worst-case depth of the stack: the longest chain
+of pushed far children on any path from the root, through the TLAS and into
+an instance's BLAS. `launch_plan` places a stack of that depth: in the
+shared memory of a 128-ray block, of a smaller block, or past what one
+block holds, in a global scratch buffer. No scene is refused.
+
+The plain version repeats the kernels' arithmetic op for op (the kernels
+are built with -fmad=false), so the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -46,9 +79,23 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .bvh import _safe_inv
-from .bvh2 import node_hit, node_rows, skip_step
-from .bvh8 import _BIG, _check_rays, _on_cpu, _ptr, _to_local, _tri_rows, finish_occluded, ray_t_max
+from .bvh import LEAF_SIZE, _safe_inv
+from .bvh8 import (
+    _BIG,
+    KIND_EMPTY,
+    KIND_INST,
+    KIND_LEAF,
+    KIND_NODE,
+    _check_rays,
+    _leaf_t,
+    _on_cpu,
+    _ptr,
+    _slab,
+    _to_local,
+    _tri_rows,
+    finish_occluded,
+    ray_t_max,
+)
 from .intersect import INF, Hit
 from .tlas import InstancedMeshes, packed_leaves
 from .tlas8 import _finalize
@@ -56,6 +103,7 @@ from .tlas8 import _finalize
 __all__ = [
     "Tlas2Pack",
     "pack_tlas2",
+    "launch_plan",
     "tlas2_closest_hit",
     "tlas2_occluded",
     "tlas2_closest_plain",
@@ -64,146 +112,283 @@ __all__ = [
     "tlas2_occluded_kernel",
 ]
 
+# Dynamic shared memory one block may hold on Hopper (227 KB), and the
+# block sizes the launch plan tries, largest first.
+SMEM_PER_BLOCK = 232448
+BLOCKS = (128, 64, 32)
+
 
 @dataclasses.dataclass(frozen=True)
 class Tlas2Pack:
-    t_bounds: torch.Tensor  # (Mt, 8) f32
-    t_meta: torch.Tensor  # (Mt, 4) i32
-    b_bounds: torch.Tensor  # (Mb, 8) f32
-    b_meta: torch.Tensor  # (Mb, 4) i32
-    inst: torch.Tensor  # (K, 12) f32 world->local rows
-    inst_range: torch.Tensor  # (K, 2) i32
+    nodes: torch.Tensor  # (M, 16) f32 child-pair nodes
+    inst_rows: torch.Tensor  # (K, 16) f32 by TLAS leaf rank
+    inst: torch.Tensor  # (K, 12) f32 world->local rows by instance id
     tris: torch.Tensor  # (L*8, 20) f32
     p_verts: torch.Tensor  # (L*8, 3, 3) packed local-space triangles
     p_norms: torch.Tensor  # (L*8, 3, 3)
-
-    @property
-    def num_tlas_nodes(self) -> int:
-        return self.t_bounds.shape[0]
+    n_tlas: int  # pair nodes 0..n_tlas-1 are the TLAS (world space)
+    stack_depth: int  # worst-case depth of the walk's stack
 
     @property
     def num_nodes(self) -> int:
-        return self.t_bounds.shape[0] + self.b_bounds.shape[0]
+        return self.nodes.shape[0]
+
+    @property
+    def refs(self) -> torch.Tensor:
+        """(M, 2) i32 child references, A and B."""
+        return self.nodes[:, 12:14].view(torch.int32)
+
+    @property
+    def node_bytes(self) -> int:
+        return self.nodes.shape[1] * self.nodes.element_size()
 
     @property
     def nbytes(self) -> int:
         """Bytes of the tables the kernels read."""
-        return sum(t.numel() * t.element_size() for t in (self.t_bounds, self.t_meta, self.b_bounds, self.b_meta,
-                                                           self.inst, self.inst_range, self.tris))
+        return sum(t.numel() * t.element_size() for t in (self.nodes, self.inst_rows, self.tris))
+
+
+# ---------------------------------------------------------------------------
+# Host pack
+# ---------------------------------------------------------------------------
+
+
+def _pair_nodes(node_min, node_max, skip, leaf_ref, roots, base: int):
+    """Child-pair records (module docstring) of the skip-link preorder trees
+    rooted at `roots` in one node array: `leaf_ref` (M,) is the reference
+    of each leaf, 0 at internal nodes; pair nodes are numbered from `base`.
+    Returns (records (P, 16) f32 with the references' int32 bits, the pair
+    node of each binary node (M,): its own where internal, its wrapper at a
+    leaf root, else -1)."""
+    M = skip.shape[0]
+    internal = leaf_ref == 0
+    slot = internal.copy()
+    slot[roots] = True
+    pid = np.where(slot, base + np.cumsum(slot) - 1, -1)
+    rec = np.zeros((int(slot.sum()), 16), np.float32)
+    ref = rec.view(np.int32)
+
+    def child_ref(c):
+        return np.where(internal[c], pid[c] << 2 | KIND_NODE, leaf_ref[c])
+
+    par = np.flatnonzero(internal)
+    a = par + 1
+    b = skip[a]
+    rows = pid[par] - base
+    rec[rows, 0:3], rec[rows, 3:6] = node_min[a], node_max[a]
+    rec[rows, 6:9], rec[rows, 9:12] = node_min[b], node_max[b]
+    ref[rows, 12], ref[rows, 13] = child_ref(a), child_ref(b)
+    wrapped = np.asarray([r for r in roots if not internal[r]], np.int64)
+    rows = pid[wrapped] - base
+    rec[rows, 0:3], rec[rows, 3:6] = node_min[wrapped], node_max[wrapped]
+    rec[rows, 6:9], rec[rows, 9:12] = _BIG, -_BIG
+    ref[rows, 12], ref[rows, 13] = leaf_ref[wrapped], 0
+    return rec, pid
+
+
+def _stack_depth(refs: np.ndarray, rank_root: np.ndarray) -> int:
+    """Exact worst-case stack depth of the walk from pair node 0 over the
+    references `refs` (P, 2): a node whose two children are both node or
+    instance children pushes one of them, and either may be the far one,
+    so need(node) = 1 + max(need(A), need(B)) there; with one such child
+    its need, with none 0. An instance child needs what its BLAS root
+    needs (`rank_root` (K,), by rank). Iterated to its fixed point, one
+    level per pass."""
+    kind, payload = refs & 3, refs >> 2
+    trav = (kind == KIND_NODE) | (kind == KIND_INST)
+    inst = kind == KIND_INST
+    target = np.where(kind == KIND_NODE, payload, 0)
+    target = np.where(inst, rank_root[np.where(inst, payload, 0)], target)
+    need = np.zeros(refs.shape[0], np.int64)
+    while True:
+        new = np.where(trav, need[target], 0).max(1) + trav.all(1)
+        if np.array_equal(new, need):
+            return int(need[0])
+        need = new
 
 
 def pack_tlas2(im: InstancedMeshes, device=None) -> Tlas2Pack:
     """An instanced scene's two trees in the kernels' layout (module
-    docstring). Every scene fits: the walk needs no stack."""
+    docstring). Every scene fits: `launch_plan` places any stack depth."""
     K = im.inst_inv.shape[0]
-    t_leaf_inst = im.t_leaf_inst.cpu().numpy()
-    t_bounds, t_meta = node_rows(im.t_min.cpu().numpy(), im.t_max.cpu().numpy(), im.t_skip.cpu().numpy(),
-                                 t_leaf_inst, np.zeros_like(t_leaf_inst))
-    b_start, b_count, p_verts, p_norms = packed_leaves(im)
-    b_bounds, b_meta = node_rows(im.b_min.cpu().numpy(), im.b_max.cpu().numpy(), im.b_skip.cpu().numpy(),
-                                 b_start, b_count)
-    inst_range = np.stack([im.inst_root.cpu().numpy(), im.inst_end.cpu().numpy()], axis=1)
+    t_leaf_inst = im.t_leaf_inst.cpu().numpy().astype(np.int64)
+    t_leaf = t_leaf_inst >= 0
+    rank = np.cumsum(t_leaf) - 1  # TLAS leaf rank, at the leaves
+    t_rec, _ = _pair_nodes(im.t_min.cpu().numpy(), im.t_max.cpu().numpy(), im.t_skip.cpu().numpy().astype(np.int64),
+                           np.where(t_leaf, rank << 2 | KIND_INST, 0), np.array([0]), 0)
+    n_tlas = t_rec.shape[0]
 
-    def t(a, dtype=torch.float32):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
+    b_start, b_count, p_verts, p_norms = packed_leaves(im)
+    b_skip = im.b_skip.cpu().numpy().astype(np.int64)
+    roots = [0]  # one BLAS after another: each root's skip is the next root
+    while b_skip[roots[-1]] < b_skip.shape[0]:
+        roots.append(int(b_skip[roots[-1]]))
+    leaf_ref = np.where(b_count > 0, ((b_start // LEAF_SIZE) << 3 | (b_count - 1)) << 2 | KIND_LEAF, 0)
+    b_rec, b_pid = _pair_nodes(im.b_min.cpu().numpy(), im.b_max.cpu().numpy(), b_skip, leaf_ref, np.array(roots),
+                               n_tlas)
+    nodes = np.concatenate([t_rec, b_rec])
+
+    # Instance records by TLAS leaf rank: the world->local rows, then the
+    # BLAS root's pair node and the instance id.
+    inst_of_rank = t_leaf_inst[t_leaf]
+    rank_root = b_pid[im.inst_root.cpu().numpy()[inst_of_rank]]
+    inst_inv = im.inst_inv.cpu().numpy().reshape(K, 12).astype(np.float32)
+    inst_rows = np.zeros((K, 16), np.float32)
+    inst_rows[:, :12] = inst_inv[inst_of_rank]
+    inst_rows.view(np.int32)[:, 12] = rank_root
+    inst_rows.view(np.int32)[:, 13] = inst_of_rank
+
+    def t(a):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
 
     return Tlas2Pack(
-        t_bounds=t(t_bounds), t_meta=t(t_meta, torch.int32), b_bounds=t(b_bounds), b_meta=t(b_meta, torch.int32),
-        inst=t(im.inst_inv.cpu().numpy().reshape(K, 12)), inst_range=t(inst_range, torch.int32),
-        tris=t(_tri_rows(p_verts)), p_verts=t(p_verts), p_norms=t(p_norms),
+        nodes=t(nodes), inst_rows=t(inst_rows), inst=t(inst_inv), tris=t(_tri_rows(p_verts)), p_verts=t(p_verts),
+        p_norms=t(p_norms), n_tlas=n_tlas, stack_depth=_stack_depth(nodes.view(np.int32)[:, 12:14], rank_root),
     )
 
 
 # ---------------------------------------------------------------------------
-# Plain torch versions (CPU tensors, tests, and the reference on the card)
+# Plain torch version (CPU tensors, tests, and the reference on the card)
 # ---------------------------------------------------------------------------
 
 
-def _walk_t2_plain(pack: Tlas2Pack, o, d, t_min, t_max, active, stats: Optional[dict]):
-    """Lockstep version of csrc/tlas2.cu: each step advances every ray that
-    is inside a BLAS by one BLAS node, and every other ray whose TLAS walk
-    is not done by one TLAS node (entering an instance at a hit leaf).
+def _pair_walk(pack: Tlas2Pack, o, d, t_min, t_max, active, occl: bool, stats: Optional[dict]):
+    """Lockstep version of csrc/pair_walk.cuh: each step visits one pair
+    node for every ray still walking, then moves it on (module docstring).
     Returns (t_raw, packed triangle id, instance id) for the closest hit
-    (t_max None; t_raw = BIG on a miss) or the any-hit bool. `stats`
-    accumulates box tests at both levels, triangle tests and instance
-    entries."""
+    (t_raw = BIG on a miss) or the any-hit bool. `stats` accumulates box
+    tests (filled child slots of each visited node), triangle tests (rows
+    of each tested leaf), instance entries and the deepest stack reached
+    (`max_stack_depth`)."""
     dev = o.device
-    N, Mt = o.shape[0], pack.num_tlas_nodes
+    N = o.shape[0]
     t_min = float(np.float32(t_min))
     inv = _safe_inv(d)
-    aff = pack.inst.view(-1, 3, 4)
-    ranges = pack.inst_range.long()
-    zeros = torch.zeros(N, dtype=torch.int64, device=dev)
-    tptr = zeros.clone() if active is None else torch.where(active, zeros, torch.full_like(zeros, Mt))
-    bptr, bend, cur_inst = zeros.clone(), zeros.clone(), zeros.clone()
-    o_loc, d_loc, inv_loc = torch.zeros_like(o), torch.zeros_like(d), torch.zeros_like(d)
+    boxes = pack.nodes[:, :12].reshape(-1, 2, 6).transpose(1, 2)  # (M, 6, 2): lo.xyz, hi.xyz by slot
+    refs = pack.refs.long()
+    kinds = refs & 3
+    aff = pack.inst_rows[:, :12].reshape(-1, 3, 4)
+    rank_root, rank_inst = pack.inst_rows[:, 12:14].view(torch.int32).long().unbind(1)
+    n_tlas = pack.n_tlas
+    kk = torch.arange(LEAF_SIZE, device=dev)
+
     t_best = torch.full((N,), _BIG, dtype=torch.float32, device=dev)
-    best, best_inst = zeros.clone(), zeros.clone()
+    best = torch.zeros(N, dtype=torch.int64, device=dev)
+    best_rank = torch.full((N,), -1, dtype=torch.int64, device=dev)
     occ = torch.zeros(N, dtype=torch.bool, device=dev)
-    n_box = n_inst = 0
+    node = torch.zeros(N, dtype=torch.int64, device=dev)  # the next node to visit; the TLAS root first
+    rank = torch.zeros(N, dtype=torch.int64, device=dev)  # the current instance's TLAS leaf rank
+    o_loc, d_loc, inv_loc = torch.zeros_like(o), torch.zeros_like(d), torch.zeros_like(d)
+    stack = torch.zeros((N, max(pack.stack_depth, 1)), dtype=torch.int64, device=dev)
+    sp = torch.zeros(N, dtype=torch.int64, device=dev)
+    walking = torch.ones(N, dtype=torch.bool, device=dev) if active is None else active.clone()
+    n_box = torch.zeros((), dtype=torch.int64, device=dev)
+    n_tri = torch.zeros((), dtype=torch.int64, device=dev)
+    n_inst = torch.zeros((), dtype=torch.int64, device=dev)
+    max_sp = torch.zeros((), dtype=torch.int64, device=dev)
 
     while True:
-        in_blas = bptr < bend
-        t_live = torch.nonzero(~in_blas & (tptr < Mt))[:, 0]
-        b_live = torch.nonzero(in_blas)[:, 0]
-        if t_live.numel() == 0 and b_live.numel() == 0:
+        live = torch.nonzero(walking)[:, 0]
+        if live.numel() == 0:
             break
+        w = node[live]
+        local = (w >= n_tlas)[:, None]
+        ol = torch.where(local, o_loc[live], o[live])
+        dl = torch.where(local, d_loc[live], d[live])
+        il = torch.where(local, inv_loc[live], inv[live])
 
-        # TLAS step, world ray; a hit leaf enters its instance.
-        if t_live.numel():
-            p = tptr[t_live]
-            upper = t_best[t_live] if t_max is None else t_max[t_live]
-            hit = node_hit(pack.t_bounds[p], o[t_live], inv[t_live], t_min, upper)
-            m = pack.t_meta[p].long()
-            skip, k = m[:, 0], m[:, 1]
-            tptr[t_live] = torch.where(hit & (k < 0), p + 1, skip)
-            n_box += t_live.numel()
-            enter = hit & (k >= 0)
-            ray, k = t_live[enter], k[enter]
-            if ray.numel():
-                o_loc[ray], d_loc[ray], inv_loc[ray] = _to_local(aff[k], o[ray], d[ray])
-                bptr[ray], bend[ray], cur_inst[ray] = ranges[k, 0], ranges[k, 1], k
-                n_inst += ray.numel()
+        # Visit: slab-test both children against the best hit so far.
+        upper = (t_max[live] if occl else t_best[live])[:, None]
+        ref, kind = refs[w], kinds[w]  # (L, 2)
+        lo, hi = _slab(boxes[w], ol, il)
+        hit = (lo <= hi) & (hi >= t_min) & (lo <= upper) & (kind != KIND_EMPTY)
+        if stats is not None:
+            n_box += (kind != KIND_EMPTY).sum()
 
-        # BLAS step, local ray, for the rays that were inside a BLAS.
-        if b_live.numel():
-            upper = t_best[b_live] if t_max is None else t_max[b_live]
-            nxt, leaf, res = skip_step(pack.b_bounds, pack.b_meta, pack.tris, bptr[b_live], o_loc[b_live],
-                                       d_loc[b_live], inv_loc[b_live], t_min, upper,
-                                       None if t_max is None else t_max[b_live], stats)
-            if res is not None:
-                ray = b_live[leaf]
-                if t_max is not None:
-                    done = ray[res]
-                    occ[done] = True
-                    nxt[leaf[res]] = bend[done]  # early exit: out of the BLAS ...
-                    tptr[done] = Mt  # ... and out of the TLAS
-                else:
-                    t_leaf, tri = res
-                    better = t_leaf < t_best[ray]
-                    t_best[ray] = torch.where(better, t_leaf, t_best[ray])
-                    best[ray] = torch.where(better, tri, best[ray])
-                    best_inst[ray] = torch.where(better, cur_inst[ray], best_inst[ray])
-            bptr[b_live] = nxt
+        # Hit triangle leaves, A then B, each against the best hit so far.
+        for s in range(2):
+            j = torch.nonzero(hit[:, s] & (kind[:, s] == KIND_LEAF) & walking[live])[:, 0]
+            if j.numel() == 0:
+                continue
+            payload = ref[j, s] >> 2
+            start = (payload >> 3) * LEAF_SIZE
+            count = (payload & 7) + 1
+            t, ok = _leaf_t(pack.tris[start[:, None] + kk], ol[j], dl[j], t_min)
+            ok = ok & (kk < count[:, None])
+            if stats is not None:
+                n_tri += count.sum()
+            ray = live[j]
+            if occl:
+                stop = ray[(ok & (t <= t_max[ray][:, None])).any(1)]
+                occ[stop] = True
+                walking[stop] = False  # early exit
+                continue
+            th = torch.where(ok, t, torch.full_like(t, _BIG))
+            t_leaf = th.min(1).values
+            row = start + torch.where(th == t_leaf[:, None], kk, LEAF_SIZE).min(1).values
+            tb, br, bb, rk = t_best[ray], best_rank[ray], best[ray], rank[ray]
+            better = (t_leaf < tb) | ((t_leaf == tb) & (tb < _BIG) & ((rk < br) | ((rk == br) & (row < bb))))
+            t_best[ray] = torch.where(better, t_leaf, tb)
+            best[ray] = torch.where(better, row, bb)
+            best_rank[ray] = torch.where(better, rk, br)
+
+        # Move on: of two hit node or instance children the nearer (closest
+        # hit) or A (any hit), the other pushed; the one hit child; else the
+        # top of the stack.
+        keep = walking[live]
+        live, ref, lo = live[keep], ref[keep], lo[keep]
+        go = hit[keep] & (kind[keep] != KIND_LEAF)
+        both = go[:, 0] & go[:, 1]
+        b_first = both & (lo[:, 1] < lo[:, 0]) & (not occl)
+        nxt = torch.where(b_first | (go[:, 1] & ~go[:, 0]), ref[:, 1], ref[:, 0])
+        if bool(both.any()):
+            r = live[both]
+            stack[r, sp[r]] = torch.where(b_first[both], ref[both, 0], ref[both, 1])
+            sp[r] += 1
+            max_sp = torch.maximum(max_sp, sp[r].max())
+        pop = ~go.any(1)
+        if bool(pop.any()):
+            done = pop & (sp[live] == 0)
+            walking[live[done]] = False
+            pop = pop & ~done
+            r = live[pop]
+            sp[r] -= 1
+            nxt[pop] = stack[r, sp[r]]
+            live, nxt = live[~done], nxt[~done]
+        payload = nxt >> 2
+        node[live] = payload
+        enter = (nxt & 3) == KIND_INST
+        if bool(enter.any()):
+            # Instances: the world ray in the instance's frame, direction
+            # unnormalized; then its BLAS root.
+            r, k = live[enter], payload[enter]
+            o_loc[r], d_loc[r], inv_loc[r] = _to_local(aff[k], o[r], d[r])
+            rank[r] = k
+            node[r] = rank_root[k]
+            n_inst += r.numel()
 
     if stats is not None:
-        stats["box_tests"] = stats.get("box_tests", 0) + n_box
-        stats["inst_entries"] = stats.get("inst_entries", 0) + n_inst
-    if t_max is not None:
+        stats["box_tests"] = stats.get("box_tests", 0) + int(n_box)
+        stats["tri_tests"] = stats.get("tri_tests", 0) + int(n_tri)
+        stats["inst_entries"] = stats.get("inst_entries", 0) + int(n_inst)
+        stats["max_stack_depth"] = max(stats.get("max_stack_depth", 0), int(max_sp))
+    if occl:
         return occ
+    best_inst = torch.where(best_rank >= 0, rank_inst[best_rank.clamp(min=0)], torch.zeros_like(best_rank))
     return t_best, best.to(torch.int32), best_inst.to(torch.int32)
 
 
 def tlas2_closest_plain(pack: Tlas2Pack, o, d, t_min, active=None, stats=None):
     """Plain version of the closest-hit kernel: (t_raw (N,) f32 with BIG on
-    a miss, packed triangle id (N,) i32, instance id (N,) i32)."""
-    return _walk_t2_plain(pack, o, d, t_min, None, active, stats)
+    a miss, packed triangle id (N,) i32, instance id (N,) i32). `stats`, if
+    given, accumulates the counts of `_pair_walk`."""
+    return _pair_walk(pack, o, d, t_min, None, active, False, stats)
 
 
 def tlas2_occluded_plain(pack: Tlas2Pack, o, d, t_min, t_max, active=None, stats=None):
     """Plain version of the any-hit kernel: True iff some instanced triangle
     lies in [t_min, t_max] along the ray."""
-    return _walk_t2_plain(pack, o, d, t_min, t_max, active, stats)
+    return _pair_walk(pack, o, d, t_min, t_max, active, True, stats)
 
 
 # ---------------------------------------------------------------------------
@@ -211,9 +396,28 @@ def tlas2_occluded_plain(pack: Tlas2Pack, o, d, t_min, t_max, active=None, stats
 # ---------------------------------------------------------------------------
 
 
-def _tables(pack: Tlas2Pack):
-    return (_ptr(pack.t_bounds), _ptr(pack.t_meta), pack.num_tlas_nodes, _ptr(pack.b_bounds), _ptr(pack.b_meta),
-            _ptr(pack.inst), _ptr(pack.inst_range), _ptr(pack.tris))
+def launch_plan(stack_depth: int):
+    """Where the kernels keep a stack of `stack_depth` levels per ray:
+    (threads per block, bytes of dynamic shared memory per block, on a
+    global scratch buffer?). The first block size of BLOCKS whose stacks
+    fit one block's shared memory; past that, a 128-ray block with the
+    stack in global memory."""
+    for block in BLOCKS:
+        smem = block * stack_depth * 4
+        if smem <= SMEM_PER_BLOCK:
+            return block, smem, False
+    return BLOCKS[0], 0, True
+
+
+def _stack_args(pack: Tlas2Pack, n: int, device):
+    """(block, global stack or None) of a launch over n rays: the global
+    stack, where the plan takes one, is allocated here, `stack_depth`
+    levels per ray of the grid."""
+    block, _, on_global = launch_plan(pack.stack_depth)
+    if not on_global:
+        return block, None
+    grid = -(-n // block)
+    return block, torch.empty(grid * block * pack.stack_depth, dtype=torch.int32, device=device)
 
 
 def tlas2_closest_kernel(pack: Tlas2Pack, o, d, t_min, active=None):
@@ -227,9 +431,12 @@ def tlas2_closest_kernel(pack: Tlas2Pack, o, d, t_min, active=None):
     t_out = torch.empty(n, dtype=torch.float32, device=o.device)
     id_out = torch.empty(n, dtype=torch.int32, device=o.device)
     inst_out = torch.empty(n, dtype=torch.int32, device=o.device)
+    block, stack = _stack_args(pack, n, o.device)
     err = lib.rpt_tlas2_closest(
-        *_tables(pack), _ptr(o), _ptr(d), _ptr(active), n, float(np.float32(t_min)),
-        _ptr(t_out), _ptr(id_out), _ptr(inst_out), ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
+        _ptr(pack.nodes), pack.n_tlas, _ptr(pack.inst_rows), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n,
+        float(np.float32(t_min)), _ptr(t_out), _ptr(id_out), _ptr(inst_out), block,
+        pack.stack_depth, _ptr(stack),
+        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"tlas2 closest-hit kernel launch failed: CUDA error {err}")
@@ -244,9 +451,12 @@ def tlas2_occluded_kernel(pack: Tlas2Pack, o, d, t_min, t_max, active=None):
     o, d, active, t_max = _check_rays(pack, o, d, active, t_max)
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
+    block, stack = _stack_args(pack, n, o.device)
     err = lib.rpt_tlas2_occluded(
-        *_tables(pack), _ptr(o), _ptr(d), _ptr(active), _ptr(t_max), n, float(np.float32(t_min)),
-        _ptr(occ), ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
+        _ptr(pack.nodes), pack.n_tlas, _ptr(pack.inst_rows), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
+        _ptr(t_max), n, float(np.float32(t_min)), _ptr(occ), block,
+        pack.stack_depth, _ptr(stack),
+        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"tlas2 any-hit kernel launch failed: CUDA error {err}")

@@ -32,9 +32,7 @@ levels. An instance child re-expresses the world ray in its frame
 (direction unnormalized, so local t == world t) and enters its BLAS root; a
 node's frame is its index (`>= n_tlas` is local), and LIFO order means one
 local ray serves. The visit order is exactly that of a stack with one entry
-per hit child: the walk of the previous layout, which `tlas8_closest_exact`
-keeps as the yardstick (`exact_table`, `bvh8._walk_plain`); the two agree
-bit for bit.
+per hit child, pushed far first.
 
 `group_depth` is the exact worst-case depth of that stack; `stack_need`
 the reference's bound for a stack of single children, which decides, as in
@@ -62,19 +60,16 @@ from .bvh8 import (
     EMPTY,
     INST_CHILD,
     STACK_CAP,
-    WideExact,
     WideNodes,
     WidePackRefused,
     _check_rays,
     _emit_group,
-    _emit_wide,
     _group_depth,
     _group_walk,
     _on_cpu,
     _ptr,
     _refuse_overflow,
     _tri_rows,
-    _walk_plain,
     finish_occluded,
     ray_t_max,
 )
@@ -90,9 +85,6 @@ __all__ = [
     "tlas8_occluded_plain",
     "tlas8_closest_kernel",
     "tlas8_occluded_kernel",
-    "exact_table",
-    "tlas8_closest_exact",
-    "tlas8_occluded_exact",
     "INST_ENTRY_OPS",
 ]
 
@@ -263,35 +255,6 @@ def tlas8_occluded_plain(pack: Tlas8Pack, o, d, t_min, t_max, active=None, stats
     """Plain version of the any-hit kernel: True iff some instanced triangle
     lies in [t_min, t_max] along the ray."""
     return _group_walk(pack, o, d, t_min, t_max, active, True, stats)
-
-
-# ---------------------------------------------------------------------------
-# The exact f32-box walk: the yardstick the kernels are held and bounded by
-# ---------------------------------------------------------------------------
-
-
-def exact_table(im: InstancedMeshes, device=None) -> WideExact:
-    """The f32-box, one-entry-per-child table of `im` (`_emit_wide`)."""
-    out_nodes, _, inst_blas_root, p_verts, _ = _collapse_instanced(im)
-    bounds, meta = _emit_wide(*_slot_arrays(out_nodes))
-
-    def t(a, dtype=torch.float32):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
-
-    return WideExact(bounds=t(bounds), meta=t(meta, torch.int32), tris=t(_tri_rows(p_verts)),
-                     inst=t(im.inst_inv.cpu().numpy().reshape(-1, 12)), inst_root=t(inst_blas_root, torch.int32))
-
-
-def tlas8_closest_exact(table: WideExact, o, d, t_min, active=None, stats=None):
-    """The exact f32-box walk's closest hit, as `tlas8_closest_plain`."""
-    return _walk_plain(table.bounds, table.meta, table.tris, o, d, t_min, None, active, False, stats,
-                       table.inst, table.inst_root)
-
-
-def tlas8_occluded_exact(table: WideExact, o, d, t_min, t_max, active=None, stats=None):
-    """The exact f32-box walk's any hit, as `tlas8_occluded_plain`."""
-    return _walk_plain(table.bounds, table.meta, table.tris, o, d, t_min, t_max, active, True, stats,
-                       table.inst, table.inst_root)
 
 
 # ---------------------------------------------------------------------------

@@ -77,7 +77,7 @@ PRIM_CHUNK = 256
 BAKE_TRI_LIMIT = 2_000_000
 # Mesh traversal kernels: "wide" (default) walks a BVH of at least
 # WIDE_KERNEL_MIN_TRIS triangle rows, and every instanced scene, with the
-# 8-ary kernels; "binary" sends every mesh through the skip-link kernels
+# 8-ary kernels; "binary" sends every mesh through the binary kernels
 # (the reference's A/B switch, read at compile time).
 _BVH_KERNEL = os.environ.get("RPT_BVH_KERNEL", "wide")
 WIDE_KERNEL_MIN_TRIS = int(os.environ.get("RPT_WIDE_MIN_TRIS", "16384"))

@@ -18,7 +18,7 @@ import torch
 from rpt_tpu.ops.bvh import build_bvh as ref_build_bvh
 from rpt_tpu.ops.bvh import bvh_closest_hit as ref_bvh_closest_hit
 from rpt_tpu.ops.bvh8_pallas import bvh8_closest_hit_pallas
-from rpt_tpu_torch.ops import bvh8
+from rpt_tpu_torch.ops import bvh2, bvh8
 from rpt_tpu_torch.ops.bvh import build_bvh
 from test_bvh_pallas import _random_mesh, _rays_at_mesh
 
@@ -131,29 +131,26 @@ def test_plain_walk_counts_its_tests():
 @pytest.mark.parametrize("kind", ["closest", "any_hit"])
 @pytest.mark.parametrize("n_tris,seed", [(40, 11), (700, 12), (3000, 13)])
 def test_group_walk_equals_the_exact_walk(n_tris, seed, kind):
-    """The node-group walk (the kernels' plain version) on the pack against
-    the previous one-entry-per-child walk on the exact table: the same f32
-    boxes, the same hits bit for bit (t, triangle id, any-hit bool) and the
-    same box and triangle tests."""
+    """The node-group walk (the kernels' plain version) against the binary
+    skip-link walk of the same tree (`ops/bvh2.py`), which tests the same
+    f32 boxes one node at a time and the same triangle rows: t bit for bit
+    and triangle ids equal but for ties, or the any-hit bool equal."""
     _, bvh, _, (to, td) = _case(n_tris, seed=seed, n_rays=2000, ray_seed=seed + 1)
-    pack, exact = bvh8.pack_bvh8(bvh), bvh8.exact_table(bvh)
-    np.testing.assert_array_equal(pack.bounds.numpy(), exact.bounds.numpy())
+    pack, binary = bvh8.pack_bvh8(bvh), bvh2.pack_bvh2(bvh)
     active = torch.arange(to.shape[0]) % 5 != 0
-    got, want = {}, {}
     if kind == "closest":
-        t, tri = bvh8.bvh8_closest_plain(pack, to, td, T_MIN, active, stats=got)
-        t_x, tri_x = bvh8.bvh8_closest_exact(exact, to, td, T_MIN, active, stats=want)
+        t, tri = bvh8.bvh8_closest_plain(pack, to, td, T_MIN, active)
+        t_x, tri_x = bvh2.bvh2_closest_plain(binary, to, td, T_MIN, active)
         hit = t_x < 1e38
         assert hit.any() and (~hit[active]).any()
         np.testing.assert_array_equal(t.numpy(), t_x.numpy())
-        np.testing.assert_array_equal(tri.numpy(), tri_x.numpy())
+        assert (tri != tri_x)[hit].float().mean() <= 1e-3  # a tie: two triangles at one t
     else:
         t_max = torch.as_tensor(np.random.default_rng(seed).uniform(1.0, 6.0, to.shape[0]), dtype=torch.float32)
-        occ = bvh8.bvh8_occluded_plain(pack, to, td, T_MIN, t_max, active, stats=got)
-        occ_x = bvh8.bvh8_occluded_exact(exact, to, td, T_MIN, t_max, active, stats=want)
+        occ = bvh8.bvh8_occluded_plain(pack, to, td, T_MIN, t_max, active)
+        occ_x = bvh2.bvh2_occluded_plain(binary, to, td, T_MIN, t_max, active)
         assert occ_x.any() and (~occ_x[active]).any()
         np.testing.assert_array_equal(occ.numpy(), occ_x.numpy())
-    assert (got["box_tests"], got["tri_tests"]) == (want["box_tests"], want["tri_tests"])
 
 
 def test_group_depth_is_exact():

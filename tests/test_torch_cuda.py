@@ -71,24 +71,24 @@ def test_kernels_match_plain_walks(card):
 
 def test_bvh8_kernels_match_plain_walks_at_the_deepest_group_stack(card):
     """Of a few meshes, the one with the deepest node-group stack: the plain
-    walk reaches the pack's exact `group_depth` on these rays, and both
-    kernels agree with it, and with the exact walk of the previous layout,
-    bit for bit."""
+    walk reaches the pack's exact `group_depth` on these rays, both kernels
+    agree with it bit for bit, and with the binary walk of the same tree in
+    t bit for bit and in triangle ids but for ties."""
     cases = [_mesh_and_rays(n, 6000, seed=s) for n, s in ((500, 4), (3000, 5), (5000, 7))]
     bvhs = [build_bvh(verts, norms, mats, device="cpu") for (verts, norms, mats), _, _ in cases]
     packs = [bvh8.pack_bvh8(bvh, device=card) for bvh in bvhs]
     deepest = max(range(len(cases)), key=lambda j: packs[j].group_depth)
-    pack, exact, (_, o, d) = packs[deepest], bvh8.exact_table(bvhs[deepest], device=card), cases[deepest]
+    pack, binary, (_, o, d) = packs[deepest], bvh2.pack_bvh2(bvhs[deepest], device=card), cases[deepest]
     assert pack.group_depth >= 3
     o, d = o.to(card), d.to(card)
     stats = {}
     t_p, id_p = bvh8.bvh8_closest_plain(pack, o, d, T_MIN, stats=stats)
     t_k, id_k = bvh8.bvh8_closest_kernel(pack, o, d, T_MIN)
-    t_x, id_x = bvh8.bvh8_closest_exact(exact, o, d, T_MIN)
+    t_x, id_x = bvh2.bvh2_closest_kernel(binary, o, d, T_MIN)
     torch.cuda.synchronize()
     assert stats["max_group_depth"] == pack.group_depth
     assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
-    assert torch.equal(t_k, t_x) and torch.equal(id_k, id_x)
+    assert torch.equal(t_k, t_x) and (id_k != id_x)[t_x < 1e38].float().mean() <= 1e-3
     t_max = torch.where(t_p < 1e38, t_p, torch.full_like(t_p, 8.0))
     t_max[1::4] = 3.0
     occ_k = bvh8.bvh8_occluded_kernel(pack, o, d, T_MIN, t_max)
@@ -299,13 +299,9 @@ def test_binary_choice_takes_the_tlas2_kernels(card, monkeypatch):
     _assert_goes_through(scene, "tlas2", o, d, 9.0)
 
 
-def test_tlas2_kernels_match_plain_walks(card):
-    """Built with -fmad=false, the binary two-level kernels repeat the plain
-    walk's f32 arithmetic op for op, the instance transform included."""
-    meshes, instances, o, d = _instanced_and_rays(3, 40, 5000)
-    pack = tlas2.pack_tlas2(build_instanced(meshes, instances, device="cpu"), device=card)
-    o, d = o.to(card), d.to(card)
-    active = torch.arange(o.shape[0], device=card) % 3 != 0
+def _assert_tlas2_kernels_equal_plain(pack, o, d, active=None):
+    """Both tlas2 kernels against the plain walk, bit for bit: t, triangle
+    ids, instance ids and the any-hit bool."""
     t_k, id_k, inst_k = tlas2.tlas2_closest_kernel(pack, o, d, T_MIN, active)
     t_p, id_p, inst_p = tlas2.tlas2_closest_plain(pack, o, d, T_MIN, active)
     torch.cuda.synchronize()
@@ -320,7 +316,48 @@ def test_tlas2_kernels_match_plain_walks(card):
     occ_p = tlas2.tlas2_occluded_plain(pack, o, d, T_MIN, t_max, active)
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p)
-    assert torch.equal(occ_k, (t_p <= t_max) & active)
+    want = t_p <= t_max
+    assert torch.equal(occ_k, want if active is None else want & active)
+
+
+def test_tlas2_kernels_match_plain_walks(card):
+    """Built with -fmad=false, the binary two-level kernels repeat the plain
+    walk's f32 arithmetic op for op, the instance transform and the tie key
+    included."""
+    meshes, instances, o, d = _instanced_and_rays(3, 40, 5000)
+    pack = tlas2.pack_tlas2(build_instanced(meshes, instances, device="cpu"), device=card)
+    o, d = o.to(card), d.to(card)
+    _assert_tlas2_kernels_equal_plain(pack, o, d, torch.arange(o.shape[0], device=card) % 3 != 0)
+
+
+def test_tlas2_kernels_match_plain_walks_at_the_deepest_stack(card):
+    """Of a few instanced scenes, the one with the deepest `stack_depth`:
+    the walk stays within it, and both kernels equal the plain walk."""
+    cases = [_instanced_and_rays(m, k, 6000, seed=s) for m, k, s in ((3, 40, 0), (2, 150, 1), (4, 400, 2))]
+    packs = [tlas2.pack_tlas2(build_instanced(meshes, inst, device="cpu"), device=card) for meshes, inst, _, _ in cases]
+    deepest = max(range(len(cases)), key=lambda j: packs[j].stack_depth)
+    pack, (_, _, o, d) = packs[deepest], cases[deepest]
+    assert pack.stack_depth >= 8
+    o, d = o.to(card), d.to(card)
+    stats = {}
+    tlas2.tlas2_closest_plain(pack, o, d, T_MIN, stats=stats)
+    assert 0 < stats["max_stack_depth"] <= pack.stack_depth
+    _assert_tlas2_kernels_equal_plain(pack, o, d)
+
+
+@pytest.mark.parametrize("branch", ["smaller_block", "global_stack"])
+def test_tlas2_kernels_take_every_launch_plan(card, branch, monkeypatch):
+    """The stack of a scene too deep for a 128-ray block's shared memory goes
+    to a smaller block, and past what one block holds to a global scratch
+    buffer: shrinking the shared memory the plan sees runs both branches on
+    a small scene, equal to the plain walk."""
+    meshes, instances, o, d = _instanced_and_rays(2, 30, 3000, seed=4)
+    pack = tlas2.pack_tlas2(build_instanced(meshes, instances, device="cpu"), device=card)
+    limit = 64 * pack.stack_depth * 4 if branch == "smaller_block" else 0
+    monkeypatch.setattr(tlas2, "SMEM_PER_BLOCK", limit)
+    block, _, on_global = tlas2.launch_plan(pack.stack_depth)
+    assert (block, on_global) == ((64, False) if branch == "smaller_block" else (128, True))
+    _assert_tlas2_kernels_equal_plain(pack, o.to(card), d.to(card))
 
 
 def test_tlas2_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -88,7 +88,7 @@ def test_binary_two_level_takes_the_full_city(monkeypatch):
     scene = build_brick_city()
     sd = scene.compile(device="cpu")
     assert port_kernels(sd) == {"tlas2"}
-    assert (sd.tlas2.num_tlas_nodes, sd.tlas2.b_bounds.shape[0], sd.tlas2.inst.shape[0]) == (1535, 15799, 768)
+    assert (sd.tlas2.n_tlas, sd.tlas2.num_nodes, sd.tlas2.inst.shape[0]) == (767, 8571, 768)
     assert not tlas_pallas_eligible(lego.build_brick_city().compile().instanced)
 
 

@@ -20,7 +20,7 @@ import torch
 from rpt_tpu.ops import tlas8_pallas as ref_t8
 from rpt_tpu.ops.tlas import build_instanced as ref_build_instanced
 from rpt_tpu.ops.tlas import instanced_closest_hit as ref_instanced_closest_hit
-from rpt_tpu_torch.ops import bvh8, tlas8
+from rpt_tpu_torch.ops import bvh8, tlas2, tlas8
 from rpt_tpu_torch.ops.tlas import build_instanced
 from test_tlas_pallas import _build_instanced_scene, _rays_at_instances
 
@@ -168,31 +168,28 @@ def test_active_mask_parks_lanes():
 @pytest.mark.parametrize("kind", ["closest", "any_hit"])
 @pytest.mark.parametrize("seed", [3, 4])
 def test_group_walk_properties(seed, kind):
-    """On random instanced scenes: the group-stack walk tests the exact
-    f32 boxes of the previous layout; `group_depth` is the deepest group
-    stack the walk reaches; and the walk equals the exact walk of the
-    previous layout (`bvh8._walk_plain` on the `_emit_wide` table) in hit
-    mask, t, triangle id and instance id, or in the any-hit bool."""
+    """On random instanced scenes: `group_depth` is the deepest group stack
+    the walk reaches; and the walk equals the binary two-level walk of the
+    same trees (`ops/tlas2.py`, the same f32 boxes and triangle rows): t bit
+    for bit, triangle and instance ids equal but for ties, or the any-hit
+    bool equal."""
     meshes, instances = _build_instanced_scene(3, 60, seed=seed)
     o, d = _rays_at_instances(3000, meshes, instances, seed=seed + 10)
     to, td = torch.as_tensor(np.array(o)), torch.as_tensor(np.array(d))
     im = build_instanced(meshes, instances, device="cpu")
-    pack, exact = tlas8.pack_tlas8(im), tlas8.exact_table(im)
-    np.testing.assert_array_equal(pack.bounds.numpy(), exact.bounds.numpy())
+    pack, binary = tlas8.pack_tlas8(im), tlas2.pack_tlas2(im)
     stats = {}
     if kind == "closest":
         t, tri, inst = tlas8.tlas8_closest_plain(pack, to, td, T_MIN, stats=stats)
-        t_x, tri_x, inst_x = tlas8.tlas8_closest_exact(exact, to, td, T_MIN)
+        t_x, tri_x, inst_x = tlas2.tlas2_closest_plain(binary, to, td, T_MIN)
         hit = t_x < 1e38
         assert hit.sum() > 1000 and (~hit).any()
-        np.testing.assert_array_equal((t < 1e38).numpy(), hit.numpy())
         np.testing.assert_array_equal(t.numpy(), t_x.numpy())
-        np.testing.assert_array_equal(tri[hit].numpy(), tri_x[hit].numpy())
-        np.testing.assert_array_equal(inst[hit].numpy(), inst_x[hit].numpy())
+        assert ((tri != tri_x) | (inst != inst_x))[hit].float().mean() <= 1e-3  # ties: one t, two triangles
     else:
         t_max = torch.as_tensor(np.random.default_rng(seed).uniform(6.0, 14.0, to.shape[0]), dtype=torch.float32)
         occ = tlas8.tlas8_occluded_plain(pack, to, td, T_MIN, t_max, stats=stats)
-        occ_x = tlas8.tlas8_occluded_exact(exact, to, td, T_MIN, t_max)
+        occ_x = tlas2.tlas2_occluded_plain(binary, to, td, T_MIN, t_max)
         assert occ_x.any() and (~occ_x).any()
         np.testing.assert_array_equal(occ.numpy(), occ_x.numpy())
     assert pack.group_depth >= 2
