@@ -33,7 +33,7 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    on `dragon_binary` and `lego_binary`, also:
    g. `[binary_vs_wide]`: the binary kernels against the wide kernels of
       the same trees on every wavefront, and both timed in turns;
-   on `dragon`, `lego` and `lego_binary`, also:
+   on every workload, also:
    h. `[before_after]`: the same kernels of other trees of the repository
       (`RPT_COMPARE=label=dir,...`, e.g. a `git archive` of the parent
       commit), timed in turns with this tree's on the same wavefronts;
@@ -200,11 +200,11 @@ def active_share(o, active) -> str:
     return "1.0000000" if active is None else f"{active.float().mean().item():.7f}"
 
 
-def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active, strict=False) -> float:
+def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active) -> float:
     """Kernel vs plain closest hit; returns the largest |t| difference.
     `mat_of(outputs, hit mask)` gives the material ids of the hits; an
-    instance id, where the kernel returns one, must agree too. `strict`:
-    every output must be equal bit for bit."""
+    instance id, where the kernel returns one, must agree too, and every
+    output must be equal bit for bit."""
     import torch
 
     out_k = kern(o, d, t_min, active)
@@ -222,15 +222,15 @@ def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active, strict=F
     say("parity", kernel=name, rays=rays, n=o.shape[0], active_share=active_share(o, active), hits=int(hit_p.sum()),
         mask_agree=f"{agree:.7f}", max_abs_t_err=err, mat_ok=mat_ok, bit_equal=bit_equal,
         **({} if len(out_k) < 3 else {"inst_ok": inst_ok}))
-    if agree < PARITY_MIN or not t_ok or not mat_ok or not inst_ok or (strict and not bit_equal):
+    if agree < PARITY_MIN or not t_ok or not mat_ok or not inst_ok or not bit_equal:
         fail(f"{name} kernel disagrees with its plain version on {rays}")
     return err
 
 
-def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, active, strict=False) -> float:
+def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, active) -> float:
     """Kernel vs plain any-hit, and vs the closest-hit rule t <= t_max;
-    returns the share of rays where kernel and plain version disagree.
-    `strict`: they must agree on every ray."""
+    returns the share of rays where kernel and plain version disagree,
+    which must be none."""
     import torch
 
     occ_k = kern(o, d, t_min, t_max, active)
@@ -244,7 +244,7 @@ def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, a
     agree_rule = (occ_k == rule).float().mean().item()
     say("parity", kernel=name, rays=rays, n=o.shape[0], active_share=active_share(o, active), occluded=int(occ_p.sum()),
         agree_plain=f"{1.0 - disagree:.7f}", agree_closest_rule=f"{agree_rule:.7f}")
-    if 1.0 - disagree < PARITY_MIN or agree_rule < PARITY_MIN or (strict and disagree > 0.0):
+    if agree_rule < PARITY_MIN or disagree > 0.0:
         fail(f"{name} kernel disagrees on {rays}")
     return disagree
 
@@ -327,16 +327,14 @@ def _run_workload(workload: str, card: str) -> list:
         return lambda *a, **kw: plain[name](pack, *a, **kw)
 
     # b. Kernel parity at main-path size: the camera rays, then every
-    # wavefront of a 1-spp render. The bvh8, tlas8 and tlas2 kernels run
-    # their plain walk's float operations in its order: they must equal it
-    # bit for bit.
-    strict = family in ("bvh8", "tlas8", "tlas2")
+    # wavefront of a 1-spp render. Every kernel runs its plain walk's float
+    # operations in its order: it must equal it bit for bit.
     renderer = Renderer(scene, camera, width=WIDTH, height=HEIGHT, max_bounces=bounces, num_samples=1,
                         device=DEVICE)
     t_min = float(np.float32(renderer.epsilon))
     o, d, _ = camera_rays_tiled(camera.to(DEVICE), rnd.fold_in(rnd.PRNGKey(0), 0),
                                 pixel_ndc_tiled(WIDTH, HEIGHT, DEVICE))
-    check_closest(closest, "camera", bound(closest), bound_plain(closest), mat_of, o, d, t_min, None, strict=strict)
+    check_closest(closest, "camera", bound(closest), bound_plain(closest), mat_of, o, d, t_min, None)
     rec = record_wavefronts(scene_mod, (closest, occluded), renderer.render_buffer)
     n_closest, n_occluded = len(rec[closest]), len(rec[occluded])
     if n_closest != bounces + 1 or n_occluded != shadow * (bounces + 1):
@@ -344,15 +342,13 @@ def _run_workload(workload: str, card: str) -> list:
     err = {closest: 0.0, occluded: 0.0}
     for depth, args in enumerate(rec[closest]):
         err[closest] = max(err[closest], check_closest(closest, f"depth{depth}", bound(closest),
-                                                       bound_plain(closest), mat_of, *args, strict=strict))
+                                                       bound_plain(closest), mat_of, *args))
     for j, args in enumerate(rec[occluded]):
         err[occluded] = max(err[occluded], check_occluded(occluded, f"shadow{j}", bound(occluded),
-                                                          bound_plain(occluded), bound_plain(closest), *args,
-                                                          strict=strict))
+                                                          bound_plain(occluded), bound_plain(closest), *args))
     if workload in ("dragon_binary", "lego_binary"):
         binary_vs_wide(family, sd, pack, rec, mat_of, card)
-    if workload in ("dragon", "lego", "lego_binary"):
-        before_after(family, mod, sd.bvh if family == "bvh8" else im, pack, rec, mat_of, card)
+    before_after(family, mod, sd.bvh if family in ("bvh8", "bvh2") else im, pack, rec, mat_of, card)
 
     # c. The port on the CPU against the port on the card, same seed.
     small = {}
@@ -546,7 +542,7 @@ def load_tree(label: str, root: str):
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
     info = importlib.import_module(f"{name}.kernels").build(force=True)
-    for source in ("bvh8", "tlas8", "tlas2"):
+    for source in ("bvh8", "tlas8", "bvh2", "tlas2"):
         for line in info[source]["log"].splitlines():
             if any(k in line for k in ("entry function", "registers", "spill", "stack frame")):
                 say("ptxas", source=f"{label}:{source}", line=json.dumps(line.strip()))
@@ -554,17 +550,18 @@ def load_tree(label: str, root: str):
 
 
 def before_after(family, mod, tree, pack, rec, mat_of, card):
-    """dragon (bvh8), lego (tlas8) and lego_binary (tlas2), and
-    self-contained (a later PR may delete it whole): the `family` kernels of
-    the trees named in RPT_COMPARE (`label=dir,...`), each with its own pack
-    of the same scene, against this tree's, on the recorded wavefronts,
-    timed in turns (trees, this, this, trees reversed; 30 passes through the
-    wavefronts each) on one card, with each pack's node bytes, size and
-    stack depth. Each tree's answers are compared with this tree's: bit for
-    bit, and (`compare_hits`) the hit mask, t and the rays whose material or
-    instance differs; those must stay within `within_bars` (a tree may walk
-    in another order and break near-ties otherwise). These launches go
-    around the counted wrappers."""
+    """Every workload: dragon (bvh8), lego (tlas8), lego_toy and
+    dragon_binary (bvh2), lego_binary (tlas2); self-contained (a later PR
+    may delete it whole): the `family` kernels of the trees named in
+    RPT_COMPARE (`label=dir,...`), each with its own pack of the same
+    scene, against this tree's, on the recorded wavefronts, timed in turns
+    (trees, this, this, trees reversed; 30 passes through the wavefronts
+    each) on one card, with each pack's node bytes, size and stack depth,
+    and each tree's box and triangle tests per launch. Each tree's answers
+    are compared with this tree's: bit for bit, and (`compare_hits`) the
+    hit mask, t and the rays whose material or instance differs; those must
+    stay within `within_bars` (a tree may walk in another order and break
+    near-ties otherwise). These launches go around the counted wrappers."""
     import torch
 
     trees = [item.split("=", 1) for item in os.environ.get("RPT_COMPARE", "").split(",") if item]
@@ -612,6 +609,16 @@ def before_after(family, mod, tree, pack, rec, mat_of, card):
             **{f"{label}_ms": f"{ms[label]:.4f}" for label in ms},
             **{f"{label}_turns_ms": json.dumps([round(t, 5) for t in times[label]]) for label in ms},
             **{f"{label}_over_this": f"{ms[label] / ms['this']:.3f}" for label in labels}, card=json.dumps(card))
+        # Each tree's box and triangle tests per launch, counted by its own
+        # plain walk on the same rays.
+        tests = {}
+        for label in mods:
+            stats = {}
+            for a in args:
+                getattr(mods[label], f"{family}_{kind}_plain")(packs[label], *a, stats=stats)
+            tests[f"{label}_box_tests"] = f"{stats['box_tests'] / len(args):.0f}"
+            tests[f"{label}_tri_tests"] = f"{stats['tri_tests'] / len(args):.0f}"
+        say("before_after", family=family, kind=kind, **tests)
 
 
 def main():

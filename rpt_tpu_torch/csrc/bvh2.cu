@@ -1,134 +1,106 @@
-// Binary-BVH ray traversal by skip links for NVIDIA Hopper (sm_90a).
+// Binary-BVH ray traversal for NVIDIA Hopper (sm_90a), walked over
+// child-pair nodes (the closest hit near first).
 //
 // Replaces the TPU kernels of rpt_tpu/ops/bvh_pallas.py:
 //   rpt_bvh2_closest  <- _kernel,      via _traverse and bvh_closest_hit_pallas
 //   rpt_bvh2_occluded <- _kernel_occl, via _traverse_occl and bvh_occluded_pallas
-// The node and triangle layouts are documented in rpt_tpu_torch/ops/bvh2.py,
-// which packs them and holds the plain torch versions these kernels are
-// tested against.
+// The TPU's subtree chunks and (8, 128) tiles exist only for its SMEM/VMEM
+// budgets: here the whole tree sits in device memory (the 120k-triangle
+// dragon packs into about 12 MB, which the 50 MB L2 holds). These kernels
+// take every tree (the scene compiler's fallback where the wide pack is
+// refused): a stack too deep for a 128-ray block's shared memory runs in a
+// smaller block or, past what one block holds, in a global scratch buffer.
+// The pack layout is documented in rpt_tpu_torch/ops/bvh2.py, which also
+// holds the plain torch version and the launch plan.
 //
-// What bounds it on this card: as for the wide walk (bvh8.cu), neither bytes
-// nor arithmetic. Per ray it does a few to a few tens of box tests and a
-// few leaf tests (f32 ALU work), each behind a dependent load of a 48-byte
-// node or an 80-byte triangle row. The pack sits in the 50 MB L2: 15 KB for
-// the 108-triangle toy plane, 11.3 MB for the 120k-triangle dragon (1.5 MB
-// of nodes, 10.3 MB of triangle rows). The least time the card could take
-// is that of reading the rays and the pack once (bytes) or of the f32
-// operations of the tests (operations), 5-9 us per 518,400-ray launch on
-// these paths; the kernel is held back by load latency and by warp
-// divergence (PERF.md has the measured times beside the bound).
+// The walk itself is csrc/pair_walk.cuh, instantiated one-level here and
+// two-level in tlas2.cu: one ray per thread, a 64-byte child-pair node per
+// visit, on a stack sized by the pack's exact `stack_depth`, the closest
+// hit loading the next node while it tests the current node's leaves (that
+// header says what bounds the walk on this card and what the design does
+// about it). The kernels below are its thin wrappers, one per query and stack
+// space.
 //
-// What this design does about it (right and simple first):
-//   - one ray per thread and no stack at all: the tree is stored in
-//     preorder with a skip link per node, so a ray walks by one index,
-//     ptr + 1 into a hit internal node and skip past a missed box or a
-//     tested leaf. No packet-wide vote as on the TPU: each ray prunes by
-//     its own slab test, on lo <= its best hit so far (closest) or on
-//     lo <= t_max (any hit);
-//   - a node is two 16-byte loads of bounds and one of meta, a triangle
-//     five 16-byte loads, all through the read-only path;
-//   - a leaf's triangles are tested at once against the best hit so far,
-//     and the any-hit walk returns at its first occluder.
-// The walk visits no child near-first: on a large mesh it tests more boxes
-// than the wide walk does (counted by the plain walk, in PERF.md).
-//
-// Numerics: the slab and triangle tests are those of the wide kernels
-// (walk.cuh), written in the same order as the plain torch version
-// (ops/bvh2.py), and the build uses -fmad=false: the kernel and the plain
-// version agree bit for bit.
-//
-// C interface for ctypes: each entry point launches on the given stream,
-// allocates nothing, and returns cudaGetLastError() after the launch.
+// C interface for ctypes: each entry point launches on the given stream
+// with `block` threads per block, allocates nothing (the caller passes the
+// global stack, or null for the shared one), and returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
+// block size or shared stack the launch cannot take.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "walk.cuh"  // Ray, load_ray, node_hit, leaf_closest, leaf_any, layout constants
+#include "pair_walk.cuh"  // pair_walk, kMaxSmem
 
 namespace {
 
-template <bool kOccl>
-__global__ void __launch_bounds__(kBlock)
-bvh2_walk(const float4* __restrict__ bounds, const int4* __restrict__ meta, int num_nodes,
-          const float4* __restrict__ tris, const float* __restrict__ o,
-          const float* __restrict__ d, const bool* __restrict__ active,
-          const float* __restrict__ t_max, int n, float t_min, float* __restrict__ t_out,
+// No launch bound or register cap: __maxnreg__(56) and (48) ran the closest
+// hit 1.01x and 1.03x slower on the dragon in turns ((48) spilled), and
+// under (64) the prefetching closest hit spills (PERF.md).
+template <bool kOccl, bool kGlobalStack>
+__global__ void
+bvh2_walk(const float4* __restrict__ nodes, const float4* __restrict__ tris, const float* __restrict__ o,
+          const float* __restrict__ d, const bool* __restrict__ active, const float* __restrict__ t_max,
+          int n, float t_min, unsigned* __restrict__ global_stack, int depth, float* __restrict__ t_out,
           int* __restrict__ id_out, bool* __restrict__ occ_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (active != nullptr && !active[i]) {
-    if (kOccl) {
-      occ_out[i] = false;
-    } else {
-      t_out[i] = kBig;
-      id_out[i] = 0;
-    }
-    return;
-  }
-  const Ray r = load_ray(o, d, i);
+  pair_walk<kOccl, false, kGlobalStack>(nodes, 0, nullptr, tris, o, d, active, t_max, n, t_min, global_stack,
+                                        depth, t_out, id_out, nullptr, occ_out);
+}
 
-  // Closest hit: `upper` is the running best t. Any hit: it is t_max.
-  float upper = kOccl ? t_max[i] : kBig;
-  int best = 0;
-  int ptr = 0;
-  while (ptr < num_nodes) {
-    const int4 m = __ldg(meta + ptr);  // skip, leaf_start, leaf_count, 0
-    if (!node_hit(bounds + 2 * (size_t)ptr, r, t_min, upper)) {
-      ptr = m.x;
-      continue;
-    }
-    if (m.z == 0) {  // internal: into the left child, the next in preorder
-      ++ptr;
-      continue;
-    }
-    const float4* tr = tris + (size_t)m.y * kTriStride4;
-    if (kOccl) {
-      if (leaf_any(tr, m.z, r, t_min, upper)) {
-        occ_out[i] = true;
-        return;
-      }
-    } else {
-      int kb;
-      const float t_leaf = leaf_closest(tr, m.z, r, t_min, &kb);
-      if (t_leaf < upper) {
-        upper = t_leaf;
-        best = m.y + kb;
-      }
-    }
-    ptr = m.x;
+// Lets the shared-stack kernel take the most dynamic shared memory a block
+// holds. Set once per kernel, on the first launch that needs more than the
+// default 48 KB, not on every launch: small trees are launch-bound.
+template <bool kOccl>
+cudaError_t allow_shared_stack() {
+  static const cudaError_t err =
+      cudaFuncSetAttribute(bvh2_walk<kOccl, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  return err;
+}
+
+// Launch on `stream`: `block` threads per block and a stack of `depth`
+// levels per thread, in `global_stack` if given, else in dynamic shared
+// memory.
+template <bool kOccl>
+int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t stream, const float* nodes,
+           const float* tris, const float* o, const float* d, const bool* active, const float* t_max,
+           float t_min, float* t_out, int* id_out, bool* occ_out) {
+  if (n <= 0) return 0;
+  if (block <= 0 || block > kBlock || depth < 0) return (int)cudaErrorInvalidValue;
+  const int grid = (int)((n + block - 1) / block);
+  const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
+  const float4* tris4 = reinterpret_cast<const float4*>(tris);
+  if (global_stack != nullptr) {
+    bvh2_walk<kOccl, true><<<grid, block, 0, stream>>>(nodes4, tris4, o, d, active, t_max, (int)n, t_min,
+                                                       global_stack, depth, t_out, id_out, occ_out);
+    return (int)cudaGetLastError();
   }
-  if (kOccl) {
-    occ_out[i] = false;
-  } else {
-    t_out[i] = upper;
-    id_out[i] = best;
+  const size_t smem = (size_t)block * (size_t)depth * sizeof(unsigned);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = allow_shared_stack<kOccl>();
+    if (err != cudaSuccess) return (int)err;
   }
+  bvh2_walk<kOccl, false><<<grid, block, smem, stream>>>(nodes4, tris4, o, d, active, t_max, (int)n, t_min,
+                                                         nullptr, depth, t_out, id_out, occ_out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int rpt_bvh2_closest(const float* bounds, const int* meta, int64_t num_nodes, const float* tris,
-                     const float* o, const float* d, const bool* active, int64_t n, float t_min,
-                     float* t_out, int* id_out, void* stream) {
-  if (n <= 0) return 0;
-  bvh2_walk<false><<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(bounds), reinterpret_cast<const int4*>(meta), (int)num_nodes,
-      reinterpret_cast<const float4*>(tris), o, d, active, nullptr, (int)n, t_min, t_out, id_out,
-      nullptr);
-  return (int)cudaGetLastError();
+int rpt_bvh2_closest(const float* nodes, const float* tris, const float* o, const float* d, const bool* active,
+                     int64_t n, float t_min, float* t_out, int* id_out, int block, int depth,
+                     unsigned* global_stack, void* stream) {
+  return launch<false>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, tris, o, d, active, nullptr,
+                       t_min, t_out, id_out, nullptr);
 }
 
-int rpt_bvh2_occluded(const float* bounds, const int* meta, int64_t num_nodes, const float* tris,
-                      const float* o, const float* d, const bool* active, const float* t_max,
-                      int64_t n, float t_min, bool* occ_out, void* stream) {
-  if (n <= 0) return 0;
-  bvh2_walk<true><<<grid_for(n), kBlock, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(bounds), reinterpret_cast<const int4*>(meta), (int)num_nodes,
-      reinterpret_cast<const float4*>(tris), o, d, active, t_max, (int)n, t_min, nullptr, nullptr,
-      occ_out);
-  return (int)cudaGetLastError();
+int rpt_bvh2_occluded(const float* nodes, const float* tris, const float* o, const float* d, const bool* active,
+                      const float* t_max, int64_t n, float t_min, bool* occ_out, int block, int depth,
+                      unsigned* global_stack, void* stream) {
+  return launch<true>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, tris, o, d, active, t_max,
+                      t_min, nullptr, nullptr, occ_out);
 }
 
 }  // extern "C"

@@ -1,12 +1,14 @@
-// The walk over child-pair nodes of the binary two-level kernels
-// (tlas2.cu): a binary TLAS over instances and one binary BLAS per mesh, in
-// one node table.
+// The walk over child-pair nodes of the binary kernels, written once for
+// both: bvh2.cu instantiates it one-level (one binary tree), tlas2.cu
+// two-level (a binary TLAS over instances and one binary BLAS per mesh, in
+// one node table).
 //
 // What bounds it on this card: a BVH walk is neither a streaming nor a
 // dense-math workload. Per ray it does tens of box tests, a few triangle
-// tests and a few instance entries (an 18-multiply affine transform each),
-// separated by dependent loads of node, instance and triangle rows from L2
-// (the 768-instance brick city's tables, about 6 MB, fit in the 50 MB L2).
+// tests and (two-level) a few instance entries (an 18-multiply affine
+// transform each), separated by dependent loads of node, instance and
+// triangle rows from L2 (the 768-instance brick city's tables, about 6 MB,
+// and the 120k-triangle dragon's, about 12 MB, fit in the 50 MB L2).
 // The least time the card could take is that of the f32 operations or of
 // reading the rays and the tables once, microseconds either way; the walk
 // is held back by load latency and by warp divergence (PERF.md has the
@@ -25,26 +27,35 @@
 //     not shrink, enters A (left first measured 7.7% faster than near first
 //     on the brick city, PERF.md); one hit child is entered; with none, the
 //     walk pops;
-//   - an instance child (payload its TLAS leaf rank) loads a 64-byte record:
-//     the 3x4 world->local affine (walk.cuh to_local, direction NOT
+//   - which node comes next does not depend on the leaf tests, so the
+//     one-level closest hit issues the next node's loads before it tests
+//     the current node's leaves, and the two latencies overlap (1.27x
+//     faster on the dragon in turns, PERF.md). The any hit, which returns
+//     at its first occluder, and the two-level walk, whose next node may
+//     switch the ray's frame, test the leaves first (the one-level any hit
+//     measured 3% slower prefetching);
+//   - two-level, an instance child (payload its TLAS leaf rank) loads a
+//     64-byte record: the 3x4 world->local affine (walk.cuh to_local, direction NOT
 //     normalized, so local t == world t and the prune on the running best
 //     holds at both levels), its BLAS root and its instance id. LIFO order
 //     means one ray, in the frame of the nodes being visited, suffices: the
 //     world ray is loaded again at an instance entry and when a TLAS node
-//     (index < n_tlas) is popped in a local frame;
+//     (index < n_tlas) is popped in a local frame. One-level, all of that
+//     is compiled out;
 //   - the stack holds one 32-bit reference per pushed far child. Its exact
 //     worst-case depth, the pack's `stack_depth`, sizes it; it lives in
 //     dynamic shared memory indexed [level][thread] (neighbouring lanes in
 //     different banks), or, for a tree too deep for one block's shared
 //     memory, in a global scratch buffer indexed the same way (the launch
-//     plan is ops/tlas2.py `launch_plan`). No per-thread local-memory array;
+//     plan is ops/bvh2.py `launch_plan`). No per-thread local-memory array;
 //   - ties: the reference takes, among equal t, the leaf it visits first in
 //     preorder. A leaf's hit replaces the best on t < best, or on t == best
-//     with a smaller key (TLAS leaf rank, packed row), which is that order.
-//     The any-hit walk returns at its first occluder.
+//     with a smaller key, which is that order: (TLAS leaf rank, packed row)
+//     two-level, the row alone one-level (the leaves' rows rise in
+//     preorder). The any-hit walk returns at its first occluder.
 //
 // Numerics: every expression is written in the same order as the plain torch
-// version (ops/tlas2.py `_pair_walk`), and the build uses -fmad=false: the
+// version (ops/bvh2.py `_pair_walk`), and the build uses -fmad=false: the
 // kernels and the plain version agree bit for bit.
 
 #pragma once
@@ -64,8 +75,8 @@ constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may hold
 
 // Test the triangle leaf `ref` in r's frame. Any hit: true on an occluder in
 // [t_min, upper]. Closest: the leaf's best row replaces the running best on
-// a smaller (t, rank, row).
-template <bool kOccl>
+// a smaller (t, rank, row), one-level on a smaller (t, row).
+template <bool kOccl, bool kTwoLevel>
 __device__ __forceinline__ bool pair_leaf(const float4* __restrict__ tris, int ref, const Ray& r,
                                           float t_min, int rank, float* upper, int* best,
                                           int* best_rank) {
@@ -77,20 +88,36 @@ __device__ __forceinline__ bool pair_leaf(const float4* __restrict__ tris, int r
   int kb;
   const float t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
   const int row = start + kb;
-  if (t_leaf < *upper ||
-      (t_leaf == *upper && *upper < kBig && (rank < *best_rank || (rank == *best_rank && row < *best)))) {
+  if constexpr (kTwoLevel) {
+    if (t_leaf < *upper ||
+        (t_leaf == *upper && *upper < kBig && (rank < *best_rank || (rank == *best_rank && row < *best)))) {
+      *upper = t_leaf;
+      *best = row;
+      *best_rank = rank;
+    }
+  } else if (t_leaf < *upper || (t_leaf == *upper && *upper < kBig && row < *best)) {
     *upper = t_leaf;
     *best = row;
-    *best_rank = rank;
   }
   return false;
 }
 
+// Load pair node `node`: its two boxes, then its references.
+__device__ __forceinline__ void load_pair(const float4* __restrict__ nodes, int node, float4* a, float4* b,
+                                          float4* c, int4* m) {
+  const float4* nb = nodes + (size_t)node * kPair4;
+  *a = __ldg(nb + 0);
+  *b = __ldg(nb + 1);
+  *c = __ldg(nb + 2);
+  *m = __ldg(reinterpret_cast<const int4*>(nb + 3));
+}
+
 // The walk of ray i = blockIdx.x * blockDim.x + threadIdx.x from pair node
 // 0. The stack: dynamic shared memory, or (kGlobalStack) `depth` levels per
-// thread of `global_stack`. kOccl: writes occ_out; else t_out, id_out and
-// inst_out.
-template <bool kOccl, bool kGlobalStack>
+// thread of `global_stack`. One-level (kTwoLevel false): n_tlas, inst and
+// inst_out are not read. kOccl: writes occ_out; else t_out, id_out (and
+// inst_out).
+template <bool kOccl, bool kTwoLevel, bool kGlobalStack>
 __device__ __forceinline__ void pair_walk(
     const float4* __restrict__ nodes, int n_tlas, const float4* __restrict__ inst,
     const float4* __restrict__ tris, const float* __restrict__ o, const float* __restrict__ d,
@@ -110,10 +137,13 @@ __device__ __forceinline__ void pair_walk(
     } else {
       t_out[i] = kBig;
       id_out[i] = 0;
-      inst_out[i] = 0;
+      if (kTwoLevel) inst_out[i] = 0;
     }
     return;
   }
+  // The one-level closest hit loads the next node before it tests the
+  // current node's leaves (which node comes next does not depend on them).
+  constexpr bool kPrefetch = !kOccl && !kTwoLevel;
   Ray r = load_ray(o, d, i);  // in the frame of the nodes being visited
   bool local = false;
 
@@ -123,55 +153,93 @@ __device__ __forceinline__ void pair_walk(
   int best_rank = -1;
   int rank = 0;  // the current instance's TLAS leaf rank
   int sp = 0;
-  int node = 0;  // the TLAS root
-  while (true) {
-    // Visit `node`, in r's frame: both children's boxes, then its leaves.
-    const float4* nb = nodes + (size_t)node * kPair4;
-    const float4 a = __ldg(nb + 0);
-    const float4 b = __ldg(nb + 1);
-    const float4 c = __ldg(nb + 2);
-    const int4 m = __ldg(reinterpret_cast<const int4*>(nb + 3));
-    float lo_a, lo_b;
-    const bool hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, upper, &lo_a);
-    const bool hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, upper, &lo_b) && m.y != 0;
-    const bool leaf_a = (m.x & 3) == kRefLeaf;
-    const bool leaf_b = (m.y & 3) == kRefLeaf;
-    if (hit_a && leaf_a && pair_leaf<kOccl>(tris, m.x, r, t_min, rank, &upper, &best, &best_rank)) {
-      occ_out[i] = true;
-      return;
+  if constexpr (kPrefetch) {
+    // As the loop below, but the next node's loads go out before the
+    // current node's leaf tests. Its own loop: the loop below restructured
+    // this way for every walk cost tlas2 1.17x / 1.10x and the one-level
+    // any hit 1.05x (PERF.md).
+    float4 a, b, c;
+    int4 m;
+    load_pair(nodes, 0, &a, &b, &c, &m);
+    while (true) {
+      float lo_a, lo_b;
+      const bool hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, upper, &lo_a);
+      const bool hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, upper, &lo_b) && m.y != 0;
+      const int ref_a = m.x;
+      const int ref_b = m.y;
+      const bool leaf_a = (ref_a & 3) == kRefLeaf;
+      const bool leaf_b = (ref_b & 3) == kRefLeaf;
+      const bool go_a = hit_a && !leaf_a;
+      const bool go_b = hit_b && !leaf_b;
+      int next = -1;
+      if (go_a && go_b) {
+        const bool b_first = lo_b < lo_a;
+        stack[(sp++) * stride] = (unsigned)(b_first ? ref_a : ref_b);
+        next = b_first ? ref_b : ref_a;
+      } else if (go_a || go_b) {
+        next = go_a ? ref_a : ref_b;
+      } else if (sp > 0) {
+        next = (int)stack[(--sp) * stride];
+      }
+      if (next >= 0) load_pair(nodes, next >> 2, &a, &b, &c, &m);
+      if (hit_a && leaf_a) pair_leaf<kOccl, kTwoLevel>(tris, ref_a, r, t_min, rank, &upper, &best, &best_rank);
+      if (hit_b && leaf_b) pair_leaf<kOccl, kTwoLevel>(tris, ref_b, r, t_min, rank, &upper, &best, &best_rank);
+      if (next < 0) break;
     }
-    if (hit_b && leaf_b && pair_leaf<kOccl>(tris, m.y, r, t_min, rank, &upper, &best, &best_rank)) {
-      occ_out[i] = true;
-      return;
-    }
-    // Move on: of two hit children the nearer (closest hit) or A (any
-    // hit), the other pushed; the one hit child; else the top of the stack.
-    const bool go_a = hit_a && !leaf_a;
-    const bool go_b = hit_b && !leaf_b;
-    int next;
-    if (go_a && go_b) {
-      const bool b_first = !kOccl && lo_b < lo_a;
-      stack[(sp++) * stride] = (unsigned)(b_first ? m.x : m.y);
-      next = b_first ? m.y : m.x;
-    } else if (go_a || go_b) {
-      next = go_a ? m.x : m.y;
-    } else {
-      if (sp == 0) break;
-      next = (int)stack[(--sp) * stride];
-    }
-    node = next >> 2;
-    if ((next & 3) == kRefInst) {
-      // An instance: the world ray in its frame, then its BLAS root.
-      const float4* rec = inst + (size_t)node * kRec4;
-      to_local(rec, load_ray(o, d, i), &r);
-      local = true;
-      rank = node;
-      node = __ldg(reinterpret_cast<const int*>(rec + 3));
-    } else if (node < n_tlas && local) {
-      // A TLAS node popped in a local frame: every BLAS node of the
-      // instance has been popped (LIFO), so back to the world ray.
-      r = load_ray(o, d, i);
-      local = false;
+  } else {
+    int node = 0;  // the TLAS root
+    while (true) {
+      // Visit `node`, in r's frame: both children's boxes, then its leaves.
+      const float4* nb = nodes + (size_t)node * kPair4;
+      const float4 a = __ldg(nb + 0);
+      const float4 b = __ldg(nb + 1);
+      const float4 c = __ldg(nb + 2);
+      const int4 m = __ldg(reinterpret_cast<const int4*>(nb + 3));
+      float lo_a, lo_b;
+      const bool hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, upper, &lo_a);
+      const bool hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, upper, &lo_b) && m.y != 0;
+      const bool leaf_a = (m.x & 3) == kRefLeaf;
+      const bool leaf_b = (m.y & 3) == kRefLeaf;
+      if (hit_a && leaf_a && pair_leaf<kOccl, kTwoLevel>(tris, m.x, r, t_min, rank, &upper, &best, &best_rank)) {
+        occ_out[i] = true;
+        return;
+      }
+      if (hit_b && leaf_b && pair_leaf<kOccl, kTwoLevel>(tris, m.y, r, t_min, rank, &upper, &best, &best_rank)) {
+        occ_out[i] = true;
+        return;
+      }
+      // Move on: of two hit children the nearer (closest hit) or A (any
+      // hit), the other pushed; the one hit child; else the top of the
+      // stack.
+      const bool go_a = hit_a && !leaf_a;
+      const bool go_b = hit_b && !leaf_b;
+      int next;
+      if (go_a && go_b) {
+        const bool b_first = !kOccl && lo_b < lo_a;
+        stack[(sp++) * stride] = (unsigned)(b_first ? m.x : m.y);
+        next = b_first ? m.y : m.x;
+      } else if (go_a || go_b) {
+        next = go_a ? m.x : m.y;
+      } else {
+        if (sp == 0) break;
+        next = (int)stack[(--sp) * stride];
+      }
+      node = next >> 2;
+      if constexpr (kTwoLevel) {
+        if ((next & 3) == kRefInst) {
+          // An instance: the world ray in its frame, then its BLAS root.
+          const float4* rec = inst + (size_t)node * kRec4;
+          to_local(rec, load_ray(o, d, i), &r);
+          local = true;
+          rank = node;
+          node = __ldg(reinterpret_cast<const int*>(rec + 3));
+        } else if (node < n_tlas && local) {
+          // A TLAS node popped in a local frame: every BLAS node of the
+          // instance has been popped (LIFO), so back to the world ray.
+          r = load_ray(o, d, i);
+          local = false;
+        }
+      }
     }
   }
   if (kOccl) {
@@ -179,7 +247,10 @@ __device__ __forceinline__ void pair_walk(
   } else {
     t_out[i] = upper;
     id_out[i] = best;
-    inst_out[i] = best_rank >= 0 ? __ldg(reinterpret_cast<const int*>(inst + (size_t)best_rank * kRec4 + 3) + 1) : 0;
+    if constexpr (kTwoLevel) {
+      inst_out[i] =
+          best_rank >= 0 ? __ldg(reinterpret_cast<const int*>(inst + (size_t)best_rank * kRec4 + 3) + 1) : 0;
+    }
   }
 }
 

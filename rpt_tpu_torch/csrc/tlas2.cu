@@ -12,12 +12,12 @@
 // they take every scene: a stack too deep for a 128-ray block's shared
 // memory runs in a smaller block or, past what one block holds, in a
 // global scratch buffer. The pack layout is documented in
-// rpt_tpu_torch/ops/tlas2.py, which also holds the plain torch version and
-// the launch plan.
+// rpt_tpu_torch/ops/tlas2.py; the plain torch version and the launch plan
+// are in ops/bvh2.py.
 //
-// The walk itself is csrc/pair_walk.cuh: one ray per thread, a 64-byte
-// child-pair node per visit, on a stack sized by the pack's
-// exact `stack_depth` (that header says what bounds the walk on this card
+// The walk itself is csrc/pair_walk.cuh, instantiated two-level here and
+// one-level in bvh2.cu: one ray per thread, a 64-byte child-pair node per
+// visit, on a stack sized by the pack's exact `stack_depth` (that header says what bounds the walk on this card
 // and what the design does about it). The kernels below are its thin
 // wrappers, one per query and stack space.
 //
@@ -47,13 +47,23 @@ tlas2_walk(const float4* __restrict__ nodes, int n_tlas, const float4* __restric
            const bool* __restrict__ active, const float* __restrict__ t_max, int n, float t_min,
            unsigned* __restrict__ global_stack, int depth, float* __restrict__ t_out,
            int* __restrict__ id_out, int* __restrict__ inst_out, bool* __restrict__ occ_out) {
-  pair_walk<kOccl, kGlobalStack>(nodes, n_tlas, inst, tris, o, d, active, t_max, n, t_min, global_stack,
-                                 depth, t_out, id_out, inst_out, occ_out);
+  pair_walk<kOccl, true, kGlobalStack>(nodes, n_tlas, inst, tris, o, d, active, t_max, n, t_min, global_stack,
+                                       depth, t_out, id_out, inst_out, occ_out);
+}
+
+// Lets the shared-stack kernel take the most dynamic shared memory a block
+// holds. Set once per kernel, on the first launch that needs more than the
+// default 48 KB, not on every launch.
+template <bool kOccl>
+cudaError_t allow_shared_stack() {
+  static const cudaError_t err =
+      cudaFuncSetAttribute(tlas2_walk<kOccl, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  return err;
 }
 
 // Launch on `stream`: `block` threads per block and a stack of `depth`
 // levels per thread, in `global_stack` if given, else in dynamic shared
-// memory (its limit raised past 48 KB where needed).
+// memory.
 template <bool kOccl>
 int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t stream, const float* nodes,
            int n_tlas, const float* inst, const float* tris, const float* o, const float* d,
@@ -74,8 +84,7 @@ int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t
   const size_t smem = (size_t)block * (size_t)depth * sizeof(unsigned);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(tlas2_walk<kOccl, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err = allow_shared_stack<kOccl>();
     if (err != cudaSuccess) return (int)err;
   }
   tlas2_walk<kOccl, false><<<grid, block, smem, stream>>>(nodes4, n_tlas, inst4, tris4, o, d, active, t_max,

@@ -1,7 +1,7 @@
 // Pieces shared by the walks of bvh8.cu, tlas8.cu (through
 // group_walk.cuh), bvh2.cu and tlas2.cu (through pair_walk.cuh): the ray
-// and its load, the slab test of one box (of a binary node, of each child
-// of a pair node, or of each of a wide node's 8 children), the instance
+// and its load, the slab test of one box (of each child of a pair node,
+// or of each of a wide node's 8 children), the instance
 // transform, and the triangle tests on the precomputed 20-float rows. The
 // layouts are documented in rpt_tpu_torch/ops/bvh8.py, ops/bvh2.py and
 // ops/tlas2.py, whose plain
@@ -78,15 +78,6 @@ __device__ __forceinline__ unsigned child_mask(const float4* __restrict__ nb, co
     }
   }
   return mask;
-}
-
-// Slab test of one binary node's box, stored as two float4
-// [lo.x, lo.y, lo.z, hi.x], [hi.y, hi.z, -, -] (ops/bvh2.py).
-__device__ __forceinline__ bool node_hit(const float4* __restrict__ nb, const Ray& r, float t_min,
-                                         float upper) {
-  const float4 a = __ldg(nb + 0);
-  const float4 b = __ldg(nb + 1);
-  return box_hit(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, upper);
 }
 
 // Load one ray from (N, 3) origin and direction rows, with its inverse

@@ -43,8 +43,8 @@ _SIGNATURES = {
         "rpt_tlas8_occluded": [_P, _P, _I32, _I32] + [_P] * 7 + [_I64, _F32] + [_P] * 2,
     },
     "bvh2": {
-        "rpt_bvh2_closest": [_P, _P, _I64] + [_P] * 4 + [_I64, _F32] + [_P] * 3,
-        "rpt_bvh2_occluded": [_P, _P, _I64] + [_P] * 5 + [_I64, _F32] + [_P] * 2,
+        "rpt_bvh2_closest": [_P] * 5 + [_I64, _F32] + [_P] * 2 + [_I32, _I32, _P, _P],
+        "rpt_bvh2_occluded": [_P] * 6 + [_I64, _F32, _P, _I32, _I32, _P, _P],
     },
     "tlas2": {
         "rpt_tlas2_closest": [_P, _I32] + [_P] * 5 + [_I64, _F32] + [_P] * 3 + [_I32, _I32, _P, _P],

@@ -7,7 +7,7 @@ on a miss it jumps to skip[i]. Triangles are permuted so each leaf's
 triangles are contiguous and 8-aligned, which is what the wide-BVH kernels
 (`ops/bvh8.py`) rely on; triangle ids are indices into that permuted order.
 
-The binary tree is walked by the skip-link kernels of `ops/bvh2.py` or,
+The binary tree is walked by the child-pair kernels of `ops/bvh2.py` or,
 collapsed, by the wide kernels of `ops/bvh8.py`, each with a plain torch
 version; `finalize_hit` turns a walk's (t, triangle id) into a `Hit` with
 the smooth interpolated normal.

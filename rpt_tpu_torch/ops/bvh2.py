@@ -1,38 +1,63 @@
-"""Binary-BVH traversal by skip links: closest hit and any hit, as CUDA
-kernels.
+"""Binary-BVH traversal over child-pair nodes: closest hit (near first) and
+any hit, as CUDA kernels; and the child-pair pieces the binary two-level
+kernels share (`ops/tlas2.py`).
 
 Replaces the two TPU kernels of `rpt_tpu/ops/bvh_pallas.py`: `_kernel`
 (closest hit, reached through `bvh_closest_hit_pallas`) and `_kernel_occl`
 (shadow any-hit, reached through `bvh_occluded_pallas`). The kernels are in
-`rpt_tpu_torch/csrc/bvh2.cu`; this module holds the host pack, the plain
-torch versions with the same contract, and the wrappers that choose between
-them by the device of the rays.
+`rpt_tpu_torch/csrc/bvh2.cu`, the walk in `csrc/pair_walk.cuh` (one-level
+here, two-level in `csrc/tlas2.cu`); this module holds the host pack, the
+plain torch version of the walk for both levels (`_pair_walk`), the launch
+plan and the wrappers that choose between kernel and plain walk by the
+device of the rays.
 
 The scene compiler takes these kernels for a baked mesh of fewer than
 `WIDE_KERNEL_MIN_TRIS` rows, for every mesh under `RPT_BVH_KERNEL=binary`,
-and where the wide pack refuses a tree (`scene.choose_bvh_pack`).
+and where the wide pack refuses a tree (`scene.choose_bvh_pack`), so they
+take every tree.
 
-Layout. The binary SAH tree (`ops/bvh.py`) as it is built, in preorder with
-skip links; the TPU's subtree chunks and (8, 128) tiles exist only for its
-SMEM/VMEM budgets and are not carried over. Per node:
+Layout. The binary SAH tree (`ops/bvh.py`) as it is built (the same nodes,
+leaves and triangle rows), re-encoded as child-pair nodes: one record per
+internal node, holding both children's boxes and references.
 
-- `bounds` (M, 8) f32: lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, 0, 0, two
-  16-byte loads;
-- `meta` (M, 4) i32: skip, leaf_start, leaf_count, 0, one 16-byte load;
-  leaf_count > 0 marks a leaf of that many triangles from row leaf_start;
+- `nodes` (P, 16) f32, 64 bytes, four 16-byte loads per node:
+  `[loA.xyz, hiA.x] [hiA.yz, loB.xy] [loB.z, hiB.xyz] [refA, refB, 0, 0]`,
+  the references as int32 bits. A reference is `payload << 2 | kind`, with
+  the kinds of `ops/bvh8.py`: 1 a pair node (payload its index), 3 a
+  triangle leaf (payload `start / 8 << 3 | count - 1`; leaves are 8-aligned
+  and hold at most 8 rows), 0 an empty slot (inverted box); 2, an
+  instance, occurs only in the two-level table. The pair nodes are the
+  internal nodes in preorder. The root's box is never tested (its
+  children's lie inside it); a tree that is one leaf is wrapped in a pair
+  node with that one child and an empty slot.
 - `tris` (T, 20) f32: the 20-float triangle rows of the wide kernels
   (`ops/bvh8._tri_rows`), leaf-contiguous and 8-aligned, so a hit's id
   `leaf_start + k` indexes `BvhData.verts` and `finalize_hit` agrees.
 
-Walk. One ray per thread and no stack: at a node whose box the ray hits
-within [t_min, upper] (upper = best hit so far, or t_max for the any-hit
-query), an internal node goes on to ptr + 1 and a leaf tests its triangles
-and goes on to skip; at a missed box, to skip. Ties break the reference's
-way: strictly nearer across leaves, so the first hit in preorder wins, and
-the lowest row within a leaf. The any-hit walk stops at its first triangle
-in [t_min, t_max]. The plain version repeats the kernel's arithmetic op for
-op (the slab and triangle tests of `csrc/walk.cuh`); the two agree bit for
-bit.
+Walk. One ray per thread (per lane of the plain version). Visiting a pair
+node slab-tests both children against [t_min, upper] (upper = the running
+best hit, or t_max for the any hit; inclusive, as in the reference), tests
+a hit triangle leaf at once (A, then B), and goes on: of two hit node
+children, into the nearer for the closest hit (by entry distance, A on a
+tie) and into A for the any hit (left first: its t_max does not shrink),
+pushing the other; into the one hit child; or to the top of the stack. The
+any-hit walk stops at its first occluder.
+
+Ties. The reference walks the tree in preorder by skip links and takes,
+among equal t, the first leaf it reaches, and within a leaf the lowest row.
+The leaves' rows rise in preorder (`pack_bvh2` asserts it), so a smaller
+row is an earlier leaf: a leaf's best row replaces the best hit on t <
+best, or on t == best with a smaller row, whatever order the walk takes.
+
+`stack_depth` is the exact worst-case depth of the stack: the longest chain
+of pushed far children on any path from the root. `launch_plan` places a
+stack of that depth: in the shared memory of a 128-ray block, of a smaller
+block, or past what one block holds, in a global scratch buffer. No tree is
+refused.
+
+The plain version repeats the kernels' arithmetic op for op (the slab and
+triangle tests of `csrc/walk.cuh`; the kernels are built with -fmad=false),
+so the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -47,10 +72,16 @@ import torch
 from .bvh import LEAF_SIZE, BvhData, _safe_inv
 from .bvh8 import (
     _BIG,
+    KIND_EMPTY,
+    KIND_INST,
+    KIND_LEAF,
+    KIND_NODE,
     _check_rays,
     _leaf_t,
     _on_cpu,
     _ptr,
+    _slab,
+    _to_local,
     _tri_rows,
     finish_closest,
     finish_occluded,
@@ -61,6 +92,7 @@ from .intersect import Hit
 __all__ = [
     "Bvh2Pack",
     "pack_bvh2",
+    "launch_plan",
     "bvh2_closest_hit",
     "bvh2_occluded",
     "bvh2_closest_plain",
@@ -69,19 +101,40 @@ __all__ = [
     "bvh2_occluded_kernel",
 ]
 
-@dataclasses.dataclass(frozen=True)
-class Bvh2Pack:
-    bounds: torch.Tensor  # (M, 8) f32
-    meta: torch.Tensor  # (M, 4) i32
-    tris: torch.Tensor  # (T, 20) f32
+# Dynamic shared memory one block may hold on Hopper (227 KB), and the
+# block sizes the launch plan tries, largest first.
+SMEM_PER_BLOCK = 232448
+BLOCKS = (128, 64, 32)
+
+
+class PairNodes:
+    """The child-pair table of the pair-walk packs (`Bvh2Pack`, and
+    `ops/tlas2.Tlas2Pack`): `nodes` (P, 16) f32 and `stack_depth`."""
 
     @property
     def num_nodes(self) -> int:
-        return self.bounds.shape[0]
+        return self.nodes.shape[0]
+
+    @property
+    def refs(self) -> torch.Tensor:
+        """(P, 2) i32 child references, A and B."""
+        return self.nodes[:, 12:14].view(torch.int32)
+
+    @property
+    def node_bytes(self) -> int:
+        return self.nodes.shape[1] * self.nodes.element_size()
+
+
+@dataclasses.dataclass(frozen=True)
+class Bvh2Pack(PairNodes):
+    nodes: torch.Tensor  # (P, 16) f32 child-pair nodes
+    tris: torch.Tensor  # (T, 20) f32
+    stack_depth: int  # worst-case depth of the walk's stack
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in (self.bounds, self.meta, self.tris))
+        """Bytes of the tables the kernels read."""
+        return sum(t.numel() * t.element_size() for t in (self.nodes, self.tris))
 
 
 # ---------------------------------------------------------------------------
@@ -89,130 +142,272 @@ class Bvh2Pack:
 # ---------------------------------------------------------------------------
 
 
-def node_rows(node_min, node_max, skip, leaf_start, leaf_count):
-    """(bounds (M, 8) f32, meta (M, 4) i32) of a skip-link preorder tree."""
-    M = node_min.shape[0]
-    bounds = np.zeros((M, 8), np.float32)
-    bounds[:, 0:3] = node_min
-    bounds[:, 3:6] = node_max
-    meta = np.zeros((M, 4), np.int32)
-    meta[:, 0] = skip
-    meta[:, 1] = leaf_start
-    meta[:, 2] = leaf_count
-    return bounds, meta
+def _pair_nodes(node_min, node_max, skip, leaf_ref, roots, base: int):
+    """Child-pair records (module docstring) of the skip-link preorder trees
+    rooted at `roots` in one node array: `leaf_ref` (M,) is the reference
+    of each leaf, 0 at internal nodes; pair nodes are numbered from `base`.
+    Returns (records (P, 16) f32 with the references' int32 bits, the pair
+    node of each binary node (M,): its own where internal, its wrapper at a
+    leaf root, else -1)."""
+    internal = leaf_ref == 0
+    slot = internal.copy()
+    slot[roots] = True
+    pid = np.where(slot, base + np.cumsum(slot) - 1, -1)
+    rec = np.zeros((int(slot.sum()), 16), np.float32)
+    ref = rec.view(np.int32)
+
+    def child_ref(c):
+        return np.where(internal[c], pid[c] << 2 | KIND_NODE, leaf_ref[c])
+
+    par = np.flatnonzero(internal)
+    a = par + 1
+    b = skip[a]
+    rows = pid[par] - base
+    rec[rows, 0:3], rec[rows, 3:6] = node_min[a], node_max[a]
+    rec[rows, 6:9], rec[rows, 9:12] = node_min[b], node_max[b]
+    ref[rows, 12], ref[rows, 13] = child_ref(a), child_ref(b)
+    wrapped = np.asarray([r for r in roots if not internal[r]], np.int64)
+    rows = pid[wrapped] - base
+    rec[rows, 0:3], rec[rows, 3:6] = node_min[wrapped], node_max[wrapped]
+    rec[rows, 6:9], rec[rows, 9:12] = _BIG, -_BIG
+    ref[rows, 12], ref[rows, 13] = leaf_ref[wrapped], 0
+    return rec, pid
+
+
+def _stack_depth(refs: np.ndarray, rank_root: Optional[np.ndarray] = None) -> int:
+    """Exact worst-case stack depth of the walk from pair node 0 over the
+    references `refs` (P, 2): a node whose two children are both node or
+    instance children pushes one of them, and either may be the far one,
+    so need(node) = 1 + max(need(A), need(B)) there; with one such child
+    its need, with none 0. An instance child needs what its BLAS root
+    needs (`rank_root` (K,), by rank; two-level only). Iterated to its
+    fixed point, one level per pass."""
+    kind, payload = refs & 3, refs >> 2
+    trav = (kind == KIND_NODE) | (kind == KIND_INST)
+    target = np.where(kind == KIND_NODE, payload, 0)
+    if rank_root is not None:
+        inst = kind == KIND_INST
+        target = np.where(inst, rank_root[np.where(inst, payload, 0)], target)
+    need = np.zeros(refs.shape[0], np.int64)
+    while True:
+        new = np.where(trav, need[target], 0).max(1) + trav.all(1)
+        if np.array_equal(new, need):
+            return int(need[0])
+        need = new
+
+
+def _leaf_refs(start: np.ndarray, count: np.ndarray) -> np.ndarray:
+    """The triangle-leaf references (module docstring) of leaves of `count`
+    rows from `start`, 0 where `count` is 0 (an internal node)."""
+    start, count = start.astype(np.int64), count.astype(np.int64)
+    return np.where(count > 0, ((start // LEAF_SIZE) << 3 | (count - 1)) << 2 | KIND_LEAF, 0)
 
 
 def pack_bvh2(bvh: BvhData, device=None) -> Bvh2Pack:
     """A built binary BVH in the kernels' layout (module docstring). Every
-    tree fits: the walk needs no stack."""
-    bounds, meta = node_rows(*(t.cpu().numpy() for t in (bvh.node_min, bvh.node_max, bvh.skip,
-                                                          bvh.leaf_start, bvh.leaf_count)))
+    tree fits: `launch_plan` places any stack depth."""
+    node_min, node_max, skip, start, count = (t.cpu().numpy() for t in (
+        bvh.node_min, bvh.node_max, bvh.skip, bvh.leaf_start, bvh.leaf_count))
+    leaf = count > 0
+    assert (start[leaf] % LEAF_SIZE == 0).all() and (count[leaf] <= LEAF_SIZE).all(), \
+        "leaves must be 8-aligned and hold at most 8 rows"
+    # The tie key: a smaller row must mean an earlier leaf in preorder.
+    assert (np.diff(start[leaf]) > 0).all(), "leaf rows must rise in preorder"
+    nodes, _ = _pair_nodes(node_min, node_max, skip.astype(np.int64), _leaf_refs(start, count), np.array([0]), 0)
     return Bvh2Pack(
-        bounds=torch.as_tensor(bounds, device=device),
-        meta=torch.as_tensor(meta, device=device),
+        nodes=torch.as_tensor(nodes, device=device),
         tris=torch.as_tensor(_tri_rows(bvh.verts.cpu().numpy()), device=device),
+        stack_depth=_stack_depth(nodes.view(np.int32)[:, 12:14]),
     )
 
 
 # ---------------------------------------------------------------------------
-# Plain torch versions (CPU tensors, tests, and the reference on the card)
+# Plain torch version (CPU tensors, tests, and the reference on the card)
 # ---------------------------------------------------------------------------
 
 
-def node_hit(bounds, o, inv, t_min: float, upper):
-    """csrc/walk.cuh `box_hit` on one node per ray: bounds (P, 8), o and
-    inv (P, 3), upper (P,). Op for op the kernel's slab test."""
-    t1x = (bounds[:, 0] - o[:, 0]) * inv[:, 0]
-    t2x = (bounds[:, 3] - o[:, 0]) * inv[:, 0]
-    t1y = (bounds[:, 1] - o[:, 1]) * inv[:, 1]
-    t2y = (bounds[:, 4] - o[:, 1]) * inv[:, 1]
-    t1z = (bounds[:, 2] - o[:, 2]) * inv[:, 2]
-    t2z = (bounds[:, 5] - o[:, 2]) * inv[:, 2]
-    lo = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)), torch.minimum(t1z, t2z))
-    hi = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)), torch.maximum(t1z, t2z))
-    return (lo <= hi) & (hi >= t_min) & (lo <= upper)
+def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict]):
+    """Lockstep version of csrc/pair_walk.cuh over the table of `pack` (its
+    nodes, tris and stack_depth): each step visits one pair node for every
+    ray still walking, then moves it on (module docstring). `t_max` None
+    asks for the closest hit, else the any hit. One tree, or, where the
+    pack carries instance records `inst_rows` (K, 16), the two-level table
+    of `ops/tlas2.py`: pair nodes from `n_tlas` on are in an instance's
+    frame, an instance child enters its BLAS root, and the tie key is (TLAS
+    leaf rank, row); one-level every rank is 0, so the key is the row.
 
-
-def skip_step(bounds, meta, tris, ptr, o, d, inv, t_min: float, upper, t_max, stats: Optional[dict]):
-    """One step of the skip-link walk for P rays at nodes `ptr` (P,), with
-    their rays o, d, inv (P, 3) in the tree's frame and their pruning bound
-    `upper` (P,). `t_max` (P,) asks for the any-hit test, None for the
-    closest. Returns (the next node (P,), leaf: the rays that tested a leaf,
-    and for them (t_leaf, row) of the closest hit, or a bool any-hit)."""
-    hit = node_hit(bounds[ptr], o, inv, t_min, upper)
-    m = meta[ptr].long()
-    skip, start, cnt = m[:, 0], m[:, 1], m[:, 2]
-    nxt = torch.where(hit & (cnt == 0), ptr + 1, skip)
-    leaf = torch.nonzero(hit & (cnt > 0))[:, 0]
-    if stats is not None:
-        stats["box_tests"] = stats.get("box_tests", 0) + int(ptr.numel())
-        stats["tri_tests"] = stats.get("tri_tests", 0) + int(cnt[leaf].sum())
-    if leaf.numel() == 0:
-        return nxt, leaf, None
-    kk = torch.arange(LEAF_SIZE, device=ptr.device)  # a shorter leaf masks the rest
-    t, ok = _leaf_t(tris[start[leaf, None] + kk], o[leaf], d[leaf], t_min)
-    ok = ok & (kk < cnt[leaf, None])
-    if t_max is not None:
-        return nxt, leaf, (ok & (t <= t_max[leaf, None])).any(1)
-    th = torch.where(ok, t, torch.full_like(t, _BIG))
-    t_leaf = th.min(1).values
-    k_best = torch.where(th == t_leaf[:, None], kk, LEAF_SIZE).min(1).values
-    return nxt, leaf, (t_leaf, start[leaf] + k_best)
-
-
-def _walk2_plain(pack: Bvh2Pack, o, d, t_min, t_max, active, stats):
-    """Lockstep version of csrc/bvh2.cu: each step advances every ray whose
-    walk is not done by one node. Returns (t_raw, tri) for the closest hit
-    (t_max None; t_raw = BIG on a miss) or the any-hit bool."""
+    Returns the any-hit bool, or for the closest hit (t_raw (N,) f32, BIG
+    on a miss; triangle row (N,) i32), two-level also the instance id (N,)
+    i32. `stats` accumulates box tests (filled child slots of each visited
+    node), triangle tests (rows of each tested leaf), instance entries
+    (two-level) and the deepest stack reached (`max_stack_depth`)."""
     dev = o.device
-    N, M = o.shape[0], pack.num_nodes
+    N = o.shape[0]
+    occl = t_max is not None
+    two_level = getattr(pack, "inst_rows", None) is not None
     t_min = float(np.float32(t_min))
     inv = _safe_inv(d)
-    ptr = torch.zeros(N, dtype=torch.int64, device=dev)
-    if active is not None:
-        ptr = torch.where(active, ptr, torch.full_like(ptr, M))
+    boxes = pack.nodes[:, :12].reshape(-1, 2, 6).transpose(1, 2)  # (P, 6, 2): lo.xyz, hi.xyz by slot
+    refs = pack.refs.long()
+    kinds = refs & 3
+    kk = torch.arange(LEAF_SIZE, device=dev)
+
     t_best = torch.full((N,), _BIG, dtype=torch.float32, device=dev)
     best = torch.zeros(N, dtype=torch.int64, device=dev)
+    best_rank = torch.full((N,), -1, dtype=torch.int64, device=dev)
     occ = torch.zeros(N, dtype=torch.bool, device=dev)
+    node = torch.zeros(N, dtype=torch.int64, device=dev)  # the next node to visit; the root first
+    rank = torch.zeros(N, dtype=torch.int64, device=dev)  # the current instance's TLAS leaf rank
+    if two_level:
+        n_tlas = pack.n_tlas
+        aff = pack.inst_rows[:, :12].reshape(-1, 3, 4)
+        rank_root, rank_inst = pack.inst_rows[:, 12:14].view(torch.int32).long().unbind(1)
+        o_loc, d_loc, inv_loc = torch.zeros_like(o), torch.zeros_like(d), torch.zeros_like(d)
+    stack = torch.zeros((N, max(pack.stack_depth, 1)), dtype=torch.int64, device=dev)
+    sp = torch.zeros(N, dtype=torch.int64, device=dev)
+    walking = torch.ones(N, dtype=torch.bool, device=dev) if active is None else active.clone()
+    n_box = torch.zeros((), dtype=torch.int64, device=dev)
+    n_tri = torch.zeros((), dtype=torch.int64, device=dev)
+    n_inst = torch.zeros((), dtype=torch.int64, device=dev)
+    max_sp = torch.zeros((), dtype=torch.int64, device=dev)
+
     while True:
-        live = torch.nonzero(ptr < M)[:, 0]
+        live = torch.nonzero(walking)[:, 0]
         if live.numel() == 0:
             break
-        upper = t_best[live] if t_max is None else t_max[live]
-        nxt, leaf, res = skip_step(pack.bounds, pack.meta, pack.tris, ptr[live], o[live], d[live], inv[live],
-                                   t_min, upper, None if t_max is None else t_max[live], stats)
-        if res is not None:
-            ray = live[leaf]
-            if t_max is not None:
-                occ[ray[res]] = True
-                nxt[leaf[res]] = M  # early exit
-            else:
-                t_leaf, tri = res
-                better = t_leaf < t_best[ray]
-                t_best[ray] = torch.where(better, t_leaf, t_best[ray])
-                best[ray] = torch.where(better, tri, best[ray])
-        ptr[live] = nxt
-    if t_max is not None:
+        w = node[live]
+        if two_level:
+            local = (w >= n_tlas)[:, None]
+            ol = torch.where(local, o_loc[live], o[live])
+            dl = torch.where(local, d_loc[live], d[live])
+            il = torch.where(local, inv_loc[live], inv[live])
+        else:
+            ol, dl, il = o[live], d[live], inv[live]
+
+        # Visit: slab-test both children against the best hit so far.
+        upper = (t_max[live] if occl else t_best[live])[:, None]
+        ref, kind = refs[w], kinds[w]  # (L, 2)
+        lo, hi = _slab(boxes[w], ol, il)
+        hit = (lo <= hi) & (hi >= t_min) & (lo <= upper) & (kind != KIND_EMPTY)
+        if stats is not None:
+            n_box += (kind != KIND_EMPTY).sum()
+
+        # Hit triangle leaves, A then B, each against the best hit so far.
+        for s in range(2):
+            j = torch.nonzero(hit[:, s] & (kind[:, s] == KIND_LEAF) & walking[live])[:, 0]
+            if j.numel() == 0:
+                continue
+            payload = ref[j, s] >> 2
+            start = (payload >> 3) * LEAF_SIZE
+            count = (payload & 7) + 1
+            t, ok = _leaf_t(pack.tris[start[:, None] + kk], ol[j], dl[j], t_min)
+            ok = ok & (kk < count[:, None])
+            if stats is not None:
+                n_tri += count.sum()
+            ray = live[j]
+            if occl:
+                stop = ray[(ok & (t <= t_max[ray][:, None])).any(1)]
+                occ[stop] = True
+                walking[stop] = False  # early exit
+                continue
+            th = torch.where(ok, t, torch.full_like(t, _BIG))
+            t_leaf = th.min(1).values
+            row = start + torch.where(th == t_leaf[:, None], kk, LEAF_SIZE).min(1).values
+            tb, br, bb, rk = t_best[ray], best_rank[ray], best[ray], rank[ray]
+            better = (t_leaf < tb) | ((t_leaf == tb) & (tb < _BIG) & ((rk < br) | ((rk == br) & (row < bb))))
+            t_best[ray] = torch.where(better, t_leaf, tb)
+            best[ray] = torch.where(better, row, bb)
+            best_rank[ray] = torch.where(better, rk, br)
+
+        # Move on: of two hit node or instance children the nearer (closest
+        # hit) or A (any hit), the other pushed; the one hit child; else the
+        # top of the stack.
+        keep = walking[live]
+        live, ref, lo = live[keep], ref[keep], lo[keep]
+        go = hit[keep] & (kind[keep] != KIND_LEAF)
+        both = go[:, 0] & go[:, 1]
+        b_first = both & (lo[:, 1] < lo[:, 0]) & (not occl)
+        nxt = torch.where(b_first | (go[:, 1] & ~go[:, 0]), ref[:, 1], ref[:, 0])
+        if bool(both.any()):
+            r = live[both]
+            stack[r, sp[r]] = torch.where(b_first[both], ref[both, 0], ref[both, 1])
+            sp[r] += 1
+            max_sp = torch.maximum(max_sp, sp[r].max())
+        pop = ~go.any(1)
+        if bool(pop.any()):
+            done = pop & (sp[live] == 0)
+            walking[live[done]] = False
+            pop = pop & ~done
+            r = live[pop]
+            sp[r] -= 1
+            nxt[pop] = stack[r, sp[r]]
+            live, nxt = live[~done], nxt[~done]
+        payload = nxt >> 2
+        node[live] = payload
+        enter = (nxt & 3) == KIND_INST
+        if two_level and bool(enter.any()):
+            # Instances: the world ray in the instance's frame, direction
+            # unnormalized; then its BLAS root.
+            r, k = live[enter], payload[enter]
+            o_loc[r], d_loc[r], inv_loc[r] = _to_local(aff[k], o[r], d[r])
+            rank[r] = k
+            node[r] = rank_root[k]
+            n_inst += r.numel()
+
+    if stats is not None:
+        stats["box_tests"] = stats.get("box_tests", 0) + int(n_box)
+        stats["tri_tests"] = stats.get("tri_tests", 0) + int(n_tri)
+        if two_level:
+            stats["inst_entries"] = stats.get("inst_entries", 0) + int(n_inst)
+        stats["max_stack_depth"] = max(stats.get("max_stack_depth", 0), int(max_sp))
+    if occl:
         return occ
-    return t_best, best.to(torch.int32)
+    if not two_level:
+        return t_best, best.to(torch.int32)
+    best_inst = torch.where(best_rank >= 0, rank_inst[best_rank.clamp(min=0)], torch.zeros_like(best_rank))
+    return t_best, best.to(torch.int32), best_inst.to(torch.int32)
 
 
 def bvh2_closest_plain(pack: Bvh2Pack, o, d, t_min, active=None, stats=None):
     """Plain version of the closest-hit kernel: (t_raw (N,) f32 with BIG on
-    a miss, triangle id (N,) i32). `stats`, if given, accumulates the box
-    and triangle tests the walk made."""
-    return _walk2_plain(pack, o, d, t_min, None, active, stats)
+    a miss, triangle id (N,) i32). `stats`, if given, accumulates the counts
+    of `_pair_walk`."""
+    return _pair_walk(pack, o, d, t_min, None, active, stats)
 
 
 def bvh2_occluded_plain(pack: Bvh2Pack, o, d, t_min, t_max, active=None, stats=None):
     """Plain version of the any-hit kernel: True iff some triangle lies in
     [t_min, t_max] along the ray."""
-    return _walk2_plain(pack, o, d, t_min, t_max, active, stats)
+    return _pair_walk(pack, o, d, t_min, t_max, active, stats)
 
 
 # ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
+
+
+def launch_plan(stack_depth: int):
+    """Where the pair kernels keep a stack of `stack_depth` levels per ray:
+    (threads per block, bytes of dynamic shared memory per block, on a
+    global scratch buffer?). The first block size of BLOCKS whose stacks
+    fit one block's shared memory; past that, a 128-ray block with the
+    stack in global memory."""
+    for block in BLOCKS:
+        smem = block * stack_depth * 4
+        if smem <= SMEM_PER_BLOCK:
+            return block, smem, False
+    return BLOCKS[0], 0, True
+
+
+def _stack_args(pack: PairNodes, n: int, device):
+    """(block, global stack or None) of a pair-kernel launch over n rays:
+    the global stack, where the plan takes one, is allocated here,
+    `stack_depth` levels per ray of the grid."""
+    block, _, on_global = launch_plan(pack.stack_depth)
+    if not on_global:
+        return block, None
+    grid = -(-n // block)
+    return block, torch.empty(grid * block * pack.stack_depth, dtype=torch.int32, device=device)
 
 
 def bvh2_closest_kernel(pack: Bvh2Pack, o, d, t_min, active=None):
@@ -224,9 +419,10 @@ def bvh2_closest_kernel(pack: Bvh2Pack, o, d, t_min, active=None):
     n = o.shape[0]
     t_out = torch.empty(n, dtype=torch.float32, device=o.device)
     id_out = torch.empty(n, dtype=torch.int32, device=o.device)
+    block, stack = _stack_args(pack, n, o.device)
     err = lib.rpt_bvh2_closest(
-        _ptr(pack.bounds), _ptr(pack.meta), pack.num_nodes, _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
-        n, float(np.float32(t_min)), _ptr(t_out), _ptr(id_out),
+        _ptr(pack.nodes), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n, float(np.float32(t_min)),
+        _ptr(t_out), _ptr(id_out), block, pack.stack_depth, _ptr(stack),
         ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
@@ -242,9 +438,10 @@ def bvh2_occluded_kernel(pack: Bvh2Pack, o, d, t_min, t_max, active=None):
     o, d, active, t_max = _check_rays(pack, o, d, active, t_max)
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
+    block, stack = _stack_args(pack, n, o.device)
     err = lib.rpt_bvh2_occluded(
-        _ptr(pack.bounds), _ptr(pack.meta), pack.num_nodes, _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
-        _ptr(t_max), n, float(np.float32(t_min)), _ptr(occ),
+        _ptr(pack.nodes), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), _ptr(t_max), n,
+        float(np.float32(t_min)), _ptr(occ), block, pack.stack_depth, _ptr(stack),
         ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:

@@ -4,8 +4,9 @@ nodes: closest hit (near first) and any hit, as CUDA kernels.
 Replaces the two TPU kernels of `rpt_tpu/ops/tlas_pallas.py`: `_kernel`
 (closest hit, reached through `tlas_closest_hit_pallas`) and `_kernel_occl`
 (any hit, reached through `tlas_occluded_pallas`). The kernels are in
-`rpt_tpu_torch/csrc/tlas2.cu`, the walk in `csrc/pair_walk.cuh`; this module
-holds the host pack, the plain torch version of the walk, the launch plan
+`rpt_tpu_torch/csrc/tlas2.cu`, the walk in `csrc/pair_walk.cuh`, shared with
+the one-level kernels of `ops/bvh2.py`, which also holds its plain torch
+version (`_pair_walk`) and the launch plan; this module holds the host pack
 and the wrappers that choose between kernel and plain walk by the device of
 the rays. The hit finalize is the wide two-level one (`ops/tlas8._finalize`):
 both packs keep the same packed triangle order.
@@ -15,7 +16,7 @@ The scene compiler takes these kernels for an instanced scene under
 scene (`scene.choose_instanced_pack`), so they take every scene. The
 reference keeps its tables in SMEM and falls back to an XLA loop past a
 700,000-byte budget; these tables sit in device memory, and the stack goes
-where it fits (`launch_plan`).
+where it fits (`bvh2.launch_plan`).
 
 Layout. The two binary trees of `InstancedMeshes` as they are built (the
 same nodes, leaves, instance rows and packed triangles), re-encoded as
@@ -62,8 +63,8 @@ order.
 
 `stack_depth` is the exact worst-case depth of the stack: the longest chain
 of pushed far children on any path from the root, through the TLAS and into
-an instance's BLAS. `launch_plan` places a stack of that depth: in the
-shared memory of a 128-ray block, of a smaller block, or past what one
+an instance's BLAS. `bvh2.launch_plan` places a stack of that depth: in
+the shared memory of a 128-ray block, of a smaller block, or past what one
 block holds, in a global scratch buffer. No scene is refused.
 
 The plain version repeats the kernels' arithmetic op for op (the kernels
@@ -74,28 +75,12 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
 
 import numpy as np
 import torch
 
-from .bvh import LEAF_SIZE, _safe_inv
-from .bvh8 import (
-    _BIG,
-    KIND_EMPTY,
-    KIND_INST,
-    KIND_LEAF,
-    KIND_NODE,
-    _check_rays,
-    _leaf_t,
-    _on_cpu,
-    _ptr,
-    _slab,
-    _to_local,
-    _tri_rows,
-    finish_occluded,
-    ray_t_max,
-)
+from .bvh2 import PairNodes, _leaf_refs, _pair_nodes, _pair_walk, _stack_args, _stack_depth
+from .bvh8 import KIND_INST, _check_rays, _on_cpu, _ptr, _tri_rows, finish_occluded, ray_t_max
 from .intersect import INF, Hit
 from .tlas import InstancedMeshes, packed_leaves
 from .tlas8 import _finalize
@@ -103,7 +88,6 @@ from .tlas8 import _finalize
 __all__ = [
     "Tlas2Pack",
     "pack_tlas2",
-    "launch_plan",
     "tlas2_closest_hit",
     "tlas2_occluded",
     "tlas2_closest_plain",
@@ -112,14 +96,8 @@ __all__ = [
     "tlas2_occluded_kernel",
 ]
 
-# Dynamic shared memory one block may hold on Hopper (227 KB), and the
-# block sizes the launch plan tries, largest first.
-SMEM_PER_BLOCK = 232448
-BLOCKS = (128, 64, 32)
-
-
 @dataclasses.dataclass(frozen=True)
-class Tlas2Pack:
+class Tlas2Pack(PairNodes):
     nodes: torch.Tensor  # (M, 16) f32 child-pair nodes
     inst_rows: torch.Tensor  # (K, 16) f32 by TLAS leaf rank
     inst: torch.Tensor  # (K, 12) f32 world->local rows by instance id
@@ -128,19 +106,6 @@ class Tlas2Pack:
     p_norms: torch.Tensor  # (L*8, 3, 3)
     n_tlas: int  # pair nodes 0..n_tlas-1 are the TLAS (world space)
     stack_depth: int  # worst-case depth of the walk's stack
-
-    @property
-    def num_nodes(self) -> int:
-        return self.nodes.shape[0]
-
-    @property
-    def refs(self) -> torch.Tensor:
-        """(M, 2) i32 child references, A and B."""
-        return self.nodes[:, 12:14].view(torch.int32)
-
-    @property
-    def node_bytes(self) -> int:
-        return self.nodes.shape[1] * self.nodes.element_size()
 
     @property
     def nbytes(self) -> int:
@@ -153,63 +118,9 @@ class Tlas2Pack:
 # ---------------------------------------------------------------------------
 
 
-def _pair_nodes(node_min, node_max, skip, leaf_ref, roots, base: int):
-    """Child-pair records (module docstring) of the skip-link preorder trees
-    rooted at `roots` in one node array: `leaf_ref` (M,) is the reference
-    of each leaf, 0 at internal nodes; pair nodes are numbered from `base`.
-    Returns (records (P, 16) f32 with the references' int32 bits, the pair
-    node of each binary node (M,): its own where internal, its wrapper at a
-    leaf root, else -1)."""
-    M = skip.shape[0]
-    internal = leaf_ref == 0
-    slot = internal.copy()
-    slot[roots] = True
-    pid = np.where(slot, base + np.cumsum(slot) - 1, -1)
-    rec = np.zeros((int(slot.sum()), 16), np.float32)
-    ref = rec.view(np.int32)
-
-    def child_ref(c):
-        return np.where(internal[c], pid[c] << 2 | KIND_NODE, leaf_ref[c])
-
-    par = np.flatnonzero(internal)
-    a = par + 1
-    b = skip[a]
-    rows = pid[par] - base
-    rec[rows, 0:3], rec[rows, 3:6] = node_min[a], node_max[a]
-    rec[rows, 6:9], rec[rows, 9:12] = node_min[b], node_max[b]
-    ref[rows, 12], ref[rows, 13] = child_ref(a), child_ref(b)
-    wrapped = np.asarray([r for r in roots if not internal[r]], np.int64)
-    rows = pid[wrapped] - base
-    rec[rows, 0:3], rec[rows, 3:6] = node_min[wrapped], node_max[wrapped]
-    rec[rows, 6:9], rec[rows, 9:12] = _BIG, -_BIG
-    ref[rows, 12], ref[rows, 13] = leaf_ref[wrapped], 0
-    return rec, pid
-
-
-def _stack_depth(refs: np.ndarray, rank_root: np.ndarray) -> int:
-    """Exact worst-case stack depth of the walk from pair node 0 over the
-    references `refs` (P, 2): a node whose two children are both node or
-    instance children pushes one of them, and either may be the far one,
-    so need(node) = 1 + max(need(A), need(B)) there; with one such child
-    its need, with none 0. An instance child needs what its BLAS root
-    needs (`rank_root` (K,), by rank). Iterated to its fixed point, one
-    level per pass."""
-    kind, payload = refs & 3, refs >> 2
-    trav = (kind == KIND_NODE) | (kind == KIND_INST)
-    inst = kind == KIND_INST
-    target = np.where(kind == KIND_NODE, payload, 0)
-    target = np.where(inst, rank_root[np.where(inst, payload, 0)], target)
-    need = np.zeros(refs.shape[0], np.int64)
-    while True:
-        new = np.where(trav, need[target], 0).max(1) + trav.all(1)
-        if np.array_equal(new, need):
-            return int(need[0])
-        need = new
-
-
 def pack_tlas2(im: InstancedMeshes, device=None) -> Tlas2Pack:
     """An instanced scene's two trees in the kernels' layout (module
-    docstring). Every scene fits: `launch_plan` places any stack depth."""
+    docstring). Every scene fits: `bvh2.launch_plan` places any stack depth."""
     K = im.inst_inv.shape[0]
     t_leaf_inst = im.t_leaf_inst.cpu().numpy().astype(np.int64)
     t_leaf = t_leaf_inst >= 0
@@ -223,9 +134,8 @@ def pack_tlas2(im: InstancedMeshes, device=None) -> Tlas2Pack:
     roots = [0]  # one BLAS after another: each root's skip is the next root
     while b_skip[roots[-1]] < b_skip.shape[0]:
         roots.append(int(b_skip[roots[-1]]))
-    leaf_ref = np.where(b_count > 0, ((b_start // LEAF_SIZE) << 3 | (b_count - 1)) << 2 | KIND_LEAF, 0)
-    b_rec, b_pid = _pair_nodes(im.b_min.cpu().numpy(), im.b_max.cpu().numpy(), b_skip, leaf_ref, np.array(roots),
-                               n_tlas)
+    b_rec, b_pid = _pair_nodes(im.b_min.cpu().numpy(), im.b_max.cpu().numpy(), b_skip, _leaf_refs(b_start, b_count),
+                               np.array(roots), n_tlas)
     nodes = np.concatenate([t_rec, b_rec])
 
     # Instance records by TLAS leaf rank: the world->local rows, then the
@@ -252,172 +162,22 @@ def pack_tlas2(im: InstancedMeshes, device=None) -> Tlas2Pack:
 # ---------------------------------------------------------------------------
 
 
-def _pair_walk(pack: Tlas2Pack, o, d, t_min, t_max, active, occl: bool, stats: Optional[dict]):
-    """Lockstep version of csrc/pair_walk.cuh: each step visits one pair
-    node for every ray still walking, then moves it on (module docstring).
-    Returns (t_raw, packed triangle id, instance id) for the closest hit
-    (t_raw = BIG on a miss) or the any-hit bool. `stats` accumulates box
-    tests (filled child slots of each visited node), triangle tests (rows
-    of each tested leaf), instance entries and the deepest stack reached
-    (`max_stack_depth`)."""
-    dev = o.device
-    N = o.shape[0]
-    t_min = float(np.float32(t_min))
-    inv = _safe_inv(d)
-    boxes = pack.nodes[:, :12].reshape(-1, 2, 6).transpose(1, 2)  # (M, 6, 2): lo.xyz, hi.xyz by slot
-    refs = pack.refs.long()
-    kinds = refs & 3
-    aff = pack.inst_rows[:, :12].reshape(-1, 3, 4)
-    rank_root, rank_inst = pack.inst_rows[:, 12:14].view(torch.int32).long().unbind(1)
-    n_tlas = pack.n_tlas
-    kk = torch.arange(LEAF_SIZE, device=dev)
-
-    t_best = torch.full((N,), _BIG, dtype=torch.float32, device=dev)
-    best = torch.zeros(N, dtype=torch.int64, device=dev)
-    best_rank = torch.full((N,), -1, dtype=torch.int64, device=dev)
-    occ = torch.zeros(N, dtype=torch.bool, device=dev)
-    node = torch.zeros(N, dtype=torch.int64, device=dev)  # the next node to visit; the TLAS root first
-    rank = torch.zeros(N, dtype=torch.int64, device=dev)  # the current instance's TLAS leaf rank
-    o_loc, d_loc, inv_loc = torch.zeros_like(o), torch.zeros_like(d), torch.zeros_like(d)
-    stack = torch.zeros((N, max(pack.stack_depth, 1)), dtype=torch.int64, device=dev)
-    sp = torch.zeros(N, dtype=torch.int64, device=dev)
-    walking = torch.ones(N, dtype=torch.bool, device=dev) if active is None else active.clone()
-    n_box = torch.zeros((), dtype=torch.int64, device=dev)
-    n_tri = torch.zeros((), dtype=torch.int64, device=dev)
-    n_inst = torch.zeros((), dtype=torch.int64, device=dev)
-    max_sp = torch.zeros((), dtype=torch.int64, device=dev)
-
-    while True:
-        live = torch.nonzero(walking)[:, 0]
-        if live.numel() == 0:
-            break
-        w = node[live]
-        local = (w >= n_tlas)[:, None]
-        ol = torch.where(local, o_loc[live], o[live])
-        dl = torch.where(local, d_loc[live], d[live])
-        il = torch.where(local, inv_loc[live], inv[live])
-
-        # Visit: slab-test both children against the best hit so far.
-        upper = (t_max[live] if occl else t_best[live])[:, None]
-        ref, kind = refs[w], kinds[w]  # (L, 2)
-        lo, hi = _slab(boxes[w], ol, il)
-        hit = (lo <= hi) & (hi >= t_min) & (lo <= upper) & (kind != KIND_EMPTY)
-        if stats is not None:
-            n_box += (kind != KIND_EMPTY).sum()
-
-        # Hit triangle leaves, A then B, each against the best hit so far.
-        for s in range(2):
-            j = torch.nonzero(hit[:, s] & (kind[:, s] == KIND_LEAF) & walking[live])[:, 0]
-            if j.numel() == 0:
-                continue
-            payload = ref[j, s] >> 2
-            start = (payload >> 3) * LEAF_SIZE
-            count = (payload & 7) + 1
-            t, ok = _leaf_t(pack.tris[start[:, None] + kk], ol[j], dl[j], t_min)
-            ok = ok & (kk < count[:, None])
-            if stats is not None:
-                n_tri += count.sum()
-            ray = live[j]
-            if occl:
-                stop = ray[(ok & (t <= t_max[ray][:, None])).any(1)]
-                occ[stop] = True
-                walking[stop] = False  # early exit
-                continue
-            th = torch.where(ok, t, torch.full_like(t, _BIG))
-            t_leaf = th.min(1).values
-            row = start + torch.where(th == t_leaf[:, None], kk, LEAF_SIZE).min(1).values
-            tb, br, bb, rk = t_best[ray], best_rank[ray], best[ray], rank[ray]
-            better = (t_leaf < tb) | ((t_leaf == tb) & (tb < _BIG) & ((rk < br) | ((rk == br) & (row < bb))))
-            t_best[ray] = torch.where(better, t_leaf, tb)
-            best[ray] = torch.where(better, row, bb)
-            best_rank[ray] = torch.where(better, rk, br)
-
-        # Move on: of two hit node or instance children the nearer (closest
-        # hit) or A (any hit), the other pushed; the one hit child; else the
-        # top of the stack.
-        keep = walking[live]
-        live, ref, lo = live[keep], ref[keep], lo[keep]
-        go = hit[keep] & (kind[keep] != KIND_LEAF)
-        both = go[:, 0] & go[:, 1]
-        b_first = both & (lo[:, 1] < lo[:, 0]) & (not occl)
-        nxt = torch.where(b_first | (go[:, 1] & ~go[:, 0]), ref[:, 1], ref[:, 0])
-        if bool(both.any()):
-            r = live[both]
-            stack[r, sp[r]] = torch.where(b_first[both], ref[both, 0], ref[both, 1])
-            sp[r] += 1
-            max_sp = torch.maximum(max_sp, sp[r].max())
-        pop = ~go.any(1)
-        if bool(pop.any()):
-            done = pop & (sp[live] == 0)
-            walking[live[done]] = False
-            pop = pop & ~done
-            r = live[pop]
-            sp[r] -= 1
-            nxt[pop] = stack[r, sp[r]]
-            live, nxt = live[~done], nxt[~done]
-        payload = nxt >> 2
-        node[live] = payload
-        enter = (nxt & 3) == KIND_INST
-        if bool(enter.any()):
-            # Instances: the world ray in the instance's frame, direction
-            # unnormalized; then its BLAS root.
-            r, k = live[enter], payload[enter]
-            o_loc[r], d_loc[r], inv_loc[r] = _to_local(aff[k], o[r], d[r])
-            rank[r] = k
-            node[r] = rank_root[k]
-            n_inst += r.numel()
-
-    if stats is not None:
-        stats["box_tests"] = stats.get("box_tests", 0) + int(n_box)
-        stats["tri_tests"] = stats.get("tri_tests", 0) + int(n_tri)
-        stats["inst_entries"] = stats.get("inst_entries", 0) + int(n_inst)
-        stats["max_stack_depth"] = max(stats.get("max_stack_depth", 0), int(max_sp))
-    if occl:
-        return occ
-    best_inst = torch.where(best_rank >= 0, rank_inst[best_rank.clamp(min=0)], torch.zeros_like(best_rank))
-    return t_best, best.to(torch.int32), best_inst.to(torch.int32)
-
-
 def tlas2_closest_plain(pack: Tlas2Pack, o, d, t_min, active=None, stats=None):
     """Plain version of the closest-hit kernel: (t_raw (N,) f32 with BIG on
     a miss, packed triangle id (N,) i32, instance id (N,) i32). `stats`, if
-    given, accumulates the counts of `_pair_walk`."""
-    return _pair_walk(pack, o, d, t_min, None, active, False, stats)
+    given, accumulates the counts of `bvh2._pair_walk`."""
+    return _pair_walk(pack, o, d, t_min, None, active, stats)
 
 
 def tlas2_occluded_plain(pack: Tlas2Pack, o, d, t_min, t_max, active=None, stats=None):
     """Plain version of the any-hit kernel: True iff some instanced triangle
     lies in [t_min, t_max] along the ray."""
-    return _pair_walk(pack, o, d, t_min, t_max, active, True, stats)
+    return _pair_walk(pack, o, d, t_min, t_max, active, stats)
 
 
 # ---------------------------------------------------------------------------
 # Kernel launches
 # ---------------------------------------------------------------------------
-
-
-def launch_plan(stack_depth: int):
-    """Where the kernels keep a stack of `stack_depth` levels per ray:
-    (threads per block, bytes of dynamic shared memory per block, on a
-    global scratch buffer?). The first block size of BLOCKS whose stacks
-    fit one block's shared memory; past that, a 128-ray block with the
-    stack in global memory."""
-    for block in BLOCKS:
-        smem = block * stack_depth * 4
-        if smem <= SMEM_PER_BLOCK:
-            return block, smem, False
-    return BLOCKS[0], 0, True
-
-
-def _stack_args(pack: Tlas2Pack, n: int, device):
-    """(block, global stack or None) of a launch over n rays: the global
-    stack, where the plan takes one, is allocated here, `stack_depth`
-    levels per ray of the grid."""
-    block, _, on_global = launch_plan(pack.stack_depth)
-    if not on_global:
-        return block, None
-    grid = -(-n // block)
-    return block, torch.empty(grid * block * pack.stack_depth, dtype=torch.int32, device=device)
 
 
 def tlas2_closest_kernel(pack: Tlas2Pack, o, d, t_min, active=None):

@@ -19,7 +19,7 @@ compile time by `choose_bvh_pack` / `choose_instanced_pack` (which
 (env `RPT_BVH_KERNEL`, "wide" or "binary") and `WIDE_KERNEL_MIN_TRIS` (env
 `RPT_WIDE_MIN_TRIS`): a BVH of at least WIDE_KERNEL_MIN_TRIS triangle rows
 takes the wide kernels (`ops/bvh8.py`) under "wide", any other the binary
-skip-link kernels (`ops/bvh2.py`); an instanced scene takes the two-level
+kernels (`ops/bvh2.py`); an instanced scene takes the two-level
 wide kernels (`ops/tlas8.py`) under "wide", else the binary two-level ones
 (`ops/tlas2.py`). A wide pack that refuses a tree falls back to the binary
 one with a warning, as the reference does. The reference's TPU budgets

@@ -1,13 +1,16 @@
-"""The port's binary skip-link walks against the JAX package.
+"""The port's binary child-pair walks against the JAX package.
 
 The plain torch walks (`bvh2_closest_plain`, `bvh2_occluded_plain`) carry
 the contract of the CUDA kernels in `rpt_tpu_torch/csrc/bvh2.cu`. Here on the
 CPU they are held to the JAX package's binary packet kernel (run in
 interpret mode) and to its XLA walk, at the reference's own parity bar
 (`tests/test_bvh_pallas.py`): exact hit mask and material id, `t` to
-rtol/atol 2e-5, and the any-hit query exactly equal to `closest.t <= t_max`.
-The kernels themselves are held against the plain walks in
-`tests/test_torch_cuda.py`, which imports no JAX.
+rtol/atol 2e-5, and the any-hit query exactly equal to `closest.t <= t_max`;
+also where every hit is a tie between coincident triangles in two leaves
+that the near-first walk reaches in the other order. The pack is held to
+the tree, the stack depth to the tree's longest far chain. The kernels
+themselves are held against the plain walks in `tests/test_torch_cuda.py`,
+which imports no JAX.
 """
 
 import numpy as np
@@ -19,7 +22,11 @@ from rpt_tpu.ops.bvh import bvh_closest_hit as ref_bvh_closest_hit
 from rpt_tpu.ops.bvh_pallas import bvh_closest_hit_pallas, bvh_occluded_pallas
 from rpt_tpu_torch.ops import bvh2, bvh8
 from rpt_tpu_torch.ops.bvh import build_bvh
+from rpt_tpu_torch.ops.bvh8 import KIND_LEAF, KIND_NODE
 from test_bvh_pallas import _random_mesh, _rays_at_mesh
+from test_torch_reference_native import reference_native
+
+reference_native()
 
 T_MIN = 1e-3
 
@@ -40,19 +47,131 @@ def _assert_hits_agree(got, want_t, want_mat):
 
 
 def test_pack_holds_the_tree_in_preorder():
+    """One pair node per internal node of the tree, in preorder, holding its
+    two children's boxes and references (a pair node, or a leaf's 8-aligned
+    triangle rows); every leaf appears once; the triangle rows are the wide
+    pack's."""
     _, bvh, _, _ = _case(500, seed=2)
     pack = bvh2.pack_bvh2(bvh)
-    M = bvh.num_nodes
-    assert pack.bounds.shape == (M, 8) and pack.meta.shape == (M, 4) and pack.tris.shape == (bvh.num_tris, 20)
-    np.testing.assert_array_equal(pack.bounds[:, 0:3].numpy(), bvh.node_min.numpy())
-    np.testing.assert_array_equal(pack.bounds[:, 3:6].numpy(), bvh.node_max.numpy())
-    np.testing.assert_array_equal(pack.meta[:, 0].numpy(), bvh.skip.numpy())
-    leaf = bvh.leaf_count.numpy() > 0
-    np.testing.assert_array_equal(leaf, bvh.is_leaf.numpy() > 0)
-    np.testing.assert_array_equal(pack.meta[:, 2].numpy(), bvh.leaf_count.numpy())
-    assert (pack.meta[leaf, 1].numpy() % 8 == 0).all()
+    skip, leaf = bvh.skip.numpy(), bvh.leaf_count.numpy() > 0
+    start, count = bvh.leaf_start.numpy(), bvh.leaf_count.numpy()
+    internal = np.flatnonzero(~leaf)
+    assert pack.nodes.shape == (internal.size, 16) and pack.node_bytes == 64
+    assert pack.tris.shape == (bvh.num_tris, 20)
+    pair_of = {int(i): k for k, i in enumerate(internal)}
+    refs = pack.refs.numpy()
+    seen = []
+    for k, i in enumerate(internal):
+        for slot, c in enumerate((i + 1, skip[i + 1])):
+            box = pack.nodes[k, 6 * slot:6 * slot + 6].numpy()
+            np.testing.assert_array_equal(box, np.concatenate([bvh.node_min[c].numpy(), bvh.node_max[c].numpy()]))
+            if leaf[c]:
+                assert start[c] % 8 == 0 and 0 < count[c] <= 8
+                assert refs[k, slot] == ((start[c] // 8) << 3 | (count[c] - 1)) << 2 | KIND_LEAF
+                seen.append(c)
+            else:
+                assert refs[k, slot] == pair_of[int(c)] << 2 | KIND_NODE
+    assert sorted(seen) == np.flatnonzero(leaf).tolist()
+    # The tie key: the leaves' rows rise in preorder.
+    assert (np.diff(start[leaf]) > 0).all()
     # The same triangle rows as the wide pack: one triangle test for all kernels.
     np.testing.assert_array_equal(pack.tris.numpy(), bvh8.pack_bvh8(bvh).tris.numpy())
+
+
+def _far_chain(bvh) -> int:
+    """The longest chain of far children of the binary tree as built: a node
+    whose two children are both internal pushes one of them."""
+    skip, leaf = bvh.skip.numpy(), bvh.leaf_count.numpy() > 0
+
+    def need(i):
+        if leaf[i]:
+            return 0
+        kids = [c for c in (i + 1, skip[i + 1]) if not leaf[c]]
+        return (len(kids) == 2) + max(map(need, kids), default=0)
+
+    return need(0)
+
+
+@pytest.mark.parametrize("n_tris,seed", [(40, 7), (300, 8), (2000, 9)])
+def test_stack_depth_is_the_longest_far_chain(n_tris, seed):
+    _, bvh, _, (to, td) = _case(n_tris, seed=seed, n_rays=1000, ray_seed=seed + 1)
+    pack = bvh2.pack_bvh2(bvh)
+    assert pack.stack_depth == _far_chain(bvh) >= 1
+    stats = {}
+    bvh2.bvh2_closest_plain(pack, to, td, T_MIN, stats=stats)
+    bvh2.bvh2_occluded_plain(pack, to, td, T_MIN, torch.full((to.shape[0],), 30.0), stats=stats)
+    assert 1 <= stats["max_stack_depth"] <= pack.stack_depth
+
+
+def test_single_leaf_tree():
+    """A tree that is one leaf is one pair node: the leaf and an empty slot,
+    no stack; it walks as the reference does."""
+    (verts, norms, mats), bvh, (o, d), (to, td) = _case(5, seed=4, n_rays=400)
+    pack = bvh2.pack_bvh2(bvh)
+    assert bvh.num_nodes == 1 and pack.num_nodes == 1 and pack.stack_depth == 0
+    assert pack.refs[0, 0] == (0 << 3 | 4) << 2 | KIND_LEAF and pack.refs[0, 1] == 0
+    ref_bvh = ref_build_bvh(verts, norms, mats)
+    xla = ref_bvh_closest_hit(ref_bvh, o, d, T_MIN)
+    got = bvh2.bvh2_closest_hit(bvh, pack, to, td, T_MIN)
+    want_t = np.asarray(xla.t)
+    hit = np.isfinite(want_t)
+    assert hit.sum() > 20 and (~hit).any()
+    np.testing.assert_array_equal(np.isfinite(got.t.numpy()), hit)
+    np.testing.assert_allclose(got.t.numpy()[hit], want_t[hit], rtol=2e-5, atol=2e-5)
+    np.testing.assert_array_equal(got.mat_id.numpy()[hit], np.asarray(xla.mat_id)[hit])
+    t_max = torch.full((to.shape[0],), 100.0)
+    np.testing.assert_array_equal(bvh2.bvh2_occluded(bvh, pack, to, td, T_MIN, t_max).numpy(), hit)
+
+
+def _twin_leaves(n_groups, seed):
+    """Groups of twenty triangles whose boxes share one center (the
+    builder's centroid; every coordinate a multiple of 1/8, so exactly), so
+    the builder chops each group, in input order, into two subtrees of two
+    leaves each: the first holds a horizontal triangle and nine small
+    vertical ones, the second its exact twin (another material) and nine
+    tall vertical ones, whose box reaches up towards rays from above. A ray
+    down onto the twins enters the second subtree first, finds the twin,
+    and ties with the first subtree's triangle, which comes first in
+    preorder and must win."""
+    rng = np.random.default_rng(seed)
+    flat = np.array([[-0.25, -0.25, 0.0], [0.25, -0.25, 0.0], [-0.25, 0.25, 0.0]])
+    small = np.array([[0.0, -0.125, -0.125], [0.0, 0.125, -0.125], [0.0, -0.125, 0.125]])
+    tall = np.array([[0.0, -0.125, -1.0], [0.0, 0.125, -1.0], [0.0, -0.125, 1.0]])
+    verts, mats = [], []
+    for c in rng.permutation([(3.0 * i, 3.0 * j, 0.125 * ((i + j) % 5)) for i in range(-3, 4) for j in range(-3, 4)])[:n_groups]:
+        verts += [c + flat] + [c + small] * 9 + [c + flat] + [c + tall] * 9
+        mats += [0] + [2] * 9 + [1] + [3] * 9
+    verts = np.array(verts, np.float32)
+    e = np.cross(verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0])
+    norms = np.repeat((e / np.linalg.norm(e, axis=-1, keepdims=True))[:, None], 3, axis=1).astype(np.float32)
+    flats = verts[0::20]
+    w = rng.dirichlet(np.ones(3), 400)
+    target = np.einsum("rk,rkj->rj", w, flats[rng.integers(0, n_groups, 400)])
+    d = np.concatenate([rng.uniform(-0.05, 0.05, (400, 2)), -np.ones((400, 1))], axis=1)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o = target - 4.0 * d
+    o[::10, 0] += 50.0  # every tenth ray misses
+    return verts, norms, np.array(mats, np.int32), o.astype(np.float32), d.astype(np.float32)
+
+
+def test_coincident_triangles_in_two_leaves_keep_the_reference_tie():
+    """Every hit on a twin is a tie in t between two leaves, which the
+    reference breaks by its preorder walk: the first leaf's triangle (its
+    material 0, the twin's 1). The near-first walk reaches the twin first
+    and must still return the reference's triangle, equal to its XLA walk
+    and Pallas kernel on every hit."""
+    verts, norms, mats, o, d = _twin_leaves(24, seed=21)
+    bvh = build_bvh(verts, norms, mats, device="cpu")
+    pack = bvh2.pack_bvh2(bvh)
+    to, td = torch.as_tensor(o), torch.as_tensor(d)
+    got = bvh2.bvh2_closest_hit(bvh, pack, to, td, T_MIN)
+    ref_bvh = ref_build_bvh(verts, norms, mats)
+    xla = ref_bvh_closest_hit(ref_bvh, o, d, T_MIN)
+    _assert_hits_agree(got, np.asarray(xla.t), np.asarray(xla.mat_id))
+    pallas = bvh_closest_hit_pallas(ref_bvh, o, d, T_MIN, interpret=True, subs=1)
+    _assert_hits_agree(got, np.asarray(pallas.t), np.asarray(pallas.mat_id))
+    mat = got.mat_id.numpy()[torch.isfinite(got.t).numpy()]
+    assert (mat == 0).mean() > 0.9 and not (mat == 1).any()
 
 
 @pytest.mark.parametrize("n_tris", [40, 300, 2000])

@@ -21,6 +21,9 @@ from rpt_tpu.ops.bvh8_pallas import bvh8_closest_hit_pallas
 from rpt_tpu_torch.ops import bvh2, bvh8
 from rpt_tpu_torch.ops.bvh import build_bvh
 from test_bvh_pallas import _random_mesh, _rays_at_mesh
+from test_torch_reference_native import reference_native
+
+reference_native()
 
 T_MIN = 1e-3
 
@@ -132,8 +135,8 @@ def test_plain_walk_counts_its_tests():
 @pytest.mark.parametrize("n_tris,seed", [(40, 11), (700, 12), (3000, 13)])
 def test_group_walk_equals_the_exact_walk(n_tris, seed, kind):
     """The node-group walk (the kernels' plain version) against the binary
-    skip-link walk of the same tree (`ops/bvh2.py`), which tests the same
-    f32 boxes one node at a time and the same triangle rows: t bit for bit
+    child-pair walk of the same tree (`ops/bvh2.py`), which tests the same
+    f32 boxes two at a time and the same triangle rows: t bit for bit
     and triangle ids equal but for ties, or the any-hit bool equal."""
     _, bvh, _, (to, td) = _case(n_tris, seed=seed, n_rays=2000, ray_seed=seed + 1)
     pack, binary = bvh8.pack_bvh8(bvh), bvh2.pack_bvh2(bvh)

@@ -152,13 +152,9 @@ def test_scene_over_the_wide_threshold_goes_through_the_bvh8_kernels(card, monke
     _assert_goes_through(scene, "bvh8", o, d, 3.0)
 
 
-def test_bvh2_kernels_match_plain_walks(card):
-    """Built with -fmad=false, the binary kernels repeat the plain walks'
-    f32 arithmetic op for op: hit times and triangle ids agree exactly."""
-    (verts, norms, mats), o, d = _mesh_and_rays(3000, 5000)
-    pack = bvh2.pack_bvh2(build_bvh(verts, norms, mats, device="cpu"), device=card)
-    o, d = o.to(card), d.to(card)
-    active = torch.arange(o.shape[0], device=card) % 3 != 0
+def _assert_bvh2_kernels_equal_plain(pack, o, d, active=None):
+    """Both bvh2 kernels against the plain walk, bit for bit: t, triangle
+    ids and the any-hit bool."""
     t_k, id_k = bvh2.bvh2_closest_kernel(pack, o, d, T_MIN, active)
     t_p, id_p = bvh2.bvh2_closest_plain(pack, o, d, T_MIN, active)
     torch.cuda.synchronize()
@@ -172,7 +168,42 @@ def test_bvh2_kernels_match_plain_walks(card):
     occ_p = bvh2.bvh2_occluded_plain(pack, o, d, T_MIN, t_max, active)
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p)
-    assert torch.equal(occ_k, (t_p <= t_max) & active)
+    want = t_p <= t_max
+    assert torch.equal(occ_k, want if active is None else want & active)
+
+
+def test_bvh2_kernels_match_plain_walks(card):
+    """Built with -fmad=false, the binary kernels repeat the plain walks'
+    f32 arithmetic op for op, the tie key included: hit times and triangle
+    ids agree exactly."""
+    (verts, norms, mats), o, d = _mesh_and_rays(3000, 5000)
+    pack = bvh2.pack_bvh2(build_bvh(verts, norms, mats, device="cpu"), device=card)
+    o, d = o.to(card), d.to(card)
+    _assert_bvh2_kernels_equal_plain(pack, o, d, torch.arange(o.shape[0], device=card) % 3 != 0)
+
+
+@pytest.mark.parametrize("branch", ["block_128", "smaller_block", "global_stack"])
+def test_bvh2_kernels_take_every_launch_plan_at_the_deepest_stack(card, branch, monkeypatch):
+    """Of a few meshes, the one with the deepest `stack_depth`: the walk
+    stays within it, and both kernels equal the plain walk in each launch
+    plan, the stack in a 128-ray block's shared memory, in a smaller
+    block's (the shared memory the plan sees shrunk to 64 rays' stacks), or
+    in a global scratch buffer (no shared memory)."""
+    cases = [_mesh_and_rays(n, 6000, seed=s) for n, s in ((500, 4), (3000, 5), (5000, 7))]
+    packs = [bvh2.pack_bvh2(build_bvh(verts, norms, mats, device="cpu"), device=card) for (verts, norms, mats), _, _ in cases]
+    deepest = max(range(len(cases)), key=lambda j: packs[j].stack_depth)
+    pack, (_, o, d) = packs[deepest], cases[deepest]
+    assert pack.stack_depth >= 8
+    o, d = o.to(card), d.to(card)
+    stats = {}
+    bvh2.bvh2_closest_plain(pack, o, d, T_MIN, stats=stats)
+    assert 0 < stats["max_stack_depth"] <= pack.stack_depth
+    limit = {"block_128": bvh2.SMEM_PER_BLOCK, "smaller_block": 64 * pack.stack_depth * 4, "global_stack": 0}[branch]
+    monkeypatch.setattr(bvh2, "SMEM_PER_BLOCK", limit)
+    block, _, on_global = bvh2.launch_plan(pack.stack_depth)
+    assert (block, on_global) == {"block_128": (128, False), "smaller_block": (64, False),
+                                  "global_stack": (128, True)}[branch]
+    _assert_bvh2_kernels_equal_plain(pack, o, d)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -191,6 +222,8 @@ def test_bvh2_wrappers_refuse_what_the_kernels_do_not_take(card):
         bvh2.bvh2_closest_kernel(pack, o, d, T_MIN)  # rays on the CPU
     with pytest.raises(TypeError):
         bvh2.bvh2_closest_kernel(pack, o.double().to(card), d.double().to(card), T_MIN)
+    with pytest.raises(ValueError):
+        bvh2.bvh2_closest_kernel(pack, o.to(card)[:, :2], d.to(card)[:, :2], T_MIN)
     with pytest.raises(ValueError):
         bvh2.bvh2_occluded_kernel(pack, o.to(card), d.to(card), T_MIN, torch.ones(3, device=card))
 
@@ -354,8 +387,8 @@ def test_tlas2_kernels_take_every_launch_plan(card, branch, monkeypatch):
     meshes, instances, o, d = _instanced_and_rays(2, 30, 3000, seed=4)
     pack = tlas2.pack_tlas2(build_instanced(meshes, instances, device="cpu"), device=card)
     limit = 64 * pack.stack_depth * 4 if branch == "smaller_block" else 0
-    monkeypatch.setattr(tlas2, "SMEM_PER_BLOCK", limit)
-    block, _, on_global = tlas2.launch_plan(pack.stack_depth)
+    monkeypatch.setattr(bvh2, "SMEM_PER_BLOCK", limit)
+    block, _, on_global = bvh2.launch_plan(pack.stack_depth)
     assert (block, on_global) == ((64, False) if branch == "smaller_block" else (128, True))
     _assert_tlas2_kernels_equal_plain(pack, o.to(card), d.to(card))
 

@@ -20,6 +20,9 @@ from rpt_tpu_torch import load_obj, load_obj_with_mtl
 from rpt_tpu_torch.io.obj import _load_obj_py, _load_obj_with_mtl_py, load_mtl
 from rpt_tpu_torch.native import parse_obj
 from rpt_tpu_torch.scenes import TOY_MTL, toy_plane_obj
+from test_torch_reference_native import reference_native
+
+reference_native()
 
 OBJ = """
 # comment

@@ -22,12 +22,15 @@ import rpt_tpu_torch.scene as scene_mod
 from rpt_tpu.ops.tlas_pallas import tlas_pallas_eligible
 from rpt_tpu_torch import convert
 from rpt_tpu_torch.scenes import build_brick_city, build_dragon_scene, build_toy_plane_scene
+from test_torch_reference_native import reference_native
 from test_torch_render import reference_tree
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
 sys.path.insert(0, EXAMPLES)
 import dragon  # noqa: E402
 import lego  # noqa: E402
+
+reference_native()
 
 SCENES = {
     "toy_plane": (lambda: lego.build_scene(), build_toy_plane_scene),

@@ -21,6 +21,9 @@ from rpt_tpu.ops import intersect as ref_ops
 from rpt_tpu_torch import materials as port_mat
 from rpt_tpu_torch import random as rnd
 from rpt_tpu_torch.ops import intersect as port_ops
+from test_torch_reference_native import reference_native
+
+reference_native()
 
 RTOL = 1e-5
 

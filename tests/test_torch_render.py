@@ -44,6 +44,9 @@ from rpt_tpu_torch.scenes import (
     lego_camera,
     toy_plane_camera,
 )
+from test_torch_reference_native import reference_native
+
+reference_native()
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples")
 W, H = 64, 48

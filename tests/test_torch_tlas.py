@@ -23,6 +23,9 @@ from rpt_tpu.ops.tlas import instanced_closest_hit as ref_instanced_closest_hit
 from rpt_tpu_torch.ops import bvh8, tlas2, tlas8
 from rpt_tpu_torch.ops.tlas import build_instanced
 from test_tlas_pallas import _build_instanced_scene, _rays_at_instances
+from test_torch_reference_native import reference_native
+
+reference_native()
 
 T_MIN = 1e-3
 
