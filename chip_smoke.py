@@ -5,7 +5,11 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from `rpt_tpu_torch/csrc` with nvcc, one process
-   per source, all at once, and prints each build's ptxas report;
+   per source, all at once, and prints each build's ptxas report and
+   (`[sass]`) the instructions of each threefry kernel; then
+   `[random]` holds the threefry kernel against its plain version in every
+   mode, at the main path's shapes and ragged ones, and times it beside its
+   bound;
 3. for each workload, all at 960x540:
    - `dragon`, the baked-mesh path: a 120k-triangle trefoil, 2 bounces,
      through the two bvh8 kernels;
@@ -18,28 +22,44 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
      (`scene._BVH_KERNEL`), through the two bvh2 kernels;
    - `lego_binary`: `lego` compiled with RPT_BVH_KERNEL=binary, through
      the two tlas2 kernels;
+   - `cornell`, the Cornell box: analytic primitives and small meshes, no
+     traversal kernel (phases b, f, g and h do not apply);
    a. compiles the scene and prints its sizes;
    b. holds each of the path's kernels against its plain torch version on
-      the workload's own rays: the camera rays and every wavefront of a
-      1-spp render;
+      the workload's own rays: the camera rays and every wavefront of an
+      eager 1-spp render (a graph replay calls no wrapper to record);
    c. renders a small image on the CPU and on the card with the same seed
       and compares them;
-   d. drives the main path, `Renderer.render_buffer` at full size, with
-      every kernel's launch counter set to 0 just before and read just
-      after, checks the image and the counters, and prints Mrays/s;
-   e. profiles one sample (device-busy share, the kernels' share);
-   f. times each of the path's kernels per launch beside its plain
-      version and its bound (the operations its own plain walk counts);
+   `[graph]`: a render through the captured CUDA graph against the same
+      render run eagerly, and two chunks (`start_iter`) against one call,
+      `sum` and `sum_sq` bit for bit; the capture's seconds, its memory
+      pool, and the launches of one replay and of one eager pass, which
+      must be the same;
+   d. drives the main path, `Renderer.render_buffer` at full size (one
+      graph replay per sample), with every kernel's launch count set to 0
+      just before and read just after (the kernels count their own
+      launches on the card, replays included), checks the image and the
+      counts, and prints Mrays/s, beside the eager pass's in turns;
+   e. profiles one sample through the entry point, one replay of the
+      cached graph alone and one eager sample (device-busy share, idle
+      share, kernels launched, the traversal and threefry kernels' shares),
+      and holds the profiler's count of the kernels one replay ran against
+      the card's own count (the profiler may lose a few records, never add
+      one);
+   f. times each of the path's kernels per launch, launched from Python
+      and inside a CUDA graph, beside its plain version and its bound (the
+      operations its own plain walk counts);
    on `dragon_binary` and `lego_binary`, also:
    g. `[binary_vs_wide]`: the binary kernels against the wide kernels of
       the same trees on every wavefront, and both timed in turns;
-   on every workload, also:
+   on every workload with a traversal pack, also:
    h. `[before_after]`: the same kernels of other trees of the repository
       (`RPT_COMPARE=label=dir,...`, e.g. a `git archive` of the parent
       commit), timed in turns with this tree's on the same wavefronts;
       skipped when no tree is named;
 4. prints one JSON line `{"kernels": [...]}` with one row for each of the
-   eight kernels, then the last line `{"ok": true, "device": {...}}`.
+   eight traversal kernels and the threefry kernel, then the last line
+   `{"ok": true, "device": {...}}`.
 
 A failed phase prints FAIL and exits nonzero with no result. It imports
 nothing of JAX or of the JAX package.
@@ -51,6 +71,7 @@ import importlib
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -61,6 +82,9 @@ DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3 rate.
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+# 32-bit integer operations per second: 64 INT32 lanes per SM (Hopper
+# architecture white paper) x 132 SMs x the 1.98 GHz boost clock.
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
 PARITY_MIN = 0.9999
 T_TOL = 2e-5
 
@@ -92,7 +116,22 @@ WORKLOADS = {
     "lego_toy": dict(scene="lego_toy", bvh_kernel="wide", bounces=5, spp=4, shadow=1, family="bvh2"),
     "dragon_binary": dict(scene="dragon", bvh_kernel="binary", bounces=2, spp=2, shadow=2, family="bvh2"),
     "lego_binary": dict(scene="lego", bvh_kernel="binary", bounces=5, spp=2, shadow=2, family="tlas2"),
+    "cornell": dict(scene="cornell", bvh_kernel="wide", bounces=2, spp=4, shadow=1, family=None),
 }
+# The threefry kernel's row: its source, its modes (keys, bits, uniform,
+# randint), and what one element of each mode needs (csrc/threefry.cu's
+# note counts it): 32-bit integer operations, 72 per hash (one three-way xor
+# for the third key word, one add of the key into x2, 20 steps of add,
+# rotate and xor, five key injections of one add into x1 and one
+# three-input add into x2), then bits: an xor; uniform: an xor, a shift and an or;
+# randint: two hashes, two xors, three remainders (one operation each,
+# though the card has no instruction for one), a multiply and two adds, and
+# once per launch the two hashes of its key split. Float32 operations:
+# uniform's subtract, fma (two, as the card's peak counts it) and max.
+# Bytes: the output written, and the tensor key read.
+THREEFRY = dict(source="rpt_tpu_torch/csrc/threefry.cu", modes=("keys", "bits", "uniform", "randint"),
+                int_ops={0: 72, 1: 73, 2: 75, 3: 2 * 72 + 2 + 3 + 1 + 2}, int_ops_per_launch={3: 2 * 72},
+                f32_ops={0: 0, 1: 0, 2: 4, 3: 0}, out_bytes={0: 16, 1: 8, 2: 4, 3: 4}, key_bytes=16)
 
 
 def fail(msg: str):
@@ -133,6 +172,30 @@ def time_ms(fn, inputs, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / (reps * len(inputs))
 
 
+def time_graph_ms(fn, inputs, reps: int) -> float:
+    """Device milliseconds of one call: `reps` passes through `inputs`
+    captured as one CUDA graph (after an eager warm-up pass) and replayed
+    between CUDA events, so the host's launch cost is left out."""
+    import torch
+
+    for args in inputs:
+        fn(*args)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            for args in inputs:
+                fn(*args)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * len(inputs))
+
+
 def record_wavefronts(scene_mod, names, render):
     """Run `render()` and return the rays it handed the wrappers of the
     kernels `names`: {name: [(o, d, t_min[, t_max], active), ...]}."""
@@ -155,13 +218,43 @@ def record_wavefronts(scene_mod, names, render):
     return rec
 
 
-def profile_sample(render, kernel_tag: str):
-    """Where one main-path sample spends the card's time: device-busy share
-    of the profiled window, the share of device time of the kernels whose
-    name holds `kernel_tag`, and the heaviest kernels. Reads CUDA kernel
-    events from torch.profiler; prints 'not measured' if it records none."""
+def replay_fn(renderer):
+    """One sample through the renderer's cached graph alone: the replay,
+    without the entry point's per-call host work (the compile cache's
+    digest, the buffer)."""
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.renderer import make_render_many_fn
+
+    sd, t_min, ev_scale = renderer._pass_args()
+    fn = make_render_many_fn(sd, renderer.width, renderer.height, renderer.max_bounces)
+    key = rnd.PRNGKey(renderer.seed)
+    return lambda: fn(renderer.camera, key, 0, 1, t_min, ev_scale)
+
+
+def profile_sample(render, kernel_tag, mode: str, workload: str, unprofiled=None):
+    """Where one main-path sample spends the card's time, run as `mode`
+    says (through the graph or eagerly): device-busy share of the profiled
+    window, idle share, kernels launched, the share of device time of the
+    kernels whose name holds `kernel_tag` (none when None), and the
+    heaviest kernels. Reads CUDA kernel events from torch.profiler; prints
+    'not measured' if it records none. With `unprofiled`, also the wall
+    milliseconds of one call of it timed without the profiler (the mean of
+    8, after one), and the idle share against that wall. Returns how many
+    times the profiler saw each counted kernel run ({name: n} as the
+    `kernels` line names them; threefry all modes), or None if it saw no
+    kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    extra = {}
+    if unprofiled is not None:
+        unprofiled()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            unprofiled()
+        torch.cuda.synchronize()
+        extra["unprofiled_ms"] = (time.perf_counter() - t0) * 1e3 / 8
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -171,8 +264,9 @@ def profile_sample(render, kernel_tag: str):
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
-        say("profile", device_time="not measured (the profiler recorded no CUDA kernels)")
-        return
+        say("profile", workload=workload, mode=mode,
+            device_time="not measured (the profiler recorded no CUDA kernels)")
+        return None
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, end = 0.0, float("-inf")
     for s, e in spans:
@@ -185,14 +279,40 @@ def profile_sample(render, kernel_tag: str):
         name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0][-60:]
         by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
     total = sum(by_name.values())
-    walk_us = sum(v for k, v in by_name.items() if kernel_tag in k)
     gemv_us = sum(v for k, v in by_name.items() if "gemv" in k.lower())
+    threefry_us = sum(v for k, v in by_name.items() if "threefry" in k)
+    shares = {}
+    if kernel_tag is not None:
+        shares[f"{kernel_tag}_share_of_device_time"] = f"{sum(v for k, v in by_name.items() if kernel_tag in k) / total:.3f}"
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    say("profile", window_ms=f"{wall_us / 1e3:.2f}", device_busy_ms=f"{busy / 1e3:.2f}",
+    if extra:
+        extra = dict(unprofiled_ms=f"{extra['unprofiled_ms']:.3f}",
+                     idle_share_unprofiled=f"{max(0.0, 1.0 - busy / 1e3 / extra['unprofiled_ms']):.3f}")
+    say("profile", workload=workload, mode=mode, window_ms=f"{wall_us / 1e3:.2f}", device_busy_ms=f"{busy / 1e3:.2f}",
         idle_share=f"{1.0 - busy / wall_us:.3f}", kernel_launches=len(kernels), gemv_ms=f"{gemv_us / 1e3:.3f}",
-        **{f"{kernel_tag}_share_of_device_time": f"{walk_us / total:.3f}"})
+        threefry_share_of_device_time=f"{threefry_us / total:.3f}", **shares, **extra)
     for name, us in top:
-        say("profile", kernel=json.dumps(name), device_ms=f"{us / 1e3:.3f}", share=f"{us / total:.3f}")
+        say("profile", workload=workload, mode=mode, kernel=json.dumps(name), device_ms=f"{us / 1e3:.3f}",
+            share=f"{us / total:.3f}")
+    seen = {}
+    for e in kernels:
+        name = counted_kernel(e.name)
+        if name is not None:
+            seen[name] = seen.get(name, 0) + 1
+    return seen
+
+
+def counted_kernel(symbol: str):
+    """The `kernels` line's name of a profiled kernel of csrc/ (the
+    threefry kernel in any mode, `<family>_walk<kOccl, ...>`), or None."""
+    if "threefry_kernel<" in symbol:
+        return "threefry"
+    for family in ("bvh8", "tlas8", "bvh2", "tlas2"):
+        tag = f"{family}_walk<"
+        if tag in symbol:
+            occl = symbol.split(tag, 1)[1].startswith("true")
+            return f"{family}_occluded" if occl else f"{family}_closest"
+    return None
 
 
 def active_share(o, active) -> str:
@@ -249,19 +369,11 @@ def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, a
     return disagree
 
 
-def scene_and_camera(name: str):
-    from rpt_tpu_torch import scenes
-
-    if name == "dragon":
-        return scenes.build_dragon_scene(), scenes.dragon_camera()
-    if name == "lego":
-        return scenes.build_brick_city(), scenes.lego_camera()
-    return scenes.build_toy_plane_scene(), scenes.toy_plane_camera()
-
-
-def run_workload(workload: str, card: str) -> list:
-    """Phases a-f of one workload, compiled under its RPT_BVH_KERNEL choice
-    (restored after); returns its kernels' rows of the `kernels` line."""
+def run_workload(workload: str, card: str):
+    """Phases a-h of one workload, compiled under its RPT_BVH_KERNEL choice
+    (restored after); returns its traversal kernels' rows of the `kernels`
+    line, its threefry launches per main-path sample and its main path's
+    threefry launches by mode."""
     import rpt_tpu_torch.scene as scene_mod
 
     saved = scene_mod._BVH_KERNEL
@@ -272,53 +384,210 @@ def run_workload(workload: str, card: str) -> list:
         scene_mod._BVH_KERNEL = saved
 
 
-def _run_workload(workload: str, card: str) -> list:
+def fresh(renderer):
+    from rpt_tpu_torch import Buffer
+
+    return Buffer.new(renderer.width, renderer.height, device=renderer.device)
+
+
+def named_counts(counters: dict) -> dict:
+    """{name: launches} of the counted wrappers `counters` ({name:
+    wrapper}), as the devices counted them since the last reset."""
+    from rpt_tpu_torch import kernels
+
+    counts = kernels.launch_counts()
+    return {name: counts[fn] for name, fn in counters.items()}
+
+
+def graph_phase(workload: str, renderer, spp: int, card: str, counters: dict) -> dict:
+    """`[graph]`: `spp` samples through the captured graph against the same
+    samples run eagerly, and in two chunks against one call, `sum` and
+    `sum_sq` bit for bit; prints the capture's seconds and memory pool.
+    One eager pass and one replay are each counted on the device, from 0:
+    they must launch the same kernels as often. Returns those launches."""
+    import torch
+
+    from rpt_tpu_torch import kernels
+    from rpt_tpu_torch.renderer import make_render_many_fn
+
+    graphed = renderer.sample_into(fresh(renderer), spp)  # captures the graph
+    kernels.reset_launch_counts()
+    eager = renderer._sample_into_eager(fresh(renderer), 1)
+    eager_launches = named_counts(counters)
+    eager = renderer._sample_into_eager(eager, spp - 1, start_iter=1)
+    kernels.reset_launch_counts()
+    first = renderer.sample_into(fresh(renderer), 1)
+    per_replay = named_counts(counters)
+    chunked = renderer.sample_into(first, spp - 1, start_iter=1)
+    torch.cuda.synchronize()
+    same = {name: bool(torch.equal(getattr(graphed, name), getattr(other, name)))
+            for name, other in (("sum", eager), ("sum_sq", eager))}
+    chunk_same = bool(torch.equal(graphed.sum, chunked.sum) and torch.equal(graphed.sum_sq, chunked.sum_sq))
+    sd, t_min, _ = renderer._pass_args()
+    cap = make_render_many_fn(sd, renderer.width, renderer.height, renderer.max_bounces).capture(t_min)
+    say("graph", workload=workload, size=f"{renderer.width}x{renderer.height}", spp=spp,
+        sum_bit_equal=same["sum"], sum_sq_bit_equal=same["sum_sq"], chunked_bit_equal=chunk_same,
+        max_abs_sum_diff=float((graphed.sum - eager.sum).abs().max()), capture_seconds=f"{cap.seconds:.3f}",
+        pool_mib=f"{cap.pool_bytes / 2**20:.1f}", launches_per_replay=json.dumps(per_replay),
+        launches_per_eager_pass=json.dumps(eager_launches),
+        reserved_mib=f"{torch.cuda.memory_reserved() / 2**20:.1f}", card=json.dumps(card))
+    if not (same["sum"] and same["sum_sq"] and chunk_same):
+        fail(f"the graphed {workload} render differs from the eager one or from itself in chunks")
+    if per_replay != eager_launches or per_replay["threefry"] <= 0:
+        fail(f"one {workload} replay launched {per_replay}, one eager pass {eager_launches}")
+    return per_replay
+
+
+def _run_workload(workload: str, card: str):
     import numpy as np
     import torch
 
-    import rpt_tpu_torch.scene as scene_mod
-    from rpt_tpu_torch import Renderer
+    from rpt_tpu_torch import Renderer, kernels
     from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.bench import scene_and_camera
     from rpt_tpu_torch.ops import bvh2, bvh8, tlas2, tlas8
-    from rpt_tpu_torch.renderer import camera_rays_tiled, pixel_ndc_tiled
 
     spec_w = WORKLOADS[workload]
     bounces, spp, shadow, family = spec_w["bounces"], spec_w["spp"], spec_w["shadow"], spec_w["family"]
-    closest, occluded = f"{family}_closest", f"{family}_occluded"
     modules = {"bvh8": bvh8, "tlas8": tlas8, "bvh2": bvh2, "tlas2": tlas2}
-    counters = {}
+    counters = {"threefry": rnd._threefry}
     for fam, mod in modules.items():
         counters[f"{fam}_closest"] = getattr(mod, f"{fam}_closest_hit")
         counters[f"{fam}_occluded"] = getattr(mod, f"{fam}_occluded")
-    mod = modules[family]
-    kern = {closest: getattr(mod, f"{family}_closest_kernel"), occluded: getattr(mod, f"{family}_occluded_kernel")}
-    plain = {closest: getattr(mod, f"{family}_closest_plain"), occluded: getattr(mod, f"{family}_occluded_plain")}
+    if set(counters.values()) != set(kernels.launch_counts()):
+        fail("the counted wrappers are not the ones this script reads")
 
     # a. Compile, under the workload's kernel choice.
     t0 = time.perf_counter()
-    scene, camera = scene_and_camera(spec_w["scene"])
+    scene, camera, eps = scene_and_camera(spec_w["scene"])
     sd = scene.compile(device=DEVICE)
     seconds = time.perf_counter() - t0
+    renderer = Renderer(scene, camera, width=WIDTH, height=HEIGHT, max_bounces=bounces, num_samples=1,
+                        epsilon=eps, device=DEVICE)
+    rows = []
+    if family is None:
+        say("compile", workload=workload, spheres=0 if sd.spheres is None else sd.spheres.inv_tf.shape[0],
+            cubes=0 if sd.cubes is None else sd.cubes.inv_tf.shape[0],
+            triangles=0 if sd.triangles is None else sd.triangles.verts.shape[0],
+            packs=[f for f in modules if getattr(sd, f) is not None], lights=len(sd.lights),
+            seconds=f"{seconds:.2f}")
+        if any(getattr(sd, f) is not None for f in modules):
+            fail(f"{workload} compiled with a traversal pack")
+    else:
+        err, rec = kernel_phases(workload, family, sd, renderer, camera, seconds, card)
+
+    # c. The port on the CPU against the port on the card, same seed.
+    small = {}
+    for dev in ("cpu", DEVICE):
+        r = Renderer(scene, camera, width=SMALL_W, height=SMALL_H, max_bounces=bounces, num_samples=1,
+                     epsilon=eps, device=dev)
+        small[dev] = r.render_buffer().mean_image().cpu().numpy()
+    a, b = small["cpu"], small[DEVICE]
+    close = np.isclose(b, a, rtol=1e-3, atol=1e-4).all(-1).mean()
+    mean_rel = abs(float(b.mean()) - float(a.mean())) / max(abs(float(a.mean())), 1e-12)
+    say("cpu_vs_card", workload=workload, size=f"{SMALL_W}x{SMALL_H}", pixels_close=f"{close:.5f}",
+        mean_rel=f"{mean_rel:.3e}")
+    if not (np.isfinite(b).all() and close >= 0.99 and mean_rel <= 1e-3):
+        fail(f"the CPU and card renders of {workload} disagree")
+
+    # The graph against the eager pass (this also captures the main path's graph).
+    per_replay = graph_phase(workload, renderer, 2, card, counters)
+
+    # d. The main path at full size: a warm-up sample, then every counter
+    # to 0, drive, read (the kernels count their launches on the card).
+    renderer.render_buffer()
+    torch.cuda.synchronize()
+    renderer.num_samples = spp
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    buf = renderer.render_buffer()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = named_counts(counters)
+    threefry_by_mode = dict(zip(THREEFRY["modes"], kernels.launch_counts(by_slot=True)[rnd._threefry]))
+    img = buf.mean_image()
+    rays = (bounces + 1) * (1 + shadow) * WIDTH * HEIGHT * spp
+    # The same samples eagerly and through the graph again, in turns.
+    turns = {"graph": [dt], "eager": []}
+    for mode in ("eager", "eager", "graph"):
+        t0 = time.perf_counter()
+        if mode == "graph":
+            renderer.render_buffer()
+        else:
+            renderer._sample_into_eager(fresh(renderer), spp)
+        torch.cuda.synchronize()
+        turns[mode].append(time.perf_counter() - t0)
+    mrays = {m: rays / (sum(v) / len(v)) / 1e6 for m, v in turns.items()}
+    say("main_path", workload=workload, size=f"{WIDTH}x{HEIGHT}", bounces=bounces, spp=spp, seconds=f"{dt:.4f}",
+        mrays_per_s=f"{rays / dt / 1e6:.3f}", image_mean=f"{float(img.mean()):.6f}",
+        launches=json.dumps(launches), threefry_launches_by_mode=json.dumps(threefry_by_mode), card=json.dumps(card))
+    say("main_path", workload=workload, mode="turns graph, eager, eager, graph",
+        graph_seconds=json.dumps([round(t, 5) for t in turns["graph"]]),
+        eager_seconds=json.dumps([round(t, 5) for t in turns["eager"]]),
+        graph_mrays_per_s=f"{mrays['graph']:.3f}", eager_mrays_per_s=f"{mrays['eager']:.3f}",
+        graph_over_eager=f"{mrays['graph'] / mrays['eager']:.3f}", card=json.dumps(card))
+    if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
+        fail(f"the {workload} main-path image is not finite or is black")
+    # One replay per sample, each launching what one eager pass launched.
+    want = {name: 0 for name in counters}
+    want["threefry"] = per_replay["threefry"] * spp
+    if family is not None:
+        want[f"{family}_closest"] = (bounces + 1) * spp
+        want[f"{family}_occluded"] = shadow * (bounces + 1) * spp
+    if launches != want or want["threefry"] <= 0:
+        fail(f"the {workload} main path launched {launches}, not {want}")
+    renderer.num_samples = 1
+    tag = None if family is None else family + "_walk"
+    profile_sample(renderer.render_buffer, tag, "graph", workload)
+    replay_one = replay_fn(renderer)
+    seen = profile_sample(replay_one, tag, "graph_replay", workload, unprofiled=replay_one)
+    # The profiler's own count of the kernels one replay ran, by name: a
+    # witness that can lose records (CUPTI drops a few of a replay's
+    # thousands in some runs), never gain them. So it must not exceed the
+    # card's count, and must see every kernel the card counted.
+    if seen is not None:
+        missed = sum(per_replay.values()) - sum(seen.values())
+        say("profile", workload=workload, mode="graph_replay", counted_kernels_seen=json.dumps(seen),
+            counted_on_device=json.dumps(per_replay), profiler_missed=missed)
+        if any(n > per_replay[name] for name, n in seen.items()) or \
+                any(n and not seen.get(name) for name, n in per_replay.items()):
+            fail(f"the profiler saw one {workload} replay run {seen}, the device counted {per_replay}")
+    profile_sample(lambda: renderer._sample_into_eager(fresh(renderer), 1), tag, "eager", workload)
+    if family is not None:
+        rows = timing_phase(workload, family, sd, rec, err, launches, spp, card)
+    return rows, launches["threefry"] / spp, threefry_by_mode
+
+
+def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
+    """Phases a (sizes), b (parity on every wavefront of an eager 1-spp
+    render), g and h of a workload with a traversal pack; returns (the
+    largest errors, the recorded wavefronts)."""
+    import numpy as np
+
+    import rpt_tpu_torch.scene as scene_mod
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.renderer import camera_rays_tiled, pixel_ndc_tiled
+
+    closest, occluded = f"{family}_closest", f"{family}_occluded"
+    bounces, shadow = WORKLOADS[workload]["bounces"], WORKLOADS[workload]["shadow"]
+    mod = family_module(family)
+    kern = {closest: getattr(mod, f"{family}_closest_kernel"), occluded: getattr(mod, f"{family}_occluded_kernel")}
+    plain = {closest: getattr(mod, f"{family}_closest_plain"), occluded: getattr(mod, f"{family}_occluded_plain")}
     pack = getattr(sd, family)
     if pack is None:
         fail(f"{workload} compiled without a {family} pack")
     sizes = dict(nodes=pack.num_nodes, **{k: getattr(pack, k) for k in ("stack_need", "group_depth", "stack_depth",
                                                                         "node_bytes") if hasattr(pack, k)},
                  materials=sd.materials.color.shape[0], pack_mb=f"{pack.nbytes / 2**20:.3f}", seconds=f"{seconds:.2f}")
+    mat_of = material_of(family, sd, pack)
     if family in ("bvh8", "bvh2"):
         bvh = sd.bvh
         say("compile", workload=workload, tri_rows=bvh.num_tris, binary_nodes=bvh.num_nodes, **sizes)
-
-        def mat_of(out, hit):
-            return bvh.mat_id[out[1].long().clamp(0, bvh.num_tris - 1)][hit]
     else:
         im = sd.instanced
         say("compile", workload=workload, instances=im.inst_inv.shape[0],
             unique_meshes=len(set(im.inst_root.tolist())), unique_tris=im.verts.shape[0],
             tlas_nodes=im.t_min.shape[0], blas_nodes=im.b_min.shape[0], tri_rows=pack.tris.shape[0], **sizes)
-
-        def mat_of(out, hit):
-            return im.inst_mat[out[2].long().clamp(0, im.inst_mat.shape[0] - 1)][hit]
 
     def bound(name, p=pack):
         return lambda *a, **kw: kern[name](p, *a, **kw)
@@ -327,15 +596,14 @@ def _run_workload(workload: str, card: str) -> list:
         return lambda *a, **kw: plain[name](pack, *a, **kw)
 
     # b. Kernel parity at main-path size: the camera rays, then every
-    # wavefront of a 1-spp render. Every kernel runs its plain walk's float
+    # wavefront of an eager 1-spp render (a graph replay calls no Python
+    # wrapper to record). Every kernel runs its plain walk's float
     # operations in its order: it must equal it bit for bit.
-    renderer = Renderer(scene, camera, width=WIDTH, height=HEIGHT, max_bounces=bounces, num_samples=1,
-                        device=DEVICE)
     t_min = float(np.float32(renderer.epsilon))
     o, d, _ = camera_rays_tiled(camera.to(DEVICE), rnd.fold_in(rnd.PRNGKey(0), 0),
                                 pixel_ndc_tiled(WIDTH, HEIGHT, DEVICE))
     check_closest(closest, "camera", bound(closest), bound_plain(closest), mat_of, o, d, t_min, None)
-    rec = record_wavefronts(scene_mod, (closest, occluded), renderer.render_buffer)
+    rec = record_wavefronts(scene_mod, (closest, occluded), lambda: renderer._sample_into_eager(fresh(renderer), 1))
     n_closest, n_occluded = len(rec[closest]), len(rec[occluded])
     if n_closest != bounces + 1 or n_occluded != shadow * (bounces + 1):
         fail(f"a 1-spp {workload} render made {n_closest} closest-hit and {n_occluded} any-hit calls")
@@ -348,63 +616,48 @@ def _run_workload(workload: str, card: str) -> list:
                                                           bound_plain(occluded), bound_plain(closest), *args))
     if workload in ("dragon_binary", "lego_binary"):
         binary_vs_wide(family, sd, pack, rec, mat_of, card)
-    before_after(family, mod, sd.bvh if family in ("bvh8", "bvh2") else im, pack, rec, mat_of, card)
+    before_after(family, mod, sd.bvh if family in ("bvh8", "bvh2") else sd.instanced, pack, rec, mat_of, card)
+    return err, rec
 
-    # c. The port on the CPU against the port on the card, same seed.
-    small = {}
-    for dev in ("cpu", DEVICE):
-        r = Renderer(scene, camera, width=SMALL_W, height=SMALL_H, max_bounces=bounces, num_samples=1, device=dev)
-        small[dev] = r.render_buffer().mean_image().cpu().numpy()
-    a, b = small["cpu"], small[DEVICE]
-    close = np.isclose(b, a, rtol=1e-3, atol=1e-4).all(-1).mean()
-    mean_rel = abs(float(b.mean()) - float(a.mean())) / max(abs(float(a.mean())), 1e-12)
-    say("cpu_vs_card", workload=workload, size=f"{SMALL_W}x{SMALL_H}", pixels_close=f"{close:.5f}",
-        mean_rel=f"{mean_rel:.3e}")
-    if not (np.isfinite(b).all() and close >= 0.99 and mean_rel <= 1e-3):
-        fail(f"the CPU and card renders of {workload} disagree")
 
-    # d. The main path at full size: a warm-up sample, then every counter
-    # to 0, drive, read.
-    renderer.render_buffer()
-    torch.cuda.synchronize()
-    renderer.num_samples = spp
-    for fn in counters.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    buf = renderer.render_buffer()
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    img = buf.mean_image()
-    rays = (bounces + 1) * (1 + shadow) * WIDTH * HEIGHT * spp
-    say("main_path", workload=workload, size=f"{WIDTH}x{HEIGHT}", bounces=bounces, spp=spp, seconds=f"{dt:.4f}",
-        mrays_per_s=f"{rays / dt / 1e6:.3f}", image_mean=f"{float(img.mean()):.6f}",
-        launches=json.dumps(launches), card=json.dumps(card))
-    if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
-        fail(f"the {workload} main-path image is not finite or is black")
-    want = {name: 0 for name in counters}
-    want[closest], want[occluded] = (bounces + 1) * spp, shadow * (bounces + 1) * spp
-    if launches != want:
-        fail(f"the {workload} main path launched {launches}, not {want}")
-    renderer.num_samples = 1
-    profile_sample(renderer.render_buffer, family + "_walk")
+def family_module(family):
+    from rpt_tpu_torch.ops import bvh2, bvh8, tlas2, tlas8
 
-    # f. Each kernel at the main path's shapes (the wavefronts of b): time
-    # per launch, the plain version's time, and the bound.
+    return {"bvh8": bvh8, "tlas8": tlas8, "bvh2": bvh2, "tlas2": tlas2}[family]
+
+
+def material_of(family, sd, pack):
+    """`mat_of(outputs, hit mask)`: the material ids of a closest-hit walk's hits."""
+    if family in ("bvh8", "bvh2"):
+        bvh = sd.bvh
+        return lambda out, hit: bvh.mat_id[out[1].long().clamp(0, bvh.num_tris - 1)][hit]
+    im = sd.instanced
+    return lambda out, hit: im.inst_mat[out[2].long().clamp(0, im.inst_mat.shape[0] - 1)][hit]
+
+
+def timing_phase(workload, family, sd, rec, err, launches, spp, card) -> list:
+    """f. Each kernel at the main path's shapes (the wavefronts of b): time
+    per launch, the plain version's time, and the bound."""
+    mod = family_module(family)
+    pack = getattr(sd, family)
     rows = []
-    for name in (closest, occluded):
+    for kind in ("closest", "occluded"):
+        name = f"{family}_{kind}"
         spec = KERNELS[name]
         args = rec[name]
-        ms = time_ms(bound(name), args, reps=10)
+        kern, plain = getattr(mod, f"{name}_kernel"), getattr(mod, f"{name}_plain")
+        ms = time_ms(lambda *a: kern(pack, *a), args, reps=10)
+        graph_ms = time_graph_ms(lambda *a: kern(pack, *a), args, reps=10)
         stats = {}
         for a in args:  # also the plain version's warm-up
-            plain[name](pack, *a, stats=stats)
-        plain_ms = time_ms(bound_plain(name), args, reps=1, warmup=False)
+            plain(pack, *a, stats=stats)
+        plain_ms = time_ms(lambda *a: plain(pack, *a), args, reps=1, warmup=False)
         t_bytes, t_ops = bound_ms(spec, pack, args, stats)
         rows.append({
             "name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
-            "launches": launches[name], "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "launches": launches[name], "max_abs_err": err[name], "ms": ms, "graph_ms": graph_ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "workload": workload, "launches_per_sample": launches[name] / spp,
             "box_tests_per_launch": stats["box_tests"] / len(args),
             "tri_tests_per_launch": stats["tri_tests"] / len(args),
@@ -413,11 +666,131 @@ def _run_workload(workload: str, card: str) -> list:
         rows[-1].update({k: getattr(pack, k) for k in ("group_depth", "stack_depth", "node_bytes") if hasattr(pack, k)})
         rows[-1].update({f"walk_{k}": v for k, v in stats.items() if k.startswith("max_")})
         rows[-1]["pack_mb"] = pack.nbytes / 2**20
-        say("timing", workload=workload, kernel=name, ms=f"{ms:.4f}", plain_ms=f"{plain_ms:.3f}",
+        say("timing", workload=workload, kernel=name, ms=f"{ms:.4f}", graph_ms=f"{graph_ms:.4f}",
+            plain_ms=f"{plain_ms:.3f}",
             bound_ms=f"{rows[-1]['bound_ms']:.5f}", bound_by=rows[-1]["bound_by"],
             box_tests_per_launch=f"{rows[-1]['box_tests_per_launch']:.0f}",
             tri_tests_per_launch=f"{rows[-1]['tri_tests_per_launch']:.0f}", card=json.dumps(card))
     return rows
+
+
+def random_phase(card: str) -> dict:
+    """`[random]`: the threefry kernel against its plain version, bit for
+    bit, in every mode (a host key and a tensor key; keys also from a device
+    counter), at the main path's shapes (518,400 and 2 x 518,400) and
+    ragged ones; then ms per launch of each mode at 518,400 beside the
+    plain version's and the bound. Returns the kernel's row: `ms` and the
+    bound of uniform at 518,400, the main path's commonest bulk draw, and
+    each mode's beside them (keys at 1 element, as split and fold_in
+    draw them)."""
+    import numpy as np
+    import torch
+
+    from rpt_tpu_torch import random as rnd
+
+    npix = WIDTH * HEIGHT
+    host = rnd.fold_in(rnd.PRNGKey(5), 3)
+    dev = rnd.to_device(host, DEVICE)
+    counter = torch.tensor([123456], dtype=torch.int64, device=DEVICE)
+    dim = float(max(WIDTH, HEIGHT))
+    params = {
+        "keys": (rnd.KEYS, {}),
+        "bits": (rnd.BITS, {}),
+        "uniform": (rnd.UNIFORM, dict(lo=0.0, span=1.0)),
+        "uniform_jitter": (rnd.UNIFORM, dict(lo=float(np.float32(-1.0 / dim)),
+                                            span=float(np.float32(1.0 / dim) - np.float32(-1.0 / dim)))),
+        "uniform_beckmann": (rnd.UNIFORM, dict(lo=float(np.float32(1e-7)),
+                                              span=float(np.float32(1.0) - np.float32(1e-7)))),
+        "uniform_2pi": (rnd.UNIFORM, dict(lo=0.0, span=float(np.float32(2.0 * np.pi)))),
+        "randint_6": (rnd.RANDINT, rnd._randint_params(0, 6)),
+        "randint_wide": (rnd.RANDINT, rnd._randint_params(-100, 2**31 - 1)),
+    }
+    checked = 0
+    for label, (mode, kw) in params.items():
+        for n in (1, 7, 1000, npix + 3, npix, 2 * npix):
+            if mode == rnd.KEYS and n > 1000:
+                continue
+            for key_name, key in (("host", host), ("tensor", dev)):
+                for ctr in ((None, counter) if mode == rnd.KEYS else (None,)):
+                    k = rnd.threefry_kernel(mode, key, n, DEVICE, counter=ctr, **kw)
+                    p = rnd.threefry_plain(mode, key, n, DEVICE, counter=ctr, **kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(k, p):
+                        bad = int((k != p).sum())
+                        fail(f"threefry {label} n={n} {key_name} key: {bad} elements differ from the plain version")
+                    checked += 1
+    say("random", checked=checked, modes=",".join(params), sizes=f"1,7,1000,{npix + 3},{npix},{2 * npix}",
+        bit_equal=True)
+    # The wrappers on tensor keys, as the pass calls them.
+    sub = rnd.split(dev, 3)
+    want = rnd.threefry_plain(rnd.KEYS, dev, 3, DEVICE)
+    if not torch.equal(sub, want) or not torch.equal(rnd.fold_in(dev, counter[0]),
+                                                     rnd.threefry_plain(rnd.KEYS, dev, 1, DEVICE, counter=counter)[0]):
+        fail("split / fold_in of a tensor key differ from the plain version")
+    by_mode = {}
+    for label in ("keys", "bits", "uniform", "randint_6"):
+        mode, kw = params[label]
+        n = 1 if mode == rnd.KEYS else npix
+        launch = [(mode, dev, n, DEVICE)]
+        ms = time_ms(lambda *a: rnd.threefry_kernel(*a, **kw), launch, reps=200)
+        graph_ms = time_graph_ms(lambda *a: rnd.threefry_kernel(*a, **kw), launch, reps=200)
+        plain_ms = time_ms(lambda *a: rnd.threefry_plain(*a, **kw), launch, reps=5)
+        plain_graph_ms = time_graph_ms(lambda *a: rnd.threefry_plain(*a, **kw), launch, reps=5)
+        bound, bound_by = threefry_bound_ms(mode, n)
+        by_mode[THREEFRY["modes"][mode]] = dict(n=n, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                                                plain_graph_ms=plain_graph_ms, bound_ms=bound, bound_by=bound_by)
+        say("random", mode=label, n=n, ms=f"{ms:.5f}", graph_ms=f"{graph_ms:.5f}", plain_ms=f"{plain_ms:.4f}",
+            plain_graph_ms=f"{plain_graph_ms:.4f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
+            graph_over_bound=f"{graph_ms / bound:.3f}", card=json.dumps(card))
+    u = by_mode["uniform"]
+    return {"name": "threefry", "route": "cuda", "source": THREEFRY["source"], "replaces": None,
+            "launches": None, "max_abs_err": 0.0, "ms": u["ms"], "graph_ms": u["graph_ms"], "plain_ms": u["plain_ms"],
+            "plain_graph_ms": u["plain_graph_ms"], "bound_ms": u["bound_ms"], "bound_by": u["bound_by"],
+            "library_ms": None, "shape": [npix], "mode": "uniform", "by_mode": by_mode}
+
+
+def sass_phase(lib: str) -> None:
+    """`[sass]`: the instructions of each threefry kernel of the built
+    library by opcode (`cuobjdump -sass`), the check on THREEFRY's counts:
+    the integer ones (whose adds ptxas emits partly as IMAD, on the FMA
+    pipe), the float ones, and the rest. Prints 'not measured' without
+    cuobjdump."""
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(cuobjdump):
+        say("sass", threefry="not measured (no cuobjdump)")
+        return
+    out = subprocess.run([cuobjdump, "-sass", lib], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        say("sass", threefry=f"not measured (cuobjdump failed: {out.stderr.strip()[:200]})")
+        return
+    integer = ("IADD3", "LOP3", "SHF", "IMAD", "ISETP", "LEA", "VIADD", "SEL", "IABS", "I2F", "F2I")
+    for block in out.stdout.split("Function : ")[1:]:
+        name, body = block.split("\n", 1)
+        ops = {}
+        for line in body.splitlines():
+            words = line.split("*/", 1)[-1].replace(";", " ").split()
+            if not line.strip().startswith("/*") or not words:
+                continue
+            op = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
+            op = op.split(".")[0]
+            ops[op] = ops.get(op, 0) + 1
+        mode = THREEFRY["modes"][int(name.split("threefry_kernelILi", 1)[1][0])] if "threefry_kernelILi" in name \
+            else name.strip()
+        say("sass", kernel=f"threefry<{mode}>", integer=sum(n for o, n in ops.items() if o in integer),
+            f32=sum(n for o, n in ops.items() if o in ("FADD", "FFMA", "FMUL", "FMNMX")), total=sum(ops.values()),
+            opcodes=json.dumps(dict(sorted(ops.items(), key=lambda kv: -kv[1]))))
+
+
+def threefry_bound_ms(mode: int, n: int):
+    """(ms, "bytes" or "operations"): the least time of one threefry launch
+    of `mode` over n elements under a tensor key, the largest of its bytes
+    over the memory rate, its 32-bit integer operations over the INT32 rate
+    and its float32 operations over the f32 rate (the two pipes run side by
+    side)."""
+    t_bytes = (n * THREEFRY["out_bytes"][mode] + THREEFRY["key_bytes"]) / PEAK_BYTES * 1e3
+    int_ops = n * THREEFRY["int_ops"][mode] + THREEFRY["int_ops_per_launch"].get(mode, 0)
+    t_ops = max(int_ops / PEAK_INT32_OPS, n * THREEFRY["f32_ops"][mode] / PEAK_F32_OPS) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def bound_ms(spec, pack, args, stats):
@@ -651,18 +1024,31 @@ def main():
             if any(k in line for k in ("entry function", "registers", "spill", "stack frame")):
                 say("ptxas", source=name, line=json.dumps(line.strip()))
 
+    # The threefry kernels' instructions, and the PRNG kernel at the main path's shapes.
+    sass_phase(kernels._lib_path("threefry"))
+    threefry_row = random_phase(card)
+
     # 3. Each workload's path. One row per kernel: a kernel on several
     # paths (bvh2 on lego_toy and dragon_binary) keeps its first path's row
     # and carries the later paths' rows under "other_workloads".
-    rows = {}
+    rows, threefry_per_sample, threefry_by_mode = {}, {}, {}
     for workload in WORKLOADS:
-        for row in run_workload(workload, card):
+        workload_rows, threefry_per_sample[workload], threefry_by_mode[workload] = run_workload(workload, card)
+        for row in workload_rows:
             if row["name"] in rows:
                 rows[row["name"]].setdefault("other_workloads", []).append(row)
             else:
                 rows[row["name"]] = row
     if sorted(rows) != sorted(KERNELS):
         fail(f"the workloads ran {sorted(rows)}, not every kernel of {sorted(KERNELS)}")
+    # The threefry kernel runs on every workload: its launches are the first
+    # workload's main path, by mode beside them, and each workload's per
+    # sample.
+    first = next(iter(WORKLOADS))
+    threefry_row.update(launches=int(threefry_per_sample[first] * WORKLOADS[first]["spp"]), workload=first,
+                        launches_by_mode=threefry_by_mode[first], launches_per_sample=threefry_per_sample,
+                        launches_by_mode_per_workload=threefry_by_mode)
+    rows["threefry"] = threefry_row
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -3,11 +3,12 @@
 A second package beside the JAX reference `rpt_tpu`, with the same module
 layout and public names for the parts ported so far: scene building and
 compilation (baked and instanced meshes), OBJ+MTL loading, the masked
-wavefront integrator, and the many-sample renderer. Mesh traversal runs in
-hand-written CUDA kernels for Hopper (`csrc/bvh8.cu`, `csrc/tlas8.cu`,
-`csrc/bvh2.cu`, `csrc/tlas2.cu`) on a CUDA card, and in their plain torch
-versions on the CPU. Entry points run on the card unless
-the caller passes device="cpu".
+wavefront integrator, the many-sample renderer with checkpoints, and
+profiling. Mesh traversal and the threefry PRNG run in hand-written CUDA
+kernels for Hopper (`csrc/bvh8.cu`, `csrc/tlas8.cu`, `csrc/bvh2.cu`,
+`csrc/tlas2.cu`, `csrc/threefry.cu`) on a CUDA card, where each sample pass
+is one CUDA graph replay, and in their plain torch versions on the CPU.
+Entry points run on the card unless the caller passes device="cpu".
 """
 
 from .buffer import Buffer, Filter

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from .color import color_bytes
+from .utils.device import resolve_device
 
 __all__ = ["Filter", "Buffer"]
 
@@ -33,6 +34,9 @@ class Buffer:
 
     @staticmethod
     def new(width: int, height: int, device=None) -> "Buffer":
+        """An empty buffer on `device` (the CUDA card when None; raises
+        without one)."""
+        device = resolve_device(device)
         return Buffer(
             sum=torch.zeros((height, width, 3), dtype=torch.float32, device=device),
             sum_sq=torch.zeros((height, width), dtype=torch.float32, device=device),
@@ -70,3 +74,33 @@ class Buffer:
     def image(self, filter: Filter = Filter()) -> np.ndarray:
         """Tone-mapped uint8 image (H, W, 3) on the host."""
         return color_bytes(self.mean_image(filter))
+
+    # The accumulator and the sampling cursor round-trip exactly, so a
+    # resumed render equals an uninterrupted one bit for bit (sample i is
+    # keyed by fold_in(seed, i) whatever the chunking). The .npz keys are
+    # the JAX package's (`rpt_tpu/buffer.py` save / load): a checkpoint of
+    # either package loads in the other.
+
+    def save(self, path, *, seed: int, iteration: int) -> None:
+        """Write the accumulator and the sampling cursor to an .npz checkpoint."""
+        np.savez_compressed(
+            path,
+            sum=self.sum.detach().cpu().numpy(),
+            sum_sq=self.sum_sq.detach().cpu().numpy(),
+            count=np.int32(self.count),
+            seed=np.int64(seed),
+            iteration=np.int64(iteration),
+        )
+
+    @staticmethod
+    def load(path, device=None):
+        """Read a checkpoint onto `device` (the CUDA card when None; raises
+        without one); returns (Buffer, seed, iteration)."""
+        device = resolve_device(device)
+        with np.load(path) as z:
+            buf = Buffer(
+                sum=torch.as_tensor(z["sum"], dtype=torch.float32, device=device),
+                sum_sq=torch.as_tensor(z["sum_sq"], dtype=torch.float32, device=device),
+                count=int(z["count"]),
+            )
+            return buf, int(z["seed"]), int(z["iteration"])

@@ -82,6 +82,7 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
     if tree.get("instanced") is not None:
         instanced = instanced_from_arrays(tree["instanced"], device)
         tlas8, tlas2 = choose_instanced_pack(instanced, device=device)
+    environment = Environment.from_color(env["color"])
     return SceneData(
         materials=MaterialTable(**_tensors(tree["materials"], device, ints=())),
         spheres=group(PrimXf, "spheres"),
@@ -95,7 +96,8 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
         tlas8=tlas8,
         tlas2=tlas2,
         lights=tuple(lights),
-        environment=Environment.from_color(env["color"]),
+        environment=environment,
+        env_color=torch.tensor(environment.color, device=device),
         device=device,
         digest=str(tree.get("digest", "")),
     )

@@ -25,11 +25,13 @@
 // with `block` threads per block, allocates nothing (the caller passes the
 // global stack, or null for the shared one), and returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// block size or shared stack the launch cannot take.
+// block size or shared stack the launch cannot take. The kernel adds one
+// to `launches` when it runs, unless it is null (count.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "count.cuh"      // count_launch
 #include "pair_walk.cuh"  // pair_walk, kMaxSmem
 
 namespace {
@@ -42,7 +44,8 @@ __global__ void
 bvh2_walk(const float4* __restrict__ nodes, const float4* __restrict__ tris, const float* __restrict__ o,
           const float* __restrict__ d, const bool* __restrict__ active, const float* __restrict__ t_max,
           int n, float t_min, unsigned* __restrict__ global_stack, int depth, float* __restrict__ t_out,
-          int* __restrict__ id_out, bool* __restrict__ occ_out) {
+          int* __restrict__ id_out, bool* __restrict__ occ_out, unsigned long long* launches) {
+  count_launch(launches);
   pair_walk<kOccl, false, kGlobalStack>(nodes, 0, nullptr, tris, o, d, active, t_max, n, t_min, global_stack,
                                         depth, t_out, id_out, nullptr, occ_out);
 }
@@ -63,7 +66,7 @@ cudaError_t allow_shared_stack() {
 template <bool kOccl>
 int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t stream, const float* nodes,
            const float* tris, const float* o, const float* d, const bool* active, const float* t_max,
-           float t_min, float* t_out, int* id_out, bool* occ_out) {
+           float t_min, float* t_out, int* id_out, bool* occ_out, unsigned long long* launches) {
   if (n <= 0) return 0;
   if (block <= 0 || block > kBlock || depth < 0) return (int)cudaErrorInvalidValue;
   const int grid = (int)((n + block - 1) / block);
@@ -71,7 +74,7 @@ int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t
   const float4* tris4 = reinterpret_cast<const float4*>(tris);
   if (global_stack != nullptr) {
     bvh2_walk<kOccl, true><<<grid, block, 0, stream>>>(nodes4, tris4, o, d, active, t_max, (int)n, t_min,
-                                                       global_stack, depth, t_out, id_out, occ_out);
+                                                       global_stack, depth, t_out, id_out, occ_out, launches);
     return (int)cudaGetLastError();
   }
   const size_t smem = (size_t)block * (size_t)depth * sizeof(unsigned);
@@ -81,7 +84,7 @@ int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t
     if (err != cudaSuccess) return (int)err;
   }
   bvh2_walk<kOccl, false><<<grid, block, smem, stream>>>(nodes4, tris4, o, d, active, t_max, (int)n, t_min,
-                                                         nullptr, depth, t_out, id_out, occ_out);
+                                                         nullptr, depth, t_out, id_out, occ_out, launches);
   return (int)cudaGetLastError();
 }
 
@@ -91,16 +94,16 @@ extern "C" {
 
 int rpt_bvh2_closest(const float* nodes, const float* tris, const float* o, const float* d, const bool* active,
                      int64_t n, float t_min, float* t_out, int* id_out, int block, int depth,
-                     unsigned* global_stack, void* stream) {
+                     unsigned* global_stack, unsigned long long* launches, void* stream) {
   return launch<false>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, tris, o, d, active, nullptr,
-                       t_min, t_out, id_out, nullptr);
+                       t_min, t_out, id_out, nullptr, launches);
 }
 
 int rpt_bvh2_occluded(const float* nodes, const float* tris, const float* o, const float* d, const bool* active,
                       const float* t_max, int64_t n, float t_min, bool* occ_out, int block, int depth,
-                      unsigned* global_stack, void* stream) {
+                      unsigned* global_stack, unsigned long long* launches, void* stream) {
   return launch<true>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, tris, o, d, active, t_max,
-                      t_min, nullptr, nullptr, occ_out);
+                      t_min, nullptr, nullptr, occ_out, launches);
 }
 
 }  // extern "C"

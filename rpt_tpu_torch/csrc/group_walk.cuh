@@ -193,14 +193,14 @@ __device__ __forceinline__ void group_walk(
   }
 }
 
-// The dynamic shared memory of a group stack of `depth` levels per thread
-// for `kernel`, whose limit is raised past 48 KB where needed:
-// cudaErrorInvalidValue if the stack does not fit in one block.
-template <typename Kernel>
-cudaError_t group_stack_smem(Kernel kernel, int depth, size_t* smem) {
+// The dynamic shared memory of a group stack of `depth` levels per thread:
+// cudaErrorInvalidValue if the stack does not fit in one block. A launch
+// past 48 KB first raises its kernel's limit, once per kernel (the callers'
+// `allow_group_stack`): a call per launch would be a CUDA API call inside
+// every graph capture of the launch.
+inline cudaError_t group_stack_smem(int depth, size_t* smem) {
   *smem = (size_t)kBlock * (size_t)(depth > 0 ? depth : 0) * sizeof(unsigned);
   if (depth < 0 || *smem > kMaxSmem) return cudaErrorInvalidValue;
-  if (*smem > 48 * 1024) return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
   return cudaSuccess;
 }
 

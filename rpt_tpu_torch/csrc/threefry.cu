@@ -1,0 +1,139 @@
+// threefry2x32, the port's PRNG (rpt_tpu_torch/random.py), for NVIDIA Hopper
+// (sm_90a).
+//
+// No TPU kernel stands behind this one: the JAX package draws through
+// jax.random, whose threefry XLA fuses into the surrounding computation by
+// itself. Eager PyTorch ran the same hash as some 120 separate int64
+// elementwise kernels per draw (20 rounds of add, rotate and xor, each
+// masked to 32 bits), which made the PRNG the largest share of a render's
+// device time. Here one thread hashes one counter in 32-bit registers and
+// writes its result once.
+//
+// What it computes: under the key (k1, k2), the threefry2x32 hash of the
+// counter pairs (0, c + i) for i < n, c = c0 + *counter (the counter is
+// optional and lives in device memory, so a CUDA graph that advances it draws
+// a new sample's numbers on every replay; the key may be read from device
+// memory for the same reason). Four ways to write it, as
+// random.threefry_plain does:
+//   kKeys    both words, (n, 2) int64: split / fold_in of a tensor key;
+//   kBits    their xor, (n,) int64: 32 random bits per element;
+//   kUniform those bits as float32 in [lo, lo + span): the 23 high bits as a
+//            mantissa under exponent 0, minus one, then floats * span + lo in
+//            ONE rounding (__fmaf_rn, which -fmad=false leaves alone), as XLA
+//            contracts it and as the plain version gets it through an f64 add;
+//            then max(., lo);
+//   kRandint jax.random.randint's int32: the key split in two (counters
+//            (0, 0) and (0, 1)), one bit stream under each, combined modulo
+//            the span in uint32 arithmetic.
+//
+// What bounds it on this card: 72 32-bit integer operations per hash (the
+// third key word is one three-way xor; x1 starts at 0, so its first key
+// injection is a move; 20 steps of add, rotate (one funnel shift) and xor;
+// the other key injections are one add for x1 and one three-input add for
+// x2), against 4-16 bytes written per element, so the integer rate bounds a
+// large draw, not the memory; a small draw (a key) is all launch. kBits adds
+// an xor, kUniform an xor, a shift and an or, and three float32 operations.
+// kRandint hashes twice per element, plus the two hashes of its key split,
+// which are the same in every thread. The kernel keeps the words in
+// registers and writes each output once, coalesced.
+//
+// C interface for ctypes: launches on the given stream, allocates nothing,
+// returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
+// unknown mode). The kernel adds one to `launches` when it runs, unless it
+// is null (count.cuh).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "count.cuh"  // count_launch
+
+namespace {
+
+constexpr int kBlock = 256;
+enum Mode { kKeys = 0, kBits = 1, kUniform = 2, kRandint = 3 };
+
+__device__ __forceinline__ uint32_t rotl(uint32_t v, int r) { return (v << r) | (v >> (32 - r)); }
+
+__device__ __forceinline__ void mix4(uint32_t& x1, uint32_t& x2, int a, int b, int c, int d) {
+  x1 += x2; x2 = rotl(x2, a); x2 ^= x1;
+  x1 += x2; x2 = rotl(x2, b); x2 ^= x1;
+  x1 += x2; x2 = rotl(x2, c); x2 ^= x1;
+  x1 += x2; x2 = rotl(x2, d); x2 ^= x1;
+}
+
+// jax/_src/prng.py `_threefry2x32_lowering`: 20 rounds, a key injection
+// after every four.
+__device__ __forceinline__ void threefry(uint32_t k1, uint32_t k2, uint32_t& x1, uint32_t& x2) {
+  const uint32_t k3 = k1 ^ k2 ^ 0x1BD11BDAu;
+  x1 += k1; x2 += k2;
+  mix4(x1, x2, 13, 15, 26, 6);  x1 += k2; x2 += k3 + 1u;
+  mix4(x1, x2, 17, 29, 16, 24); x1 += k3; x2 += k1 + 2u;
+  mix4(x1, x2, 13, 15, 26, 6);  x1 += k1; x2 += k2 + 3u;
+  mix4(x1, x2, 17, 29, 16, 24); x1 += k2; x2 += k3 + 4u;
+  mix4(x1, x2, 13, 15, 26, 6);  x1 += k3; x2 += k1 + 5u;
+}
+
+__device__ __forceinline__ uint32_t bits(uint32_t k1, uint32_t k2, uint32_t c) {
+  uint32_t x1 = 0u, x2 = c;
+  threefry(k1, k2, x1, x2);
+  return x1 ^ x2;
+}
+
+template <int kMode>
+__global__ void __launch_bounds__(kBlock)
+threefry_kernel(const int64_t* __restrict__ key, uint32_t k1, uint32_t k2, const int64_t* __restrict__ counter,
+                uint32_t c0, int64_t n, void* __restrict__ out, float lo, float span, int minval, uint32_t rspan,
+                uint32_t mult, unsigned long long* launches) {
+  count_launch(launches);
+  const int64_t i = (int64_t)blockIdx.x * kBlock + threadIdx.x;
+  if (i >= n) return;
+  if (key != nullptr) {
+    k1 = (uint32_t)key[0];
+    k2 = (uint32_t)key[1];
+  }
+  const uint32_t c = c0 + (counter != nullptr ? (uint32_t)*counter : 0u) + (uint32_t)i;
+  if constexpr (kMode == kKeys) {
+    uint32_t x1 = 0u, x2 = c;
+    threefry(k1, k2, x1, x2);
+    reinterpret_cast<longlong2*>(out)[i] = make_longlong2((long long)x1, (long long)x2);
+  } else if constexpr (kMode == kBits) {
+    reinterpret_cast<int64_t*>(out)[i] = (int64_t)bits(k1, k2, c);
+  } else if constexpr (kMode == kUniform) {
+    const float f = __uint_as_float((bits(k1, k2, c) >> 9) | 0x3F800000u) - 1.0f;
+    reinterpret_cast<float*>(out)[i] = fmaxf(__fmaf_rn(f, span, lo), lo);
+  } else {
+    uint32_t h1 = 0u, h2 = 0u, l1 = 0u, l2 = 1u;
+    threefry(k1, k2, h1, h2);
+    threefry(k1, k2, l1, l2);
+    uint32_t off = (bits(h1, h2, c) % rspan) * mult;
+    off += bits(l1, l2, c) % rspan;
+    off %= rspan;
+    reinterpret_cast<int32_t*>(out)[i] = (int32_t)((uint32_t)minval + off);
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int rpt_threefry(int mode, const int64_t* key, uint32_t k1, uint32_t k2, const int64_t* counter, uint32_t c0,
+                 int64_t n, void* out, float lo, float span, int minval, uint32_t rspan, uint32_t mult,
+                 unsigned long long* launches, void* stream) {
+  if (n <= 0) return 0;
+  if (rspan == 0u) return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)((n + kBlock - 1) / kBlock);
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto go = [&](auto kernel) {
+    kernel<<<grid, kBlock, 0, s>>>(key, k1, k2, counter, c0, n, out, lo, span, minval, rspan, mult, launches);
+  };
+  switch (mode) {
+    case kKeys: go(threefry_kernel<kKeys>); break;
+    case kBits: go(threefry_kernel<kBits>); break;
+    case kUniform: go(threefry_kernel<kUniform>); break;
+    case kRandint: go(threefry_kernel<kRandint>); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -25,11 +25,13 @@
 // with `block` threads per block, allocates nothing (the caller passes the
 // global stack, or null for the shared one), and returns
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
-// block size or shared stack the launch cannot take.
+// block size or shared stack the launch cannot take. The kernel adds one
+// to `launches` when it runs, unless it is null (count.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "count.cuh"      // count_launch
 #include "pair_walk.cuh"  // pair_walk, kMaxSmem
 
 namespace {
@@ -46,7 +48,9 @@ tlas2_walk(const float4* __restrict__ nodes, int n_tlas, const float4* __restric
            const float4* __restrict__ tris, const float* __restrict__ o, const float* __restrict__ d,
            const bool* __restrict__ active, const float* __restrict__ t_max, int n, float t_min,
            unsigned* __restrict__ global_stack, int depth, float* __restrict__ t_out,
-           int* __restrict__ id_out, int* __restrict__ inst_out, bool* __restrict__ occ_out) {
+           int* __restrict__ id_out, int* __restrict__ inst_out, bool* __restrict__ occ_out,
+           unsigned long long* launches) {
+  count_launch(launches);
   pair_walk<kOccl, true, kGlobalStack>(nodes, n_tlas, inst, tris, o, d, active, t_max, n, t_min, global_stack,
                                        depth, t_out, id_out, inst_out, occ_out);
 }
@@ -68,7 +72,7 @@ template <bool kOccl>
 int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t stream, const float* nodes,
            int n_tlas, const float* inst, const float* tris, const float* o, const float* d,
            const bool* active, const float* t_max, float t_min, float* t_out, int* id_out,
-           int* inst_out, bool* occ_out) {
+           int* inst_out, bool* occ_out, unsigned long long* launches) {
   if (n <= 0) return 0;
   if (block <= 0 || block > kBlock || depth < 0) return (int)cudaErrorInvalidValue;
   const int grid = (int)((n + block - 1) / block);
@@ -78,7 +82,7 @@ int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t
   if (global_stack != nullptr) {
     tlas2_walk<kOccl, true><<<grid, block, 0, stream>>>(nodes4, n_tlas, inst4, tris4, o, d, active, t_max,
                                                         (int)n, t_min, global_stack, depth, t_out, id_out,
-                                                        inst_out, occ_out);
+                                                        inst_out, occ_out, launches);
     return (int)cudaGetLastError();
   }
   const size_t smem = (size_t)block * (size_t)depth * sizeof(unsigned);
@@ -89,7 +93,7 @@ int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t
   }
   tlas2_walk<kOccl, false><<<grid, block, smem, stream>>>(nodes4, n_tlas, inst4, tris4, o, d, active, t_max,
                                                           (int)n, t_min, nullptr, depth, t_out, id_out,
-                                                          inst_out, occ_out);
+                                                          inst_out, occ_out, launches);
   return (int)cudaGetLastError();
 }
 
@@ -99,16 +103,18 @@ extern "C" {
 
 int rpt_tlas2_closest(const float* nodes, int n_tlas, const float* inst, const float* tris, const float* o,
                       const float* d, const bool* active, int64_t n, float t_min, float* t_out, int* id_out,
-                      int* inst_out, int block, int depth, unsigned* global_stack, void* stream) {
+                      int* inst_out, int block, int depth, unsigned* global_stack, unsigned long long* launches,
+                      void* stream) {
   return launch<false>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, n_tlas, inst, tris, o, d,
-                       active, nullptr, t_min, t_out, id_out, inst_out, nullptr);
+                       active, nullptr, t_min, t_out, id_out, inst_out, nullptr, launches);
 }
 
 int rpt_tlas2_occluded(const float* nodes, int n_tlas, const float* inst, const float* tris, const float* o,
                        const float* d, const bool* active, const float* t_max, int64_t n, float t_min,
-                       bool* occ_out, int block, int depth, unsigned* global_stack, void* stream) {
+                       bool* occ_out, int block, int depth, unsigned* global_stack, unsigned long long* launches,
+                       void* stream) {
   return launch<true>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, n_tlas, inst, tris, o, d,
-                      active, t_max, t_min, nullptr, nullptr, nullptr, occ_out);
+                      active, t_max, t_min, nullptr, nullptr, nullptr, occ_out, launches);
 }
 
 }  // extern "C"

@@ -46,23 +46,30 @@ def sample_lights(scene, mat, pos, n, wo, key, t_min, found) -> torch.Tensor:
 
 
 def trace_paths(scene, o: torch.Tensor, d: torch.Tensor, key, max_bounces: int, t_min: float,
-                firefly_clamp: float = FIREFLY_CLAMP) -> torch.Tensor:
+                firefly_clamp: float = FIREFLY_CLAMP, want_stats: bool = False):
     """Monte Carlo radiance estimate (N, 3) for N camera rays: environment on
     a miss, emitted + NEE at each vertex, BSDF-sampled continuation, no
-    Russian roulette, per-channel firefly clamp on each indirect term."""
+    Russian roulette, per-channel firefly clamp on each indirect term.
+
+    `want_stats`: also return {"found_frac", "cont_frac"}, per depth the
+    share of lanes that hit a surface and the share still alive entering the
+    next depth, as tensors on the rays' device (nothing waits for them)."""
     locals_per_depth = []
     weights_per_depth = []
     active = None
+    found_frac, cont_frac = [], []
     for depth in range(max_bounces + 1):
         k_lights, k_bsdf = rnd.split(rnd.fold_in(key, depth))
         hit = scene.intersect(o, d, t_min, active=active)
         found = hit.valid
-        env = scene.environment.get_color(d)
+        env = torch.broadcast_to(scene.env_color, d.shape)
 
         t_safe = torch.where(found, hit.t, torch.zeros_like(hit.t))
         pos = o + t_safe[:, None] * d
         wo = -d
         mat = scene.materials.gather(hit.mat_id)
+        if want_stats:
+            found_frac.append(found.float().mean())
 
         emitted = mat.emittance[:, None] * mat.color
         direct = sample_lights(scene, mat, pos, hit.normal, wo, k_lights, t_min, found)
@@ -76,9 +83,17 @@ def trace_paths(scene, o: torch.Tensor, d: torch.Tensor, key, max_bounces: int, 
             w = f * (torch.abs(dot(wi, hit.normal)) / pdf_safe)[:, None]
             weights_per_depth.append(torch.where(ok[:, None], w, torch.zeros_like(w)))
             o, d, active = pos, wi, ok
+            if want_stats:
+                cont_frac.append(ok.float().mean())
 
     radiance = locals_per_depth[-1]
     for depth in range(max_bounces - 1, -1, -1):
         indirect = torch.clamp(weights_per_depth[depth] * radiance, max=firefly_clamp)
         radiance = locals_per_depth[depth] + indirect
+    if want_stats:
+        stats = {
+            "found_frac": torch.stack(found_frac),
+            "cont_frac": torch.stack(cont_frac) if cont_frac else torch.zeros(0, device=o.device),
+        }
+        return radiance, stats
     return radiance

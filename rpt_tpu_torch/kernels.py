@@ -7,6 +7,13 @@ A library is stale when its source or any shared header (`csrc/*.cuh`) is
 newer. A missing nvcc or a failed build raises; there is no stand-in. The
 build runs only where kernels are launched (a machine with a CUDA card):
 importing this module compiles nothing.
+
+Launch counts live on the device. Every counted wrapper hands its kernel
+the address of an int64 in a per-device table (`launch_counter`), and one
+thread of the kernel adds one to it when the kernel runs (`csrc/count.cuh`).
+So a launch recorded in a CUDA graph is counted each time the graph is
+replayed, by the device, and a launch made around the wrappers (a kernel
+compared with its plain version) passes no address and is not counted.
 """
 
 from __future__ import annotations
@@ -19,7 +26,12 @@ import subprocess
 import threading
 import time
 
-__all__ = ["build", "load_library", "sources", "NVCC_FLAGS"]
+import torch
+
+__all__ = [
+    "build", "load_library", "sources", "NVCC_FLAGS", "counted", "launch_counter", "launch_counts",
+    "reset_launch_counts",
+]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -30,29 +42,87 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
-_P, _I32, _I64, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+_P, _I32, _I64, _F32, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_uint32
 # argtypes of every entry point, by library: c_void_p for each pointer and
 # the stream, so ctypes never cuts a pointer to 32 bits.
 _SIGNATURES = {
     "bvh8": {
-        "rpt_bvh8_closest": [_P, _P, _I32] + [_P] * 4 + [_I64, _F32] + [_P] * 3,
-        "rpt_bvh8_occluded": [_P, _P, _I32] + [_P] * 5 + [_I64, _F32] + [_P] * 2,
+        "rpt_bvh8_closest": [_P, _P, _I32] + [_P] * 4 + [_I64, _F32] + [_P] * 4,
+        "rpt_bvh8_occluded": [_P, _P, _I32] + [_P] * 5 + [_I64, _F32] + [_P] * 3,
     },
     "tlas8": {
-        "rpt_tlas8_closest": [_P, _P, _I32, _I32] + [_P] * 6 + [_I64, _F32] + [_P] * 4,
-        "rpt_tlas8_occluded": [_P, _P, _I32, _I32] + [_P] * 7 + [_I64, _F32] + [_P] * 2,
+        "rpt_tlas8_closest": [_P, _P, _I32, _I32] + [_P] * 6 + [_I64, _F32] + [_P] * 5,
+        "rpt_tlas8_occluded": [_P, _P, _I32, _I32] + [_P] * 7 + [_I64, _F32] + [_P] * 3,
     },
     "bvh2": {
-        "rpt_bvh2_closest": [_P] * 5 + [_I64, _F32] + [_P] * 2 + [_I32, _I32, _P, _P],
-        "rpt_bvh2_occluded": [_P] * 6 + [_I64, _F32, _P, _I32, _I32, _P, _P],
+        "rpt_bvh2_closest": [_P] * 5 + [_I64, _F32] + [_P] * 2 + [_I32, _I32, _P, _P, _P],
+        "rpt_bvh2_occluded": [_P] * 6 + [_I64, _F32, _P, _I32, _I32, _P, _P, _P],
     },
     "tlas2": {
-        "rpt_tlas2_closest": [_P, _I32] + [_P] * 5 + [_I64, _F32] + [_P] * 3 + [_I32, _I32, _P, _P],
-        "rpt_tlas2_occluded": [_P, _I32] + [_P] * 6 + [_I64, _F32, _P, _I32, _I32, _P, _P],
+        "rpt_tlas2_closest": [_P, _I32] + [_P] * 5 + [_I64, _F32] + [_P] * 3 + [_I32, _I32, _P, _P, _P],
+        "rpt_tlas2_occluded": [_P, _I32] + [_P] * 6 + [_I64, _F32, _P, _I32, _I32, _P, _P, _P],
+    },
+    "threefry": {
+        "rpt_threefry": [_I32, _P, _U32, _U32, _P, _U32, _I64, _P, _F32, _F32, _I32, _U32, _U32, _P, _P],
     },
 }
 _lock = threading.Lock()
 _libs: dict = {}
+# The counted wrappers: {wrapper: (its first slot in a device's table, its
+# slot count)}, and the table of each device that launched one.
+_COUNTED: dict = {}
+_TABLE_SLOTS = 64
+_tables: dict = {}
+
+
+def counted(wrapper=None, *, slots: int = 1):
+    """Register a kernel's wrapper, with `slots` launch counts of its own
+    (one per variant it launches, e.g. a mode). Use as `@counted` or
+    `@counted(slots=n)`."""
+    def register(fn):
+        first = sum(n for _, n in _COUNTED.values())
+        if first + slots > _TABLE_SLOTS:
+            raise RuntimeError("too many counted kernels for the launch-count table")
+        _COUNTED[fn] = (first, slots)
+        return fn
+
+    return register if wrapper is None else register(wrapper)
+
+
+def launch_counter(wrapper, device, slot: int = 0) -> ctypes.c_void_p:
+    """The device address of `wrapper`'s launch count `slot` on `device`,
+    for its kernel to add one to. A device's table is made at its first
+    launch, which must not be inside a CUDA graph capture (a capture's
+    warm-up launches first)."""
+    device = torch.device(device)
+    table = _tables.get(device)
+    if table is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the launch-count table is made at a kernel's first launch, not inside a capture")
+        table = _tables[device] = torch.zeros(_TABLE_SLOTS, dtype=torch.int64, device=device)
+    first, n = _COUNTED[wrapper]
+    if not 0 <= slot < n:
+        raise ValueError(f"{wrapper.__name__} has {n} launch counts, not slot {slot}")
+    return ctypes.c_void_p(table.data_ptr() + table.element_size() * (first + slot))
+
+
+def launch_counts(by_slot: bool = False) -> dict:
+    """{wrapper: launches} of every counted wrapper, summed over devices,
+    or with `by_slot` {wrapper: [launches of each slot]}; read from the
+    devices after waiting for them."""
+    total = torch.zeros(_TABLE_SLOTS, dtype=torch.int64)
+    for device, table in _tables.items():
+        torch.cuda.synchronize(device)
+        total += table.cpu()
+    counts = {fn: total[first:first + n].tolist() for fn, (first, n) in _COUNTED.items()}
+    return counts if by_slot else {fn: sum(c) for fn, c in counts.items()}
+
+
+def reset_launch_counts() -> None:
+    """Set every launch count to 0."""
+    for device, table in _tables.items():
+        torch.cuda.synchronize(device)
+        table.zero_()
 
 
 def sources() -> dict:

@@ -69,6 +69,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels import counted, launch_counter
 from .bvh import LEAF_SIZE, BvhData, _safe_inv
 from .bvh8 import (
     _BIG,
@@ -410,8 +411,10 @@ def _stack_args(pack: PairNodes, n: int, device):
     return block, torch.empty(grid * block * pack.stack_depth, dtype=torch.int32, device=device)
 
 
-def bvh2_closest_kernel(pack: Bvh2Pack, o, d, t_min, active=None):
-    """Launch the closest-hit kernel: (t_raw, triangle id) as the plain version."""
+def bvh2_closest_kernel(pack: Bvh2Pack, o, d, t_min, active=None, launches=None):
+    """Launch the closest-hit kernel: (t_raw, triangle id) as the plain version.
+    `launches`: a launch count's address (`kernels.launch_counter`), or
+    None for a launch not counted."""
     from ..kernels import load_library
 
     lib = load_library("bvh2")
@@ -423,15 +426,17 @@ def bvh2_closest_kernel(pack: Bvh2Pack, o, d, t_min, active=None):
     err = lib.rpt_bvh2_closest(
         _ptr(pack.nodes), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n, float(np.float32(t_min)),
         _ptr(t_out), _ptr(id_out), block, pack.stack_depth, _ptr(stack),
-        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
+        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"bvh2 closest-hit kernel launch failed: CUDA error {err}")
     return t_out, id_out
 
 
-def bvh2_occluded_kernel(pack: Bvh2Pack, o, d, t_min, t_max, active=None):
-    """Launch the any-hit kernel: bool (N,) as the plain version."""
+def bvh2_occluded_kernel(pack: Bvh2Pack, o, d, t_min, t_max, active=None, launches=None):
+    """Launch the any-hit kernel: bool (N,) as the plain version.
+    `launches`: a launch count's address (`kernels.launch_counter`), or
+    None for a launch not counted."""
     from ..kernels import load_library
 
     lib = load_library("bvh2")
@@ -442,7 +447,7 @@ def bvh2_occluded_kernel(pack: Bvh2Pack, o, d, t_min, t_max, active=None):
     err = lib.rpt_bvh2_occluded(
         _ptr(pack.nodes), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), _ptr(t_max), n,
         float(np.float32(t_min)), _ptr(occ), block, pack.stack_depth, _ptr(stack),
-        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
+        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"bvh2 any-hit kernel launch failed: CUDA error {err}")
@@ -454,20 +459,20 @@ def bvh2_occluded_kernel(pack: Bvh2Pack, o, d, t_min, t_max, active=None):
 # ---------------------------------------------------------------------------
 
 
+@counted
 def bvh2_closest_hit(bvh: BvhData, pack: Bvh2Pack, o, d, t_min, active=None) -> Hit:
     """Closest hit through the binary BVH (t = inf on a miss, smooth normal,
     material id). CUDA rays launch the kernel; CPU rays take the plain walk."""
     if _on_cpu(o):
         t_raw, tri = bvh2_closest_plain(pack, o, d, t_min, active)
     else:
-        t_raw, tri = bvh2_closest_kernel(pack, o, d, t_min, active)
-        bvh2_closest_hit.launches += 1
+        t_raw, tri = bvh2_closest_kernel(pack, o, d, t_min, active,
+                                         launches=launch_counter(bvh2_closest_hit, o.device))
     return finish_closest(bvh, o, d, t_min, t_raw, tri, active)
 
 
-bvh2_closest_hit.launches = 0
 
-
+@counted
 def bvh2_occluded(bvh: BvhData, pack: Bvh2Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query through the binary BVH, boolean-equal to
     `bvh2_closest_hit(...).t <= t_max` (see `bvh8.finish_occluded`)."""
@@ -475,9 +480,6 @@ def bvh2_occluded(bvh: BvhData, pack: Bvh2Pack, o, d, t_min, t_max, active=None)
     if _on_cpu(o):
         occ = bvh2_occluded_plain(pack, o, d, t_min, t_max, active)
     else:
-        occ = bvh2_occluded_kernel(pack, o, d, t_min, t_max, active)
-        bvh2_occluded.launches += 1
+        occ = bvh2_occluded_kernel(pack, o, d, t_min, t_max, active,
+                                   launches=launch_counter(bvh2_occluded, o.device))
     return finish_occluded(occ, t_max, active)
-
-
-bvh2_occluded.launches = 0

@@ -68,6 +68,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..kernels import counted, launch_counter
 from .bvh import LEAF_SIZE, BvhData, _safe_inv, finalize_hit
 from .intersect import INF, Hit
 
@@ -647,10 +648,12 @@ def _check_rays(pack, o, d, active, t_max=None):
     return o.contiguous(), d.contiguous(), None if active is None else active.contiguous(), t_max
 
 
-def bvh8_closest_kernel(pack: Bvh8Pack, o, d, t_min, active=None):
+def bvh8_closest_kernel(pack: Bvh8Pack, o, d, t_min, active=None, launches=None):
     """Launch the closest-hit kernel: (t_raw, triangle id) as the plain
     version. Raises if the group stack does not fit one block's shared
-    memory."""
+    memory.
+    `launches`: a launch count's address (`kernels.launch_counter`), or
+    None for a launch not counted."""
     from ..kernels import load_library
 
     lib = load_library("bvh8")
@@ -661,15 +664,17 @@ def bvh8_closest_kernel(pack: Bvh8Pack, o, d, t_min, active=None):
     err = lib.rpt_bvh8_closest(
         _ptr(pack.bounds), _ptr(pack.meta), pack.group_depth, _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
         n, float(np.float32(t_min)), _ptr(t_out), _ptr(id_out),
-        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
+        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"bvh8 closest-hit kernel launch failed: CUDA error {err}")
     return t_out, id_out
 
 
-def bvh8_occluded_kernel(pack: Bvh8Pack, o, d, t_min, t_max, active=None):
-    """Launch the any-hit kernel: bool (N,) as the plain version."""
+def bvh8_occluded_kernel(pack: Bvh8Pack, o, d, t_min, t_max, active=None, launches=None):
+    """Launch the any-hit kernel: bool (N,) as the plain version.
+    `launches`: a launch count's address (`kernels.launch_counter`), or
+    None for a launch not counted."""
     from ..kernels import load_library
 
     lib = load_library("bvh8")
@@ -679,7 +684,7 @@ def bvh8_occluded_kernel(pack: Bvh8Pack, o, d, t_min, t_max, active=None):
     err = lib.rpt_bvh8_occluded(
         _ptr(pack.bounds), _ptr(pack.meta), pack.group_depth, _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
         _ptr(t_max), n, float(np.float32(t_min)), _ptr(occ),
-        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
+        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"bvh8 any-hit kernel launch failed: CUDA error {err}")
@@ -726,20 +731,20 @@ def finish_occluded(occ, t_max, active) -> torch.Tensor:
     return occ
 
 
+@counted
 def bvh8_closest_hit(bvh: BvhData, pack: Bvh8Pack, o, d, t_min, active=None) -> Hit:
     """Closest hit through the wide BVH (t = inf on a miss, smooth normal,
     material id). CUDA rays launch the kernel; CPU rays take the plain walk."""
     if _on_cpu(o):
         t_raw, tri = bvh8_closest_plain(pack, o, d, t_min, active)
     else:
-        t_raw, tri = bvh8_closest_kernel(pack, o, d, t_min, active)
-        bvh8_closest_hit.launches += 1
+        t_raw, tri = bvh8_closest_kernel(pack, o, d, t_min, active,
+                                         launches=launch_counter(bvh8_closest_hit, o.device))
     return finish_closest(bvh, o, d, t_min, t_raw, tri, active)
 
 
-bvh8_closest_hit.launches = 0
 
-
+@counted
 def bvh8_occluded(bvh: BvhData, pack: Bvh8Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query through the wide BVH, boolean-equal to
     `bvh8_closest_hit(...).t <= t_max` (see `finish_occluded`)."""
@@ -747,9 +752,6 @@ def bvh8_occluded(bvh: BvhData, pack: Bvh8Pack, o, d, t_min, t_max, active=None)
     if _on_cpu(o):
         occ = bvh8_occluded_plain(pack, o, d, t_min, t_max, active)
     else:
-        occ = bvh8_occluded_kernel(pack, o, d, t_min, t_max, active)
-        bvh8_occluded.launches += 1
+        occ = bvh8_occluded_kernel(pack, o, d, t_min, t_max, active,
+                                   launches=launch_counter(bvh8_occluded, o.device))
     return finish_occluded(occ, t_max, active)
-
-
-bvh8_occluded.launches = 0

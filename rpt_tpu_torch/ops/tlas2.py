@@ -79,6 +79,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels import counted, launch_counter
 from .bvh2 import PairNodes, _leaf_refs, _pair_nodes, _pair_walk, _stack_args, _stack_depth
 from .bvh8 import KIND_INST, _check_rays, _on_cpu, _ptr, _tri_rows, finish_occluded, ray_t_max
 from .intersect import INF, Hit
@@ -180,9 +181,11 @@ def tlas2_occluded_plain(pack: Tlas2Pack, o, d, t_min, t_max, active=None, stats
 # ---------------------------------------------------------------------------
 
 
-def tlas2_closest_kernel(pack: Tlas2Pack, o, d, t_min, active=None):
+def tlas2_closest_kernel(pack: Tlas2Pack, o, d, t_min, active=None, launches=None):
     """Launch the closest-hit kernel: (t_raw, triangle id, instance id) as
-    the plain version."""
+    the plain version.
+    `launches`: a launch count's address (`kernels.launch_counter`), or
+    None for a launch not counted."""
     from ..kernels import load_library
 
     lib = load_library("tlas2")
@@ -196,15 +199,17 @@ def tlas2_closest_kernel(pack: Tlas2Pack, o, d, t_min, active=None):
         _ptr(pack.nodes), pack.n_tlas, _ptr(pack.inst_rows), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n,
         float(np.float32(t_min)), _ptr(t_out), _ptr(id_out), _ptr(inst_out), block,
         pack.stack_depth, _ptr(stack),
-        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
+        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"tlas2 closest-hit kernel launch failed: CUDA error {err}")
     return t_out, id_out, inst_out
 
 
-def tlas2_occluded_kernel(pack: Tlas2Pack, o, d, t_min, t_max, active=None):
-    """Launch the any-hit kernel: bool (N,) as the plain version."""
+def tlas2_occluded_kernel(pack: Tlas2Pack, o, d, t_min, t_max, active=None, launches=None):
+    """Launch the any-hit kernel: bool (N,) as the plain version.
+    `launches`: a launch count's address (`kernels.launch_counter`), or
+    None for a launch not counted."""
     from ..kernels import load_library
 
     lib = load_library("tlas2")
@@ -216,7 +221,7 @@ def tlas2_occluded_kernel(pack: Tlas2Pack, o, d, t_min, t_max, active=None):
         _ptr(pack.nodes), pack.n_tlas, _ptr(pack.inst_rows), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
         _ptr(t_max), n, float(np.float32(t_min)), _ptr(occ), block,
         pack.stack_depth, _ptr(stack),
-        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
+        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"tlas2 any-hit kernel launch failed: CUDA error {err}")
@@ -228,23 +233,23 @@ def tlas2_occluded_kernel(pack: Tlas2Pack, o, d, t_min, t_max, active=None):
 # ---------------------------------------------------------------------------
 
 
+@counted
 def tlas2_closest_hit(im: InstancedMeshes, pack: Tlas2Pack, o, d, t_min, active=None) -> Hit:
     """Closest hit over every instance (t = inf on a miss, smooth normal,
     material id). CUDA rays launch the kernel; CPU rays take the plain walk."""
     if _on_cpu(o):
         t_raw, tri, inst = tlas2_closest_plain(pack, o, d, t_min, active)
     else:
-        t_raw, tri, inst = tlas2_closest_kernel(pack, o, d, t_min, active)
-        tlas2_closest_hit.launches += 1
+        t_raw, tri, inst = tlas2_closest_kernel(pack, o, d, t_min, active,
+                                                launches=launch_counter(tlas2_closest_hit, o.device))
     hit = _finalize(im, pack, o, d, t_min, t_raw, tri, inst)
     if active is not None:
         hit = Hit(t=torch.where(active, hit.t, torch.full_like(hit.t, INF)), normal=hit.normal, mat_id=hit.mat_id)
     return hit
 
 
-tlas2_closest_hit.launches = 0
 
-
+@counted
 def tlas2_occluded(im: InstancedMeshes, pack: Tlas2Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query over every instance, boolean-equal to
     `tlas2_closest_hit(...).t <= t_max` (see `bvh8.finish_occluded`)."""
@@ -252,9 +257,6 @@ def tlas2_occluded(im: InstancedMeshes, pack: Tlas2Pack, o, d, t_min, t_max, act
     if _on_cpu(o):
         occ = tlas2_occluded_plain(pack, o, d, t_min, t_max, active)
     else:
-        occ = tlas2_occluded_kernel(pack, o, d, t_min, t_max, active)
-        tlas2_occluded.launches += 1
+        occ = tlas2_occluded_kernel(pack, o, d, t_min, t_max, active,
+                                    launches=launch_counter(tlas2_occluded, o.device))
     return finish_occluded(occ, t_max, active)
-
-
-tlas2_occluded.launches = 0

@@ -53,6 +53,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels import counted, launch_counter
 from ..utils.vmath import normalize
 from .bvh import _tri_hit_t
 from .bvh8 import (
@@ -262,9 +263,11 @@ def tlas8_occluded_plain(pack: Tlas8Pack, o, d, t_min, t_max, active=None, stats
 # ---------------------------------------------------------------------------
 
 
-def tlas8_closest_kernel(pack: Tlas8Pack, o, d, t_min, active=None):
+def tlas8_closest_kernel(pack: Tlas8Pack, o, d, t_min, active=None, launches=None):
     """Launch the closest-hit kernel: (t_raw, triangle id, instance id) as
-    the plain version."""
+    the plain version.
+    `launches`: a launch count's address (`kernels.launch_counter`), or
+    None for a launch not counted."""
     from ..kernels import load_library
 
     lib = load_library("tlas8")
@@ -276,15 +279,17 @@ def tlas8_closest_kernel(pack: Tlas8Pack, o, d, t_min, active=None):
     err = lib.rpt_tlas8_closest(
         _ptr(pack.bounds), _ptr(pack.meta), pack.n_tlas, pack.group_depth, _ptr(pack.inst), _ptr(pack.inst_root),
         _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n, float(np.float32(t_min)), _ptr(t_out), _ptr(id_out),
-        _ptr(inst_out), ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
+        _ptr(inst_out), launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"tlas8 closest-hit kernel launch failed: CUDA error {err}")
     return t_out, id_out, inst_out
 
 
-def tlas8_occluded_kernel(pack: Tlas8Pack, o, d, t_min, t_max, active=None):
-    """Launch the any-hit kernel: bool (N,) as the plain version."""
+def tlas8_occluded_kernel(pack: Tlas8Pack, o, d, t_min, t_max, active=None, launches=None):
+    """Launch the any-hit kernel: bool (N,) as the plain version.
+    `launches`: a launch count's address (`kernels.launch_counter`), or
+    None for a launch not counted."""
     from ..kernels import load_library
 
     lib = load_library("tlas8")
@@ -294,7 +299,7 @@ def tlas8_occluded_kernel(pack: Tlas8Pack, o, d, t_min, t_max, active=None):
     err = lib.rpt_tlas8_occluded(
         _ptr(pack.bounds), _ptr(pack.meta), pack.n_tlas, pack.group_depth, _ptr(pack.inst), _ptr(pack.inst_root),
         _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), _ptr(t_max), n, float(np.float32(t_min)), _ptr(occ),
-        ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
+        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"tlas8 any-hit kernel launch failed: CUDA error {err}")
@@ -323,23 +328,23 @@ def _finalize(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, t_raw, tri, ins
     return Hit(t=t, normal=n_world, mat_id=im.inst_mat[inst])
 
 
+@counted
 def tlas8_closest_hit(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, active=None) -> Hit:
     """Closest hit over every instance (t = inf on a miss, smooth normal,
     material id). CUDA rays launch the kernel; CPU rays take the plain walk."""
     if _on_cpu(o):
         t_raw, tri, inst = tlas8_closest_plain(pack, o, d, t_min, active)
     else:
-        t_raw, tri, inst = tlas8_closest_kernel(pack, o, d, t_min, active)
-        tlas8_closest_hit.launches += 1
+        t_raw, tri, inst = tlas8_closest_kernel(pack, o, d, t_min, active,
+                                                launches=launch_counter(tlas8_closest_hit, o.device))
     hit = _finalize(im, pack, o, d, t_min, t_raw, tri, inst)
     if active is not None:
         hit = Hit(t=torch.where(active, hit.t, torch.full_like(hit.t, INF)), normal=hit.normal, mat_id=hit.mat_id)
     return hit
 
 
-tlas8_closest_hit.launches = 0
 
-
+@counted
 def tlas8_occluded(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query over every instance, boolean-equal to
     `tlas8_closest_hit(...).t <= t_max`, also for t_max = +inf (a miss then
@@ -348,9 +353,6 @@ def tlas8_occluded(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, t_max, act
     if _on_cpu(o):
         occ = tlas8_occluded_plain(pack, o, d, t_min, t_max, active)
     else:
-        occ = tlas8_occluded_kernel(pack, o, d, t_min, t_max, active)
-        tlas8_occluded.launches += 1
+        occ = tlas8_occluded_kernel(pack, o, d, t_min, t_max, active,
+                                    launches=launch_counter(tlas8_occluded, o.device))
     return finish_occluded(occ, t_max, active)
-
-
-tlas8_occluded.launches = 0

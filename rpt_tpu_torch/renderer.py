@@ -2,27 +2,51 @@
 
 One pass traces one jittered sample for every pixel as one wavefront, with
 pixels in 32x32-tile order (the order the reference draws its random
-numbers in, so same-seed renders agree pixel by pixel). `sample_into`
-accumulates many passes on the device: sample i is keyed by
-fold_in(PRNGKey(seed), start + i), derived on the host, so nothing in the
-loop waits for the device.
+numbers in, so same-seed renders agree pixel by pixel). Sample i is keyed by
+fold_in(PRNGKey(seed), start + i), so a render split into chunks equals one
+made in a single call, bit for bit.
+
+The JAX package runs n samples in one device dispatch (a `lax.fori_loop`
+under one `jax.jit`, `make_render_many_fn`). Its counterpart here is a CUDA
+graph: `make_render_many_fn` captures one sample pass of a compiled scene at
+one size, after one eager warm-up, and replays it once per sample. The pass
+reads and writes only fixed tensors (`_PassInputs`): the camera, the base
+key, a sample counter on the device that the pass advances itself, the
+exposure scale and the tile-order sums, updated in place. So a replay needs
+no copy from the host, and a new camera, seed, start or exposure is written
+into those tensors and replays the same graph. The ray offset `t_min` is an
+immediate of the traversal kernels, so each `t_min` has its own capture.
+On the CPU the same pass runs eagerly. Graphs are cached per scene,
+resolution and bounce count (`SceneCache`, as the reference caches its jit
+functions), each entry pinning the SceneData whose tensors it reads.
+
+A replay launches the kernels without calling their Python wrappers; their
+launch counts live on the device and are added to by the kernels
+themselves (`kernels.launch_counter`), so every replay counts.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+import os
+import time
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from . import random as rnd
 from .buffer import Buffer, Filter
+from .camera import _FIELDS as _CAMERA_FIELDS
 from .camera import Camera
 from .integrator import trace_paths
 from .scene import Scene, SceneData
 from .utils.device import resolve_device
 
-__all__ = ["Renderer", "render_pass_tiled", "pixel_ndc_tiled"]
+__all__ = [
+    "Renderer", "render_pass_tiled", "pixel_ndc_tiled", "camera_rays_tiled", "scene_cache_key", "SceneCache",
+    "make_render_many_fn", "make_render_fn", "render_pass",
+]
 
 # The reference's f64 epsilon does not survive f32; default self-intersection offset.
 DEFAULT_EPSILON = 1e-3
@@ -61,7 +85,8 @@ def pixel_ndc_tiled(width: int, height: int, device=None):
 
 def camera_rays_tiled(camera: Camera, key, ndc) -> tuple:
     """The jittered camera rays of one pass in tile order, and the key left
-    for the path tracer: (o, d, k_trace). `ndc` is `pixel_ndc_tiled(...)`."""
+    for the path tracer: (o, d, k_trace). `ndc` is `pixel_ndc_tiled(...)`;
+    `key` a host or a tensor key."""
     xg, yg, dim, _ = ndc
     k_jit, k_cam, k_trace = rnd.split(key, 3)
     jitter = rnd.uniform(k_jit, (2, xg.shape[0]), minval=-1.0 / dim, maxval=1.0 / dim, device=xg.device)
@@ -70,10 +95,232 @@ def camera_rays_tiled(camera: Camera, key, ndc) -> tuple:
 
 
 def render_pass_tiled(scene_data: SceneData, camera: Camera, key, ndc, max_bounces: int,
-                      t_min: float, ev_scale: float) -> torch.Tensor:
-    """Trace one sample per pixel; (H*W, 3) radiance in tile order."""
+                      t_min: float, ev_scale) -> torch.Tensor:
+    """Trace one sample per pixel; (H*W, 3) radiance in tile order.
+    `ev_scale` is a float or a 0-d float32 tensor."""
     o, d, k_trace = camera_rays_tiled(camera, key, ndc)
     return trace_paths(scene_data, o, d, k_trace, max_bounces, t_min) * ev_scale
+
+
+# ---------------------------------------------------------------------------
+# Per-scene caches
+# ---------------------------------------------------------------------------
+
+
+def scene_cache_key(scene_data: SceneData) -> str:
+    """Identity of a compiled scene for the per-scene caches: the content
+    digest that Scene.compile stamps, the traversal packs it carries (a
+    compile under another kernel choice has the same digest and other
+    kernels) and its device. A SceneData built outside Scene.compile
+    (digest "") falls back to id(), which SceneCache keeps valid by pinning
+    the SceneData while its entry lives."""
+    packs = ",".join(f for f in ("bvh8", "bvh2", "tlas8", "tlas2") if getattr(scene_data, f) is not None)
+    return f"{scene_data.digest or f'id:{id(scene_data)}'}|{packs}|{scene_data.device}"
+
+
+class SceneCache:
+    """Insertion-ordered bounded cache of per-scene functions. Every entry
+    pins the SceneData it was built from, and eviction is FIFO at `cap`
+    entries (an evicted graph frees its memory pool)."""
+
+    def __init__(self, cap: int = 16):
+        self.cap = cap
+        self._entries: dict = {}
+
+    def get(self, key):
+        e = self._entries.get(key)
+        return e[0] if e is not None else None
+
+    def put(self, key, fn, scene_data) -> None:
+        while len(self._entries) >= self.cap:
+            self._entries.pop(next(iter(self._entries)))
+        self._entries[key] = (fn, scene_data)
+
+
+_PASS_CACHE = SceneCache()
+_MANY_CACHE = SceneCache()
+
+
+# ---------------------------------------------------------------------------
+# The sample pass and its graph
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _PassInputs:
+    """Everything a sample pass reads or writes, in tensors allocated once:
+    a captured graph reads and writes these very tensors on every replay."""
+
+    camera: Camera
+    key: torch.Tensor  # (2,) int64: the base key (or the pass's own key)
+    counter: torch.Tensor  # (1,) int64: the index of the next sample
+    ev_scale: torch.Tensor  # () float32
+    s: torch.Tensor  # (H*W, 3) float32, tile order
+    ss: torch.Tensor  # (H*W,) float32
+
+    @staticmethod
+    def new(npix: int, device) -> "_PassInputs":
+        f32 = dict(dtype=torch.float32, device=device)
+        camera = Camera(**{f: torch.zeros(getattr(Camera(), f).shape, **f32) for f in _CAMERA_FIELDS})
+        return _PassInputs(camera=camera, key=torch.zeros(2, dtype=torch.int64, device=device),
+                           counter=torch.zeros(1, dtype=torch.int64, device=device),
+                           ev_scale=torch.zeros((), **f32), s=torch.zeros((npix, 3), **f32),
+                           ss=torch.zeros((npix,), **f32))
+
+    def load(self, camera: Camera, key, start: int, ev_scale: float, sums=None) -> None:
+        """Write a call's inputs in place; the sums start from `sums` (tile
+        order) or from zero."""
+        for f in _CAMERA_FIELDS:
+            getattr(self.camera, f).copy_(getattr(camera, f))
+        self.key.copy_(rnd.to_device(key, "cpu") if not isinstance(key, torch.Tensor) else key)
+        self.counter.fill_(int(start))
+        self.ev_scale.fill_(float(np.float32(ev_scale)))
+        if sums is None:
+            self.s.zero_()
+            self.ss.zero_()
+        else:
+            self.s.copy_(sums[0])
+            self.ss.copy_(sums[1])
+
+
+def _sample_pass(sd: SceneData, inp: _PassInputs, ndc, max_bounces: int, t_min: float, fold: bool) -> None:
+    """Add one sample per pixel into `inp.s` / `inp.ss` (tile order). With
+    `fold` the sample is keyed by fold_in(inp.key, inp.counter), computed on
+    the device, and the counter then advances by one; without, by inp.key
+    itself."""
+    key = rnd.fold_in(inp.key, inp.counter) if fold else inp.key
+    frame = render_pass_tiled(sd, inp.camera, key, ndc, max_bounces, t_min, inp.ev_scale)
+    inp.s.add_(frame)
+    inp.ss.add_(torch.sum(frame * frame, dim=-1))
+    if fold:
+        inp.counter.add_(1)
+
+
+class _Capture:
+    """One captured sample pass: the graph, the capture's seconds (warm-up
+    included) and the device memory it reserved for the graph's pool."""
+
+    def __init__(self, run: Callable[[], None], device):
+        stream = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(stream)
+        t0 = time.perf_counter()
+        # The eager warm-up, on a side stream as torch.cuda.graphs asks: it
+        # loads every kernel's module, raises the kernels' shared-memory
+        # limits once and makes the device's launch-count table, none of
+        # which may happen inside a capture.
+        with torch.cuda.stream(side):
+            run()
+        stream.wait_stream(side)
+        torch.cuda.synchronize(device)
+        # The pool's size: what stays reserved after the allocator's cache
+        # is emptied, before and after (a live graph's pool is kept).
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(device)
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                run()
+        except Exception as e:
+            raise RuntimeError(f"capturing the sample pass as a CUDA graph failed: {e}") from e
+        torch.cuda.synchronize(device)
+        self.seconds = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+
+
+class _SamplePasses:
+    """Sample passes of one compiled scene at one size and bounce count over
+    fixed inputs: captured and replayed on a CUDA device, run eagerly on the
+    CPU or when `eager`. `fold` keys sample i by fold_in(key, start + i)
+    (make_render_many_fn); without it one pass is keyed by the key itself
+    (make_render_fn)."""
+
+    def __init__(self, scene_data: SceneData, width: int, height: int, max_bounces: int, fold: bool = True,
+                 eager: bool = False):
+        self.sd = scene_data
+        self.width, self.height, self.max_bounces = width, height, max_bounces
+        self.fold = fold
+        self.device = scene_data.device
+        self.graphed = self.device.type == "cuda" and not eager
+        self.ndc = pixel_ndc_tiled(width, height, self.device)
+        self.perm = torch.as_tensor(_tile_perm_np(width, height)[0].astype(np.int64), device=self.device)
+        self.inputs = _PassInputs.new(width * height, self.device)
+        self.captures: dict = {}  # t_min -> _Capture
+
+    def _run(self, t_min: float) -> None:
+        _sample_pass(self.sd, self.inputs, self.ndc, self.max_bounces, t_min, self.fold)
+
+    def capture(self, t_min: float) -> _Capture:
+        """The graph of a pass at `t_min`, captured on first use."""
+        t_min = float(np.float32(t_min))
+        if t_min not in self.captures:
+            self.captures[t_min] = _Capture(lambda: self._run(t_min), self.device)
+        return self.captures[t_min]
+
+    def __call__(self, camera: Camera, key, start: int, n: int, t_min, ev_scale, into=None):
+        """(sum (H, W, 3), sum_sq (H, W)) of samples start .. start+n-1,
+        added one by one onto `into`, a (sum, sum_sq) pair, when given (so a
+        render in chunks adds in the order of one call, bit for bit)."""
+        n = int(n)
+        t_min = float(np.float32(t_min))
+        sums = None
+        if into is not None:
+            sums = (into[0].reshape(-1, 3)[self.perm], into[1].reshape(-1)[self.perm])
+        if self.graphed and n > 0:
+            self.capture(t_min)  # its warm-up writes the inputs: load them after
+        self.inputs.load(camera, key, start, ev_scale, sums)
+        for _ in range(n):
+            if self.graphed:
+                self.captures[t_min].graph.replay()
+            else:
+                self._run(t_min)
+        inv = self.ndc[3]
+        return (self.inputs.s[inv].reshape(self.height, self.width, 3),
+                self.inputs.ss[inv].reshape(self.height, self.width))
+
+
+def make_render_many_fn(scene_data: SceneData, width: int, height: int, max_bounces: int):
+    """(camera, base_key, start, n, t_min, ev_scale, into=None) -> (sum
+    (H, W, 3), sum_sq (H, W)) of `n` samples per pixel, sample i keyed by
+    fold_in(base_key, start + i), added onto `into` (a buffer's sum and
+    sum_sq) when given. On a CUDA device one pass is a CUDA graph,
+    captured at the first call (for each t_min) and replayed n times; a
+    failed capture raises. Cached per (scene, width, height, max_bounces)."""
+    cache_key = (scene_cache_key(scene_data), width, height, max_bounces)
+    fn = _MANY_CACHE.get(cache_key)
+    if fn is None:
+        fn = _SamplePasses(scene_data, width, height, max_bounces)
+        _MANY_CACHE.put(cache_key, fn, scene_data)
+    return fn
+
+
+def _eager_render_many_fn(scene_data: SceneData, width: int, height: int, max_bounces: int):
+    """make_render_many_fn's function with every pass run eagerly, also on
+    a CUDA device: the yardstick a graph is held against and the path that
+    Python-level instrumentation of the wrappers sees. Not cached."""
+    return _SamplePasses(scene_data, width, height, max_bounces, eager=True)
+
+
+def make_render_fn(scene_data: SceneData, width: int, height: int, max_bounces: int):
+    """(camera, key, t_min, ev_scale) -> one (H, W, 3) frame keyed by `key`,
+    as a CUDA graph on a CUDA device; cached per (scene, resolution,
+    bounces)."""
+    cache_key = (scene_cache_key(scene_data), width, height, max_bounces)
+    fn = _PASS_CACHE.get(cache_key)
+    if fn is None:
+        passes = _SamplePasses(scene_data, width, height, max_bounces, fold=False)
+
+        def fn(camera, key, t_min, ev_scale):
+            return passes(camera, key, 0, 1, t_min, ev_scale)[0]
+
+        _PASS_CACHE.put(cache_key, fn, scene_data)
+    return fn
+
+
+def render_pass(scene_data, camera, key, width, height, max_bounces, t_min, ev_scale) -> torch.Tensor:
+    """One sample per pixel through the per-scene cached pass."""
+    return make_render_fn(scene_data, width, height, max_bounces)(camera, key, t_min, ev_scale)
 
 
 class Renderer:
@@ -137,32 +384,32 @@ class Renderer:
     def scene_data(self) -> SceneData:
         return self.scene.compile(device=self.device)
 
+    def _pass_args(self, scene_data: Optional[SceneData] = None):
+        """(compiled scene, t_min, ev_scale) of a pass, as f32 values."""
+        sd = scene_data if scene_data is not None else self.scene_data()
+        return sd, float(np.float32(self.epsilon)), float(np.float32(2.0 ** self.exposure_value))
+
+    def _sample_with(self, make_fn, buffer: Buffer, iterations: int, start_iter: int,
+                     scene_data: Optional[SceneData]) -> Buffer:
+        sd, t_min, ev_scale = self._pass_args(scene_data)
+        fn = make_fn(sd, self.width, self.height, self.max_bounces)
+        s, ss = fn(self.camera, rnd.PRNGKey(self.seed), start_iter, iterations, t_min, ev_scale,
+                   into=(buffer.sum, buffer.sum_sq))
+        return Buffer(sum=s, sum_sq=ss, count=buffer.count + iterations)
+
     def sample_into(self, buffer: Buffer, iterations: int, start_iter: int = 0,
                     scene_data: Optional[SceneData] = None) -> Buffer:
-        """Add `iterations` samples per pixel to the buffer. `scene_data`
-        overrides the scene's own compile (e.g. a converted reference scene)."""
-        sd = scene_data if scene_data is not None else self.scene_data()
-        camera = self.camera.to(self.device)
-        t_min = float(np.float32(self.epsilon))
-        ev_scale = float(np.float32(2.0 ** self.exposure_value))
-        base = rnd.PRNGKey(self.seed)
-        ndc = pixel_ndc_tiled(self.width, self.height, self.device)
-        npix = self.width * self.height
-        s = torch.zeros((npix, 3), dtype=torch.float32, device=self.device)
-        ss = torch.zeros((npix,), dtype=torch.float32, device=self.device)
-        # Keys are derived on the host, so no pass waits for the device.
-        for i in range(iterations):
-            frame = render_pass_tiled(
-                sd, camera, rnd.fold_in(base, start_iter + i), ndc, self.max_bounces, t_min, ev_scale,
-            )
-            s = s + frame
-            ss = ss + torch.sum(frame * frame, dim=-1)
-        inv = ndc[3]
-        return Buffer(
-            sum=buffer.sum + s[inv].reshape(self.height, self.width, 3),
-            sum_sq=buffer.sum_sq + ss[inv].reshape(self.height, self.width),
-            count=buffer.count + iterations,
-        )
+        """Add `iterations` samples per pixel to the buffer, samples
+        start_iter .. start_iter+iterations-1 of the seed's stream; on a
+        CUDA device one replay of the captured pass per sample
+        (`make_render_many_fn`). `scene_data` overrides the scene's own
+        compile (e.g. a converted reference scene)."""
+        return self._sample_with(make_render_many_fn, buffer, iterations, start_iter, scene_data)
+
+    def _sample_into_eager(self, buffer: Buffer, iterations: int, start_iter: int = 0,
+                           scene_data: Optional[SceneData] = None) -> Buffer:
+        """`sample_into` with every pass run eagerly (`_eager_render_many_fn`)."""
+        return self._sample_with(_eager_render_many_fn, buffer, iterations, start_iter, scene_data)
 
     def render_buffer(self, scene_data: Optional[SceneData] = None) -> Buffer:
         buffer = Buffer.new(self.width, self.height, device=self.device)
@@ -171,3 +418,29 @@ class Renderer:
     def render(self) -> np.ndarray:
         """Render and return a uint8 (H, W, 3) image."""
         return self.render_buffer().image(self.filter)
+
+    def iterative_render(
+        self,
+        callback_interval: int,
+        callback: Callable[[int, Buffer], None],
+        checkpoint_path: Optional[str] = None,
+    ) -> Buffer:
+        """Progressive rendering with a callback every `callback_interval`
+        samples. With `checkpoint_path`, the accumulator and the sampling
+        cursor are saved after every interval, and a render resumes from an
+        existing checkpoint, bit for bit equal to an uninterrupted one (a
+        checkpoint of the JAX package's renderer loads too)."""
+        buffer = Buffer.new(self.width, self.height, device=self.device)
+        iteration = 0
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            buffer, ck_seed, iteration = Buffer.load(checkpoint_path, device=self.device)
+            if ck_seed != self.seed:
+                raise ValueError(f"checkpoint seed {ck_seed} != renderer seed {self.seed}")
+        while iteration < self.num_samples:
+            steps = min(self.num_samples - iteration, callback_interval)
+            buffer = self.sample_into(buffer, steps, start_iter=iteration)
+            iteration += steps
+            if checkpoint_path:
+                buffer.save(checkpoint_path, seed=self.seed, iteration=iteration)
+            callback(iteration, buffer)
+        return buffer

@@ -248,6 +248,7 @@ class SceneData:
     tlas2: Optional[Tlas2Pack]  # the two-level binary kernels' layout (one of the two)
     lights: tuple
     environment: Environment
+    env_color: torch.Tensor  # (3,) float32: the environment's color on `device`
     device: torch.device
     digest: str = ""
 
@@ -538,6 +539,7 @@ def compile_scene(scene: Scene, device=None, digest: str = "") -> SceneData:
         tlas2=tlas2,
         lights=tuple(_compile_light(l, device) for l in scene.lights),
         environment=scene.environment,
+        env_color=torch.tensor(scene.environment.color, dtype=torch.float32, device=device),
         device=device,
         digest=f"float32:{digest}",
     )

@@ -1,5 +1,11 @@
-"""The `dragon` and `lego` workloads' scenes, built from this package alone.
+"""The benchmark workloads' scenes, built from this package alone.
 
+- `cornell`: a copy of `examples/cornell.py` (`build_scene`, `make_camera`)
+  without the JAX imports: the literal Cornell box data, walls and the
+  ceiling light as polygons (small brute-force triangle meshes), two
+  transformed cubes, one emissive polygon as the only light. It runs no
+  traversal kernel; the reference benchmarks it at ray offset 0.05
+  (`bench.py`), `CORNELL_EPSILON`.
 - `dragon`: a copy of `examples/dragon.py` (`trefoil_mesh`, `build_scene`
   and its camera) without the JAX imports: a procedural trefoil-knot
   stand-in for the 871k-triangle dragon (~120k triangles by default), a
@@ -29,9 +35,12 @@ from .color import hex_color
 from .lights import AmbientLight, ObjectLight, PointLight
 from .materials import Material
 from .scene import Object, Scene
-from .shapes import Mesh, Transformed, plane, sphere, triangle_mesh
+from .shapes import Mesh, Transformed, cube, plane, polygon, sphere, triangle_mesh
 
 __all__ = [
+    "build_cornell_scene",
+    "cornell_camera",
+    "CORNELL_EPSILON",
     "trefoil_mesh",
     "build_dragon_scene",
     "dragon_camera",
@@ -42,6 +51,43 @@ __all__ = [
     "build_toy_plane_scene",
     "toy_plane_camera",
 ]
+
+
+CORNELL_EPSILON = 0.05
+_TWO_PI = 6.283185307179586
+
+
+def build_cornell_scene() -> Scene:
+    """The Cornell box of `examples/cornell.py`."""
+    scene = Scene()
+    white = Material.diffuse(hex_color(0xAAAAAA))
+    red = Material.diffuse(hex_color(0xBC0000))
+    green = Material.diffuse(hex_color(0x00BC00))
+    light_mtl = Material.light(hex_color(0xFFFEFA), 100.0)
+    floor = polygon([[0, 0, 0], [0, 0, 559.2], [556, 0, 559.2], [556, 0, 0]])
+    ceiling = polygon([[0, 548.9, 0], [556, 548.9, 0], [556, 548.9, 559.2], [0, 548.9, 559.2]])
+    light_rect = polygon([[343.0, 548.8, 227.0], [343.0, 548.8, 332.0], [213.0, 548.8, 332.0],
+                          [213.0, 548.8, 227.0]])
+    back_wall = polygon([[0, 0, 559.2], [0, 548.9, 559.2], [556, 548.9, 559.2], [556, 0, 559.2]])
+    right_wall = polygon([[0, 0, 0], [0, 548.9, 0], [0, 548.9, 559.2], [0, 0, 559.2]])
+    left_wall = polygon([[556, 0, 0], [556, 0, 559.2], [556, 548.9, 559.2], [556, 548.9, 0]])
+    large_box = (cube().scale([165.0, 330.0, 165.0]).rotate_y(_TWO_PI * (-253.0 / 360.0))
+                 .translate([368.0, 165.0, 351.0]))
+    small_box = (cube().scale([165.0, 165.0, 165.0]).rotate_y(_TWO_PI * (-197.0 / 360.0))
+                 .translate([185.0, 82.5, 169.0]))
+    scene.add(Object(floor).material(white))
+    scene.add(Object(ceiling).material(white))
+    scene.add(Object(back_wall).material(white))
+    scene.add(Object(left_wall).material(red))
+    scene.add(Object(right_wall).material(green))
+    scene.add(Object(large_box).material(white))
+    scene.add(Object(small_box).material(white))
+    scene.add(ObjectLight(Object(light_rect).material(light_mtl)))
+    return scene
+
+
+def cornell_camera() -> Camera:
+    return Camera(eye=(278.0, 273.0, -800.0), direction=(0.0, 0.0, 1.0), fov=0.686)
 
 
 def trefoil_mesh(segments: int = 600, sides: int = 100, radius: float = 0.09):

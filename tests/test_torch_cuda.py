@@ -14,7 +14,12 @@ import pytest
 import torch
 
 import rpt_tpu_torch.scene as scene_mod
-from rpt_tpu_torch import Material, Object, Scene, Transformed, triangle_mesh
+from rpt_tpu_torch import (
+    Buffer, Camera, Material, Object, Renderer, Scene, Transformed, kernels, sphere, triangle_mesh,
+)
+from rpt_tpu_torch import random as rnd
+from rpt_tpu_torch import renderer as renderer_mod
+from rpt_tpu_torch import scenes
 from rpt_tpu_torch.ops import bvh2, bvh8, tlas2, tlas8
 from rpt_tpu_torch.ops.bvh import build_bvh
 from rpt_tpu_torch.ops.tlas import build_instanced
@@ -111,7 +116,8 @@ def test_bvh8_kernels_refuse_a_stack_deeper_than_a_block_holds(card):
 
 
 def _counts():
-    return {name: fn.launches for name, fn in (
+    counts = kernels.launch_counts()
+    return {name: counts[fn] for name, fn in (
         ("bvh8_closest", bvh8.bvh8_closest_hit), ("bvh8_occluded", bvh8.bvh8_occluded),
         ("bvh2_closest", bvh2.bvh2_closest_hit), ("bvh2_occluded", bvh2.bvh2_occluded),
         ("tlas8_closest", tlas8.tlas8_closest_hit), ("tlas8_occluded", tlas8.tlas8_occluded),
@@ -417,3 +423,148 @@ def test_tlas8_wrappers_refuse_what_the_kernels_do_not_take(card):
         tlas8.tlas8_closest_kernel(pack, o.to(card)[:, :2], d.to(card)[:, :2], T_MIN)
     with pytest.raises(ValueError):
         tlas8.tlas8_occluded_kernel(pack, o.to(card), d.to(card), T_MIN, torch.ones(3, device=card))
+
+
+# ---------------------------------------------------------------------------
+# The threefry kernel and the captured sample pass
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["keys", "bits", "uniform", "randint"])
+def test_threefry_kernel_matches_plain(card, mode):
+    """Every mode, a host key and a tensor key (keys also from a device
+    counter), ragged sizes and the main path's: bit for bit."""
+    params = {
+        "keys": [(rnd.KEYS, {})],
+        "bits": [(rnd.BITS, {})],
+        "uniform": [(rnd.UNIFORM, dict(lo=lo, span=float(np.float32(hi) - np.float32(lo))))
+                    for lo, hi in ((0.0, 1.0), (-1.0 / 960.0, 1.0 / 960.0), (1e-7, 1.0), (0.0, 2.0 * np.pi),
+                                   (-3.0, 5.5))],
+        "randint": [(rnd.RANDINT, rnd._randint_params(lo, hi)) for lo, hi in ((0, 6), (0, 1), (-100, 123457),
+                                                                              (3, 2**31 - 1))],
+    }[mode]
+    host = rnd.fold_in(rnd.PRNGKey(42), 7)
+    counter = torch.tensor([2**32 + 99], dtype=torch.int64, device=card)
+    for m, kw in params:
+        kw = {k: float(np.float32(v)) if isinstance(v, float) else v for k, v in kw.items()}
+        for n in (1, 7, 255, 257, 1000, 518_400, 2 * 518_400 + 5):
+            if m == rnd.KEYS and n > 1000:
+                continue
+            for key in (host, rnd.to_device(host, card)):
+                for ctr in (None, counter) if m == rnd.KEYS else (None,):
+                    got = rnd.threefry_kernel(m, key, n, card, counter=ctr, **kw)
+                    want = rnd.threefry_plain(m, key, n, card, counter=ctr, **kw)
+                    torch.cuda.synchronize()
+                    assert got.dtype == want.dtype and torch.equal(got, want), (mode, kw, n)
+
+
+def test_tensor_keys_on_the_card_match_host_keys(card):
+    """split / fold_in of a tensor key (one kernel launch each) and draws
+    from it equal the host key's, and each launch is counted once, under
+    its mode."""
+    host = rnd.PRNGKey(3)
+    dev = rnd.to_device(host, card)
+    before = kernels.launch_counts(by_slot=True)[rnd._threefry]
+    assert np.array_equal(rnd.split(dev, 5).cpu().numpy(), rnd.split(host, 5).astype(np.int64))
+    assert np.array_equal(rnd.fold_in(dev, 9).cpu().numpy(), rnd.fold_in(host, 9).astype(np.int64))
+    ctr = torch.tensor([11], dtype=torch.int64, device=card)
+    assert np.array_equal(rnd.fold_in(dev, ctr).cpu().numpy(), rnd.fold_in(host, 11).astype(np.int64))
+    got = rnd.uniform(rnd.split(dev)[1], (3, 77), minval=-2.0, maxval=3.0)
+    assert torch.equal(got.cpu(), rnd.uniform(rnd.split(host)[1], (3, 77), minval=-2.0, maxval=3.0, device="cpu"))
+    after = kernels.launch_counts(by_slot=True)[rnd._threefry]
+    assert [a - b for a, b in zip(after, before)] == [4, 0, 1, 0]  # keys, bits, uniform, randint
+
+
+def _small_renderer(name, monkeypatch):
+    if name == "dragon":
+        monkeypatch.setattr(scene_mod, "WIDE_KERNEL_MIN_TRIS", 4096)
+        scene, cam = scenes.build_dragon_scene(segments=125, sides=20), scenes.dragon_camera()
+    else:
+        scene, cam = scenes.build_brick_city(n_instances=96), scenes.lego_camera()
+    return Renderer(scene, cam, width=96, height=64, max_bounces=2, num_samples=3, seed=5)
+
+
+@pytest.mark.parametrize("name,family", [("dragon", "bvh8"), ("lego", "tlas8")])
+def test_graphed_render_matches_eager(card, name, family, monkeypatch):
+    """A render through the captured graph equals the same render run
+    eagerly, and two chunks equal one call, bit for bit; `k` replays count
+    `k` times one eager pass's launches."""
+    r = _small_renderer(name, monkeypatch)
+    assert getattr(r.scene_data(), family) is not None
+    graphed = r.render_buffer()
+    before = kernels.launch_counts()
+    eager = r._sample_into_eager(Buffer.new(r.width, r.height), 1)
+    per_pass = {fn: n - before[fn] for fn, n in kernels.launch_counts().items() if n != before[fn]}
+    eager = r._sample_into_eager(eager, 2, start_iter=1)
+    assert torch.equal(graphed.sum, eager.sum) and torch.equal(graphed.sum_sq, eager.sum_sq)
+    chunked = r.sample_into(r.sample_into(Buffer.new(r.width, r.height), 1), 2, start_iter=1)
+    assert torch.equal(graphed.sum, chunked.sum) and torch.equal(graphed.sum_sq, chunked.sum_sq)
+    assert per_pass[rnd._threefry] > 0 and per_pass[getattr(scene_mod, f"{family}_closest_hit")] == 3
+    before = kernels.launch_counts()
+    r.sample_into(Buffer.new(r.width, r.height), 4)
+    after = kernels.launch_counts()
+    assert {fn: after[fn] - n for fn, n in before.items() if after[fn] != n} == {fn: 4 * n for fn, n in per_pass.items()}
+
+
+def test_launches_around_the_wrappers_are_not_counted(card):
+    """Only a counted wrapper's launch counts: the same kernels launched
+    directly, as a comparison with the plain walks does, leave every count
+    as it was, and a reset sets them to 0."""
+    (verts, norms, mats), o, d = _mesh_and_rays(300, 500)
+    pack = bvh8.pack_bvh8(build_bvh(verts, norms, mats, device="cpu"), device=card)
+    rnd.uniform(rnd.to_device(rnd.PRNGKey(1), card), 10)  # makes the card's table
+    before = kernels.launch_counts(by_slot=True)
+    bvh8.bvh8_closest_kernel(pack, o.to(card), d.to(card), T_MIN)
+    rnd.threefry_kernel(rnd.UNIFORM, rnd.PRNGKey(1), 100, card)
+    assert kernels.launch_counts(by_slot=True) == before
+    kernels.reset_launch_counts()
+    assert set(kernels.launch_counts().values()) == {0}
+
+
+def test_environment_color_edited_in_place_renders_anew_on_the_card(card):
+    """The graphed pass reads the environment's color from the compiled
+    scene: an in-place edit recompiles, and the next render draws it."""
+    def sphere_scene():
+        scene = Scene()
+        scene.add(Object(sphere()).material(Material.diffuse((0.5, 0.5, 0.5))))
+        return scene
+
+    scene, cam = sphere_scene(), Camera.look_at([0.0, 0.0, 5.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], 0.8)
+    r = Renderer(scene, cam, width=32, height=24, max_bounces=1, seed=4)
+    black = r.render_buffer()
+    scene.environment.color[:] = (0.25, 0.5, 0.75)
+    edited = r.render_buffer()
+    fresh = sphere_scene()
+    fresh.environment.color[:] = (0.25, 0.5, 0.75)
+    want = Renderer(fresh, cam, width=32, height=24, max_bounces=1, seed=4).render_buffer()
+    assert not torch.equal(edited.sum, black.sum)
+    assert torch.equal(edited.sum, want.sum) and torch.equal(edited.sum_sq, want.sum_sq)
+
+
+def test_a_missing_kernel_library_raises(card, monkeypatch):
+    """No kernel, no render: a library that cannot be loaded raises."""
+    def missing(name):
+        raise RuntimeError(f"no library {name}")
+
+    monkeypatch.setattr(kernels, "load_library", missing)
+    scene, cam = scenes.build_cornell_scene(), scenes.cornell_camera()
+    r = Renderer(scene, cam, width=32, height=24, max_bounces=1, seed=10)
+    with pytest.raises(RuntimeError, match="no library threefry"):
+        r.render_buffer()
+
+
+def test_capture_fails_loudly(card, monkeypatch):
+    """A pass that waits on the device cannot be captured: the render
+    raises, it does not fall back to eager passes. (Last in the file: the
+    failed capture is left behind on the card.)"""
+    scene, cam = scenes.build_cornell_scene(), scenes.cornell_camera()
+    orig = renderer_mod._sample_pass
+
+    def syncing(sd, inp, *a):
+        orig(sd, inp, *a)
+        float(inp.s.sum())  # a host read, illegal inside a capture
+
+    monkeypatch.setattr(renderer_mod, "_sample_pass", syncing)
+    r = Renderer(scene, cam, width=40, height=24, max_bounces=1, seed=9)
+    with pytest.raises(RuntimeError, match="capturing the sample pass"):
+        r.render_buffer()

@@ -383,3 +383,119 @@ def test_buffer_statistics_match_reference():
         want = np.asarray(ref.mean_image(rpt_tpu.Filter.box(filt)))
         np.testing.assert_allclose(port.mean_image(rpt_tpu_torch.Filter.box(filt)).numpy(), want, rtol=1e-5, atol=1e-6)
     np.testing.assert_array_equal(port.image(), ref.image())
+
+
+# ---------------------------------------------------------------------------
+# The sample pass over tensor keys (the pass a CUDA graph captures), run
+# eagerly on the CPU
+# ---------------------------------------------------------------------------
+
+
+def host_key_render(sd, cam, eps, spp, start=0):
+    """The render as the port made it with host keys: sample i keyed by
+    fold_in(PRNGKey(SEED), start + i) on the host, frames summed in tile order."""
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.renderer import pixel_ndc_tiled, render_pass_tiled
+
+    ndc = pixel_ndc_tiled(W, H, "cpu")
+    s = torch.zeros((W * H, 3))
+    ss = torch.zeros(W * H)
+    for i in range(spp):
+        key = rnd.fold_in(rnd.PRNGKey(SEED), start + i)
+        frame = render_pass_tiled(sd, cam, key, ndc, 2, float(np.float32(eps)), 1.0)
+        s = s + frame
+        ss = ss + torch.sum(frame * frame, dim=-1)
+    inv = ndc[3]
+    return s[inv].reshape(H, W, 3), ss[inv].reshape(H, W)
+
+
+def port_renderer(scene, cam, eps, spp):
+    return rpt_tpu_torch.Renderer(scene, cam, width=W, height=H, max_bounces=2, num_samples=spp, epsilon=eps,
+                                  seed=SEED, device="cpu")
+
+
+@pytest.mark.parametrize("make_scene", [sphere_scene, cornell_scene], ids=["sphere", "cornell"])
+def test_tensor_key_pass_matches_host_keys_and_reference(make_scene):
+    """The pass keyed on the device (fold_in of the base key and a device
+    counter) renders what the host-keyed pass rendered, bit for bit, and
+    what the JAX package renders, to the render tolerance."""
+    ref_scene, ref_cam, eps = make_scene(rpt_tpu)
+    port_scene, port_cam, _ = make_scene(rpt_tpu_torch)
+    r = port_renderer(port_scene, port_cam, eps, 2)
+    buf = r.render_buffer()
+    s, ss = host_key_render(r.scene_data(), port_cam, eps, 2)
+    assert torch.equal(buf.sum, s) and torch.equal(buf.sum_sq, ss)
+    assert_images_agree(buf.mean_image().numpy(), render_ref(ref_scene, ref_cam, eps, 2))
+
+
+def test_sample_into_in_chunks_equals_one_call():
+    scene, cam, eps = sphere_scene(rpt_tpu_torch)
+    r = port_renderer(scene, cam, eps, 3)
+    whole = r.render_buffer()
+    buf = rpt_tpu_torch.Buffer.new(W, H, device="cpu")
+    for start, n in ((0, 1), (1, 2)):
+        buf = r.sample_into(buf, n, start_iter=start)
+    assert buf.count == whole.count == 3
+    assert torch.equal(buf.sum, whole.sum) and torch.equal(buf.sum_sq, whole.sum_sq)
+    # Samples 1-2 alone are the host-keyed render from sample 1.
+    tail = r.sample_into(rpt_tpu_torch.Buffer.new(W, H, device="cpu"), 2, start_iter=1)
+    s, ss = host_key_render(r.scene_data(), cam, eps, 2, start=1)
+    assert torch.equal(tail.sum, s) and torch.equal(tail.sum_sq, ss)
+
+
+def test_make_render_many_fn_and_render_pass_equal_sample_into():
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.renderer import (
+        SceneCache, _MANY_CACHE, make_render_fn, make_render_many_fn, render_pass, scene_cache_key,
+    )
+
+    scene, cam, eps = cornell_scene(rpt_tpu_torch)
+    r = port_renderer(scene, cam, eps, 2)
+    sd, t_min, ev_scale = r._pass_args()
+    fn = make_render_many_fn(sd, W, H, 2)
+    assert make_render_many_fn(sd, W, H, 2) is fn and _MANY_CACHE.get((scene_cache_key(sd), W, H, 2)) is fn
+    s, ss = fn(cam, rnd.PRNGKey(SEED), 0, 2, t_min, ev_scale)
+    buf = r.render_buffer()
+    assert torch.equal(s, buf.sum) and torch.equal(ss, buf.sum_sq)
+    # One pass keyed by the key itself: sample 0 of the stream.
+    frame = render_pass(sd, cam, rnd.fold_in(rnd.PRNGKey(SEED), 0), W, H, 2, t_min, ev_scale)
+    one = r.sample_into(rpt_tpu_torch.Buffer.new(W, H, device="cpu"), 1)
+    assert torch.equal(frame, one.sum)
+    assert make_render_fn(sd, W, H, 2) is make_render_fn(sd, W, H, 2)
+    # The cache key names the packs: the same scene under another kernel
+    # choice is another entry; the cache evicts the oldest entry at its cap.
+    assert scene_cache_key(sd).startswith(sd.digest)
+    cache = SceneCache(cap=2)
+    for k in "abc":
+        cache.put(k, k.upper(), sd)
+    assert cache.get("a") is None and cache.get("c") == "C"
+
+
+def test_buffer_new_resolves_its_device(monkeypatch):
+    """Without a card, Buffer.new raises unless asked for the CPU, as every
+    entry point does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rpt_tpu_torch.Buffer.new(W, H)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rpt_tpu_torch.Buffer.new(W, H, device=None)
+    assert rpt_tpu_torch.Buffer.new(W, H, device="cpu").sum.device.type == "cpu"
+
+
+def test_environment_color_edited_in_place_renders_anew():
+    """Editing the environment's color in place recompiles the scene (the
+    color is in its digest), and the next render, through the cached pass,
+    draws the new background: the same as a scene built with that color."""
+    scene, cam, eps = sphere_scene(rpt_tpu_torch)
+    r = port_renderer(scene, cam, eps, 1)
+    black = r.render_buffer()
+    before = r.scene_data()
+    scene.environment.color[:] = (0.25, 0.5, 0.75)
+    edited = r.render_buffer()
+    # The earlier compile keeps its own copy of the color.
+    assert r.scene_data() is not before and not bool(before.env_color.any())
+    fresh_scene, _, _ = sphere_scene(rpt_tpu_torch)
+    fresh_scene.set_environment(rpt_tpu_torch.Environment.from_color((0.25, 0.5, 0.75)))
+    want = port_renderer(fresh_scene, cam, eps, 1).render_buffer()
+    assert not torch.equal(edited.sum, black.sum)
+    assert torch.equal(edited.sum, want.sum) and torch.equal(edited.sum_sq, want.sum_sq)
