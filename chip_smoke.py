@@ -9,10 +9,14 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    (`[sass]`) the instructions of each threefry kernel; then
    `[random]` holds the threefry kernel against its plain version in every
    mode, at the main path's shapes and ragged ones, and times it beside its
-   bound;
-3. for each workload, all at 960x540:
+   bound; `[gather]` times torch's row gather at a few row widths;
+3. for each workload, all at 960x540, in the wavefront order the renderer
+   picks by default (morton-sorted from depth 1 where a wide kernel walks):
    - `dragon`, the baked-mesh path: a 120k-triangle trefoil, 2 bounces,
      through the two bvh8 kernels;
+   - `dragon871k`: the same scene at the real dragon's 871,022 triangles
+     (`bench.py:74`), through the two bvh8 kernels; a refused wide pack
+     fails the run (it would otherwise fall back to bvh2 with a warning);
    - `lego`, the instanced path: the 768-instance brick city, 5 bounces,
      through the two tlas8 kernels;
    - `lego_toy`, the OBJ+MTL path of a small baked mesh: the toy brick
@@ -57,6 +61,14 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
       (`RPT_COMPARE=label=dir,...`, e.g. a `git archive` of the parent
       commit), timed in turns with this tree's on the same wavefronts;
       skipped when no tree is named;
+   on `dragon`, `lego` and `dragon871k` (whose default wavefront order is
+   morton, `integrator._auto_compact`), also:
+   i. `[compact]`: the four wavefront orders (RPT_COMPACT 0, 1, octant,
+      morton) in turns through the graphed loop, each render bit for bit
+      against the masked one, with Mrays/s, device-busy and wall ms per
+      replay, kernels per sample, capture seconds, pool and the sort's own
+      ms per call; then the wide kernels' ms per launch on the masked
+      render's depth >= 1 rays as they come and morton-sorted;
 4. prints one JSON line `{"kernels": [...]}` with one row for each of the
    eight traversal kernels and the threefry kernel, then the last line
    `{"ok": true, "device": {...}}`.
@@ -75,6 +87,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 WIDTH, HEIGHT = 960, 540
 SMALL_W, SMALL_H = 64, 48
@@ -112,12 +125,18 @@ KERNELS = {
 # path, shadow rays per path vertex (one per light), its kernel family.
 WORKLOADS = {
     "dragon": dict(scene="dragon", bvh_kernel="wide", bounces=2, spp=4, shadow=2, family="bvh8"),
+    "dragon871k": dict(scene="dragon871k", bvh_kernel="wide", bounces=2, spp=2, shadow=2, family="bvh8"),
     "lego": dict(scene="lego", bvh_kernel="wide", bounces=5, spp=2, shadow=2, family="tlas8"),
     "lego_toy": dict(scene="lego_toy", bvh_kernel="wide", bounces=5, spp=4, shadow=1, family="bvh2"),
     "dragon_binary": dict(scene="dragon", bvh_kernel="binary", bounces=2, spp=2, shadow=2, family="bvh2"),
     "lego_binary": dict(scene="lego", bvh_kernel="binary", bounces=5, spp=2, shadow=2, family="tlas2"),
     "cornell": dict(scene="cornell", bvh_kernel="wide", bounces=2, spp=4, shadow=1, family=None),
 }
+# `[compact]`: the workloads whose wavefront orders are compared, each
+# order's RPT_COMPACT value, and the samples of each timed turn.
+COMPACT_WORKLOADS = ("dragon", "lego", "dragon871k")
+COMPACT_ENV = {False: "0", True: "1", "octant": "octant", "morton": "morton"}
+COMPACT_SAMPLES = 4
 # The threefry kernel's row: its source, its modes (keys, bits, uniform,
 # randint), and what one element of each mode needs (csrc/threefry.cu's
 # note counts it): 32-bit integer operations, 72 per hash (one three-way xor
@@ -243,41 +262,16 @@ def profile_sample(render, kernel_tag, mode: str, workload: str, unprofiled=None
     times the profiler saw each counted kernel run ({name: n} as the
     `kernels` line names them; threefry all modes), or None if it saw no
     kernel."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     extra = {}
     if unprofiled is not None:
-        unprofiled()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(8):
-            unprofiled()
-        torch.cuda.synchronize()
-        extra["unprofiled_ms"] = (time.perf_counter() - t0) * 1e3 / 8
+        extra["unprofiled_ms"] = wall_ms(unprofiled)
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        render()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    wall_us, busy, kernels = profiled(render)
     if not kernels:
         say("profile", workload=workload, mode=mode,
             device_time="not measured (the profiler recorded no CUDA kernels)")
         return None
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, end = 0.0, float("-inf")
-    for s, e in spans:
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    by_name = {}
-    for e in kernels:
-        # "void (anonymous namespace)::tlas8_walk<false>(float4 const*, ...)" -> "tlas8_walk<false>"
-        name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0][-60:]
-        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    by_name = device_us_by_name(kernels)
     total = sum(by_name.values())
     gemv_us = sum(v for k, v in by_name.items() if "gemv" in k.lower())
     threefry_us = sum(v for k, v in by_name.items() if "threefry" in k)
@@ -300,6 +294,52 @@ def profile_sample(render, kernel_tag, mode: str, workload: str, unprofiled=None
         if name is not None:
             seen[name] = seen.get(name, 0) + 1
     return seen
+
+
+def wall_ms(fn, reps: int = 8) -> float:
+    """Mean wall milliseconds of one call of `fn` without the profiler,
+    over `reps` calls after one, ending in a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def profiled(fn):
+    """(wall us, device-busy us, CUDA kernel events) of one call of `fn`
+    under torch.profiler, ending in a synchronize; busy is the union of the
+    kernels' spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted((e.time_range.start, e.time_range.end) for e in kernels):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return wall_us, busy, kernels
+
+
+def device_us_by_name(kernels) -> dict:
+    """{short kernel name: device microseconds} of profiler kernel events."""
+    by_name = {}
+    for e in kernels:
+        # "void (anonymous namespace)::tlas8_walk<false>(float4 const*, ...)" -> "tlas8_walk<false>"
+        name = e.name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0][-60:]
+        by_name[name] = by_name.get(name, 0.0) + e.time_range.elapsed_us()
+    return by_name
 
 
 def counted_kernel(symbol: str):
@@ -460,8 +500,14 @@ def _run_workload(workload: str, card: str):
     # a. Compile, under the workload's kernel choice.
     t0 = time.perf_counter()
     scene, camera, eps = scene_and_camera(spec_w["scene"])
-    sd = scene.compile(device=DEVICE)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        sd = scene.compile(device=DEVICE)
     seconds = time.perf_counter() - t0
+    for w in caught:
+        say("compile", workload=workload, warning=json.dumps(str(w.message)))
+        if "falling back" in str(w.message):
+            fail(f"{workload}'s wide pack was refused: {w.message}")
     renderer = Renderer(scene, camera, width=WIDTH, height=HEIGHT, max_bounces=bounces, num_samples=1,
                         epsilon=eps, device=DEVICE)
     rows = []
@@ -555,6 +601,10 @@ def _run_workload(workload: str, card: str):
     profile_sample(lambda: renderer._sample_into_eager(fresh(renderer), 1), tag, "eager", workload)
     if family is not None:
         rows = timing_phase(workload, family, sd, rec, err, launches, spp, card)
+    if workload in COMPACT_WORKLOADS:
+        by_kernel = compact_phase(workload, family, renderer, card, counters)
+        for row in rows:
+            row.update(by_kernel[row["name"]])
     return rows, launches["threefry"] / spp, threefry_by_mode
 
 
@@ -578,7 +628,8 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
         fail(f"{workload} compiled without a {family} pack")
     sizes = dict(nodes=pack.num_nodes, **{k: getattr(pack, k) for k in ("stack_need", "group_depth", "stack_depth",
                                                                         "node_bytes") if hasattr(pack, k)},
-                 materials=sd.materials.color.shape[0], pack_mb=f"{pack.nbytes / 2**20:.3f}", seconds=f"{seconds:.2f}")
+                 materials=sd.materials.color.shape[0], pack_bytes=pack.nbytes, pack_mb=f"{pack.nbytes / 2**20:.3f}",
+                 seconds=f"{seconds:.2f}")
     mat_of = material_of(family, sd, pack)
     if family in ("bvh8", "bvh2"):
         bvh = sd.bvh
@@ -672,6 +723,188 @@ def timing_phase(workload, family, sd, rec, err, launches, spp, card) -> list:
             box_tests_per_launch=f"{rows[-1]['box_tests_per_launch']:.0f}",
             tri_tests_per_launch=f"{rows[-1]['tri_tests_per_launch']:.0f}", card=json.dumps(card))
     return rows
+
+
+class NoWalk:
+    """A compiled scene's box with an intersect and an occluded that walk
+    nothing: the integrator's sorted paths around it cost what the sort
+    costs (its keys, permutation, inverse and gathers)."""
+
+    def __init__(self, sd):
+        self.bvh, self.instanced, self.device = sd.bvh, sd.instanced, sd.device
+
+    def intersect(self, o, d, t_min, active=None):
+        import torch
+
+        from rpt_tpu_torch.ops.intersect import Hit
+
+        return Hit(t=o[:, 0] + 0.0, normal=d + 0.0, mat_id=torch.zeros(o.shape[0], dtype=torch.int32, device=o.device))
+
+    def occluded(self, o, d, t_min, t_max, active=None):
+        return active.clone()
+
+
+def compact_phase(workload, family, renderer, card, counters) -> dict:
+    """`[compact]`: the wavefront orders in turns through the graphed loop,
+    RPT_COMPACT set to each (the order is part of the pass's cache key, so
+    each gets its own graph). For each order: the render bit for bit against
+    the masked one (2 spp), its capture seconds and pool, the kernels of one
+    replay counted on the card (the csrc kernels) and by the profiler (all),
+    its device-busy ms and unprofiled wall ms, Mrays/s (COMPACT_SAMPLES
+    replays, two turns: the orders forward, then back), and the sort's own
+    device ms per call around a walk that does nothing (closest-hit and
+    shadow paths). Then each kernel of `family` on the masked render's
+    depth >= 1 wavefronts, as they come and morton-sorted, in turns, with
+    the sorted answers checked against the permuted masked ones. Returns
+    {kernel: {masked/morton ms per launch}} for the `kernels` line."""
+    import torch
+
+    import rpt_tpu_torch.scene as scene_mod
+    from rpt_tpu_torch import integrator, kernels
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.integrator import COMPACT_MODES
+    from rpt_tpu_torch.renderer import make_render_many_fn
+
+    bounces, shadow = WORKLOADS[workload]["bounces"], WORKLOADS[workload]["shadow"]
+    sd, t_min, ev_scale = renderer._pass_args()
+    w, h = renderer.width, renderer.height
+    key = rnd.PRNGKey(renderer.seed)
+    rays = (bounces + 1) * (1 + shadow) * w * h
+    closest, occluded = f"{family}_closest", f"{family}_occluded"
+    saved = os.environ.get("RPT_COMPACT")
+
+    def use(mode):
+        os.environ["RPT_COMPACT"] = COMPACT_ENV[mode]
+        fn = make_render_many_fn(sd, w, h, bounces)
+        if fn.compact != mode:
+            fail(f"RPT_COMPACT={COMPACT_ENV[mode]} made a {fn.compact!r} pass")
+        return fn
+
+    try:
+        # The masked render's depth >= 1 wavefronts, from an eager pass.
+        use(False)
+        rec = record_wavefronts(scene_mod, (closest, occluded), lambda: renderer._sample_into_eager(fresh(renderer), 1))
+        deep = {closest: rec[closest][1:], occluded: rec[occluded][shadow:]}
+        c_args, s_args = deep[closest][0], deep[occluded][0]  # depth 1: (o, d, t_min[, t_max], active)
+        nowalk = NoWalk(sd)
+
+        def sort_closest(o, d, a, mode):
+            return integrator._intersect(nowalk, o, d, t_min, a, mode)
+
+        def sort_shadow(o, d, t_max, a, mode):
+            return integrator._shadow_visible(nowalk, o, d, t_max, t_min, a, mode)
+
+        masked = masked_counted = None
+        per_mode = {}
+        for mode in COMPACT_MODES:
+            fn = use(mode)
+            buf = renderer.sample_into(fresh(renderer), 2)  # captures this order's graph
+            torch.cuda.synchronize()
+            same = masked is None or bool(torch.equal(buf.sum, masked.sum) and torch.equal(buf.sum_sq, masked.sum_sq))
+            cap = fn.capture(t_min)
+
+            def replay(fn=fn):
+                fn(renderer.camera, key, 0, 1, t_min, ev_scale)
+
+            kernels.reset_launch_counts()
+            replay()
+            counted = named_counts(counters)
+            if masked is None:
+                masked, masked_counted = buf, counted
+            unprofiled = wall_ms(replay)
+            _, busy_us, events = profiled(replay)
+            closest_ms = time_graph_ms(sort_closest, [(c_args[0], c_args[1], c_args[-1], mode)], reps=20)
+            shadow_ms = time_graph_ms(sort_shadow, [(s_args[0], s_args[1], s_args[3], s_args[4], mode)], reps=20)
+            per_mode[mode] = dict(bit_equal_to_masked=same, capture_seconds=f"{cap.seconds:.3f}",
+                                  pool_mib=f"{cap.pool_bytes / 2**20:.1f}",
+                                  counted_kernels_per_sample=sum(counted.values()),
+                                  profiler_kernels_per_sample=len(events),
+                                  device_busy_ms=f"{busy_us / 1e3:.3f}" if events else "not measured",
+                                  unprofiled_ms=f"{unprofiled:.3f}", sort_closest_ms=f"{closest_ms:.4f}",
+                                  sort_shadow_ms=f"{shadow_ms:.4f}")
+            if not same:
+                fail(f"the {workload} render under RPT_COMPACT={COMPACT_ENV[mode]} differs from the masked render")
+            if counted != masked_counted:
+                fail(f"one {workload} replay under RPT_COMPACT={COMPACT_ENV[mode]} launched {counted}, "
+                     f"the masked one {masked_counted}")
+        # Where a morton sort round's device time goes, on each path.
+        rounds = {"closest": lambda: sort_closest(c_args[0], c_args[1], c_args[-1], "morton"),
+                  "shadow": lambda: sort_shadow(s_args[0], s_args[1], s_args[3], s_args[4], "morton")}
+        for path, fn in rounds.items():
+            _, busy_us, events = profiled(fn)
+            by_name = device_us_by_name(events)
+            heaviest = {k: round(v / 1e3, 4) for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]}
+            say("compact", workload=workload, mode="morton", path=path, sort_round_kernels=len(events),
+                sort_round_busy_ms=f"{busy_us / 1e3:.4f}", heaviest=json.dumps(heaviest))
+        # Mrays/s in turns: the orders forward, then back.
+        seconds = {mode: [] for mode in COMPACT_MODES}
+        for mode in list(COMPACT_MODES) + list(COMPACT_MODES)[::-1]:
+            fn = use(mode)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(renderer.camera, key, 0, COMPACT_SAMPLES, t_min, ev_scale)
+            torch.cuda.synchronize()
+            seconds[mode].append(time.perf_counter() - t0)
+        for mode in COMPACT_MODES:
+            mean = sum(seconds[mode]) / len(seconds[mode])
+            say("compact", workload=workload, mode=COMPACT_ENV[mode], **per_mode[mode],
+                mrays_per_s=f"{rays * COMPACT_SAMPLES / mean / 1e6:.3f}",
+                turns_seconds=json.dumps([round(t, 5) for t in seconds[mode]]), card=json.dumps(card))
+
+        # The walks on the depth >= 1 rays, as they come and morton-sorted.
+        mod = family_module(family)
+        pack = getattr(sd, family)
+        lo, hi = integrator._scene_box(sd)
+        by_kernel = {}
+        for name, waves in deep.items():
+            kern = getattr(mod, f"{name}_kernel")
+            sorted_waves = []
+            for o, d, tm, *rest, active in waves:
+                perm, _ = integrator._morton_perm(o, d, active, lo, hi)
+                cols = integrator._gather_packed(perm, (o, d, *rest, active))
+                sorted_waves.append((cols[0], cols[1], tm, *cols[2:]))
+                out_m, out_s = kern(pack, o, d, tm, *rest, active), kern(pack, *sorted_waves[-1])
+                out_m = out_m if isinstance(out_m, tuple) else (out_m,)
+                out_s = out_s if isinstance(out_s, tuple) else (out_s,)
+                if not all(torch.equal(x[perm], y) for x, y in zip(out_m, out_s)):
+                    fail(f"{name} answers the morton-sorted {workload} rays otherwise than the same rays unsorted")
+
+            def launch(*a, kern=kern):
+                return kern(pack, *a)
+
+            turns = [("masked", waves), ("morton", sorted_waves), ("morton", sorted_waves), ("masked", waves)]
+            ms = {"masked": [], "morton": []}
+            for label, args in turns:
+                ms[label].append(time_graph_ms(launch, args, reps=10))
+            masked_ms, morton_ms = (sum(ms[k]) / 2 for k in ("masked", "morton"))
+            share = sum(float(a[-1].float().mean()) for a in waves) / len(waves)
+            say("compact", workload=workload, kernel=name, wavefronts=len(waves), active_share=f"{share:.4f}",
+                masked_ms=f"{masked_ms:.4f}", morton_ms=f"{morton_ms:.4f}",
+                morton_over_masked=f"{morton_ms / masked_ms:.3f}",
+                turns_ms=json.dumps({k: [round(t, 5) for t in v] for k, v in ms.items()}), card=json.dumps(card))
+            by_kernel[name] = {"depth1plus_masked_ms": masked_ms, "depth1plus_morton_ms": morton_ms,
+                               "depth1plus_active_share": share}
+        return by_kernel
+    finally:
+        if saved is None:
+            os.environ.pop("RPT_COMPACT", None)
+        else:
+            os.environ["RPT_COMPACT"] = saved
+
+
+def gather_phase(card: str) -> None:
+    """`[gather]`: device ms of one row gather `x[perm]` of WIDTH x HEIGHT
+    rows of float32 at a few row widths (the sorts' packed gathers are such
+    gathers), each inside a CUDA graph."""
+    import torch
+
+    n = WIDTH * HEIGHT
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(0)).to(DEVICE)
+    ms = {}
+    for w in (3, 4, 7, 8, 9, 12):
+        x = torch.randn((n, w), generator=torch.Generator().manual_seed(w)).to(DEVICE)
+        ms[w] = time_graph_ms(lambda x, p: x[p], [(x, perm)], reps=20)
+    say("gather", rows=n, ms_by_width=json.dumps({w: round(v, 5) for w, v in ms.items()}), card=json.dumps(card))
 
 
 def random_phase(card: str) -> dict:
@@ -1027,6 +1260,7 @@ def main():
     # The threefry kernels' instructions, and the PRNG kernel at the main path's shapes.
     sass_phase(kernels._lib_path("threefry"))
     threefry_row = random_phase(card)
+    gather_phase(card)
 
     # 3. Each workload's path. One row per kernel: a kernel on several
     # paths (bvh2 on lego_toy and dragon_binary) keeps its first path's row

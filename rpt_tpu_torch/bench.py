@@ -1,7 +1,7 @@
 """Rays per second of whole renders of the port on one CUDA card, measured
 as the JAX package's `bench.py` measures it.
 
-    python3 -m rpt_tpu_torch.bench [--workloads cornell,dragon,lego,lego_toy]
+    python3 -m rpt_tpu_torch.bench [--workloads cornell,dragon,dragon871k,lego,lego_toy]
 
 Workloads, `bench.py`'s rows whose inputs exist in this repository
 (width x height, bounces, shadow rays per vertex, warm-up samples, timed
@@ -10,6 +10,8 @@ samples):
 - `cornell`   960x540, 2, 1, 2, 40: the Cornell box, analytic primitives
               and small brute-force meshes, no traversal kernel;
 - `dragon`    960x540, 2, 2, 1, 10: the 120k-triangle trefoil, bvh8;
+- `dragon871k` 960x540, 2, 2, 1, 5: the same scene at the real dragon's
+              871,022 triangles, bvh8;
 - `lego`      960x540, 5, 2, 1, 5: the 768-instance brick city, tlas8;
 - `lego_toy`  960x540, 5, 1, 1, 10: the OBJ+MTL toy brick plane, bvh2,
               the asset-free stand-in for `teapot`.
@@ -48,6 +50,7 @@ import torch
 WORKLOADS = {
     "cornell": (960, 540, 2, 1, 2, 40),
     "dragon": (960, 540, 2, 2, 1, 10),
+    "dragon871k": (960, 540, 2, 2, 1, 5),
     "lego": (960, 540, 5, 2, 1, 5),
     "lego_toy": (960, 540, 5, 1, 1, 10),
 }
@@ -76,6 +79,8 @@ def scene_and_camera(name: str):
         return scenes.build_cornell_scene(), scenes.cornell_camera(), scenes.CORNELL_EPSILON
     if name == "dragon":
         return scenes.build_dragon_scene(), scenes.dragon_camera(), 1e-3
+    if name == "dragon871k":
+        return scenes.build_dragon_scene(target_tris=871_000), scenes.dragon_camera(), 1e-3
     if name == "lego":
         return scenes.build_brick_city(), scenes.lego_camera(), 1e-3
     return scenes.build_toy_plane_scene(), scenes.toy_plane_camera(), 1e-3

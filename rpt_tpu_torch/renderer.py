@@ -17,8 +17,11 @@ no copy from the host, and a new camera, seed, start or exposure is written
 into those tensors and replays the same graph. The ray offset `t_min` is an
 immediate of the traversal kernels, so each `t_min` has its own capture.
 On the CPU the same pass runs eagerly. Graphs are cached per scene,
-resolution and bounce count (`SceneCache`, as the reference caches its jit
-functions), each entry pinning the SceneData whose tensors it reads.
+resolution, bounce count and wavefront order (`SceneCache`, as the reference
+caches its jit functions), each entry pinning the SceneData whose tensors it
+reads. The order (`integrator._auto_compact`, `RPT_COMPACT`) is resolved
+when a scene's passes are made and is fixed in their graph, so a render
+under another `RPT_COMPACT` gets a graph of its own.
 
 A replay launches the kernels without calling their Python wrappers; their
 launch counts live on the device and are added to by the kernels
@@ -39,7 +42,7 @@ from . import random as rnd
 from .buffer import Buffer, Filter
 from .camera import _FIELDS as _CAMERA_FIELDS
 from .camera import Camera
-from .integrator import trace_paths
+from .integrator import _auto_compact, trace_paths
 from .scene import Scene, SceneData
 from .utils.device import resolve_device
 
@@ -95,11 +98,12 @@ def camera_rays_tiled(camera: Camera, key, ndc) -> tuple:
 
 
 def render_pass_tiled(scene_data: SceneData, camera: Camera, key, ndc, max_bounces: int,
-                      t_min: float, ev_scale) -> torch.Tensor:
+                      t_min: float, ev_scale, compact=None) -> torch.Tensor:
     """Trace one sample per pixel; (H*W, 3) radiance in tile order.
-    `ev_scale` is a float or a 0-d float32 tensor."""
+    `ev_scale` is a float or a 0-d float32 tensor; `compact` the wavefront
+    order (`trace_paths`)."""
     o, d, k_trace = camera_rays_tiled(camera, key, ndc)
-    return trace_paths(scene_data, o, d, k_trace, max_bounces, t_min) * ev_scale
+    return trace_paths(scene_data, o, d, k_trace, max_bounces, t_min, compact=compact) * ev_scale
 
 
 # ---------------------------------------------------------------------------
@@ -183,13 +187,14 @@ class _PassInputs:
             self.ss.copy_(sums[1])
 
 
-def _sample_pass(sd: SceneData, inp: _PassInputs, ndc, max_bounces: int, t_min: float, fold: bool) -> None:
-    """Add one sample per pixel into `inp.s` / `inp.ss` (tile order). With
-    `fold` the sample is keyed by fold_in(inp.key, inp.counter), computed on
-    the device, and the counter then advances by one; without, by inp.key
-    itself."""
+def _sample_pass(sd: SceneData, inp: _PassInputs, ndc, max_bounces: int, t_min: float, fold: bool,
+                 compact) -> None:
+    """Add one sample per pixel into `inp.s` / `inp.ss` (tile order), the
+    wavefronts ordered as `compact` says. With `fold` the sample is keyed
+    by fold_in(inp.key, inp.counter), computed on the device, and the
+    counter then advances by one; without, by inp.key itself."""
     key = rnd.fold_in(inp.key, inp.counter) if fold else inp.key
-    frame = render_pass_tiled(sd, inp.camera, key, ndc, max_bounces, t_min, inp.ev_scale)
+    frame = render_pass_tiled(sd, inp.camera, key, ndc, max_bounces, t_min, inp.ev_scale, compact)
     inp.s.add_(frame)
     inp.ss.add_(torch.sum(frame * frame, dim=-1))
     if fold:
@@ -234,12 +239,14 @@ class _SamplePasses:
     fixed inputs: captured and replayed on a CUDA device, run eagerly on the
     CPU or when `eager`. `fold` keys sample i by fold_in(key, start + i)
     (make_render_many_fn); without it one pass is keyed by the key itself
-    (make_render_fn)."""
+    (make_render_fn). `compact` is the wavefront order of every pass
+    (`trace_paths`), fixed here: a graph captures one order."""
 
-    def __init__(self, scene_data: SceneData, width: int, height: int, max_bounces: int, fold: bool = True,
-                 eager: bool = False):
+    def __init__(self, scene_data: SceneData, width: int, height: int, max_bounces: int, compact,
+                 fold: bool = True, eager: bool = False):
         self.sd = scene_data
         self.width, self.height, self.max_bounces = width, height, max_bounces
+        self.compact = compact
         self.fold = fold
         self.device = scene_data.device
         self.graphed = self.device.type == "cuda" and not eager
@@ -249,7 +256,7 @@ class _SamplePasses:
         self.captures: dict = {}  # t_min -> _Capture
 
     def _run(self, t_min: float) -> None:
-        _sample_pass(self.sd, self.inputs, self.ndc, self.max_bounces, t_min, self.fold)
+        _sample_pass(self.sd, self.inputs, self.ndc, self.max_bounces, t_min, self.fold, self.compact)
 
     def capture(self, t_min: float) -> _Capture:
         """The graph of a pass at `t_min`, captured on first use."""
@@ -280,36 +287,45 @@ class _SamplePasses:
                 self.inputs.ss[inv].reshape(self.height, self.width))
 
 
+def _pass_key(scene_data: SceneData, width: int, height: int, max_bounces: int) -> tuple:
+    """The cache key of a scene's passes: the scene, the size, the bounces
+    and the wavefront order `_auto_compact` resolves now (`RPT_COMPACT`
+    included), so a render under another order gets its own graph."""
+    return (scene_cache_key(scene_data), width, height, max_bounces, _auto_compact(scene_data))
+
+
 def make_render_many_fn(scene_data: SceneData, width: int, height: int, max_bounces: int):
     """(camera, base_key, start, n, t_min, ev_scale, into=None) -> (sum
     (H, W, 3), sum_sq (H, W)) of `n` samples per pixel, sample i keyed by
     fold_in(base_key, start + i), added onto `into` (a buffer's sum and
     sum_sq) when given. On a CUDA device one pass is a CUDA graph,
     captured at the first call (for each t_min) and replayed n times; a
-    failed capture raises. Cached per (scene, width, height, max_bounces)."""
-    cache_key = (scene_cache_key(scene_data), width, height, max_bounces)
+    failed capture raises. Cached per (scene, width, height, max_bounces,
+    wavefront order)."""
+    cache_key = _pass_key(scene_data, width, height, max_bounces)
     fn = _MANY_CACHE.get(cache_key)
     if fn is None:
-        fn = _SamplePasses(scene_data, width, height, max_bounces)
+        fn = _SamplePasses(scene_data, width, height, max_bounces, cache_key[-1])
         _MANY_CACHE.put(cache_key, fn, scene_data)
     return fn
 
 
 def _eager_render_many_fn(scene_data: SceneData, width: int, height: int, max_bounces: int):
     """make_render_many_fn's function with every pass run eagerly, also on
-    a CUDA device: the yardstick a graph is held against and the path that
-    Python-level instrumentation of the wrappers sees. Not cached."""
-    return _SamplePasses(scene_data, width, height, max_bounces, eager=True)
+    a CUDA device, in the wavefront order make_render_many_fn would take:
+    the yardstick a graph is held against and the path that Python-level
+    instrumentation of the wrappers sees. Not cached."""
+    return _SamplePasses(scene_data, width, height, max_bounces, _auto_compact(scene_data), eager=True)
 
 
 def make_render_fn(scene_data: SceneData, width: int, height: int, max_bounces: int):
     """(camera, key, t_min, ev_scale) -> one (H, W, 3) frame keyed by `key`,
     as a CUDA graph on a CUDA device; cached per (scene, resolution,
-    bounces)."""
-    cache_key = (scene_cache_key(scene_data), width, height, max_bounces)
+    bounces, wavefront order)."""
+    cache_key = _pass_key(scene_data, width, height, max_bounces)
     fn = _PASS_CACHE.get(cache_key)
     if fn is None:
-        passes = _SamplePasses(scene_data, width, height, max_bounces, fold=False)
+        passes = _SamplePasses(scene_data, width, height, max_bounces, cache_key[-1], fold=False)
 
         def fn(camera, key, t_min, ev_scale):
             return passes(camera, key, 0, 1, t_min, ev_scale)[0]

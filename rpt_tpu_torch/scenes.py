@@ -10,7 +10,8 @@
   and its camera) without the JAX imports: a procedural trefoil-knot
   stand-in for the 871k-triangle dragon (~120k triangles by default), a
   specular green mesh, a diffuse floor plane, an ambient light and two
-  sphere area lights.
+  sphere area lights. `dragon871k` is the same scene at
+  `target_tris=871_000`, the real dragon's triangle count.
 - `lego`: a copy of `examples/lego.py`'s `build_brick_city` (the same
   `default_rng(seed)` draws, so the same scene) and `bench.py`'s camera for
   it: 768 instances of studded-brick meshes shared by many transforms,
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import io
 import math
+from typing import Optional
 
 import numpy as np
 
@@ -42,6 +44,7 @@ __all__ = [
     "cornell_camera",
     "CORNELL_EPSILON",
     "trefoil_mesh",
+    "dragon_knot_size",
     "build_dragon_scene",
     "dragon_camera",
     "build_brick_city",
@@ -120,8 +123,20 @@ def trefoil_mesh(segments: int = 600, sides: int = 100, radius: float = 0.09):
     return triangle_mesh(pts.reshape(-1, 3)[tris], ring.reshape(-1, 3)[tris])
 
 
-def build_dragon_scene(segments: int = 600, sides: int = 100) -> Scene:
-    """The dragon scene; the default knot has 120,000 triangles."""
+def dragon_knot_size(target_tris: int) -> tuple:
+    """(segments, sides) of a trefoil with at least `target_tris` triangles,
+    the ~6:1 aspect of the default knot, as `examples/dragon.py` maps it
+    (871,000 gives 1,619 x 269, 871,022 triangles)."""
+    sides = max(int(round((target_tris / 12.0) ** 0.5)), 8)
+    return -(-target_tris // (2 * sides)), sides
+
+
+def build_dragon_scene(segments: int = 600, sides: int = 100, target_tris: Optional[int] = None) -> Scene:
+    """The dragon scene; the default knot has 120,000 triangles, and
+    `target_tris` sizes it instead (`dragon871k`: 871,000, the real
+    dragon's count)."""
+    if target_tris:
+        segments, sides = dragon_knot_size(target_tris)
     scene = Scene()
     mesh = trefoil_mesh(segments=segments, sides=sides)
     scene.add(

@@ -506,6 +506,35 @@ def test_graphed_render_matches_eager(card, name, family, monkeypatch):
     assert {fn: after[fn] - n for fn, n in before.items() if after[fn] != n} == {fn: 4 * n for fn, n in per_pass.items()}
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["dragon", "lego"])
+def test_every_wavefront_order_renders_the_masked_render(card, name, monkeypatch):
+    """Under each RPT_COMPACT order the pass gets a graph of its own (the
+    order is in its cache key), equal to the same order run eagerly and to
+    the masked render, bit for bit, with the same kernels counted per
+    replay."""
+    r = _small_renderer(name, monkeypatch)
+    sd = r.scene_data()
+    renders, counts = {}, {}
+    for value in ("0", "1", "octant", "morton"):
+        monkeypatch.setenv("RPT_COMPACT", value)
+        graphed = r.render_buffer()  # captures this order's graph if no earlier test did
+        kernels.reset_launch_counts()
+        again = r.render_buffer()  # replays only
+        counts[value] = kernels.launch_counts()
+        eager = r._sample_into_eager(Buffer.new(r.width, r.height), r.num_samples)
+        assert torch.equal(graphed.sum, eager.sum) and torch.equal(graphed.sum_sq, eager.sum_sq)
+        assert torch.equal(again.sum, graphed.sum) and torch.equal(again.sum_sq, graphed.sum_sq)
+        renders[value] = graphed
+    fns = {id(renderer_mod._MANY_CACHE.get((renderer_mod.scene_cache_key(sd), r.width, r.height, r.max_bounces, m)))
+           for m in (False, True, "octant", "morton")}
+    assert len(fns) == 4 and id(None) not in fns
+    for value in ("1", "octant", "morton"):
+        assert torch.equal(renders[value].sum, renders["0"].sum)
+        assert torch.equal(renders[value].sum_sq, renders["0"].sum_sq)
+        assert counts[value] == counts["0"]
+
+
 def test_launches_around_the_wrappers_are_not_counted(card):
     """Only a counted wrapper's launch counts: the same kernels launched
     directly, as a comparison with the plain walks does, leave every count

@@ -453,7 +453,8 @@ def test_make_render_many_fn_and_render_pass_equal_sample_into():
     r = port_renderer(scene, cam, eps, 2)
     sd, t_min, ev_scale = r._pass_args()
     fn = make_render_many_fn(sd, W, H, 2)
-    assert make_render_many_fn(sd, W, H, 2) is fn and _MANY_CACHE.get((scene_cache_key(sd), W, H, 2)) is fn
+    # Keyed by scene, size, bounces and wavefront order (masked: no wide pack).
+    assert make_render_many_fn(sd, W, H, 2) is fn and _MANY_CACHE.get((scene_cache_key(sd), W, H, 2, False)) is fn
     s, ss = fn(cam, rnd.PRNGKey(SEED), 0, 2, t_min, ev_scale)
     buf = r.render_buffer()
     assert torch.equal(s, buf.sum) and torch.equal(ss, buf.sum_sq)
@@ -499,3 +500,27 @@ def test_environment_color_edited_in_place_renders_anew():
     want = port_renderer(fresh_scene, cam, eps, 1).render_buffer()
     assert not torch.equal(edited.sum, black.sum)
     assert torch.equal(edited.sum, want.sum) and torch.equal(edited.sum_sq, want.sum_sq)
+
+
+@pytest.mark.parametrize("target", [2000, 871_000])
+def test_dragon_target_tris_maps_as_the_reference(target):
+    """`build_dragon_scene(target_tris=...)` sizes the knot as
+    `examples/dragon.py` does: at 2,000 the same mesh, vertex for vertex,
+    and the same transform; at 871,000 (`dragon871k`) 1,619 segments x 269
+    sides, 871,022 triangles (the mesh is not built here)."""
+    from rpt_tpu_torch.scenes import dragon_knot_size
+
+    segments, sides = dragon_knot_size(target)
+    assert 2 * segments * sides >= target
+    if target == 871_000:
+        assert (segments, sides, 2 * segments * sides) == (1619, 269, 871_022)
+        return
+    sys.path.insert(0, EXAMPLES)
+    import dragon
+
+    ref = dragon.build_scene(None, target_tris=target).objects[0].shape
+    got = build_dragon_scene(target_tris=target).objects[0].shape
+    assert got.base.num_triangles == ref.base.num_triangles == 2 * segments * sides
+    np.testing.assert_array_equal(np.asarray(got.base.vertices), np.asarray(ref.base.vertices))
+    np.testing.assert_array_equal(np.asarray(got.base.normals), np.asarray(ref.base.normals))
+    np.testing.assert_array_equal(got.matrix, ref.matrix)
