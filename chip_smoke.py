@@ -8,8 +8,11 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    per source, all at once, and prints each build's ptxas report and
    (`[sass]`) the instructions of each threefry kernel; then
    `[random]` holds the threefry kernel against its plain version in every
-   mode, at the main path's shapes and ragged ones, and times it beside its
-   bound; `[gather]` times torch's row gather at a few row widths;
+   mode, the 64-bit ones (float64 uniform, int64 randint) too, at the main
+   path's shapes and ragged ones, and times it beside its bound; `[gather]`
+   times torch's row gather at a few row widths; `[dtype]` renders one
+   scene in float32, float64 and float32 again, each type through a graph
+   of its own, the two float32 renders bit for bit;
 3. for each workload, all at 960x540, in the wavefront order the renderer
    picks by default (morton-sorted from depth 1 where a wide kernel walks):
    - `dragon`, the baked-mesh path: a 120k-triangle trefoil, 2 bounces,
@@ -28,6 +31,15 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
      the two tlas2 kernels;
    - `cornell`, the Cornell box: analytic primitives and small meshes, no
      traversal kernel (phases b, f, g and h do not apply);
+   - the float64 workloads, `dragon_f64`, `lego_f64`, `lego_toy_f64`,
+     `lego_binary_f64` and `cornell_f64`: their float32 twins' scenes,
+     size and bounces rendered with `Renderer(dtype=torch.float64)`,
+     through the float64 kernels (bvh8, tlas8, bvh2, tlas2; none on
+     `cornell_f64`) and the 64-bit draws; phases a-f as above (h is
+     skipped: the trees named in RPT_COMPARE have no float64 pack), the
+     main path checked to launch no kernel or draw of the other type, its
+     Mrays/s beside its float32 twin's in turns, and each kernel's ms per
+     launch beside its float32 twin's on the same wavefronts, in turns;
    a. compiles the scene and prints its sizes;
    b. holds each of the path's kernels against its plain torch version on
       the workload's own rays: the camera rays and every wavefront of an
@@ -70,8 +82,9 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
       ms per call; then the wide kernels' ms per launch on the masked
       render's depth >= 1 rays as they come and morton-sorted;
 4. prints one JSON line `{"kernels": [...]}` with one row for each of the
-   eight traversal kernels and the threefry kernel, then the last line
-   `{"ok": true, "device": {...}}`.
+   eight traversal kernels and the threefry kernel, then one for each
+   float64 instantiation (`<kernel>_f64`, and `threefry_f64` for the
+   64-bit modes), then the last line `{"ok": true, "device": {...}}`.
 
 A failed phase prints FAIL and exits nonzero with no result. It imports
 nothing of JAX or of the JAX package.
@@ -95,6 +108,8 @@ DEVICE = "cuda"
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3 rate.
 PEAK_F32_OPS = 67e12
 PEAK_BYTES = 3.35e12
+# FP64 outside the tensor cores (H100 SXM data sheet).
+PEAK_F64_OPS = 34e12
 # 32-bit integer operations per second: 64 INT32 lanes per SM (Hopper
 # architecture white paper) x 132 SMs x the 1.98 GHz boost clock.
 PEAK_INT32_OPS = 64 * 132 * 1.98e9
@@ -121,8 +136,17 @@ KERNELS = {
     "tlas2_occluded": dict(wrapper="tlas2_occluded", source="rpt_tpu_torch/csrc/tlas2.cu",
                            replaces="rpt_tpu/ops/tlas_pallas.py:370", in_bytes=24 + 1 + 4, out_bytes=1),
 }
+# The float64 instantiation of each: the same wrapper, source and TPU
+# kernel; rays of 6 doubles in, a double t (and ids) out.
+KERNELS_F64 = {
+    f"{name}_f64": dict(spec, in_bytes=48 + 1 + (8 if name.endswith("occluded") else 0),
+                        out_bytes=spec["out_bytes"] + (4 if name.endswith("closest") else 0))
+    for name, spec in KERNELS.items()
+}
 # name -> scene, RPT_BVH_KERNEL for its compile, bounces, samples of the main
-# path, shadow rays per path vertex (one per light), its kernel family.
+# path, shadow rays per path vertex (one per light), its kernel family, and
+# (float64 workloads) the render's real type and the float32 workload it
+# twins.
 WORKLOADS = {
     "dragon": dict(scene="dragon", bvh_kernel="wide", bounces=2, spp=4, shadow=2, family="bvh8"),
     "dragon871k": dict(scene="dragon871k", bvh_kernel="wide", bounces=2, spp=2, shadow=2, family="bvh8"),
@@ -131,6 +155,16 @@ WORKLOADS = {
     "dragon_binary": dict(scene="dragon", bvh_kernel="binary", bounces=2, spp=2, shadow=2, family="bvh2"),
     "lego_binary": dict(scene="lego", bvh_kernel="binary", bounces=5, spp=2, shadow=2, family="tlas2"),
     "cornell": dict(scene="cornell", bvh_kernel="wide", bounces=2, spp=4, shadow=1, family=None),
+    "dragon_f64": dict(scene="dragon", bvh_kernel="wide", bounces=2, spp=2, shadow=2, family="bvh8",
+                       dtype="float64", twin="dragon"),
+    "lego_f64": dict(scene="lego", bvh_kernel="wide", bounces=5, spp=2, shadow=2, family="tlas8", dtype="float64",
+                     twin="lego"),
+    "lego_toy_f64": dict(scene="lego_toy", bvh_kernel="wide", bounces=5, spp=2, shadow=1, family="bvh2",
+                         dtype="float64", twin="lego_toy"),
+    "lego_binary_f64": dict(scene="lego", bvh_kernel="binary", bounces=5, spp=2, shadow=2, family="tlas2",
+                            dtype="float64", twin="lego_binary"),
+    "cornell_f64": dict(scene="cornell", bvh_kernel="wide", bounces=2, spp=2, shadow=1, family=None, dtype="float64",
+                        twin="cornell"),
 }
 # `[compact]`: the workloads whose wavefront orders are compared, each
 # order's RPT_COMPACT value, and the samples of each timed turn.
@@ -151,6 +185,16 @@ COMPACT_SAMPLES = 4
 THREEFRY = dict(source="rpt_tpu_torch/csrc/threefry.cu", modes=("keys", "bits", "uniform", "randint"),
                 int_ops={0: 72, 1: 73, 2: 75, 3: 2 * 72 + 2 + 3 + 1 + 2}, int_ops_per_launch={3: 2 * 72},
                 f32_ops={0: 0, 1: 0, 2: 4, 3: 0}, out_bytes={0: 16, 1: 8, 2: 4, 3: 4}, key_bytes=16)
+# The 64-bit modes (counted by `random._threefry64`), modes 4 and 5 of the
+# kernel: the float64 uniform takes the hash, the 64-bit word (a shift and
+# an or), its mantissa (a shift and an or) and four float64 operations
+# (subtract, fma as two, max); the int64 randint two hashes, the 64-bit words
+# (two shifts, two ors), three 64-bit remainders (one operation each, though
+# the card has none), a multiply and two adds, and once per launch the two
+# hashes of its key split.
+THREEFRY64 = dict(modes=("uniform64", "randint64"), int_ops={4: 72 + 4, 5: 2 * 72 + 4 + 3 + 1 + 2},
+                  int_ops_per_launch={5: 2 * 72}, f64_ops={4: 4, 5: 0}, out_bytes={4: 8, 5: 8})
+ALL_MODES = THREEFRY["modes"] + THREEFRY64["modes"]
 
 
 def fail(msg: str):
@@ -246,7 +290,7 @@ def replay_fn(renderer):
 
     sd, t_min, ev_scale = renderer._pass_args()
     fn = make_render_many_fn(sd, renderer.width, renderer.height, renderer.max_bounces)
-    key = rnd.PRNGKey(renderer.seed)
+    key = renderer.base_key()
     return lambda: fn(renderer.camera, key, 0, 1, t_min, ev_scale)
 
 
@@ -343,15 +387,19 @@ def device_us_by_name(kernels) -> dict:
 
 
 def counted_kernel(symbol: str):
-    """The `kernels` line's name of a profiled kernel of csrc/ (the
-    threefry kernel in any mode, `<family>_walk<kOccl, ...>`), or None."""
+    """The launch counter's name of a profiled kernel of csrc/: "threefry"
+    for the threefry kernel's 32-bit modes, "threefry64" for its 64-bit ones
+    (modes 4 and 5), `<family>_closest` / `_occluded` for either real type
+    of a walk (`<family>_walk<kOccl, ...>`, `<family>_walk_f64<kOccl>`, or
+    `..., double>`; a wrapper counts both types), or None."""
     if "threefry_kernel<" in symbol:
-        return "threefry"
+        mode = "".join(c for c in symbol.split("threefry_kernel<", 1)[1].split(">", 1)[0] if c.isdigit())
+        return "threefry64" if mode in ("4", "5") else "threefry"
     for family in ("bvh8", "tlas8", "bvh2", "tlas2"):
-        tag = f"{family}_walk<"
-        if tag in symbol:
-            occl = symbol.split(tag, 1)[1].startswith("true")
-            return f"{family}_occluded" if occl else f"{family}_closest"
+        for tag in (f"{family}_walk<", f"{family}_walk_f64<"):
+            if tag in symbol:
+                occl = symbol.split(tag, 1)[1].startswith("true")
+                return f"{family}_occluded" if occl else f"{family}_closest"
     return None
 
 
@@ -427,7 +475,7 @@ def run_workload(workload: str, card: str):
 def fresh(renderer):
     from rpt_tpu_torch import Buffer
 
-    return Buffer.new(renderer.width, renderer.height, device=renderer.device)
+    return Buffer.new(renderer.width, renderer.height, device=renderer.device, dtype=renderer.dtype)
 
 
 def named_counts(counters: dict) -> dict:
@@ -489,8 +537,9 @@ def _run_workload(workload: str, card: str):
 
     spec_w = WORKLOADS[workload]
     bounces, spp, shadow, family = spec_w["bounces"], spec_w["spp"], spec_w["shadow"], spec_w["family"]
+    dtype = getattr(torch, spec_w.get("dtype", "float32"))
     modules = {"bvh8": bvh8, "tlas8": tlas8, "bvh2": bvh2, "tlas2": tlas2}
-    counters = {"threefry": rnd._threefry}
+    counters = {"threefry": rnd._threefry, "threefry64": rnd._threefry64}
     for fam, mod in modules.items():
         counters[f"{fam}_closest"] = getattr(mod, f"{fam}_closest_hit")
         counters[f"{fam}_occluded"] = getattr(mod, f"{fam}_occluded")
@@ -502,21 +551,23 @@ def _run_workload(workload: str, card: str):
     scene, camera, eps = scene_and_camera(spec_w["scene"])
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        sd = scene.compile(device=DEVICE)
+        sd = scene.compile(dtype, device=DEVICE)
     seconds = time.perf_counter() - t0
     for w in caught:
         say("compile", workload=workload, warning=json.dumps(str(w.message)))
         if "falling back" in str(w.message):
             fail(f"{workload}'s wide pack was refused: {w.message}")
     renderer = Renderer(scene, camera, width=WIDTH, height=HEIGHT, max_bounces=bounces, num_samples=1,
-                        epsilon=eps, device=DEVICE)
+                        epsilon=eps, device=DEVICE, dtype=dtype)
+    if sd.dtype != dtype:
+        fail(f"{workload} compiled in {sd.dtype}, not {dtype}")
     rows = []
     if family is None:
         say("compile", workload=workload, spheres=0 if sd.spheres is None else sd.spheres.inv_tf.shape[0],
             cubes=0 if sd.cubes is None else sd.cubes.inv_tf.shape[0],
             triangles=0 if sd.triangles is None else sd.triangles.verts.shape[0],
             packs=[f for f in modules if getattr(sd, f) is not None], lights=len(sd.lights),
-            seconds=f"{seconds:.2f}")
+            dtype=str(sd.dtype), seconds=f"{seconds:.2f}")
         if any(getattr(sd, f) is not None for f in modules):
             fail(f"{workload} compiled with a traversal pack")
     else:
@@ -526,7 +577,7 @@ def _run_workload(workload: str, card: str):
     small = {}
     for dev in ("cpu", DEVICE):
         r = Renderer(scene, camera, width=SMALL_W, height=SMALL_H, max_bounces=bounces, num_samples=1,
-                     epsilon=eps, device=dev)
+                     epsilon=eps, device=dev, dtype=dtype)
         small[dev] = r.render_buffer().mean_image().cpu().numpy()
     a, b = small["cpu"], small[DEVICE]
     close = np.isclose(b, a, rtol=1e-3, atol=1e-4).all(-1).mean()
@@ -550,7 +601,8 @@ def _run_workload(workload: str, card: str):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = named_counts(counters)
-    threefry_by_mode = dict(zip(THREEFRY["modes"], kernels.launch_counts(by_slot=True)[rnd._threefry]))
+    by_slot = kernels.launch_counts(by_slot=True)
+    threefry_by_mode = dict(zip(ALL_MODES, by_slot[rnd._threefry] + by_slot[rnd._threefry64]))
     img = buf.mean_image()
     rays = (bounces + 1) * (1 + shadow) * WIDTH * HEIGHT * spp
     # The same samples eagerly and through the graph again, in turns.
@@ -577,11 +629,24 @@ def _run_workload(workload: str, card: str):
     # One replay per sample, each launching what one eager pass launched.
     want = {name: 0 for name in counters}
     want["threefry"] = per_replay["threefry"] * spp
+    want["threefry64"] = per_replay["threefry64"] * spp
     if family is not None:
         want[f"{family}_closest"] = (bounces + 1) * spp
         want[f"{family}_occluded"] = shadow * (bounces + 1) * spp
     if launches != want or want["threefry"] <= 0:
         fail(f"the {workload} main path launched {launches}, not {want}")
+    # A float32 render launches only float32 kernels and draws, a float64
+    # one only float64 kernels and 64-bit draws (its keys stay 32-bit): no
+    # kernel of the other type stands in.
+    slot = 0 if dtype == torch.float32 else 1
+    other = {name: by_slot[fn][1 - slot] for name, fn in counters.items() if name.endswith(("closest", "occluded"))}
+    draws = dict(uniform=threefry_by_mode["uniform"], randint=threefry_by_mode["randint"],
+                 uniform64=threefry_by_mode["uniform64"], randint64=threefry_by_mode["randint64"])
+    wrong_draws = draws["uniform64"] + draws["randint64"] if slot == 0 else draws["uniform"] + draws["randint"]
+    if any(other.values()) or wrong_draws or (draws["uniform64"] if slot else draws["uniform"]) <= 0:
+        fail(f"the {workload} ({dtype}) main path launched kernels of the other type: {other}, draws {draws}")
+    if slot:
+        f64_vs_f32_mrays(workload, scene, camera, eps, renderer, rays, card)
     renderer.num_samples = 1
     tag = None if family is None else family + "_walk"
     profile_sample(renderer.render_buffer, tag, "graph", workload)
@@ -600,7 +665,7 @@ def _run_workload(workload: str, card: str):
             fail(f"the profiler saw one {workload} replay run {seen}, the device counted {per_replay}")
     profile_sample(lambda: renderer._sample_into_eager(fresh(renderer), 1), tag, "eager", workload)
     if family is not None:
-        rows = timing_phase(workload, family, sd, rec, err, launches, spp, card)
+        rows = timing_phase(workload, family, sd, rec, err, launches, spp, card, scene)
     if workload in COMPACT_WORKLOADS:
         by_kernel = compact_phase(workload, family, renderer, card, counters)
         for row in rows:
@@ -612,11 +677,10 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
     """Phases a (sizes), b (parity on every wavefront of an eager 1-spp
     render), g and h of a workload with a traversal pack; returns (the
     largest errors, the recorded wavefronts)."""
-    import numpy as np
-
     import rpt_tpu_torch.scene as scene_mod
     from rpt_tpu_torch import random as rnd
     from rpt_tpu_torch.renderer import camera_rays_tiled, pixel_ndc_tiled
+    from rpt_tpu_torch.utils.vmath import real_value
 
     closest, occluded = f"{family}_closest", f"{family}_occluded"
     bounces, shadow = WORKLOADS[workload]["bounces"], WORKLOADS[workload]["shadow"]
@@ -629,7 +693,7 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
     sizes = dict(nodes=pack.num_nodes, **{k: getattr(pack, k) for k in ("stack_need", "group_depth", "stack_depth",
                                                                         "node_bytes") if hasattr(pack, k)},
                  materials=sd.materials.color.shape[0], pack_bytes=pack.nbytes, pack_mb=f"{pack.nbytes / 2**20:.3f}",
-                 seconds=f"{seconds:.2f}")
+                 dtype=str(pack.tris.dtype), seconds=f"{seconds:.2f}")
     mat_of = material_of(family, sd, pack)
     if family in ("bvh8", "bvh2"):
         bvh = sd.bvh
@@ -650,9 +714,10 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
     # wavefront of an eager 1-spp render (a graph replay calls no Python
     # wrapper to record). Every kernel runs its plain walk's float
     # operations in its order: it must equal it bit for bit.
-    t_min = float(np.float32(renderer.epsilon))
-    o, d, _ = camera_rays_tiled(camera.to(DEVICE), rnd.fold_in(rnd.PRNGKey(0), 0),
-                                pixel_ndc_tiled(WIDTH, HEIGHT, DEVICE))
+    t_min = real_value(renderer.epsilon, sd.dtype)
+    x64 = str(sd.dtype) == "torch.float64"
+    o, d, _ = camera_rays_tiled(camera.to(DEVICE), rnd.fold_in(rnd.PRNGKey(0, x64=x64), 0),
+                                pixel_ndc_tiled(WIDTH, HEIGHT, DEVICE, sd.dtype))
     check_closest(closest, "camera", bound(closest), bound_plain(closest), mat_of, o, d, t_min, None)
     rec = record_wavefronts(scene_mod, (closest, occluded), lambda: renderer._sample_into_eager(fresh(renderer), 1))
     n_closest, n_occluded = len(rec[closest]), len(rec[occluded])
@@ -667,7 +732,10 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
                                                           bound_plain(occluded), bound_plain(closest), *args))
     if workload in ("dragon_binary", "lego_binary"):
         binary_vs_wide(family, sd, pack, rec, mat_of, card)
-    before_after(family, mod, sd.bvh if family in ("bvh8", "bvh2") else sd.instanced, pack, rec, mat_of, card)
+    if str(sd.dtype) == "torch.float32":
+        before_after(family, mod, sd.bvh if family in ("bvh8", "bvh2") else sd.instanced, pack, rec, mat_of, card)
+    else:
+        say("before_after", family=family, skipped="a float64 pack: the trees named in RPT_COMPARE have none")
     return err, rec
 
 
@@ -686,15 +754,22 @@ def material_of(family, sd, pack):
     return lambda out, hit: im.inst_mat[out[2].long().clamp(0, im.inst_mat.shape[0] - 1)][hit]
 
 
-def timing_phase(workload, family, sd, rec, err, launches, spp, card) -> list:
+def timing_phase(workload, family, sd, rec, err, launches, spp, card, scene) -> list:
     """f. Each kernel at the main path's shapes (the wavefronts of b): time
-    per launch, the plain version's time, and the bound."""
+    per launch, the plain version's time, and the bound. A float64
+    workload's rows are its kernels' float64 instantiations (`<name>_f64`,
+    bound by FP64), each also timed against its float32 twin on the same
+    wavefronts rounded to float32, over the float32 pack of the same scene,
+    in turns (f32, f64, f64, f32) inside CUDA graphs."""
+    import torch
+
     mod = family_module(family)
     pack = getattr(sd, family)
+    f64 = pack.tris.dtype == torch.float64
     rows = []
     for kind in ("closest", "occluded"):
         name = f"{family}_{kind}"
-        spec = KERNELS[name]
+        spec = KERNELS_F64[f"{name}_f64"] if f64 else KERNELS[name]
         args = rec[name]
         kern, plain = getattr(mod, f"{name}_kernel"), getattr(mod, f"{name}_plain")
         ms = time_ms(lambda *a: kern(pack, *a), args, reps=10)
@@ -703,13 +778,14 @@ def timing_phase(workload, family, sd, rec, err, launches, spp, card) -> list:
         for a in args:  # also the plain version's warm-up
             plain(pack, *a, stats=stats)
         plain_ms = time_ms(lambda *a: plain(pack, *a), args, reps=1, warmup=False)
-        t_bytes, t_ops = bound_ms(spec, pack, args, stats)
+        t_bytes, t_ops = bound_ms(spec, pack, args, stats, PEAK_F64_OPS if f64 else PEAK_F32_OPS)
         rows.append({
-            "name": name, "route": "cuda", "source": spec["source"], "replaces": spec["replaces"],
-            "launches": launches[name], "max_abs_err": err[name], "ms": ms, "graph_ms": graph_ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "name": f"{name}_f64" if f64 else name, "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"], "launches": launches[name], "max_abs_err": err[name], "ms": ms,
+            "graph_ms": graph_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None, "workload": workload, "launches_per_sample": launches[name] / spp,
+            "library_ms": None, "workload": workload, "dtype": str(pack.tris.dtype).removeprefix("torch."),
+            "launches_per_sample": launches[name] / spp,
             "box_tests_per_launch": stats["box_tests"] / len(args),
             "tri_tests_per_launch": stats["tri_tests"] / len(args),
             "inst_entries_per_launch": stats.get("inst_entries", 0) / len(args),
@@ -717,12 +793,58 @@ def timing_phase(workload, family, sd, rec, err, launches, spp, card) -> list:
         rows[-1].update({k: getattr(pack, k) for k in ("group_depth", "stack_depth", "node_bytes") if hasattr(pack, k)})
         rows[-1].update({f"walk_{k}": v for k, v in stats.items() if k.startswith("max_")})
         rows[-1]["pack_mb"] = pack.nbytes / 2**20
-        say("timing", workload=workload, kernel=name, ms=f"{ms:.4f}", graph_ms=f"{graph_ms:.4f}",
+        extra = {}
+        if f64:
+            pack32 = getattr(scene.compile(torch.float32, device=DEVICE), family)
+            args32 = [tuple(a.float() if torch.is_tensor(a) and a.is_floating_point() else a for a in args_)
+                      for args_ in args]
+            turns = {"f32": [], "f64": []}
+            for label in ("f32", "f64", "f64", "f32"):
+                p, a = (pack32, args32) if label == "f32" else (pack, args)
+                turns[label].append(time_graph_ms(lambda *x, p=p: kern(p, *x), a, reps=10))
+            f32_ms, f64_ms = (sum(turns[k]) / 2 for k in ("f32", "f64"))
+            stats32 = {}
+            for a in args32:
+                plain(pack32, *a, stats=stats32)
+            bound32 = max(bound_ms(KERNELS[name], pack32, args32, stats32, PEAK_F32_OPS))
+            rows[-1].update(f32_graph_ms=f32_ms, f64_graph_ms_in_turns=f64_ms, f64_over_f32=f64_ms / f32_ms,
+                            f32_bound_ms=bound32, f32_pack_mb=pack32.nbytes / 2**20)
+            extra = dict(f32_graph_ms=f"{f32_ms:.4f}", f64_graph_ms_in_turns=f"{f64_ms:.4f}",
+                         f64_over_f32=f"{f64_ms / f32_ms:.3f}", f32_bound_ms=f"{bound32:.5f}",
+                         turns_ms=json.dumps({k: [round(t, 5) for t in v] for k, v in turns.items()}))
+        say("timing", workload=workload, kernel=rows[-1]["name"], ms=f"{ms:.4f}", graph_ms=f"{graph_ms:.4f}",
             plain_ms=f"{plain_ms:.3f}",
             bound_ms=f"{rows[-1]['bound_ms']:.5f}", bound_by=rows[-1]["bound_by"],
             box_tests_per_launch=f"{rows[-1]['box_tests_per_launch']:.0f}",
-            tri_tests_per_launch=f"{rows[-1]['tri_tests_per_launch']:.0f}", card=json.dumps(card))
+            tri_tests_per_launch=f"{rows[-1]['tri_tests_per_launch']:.0f}", **extra, card=json.dumps(card))
     return rows
+
+
+def f64_vs_f32_mrays(workload, scene, camera, eps, renderer, rays, card) -> None:
+    """`[main_path]` of a float64 workload, float64 against float32:
+    Mrays/s of the same samples through each type's graph, in turns (f32,
+    f64, f64, f32), the float32 renderer a twin of the float64 one."""
+    import torch
+
+    from rpt_tpu_torch import Renderer
+
+    r32 = Renderer(scene, camera, width=renderer.width, height=renderer.height, max_bounces=renderer.max_bounces,
+                   num_samples=renderer.num_samples, epsilon=eps, device=DEVICE)
+    r32.render_buffer()  # compiles the float32 scene and captures its graph
+    renderer.render_buffer()
+    torch.cuda.synchronize()
+    seconds = {"f32": [], "f64": []}
+    for label in ("f32", "f64", "f64", "f32"):
+        r = r32 if label == "f32" else renderer
+        t0 = time.perf_counter()
+        r.render_buffer()
+        torch.cuda.synchronize()
+        seconds[label].append(time.perf_counter() - t0)
+    mrays = {k: rays / (sum(v) / len(v)) / 1e6 for k, v in seconds.items()}
+    say("main_path", workload=workload, mode="turns f32, f64, f64, f32", spp=renderer.num_samples,
+        f32_mrays_per_s=f"{mrays['f32']:.3f}", f64_mrays_per_s=f"{mrays['f64']:.3f}",
+        f64_over_f32=f"{mrays['f64'] / mrays['f32']:.3f}",
+        seconds=json.dumps({k: [round(t, 5) for t in v] for k, v in seconds.items()}), card=json.dumps(card))
 
 
 class NoWalk:
@@ -976,10 +1098,68 @@ def random_phase(card: str) -> dict:
             plain_graph_ms=f"{plain_graph_ms:.4f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
             graph_over_bound=f"{graph_ms / bound:.3f}", card=json.dumps(card))
     u = by_mode["uniform"]
-    return {"name": "threefry", "route": "cuda", "source": THREEFRY["source"], "replaces": None,
+    row = {"name": "threefry", "route": "cuda", "source": THREEFRY["source"], "replaces": None,
+           "launches": None, "max_abs_err": 0.0, "ms": u["ms"], "graph_ms": u["graph_ms"], "plain_ms": u["plain_ms"],
+           "plain_graph_ms": u["plain_graph_ms"], "bound_ms": u["bound_ms"], "bound_by": u["bound_by"],
+           "library_ms": None, "shape": [npix], "mode": "uniform", "by_mode": by_mode}
+    return row, random64_phase(card, host, dev, npix, dim, by_mode)
+
+
+def random64_phase(card: str, host, dev, npix: int, dim: float, by_mode32: dict) -> dict:
+    """`[random]` of the 64-bit modes (`random._threefry64`): the float64
+    uniform (at the float64 render's jitter, Beckmann and 2 pi ranges too)
+    and the int64 randint, against their plain versions bit for bit (the
+    plain float64 uniform emulates the kernel's one-rounding multiply-add),
+    at the main path's shapes and ragged ones, host and tensor keys; then ms
+    per launch at 518,400 beside the plain version's, the bound and the
+    32-bit twin's graph ms. Returns the `threefry_f64` row (its uniform's
+    numbers, both modes under "by_mode")."""
+    import torch
+
+    from rpt_tpu_torch import random as rnd
+
+    params = {
+        "uniform64": (rnd.UNIFORM64, dict(lo=0.0, span=1.0)),
+        "uniform64_jitter": (rnd.UNIFORM64, dict(lo=-1.0 / dim, span=1.0 / dim - (-1.0 / dim))),
+        "uniform64_beckmann": (rnd.UNIFORM64, dict(lo=1e-7, span=1.0 - 1e-7)),
+        "uniform64_2pi": (rnd.UNIFORM64, dict(lo=0.0, span=2.0 * 3.141592653589793)),
+        "randint64_6": (rnd.RANDINT64, rnd._randint_params(0, 6, 64)),
+        "randint64_tris": (rnd.RANDINT64, rnd._randint_params(0, 120_000, 64)),
+    }
+    checked = 0
+    for label, (mode, kw) in params.items():
+        for n in (1, 7, 1000, npix + 3, npix, 2 * npix):
+            for key_name, key in (("host", host), ("tensor", dev)):
+                k = rnd.threefry_kernel(mode, key, n, DEVICE, **kw)
+                p = rnd.threefry_plain(mode, key, n, DEVICE, **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(k, p):
+                    fail(f"threefry {label} n={n} {key_name} key: {int((k != p).sum())} elements differ "
+                         "from the plain version")
+                checked += 1
+    say("random", checked=checked, modes=",".join(params), sizes=f"1,7,1000,{npix + 3},{npix},{2 * npix}",
+        bit_equal=True)
+    by_mode = {}
+    for label, twin in (("uniform64", "uniform"), ("randint64_6", "randint")):
+        mode, kw = params[label]
+        launch = [(mode, dev, npix, DEVICE)]
+        ms = time_ms(lambda *a: rnd.threefry_kernel(*a, **kw), launch, reps=200)
+        graph_ms = time_graph_ms(lambda *a: rnd.threefry_kernel(*a, **kw), launch, reps=200)
+        plain_ms = time_ms(lambda *a: rnd.threefry_plain(*a, **kw), launch, reps=5)
+        plain_graph_ms = time_graph_ms(lambda *a: rnd.threefry_plain(*a, **kw), launch, reps=5)
+        bound, bound_by = threefry_bound_ms(mode, npix)
+        by_mode[ALL_MODES[mode]] = dict(n=npix, ms=ms, graph_ms=graph_ms, plain_ms=plain_ms,
+                                        plain_graph_ms=plain_graph_ms, bound_ms=bound, bound_by=bound_by,
+                                        twin_graph_ms=by_mode32[twin]["graph_ms"])
+        say("random", mode=label, n=npix, ms=f"{ms:.5f}", graph_ms=f"{graph_ms:.5f}", plain_ms=f"{plain_ms:.4f}",
+            plain_graph_ms=f"{plain_graph_ms:.4f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
+            graph_over_bound=f"{graph_ms / bound:.3f}", twin=twin,
+            over_twin=f"{graph_ms / by_mode32[twin]['graph_ms']:.3f}", card=json.dumps(card))
+    u = by_mode["uniform64"]
+    return {"name": "threefry_f64", "route": "cuda", "source": THREEFRY["source"], "replaces": None,
             "launches": None, "max_abs_err": 0.0, "ms": u["ms"], "graph_ms": u["graph_ms"], "plain_ms": u["plain_ms"],
             "plain_graph_ms": u["plain_graph_ms"], "bound_ms": u["bound_ms"], "bound_by": u["bound_by"],
-            "library_ms": None, "shape": [npix], "mode": "uniform", "by_mode": by_mode}
+            "library_ms": None, "shape": [npix], "mode": "uniform64", "by_mode": by_mode}
 
 
 def sass_phase(lib: str) -> None:
@@ -1007,10 +1187,11 @@ def sass_phase(lib: str) -> None:
             op = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
             op = op.split(".")[0]
             ops[op] = ops.get(op, 0) + 1
-        mode = THREEFRY["modes"][int(name.split("threefry_kernelILi", 1)[1][0])] if "threefry_kernelILi" in name \
+        mode = ALL_MODES[int(name.split("threefry_kernelILi", 1)[1][0])] if "threefry_kernelILi" in name \
             else name.strip()
         say("sass", kernel=f"threefry<{mode}>", integer=sum(n for o, n in ops.items() if o in integer),
-            f32=sum(n for o, n in ops.items() if o in ("FADD", "FFMA", "FMUL", "FMNMX")), total=sum(ops.values()),
+            f32=sum(n for o, n in ops.items() if o in ("FADD", "FFMA", "FMUL", "FMNMX")),
+            f64=sum(n for o, n in ops.items() if o in ("DADD", "DFMA", "DMUL", "DSETP")), total=sum(ops.values()),
             opcodes=json.dumps(dict(sorted(ops.items(), key=lambda kv: -kv[1]))))
 
 
@@ -1018,27 +1199,30 @@ def threefry_bound_ms(mode: int, n: int):
     """(ms, "bytes" or "operations"): the least time of one threefry launch
     of `mode` over n elements under a tensor key, the largest of its bytes
     over the memory rate, its 32-bit integer operations over the INT32 rate
-    and its float32 operations over the f32 rate (the two pipes run side by
-    side)."""
-    t_bytes = (n * THREEFRY["out_bytes"][mode] + THREEFRY["key_bytes"]) / PEAK_BYTES * 1e3
-    int_ops = n * THREEFRY["int_ops"][mode] + THREEFRY["int_ops_per_launch"].get(mode, 0)
-    t_ops = max(int_ops / PEAK_INT32_OPS, n * THREEFRY["f32_ops"][mode] / PEAK_F32_OPS) * 1e3
+    and its float operations over the f32 (the 64-bit modes: f64) rate (the
+    pipes run side by side)."""
+    spec = THREEFRY64 if mode >= len(THREEFRY["modes"]) else THREEFRY
+    t_bytes = (n * spec["out_bytes"][mode] + THREEFRY["key_bytes"]) / PEAK_BYTES * 1e3
+    int_ops = n * spec["int_ops"][mode] + spec["int_ops_per_launch"].get(mode, 0)
+    float_ops = n * spec["f64_ops"][mode] / PEAK_F64_OPS if spec is THREEFRY64 else \
+        n * spec["f32_ops"][mode] / PEAK_F32_OPS
+    t_ops = max(int_ops / PEAK_INT32_OPS, float_ops) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bound_ms(spec, pack, args, stats):
+def bound_ms(spec, pack, args, stats, peak_ops=PEAK_F32_OPS):
     """(bytes bound, operations bound) in ms per launch over the wavefronts
     `args`: each ray's inputs and outputs once and the whole pack once, over
     the memory rate; the box tests x 25, triangle tests x 48 and instance
     entries x 39 the kernel's own plain walk counted on the same rays, over
-    the f32 rate."""
+    `peak_ops`, the card's rate for the walk's real type (f32 or f64)."""
     from rpt_tpu_torch.ops import bvh8, tlas8
 
     n_rays = sum(a[0].shape[0] for a in args)
     bytes_per = n_rays * (spec["in_bytes"] + spec["out_bytes"]) / len(args) + pack.nbytes
     ops = (stats["box_tests"] * bvh8.BOX_TEST_OPS + stats["tri_tests"] * bvh8.TRI_TEST_OPS
            + stats.get("inst_entries", 0) * tlas8.INST_ENTRY_OPS)
-    return bytes_per / PEAK_BYTES * 1e3, ops / len(args) / PEAK_F32_OPS * 1e3
+    return bytes_per / PEAK_BYTES * 1e3, ops / len(args) / peak_ops * 1e3
 
 
 def compare_hits(out_a, out_b, mat_of) -> dict:
@@ -1162,7 +1346,8 @@ def before_after(family, mod, tree, pack, rec, mat_of, card):
     RPT_COMPARE (`label=dir,...`), each with its own pack of the same
     scene, against this tree's, on the recorded wavefronts, timed in turns
     (trees, this, this, trees reversed; 30 passes through the wavefronts
-    each) on one card, with each pack's node bytes, size and stack depth,
+    each; then in turns again inside CUDA graphs) on one card, with each
+    pack's node bytes, size and stack depth,
     and each tree's box and triangle tests per launch. Each tree's answers
     are compared with this tree's: bit for bit, and (`compare_hits`) the
     hit mask, t and the rays whose material or instance differs; those must
@@ -1215,6 +1400,17 @@ def before_after(family, mod, tree, pack, rec, mat_of, card):
             **{f"{label}_ms": f"{ms[label]:.4f}" for label in ms},
             **{f"{label}_turns_ms": json.dumps([round(t, 5) for t in times[label]]) for label in ms},
             **{f"{label}_over_this": f"{ms[label] / ms['this']:.3f}" for label in labels}, card=json.dumps(card))
+        # The same turns inside CUDA graphs: the device's time per launch,
+        # without the host's cost of a launch from Python.
+        gtimes = {label: [] for label in turns}
+        for label in turns:
+            gtimes[label].append(time_graph_ms(kernel(label, kind), args, reps=10))
+        gms = {label: sum(v) / len(v) for label, v in gtimes.items()}
+        say("before_after", family=family, kind=kind, timed="in a graph",
+            **{f"{label}_graph_ms": f"{gms[label]:.4f}" for label in gms},
+            **{f"{label}_graph_turns_ms": json.dumps([round(t, 5) for t in gtimes[label]]) for label in gms},
+            **{f"{label}_graph_over_this": f"{gms[label] / gms['this']:.3f}" for label in labels},
+            card=json.dumps(card))
         # Each tree's box and triangle tests per launch, counted by its own
         # plain walk on the same rays.
         tests = {}
@@ -1225,6 +1421,39 @@ def before_after(family, mod, tree, pack, rec, mat_of, card):
             tests[f"{label}_box_tests"] = f"{stats['box_tests'] / len(args):.0f}"
             tests[f"{label}_tri_tests"] = f"{stats['tri_tests'] / len(args):.0f}"
         say("before_after", family=family, kind=kind, **tests)
+
+
+def dtype_phase(card: str) -> None:
+    """`[dtype]`: one scene (`cornell`) rendered in float32, then float64,
+    then float32 again, at a size no workload takes: each type captures a
+    graph of its own, once; the second float32 render replays the first
+    one's graph and equals it bit for bit; the float64 sums are float64."""
+    import torch
+
+    from rpt_tpu_torch import Renderer
+    from rpt_tpu_torch.bench import scene_and_camera
+    from rpt_tpu_torch.renderer import make_render_many_fn
+
+    scene, camera, eps = scene_and_camera("cornell")
+    w, h, bounces = 320, 180, 2
+    r32, r64 = (Renderer(scene, camera, width=w, height=h, max_bounces=bounces, num_samples=2, epsilon=eps,
+                         device=DEVICE, dtype=dt) for dt in (torch.float32, torch.float64))
+    first = r32.render_buffer()
+    fn32 = make_render_many_fn(r32.scene_data(), w, h, bounces)
+    graph32 = fn32.capture(eps).graph
+    wide = r64.render_buffer()
+    fn64 = make_render_many_fn(r64.scene_data(), w, h, bounces)
+    again = r32.render_buffer()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(first.sum, again.sum) and torch.equal(first.sum_sq, again.sum_sq))
+    replayed = make_render_many_fn(r32.scene_data(), w, h, bounces) is fn32 and fn32.capture(eps).graph is graph32
+    say("dtype", scene="cornell", size=f"{w}x{h}", order="f32, f64, f32", f32_captures=len(fn32.captures),
+        f64_captures=len(fn64.captures), separate_graphs=fn32 is not fn64, f32_graph_replayed=replayed,
+        f32_renders_bit_equal=same, f64_sum_dtype=str(wide.sum.dtype),
+        f64_mean_over_f32_mean=f"{float(wide.sum.mean()) / float(first.sum.mean()):.5f}", card=json.dumps(card))
+    if not (same and replayed and fn32 is not fn64 and len(fn32.captures) == 1 and len(fn64.captures) == 1
+            and wide.sum.dtype == torch.float64 and bool(torch.isfinite(wide.sum).all())):
+        fail("float32 and float64 renders of one scene do not keep to graphs of their own")
 
 
 def main():
@@ -1259,8 +1488,9 @@ def main():
 
     # The threefry kernels' instructions, and the PRNG kernel at the main path's shapes.
     sass_phase(kernels._lib_path("threefry"))
-    threefry_row = random_phase(card)
+    threefry_row, threefry64_row = random_phase(card)
     gather_phase(card)
+    dtype_phase(card)
 
     # 3. Each workload's path. One row per kernel: a kernel on several
     # paths (bvh2 on lego_toy and dragon_binary) keeps its first path's row
@@ -1273,8 +1503,8 @@ def main():
                 rows[row["name"]].setdefault("other_workloads", []).append(row)
             else:
                 rows[row["name"]] = row
-    if sorted(rows) != sorted(KERNELS):
-        fail(f"the workloads ran {sorted(rows)}, not every kernel of {sorted(KERNELS)}")
+    if sorted(rows) != sorted([*KERNELS, *KERNELS_F64]):
+        fail(f"the workloads ran {sorted(rows)}, not every kernel of {sorted([*KERNELS, *KERNELS_F64])}")
     # The threefry kernel runs on every workload: its launches are the first
     # workload's main path, by mode beside them, and each workload's per
     # sample.
@@ -1283,6 +1513,14 @@ def main():
                         launches_by_mode=threefry_by_mode[first], launches_per_sample=threefry_per_sample,
                         launches_by_mode_per_workload=threefry_by_mode)
     rows["threefry"] = threefry_row
+    # Its 64-bit modes run on the float64 workloads: the first one's main
+    # path, and each one's per sample.
+    first64 = next(w for w, spec in WORKLOADS.items() if spec.get("dtype") == "float64")
+    modes64 = {w: {m: threefry_by_mode[w][m] for m in THREEFRY64["modes"]} for w in WORKLOADS}
+    threefry64_row.update(launches=sum(modes64[first64].values()), workload=first64,
+                          launches_by_mode=modes64[first64],
+                          launches_per_sample={w: sum(modes64[w].values()) / WORKLOADS[w]["spp"] for w in WORKLOADS})
+    rows["threefry_f64"] = threefry64_row
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -33,13 +33,13 @@ class Buffer:
     count: int
 
     @staticmethod
-    def new(width: int, height: int, device=None) -> "Buffer":
-        """An empty buffer on `device` (the CUDA card when None; raises
-        without one)."""
+    def new(width: int, height: int, device=None, dtype=torch.float32) -> "Buffer":
+        """An empty buffer of sums in `dtype` (the render's real type) on
+        `device` (the CUDA card when None; raises without one)."""
         device = resolve_device(device)
         return Buffer(
-            sum=torch.zeros((height, width, 3), dtype=torch.float32, device=device),
-            sum_sq=torch.zeros((height, width), dtype=torch.float32, device=device),
+            sum=torch.zeros((height, width, 3), dtype=dtype, device=device),
+            sum_sq=torch.zeros((height, width), dtype=dtype, device=device),
             count=0,
         )
 
@@ -75,11 +75,12 @@ class Buffer:
         """Tone-mapped uint8 image (H, W, 3) on the host."""
         return color_bytes(self.mean_image(filter))
 
-    # The accumulator and the sampling cursor round-trip exactly, so a
-    # resumed render equals an uninterrupted one bit for bit (sample i is
-    # keyed by fold_in(seed, i) whatever the chunking). The .npz keys are
-    # the JAX package's (`rpt_tpu/buffer.py` save / load): a checkpoint of
-    # either package loads in the other.
+    # The accumulator and the sampling cursor round-trip exactly, in the
+    # sums' own type (float32 or float64), so a resumed render equals an
+    # uninterrupted one bit for bit (sample i is keyed by fold_in(seed, i)
+    # whatever the chunking). The .npz keys are the JAX package's
+    # (`rpt_tpu/buffer.py` save / load): a checkpoint of either package
+    # loads in the other.
 
     def save(self, path, *, seed: int, iteration: int) -> None:
         """Write the accumulator and the sampling cursor to an .npz checkpoint."""
@@ -95,12 +96,13 @@ class Buffer:
     @staticmethod
     def load(path, device=None):
         """Read a checkpoint onto `device` (the CUDA card when None; raises
-        without one); returns (Buffer, seed, iteration)."""
+        without one), its sums in the type they were saved in; returns
+        (Buffer, seed, iteration)."""
         device = resolve_device(device)
         with np.load(path) as z:
             buf = Buffer(
-                sum=torch.as_tensor(z["sum"], dtype=torch.float32, device=device),
-                sum_sq=torch.as_tensor(z["sum_sq"], dtype=torch.float32, device=device),
+                sum=torch.as_tensor(z["sum"], device=device),
+                sum_sq=torch.as_tensor(z["sum_sq"], device=device),
                 count=int(z["count"]),
             )
             return buf, int(z["seed"]), int(z["iteration"])

@@ -63,13 +63,18 @@ class Camera:
         Depth d = cot(fov/2); direction d*dir + x*right + y*up; with an
         aperture, the origin is jittered on the lens disk and aimed at the
         focal point. Returns (origins (N,3), unit directions (N,3)).
+
+        The fields stay float32, as in the reference; float64 coordinates
+        give float64 rays (the lens disk is drawn in their type), and each
+        mixed product is of a float32 field with a float64 tensor with
+        dimensions, which torch computes in float64 as JAX does.
         """
         d = 1.0 / torch.tan(self.fov / 2.0)
         right = normalize(cross(self.direction, self.up))
         base_dir = d * self.direction + x[..., None] * right + y[..., None] * self.up
         origin = torch.broadcast_to(self.eye, base_dir.shape)
 
-        lens_xy = uniform_disk(key, tuple(x.shape), device=x.device)
+        lens_xy = uniform_disk(key, tuple(x.shape), device=x.device, dtype=x.dtype)
         focal_point = origin + normalize(base_dir) * self.focal_distance
         offset = (lens_xy[..., 0:1] * right + lens_xy[..., 1:2] * self.up) * self.aperture
         dof_origin = origin + offset

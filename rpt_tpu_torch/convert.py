@@ -11,7 +11,9 @@ given binary BVH, and from the given instanced meshes (the 16 fields of
 `Scene.compile` (`scene.choose_bvh_pack`, `scene.choose_instanced_pack`), so
 a converted scene takes the same kernels as a compiled one. TPU kernel
 layouts in the dict are ignored. So both packages can be run on
-the very same compiled scene, BVH and two-level tree.
+the very same compiled scene, BVH and two-level tree. A scene compiled in
+float64 (its material colors are float64) is carried in float64, every
+float array at its own precision; one in float32 stays float32.
 """
 
 from __future__ import annotations
@@ -44,11 +46,9 @@ _LIGHTS = {
 _UNPORTED = ("monomials",)
 
 
-def _tensors(d: dict, device, ints=("mat_id",)) -> dict:
+def _tensors(d: dict, device, dtype, ints=("mat_id",)) -> dict:
     return {
-        k: torch.as_tensor(
-            np.ascontiguousarray(v), dtype=torch.int32 if k in ints else torch.float32, device=device
-        )
+        k: torch.as_tensor(np.ascontiguousarray(v), dtype=torch.int32 if k in ints else dtype, device=device)
         for k, v in d.items()
     }
 
@@ -62,9 +62,10 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
     env = tree["environment"]
     if env.get("hdri") is not None:
         raise NotImplementedError("HDRI environments are not ported yet")
+    dtype = torch.float64 if np.asarray(tree["materials"]["color"]).dtype == np.float64 else torch.float32
 
     def group(cls, key):
-        return None if tree.get(key) is None else cls(**_tensors(tree[key], device))
+        return None if tree.get(key) is None else cls(**_tensors(tree[key], device, dtype))
 
     lights = []
     for spec in tree["lights"]:
@@ -72,19 +73,19 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
         cls = _LIGHTS.get(spec.pop("type"))
         if cls is None:
             raise NotImplementedError("this light type is not ported yet")
-        lights.append(cls(**_tensors(spec, device, ints=())))
+        lights.append(cls(**_tensors(spec, device, dtype, ints=())))
 
     bvh = bvh8 = bvh2 = None
     if tree.get("bvh") is not None:
-        bvh = bvh_from_arrays(tree["bvh"], device)
+        bvh = bvh_from_arrays(tree["bvh"], device, dtype)
         bvh8, bvh2 = choose_bvh_pack(bvh, device=device)
     instanced = tlas8 = tlas2 = None
     if tree.get("instanced") is not None:
-        instanced = instanced_from_arrays(tree["instanced"], device)
+        instanced = instanced_from_arrays(tree["instanced"], device, dtype)
         tlas8, tlas2 = choose_instanced_pack(instanced, device=device)
     environment = Environment.from_color(env["color"])
     return SceneData(
-        materials=MaterialTable(**_tensors(tree["materials"], device, ints=())),
+        materials=MaterialTable(**_tensors(tree["materials"], device, dtype, ints=())),
         spheres=group(PrimXf, "spheres"),
         cubes=group(PrimXf, "cubes"),
         planes=group(PlaneArrays, "planes"),
@@ -97,7 +98,7 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
         tlas2=tlas2,
         lights=tuple(lights),
         environment=environment,
-        env_color=torch.tensor(environment.color, device=device),
+        env_color=torch.tensor(environment.color, dtype=dtype, device=device),
         device=device,
         digest=str(tree.get("digest", "")),
     )

@@ -21,6 +21,12 @@
 // about it). The kernels below are its thin wrappers, one per query and stack
 // space.
 //
+// Each query comes in two real types (walk.cuh): rpt_bvh2_closest and
+// rpt_bvh2_occluded walk float32 rays over the float32 pack, their `_f64`
+// twins float64 rays over the float64 pack (float64 triangle rows, float
+// boxes rounded outward), the counterpart of the reference's float64 XLA
+// loop, since its Pallas kernels do not run under jax_enable_x64.
+//
 // C interface for ctypes: each entry point launches on the given stream
 // with `block` threads per block, allocates nothing (the caller passes the
 // global stack, or null for the shared one), and returns
@@ -38,53 +44,53 @@ namespace {
 
 // No launch bound or register cap: __maxnreg__(56) and (48) ran the closest
 // hit 1.01x and 1.03x slower on the dragon in turns ((48) spilled), and
-// under (64) the prefetching closest hit spills (PERF.md).
-template <bool kOccl, bool kGlobalStack>
+// under (64) the prefetching closest hit spills (PERF.md). The float64 walk
+// (Real = double) has none either.
+template <bool kOccl, bool kGlobalStack, typename Real>
 __global__ void
-bvh2_walk(const float4* __restrict__ nodes, const float4* __restrict__ tris, const float* __restrict__ o,
-          const float* __restrict__ d, const bool* __restrict__ active, const float* __restrict__ t_max,
-          int n, float t_min, unsigned* __restrict__ global_stack, int depth, float* __restrict__ t_out,
+bvh2_walk(const float4* __restrict__ nodes, const Real* __restrict__ tris, const Real* __restrict__ o,
+          const Real* __restrict__ d, const bool* __restrict__ active, const Real* __restrict__ t_max,
+          int n, Real t_min, unsigned* __restrict__ global_stack, int depth, Real* __restrict__ t_out,
           int* __restrict__ id_out, bool* __restrict__ occ_out, unsigned long long* launches) {
   count_launch(launches);
-  pair_walk<kOccl, false, kGlobalStack>(nodes, 0, nullptr, tris, o, d, active, t_max, n, t_min, global_stack,
-                                        depth, t_out, id_out, nullptr, occ_out);
+  pair_walk<kOccl, false, kGlobalStack>(nodes, 0, (const Real*)nullptr, tris, o, d, active, t_max, n, t_min,
+                                        global_stack, depth, t_out, id_out, nullptr, occ_out);
 }
 
 // Lets the shared-stack kernel take the most dynamic shared memory a block
 // holds. Set once per kernel, on the first launch that needs more than the
 // default 48 KB, not on every launch: small trees are launch-bound.
-template <bool kOccl>
+template <bool kOccl, typename Real>
 cudaError_t allow_shared_stack() {
-  static const cudaError_t err =
-      cudaFuncSetAttribute(bvh2_walk<kOccl, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+  static const cudaError_t err = cudaFuncSetAttribute(bvh2_walk<kOccl, false, Real>,
+                                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   return err;
 }
 
 // Launch on `stream`: `block` threads per block and a stack of `depth`
 // levels per thread, in `global_stack` if given, else in dynamic shared
 // memory.
-template <bool kOccl>
+template <bool kOccl, typename Real>
 int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t stream, const float* nodes,
-           const float* tris, const float* o, const float* d, const bool* active, const float* t_max,
-           float t_min, float* t_out, int* id_out, bool* occ_out, unsigned long long* launches) {
+           const Real* tris, const Real* o, const Real* d, const bool* active, const Real* t_max,
+           Real t_min, Real* t_out, int* id_out, bool* occ_out, unsigned long long* launches) {
   if (n <= 0) return 0;
   if (block <= 0 || block > kBlock || depth < 0) return (int)cudaErrorInvalidValue;
   const int grid = (int)((n + block - 1) / block);
   const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
-  const float4* tris4 = reinterpret_cast<const float4*>(tris);
   if (global_stack != nullptr) {
-    bvh2_walk<kOccl, true><<<grid, block, 0, stream>>>(nodes4, tris4, o, d, active, t_max, (int)n, t_min,
-                                                       global_stack, depth, t_out, id_out, occ_out, launches);
+    bvh2_walk<kOccl, true, Real><<<grid, block, 0, stream>>>(nodes4, tris, o, d, active, t_max, (int)n, t_min,
+                                                             global_stack, depth, t_out, id_out, occ_out, launches);
     return (int)cudaGetLastError();
   }
   const size_t smem = (size_t)block * (size_t)depth * sizeof(unsigned);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
-    const cudaError_t err = allow_shared_stack<kOccl>();
+    const cudaError_t err = allow_shared_stack<kOccl, Real>();
     if (err != cudaSuccess) return (int)err;
   }
-  bvh2_walk<kOccl, false><<<grid, block, smem, stream>>>(nodes4, tris4, o, d, active, t_max, (int)n, t_min,
-                                                         nullptr, depth, t_out, id_out, occ_out, launches);
+  bvh2_walk<kOccl, false, Real><<<grid, block, smem, stream>>>(nodes4, tris, o, d, active, t_max, (int)n, t_min,
+                                                               nullptr, depth, t_out, id_out, occ_out, launches);
   return (int)cudaGetLastError();
 }
 
@@ -95,15 +101,30 @@ extern "C" {
 int rpt_bvh2_closest(const float* nodes, const float* tris, const float* o, const float* d, const bool* active,
                      int64_t n, float t_min, float* t_out, int* id_out, int block, int depth,
                      unsigned* global_stack, unsigned long long* launches, void* stream) {
-  return launch<false>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, tris, o, d, active, nullptr,
-                       t_min, t_out, id_out, nullptr, launches);
+  return launch<false, float>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, tris, o, d, active,
+                              nullptr, t_min, t_out, id_out, nullptr, launches);
 }
 
 int rpt_bvh2_occluded(const float* nodes, const float* tris, const float* o, const float* d, const bool* active,
                       const float* t_max, int64_t n, float t_min, bool* occ_out, int block, int depth,
                       unsigned* global_stack, unsigned long long* launches, void* stream) {
-  return launch<true>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, tris, o, d, active, t_max,
-                      t_min, nullptr, nullptr, occ_out, launches);
+  return launch<true, float>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, tris, o, d, active,
+                             t_max, t_min, nullptr, nullptr, occ_out, launches);
+}
+
+int rpt_bvh2_closest_f64(const float* nodes, const double* tris, const double* o, const double* d,
+                         const bool* active, int64_t n, double t_min, double* t_out, int* id_out, int block,
+                         int depth, unsigned* global_stack, unsigned long long* launches, void* stream) {
+  return launch<false, double>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, tris, o, d, active,
+                               nullptr, t_min, t_out, id_out, nullptr, launches);
+}
+
+int rpt_bvh2_occluded_f64(const float* nodes, const double* tris, const double* o, const double* d,
+                          const bool* active, const double* t_max, int64_t n, double t_min, bool* occ_out,
+                          int block, int depth, unsigned* global_stack, unsigned long long* launches,
+                          void* stream) {
+  return launch<true, double>(block, depth, global_stack, n, (cudaStream_t)stream, nodes, tris, o, d, active,
+                              t_max, t_min, nullptr, nullptr, occ_out, launches);
 }
 
 }  // extern "C"

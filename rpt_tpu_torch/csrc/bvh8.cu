@@ -16,6 +16,12 @@
 // with two 16-byte loads, its hit leaves tested at once (that header says
 // what bounds the walk on this card and what the design does about it).
 //
+// Each query comes in two real types (walk.cuh): rpt_bvh8_closest and
+// rpt_bvh8_occluded walk float32 rays over the float32 pack, their `_f64`
+// twins float64 rays over the float64 pack (float64 triangle rows, float
+// boxes rounded outward), the counterpart of the reference's float64 XLA
+// loop, since its Pallas kernels do not run under jax_enable_x64.
+//
 // C interface for ctypes: each entry point launches on the given stream,
 // allocates nothing, and returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue if the stack does not fit in one block's shared
@@ -36,37 +42,61 @@ namespace {
 template <bool kOccl>
 __global__ void __maxnreg__(64)
 bvh8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta,
-          const float4* __restrict__ tris, const float* __restrict__ o,
+          const float* __restrict__ tris, const float* __restrict__ o,
           const float* __restrict__ d, const bool* __restrict__ active,
           const float* __restrict__ t_max, int n, float t_min, float* __restrict__ t_out,
           int* __restrict__ id_out, bool* __restrict__ occ_out, unsigned long long* launches) {
   count_launch(launches);
-  group_walk<kOccl, false>(bounds, meta, 0, nullptr, nullptr, tris, o, d, active, t_max, n, t_min, t_out,
-                           id_out, nullptr, occ_out);
+  group_walk<kOccl, false>(bounds, meta, 0, (const float*)nullptr, nullptr, tris, o, d, active, t_max, n, t_min,
+                           t_out, id_out, nullptr, occ_out);
+}
+
+// The float64 walk: a double ray takes twice the registers, so no cap
+// below the launch bound's (PERF.md has its registers and spills).
+template <bool kOccl>
+__global__ void __launch_bounds__(kBlock)
+bvh8_walk_f64(const float4* __restrict__ bounds, const int* __restrict__ meta,
+              const double* __restrict__ tris, const double* __restrict__ o,
+              const double* __restrict__ d, const bool* __restrict__ active,
+              const double* __restrict__ t_max, int n, double t_min, double* __restrict__ t_out,
+              int* __restrict__ id_out, bool* __restrict__ occ_out, unsigned long long* launches) {
+  count_launch(launches);
+  group_walk<kOccl, false>(bounds, meta, 0, (const double*)nullptr, nullptr, tris, o, d, active, t_max, n, t_min,
+                           t_out, id_out, nullptr, occ_out);
+}
+
+template <bool kOccl, typename Real>
+constexpr auto walk_kernel() {
+  if constexpr (sizeof(Real) == 4) {
+    return bvh8_walk<kOccl>;
+  } else {
+    return bvh8_walk_f64<kOccl>;
+  }
 }
 
 // Lets the kernel take the most dynamic shared memory a block holds. Set
 // once per kernel, on the first launch that needs more than 48 KB.
-template <bool kOccl>
+template <bool kOccl, typename Real>
 cudaError_t allow_group_stack() {
   static const cudaError_t err =
-      cudaFuncSetAttribute(bvh8_walk<kOccl>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+      cudaFuncSetAttribute(walk_kernel<kOccl, Real>(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
   return err;
 }
 
 // Launch on `stream` with a group stack of `depth` levels per thread.
-template <bool kOccl>
+template <bool kOccl, typename Real>
 int launch(int depth, int64_t n, cudaStream_t stream, const float* bounds, const int* meta,
-           const float* tris, const float* o, const float* d, const bool* active, const float* t_max,
-           float t_min, float* t_out, int* id_out, bool* occ_out, unsigned long long* launches) {
+           const Real* tris, const Real* o, const Real* d, const bool* active, const Real* t_max,
+           Real t_min, Real* t_out, int* id_out, bool* occ_out, unsigned long long* launches) {
   if (n <= 0) return 0;
   size_t smem;
   cudaError_t err = group_stack_smem(depth, &smem);
-  if (err == cudaSuccess && smem > 48 * 1024) err = allow_group_stack<kOccl>();
+  if (err == cudaSuccess && smem > 48 * 1024) err = allow_group_stack<kOccl, Real>();
   if (err != cudaSuccess) return (int)err;
-  bvh8_walk<kOccl><<<grid_for(n), kBlock, smem, stream>>>(
-      reinterpret_cast<const float4*>(bounds), meta, reinterpret_cast<const float4*>(tris), o, d,
-      active, t_max, (int)n, t_min, t_out, id_out, occ_out, launches);
+  const auto kernel = walk_kernel<kOccl, Real>();
+  kernel<<<grid_for(n), kBlock, smem, stream>>>(
+      reinterpret_cast<const float4*>(bounds), meta, tris, o, d, active, t_max, (int)n, t_min, t_out, id_out,
+      occ_out, launches);
   return (int)cudaGetLastError();
 }
 
@@ -77,15 +107,29 @@ extern "C" {
 int rpt_bvh8_closest(const float* bounds, const int* meta, int depth, const float* tris, const float* o,
                      const float* d, const bool* active, int64_t n, float t_min, float* t_out,
                      int* id_out, unsigned long long* launches, void* stream) {
-  return launch<false>(depth, n, (cudaStream_t)stream, bounds, meta, tris, o, d, active, nullptr, t_min,
-                       t_out, id_out, nullptr, launches);
+  return launch<false, float>(depth, n, (cudaStream_t)stream, bounds, meta, tris, o, d, active, nullptr, t_min,
+                              t_out, id_out, nullptr, launches);
 }
 
 int rpt_bvh8_occluded(const float* bounds, const int* meta, int depth, const float* tris, const float* o,
                       const float* d, const bool* active, const float* t_max, int64_t n,
                       float t_min, bool* occ_out, unsigned long long* launches, void* stream) {
-  return launch<true>(depth, n, (cudaStream_t)stream, bounds, meta, tris, o, d, active, t_max, t_min,
-                      nullptr, nullptr, occ_out, launches);
+  return launch<true, float>(depth, n, (cudaStream_t)stream, bounds, meta, tris, o, d, active, t_max, t_min,
+                             nullptr, nullptr, occ_out, launches);
+}
+
+int rpt_bvh8_closest_f64(const float* bounds, const int* meta, int depth, const double* tris, const double* o,
+                         const double* d, const bool* active, int64_t n, double t_min, double* t_out,
+                         int* id_out, unsigned long long* launches, void* stream) {
+  return launch<false, double>(depth, n, (cudaStream_t)stream, bounds, meta, tris, o, d, active, nullptr, t_min,
+                               t_out, id_out, nullptr, launches);
+}
+
+int rpt_bvh8_occluded_f64(const float* bounds, const int* meta, int depth, const double* tris, const double* o,
+                          const double* d, const bool* active, const double* t_max, int64_t n,
+                          double t_min, bool* occ_out, unsigned long long* launches, void* stream) {
+  return launch<true, double>(depth, n, (cudaStream_t)stream, bounds, meta, tris, o, d, active, t_max, t_min,
+                              nullptr, nullptr, occ_out, launches);
 }
 
 }  // extern "C"

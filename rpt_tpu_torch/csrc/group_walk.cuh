@@ -51,7 +51,12 @@
 //
 // The table layout (bounds (Mw, 48) f32, meta (Mw, 16) i32: 8 child
 // references `payload << 2 | kind`, 8 octant words) is documented in
-// rpt_tpu_torch/ops/bvh8.py and ops/tlas8.py.
+// rpt_tpu_torch/ops/bvh8.py and ops/tlas8.py. The walk is a template over
+// the real type (walk.cuh): float for float32 renders, double for float64
+// ones, whose rays, triangle rows, instance rows and hit distances are
+// double and whose node boxes, rounded outward to float, are tested in
+// double. A double walk holds twice the registers of a ray, and reads
+// 160-byte triangle rows (PERF.md has its registers and times).
 
 #pragma once
 
@@ -68,16 +73,18 @@ constexpr int kKindInst = 2;
 constexpr int kKindLeaf = 3;
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may hold (227 KB)
 
-// The walk of ray i = blockIdx.x * blockDim.x + threadIdx.x, from node 0.
+// The walk of ray i = blockIdx.x * blockDim.x + threadIdx.x, from node 0,
+// in the real type Real (float or double) of the rays, triangle rows and
+// instance rows; the node boxes are float in both.
 // One-level (kTwoLevel false): n_tlas, inst, inst_root and inst_out are
 // not read. kOccl: writes occ_out; else t_out, id_out (and inst_out).
-template <bool kOccl, bool kTwoLevel>
+template <bool kOccl, bool kTwoLevel, typename Real>
 __device__ __forceinline__ void group_walk(
     const float4* __restrict__ bounds, const int* __restrict__ meta, int n_tlas,
-    const float4* __restrict__ inst, const int* __restrict__ inst_root,
-    const float4* __restrict__ tris, const float* __restrict__ o, const float* __restrict__ d,
-    const bool* __restrict__ active, const float* __restrict__ t_max, int n, float t_min,
-    float* __restrict__ t_out, int* __restrict__ id_out, int* __restrict__ inst_out,
+    const Real* __restrict__ inst, const int* __restrict__ inst_root,
+    const Real* __restrict__ tris, const Real* __restrict__ o, const Real* __restrict__ d,
+    const bool* __restrict__ active, const Real* __restrict__ t_max, int n, Real t_min,
+    Real* __restrict__ t_out, int* __restrict__ id_out, int* __restrict__ inst_out,
     bool* __restrict__ occ_out) {
   extern __shared__ unsigned group_stack[];  // [level][threadIdx.x]
   unsigned* stack = group_stack + threadIdx.x;
@@ -87,7 +94,7 @@ __device__ __forceinline__ void group_walk(
     if (kOccl) {
       occ_out[i] = false;
     } else {
-      t_out[i] = kBig;
+      t_out[i] = Num<Real>::big;
       id_out[i] = 0;
       if (kTwoLevel) inst_out[i] = 0;
     }
@@ -96,11 +103,11 @@ __device__ __forceinline__ void group_walk(
   // The ray in the frame of the nodes being visited. The world ray is not
   // kept beside it: it is loaded again where the walk needs it (an instance
   // entry, a return to the TLAS), which saves the registers of a second ray.
-  Ray r = load_ray(o, d, i);
+  Ray<Real> r = load_ray(o, d, i);
   bool local = false;
 
   // Closest hit: `upper` is the running best t. Any hit: it is t_max.
-  float upper = kOccl ? t_max[i] : kBig;
+  Real upper = kOccl ? t_max[i] : Num<Real>::big;
   int best = 0;
   int best_inst = 0;
   int cur_inst = 0;
@@ -135,7 +142,7 @@ __device__ __forceinline__ void group_walk(
       const int payload = __ldg(m + ((word >> (4 * k)) & 7)) >> 2;
       const int start = (payload >> 3) << 3;
       const int cnt = (payload & 7) + 1;
-      const float4* tr = tris + (size_t)start * kTriStride4;
+      const Real* tr = tris + (size_t)start * kTriStride;
       if (kOccl) {
         if (leaf_any(tr, cnt, r, t_min, upper)) {
           occ_out[i] = true;
@@ -143,7 +150,7 @@ __device__ __forceinline__ void group_walk(
         }
       } else {
         int kb;
-        const float t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
+        const Real t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
         if (t_leaf < upper) {
           upper = t_leaf;
           best = start + kb;
@@ -177,7 +184,7 @@ __device__ __forceinline__ void group_walk(
     node = ref >> 2;
     if constexpr (kTwoLevel) {
       if ((ref & 3) == kKindInst) {
-        to_local(inst + (size_t)node * kInst4, load_ray(o, d, i), &r);
+        to_local(inst + (size_t)node * kInst, load_ray(o, d, i), &r);
         local = true;
         cur_inst = node;
         node = __ldg(inst_root + cur_inst);

@@ -56,7 +56,12 @@
 //
 // Numerics: every expression is written in the same order as the plain torch
 // version (ops/bvh2.py `_pair_walk`), and the build uses -fmad=false: the
-// kernels and the plain version agree bit for bit.
+// kernels and the plain version agree bit for bit. The walk is a template over
+// the real type (walk.cuh): float for float32 renders, double for float64
+// ones, whose rays, triangle rows, instance records and hit distances are
+// double and whose pair nodes keep float boxes, rounded outward, tested in
+// double. An instance record is 16 reals: the 3x4 rows, then [BLAS root,
+// id] as int32 at real 12.
 
 #pragma once
 
@@ -68,7 +73,7 @@
 namespace {
 
 constexpr int kPair4 = 4;  // float4 per pair node: 2 boxes, then [refA, refB, 0, 0]
-constexpr int kRec4 = 4;   // float4 per instance record: 3x4 rows, then [BLAS root, id, 0, 0]
+constexpr int kRec = 16;   // reals per instance record: 3x4 rows, then [BLAS root, id] as int32
 constexpr int kRefInst = 2;  // reference kinds (ops/bvh8.py): 0 empty, 1 node, 2 instance, 3 leaf
 constexpr int kRefLeaf = 3;
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may hold (227 KB)
@@ -76,26 +81,26 @@ constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may hold
 // Test the triangle leaf `ref` in r's frame. Any hit: true on an occluder in
 // [t_min, upper]. Closest: the leaf's best row replaces the running best on
 // a smaller (t, rank, row), one-level on a smaller (t, row).
-template <bool kOccl, bool kTwoLevel>
-__device__ __forceinline__ bool pair_leaf(const float4* __restrict__ tris, int ref, const Ray& r,
-                                          float t_min, int rank, float* upper, int* best,
+template <bool kOccl, bool kTwoLevel, typename Real>
+__device__ __forceinline__ bool pair_leaf(const Real* __restrict__ tris, int ref, const Ray<Real>& r,
+                                          Real t_min, int rank, Real* upper, int* best,
                                           int* best_rank) {
   const int payload = ref >> 2;
   const int start = (payload >> 3) << 3;
   const int cnt = (payload & 7) + 1;
-  const float4* tr = tris + (size_t)start * kTriStride4;
+  const Real* tr = tris + (size_t)start * kTriStride;
   if (kOccl) return leaf_any(tr, cnt, r, t_min, *upper);
   int kb;
-  const float t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
+  const Real t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
   const int row = start + kb;
   if constexpr (kTwoLevel) {
-    if (t_leaf < *upper ||
-        (t_leaf == *upper && *upper < kBig && (rank < *best_rank || (rank == *best_rank && row < *best)))) {
+    if (t_leaf < *upper || (t_leaf == *upper && *upper < Num<Real>::big &&
+                            (rank < *best_rank || (rank == *best_rank && row < *best)))) {
       *upper = t_leaf;
       *best = row;
       *best_rank = rank;
     }
-  } else if (t_leaf < *upper || (t_leaf == *upper && *upper < kBig && row < *best)) {
+  } else if (t_leaf < *upper || (t_leaf == *upper && *upper < Num<Real>::big && row < *best)) {
     *upper = t_leaf;
     *best = row;
   }
@@ -117,12 +122,12 @@ __device__ __forceinline__ void load_pair(const float4* __restrict__ nodes, int 
 // thread of `global_stack`. One-level (kTwoLevel false): n_tlas, inst and
 // inst_out are not read. kOccl: writes occ_out; else t_out, id_out (and
 // inst_out).
-template <bool kOccl, bool kTwoLevel, bool kGlobalStack>
+template <bool kOccl, bool kTwoLevel, bool kGlobalStack, typename Real>
 __device__ __forceinline__ void pair_walk(
-    const float4* __restrict__ nodes, int n_tlas, const float4* __restrict__ inst,
-    const float4* __restrict__ tris, const float* __restrict__ o, const float* __restrict__ d,
-    const bool* __restrict__ active, const float* __restrict__ t_max, int n, float t_min,
-    unsigned* __restrict__ global_stack, int depth, float* __restrict__ t_out,
+    const float4* __restrict__ nodes, int n_tlas, const Real* __restrict__ inst,
+    const Real* __restrict__ tris, const Real* __restrict__ o, const Real* __restrict__ d,
+    const bool* __restrict__ active, const Real* __restrict__ t_max, int n, Real t_min,
+    unsigned* __restrict__ global_stack, int depth, Real* __restrict__ t_out,
     int* __restrict__ id_out, int* __restrict__ inst_out, bool* __restrict__ occ_out) {
   extern __shared__ unsigned pair_stack[];  // [level][threadIdx.x]
   unsigned* stack = kGlobalStack
@@ -135,7 +140,7 @@ __device__ __forceinline__ void pair_walk(
     if (kOccl) {
       occ_out[i] = false;
     } else {
-      t_out[i] = kBig;
+      t_out[i] = Num<Real>::big;
       id_out[i] = 0;
       if (kTwoLevel) inst_out[i] = 0;
     }
@@ -144,11 +149,11 @@ __device__ __forceinline__ void pair_walk(
   // The one-level closest hit loads the next node before it tests the
   // current node's leaves (which node comes next does not depend on them).
   constexpr bool kPrefetch = !kOccl && !kTwoLevel;
-  Ray r = load_ray(o, d, i);  // in the frame of the nodes being visited
+  Ray<Real> r = load_ray(o, d, i);  // in the frame of the nodes being visited
   bool local = false;
 
   // Closest hit: `upper` is the running best t. Any hit: it is t_max.
-  float upper = kOccl ? t_max[i] : kBig;
+  Real upper = kOccl ? t_max[i] : Num<Real>::big;
   int best = 0;
   int best_rank = -1;
   int rank = 0;  // the current instance's TLAS leaf rank
@@ -162,7 +167,7 @@ __device__ __forceinline__ void pair_walk(
     int4 m;
     load_pair(nodes, 0, &a, &b, &c, &m);
     while (true) {
-      float lo_a, lo_b;
+      Real lo_a, lo_b;
       const bool hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, upper, &lo_a);
       const bool hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, upper, &lo_b) && m.y != 0;
       const int ref_a = m.x;
@@ -195,7 +200,7 @@ __device__ __forceinline__ void pair_walk(
       const float4 b = __ldg(nb + 1);
       const float4 c = __ldg(nb + 2);
       const int4 m = __ldg(reinterpret_cast<const int4*>(nb + 3));
-      float lo_a, lo_b;
+      Real lo_a, lo_b;
       const bool hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, upper, &lo_a);
       const bool hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, upper, &lo_b) && m.y != 0;
       const bool leaf_a = (m.x & 3) == kRefLeaf;
@@ -228,11 +233,11 @@ __device__ __forceinline__ void pair_walk(
       if constexpr (kTwoLevel) {
         if ((next & 3) == kRefInst) {
           // An instance: the world ray in its frame, then its BLAS root.
-          const float4* rec = inst + (size_t)node * kRec4;
+          const Real* rec = inst + (size_t)node * kRec;
           to_local(rec, load_ray(o, d, i), &r);
           local = true;
           rank = node;
-          node = __ldg(reinterpret_cast<const int*>(rec + 3));
+          node = __ldg(reinterpret_cast<const int*>(rec + 12));
         } else if (node < n_tlas && local) {
           // A TLAS node popped in a local frame: every BLAS node of the
           // instance has been popped (LIFO), so back to the world ray.
@@ -249,7 +254,7 @@ __device__ __forceinline__ void pair_walk(
     id_out[i] = best;
     if constexpr (kTwoLevel) {
       inst_out[i] =
-          best_rank >= 0 ? __ldg(reinterpret_cast<const int*>(inst + (size_t)best_rank * kRec4 + 3) + 1) : 0;
+          best_rank >= 0 ? __ldg(reinterpret_cast<const int*>(inst + (size_t)best_rank * kRec + 12) + 1) : 0;
     }
   }
 }

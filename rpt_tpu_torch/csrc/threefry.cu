@@ -13,7 +13,7 @@
 // counter pairs (0, c + i) for i < n, c = c0 + *counter (the counter is
 // optional and lives in device memory, so a CUDA graph that advances it draws
 // a new sample's numbers on every replay; the key may be read from device
-// memory for the same reason). Four ways to write it, as
+// memory for the same reason). Six ways to write it, as
 // random.threefry_plain does:
 //   kKeys    both words, (n, 2) int64: split / fold_in of a tensor key;
 //   kBits    their xor, (n,) int64: 32 random bits per element;
@@ -24,7 +24,16 @@
 //            then max(., lo);
 //   kRandint jax.random.randint's int32: the key split in two (counters
 //            (0, 0) and (0, 1)), one bit stream under each, combined modulo
-//            the span in uint32 arithmetic.
+//            the span in uint32 arithmetic;
+//   kUniform64  jax.random.uniform's float64 (under jax_enable_x64): the 64
+//            bits x1 << 32 | x2, their top 52 as a mantissa under exponent 0,
+//            minus one, then floats * span + lo in one rounding (__fma_rn, as
+//            XLA contracts it; the plain version emulates it exactly), then
+//            max(., lo);
+//   kRandint64  jax.random.randint's int64: as kRandint with 64-bit streams
+//            x1 << 32 | x2 and uint64 arithmetic.
+// lo and span come in as doubles; the float32 mode rounds them to float (the
+// wrapper passes float32 values, so the rounding is exact).
 //
 // What bounds it on this card: 72 32-bit integer operations per hash (the
 // third key word is one three-way xor; x1 starts at 0, so its first key
@@ -34,8 +43,12 @@
 // large draw, not the memory; a small draw (a key) is all launch. kBits adds
 // an xor, kUniform an xor, a shift and an or, and three float32 operations.
 // kRandint hashes twice per element, plus the two hashes of its key split,
-// which are the same in every thread. The kernel keeps the words in
-// registers and writes each output once, coalesced.
+// which are the same in every thread. kUniform64 writes 8 bytes per element
+// and adds a shift, two ors and three float64 operations (the FP64 rate is
+// half the FP32 rate, still far above what 72 integer operations take);
+// kRandint64 hashes as kRandint, with two 64-bit remainders per stream. The
+// kernel keeps the words in registers and writes each output once,
+// coalesced.
 //
 // C interface for ctypes: launches on the given stream, allocates nothing,
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
@@ -50,7 +63,7 @@
 namespace {
 
 constexpr int kBlock = 256;
-enum Mode { kKeys = 0, kBits = 1, kUniform = 2, kRandint = 3 };
+enum Mode { kKeys = 0, kBits = 1, kUniform = 2, kRandint = 3, kUniform64 = 4, kRandint64 = 5 };
 
 __device__ __forceinline__ uint32_t rotl(uint32_t v, int r) { return (v << r) | (v >> (32 - r)); }
 
@@ -79,11 +92,19 @@ __device__ __forceinline__ uint32_t bits(uint32_t k1, uint32_t k2, uint32_t c) {
   return x1 ^ x2;
 }
 
+// The 64 random bits of counter c: both words, the first high
+// (`_threefry_random_bits_partitionable` with bit_width 64).
+__device__ __forceinline__ uint64_t bits64(uint32_t k1, uint32_t k2, uint32_t c) {
+  uint32_t x1 = 0u, x2 = c;
+  threefry(k1, k2, x1, x2);
+  return ((uint64_t)x1 << 32) | x2;
+}
+
 template <int kMode>
 __global__ void __launch_bounds__(kBlock)
 threefry_kernel(const int64_t* __restrict__ key, uint32_t k1, uint32_t k2, const int64_t* __restrict__ counter,
-                uint32_t c0, int64_t n, void* __restrict__ out, float lo, float span, int minval, uint32_t rspan,
-                uint32_t mult, unsigned long long* launches) {
+                uint32_t c0, int64_t n, void* __restrict__ out, double lo, double span, int64_t minval,
+                uint64_t rspan, uint64_t mult, unsigned long long* launches) {
   count_launch(launches);
   const int64_t i = (int64_t)blockIdx.x * kBlock + threadIdx.x;
   if (i >= n) return;
@@ -99,16 +120,29 @@ threefry_kernel(const int64_t* __restrict__ key, uint32_t k1, uint32_t k2, const
   } else if constexpr (kMode == kBits) {
     reinterpret_cast<int64_t*>(out)[i] = (int64_t)bits(k1, k2, c);
   } else if constexpr (kMode == kUniform) {
+    const float lo_f = (float)lo;
     const float f = __uint_as_float((bits(k1, k2, c) >> 9) | 0x3F800000u) - 1.0f;
-    reinterpret_cast<float*>(out)[i] = fmaxf(__fmaf_rn(f, span, lo), lo);
+    reinterpret_cast<float*>(out)[i] = fmaxf(__fmaf_rn(f, (float)span, lo_f), lo_f);
+  } else if constexpr (kMode == kUniform64) {
+    const double f = __longlong_as_double((long long)((bits64(k1, k2, c) >> 12) | 0x3FF0000000000000ull)) - 1.0;
+    reinterpret_cast<double*>(out)[i] = fmax(__fma_rn(f, span, lo), lo);
+  } else if constexpr (kMode == kRandint) {
+    const uint32_t rs = (uint32_t)rspan;
+    uint32_t h1 = 0u, h2 = 0u, l1 = 0u, l2 = 1u;
+    threefry(k1, k2, h1, h2);
+    threefry(k1, k2, l1, l2);
+    uint32_t off = (bits(h1, h2, c) % rs) * (uint32_t)mult;
+    off += bits(l1, l2, c) % rs;
+    off %= rs;
+    reinterpret_cast<int32_t*>(out)[i] = (int32_t)((uint32_t)minval + off);
   } else {
     uint32_t h1 = 0u, h2 = 0u, l1 = 0u, l2 = 1u;
     threefry(k1, k2, h1, h2);
     threefry(k1, k2, l1, l2);
-    uint32_t off = (bits(h1, h2, c) % rspan) * mult;
-    off += bits(l1, l2, c) % rspan;
+    uint64_t off = (bits64(h1, h2, c) % rspan) * mult;
+    off += bits64(l1, l2, c) % rspan;
     off %= rspan;
-    reinterpret_cast<int32_t*>(out)[i] = (int32_t)((uint32_t)minval + off);
+    reinterpret_cast<int64_t*>(out)[i] = (int64_t)((uint64_t)minval + off);
   }
 }
 
@@ -117,7 +151,7 @@ threefry_kernel(const int64_t* __restrict__ key, uint32_t k1, uint32_t k2, const
 extern "C" {
 
 int rpt_threefry(int mode, const int64_t* key, uint32_t k1, uint32_t k2, const int64_t* counter, uint32_t c0,
-                 int64_t n, void* out, float lo, float span, int minval, uint32_t rspan, uint32_t mult,
+                 int64_t n, void* out, double lo, double span, int64_t minval, uint64_t rspan, uint64_t mult,
                  unsigned long long* launches, void* stream) {
   if (n <= 0) return 0;
   if (rspan == 0u) return (int)cudaErrorInvalidValue;
@@ -131,6 +165,8 @@ int rpt_threefry(int mode, const int64_t* key, uint32_t k1, uint32_t k2, const i
     case kBits: go(threefry_kernel<kBits>); break;
     case kUniform: go(threefry_kernel<kUniform>); break;
     case kRandint: go(threefry_kernel<kRandint>); break;
+    case kUniform64: go(threefry_kernel<kUniform64>); break;
+    case kRandint64: go(threefry_kernel<kRandint64>); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

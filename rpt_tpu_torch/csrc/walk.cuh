@@ -2,11 +2,19 @@
 // group_walk.cuh), bvh2.cu and tlas2.cu (through pair_walk.cuh): the ray
 // and its load, the slab test of one box (of each child of a pair node,
 // or of each of a wide node's 8 children), the instance
-// transform, and the triangle tests on the precomputed 20-float rows. The
+// transform, and the triangle tests on the precomputed 20-value rows. The
 // layouts are documented in rpt_tpu_torch/ops/bvh8.py, ops/bvh2.py and
 // ops/tlas2.py, whose plain
 // torch walks repeat this arithmetic op for op (the sources are built with
 // -fmad=false).
+//
+// Everything is written once over the real type `Real` of the rays, the
+// triangle rows, the instance transforms and the hit distances: float for
+// the float32 renders, double for the float64 ones. The node boxes stay
+// float in both (a float64 pack rounds them outward, so that they hold the
+// float64 triangles) and are widened to Real where they are tested. With
+// Real = float every conversion below is the identity, and the float
+// instantiations compile to the code they were before the template.
 //
 // Each .cu file includes this header once and is built into its own shared
 // library, so the anonymous namespace gives every library its own copy.
@@ -19,48 +27,89 @@
 namespace {
 
 constexpr float kBig = 3.0e38f;
-constexpr int kTriStride4 = 5;  // float4 per triangle row (20 floats)
+constexpr int kTriStride = 20;  // reals per triangle row
 constexpr int kNode4 = 12;      // float4 of child bounds per wide node
-constexpr int kInst4 = 3;       // float4 per instance: the 3x4 world->local rows
+constexpr int kInst = 12;       // reals per instance: the 3x4 world->local rows
 constexpr int kBlock = 128;
 
+// The constants of each real type: the miss sentinel, the parallel-ray
+// guard of the triangle test and the zero guard of the inverse direction,
+// each the value the plain torch version uses in that type.
+template <typename Real>
+struct Num;
+template <>
+struct Num<float> {
+  static constexpr float big = 3.0e38f, par = 1e-8f, tiny = 1e-20f;
+};
+template <>
+struct Num<double> {
+  static constexpr double big = 3.0e38, par = 1e-8, tiny = 1e-20;
+};
+
+__device__ __forceinline__ float absr(float x) { return fabsf(x); }
+__device__ __forceinline__ double absr(double x) { return fabs(x); }
+__device__ __forceinline__ float minr(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double minr(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float maxr(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double maxr(double a, double b) { return fmax(a, b); }
+
+// Four consecutive reals, read with one 16-byte load (float) or two (double).
+template <typename Real>
+struct Quad {
+  Real x, y, z, w;
+};
+__device__ __forceinline__ Quad<float> ldq(const float* __restrict__ p) {
+  const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+  return {v.x, v.y, v.z, v.w};
+}
+__device__ __forceinline__ Quad<double> ldq(const double* __restrict__ p) {
+  const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+  const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+  return {a.x, a.y, b.x, b.y};
+}
+
+template <typename Real>
 struct Ray {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
+  Real ox, oy, oz, dx, dy, dz, ix, iy, iz;
   int oct;
 };
 
-__device__ __forceinline__ float safe_inv(float c) {
-  float s = (fabsf(c) > 1e-20f) ? c : ((c < 0.0f) ? -1e-20f : 1e-20f);
-  return 1.0f / s;
+template <typename Real>
+__device__ __forceinline__ Real safe_inv(Real c) {
+  Real s = (absr(c) > Num<Real>::tiny) ? c : ((c < (Real)0) ? -Num<Real>::tiny : Num<Real>::tiny);
+  return (Real)1 / s;
 }
 
 // Slab test of one box: does [lo, hi] overlap [t_min, upper] along the ray?
 // *entry gets the ray's entry distance into the box (the slabs' lower end).
+template <typename Real>
 __device__ __forceinline__ bool box_entry(float lox, float loy, float loz, float hix, float hiy,
-                                          float hiz, const Ray& r, float t_min, float upper,
-                                          float* entry) {
-  float t1x = (lox - r.ox) * r.ix;
-  float t2x = (hix - r.ox) * r.ix;
-  float t1y = (loy - r.oy) * r.iy;
-  float t2y = (hiy - r.oy) * r.iy;
-  float t1z = (loz - r.oz) * r.iz;
-  float t2z = (hiz - r.oz) * r.iz;
-  float lo = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fminf(t1z, t2z));
-  float hi = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+                                          float hiz, const Ray<Real>& r, Real t_min, Real upper,
+                                          Real* entry) {
+  Real t1x = ((Real)lox - r.ox) * r.ix;
+  Real t2x = ((Real)hix - r.ox) * r.ix;
+  Real t1y = ((Real)loy - r.oy) * r.iy;
+  Real t2y = ((Real)hiy - r.oy) * r.iy;
+  Real t1z = ((Real)loz - r.oz) * r.iz;
+  Real t2z = ((Real)hiz - r.oz) * r.iz;
+  Real lo = maxr(maxr(minr(t1x, t2x), minr(t1y, t2y)), minr(t1z, t2z));
+  Real hi = minr(minr(maxr(t1x, t2x), maxr(t1y, t2y)), maxr(t1z, t2z));
   *entry = lo;
   return lo <= hi && hi >= t_min && lo <= upper;
 }
 
+template <typename Real>
 __device__ __forceinline__ bool box_hit(float lox, float loy, float loz, float hix, float hiy,
-                                        float hiz, const Ray& r, float t_min, float upper) {
-  float entry;
+                                        float hiz, const Ray<Real>& r, Real t_min, Real upper) {
+  Real entry;
   return box_entry(lox, loy, loz, hix, hiy, hiz, r, t_min, upper, &entry);
 }
 
 // Slab test of the 8 child boxes of one wide node: bit c set if child c's
 // box overlaps [t_min, upper] along the ray.
-__device__ __forceinline__ unsigned child_mask(const float4* __restrict__ nb, const Ray& r,
-                                               float t_min, float upper) {
+template <typename Real>
+__device__ __forceinline__ unsigned child_mask(const float4* __restrict__ nb, const Ray<Real>& r,
+                                               Real t_min, Real upper) {
   float v[48];
 #pragma unroll
   for (int q = 0; q < kNode4; ++q) {
@@ -82,9 +131,10 @@ __device__ __forceinline__ unsigned child_mask(const float4* __restrict__ nb, co
 
 // Load one ray from (N, 3) origin and direction rows, with its inverse
 // direction and direction octant.
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float* __restrict__ d,
-                                        int i) {
-  Ray r;
+template <typename Real>
+__device__ __forceinline__ Ray<Real> load_ray(const Real* __restrict__ o, const Real* __restrict__ d,
+                                              int i) {
+  Ray<Real> r;
   r.ox = o[3 * i + 0];
   r.oy = o[3 * i + 1];
   r.oz = o[3 * i + 2];
@@ -94,17 +144,18 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o, const float
   r.ix = safe_inv(r.dx);
   r.iy = safe_inv(r.dy);
   r.iz = safe_inv(r.dz);
-  r.oct = (r.dx < 0.0f ? 1 : 0) | (r.dy < 0.0f ? 2 : 0) | (r.dz < 0.0f ? 4 : 0);
+  r.oct = (r.dx < (Real)0 ? 1 : 0) | (r.dy < (Real)0 ? 2 : 0) | (r.dz < (Real)0 ? 4 : 0);
   return r;
 }
 
 // Re-express the world ray w in an instance's frame by the 3x4
-// world->local affine rows a[0..2]: the direction is NOT normalized, so
+// world->local affine rows a[0..11]: the direction is NOT normalized, so
 // local t == world t and a prune on the running best holds at both levels.
-__device__ __forceinline__ void to_local(const float4* __restrict__ a, const Ray& w, Ray* l) {
-  const float4 r0 = __ldg(a + 0);
-  const float4 r1 = __ldg(a + 1);
-  const float4 r2 = __ldg(a + 2);
+template <typename Real>
+__device__ __forceinline__ void to_local(const Real* __restrict__ a, const Ray<Real>& w, Ray<Real>* l) {
+  const Quad<Real> r0 = ldq(a + 0);
+  const Quad<Real> r1 = ldq(a + 4);
+  const Quad<Real> r2 = ldq(a + 8);
   l->ox = ((r0.x * w.ox + r0.y * w.oy) + r0.z * w.oz) + r0.w;
   l->oy = ((r1.x * w.ox + r1.y * w.oy) + r1.z * w.oz) + r1.w;
   l->oz = ((r2.x * w.ox + r2.y * w.oy) + r2.z * w.oz) + r2.w;
@@ -119,39 +170,41 @@ __device__ __forceinline__ void to_local(const float4* __restrict__ a, const Ray
 // Plane + barycentric triangle test on a precomputed row
 // (v0, e1, e2, pn, pv, d00, d01, d11, inv_den). Sets *ok for a hit in
 // [t_min, inf) inside the triangle; returns its t.
-__device__ __forceinline__ float tri_t(const float4* __restrict__ tr, const Ray& r, float t_min,
-                                       bool* ok) {
-  const float4 a = __ldg(tr + 0);  // v0x v0y v0z e1x
-  const float4 b = __ldg(tr + 1);  // e1y e1z e2x e2y
-  const float4 c = __ldg(tr + 2);  // e2z pnx pny pnz
-  const float4 e = __ldg(tr + 3);  // pv d00 d01 d11
-  const float inv_den = __ldg(reinterpret_cast<const float*>(tr + 4));
-  float cosv = (c.y * r.dx + c.z * r.dy) + c.w * r.dz;
-  float cos_safe = (fabsf(cosv) > 1e-8f) ? cosv : 1e-8f;
-  float t = (e.x - ((c.y * r.ox + c.z * r.oy) + c.w * r.oz)) / cos_safe;
-  float ddx = (r.ox + t * r.dx) - a.x;
-  float ddy = (r.oy + t * r.dy) - a.y;
-  float ddz = (r.oz + t * r.dz) - a.z;
-  float d20 = (ddx * a.w + ddy * b.x) + ddz * b.y;
-  float d21 = (ddx * b.z + ddy * b.w) + ddz * c.x;
-  float v = (e.w * d20 - e.z * d21) * inv_den;
-  float w = (e.y * d21 - e.z * d20) * inv_den;
-  float u = (1.0f - v) - w;
-  *ok = fabsf(cosv) >= 1e-8f && t >= t_min && u >= 0.0f && v >= 0.0f && w >= 0.0f;
+template <typename Real>
+__device__ __forceinline__ Real tri_t(const Real* __restrict__ tr, const Ray<Real>& r, Real t_min,
+                                      bool* ok) {
+  const Quad<Real> a = ldq(tr + 0);   // v0x v0y v0z e1x
+  const Quad<Real> b = ldq(tr + 4);   // e1y e1z e2x e2y
+  const Quad<Real> c = ldq(tr + 8);   // e2z pnx pny pnz
+  const Quad<Real> e = ldq(tr + 12);  // pv d00 d01 d11
+  const Real inv_den = __ldg(tr + 16);
+  Real cosv = (c.y * r.dx + c.z * r.dy) + c.w * r.dz;
+  Real cos_safe = (absr(cosv) > Num<Real>::par) ? cosv : Num<Real>::par;
+  Real t = (e.x - ((c.y * r.ox + c.z * r.oy) + c.w * r.oz)) / cos_safe;
+  Real ddx = (r.ox + t * r.dx) - a.x;
+  Real ddy = (r.oy + t * r.dy) - a.y;
+  Real ddz = (r.oz + t * r.dz) - a.z;
+  Real d20 = (ddx * a.w + ddy * b.x) + ddz * b.y;
+  Real d21 = (ddx * b.z + ddy * b.w) + ddz * c.x;
+  Real v = (e.w * d20 - e.z * d21) * inv_den;
+  Real w = (e.y * d21 - e.z * d20) * inv_den;
+  Real u = ((Real)1 - v) - w;
+  *ok = absr(cosv) >= Num<Real>::par && t >= t_min && u >= (Real)0 && v >= (Real)0 && w >= (Real)0;
   return t;
 }
 
 // Triangle test of one leaf's `cnt` rows for the closest hit: the lowest
-// t in [t_min, inf) (strict <, so the lowest row wins a tie), kBig if
-// none, and its row in *kb.
-__device__ __forceinline__ float leaf_closest(const float4* __restrict__ tr, int cnt, const Ray& r,
-                                              float t_min, int* kb) {
-  float t_leaf = kBig;
+// t in [t_min, inf) (strict <, so the lowest row wins a tie), the miss
+// sentinel if none, and its row in *kb.
+template <typename Real>
+__device__ __forceinline__ Real leaf_closest(const Real* __restrict__ tr, int cnt, const Ray<Real>& r,
+                                             Real t_min, int* kb) {
+  Real t_leaf = Num<Real>::big;
   *kb = 0;
   for (int j = 0; j < cnt; ++j) {
     bool ok;
-    float t = tri_t(tr + j * kTriStride4, r, t_min, &ok);
-    t = ok ? t : kBig;
+    Real t = tri_t(tr + j * kTriStride, r, t_min, &ok);
+    t = ok ? t : Num<Real>::big;
     if (t < t_leaf) {
       t_leaf = t;
       *kb = j;
@@ -162,11 +215,12 @@ __device__ __forceinline__ float leaf_closest(const float4* __restrict__ tr, int
 
 // Triangle test of one leaf's `cnt` rows for the any-hit query: is some t
 // in [t_min, t_max]? Stops at the first such row.
-__device__ __forceinline__ bool leaf_any(const float4* __restrict__ tr, int cnt, const Ray& r,
-                                         float t_min, float t_max) {
+template <typename Real>
+__device__ __forceinline__ bool leaf_any(const Real* __restrict__ tr, int cnt, const Ray<Real>& r,
+                                         Real t_min, Real t_max) {
   for (int j = 0; j < cnt; ++j) {
     bool ok;
-    const float t = tri_t(tr + j * kTriStride4, r, t_min, &ok);
+    const Real t = tri_t(tr + j * kTriStride, r, t_min, &ok);
     if (ok && t <= t_max) return true;
   }
   return false;

@@ -42,28 +42,37 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 ]
-_P, _I32, _I64, _F32, _U32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_uint32
+_P, _I32, _I64, _F32, _F64, _U32, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float, ctypes.c_double,
+                                          ctypes.c_uint32, ctypes.c_uint64)
 # argtypes of every entry point, by library: c_void_p for each pointer and
 # the stream, so ctypes never cuts a pointer to 32 bits.
 _SIGNATURES = {
     "bvh8": {
         "rpt_bvh8_closest": [_P, _P, _I32] + [_P] * 4 + [_I64, _F32] + [_P] * 4,
         "rpt_bvh8_occluded": [_P, _P, _I32] + [_P] * 5 + [_I64, _F32] + [_P] * 3,
+        "rpt_bvh8_closest_f64": [_P, _P, _I32] + [_P] * 4 + [_I64, _F64] + [_P] * 4,
+        "rpt_bvh8_occluded_f64": [_P, _P, _I32] + [_P] * 5 + [_I64, _F64] + [_P] * 3,
     },
     "tlas8": {
         "rpt_tlas8_closest": [_P, _P, _I32, _I32] + [_P] * 6 + [_I64, _F32] + [_P] * 5,
         "rpt_tlas8_occluded": [_P, _P, _I32, _I32] + [_P] * 7 + [_I64, _F32] + [_P] * 3,
+        "rpt_tlas8_closest_f64": [_P, _P, _I32, _I32] + [_P] * 6 + [_I64, _F64] + [_P] * 5,
+        "rpt_tlas8_occluded_f64": [_P, _P, _I32, _I32] + [_P] * 7 + [_I64, _F64] + [_P] * 3,
     },
     "bvh2": {
         "rpt_bvh2_closest": [_P] * 5 + [_I64, _F32] + [_P] * 2 + [_I32, _I32, _P, _P, _P],
         "rpt_bvh2_occluded": [_P] * 6 + [_I64, _F32, _P, _I32, _I32, _P, _P, _P],
+        "rpt_bvh2_closest_f64": [_P] * 5 + [_I64, _F64] + [_P] * 2 + [_I32, _I32, _P, _P, _P],
+        "rpt_bvh2_occluded_f64": [_P] * 6 + [_I64, _F64, _P, _I32, _I32, _P, _P, _P],
     },
     "tlas2": {
         "rpt_tlas2_closest": [_P, _I32] + [_P] * 5 + [_I64, _F32] + [_P] * 3 + [_I32, _I32, _P, _P, _P],
         "rpt_tlas2_occluded": [_P, _I32] + [_P] * 6 + [_I64, _F32, _P, _I32, _I32, _P, _P, _P],
+        "rpt_tlas2_closest_f64": [_P, _I32] + [_P] * 5 + [_I64, _F64] + [_P] * 3 + [_I32, _I32, _P, _P, _P],
+        "rpt_tlas2_occluded_f64": [_P, _I32] + [_P] * 6 + [_I64, _F64, _P, _I32, _I32, _P, _P, _P],
     },
     "threefry": {
-        "rpt_threefry": [_I32, _P, _U32, _U32, _P, _U32, _I64, _P, _F32, _F32, _I32, _U32, _U32, _P, _P],
+        "rpt_threefry": [_I32, _P, _U32, _U32, _P, _U32, _I64, _P, _F64, _F64, _I64, _U64, _U64, _P, _P],
     },
 }
 _lock = threading.Lock()

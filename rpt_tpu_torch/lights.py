@@ -3,7 +3,9 @@
 Counterpart of `rpt_tpu/lights.py`. Host-side specs compile to small
 dataclasses of tensors whose `illuminate(key, pos)` returns, for N shading
 points, (intensity (N,3), dir_to_light (N,3), dist_to_light (N,)). Area
-lights sample the sphere, cube and triangle mesh as the reference does;
+lights sample the sphere, cube and triangle mesh as the reference does,
+drawing in the type of `pos` (float64 and int64 draws in a float64 render,
+as the reference's default-typed draws under `jax_enable_x64`);
 monomial-surface lights are not ported yet.
 """
 
@@ -77,6 +79,12 @@ class ObjectLight:
 # ---------------------------------------------------------------------------
 # Compiled lights
 # ---------------------------------------------------------------------------
+
+
+def _int_of(pos: torch.Tensor) -> torch.dtype:
+    """The integer type of the render's draws: int32 in a float32 render,
+    int64 in a float64 one (JAX's default int under `jax_enable_x64`)."""
+    return torch.int32 if pos.dtype == torch.float32 else torch.int64
 
 
 def _mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -159,7 +167,7 @@ class SphereLightData:
         t_b = torch.stack([zero, -nz, ny], -1)
         n1 = normalize(torch.where(use_x[..., None], t_a, t_b))
         n2 = cross(n1, n)
-        xy = uniform_disk(key, tuple(pos.shape[:-1]), device=pos.device)
+        xy = uniform_disk(key, tuple(pos.shape[:-1]), device=pos.device, dtype=pos.dtype)
         z = safe_sqrt(1.0 - torch.sum(xy * xy, -1))
         p_local = xy[..., 0:1] * n1 + xy[..., 1:2] * n2 + z[..., None] * n
         pdf = z / math.pi
@@ -183,9 +191,9 @@ class CubeLightData:
         shape = tuple(pos.shape[:-1])
         dev = pos.device
         k1, k2, k3 = rnd.split(key, 3)
-        a = rnd.uniform(k1, shape, device=dev) - 0.5
-        b = rnd.uniform(k2, shape, device=dev) - 0.5
-        face = rnd.randint(k3, shape, 0, 6, device=dev).long()
+        a = rnd.uniform(k1, shape, dtype=pos.dtype, device=dev) - 0.5
+        b = rnd.uniform(k2, shape, dtype=pos.dtype, device=dev) - 0.5
+        face = rnd.randint(k3, shape, 0, 6, dtype=_int_of(pos), device=dev).long()
         half = torch.full_like(a, 0.5)
         zero = torch.zeros_like(a)
         one = torch.ones_like(a)
@@ -236,8 +244,8 @@ class MeshLightData:
         dev = pos.device
         k1, k2 = rnd.split(key)
         num = self.verts.shape[0]
-        tri = rnd.randint(k1, shape, 0, num, device=dev).long()
-        uv = uniform_triangle_barycentric(k2, shape, device=dev)
+        tri = rnd.randint(k1, shape, 0, num, dtype=_int_of(pos), device=dev).long()
+        uv = uniform_triangle_barycentric(k2, shape, device=dev, dtype=pos.dtype)
         u, v_ = uv[..., 0], uv[..., 1]
         w = 1.0 - u - v_
         tv = self.verts[tri]  # (..., 3, 3)

@@ -19,7 +19,7 @@ import torch
 
 from . import random as rnd
 from .sampling import uniform_disk
-from .utils.vmath import cross, dot, from_local, normalize, safe_sqrt
+from .utils.vmath import cross, dot, from_local, normalize, numpy_real, safe_sqrt, signed_full
 
 __all__ = ["Material", "MaterialTable", "MatParams", "bsdf", "sample_f"]
 
@@ -98,11 +98,13 @@ class MaterialTable:
     transparent: torch.Tensor
 
     @staticmethod
-    def pack(materials, device=None) -> "MaterialTable":
+    def pack(materials, device=None, dtype=torch.float32) -> "MaterialTable":
+        """The materials' columns in the render's real type `dtype`."""
         mats = list(materials) or [Material.default()]
+        np_dtype = numpy_real(dtype)
 
         def col(vals):
-            return torch.as_tensor(np.asarray(vals, np.float32), device=device)
+            return torch.as_tensor(np.asarray(vals, np_dtype), device=device)
 
         return MaterialTable(
             color=col([m.color for m in mats]),
@@ -130,7 +132,7 @@ class MaterialTable:
 
 def _safe(x, eps=_TINY):
     """Clamp a denominator away from zero, keeping its sign."""
-    return torch.where(torch.abs(x) < eps, torch.where(x < 0, -eps, eps), x)
+    return torch.where(torch.abs(x) < eps, signed_full(x < 0, eps, x), x)
 
 
 def _sin2_nh(n, h):
@@ -218,10 +220,12 @@ def _beckmann_pdf(n, h, m2):
 def sample_f(key, mat: MatParams, n: torch.Tensor, wo: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sample an incident direction: (wi (...,3), mixture pdf (...,), valid
     (...,) bool). Invalid samples (total internal reflection on the
-    transmission lobe) must contribute nothing."""
+    transmission lobe) must contribute nothing. The draws are of the type of
+    `n` (float64 in a float64 render, as the reference's default-typed draws
+    under `jax_enable_x64`)."""
     k_lobe, k_theta, k_phi, k_disk = rnd.split(key, 4)
     shape = tuple(n.shape[:-1])
-    dev = n.device
+    dev, real = n.device, n.dtype
     m2 = torch.clamp(mat.roughness * mat.roughness, min=1e-12)
 
     f0s = ((mat.index - 1.0) / (mat.index + 1.0)) ** 2
@@ -231,17 +235,17 @@ def sample_f(key, mat: MatParams, n: torch.Tensor, wo: torch.Tensor) -> Tuple[to
     n_wo = dot(wo, n)
     eta_t = torch.where(n_wo > 0.0, mat.index, 1.0 / mat.index)
 
-    u = rnd.uniform(k_theta, shape, minval=1e-7, maxval=1.0, device=dev)
+    u = rnd.uniform(k_theta, shape, dtype=real, minval=1e-7, maxval=1.0, device=dev)
     theta = torch.atan(torch.sqrt(-m2 * torch.log(u)))
     sin_t, cos_t = torch.sin(theta), torch.cos(theta)
-    phi = rnd.uniform(k_phi, shape, minval=0.0, maxval=2.0 * _PI, device=dev)
+    phi = rnd.uniform(k_phi, shape, dtype=real, minval=0.0, maxval=2.0 * _PI, device=dev)
     h_local = torch.stack([torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t], dim=-1)
     h = from_local(n, h_local)
 
     h_wo = dot(h, wo)
     wi_spec = 2.0 * h_wo[..., None] * h - wo
 
-    xy = uniform_disk(k_disk, shape, device=dev)
+    xy = uniform_disk(k_disk, shape, device=dev, dtype=real)
     z = safe_sqrt(1.0 - torch.sum(xy * xy, dim=-1))
     wi_diff = from_local(n, torch.cat([xy, z[..., None]], dim=-1))
 
@@ -253,7 +257,7 @@ def sample_f(key, mat: MatParams, n: torch.Tensor, wo: torch.Tensor) -> Tuple[to
     wi_trans = -torch.sign(h_wo)[..., None] * cos_ti[..., None] * h + wi_perp
 
     transparent = mat.transparent > 0.5
-    pick_spec = rnd.uniform(k_lobe, shape, device=dev) < f_est
+    pick_spec = rnd.uniform(k_lobe, shape, dtype=real, device=dev) < f_est
     wi_other = torch.where(transparent[..., None], wi_trans, wi_diff)
     wi = torch.where(pick_spec[..., None], wi_spec, wi_other)
     valid = ~((~pick_spec) & transparent & tir)

@@ -21,17 +21,21 @@ import numpy as np
 import torch
 
 from ..native import build_bvh_sah
-from ..utils.vmath import cross, dot, normalize
+from ..utils.vmath import cross, dot, normalize, numpy_real, signed_full
 from .intersect import INF, Hit
 
-__all__ = ["BvhData", "build_bvh", "finalize_hit", "LEAF_SIZE"]
+__all__ = ["BvhData", "build_bvh", "finalize_hit", "outward", "widen", "LEAF_SIZE"]
 
 LEAF_SIZE = 8
 
 
 @dataclasses.dataclass(frozen=True)
 class BvhData:
-    node_min: torch.Tensor  # (M, 3) f32
+    """A built BVH in the scene's real type (float32 or float64, as the
+    reference builds it): node boxes (the float32 values of the SAH build),
+    triangles and normals in that type, indices int32."""
+
+    node_min: torch.Tensor  # (M, 3)
     node_max: torch.Tensor  # (M, 3)
     is_leaf: torch.Tensor  # (M,) int32 {0,1}
     skip: torch.Tensor  # (M,) int32: next node on a box miss / after a leaf
@@ -51,17 +55,21 @@ class BvhData:
         return self.verts.shape[0]
 
 
-def bvh_from_arrays(arrays: dict, device=None) -> BvhData:
-    """BvhData from host arrays keyed by field name."""
-    dt = {f.name: (torch.float32 if f.name in ("node_min", "node_max", "verts", "norms") else torch.int32)
+def bvh_from_arrays(arrays: dict, device=None, dtype=torch.float32) -> BvhData:
+    """BvhData from host arrays keyed by field name, its floats in `dtype`."""
+    dt = {f.name: (dtype if f.name in ("node_min", "node_max", "verts", "norms") else torch.int32)
           for f in dataclasses.fields(BvhData)}
     return BvhData(**{
         k: torch.as_tensor(np.ascontiguousarray(arrays[k]), dtype=dt[k], device=device) for k in dt
     })
 
 
-def build_bvh(verts: np.ndarray, norms: np.ndarray, mats: np.ndarray, device=None) -> BvhData:
-    """Host-side SAH build over world-space triangles (T, 3, 3)."""
+def build_bvh(verts: np.ndarray, norms: np.ndarray, mats: np.ndarray, device=None,
+              dtype=torch.float32) -> BvhData:
+    """Host-side SAH build over world-space triangles (T, 3, 3); the
+    triangles and normals are kept in `dtype`, the node boxes are the
+    SAH build's float32 values in it (as the reference keeps them)."""
+    np_dtype = numpy_real(dtype)
     verts = np.asarray(verts)
     tri_min = verts.min(axis=1)
     tri_max = verts.max(axis=1)
@@ -81,12 +89,33 @@ def build_bvh(verts: np.ndarray, norms: np.ndarray, mats: np.ndarray, device=Non
         dict(
             node_min=node_min, node_max=node_max, is_leaf=is_leaf, skip=skip,
             leaf_tris=leaf_tris, leaf_start=leaf_start, leaf_count=leaf_count,
-            verts=verts[perm].astype(np.float32),
-            norms=np.asarray(norms)[perm].astype(np.float32),
+            verts=verts[perm].astype(np_dtype),
+            norms=np.asarray(norms)[perm].astype(np_dtype),
             mat_id=np.asarray(mats)[perm].astype(np.int32),
         ),
         device,
+        dtype,
     )
+
+
+def outward(lo: np.ndarray, hi: np.ndarray):
+    """float64 boxes lo-hi as float32 boxes that hold them: each bound
+    rounded down (lo) or up (hi)."""
+    lo32 = np.asarray(lo).astype(np.float32)
+    hi32 = np.asarray(hi).astype(np.float32)
+    lo32 = np.where(lo32.astype(np.float64) > lo, np.nextafter(lo32, np.float32(-np.inf)), lo32)
+    hi32 = np.where(hi32.astype(np.float64) < hi, np.nextafter(hi32, np.float32(np.inf)), hi32)
+    return lo32, hi32
+
+
+def widen(lo: np.ndarray, hi: np.ndarray):
+    """The SAH build's float32 boxes lo-hi widened one float32 ulp each way,
+    for a float64 pack. The SAH build rounds each float64 triangle's bounds to
+    the nearest float32, so its box can lie half an ulp inside a float64
+    triangle and prune that triangle's hit; one ulp out, it holds it."""
+    lo32 = np.asarray(lo).astype(np.float32)
+    hi32 = np.asarray(hi).astype(np.float32)
+    return np.nextafter(lo32, np.float32(-np.inf)), np.nextafter(hi32, np.float32(np.inf))
 
 
 def _tri_hit_t(o, d, v0, v1, v2, t_min):
@@ -115,8 +144,8 @@ def _tri_hit_t(o, d, v0, v1, v2, t_min):
 
 
 def _safe_inv(d: torch.Tensor) -> torch.Tensor:
-    tiny = torch.where(d < 0, -1e-20, 1e-20).to(d.dtype)
-    return 1.0 / torch.where(torch.abs(d) > 1e-20, d, tiny)
+    return 1.0 / torch.where(torch.abs(d) > 1e-20, d, signed_full(d < 0, 1e-20, d))
+
 
 
 def finalize_hit(bvh: BvhData, o, d, t_min, t_best, best_tri) -> Hit:

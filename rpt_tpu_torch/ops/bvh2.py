@@ -34,6 +34,10 @@ internal node, holding both children's boxes and references.
   (`ops/bvh8._tri_rows`), leaf-contiguous and 8-aligned, so a hit's id
   `leaf_start + k` indexes `BvhData.verts` and `finalize_hit` agrees.
 
+A float64 pack (of a float64 `BvhData`) keeps `tris` in float64 and the
+node boxes in float32, widened one ulp outward (`bvh.widen`) to hold the
+float64 triangles; its walks are float64 (csrc/walk.cuh).
+
 Walk. One ray per thread (per lane of the plain version). Visiting a pair
 node slab-tests both children against [t_min, upper] (upper = the running
 best hit, or t_max for the any hit; inclusive, as in the reference), tests
@@ -70,7 +74,8 @@ import numpy as np
 import torch
 
 from ..kernels import counted, launch_counter
-from .bvh import LEAF_SIZE, BvhData, _safe_inv
+from ..utils.vmath import numpy_real, real_value
+from .bvh import LEAF_SIZE, BvhData, _safe_inv, widen
 from .bvh8 import (
     _BIG,
     KIND_EMPTY,
@@ -84,9 +89,11 @@ from .bvh8 import (
     _slab,
     _to_local,
     _tri_rows,
+    check_dtype,
     finish_closest,
     finish_occluded,
     ray_t_max,
+    real_slot,
 )
 from .intersect import Hit
 
@@ -129,7 +136,7 @@ class PairNodes:
 @dataclasses.dataclass(frozen=True)
 class Bvh2Pack(PairNodes):
     nodes: torch.Tensor  # (P, 16) f32 child-pair nodes
-    tris: torch.Tensor  # (T, 20) f32
+    tris: torch.Tensor  # (T, 20) f32 (f64 in a float64 pack)
     stack_depth: int  # worst-case depth of the walk's stack
 
     @property
@@ -209,6 +216,8 @@ def pack_bvh2(bvh: BvhData, device=None) -> Bvh2Pack:
     tree fits: `launch_plan` places any stack depth."""
     node_min, node_max, skip, start, count = (t.cpu().numpy() for t in (
         bvh.node_min, bvh.node_max, bvh.skip, bvh.leaf_start, bvh.leaf_count))
+    if bvh.verts.dtype == torch.float64:
+        node_min, node_max = widen(node_min, node_max)
     leaf = count > 0
     assert (start[leaf] % LEAF_SIZE == 0).all() and (count[leaf] <= LEAF_SIZE).all(), \
         "leaves must be 8-aligned and hold at most 8 rows"
@@ -217,7 +226,7 @@ def pack_bvh2(bvh: BvhData, device=None) -> Bvh2Pack:
     nodes, _ = _pair_nodes(node_min, node_max, skip.astype(np.int64), _leaf_refs(start, count), np.array([0]), 0)
     return Bvh2Pack(
         nodes=torch.as_tensor(nodes, device=device),
-        tris=torch.as_tensor(_tri_rows(bvh.verts.cpu().numpy()), device=device),
+        tris=torch.as_tensor(_tri_rows(bvh.verts.cpu().numpy(), numpy_real(bvh.verts.dtype)), device=device),
         stack_depth=_stack_depth(nodes.view(np.int32)[:, 12:14]),
     )
 
@@ -237,8 +246,8 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
     frame, an instance child enters its BLAS root, and the tie key is (TLAS
     leaf rank, row); one-level every rank is 0, so the key is the row.
 
-    Returns the any-hit bool, or for the closest hit (t_raw (N,) f32, BIG
-    on a miss; triangle row (N,) i32), two-level also the instance id (N,)
+    Returns the any-hit bool, or for the closest hit (t_raw (N,) in the
+    rays' type, BIG on a miss; triangle row (N,) i32), two-level also the instance id (N,)
     i32. `stats` accumulates box tests (filled child slots of each visited
     node), triangle tests (rows of each tested leaf), instance entries
     (two-level) and the deepest stack reached (`max_stack_depth`)."""
@@ -246,14 +255,14 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
     N = o.shape[0]
     occl = t_max is not None
     two_level = getattr(pack, "inst_rows", None) is not None
-    t_min = float(np.float32(t_min))
+    t_min = real_value(t_min, o.dtype)
     inv = _safe_inv(d)
     boxes = pack.nodes[:, :12].reshape(-1, 2, 6).transpose(1, 2)  # (P, 6, 2): lo.xyz, hi.xyz by slot
     refs = pack.refs.long()
     kinds = refs & 3
     kk = torch.arange(LEAF_SIZE, device=dev)
 
-    t_best = torch.full((N,), _BIG, dtype=torch.float32, device=dev)
+    t_best = torch.full((N,), _BIG, dtype=o.dtype, device=dev)
     best = torch.zeros(N, dtype=torch.int64, device=dev)
     best_rank = torch.full((N,), -1, dtype=torch.int64, device=dev)
     occ = torch.zeros(N, dtype=torch.bool, device=dev)
@@ -262,7 +271,8 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
     if two_level:
         n_tlas = pack.n_tlas
         aff = pack.inst_rows[:, :12].reshape(-1, 3, 4)
-        rank_root, rank_inst = pack.inst_rows[:, 12:14].view(torch.int32).long().unbind(1)
+        r = pack.inst_rows.element_size() // 4  # int32 words per real: the ints sit at real 12
+        rank_root, rank_inst = pack.inst_rows.view(torch.int32)[:, 12 * r:12 * r + 2].long().unbind(1)
         o_loc, d_loc, inv_loc = torch.zeros_like(o), torch.zeros_like(d), torch.zeros_like(d)
     stack = torch.zeros((N, max(pack.stack_depth, 1)), dtype=torch.int64, device=dev)
     sp = torch.zeros(N, dtype=torch.int64, device=dev)
@@ -370,9 +380,9 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
 
 
 def bvh2_closest_plain(pack: Bvh2Pack, o, d, t_min, active=None, stats=None):
-    """Plain version of the closest-hit kernel: (t_raw (N,) f32 with BIG on
-    a miss, triangle id (N,) i32). `stats`, if given, accumulates the counts
-    of `_pair_walk`."""
+    """Plain version of the closest-hit kernel: (t_raw (N,) in the rays'
+    type with BIG on a miss, triangle id (N,) i32). `stats`, if given,
+    accumulates the counts of `_pair_walk`."""
     return _pair_walk(pack, o, d, t_min, None, active, stats)
 
 
@@ -420,11 +430,12 @@ def bvh2_closest_kernel(pack: Bvh2Pack, o, d, t_min, active=None, launches=None)
     lib = load_library("bvh2")
     o, d, active, _ = _check_rays(pack, o, d, active)
     n = o.shape[0]
-    t_out = torch.empty(n, dtype=torch.float32, device=o.device)
+    t_out = torch.empty(n, dtype=o.dtype, device=o.device)
     id_out = torch.empty(n, dtype=torch.int32, device=o.device)
     block, stack = _stack_args(pack, n, o.device)
-    err = lib.rpt_bvh2_closest(
-        _ptr(pack.nodes), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n, float(np.float32(t_min)),
+    entry = lib.rpt_bvh2_closest if o.dtype == torch.float32 else lib.rpt_bvh2_closest_f64
+    err = entry(
+        _ptr(pack.nodes), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n, real_value(t_min, o.dtype),
         _ptr(t_out), _ptr(id_out), block, pack.stack_depth, _ptr(stack),
         launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
@@ -444,9 +455,10 @@ def bvh2_occluded_kernel(pack: Bvh2Pack, o, d, t_min, t_max, active=None, launch
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     block, stack = _stack_args(pack, n, o.device)
-    err = lib.rpt_bvh2_occluded(
+    entry = lib.rpt_bvh2_occluded if o.dtype == torch.float32 else lib.rpt_bvh2_occluded_f64
+    err = entry(
         _ptr(pack.nodes), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), _ptr(t_max), n,
-        float(np.float32(t_min)), _ptr(occ), block, pack.stack_depth, _ptr(stack),
+        real_value(t_min, o.dtype), _ptr(occ), block, pack.stack_depth, _ptr(stack),
         launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
@@ -459,27 +471,30 @@ def bvh2_occluded_kernel(pack: Bvh2Pack, o, d, t_min, t_max, active=None, launch
 # ---------------------------------------------------------------------------
 
 
-@counted
+@counted(slots=2)
 def bvh2_closest_hit(bvh: BvhData, pack: Bvh2Pack, o, d, t_min, active=None) -> Hit:
     """Closest hit through the binary BVH (t = inf on a miss, smooth normal,
-    material id). CUDA rays launch the kernel; CPU rays take the plain walk."""
+    material id). CUDA rays launch the kernel of the pack's type (counted in
+    slot 0 for float32, 1 for float64); CPU rays take the plain walk."""
+    check_dtype(pack, o, d)
     if _on_cpu(o):
         t_raw, tri = bvh2_closest_plain(pack, o, d, t_min, active)
     else:
         t_raw, tri = bvh2_closest_kernel(pack, o, d, t_min, active,
-                                         launches=launch_counter(bvh2_closest_hit, o.device))
+                                         launches=launch_counter(bvh2_closest_hit, o.device, real_slot(o)))
     return finish_closest(bvh, o, d, t_min, t_raw, tri, active)
 
 
 
-@counted
+@counted(slots=2)
 def bvh2_occluded(bvh: BvhData, pack: Bvh2Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query through the binary BVH, boolean-equal to
     `bvh2_closest_hit(...).t <= t_max` (see `bvh8.finish_occluded`)."""
+    check_dtype(pack, o, d)
     t_max = ray_t_max(t_max, o)
     if _on_cpu(o):
         occ = bvh2_occluded_plain(pack, o, d, t_min, t_max, active)
     else:
         occ = bvh2_occluded_kernel(pack, o, d, t_min, t_max, active,
-                                   launches=launch_counter(bvh2_occluded, o.device))
+                                   launches=launch_counter(bvh2_occluded, o.device, real_slot(o)))
     return finish_occluded(occ, t_max, active)

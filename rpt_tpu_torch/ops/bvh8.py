@@ -30,6 +30,13 @@ carried over: the whole tree sits in device memory. Per wide node:
   (`_swizzle_tris`: v0, e1, e2, unit plane normal, plane offset, d00, d01,
   d11, 1/denominator, computed in f64), padded to five 16-byte loads.
 
+A float64 pack (of a float64 `BvhData`, for float64 renders) keeps `tris`
+in float64 (ten 16-byte loads a row, no rounding) and the node boxes in
+float32, each widened one ulp outward (`bvh.widen`) so that it holds the
+float64 triangles; its rays, hit distances and `t_min` are float64 and its
+boxes are tested in float64. The wrappers take the kernel of the pack's
+type and raise on rays of the other.
+
 Walk: a node-group stack (Ylitie, Karras and Laine, HPG 2017), one ray per
 thread (or per lane of the plain version), near to far by its own
 direction octant. Visiting a node slab-tests its 8 children against
@@ -69,7 +76,8 @@ import numpy as np
 import torch
 
 from ..kernels import counted, launch_counter
-from .bvh import LEAF_SIZE, BvhData, _safe_inv, finalize_hit
+from ..utils.vmath import numpy_real, real_value
+from .bvh import LEAF_SIZE, BvhData, _safe_inv, finalize_hit, widen
 from .intersect import INF, Hit
 
 __all__ = [
@@ -143,7 +151,7 @@ class WideNodes:
 class Bvh8Pack(WideNodes):
     bounds: torch.Tensor  # (Mw, 48) f32
     meta: torch.Tensor  # (Mw, 16) i32: child references, octant words
-    tris: torch.Tensor  # (T, TRI_STRIDE) f32
+    tris: torch.Tensor  # (T, TRI_STRIDE) f32, or f64 in a float64 pack
     group_depth: int  # worst-case depth of the walk's node-group stack
     stack_need: int  # the reference's worst-case stack of single children
 
@@ -289,9 +297,10 @@ def _refuse_overflow(n_nodes: int, n_rows: int, n_inst: int = 0):
                               "32-bit references and stack entries")
 
 
-def _tri_rows(verts: np.ndarray) -> np.ndarray:
-    """(T, 3, 3) leaf-contiguous triangles -> (T, TRI_STRIDE) f32 rows of the
-    reference's precomputed fields (rpt_tpu/ops/bvh_pallas.py `_swizzle_tris`)."""
+def _tri_rows(verts: np.ndarray, dtype=np.float32) -> np.ndarray:
+    """(T, 3, 3) leaf-contiguous triangles -> (T, TRI_STRIDE) rows of the
+    reference's precomputed fields (rpt_tpu/ops/bvh_pallas.py `_swizzle_tris`),
+    computed in f64 and stored in `dtype`."""
     v = np.asarray(verts, np.float64)
     v0, v1, v2 = v[:, 0], v[:, 1], v[:, 2]
     e1 = v1 - v0
@@ -305,7 +314,7 @@ def _tri_rows(verts: np.ndarray) -> np.ndarray:
     denom = d00 * d11 - d01 * d01
     inv_denom = 1.0 / np.where(np.abs(denom) > 1e-20, denom, 1e-20)
     pv = np.einsum("ij,ij->i", pn, v0)
-    rows = np.zeros((v.shape[0], TRI_STRIDE), np.float32)
+    rows = np.zeros((v.shape[0], TRI_STRIDE), dtype)
     rows[:, 0:3] = v0
     rows[:, 3:6] = e1
     rows[:, 6:9] = e2
@@ -319,8 +328,9 @@ def _tri_rows(verts: np.ndarray) -> np.ndarray:
 
 
 def _collapse(bvh: BvhData):
-    """The wide tree of `bvh`: per-slot child boxes lo, hi (Mw, 8, 3) f32,
-    the filled-slot mask and the (a, b) pairs (Mw, 8) of `_collapse_range`."""
+    """The wide tree of `bvh`: per-slot child boxes lo, hi (Mw, 8, 3) f32
+    (widened outward for a float64 BVH), the filled-slot mask and the (a, b)
+    pairs (Mw, 8) of `_collapse_range`."""
     skip = bvh.skip.cpu().numpy().astype(np.int64)
     is_leaf = bvh.is_leaf.cpu().numpy().astype(bool)
     leaf_start = bvh.leaf_start.cpu().numpy().astype(np.int64)
@@ -328,7 +338,10 @@ def _collapse(bvh: BvhData):
     bidx, ca, cb = _collapse_range(skip, is_leaf, leaf_start, leaf_count, 0, bvh.num_nodes)
     valid = bidx >= 0
     bi = np.where(valid, bidx, 0)
-    return bvh.node_min.cpu().numpy()[bi], bvh.node_max.cpu().numpy()[bi], valid, ca, cb
+    lo, hi = bvh.node_min.cpu().numpy(), bvh.node_max.cpu().numpy()
+    if bvh.verts.dtype == torch.float64:
+        lo, hi = widen(lo, hi)
+    return lo[bi], hi[bi], valid, ca, cb
 
 
 def pack_bvh8(bvh: BvhData, device=None) -> Bvh8Pack:
@@ -345,7 +358,7 @@ def pack_bvh8(bvh: BvhData, device=None) -> Bvh8Pack:
     return Bvh8Pack(
         bounds=torch.as_tensor(bounds, device=device),
         meta=torch.as_tensor(meta, device=device),
-        tris=torch.as_tensor(_tri_rows(bvh.verts.cpu().numpy()), device=device),
+        tris=torch.as_tensor(_tri_rows(bvh.verts.cpu().numpy(), numpy_real(bvh.verts.dtype)), device=device),
         group_depth=_group_depth(meta),
         stack_need=need,
     )
@@ -382,12 +395,13 @@ def _emit_group(lo: np.ndarray, hi: np.ndarray, valid: np.ndarray, ca: np.ndarra
 def _leaf_t(rows, o, d, t_min):
     """Triangle test of csrc/walk.cuh `tri_t`, op for op. rows (P, K, 20);
     o, d (P, 3). Returns (t, ok), each (P, K)."""
+    eps = _EPS_PAR if rows.dtype == torch.float32 else 1e-8
     ox, oy, oz = (o[:, i:i + 1] for i in range(3))
     dx, dy, dz = (d[:, i:i + 1] for i in range(3))
     f = [rows[..., i] for i in range(17)]
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, pnx, pny, pnz, pv, d00, d01, d11, inv_den = f
     cos = (pnx * dx + pny * dy) + pnz * dz
-    cos_safe = torch.where(torch.abs(cos) > _EPS_PAR, cos, torch.full_like(cos, _EPS_PAR))
+    cos_safe = torch.where(torch.abs(cos) > eps, cos, torch.full_like(cos, eps))
     t = (pv - ((pnx * ox + pny * oy) + pnz * oz)) / cos_safe
     ddx = (ox + t * dx) - v0x
     ddy = (oy + t * dy) - v0y
@@ -397,7 +411,7 @@ def _leaf_t(rows, o, d, t_min):
     v = (d11 * d20 - d01 * d21) * inv_den
     w = (d00 * d21 - d01 * d20) * inv_den
     u = (1.0 - v) - w
-    ok = (torch.abs(cos) >= _EPS_PAR) & (t >= t_min) & (u >= 0.0) & (v >= 0.0) & (w >= 0.0)
+    ok = (torch.abs(cos) >= eps) & (t >= t_min) & (u >= 0.0) & (v >= 0.0) & (w >= 0.0)
     return t, ok
 
 
@@ -443,7 +457,7 @@ def _best_of_leaves(t, ok, start, li, lk, L, kk):
     th = torch.where(ok, t, torch.full_like(t, _BIG))
     t_leaf = th.min(1).values
     k_best = torch.where(th == t_leaf[:, None], kk, BRANCH).min(1).values
-    tl = torch.full((L, BRANCH), _BIG, dtype=torch.float32, device=dev)
+    tl = torch.full((L, BRANCH), _BIG, dtype=t.dtype, device=dev)
     tl[li, lk] = t_leaf
     ids = torch.zeros((L, BRANCH), dtype=torch.int64, device=dev)
     ids[li, lk] = start + k_best
@@ -469,7 +483,7 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
     group stack reached (`max_group_depth`)."""
     dev = o.device
     N = o.shape[0]
-    t_min = float(np.float32(t_min))
+    t_min = real_value(t_min, o.dtype)
     inv = _safe_inv(d)
     octant = (d[:, 0] < 0).long() + 2 * (d[:, 1] < 0).long() + 4 * (d[:, 2] < 0).long()
     boxes = pack.bounds.view(-1, 6, BRANCH)
@@ -487,7 +501,7 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
     shifts = 4 * torch.arange(BRANCH, device=dev)
     kk = torch.arange(BRANCH, device=dev)
 
-    t_best = torch.full((N,), _BIG, dtype=torch.float32, device=dev)
+    t_best = torch.full((N,), _BIG, dtype=o.dtype, device=dev)
     best = torch.zeros(N, dtype=torch.int64, device=dev)
     best_inst = torch.zeros(N, dtype=torch.int64, device=dev)
     occ = torch.zeros(N, dtype=torch.bool, device=dev)
@@ -605,8 +619,8 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
 
 
 def bvh8_closest_plain(pack: Bvh8Pack, o, d, t_min, active=None, stats=None):
-    """Plain version of the closest-hit kernel: (t_raw (N,) f32 with BIG on
-    a miss, triangle id (N,) i32). `stats`, if given, accumulates the
+    """Plain version of the closest-hit kernel: (t_raw (N,) in the rays'
+    type with BIG on a miss, triangle id (N,) i32). `stats`, if given, accumulates the
     counts of `_group_walk`."""
     t_raw, tri, _ = _group_walk(pack, o, d, t_min, None, active, False, stats)
     return t_raw, tri
@@ -627,14 +641,22 @@ def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
+def check_dtype(pack, o, d) -> None:
+    """Raise unless the rays are of the pack's real type (the type of its
+    triangle rows `tris`): float32 rays walk a float32 pack, float64 rays a
+    float64 one, and neither is cast into the other."""
+    if o.dtype != pack.tris.dtype or d.dtype != pack.tris.dtype:
+        raise TypeError(f"{o.dtype} / {d.dtype} rays on a {pack.tris.dtype} pack: a BVH walk takes rays "
+                        "of its pack's type")
+
+
 def _check_rays(pack, o, d, active, t_max=None):
     """Refuse what the kernels do not take; returns (o, d, active, t_max)
     contiguous. Every pack of the BVH kernels has its triangle rows in
-    `tris`."""
+    `tris`, whose type (float32 or float64) is the walk's."""
     if not (o.is_cuda and d.is_cuda and pack.tris.is_cuda):
         raise ValueError("the BVH kernels need the rays and the pack on a CUDA device")
-    if o.dtype != torch.float32 or d.dtype != torch.float32:
-        raise TypeError("the BVH kernels take float32 rays")
+    check_dtype(pack, o, d)
     if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
         raise ValueError(f"the BVH kernels take (N, 3) rays, got {tuple(o.shape)}, {tuple(d.shape)}")
     if active is not None and (active.dtype != torch.bool or active.shape != o.shape[:1]):
@@ -642,7 +664,7 @@ def _check_rays(pack, o, d, active, t_max=None):
     if t_max is not None:
         if t_max.shape != o.shape[:1] or t_max.device != o.device:
             raise ValueError("t_max must be an (N,) tensor on the rays' device")
-        t_max = t_max.to(torch.float32).contiguous()
+        t_max = t_max.to(o.dtype).contiguous()
     if o.shape[0] >= 2**31:
         raise ValueError("too many rays for one launch")
     return o.contiguous(), d.contiguous(), None if active is None else active.contiguous(), t_max
@@ -659,11 +681,12 @@ def bvh8_closest_kernel(pack: Bvh8Pack, o, d, t_min, active=None, launches=None)
     lib = load_library("bvh8")
     o, d, active, _ = _check_rays(pack, o, d, active)
     n = o.shape[0]
-    t_out = torch.empty(n, dtype=torch.float32, device=o.device)
+    t_out = torch.empty(n, dtype=o.dtype, device=o.device)
     id_out = torch.empty(n, dtype=torch.int32, device=o.device)
-    err = lib.rpt_bvh8_closest(
+    entry = lib.rpt_bvh8_closest if o.dtype == torch.float32 else lib.rpt_bvh8_closest_f64
+    err = entry(
         _ptr(pack.bounds), _ptr(pack.meta), pack.group_depth, _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
-        n, float(np.float32(t_min)), _ptr(t_out), _ptr(id_out),
+        n, real_value(t_min, o.dtype), _ptr(t_out), _ptr(id_out),
         launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
@@ -681,9 +704,10 @@ def bvh8_occluded_kernel(pack: Bvh8Pack, o, d, t_min, t_max, active=None, launch
     o, d, active, t_max = _check_rays(pack, o, d, active, t_max)
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    err = lib.rpt_bvh8_occluded(
+    entry = lib.rpt_bvh8_occluded if o.dtype == torch.float32 else lib.rpt_bvh8_occluded_f64
+    err = entry(
         _ptr(pack.bounds), _ptr(pack.meta), pack.group_depth, _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
-        _ptr(t_max), n, float(np.float32(t_min)), _ptr(occ),
+        _ptr(t_max), n, real_value(t_min, o.dtype), _ptr(occ),
         launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
@@ -716,8 +740,14 @@ def finish_closest(bvh: BvhData, o, d, t_min, t_raw, tri, active) -> Hit:
 
 
 def ray_t_max(t_max, o) -> torch.Tensor:
-    """A scalar or (N,) t_max as an (N,) f32 tensor on the rays' device."""
-    return torch.broadcast_to(torch.as_tensor(t_max, dtype=torch.float32, device=o.device), (o.shape[0],))
+    """A scalar or (N,) t_max as an (N,) tensor of the rays' type on their device."""
+    return torch.broadcast_to(torch.as_tensor(t_max, dtype=o.dtype, device=o.device), (o.shape[0],))
+
+
+def real_slot(o) -> int:
+    """A traversal wrapper's launch-count slot: 0 for its float32 kernel,
+    1 for its float64 one."""
+    return 0 if o.dtype == torch.float32 else 1
 
 
 def finish_occluded(occ, t_max, active) -> torch.Tensor:
@@ -731,27 +761,30 @@ def finish_occluded(occ, t_max, active) -> torch.Tensor:
     return occ
 
 
-@counted
+@counted(slots=2)
 def bvh8_closest_hit(bvh: BvhData, pack: Bvh8Pack, o, d, t_min, active=None) -> Hit:
     """Closest hit through the wide BVH (t = inf on a miss, smooth normal,
-    material id). CUDA rays launch the kernel; CPU rays take the plain walk."""
+    material id). CUDA rays launch the kernel of the pack's type (counted in
+    slot 0 for float32, 1 for float64); CPU rays take the plain walk."""
+    check_dtype(pack, o, d)
     if _on_cpu(o):
         t_raw, tri = bvh8_closest_plain(pack, o, d, t_min, active)
     else:
         t_raw, tri = bvh8_closest_kernel(pack, o, d, t_min, active,
-                                         launches=launch_counter(bvh8_closest_hit, o.device))
+                                         launches=launch_counter(bvh8_closest_hit, o.device, real_slot(o)))
     return finish_closest(bvh, o, d, t_min, t_raw, tri, active)
 
 
 
-@counted
+@counted(slots=2)
 def bvh8_occluded(bvh: BvhData, pack: Bvh8Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query through the wide BVH, boolean-equal to
     `bvh8_closest_hit(...).t <= t_max` (see `finish_occluded`)."""
+    check_dtype(pack, o, d)
     t_max = ray_t_max(t_max, o)
     if _on_cpu(o):
         occ = bvh8_occluded_plain(pack, o, d, t_min, t_max, active)
     else:
         occ = bvh8_occluded_kernel(pack, o, d, t_min, t_max, active,
-                                   launches=launch_counter(bvh8_occluded, o.device))
+                                   launches=launch_counter(bvh8_occluded, o.device, real_slot(o)))
     return finish_occluded(occ, t_max, active)

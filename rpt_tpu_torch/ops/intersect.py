@@ -18,7 +18,7 @@ import dataclasses
 
 import torch
 
-from ..utils.vmath import cross, dot, normalize, safe_sqrt
+from ..utils.vmath import cross, dot, normalize, safe_sqrt, signed_full
 
 __all__ = [
     "Hit",
@@ -102,8 +102,7 @@ def _sel(best, x):
 
 
 def _safe_div_dir(d_l):
-    tiny = torch.where(d_l < 0, -1e-20, 1e-20)
-    return torch.where(torch.abs(d_l) > 1e-20, d_l, tiny)
+    return torch.where(torch.abs(d_l) > 1e-20, d_l, signed_full(d_l < 0, 1e-20, d_l))
 
 
 # Sphere: unit sphere in local space ------------------------------------------

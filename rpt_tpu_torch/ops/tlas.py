@@ -24,9 +24,9 @@ import numpy as np
 import torch
 
 from ..native import build_bvh_sah
-from .bvh import LEAF_SIZE
+from .bvh import LEAF_SIZE, outward, widen
 
-__all__ = ["InstancedMeshes", "build_instanced", "instanced_from_arrays", "packed_leaves"]
+__all__ = ["InstancedMeshes", "build_instanced", "instanced_from_arrays", "packed_leaves", "holding_boxes"]
 
 _FLOAT_FIELDS = ("t_min", "t_max", "b_min", "b_max", "verts", "norms", "inst_inv", "inst_nmat")
 
@@ -61,12 +61,13 @@ class InstancedMeshes:
         return self.t_min.shape[0]
 
 
-def instanced_from_arrays(arrays: dict, device=None) -> InstancedMeshes:
-    """InstancedMeshes from host arrays keyed by field name (f32 and i32)."""
+def instanced_from_arrays(arrays: dict, device=None, dtype=torch.float32) -> InstancedMeshes:
+    """InstancedMeshes from host arrays keyed by field name (floats in
+    `dtype`, indices int32)."""
     return InstancedMeshes(**{
         f.name: torch.as_tensor(
             np.ascontiguousarray(arrays[f.name]),
-            dtype=torch.float32 if f.name in _FLOAT_FIELDS else torch.int32,
+            dtype=dtype if f.name in _FLOAT_FIELDS else torch.int32,
             device=device,
         )
         for f in dataclasses.fields(InstancedMeshes)
@@ -100,9 +101,11 @@ def build_instanced(
     meshes: Sequence,  # Mesh-likes (.vertices, .normals), unique geometry
     instances: Sequence[Tuple[int, np.ndarray, int]],  # (mesh index, 4x4 matrix, material id)
     device=None,
+    dtype=torch.float32,
 ) -> InstancedMeshes:
-    """Build the two-level structure on the host (numpy, f64 then f32 as the
-    reference does) and place it on `device`."""
+    """Build the two-level structure on the host (numpy, in f64, then cast
+    to `dtype` as the reference does; its node boxes are the SAH build's
+    float32 values) and place it on `device`."""
     # --- BLAS per unique mesh, concatenated --------------------------------
     b_min_all, b_max_all, b_leaf_all, b_skip_all = [], [], [], []
     verts_all, norms_all = [], []
@@ -161,7 +164,7 @@ def build_instanced(
         b_is_leaf=(b_leaf_tris[:, 0] >= 0).astype(np.int32), b_skip=np.concatenate(b_skip_all),
         b_leaf_tris=b_leaf_tris, verts=np.concatenate(verts_all), norms=np.concatenate(norms_all),
         inst_inv=inst_inv, inst_nmat=inst_nmat, inst_mat=inst_mat, inst_root=inst_root, inst_end=inst_end,
-    ), device)
+    ), device, dtype)
 
 
 def packed_leaves(im: InstancedMeshes):
@@ -181,6 +184,46 @@ def packed_leaves(im: InstancedMeshes):
     leaf_start[leaves] = LEAF_SIZE * np.arange(leaves.shape[0])
     perm = np.where(rows >= 0, rows, rows[:, :1]).reshape(-1)
     return leaf_start, leaf_count, im.verts.cpu().numpy()[perm], im.norms.cpu().numpy()[perm]
+
+
+def holding_boxes(im: "InstancedMeshes"):
+    """float32 boxes of the TLAS nodes (Mt, 3) that hold, in world space,
+    every triangle of every instance below them, for a float64 pack. The
+    SAH build's world boxes come from a float32 local box through a float64
+    transform and are rounded to nearest, so they can miss a sliver of an
+    instance. Here each instance's box is its BLAS root's, widened one
+    float32 ulp, taken to world space through the inverse of its
+    world->local rows, padded by a bound on that transform's rounding
+    (1e-12 of the terms' magnitude) and rounded outward; an internal node
+    holds the union of its two children. Returns (lo, hi) float32."""
+    b_min, b_max = im.b_min.cpu().numpy(), im.b_max.cpu().numpy()
+    inv = im.inst_inv.cpu().numpy().astype(np.float64)
+    roots = im.inst_root.cpu().numpy().astype(np.int64)
+    K = inv.shape[0]
+    lo_l, hi_l = (b.astype(np.float64) for b in widen(b_min[roots], b_max[roots]))
+    full = np.zeros((K, 4, 4))
+    full[:, :3, :] = inv
+    full[:, 3, 3] = 1.0
+    l2w = np.linalg.inv(full)
+    corners = np.stack([np.stack([np.where(c >> a & 1, hi_l[:, a], lo_l[:, a]) for a in range(3)], -1)
+                        for c in range(8)], 1)  # (K, 8, 3)
+    world = np.einsum("kij,kcj->kci", l2w[:, :3, :3], corners) + l2w[:, None, :3, 3]
+    pad = 1e-12 * (np.einsum("kij,kcj->kci", np.abs(l2w[:, :3, :3]), np.abs(corners))
+                   + np.abs(l2w[:, None, :3, 3])).max(1)
+    w_lo, w_hi = outward(world.min(1) - pad, world.max(1) + pad)
+
+    leaf_inst = im.t_leaf_inst.cpu().numpy().astype(np.int64)
+    skip = im.t_skip.cpu().numpy().astype(np.int64)
+    Mt = leaf_inst.shape[0]
+    lo = np.zeros((Mt, 3), np.float32)
+    hi = np.zeros((Mt, 3), np.float32)
+    for i in range(Mt - 1, -1, -1):  # children follow their parent in preorder
+        if leaf_inst[i] >= 0:
+            lo[i], hi[i] = w_lo[leaf_inst[i]], w_hi[leaf_inst[i]]
+        else:
+            a, b = i + 1, skip[i + 1]
+            lo[i], hi[i] = np.minimum(lo[a], lo[b]), np.maximum(hi[a], hi[b])
+    return lo, hi
 
 
 def _affine(A, p, w: float):

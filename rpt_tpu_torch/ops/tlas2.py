@@ -42,6 +42,12 @@ boxes and references.
   (L*8, 20) f32 with `p_verts`, `p_norms`: the local-space triangles in the
   packed order of `tlas.packed_leaves`, as `ops/tlas8.py` has them.
 
+A float64 pack (of float64 `InstancedMeshes`) keeps `inst_rows` (the 12
+rows in float64, the two int32 in the bytes of float64 12), `inst`, `tris`,
+`p_verts` and `p_norms` in float64, and the node boxes in float32: the BLAS
+boxes widened one ulp outward (`bvh.widen`), the TLAS boxes recomputed to
+hold every instance below them (`tlas.holding_boxes`).
+
 Walk. One ray per thread (per lane of the plain version). Visiting a pair
 node slab-tests both children against [t_min, upper] (upper = the running
 best hit, or t_max for the any hit; inclusive, as in the reference), tests
@@ -80,10 +86,13 @@ import numpy as np
 import torch
 
 from ..kernels import counted, launch_counter
+from ..utils.vmath import numpy_real, real_value
+from .bvh import widen
 from .bvh2 import PairNodes, _leaf_refs, _pair_nodes, _pair_walk, _stack_args, _stack_depth
-from .bvh8 import KIND_INST, _check_rays, _on_cpu, _ptr, _tri_rows, finish_occluded, ray_t_max
+from .bvh8 import (KIND_INST, _check_rays, _on_cpu, _ptr, _tri_rows, check_dtype, finish_occluded,
+                   ray_t_max, real_slot)
 from .intersect import INF, Hit
-from .tlas import InstancedMeshes, packed_leaves
+from .tlas import InstancedMeshes, holding_boxes, packed_leaves
 from .tlas8 import _finalize
 
 __all__ = [
@@ -100,9 +109,9 @@ __all__ = [
 @dataclasses.dataclass(frozen=True)
 class Tlas2Pack(PairNodes):
     nodes: torch.Tensor  # (M, 16) f32 child-pair nodes
-    inst_rows: torch.Tensor  # (K, 16) f32 by TLAS leaf rank
-    inst: torch.Tensor  # (K, 12) f32 world->local rows by instance id
-    tris: torch.Tensor  # (L*8, 20) f32
+    inst_rows: torch.Tensor  # (K, 16) by TLAS leaf rank, f32 (f64 in a float64 pack)
+    inst: torch.Tensor  # (K, 12) world->local rows by instance id, f32 (f64)
+    tris: torch.Tensor  # (L*8, 20) f32 (f64)
     p_verts: torch.Tensor  # (L*8, 3, 3) packed local-space triangles
     p_norms: torch.Tensor  # (L*8, 3, 3)
     n_tlas: int  # pair nodes 0..n_tlas-1 are the TLAS (world space)
@@ -123,10 +132,16 @@ def pack_tlas2(im: InstancedMeshes, device=None) -> Tlas2Pack:
     """An instanced scene's two trees in the kernels' layout (module
     docstring). Every scene fits: `bvh2.launch_plan` places any stack depth."""
     K = im.inst_inv.shape[0]
+    real = im.verts.dtype
+    t_lo, t_hi = im.t_min.cpu().numpy(), im.t_max.cpu().numpy()
+    b_lo, b_hi = im.b_min.cpu().numpy(), im.b_max.cpu().numpy()
+    if real == torch.float64:
+        t_lo, t_hi = holding_boxes(im)
+        b_lo, b_hi = widen(b_lo, b_hi)
     t_leaf_inst = im.t_leaf_inst.cpu().numpy().astype(np.int64)
     t_leaf = t_leaf_inst >= 0
     rank = np.cumsum(t_leaf) - 1  # TLAS leaf rank, at the leaves
-    t_rec, _ = _pair_nodes(im.t_min.cpu().numpy(), im.t_max.cpu().numpy(), im.t_skip.cpu().numpy().astype(np.int64),
+    t_rec, _ = _pair_nodes(t_lo, t_hi, im.t_skip.cpu().numpy().astype(np.int64),
                            np.where(t_leaf, rank << 2 | KIND_INST, 0), np.array([0]), 0)
     n_tlas = t_rec.shape[0]
 
@@ -135,25 +150,27 @@ def pack_tlas2(im: InstancedMeshes, device=None) -> Tlas2Pack:
     roots = [0]  # one BLAS after another: each root's skip is the next root
     while b_skip[roots[-1]] < b_skip.shape[0]:
         roots.append(int(b_skip[roots[-1]]))
-    b_rec, b_pid = _pair_nodes(im.b_min.cpu().numpy(), im.b_max.cpu().numpy(), b_skip, _leaf_refs(b_start, b_count),
-                               np.array(roots), n_tlas)
+    b_rec, b_pid = _pair_nodes(b_lo, b_hi, b_skip, _leaf_refs(b_start, b_count), np.array(roots), n_tlas)
     nodes = np.concatenate([t_rec, b_rec])
 
     # Instance records by TLAS leaf rank: the world->local rows, then the
     # BLAS root's pair node and the instance id.
     inst_of_rank = t_leaf_inst[t_leaf]
     rank_root = b_pid[im.inst_root.cpu().numpy()[inst_of_rank]]
-    inst_inv = im.inst_inv.cpu().numpy().reshape(K, 12).astype(np.float32)
-    inst_rows = np.zeros((K, 16), np.float32)
+    np_real = numpy_real(real)
+    inst_inv = im.inst_inv.cpu().numpy().reshape(K, 12).astype(np_real)
+    inst_rows = np.zeros((K, 16), np_real)
     inst_rows[:, :12] = inst_inv[inst_of_rank]
-    inst_rows.view(np.int32)[:, 12] = rank_root
-    inst_rows.view(np.int32)[:, 13] = inst_of_rank
+    r = inst_rows.itemsize // 4  # int32 words per real: the ints sit at real 12
+    inst_rows.view(np.int32)[:, 12 * r] = rank_root
+    inst_rows.view(np.int32)[:, 12 * r + 1] = inst_of_rank
 
-    def t(a):
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float32, device=device)
+    def t(a, dtype=real):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
     return Tlas2Pack(
-        nodes=t(nodes), inst_rows=t(inst_rows), inst=t(inst_inv), tris=t(_tri_rows(p_verts)), p_verts=t(p_verts),
+        nodes=t(nodes, torch.float32), inst_rows=t(inst_rows), inst=t(inst_inv), tris=t(_tri_rows(p_verts, np_real)),
+        p_verts=t(p_verts),
         p_norms=t(p_norms), n_tlas=n_tlas, stack_depth=_stack_depth(nodes.view(np.int32)[:, 12:14], rank_root),
     )
 
@@ -164,8 +181,8 @@ def pack_tlas2(im: InstancedMeshes, device=None) -> Tlas2Pack:
 
 
 def tlas2_closest_plain(pack: Tlas2Pack, o, d, t_min, active=None, stats=None):
-    """Plain version of the closest-hit kernel: (t_raw (N,) f32 with BIG on
-    a miss, packed triangle id (N,) i32, instance id (N,) i32). `stats`, if
+    """Plain version of the closest-hit kernel: (t_raw (N,) in the rays'
+    type with BIG on a miss, packed triangle id (N,) i32, instance id (N,) i32). `stats`, if
     given, accumulates the counts of `bvh2._pair_walk`."""
     return _pair_walk(pack, o, d, t_min, None, active, stats)
 
@@ -191,13 +208,14 @@ def tlas2_closest_kernel(pack: Tlas2Pack, o, d, t_min, active=None, launches=Non
     lib = load_library("tlas2")
     o, d, active, _ = _check_rays(pack, o, d, active)
     n = o.shape[0]
-    t_out = torch.empty(n, dtype=torch.float32, device=o.device)
+    t_out = torch.empty(n, dtype=o.dtype, device=o.device)
     id_out = torch.empty(n, dtype=torch.int32, device=o.device)
     inst_out = torch.empty(n, dtype=torch.int32, device=o.device)
     block, stack = _stack_args(pack, n, o.device)
-    err = lib.rpt_tlas2_closest(
+    entry = lib.rpt_tlas2_closest if o.dtype == torch.float32 else lib.rpt_tlas2_closest_f64
+    err = entry(
         _ptr(pack.nodes), pack.n_tlas, _ptr(pack.inst_rows), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n,
-        float(np.float32(t_min)), _ptr(t_out), _ptr(id_out), _ptr(inst_out), block,
+        real_value(t_min, o.dtype), _ptr(t_out), _ptr(id_out), _ptr(inst_out), block,
         pack.stack_depth, _ptr(stack),
         launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
@@ -217,9 +235,10 @@ def tlas2_occluded_kernel(pack: Tlas2Pack, o, d, t_min, t_max, active=None, laun
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     block, stack = _stack_args(pack, n, o.device)
-    err = lib.rpt_tlas2_occluded(
+    entry = lib.rpt_tlas2_occluded if o.dtype == torch.float32 else lib.rpt_tlas2_occluded_f64
+    err = entry(
         _ptr(pack.nodes), pack.n_tlas, _ptr(pack.inst_rows), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
-        _ptr(t_max), n, float(np.float32(t_min)), _ptr(occ), block,
+        _ptr(t_max), n, real_value(t_min, o.dtype), _ptr(occ), block,
         pack.stack_depth, _ptr(stack),
         launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
@@ -233,15 +252,17 @@ def tlas2_occluded_kernel(pack: Tlas2Pack, o, d, t_min, t_max, active=None, laun
 # ---------------------------------------------------------------------------
 
 
-@counted
+@counted(slots=2)
 def tlas2_closest_hit(im: InstancedMeshes, pack: Tlas2Pack, o, d, t_min, active=None) -> Hit:
     """Closest hit over every instance (t = inf on a miss, smooth normal,
-    material id). CUDA rays launch the kernel; CPU rays take the plain walk."""
+    material id). CUDA rays launch the kernel of the pack's type (counted in
+    slot 0 for float32, 1 for float64); CPU rays take the plain walk."""
+    check_dtype(pack, o, d)
     if _on_cpu(o):
         t_raw, tri, inst = tlas2_closest_plain(pack, o, d, t_min, active)
     else:
         t_raw, tri, inst = tlas2_closest_kernel(pack, o, d, t_min, active,
-                                                launches=launch_counter(tlas2_closest_hit, o.device))
+                                                launches=launch_counter(tlas2_closest_hit, o.device, real_slot(o)))
     hit = _finalize(im, pack, o, d, t_min, t_raw, tri, inst)
     if active is not None:
         hit = Hit(t=torch.where(active, hit.t, torch.full_like(hit.t, INF)), normal=hit.normal, mat_id=hit.mat_id)
@@ -249,14 +270,15 @@ def tlas2_closest_hit(im: InstancedMeshes, pack: Tlas2Pack, o, d, t_min, active=
 
 
 
-@counted
+@counted(slots=2)
 def tlas2_occluded(im: InstancedMeshes, pack: Tlas2Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query over every instance, boolean-equal to
     `tlas2_closest_hit(...).t <= t_max` (see `bvh8.finish_occluded`)."""
+    check_dtype(pack, o, d)
     t_max = ray_t_max(t_max, o)
     if _on_cpu(o):
         occ = tlas2_occluded_plain(pack, o, d, t_min, t_max, active)
     else:
         occ = tlas2_occluded_kernel(pack, o, d, t_min, t_max, active,
-                                    launches=launch_counter(tlas2_occluded, o.device))
+                                    launches=launch_counter(tlas2_occluded, o.device, real_slot(o)))
     return finish_occluded(occ, t_max, active)

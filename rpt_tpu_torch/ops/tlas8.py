@@ -26,6 +26,11 @@ smallest-subtree-first frontier expansion (`_collapse_wide`, copied).
   with its first triangle (the reference's packing); `p_verts`, `p_norms`
   the same triangles for the finalize.
 
+A float64 pack (of float64 `InstancedMeshes`) keeps `inst`, `tris`,
+`p_verts` and `p_norms` in float64 and the node boxes in float32: the BLAS
+boxes widened one ulp outward (`bvh.widen`), the TLAS boxes recomputed to
+hold every instance below them (`tlas.holding_boxes`).
+
 Walk: the one-level node-group walk (`ops/bvh8.py` `_group_walk`,
 `csrc/group_walk.cuh`, shared with the one-level kernels) over both
 levels. An instance child re-expresses the world ray in its frame
@@ -54,8 +59,9 @@ import numpy as np
 import torch
 
 from ..kernels import counted, launch_counter
+from ..utils.vmath import numpy_real, real_value
 from ..utils.vmath import normalize
-from .bvh import _tri_hit_t
+from .bvh import _tri_hit_t, widen
 from .bvh8 import (
     BRANCH,
     EMPTY,
@@ -71,11 +77,13 @@ from .bvh8 import (
     _ptr,
     _refuse_overflow,
     _tri_rows,
+    check_dtype,
     finish_occluded,
     ray_t_max,
+    real_slot,
 )
 from .intersect import INF, Hit
-from .tlas import InstancedMeshes, _affine, packed_leaves
+from .tlas import InstancedMeshes, _affine, holding_boxes, packed_leaves
 
 __all__ = [
     "Tlas8Pack",
@@ -99,9 +107,9 @@ INST_ENTRY_OPS = 39
 class Tlas8Pack(WideNodes):
     bounds: torch.Tensor  # (Mw, 48) f32
     meta: torch.Tensor  # (Mw, 16) i32: child references, octant words
-    inst: torch.Tensor  # (K, 12) f32 world->local rows
+    inst: torch.Tensor  # (K, 12) world->local rows, f32 (f64 in a float64 pack)
     inst_root: torch.Tensor  # (K,) i32 wide BLAS root
-    tris: torch.Tensor  # (L*8, 20) f32
+    tris: torch.Tensor  # (L*8, 20) f32 (f64 in a float64 pack)
     p_verts: torch.Tensor  # (L*8, 3, 3) packed local-space triangles
     p_norms: torch.Tensor  # (L*8, 3, 3)
     n_tlas: int  # wide nodes 0..n_tlas-1 are the TLAS (world space)
@@ -180,10 +188,14 @@ def _tlas_stack_need(out_nodes, inst_blas_root) -> int:
 def _collapse_instanced(im: InstancedMeshes):
     """The TLAS and every unique BLAS collapsed into one list of wide nodes
     (TLAS first). Returns (out_nodes, n_tlas, inst_blas_root (K,), p_verts,
-    p_norms)."""
+    p_norms). A float64 scene's boxes hold its float64 triangles
+    (`holding_boxes`, `widen`)."""
     t_min, t_max = im.t_min.cpu().numpy(), im.t_max.cpu().numpy()
     t_skip, t_leaf_inst = im.t_skip.cpu().numpy().astype(np.int64), im.t_leaf_inst.cpu().numpy().astype(np.int64)
     b_min, b_max = im.b_min.cpu().numpy(), im.b_max.cpu().numpy()
+    if im.verts.dtype == torch.float64:
+        t_min, t_max = holding_boxes(im)
+        b_min, b_max = widen(b_min, b_max)
     b_skip = im.b_skip.cpu().numpy().astype(np.int64)
     inst_root, inst_end = im.inst_root.cpu().numpy(), im.inst_end.cpu().numpy()
     b_leaf_start, b_leaf_count, p_verts, p_norms = packed_leaves(im)
@@ -228,14 +240,15 @@ def pack_tlas8(im: InstancedMeshes, device=None) -> Tlas8Pack:
     K = inst_blas_root.shape[0]
     _refuse_overflow(len(out_nodes), p_verts.shape[0], K)
     bounds, meta = _emit_group(*_slot_arrays(out_nodes))
+    real = im.verts.dtype
 
-    def t(a, dtype=torch.float32):
+    def t(a, dtype=real):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
     return Tlas8Pack(
-        bounds=t(bounds), meta=t(meta, torch.int32),
+        bounds=t(bounds, torch.float32), meta=t(meta, torch.int32),
         inst=t(im.inst_inv.cpu().numpy().reshape(K, 12)), inst_root=t(inst_blas_root, torch.int32),
-        tris=t(_tri_rows(p_verts)), p_verts=t(p_verts), p_norms=t(p_norms),
+        tris=t(_tri_rows(p_verts, numpy_real(real))), p_verts=t(p_verts), p_norms=t(p_norms),
         n_tlas=n_tlas, group_depth=_group_depth(meta, inst_blas_root), stack_need=need,
     )
 
@@ -246,8 +259,8 @@ def pack_tlas8(im: InstancedMeshes, device=None) -> Tlas8Pack:
 
 
 def tlas8_closest_plain(pack: Tlas8Pack, o, d, t_min, active=None, stats=None):
-    """Plain version of the closest-hit kernel: (t_raw (N,) f32 with BIG on
-    a miss, packed triangle id (N,) i32, instance id (N,) i32). `stats`, if
+    """Plain version of the closest-hit kernel: (t_raw (N,) in the rays'
+    type with BIG on a miss, packed triangle id (N,) i32, instance id (N,) i32). `stats`, if
     given, accumulates the counts of `_group_walk`."""
     return _group_walk(pack, o, d, t_min, None, active, False, stats)
 
@@ -273,12 +286,13 @@ def tlas8_closest_kernel(pack: Tlas8Pack, o, d, t_min, active=None, launches=Non
     lib = load_library("tlas8")
     o, d, active, _ = _check_rays(pack, o, d, active)
     n = o.shape[0]
-    t_out = torch.empty(n, dtype=torch.float32, device=o.device)
+    t_out = torch.empty(n, dtype=o.dtype, device=o.device)
     id_out = torch.empty(n, dtype=torch.int32, device=o.device)
     inst_out = torch.empty(n, dtype=torch.int32, device=o.device)
-    err = lib.rpt_tlas8_closest(
+    entry = lib.rpt_tlas8_closest if o.dtype == torch.float32 else lib.rpt_tlas8_closest_f64
+    err = entry(
         _ptr(pack.bounds), _ptr(pack.meta), pack.n_tlas, pack.group_depth, _ptr(pack.inst), _ptr(pack.inst_root),
-        _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n, float(np.float32(t_min)), _ptr(t_out), _ptr(id_out),
+        _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n, real_value(t_min, o.dtype), _ptr(t_out), _ptr(id_out),
         _ptr(inst_out), launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
@@ -296,9 +310,10 @@ def tlas8_occluded_kernel(pack: Tlas8Pack, o, d, t_min, t_max, active=None, laun
     o, d, active, t_max = _check_rays(pack, o, d, active, t_max)
     n = o.shape[0]
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    err = lib.rpt_tlas8_occluded(
+    entry = lib.rpt_tlas8_occluded if o.dtype == torch.float32 else lib.rpt_tlas8_occluded_f64
+    err = entry(
         _ptr(pack.bounds), _ptr(pack.meta), pack.n_tlas, pack.group_depth, _ptr(pack.inst), _ptr(pack.inst_root),
-        _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), _ptr(t_max), n, float(np.float32(t_min)), _ptr(occ),
+        _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), _ptr(t_max), n, real_value(t_min, o.dtype), _ptr(occ),
         launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
@@ -314,9 +329,11 @@ def tlas8_occluded_kernel(pack: Tlas8Pack, o, d, t_min, t_max, active=None, laun
 def _finalize(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, t_raw, tri, inst) -> Hit:
     """The Hit of each ray's winner: barycentrics in its instance's frame,
     the interpolated normal lifted by the instance's normal matrix, and the
-    instance's material (as `tlas8_closest_hit_pallas` finalizes). The 3x3
-    products are written out elementwise: as an einsum they run as a
-    batched gemv on the card."""
+    instance's material (as the reference's XLA loop finalizes,
+    `rpt_tpu/ops/tlas.py` `instanced_closest_hit`, in the pack's type: its
+    Pallas wrapper reads float32 vertices and does not run under
+    jax_enable_x64). The 3x3 products are written out elementwise: as an
+    einsum they run as a batched gemv on the card."""
     tri = torch.clamp(tri.long(), 0, pack.p_verts.shape[0] - 1)
     inst = torch.clamp(inst.long(), 0, pack.inst.shape[0] - 1)
     A = pack.inst[inst].view(-1, 3, 4)
@@ -328,15 +345,17 @@ def _finalize(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, t_raw, tri, ins
     return Hit(t=t, normal=n_world, mat_id=im.inst_mat[inst])
 
 
-@counted
+@counted(slots=2)
 def tlas8_closest_hit(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, active=None) -> Hit:
     """Closest hit over every instance (t = inf on a miss, smooth normal,
-    material id). CUDA rays launch the kernel; CPU rays take the plain walk."""
+    material id). CUDA rays launch the kernel of the pack's type (counted in
+    slot 0 for float32, 1 for float64); CPU rays take the plain walk."""
+    check_dtype(pack, o, d)
     if _on_cpu(o):
         t_raw, tri, inst = tlas8_closest_plain(pack, o, d, t_min, active)
     else:
         t_raw, tri, inst = tlas8_closest_kernel(pack, o, d, t_min, active,
-                                                launches=launch_counter(tlas8_closest_hit, o.device))
+                                                launches=launch_counter(tlas8_closest_hit, o.device, real_slot(o)))
     hit = _finalize(im, pack, o, d, t_min, t_raw, tri, inst)
     if active is not None:
         hit = Hit(t=torch.where(active, hit.t, torch.full_like(hit.t, INF)), normal=hit.normal, mat_id=hit.mat_id)
@@ -344,15 +363,16 @@ def tlas8_closest_hit(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, active=
 
 
 
-@counted
+@counted(slots=2)
 def tlas8_occluded(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query over every instance, boolean-equal to
     `tlas8_closest_hit(...).t <= t_max`, also for t_max = +inf (a miss then
     counts as occluded, as in the reference; `bvh8.finish_occluded`)."""
+    check_dtype(pack, o, d)
     t_max = ray_t_max(t_max, o)
     if _on_cpu(o):
         occ = tlas8_occluded_plain(pack, o, d, t_min, t_max, active)
     else:
         occ = tlas8_occluded_kernel(pack, o, d, t_min, t_max, active,
-                                    launches=launch_counter(tlas8_occluded, o.device))
+                                    launches=launch_counter(tlas8_occluded, o.device, real_slot(o)))
     return finish_occluded(occ, t_max, active)

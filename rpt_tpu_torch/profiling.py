@@ -11,6 +11,9 @@ counters, wavefront occupancy.
   many-sample function (on the card, one CUDA graph replay per sample).
 - `depth_stats`: per-depth live-lane occupancy of one 1-spp pass, in the
   32x32-tile ray order the kernels see.
+
+Each takes the renderer's real type, as the reference's take the scene's:
+a float64 renderer times and counts float64 passes.
 """
 
 from __future__ import annotations
@@ -66,12 +69,11 @@ def measure_rays_per_sec(renderer, warmup: int = 2, passes: int = 8) -> dict:
     `warmup` samples, which also capture its graph on the card), ending in a
     device synchronize. Returns {"rays_per_sec", "samples_per_sec",
     "seconds", "rays"}."""
-    from . import random as rnd
     from .renderer import make_render_many_fn
 
     scene_data, t_min, ev_scale = renderer._pass_args()
     fn = make_render_many_fn(scene_data, renderer.width, renderer.height, renderer.max_bounces)
-    base = rnd.PRNGKey(renderer.seed)
+    base = renderer.base_key()
 
     def run(start, n):
         out = fn(renderer.camera, base, start, n, t_min, ev_scale)
@@ -91,14 +93,14 @@ def depth_stats(renderer, seed: int | None = None) -> dict:
     found_frac[d], the share of lanes that hit a surface at depth d, and
     cont_frac[d], the share still alive entering depth d+1 (the lanes every
     deeper traversal carries). Keyed by PRNGKey(seed) itself, as the
-    reference's is (the renderer's seed when None)."""
+    reference's is (the renderer's seed when None), in the renderer's type."""
     from . import random as rnd
     from .integrator import trace_paths
     from .renderer import camera_rays_tiled, pixel_ndc_tiled
 
     scene_data, t_min, _ = renderer._pass_args()
-    ndc = pixel_ndc_tiled(renderer.width, renderer.height, scene_data.device)
-    key = rnd.PRNGKey(renderer.seed if seed is None else seed)
+    ndc = pixel_ndc_tiled(renderer.width, renderer.height, scene_data.device, scene_data.dtype)
+    key = rnd.PRNGKey(renderer.seed if seed is None else seed, x64=scene_data.dtype == torch.float64)
     o, d, k_trace = camera_rays_tiled(renderer.camera.to(scene_data.device), key, ndc)
     _, stats = trace_paths(scene_data, o, d, k_trace, renderer.max_bounces, t_min, want_stats=True)
     return {k: np.asarray(v.cpu().numpy()) for k, v in stats.items()}

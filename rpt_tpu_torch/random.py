@@ -18,11 +18,20 @@ A key takes one of two forms:
   replay.
 
 Every hash of a tensor (a tensor key's `split` / `fold_in`, every bulk draw
-of `uniform`, `randint` and `bernoulli`) goes through `_threefry`, which on
-a CUDA device launches the hand-written kernel `csrc/threefry.cu` once and on
-the CPU runs its plain torch version, `threefry_plain`. The plain version
+of `uniform`, `randint` and `bernoulli`) goes through `_threefry` (the
+64-bit draws through `_threefry64`, counted apart), which on a CUDA device
+launches the hand-written kernel `csrc/threefry.cu` once and on the CPU
+runs its plain torch version, `threefry_plain`. The plain version
 holds 32-bit words in int64 tensors (torch has few uint32 ops), masked with
 `& 0xFFFFFFFF` after every add and rotate.
+
+The draws come in two widths, as `jax.random`'s do with and without
+`jax_enable_x64`. A float32 `uniform` and an int32 `randint` take 32 random
+bits per element (the xor of the two hashed words); a float64 `uniform` and
+an int64 `randint` take 64 (`bits1 << 32 | bits2`,
+`_threefry_random_bits_partitionable`): 52 of them as an f64 mantissa, or
+two 64-bit streams combined modulo the span in uint64. `split` and
+`fold_in` are the same in both: keys stay uint32 pairs.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ from .kernels import counted, launch_counter
 
 __all__ = [
     "PRNGKey", "split", "fold_in", "uniform", "randint", "bernoulli", "threefry2x32", "to_device",
-    "threefry_plain", "threefry_kernel", "KEYS", "BITS", "UNIFORM", "RANDINT",
+    "threefry_plain", "threefry_kernel", "KEYS", "BITS", "UNIFORM", "RANDINT", "UNIFORM64", "RANDINT64",
 ]
 
 MASK = 0xFFFFFFFF
@@ -46,8 +55,11 @@ _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 # What `_threefry` writes for counters c .. c+n-1 (csrc/threefry.cu): both
 # hashed words (n, 2) as keys; their xor (n,) as 32 random bits; those bits
 # as uniform float32 in [lo, lo + span); `randint`'s combination of two bit
-# streams as int32.
-KEYS, BITS, UNIFORM, RANDINT = range(4)
+# streams as int32; the 64 bits of both words as uniform float64; the
+# 64-bit `randint` as int64.
+KEYS, BITS, UNIFORM, RANDINT, UNIFORM64, RANDINT64 = range(6)
+_OUT = {KEYS: torch.int64, BITS: torch.int64, UNIFORM: torch.float32, RANDINT: torch.int32,
+        UNIFORM64: torch.float64, RANDINT64: torch.int64}
 
 
 def _rotl(v, r: int):
@@ -82,12 +94,16 @@ def _shape(shape) -> tuple:
     return (int(shape),) if isinstance(shape, (int, np.integer)) else tuple(shape)
 
 
-def PRNGKey(seed: int) -> np.ndarray:
-    """Raw host key from an int32 seed (`jax.random.PRNGKey`, `threefry_seed`)."""
+def PRNGKey(seed: int, x64: bool = False) -> np.ndarray:
+    """Raw host key from an int32 seed (`jax.random.PRNGKey`,
+    `threefry_seed`), or with `x64` from an int64 seed as JAX takes it under
+    `jax_enable_x64`: its high word then becomes the key's first word (all
+    ones for a negative seed, where the int32 key has 0)."""
     seed = int(seed)
-    if not -(2**31) <= seed < 2**31:
-        raise OverflowError(f"seed {seed} does not fit in int32")
-    return np.array([0, seed & MASK], np.uint32)
+    bits = 64 if x64 else 32
+    if not -(2 ** (bits - 1)) <= seed < 2 ** (bits - 1):
+        raise OverflowError(f"seed {seed} does not fit in int{bits}")
+    return np.array([(seed >> 32) & MASK if x64 else 0, seed & MASK], np.uint32)
 
 
 def to_device(key, device) -> torch.Tensor:
@@ -102,12 +118,49 @@ def to_device(key, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _randint_params(minval: int, maxval: int) -> dict:
-    """`randint`'s span and multiplier (jax/_src/random.py `_randint`), as
-    Python ints: the offset is ((hi % span) * mult + lo % span) % span."""
-    span = 1 if maxval <= minval else (maxval - minval) & MASK
-    mult = (2**16) % span
-    return dict(minval=minval, rspan=span, mult=((mult * mult) & MASK) % span)
+def _randint_params(minval: int, maxval: int, bits: int = 32) -> dict:
+    """`randint`'s span and multiplier (jax/_src/random.py `_randint`) for
+    `bits`-bit draws, as Python ints: the offset is ((hi % span) * mult +
+    lo % span) % span, with mult = (2^(bits/2) % span)^2 % span."""
+    mask = (1 << bits) - 1
+    span = 1 if maxval <= minval else (maxval - minval) & mask
+    mult = (1 << (bits // 2)) % span
+    return dict(minval=minval, rspan=span, mult=((mult * mult) & mask) % span)
+
+
+def _two_sum(a, b):
+    """Knuth's error-free sum: (s, e) with s = fl(a + b), s + e = a + b exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _split(a):
+    """Veltkamp's split of a float64 (tensor or Python float) into a high
+    and a low half of at most 26 bits each."""
+    t = a * 134217729.0  # 2^27 + 1
+    hi = t - (t - a)
+    return hi, a - hi
+
+
+def fma64(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
+    """a * b + c in one rounding, for a float64 tensor `a` and float64
+    scalars (what XLA's contracted `floats * span + lo` and the kernel's
+    `__fma_rn` give), from separately rounded torch ops: Dekker's exact
+    product, then Boldo and Melquiond's correctly rounded sum of three terms
+    by a round-to-odd partial sum (IEEE Trans. Computers 57(4), 2008)."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(float(b))
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl  # p + e == a * b exactly
+    th, tl = _two_sum(torch.full_like(a, float(c)), p)
+    # v = tl + e rounded to odd: a rounded sum with an error left over and an
+    # even last bit is moved one ulp toward the exact sum.
+    v, w = _two_sum(tl, e)
+    even = (v.view(torch.int64) & 1) == 0
+    toward = torch.where(w > 0, torch.full_like(v, math.inf), torch.full_like(v, -math.inf))
+    v = torch.where((w != 0) & even, torch.nextafter(v, toward), v)
+    return th + v
 
 
 def threefry_plain(mode: int, key, n: int, device, counter=None, c0: int = 0, lo: float = 0.0,
@@ -115,8 +168,9 @@ def threefry_plain(mode: int, key, n: int, device, counter=None, c0: int = 0, lo
     """threefry2x32 under `key` (host or tensor) of the counter pairs
     (0, c + i) for i < n, c = c0 + `counter` (an int64 tensor, or none),
     written as `mode` says (KEYS (n, 2) int64, BITS (n,) int64, UNIFORM (n,)
-    float32, RANDINT (n,) int32). The plain torch version of
-    `threefry_kernel`, and what every draw on the CPU runs."""
+    float32, RANDINT (n,) int32, UNIFORM64 (n,) float64, RANDINT64 (n,)
+    int64). The plain torch version of `threefry_kernel`, and what every
+    draw on the CPU runs."""
     if isinstance(key, torch.Tensor):
         k1, k2 = key[0], key[1]
     else:
@@ -125,19 +179,32 @@ def threefry_plain(mode: int, key, n: int, device, counter=None, c0: int = 0, lo
     if counter is not None:
         idx = idx + counter
     idx = idx & MASK
+    zero = torch.zeros_like(idx)
     if mode == KEYS:
-        return torch.stack(threefry2x32(k1, k2, torch.zeros_like(idx), idx), dim=-1)
-    if mode == RANDINT:
+        return torch.stack(threefry2x32(k1, k2, zero, idx), dim=-1)
+    if mode in (RANDINT, RANDINT64):
         (h1, h2), (l1, l2) = (threefry2x32(k1, k2, 0, j) for j in (0, 1))
-        b1, b2 = threefry2x32(h1, h2, torch.zeros_like(idx), idx)
-        higher = b1 ^ b2
-        b1, b2 = threefry2x32(l1, l2, torch.zeros_like(idx), idx)
-        lower = b1 ^ b2
-        off = ((higher % rspan) * mult) & MASK
-        off = (off + lower % rspan) & MASK
-        off = off % rspan
-        return (minval + off).to(torch.int32)
-    b1, b2 = threefry2x32(k1, k2, torch.zeros_like(idx), idx)
+        if mode == RANDINT:
+            b1, b2 = threefry2x32(h1, h2, zero, idx)
+            higher = b1 ^ b2
+            b1, b2 = threefry2x32(l1, l2, zero, idx)
+            lower = b1 ^ b2
+            off = ((higher % rspan) * mult) & MASK
+            off = (off + lower % rspan) & MASK
+            off = off % rspan
+            return (minval + off).to(torch.int32)
+        # The 64-bit words hi << 32 | lo, reduced modulo the span through
+        # their halves (exact in int64 for a span below 2^31).
+        two32 = (1 << 32) % rspan
+        higher, lower = ((w1 % rspan * two32 + w2 % rspan) % rspan
+                         for w1, w2 in (threefry2x32(h1, h2, zero, idx), threefry2x32(l1, l2, zero, idx)))
+        return minval + (higher * mult + lower) % rspan
+    b1, b2 = threefry2x32(k1, k2, zero, idx)
+    if mode == UNIFORM64:
+        # The top 52 of the 64 bits b1 << 32 | b2 as a mantissa under
+        # exponent 0, minus one, then floats * span + lo in one rounding.
+        floats = ((b1 << 20) | (b2 >> 12) | 0x3FF0000000000000).view(torch.float64) - 1.0
+        return torch.clamp(fma64(floats, span, lo), min=float(lo))
     bits = b1 ^ b2
     if mode == BITS:
         return bits
@@ -185,16 +252,15 @@ def threefry_kernel(mode: int, key, n: int, device, counter=None, c0: int = 0, l
         k1, k2 = _words(key)
     if counter is not None and (counter.device != device or counter.dtype != torch.int64 or counter.numel() != 1):
         raise ValueError("the counter must be one int64 on the draw's device")
-    shape, dtype = {KEYS: ((n, 2), torch.int64), BITS: ((n,), torch.int64), UNIFORM: ((n,), torch.float32),
-                    RANDINT: ((n,), torch.int32)}[mode]
-    out = torch.empty(shape, dtype=dtype, device=device)
+    out = torch.empty((n, 2) if mode == KEYS else (n,), dtype=_OUT[mode], device=device)
     if n == 0:
         return out
+    if mode != UNIFORM64:
+        lo, span = float(np.float32(lo)), float(np.float32(span))
     lib = load_library("threefry")
     err = lib.rpt_threefry(
-        mode, _ptr(kt), k1, k2, _ptr(counter), c0 & MASK, n, _ptr(out), float(np.float32(lo)),
-        float(np.float32(span)), minval, rspan, mult, launches,
-        ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
+        mode, _ptr(kt), k1, k2, _ptr(counter), c0 & MASK, n, _ptr(out), float(lo), float(span), minval, rspan,
+        mult, launches, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"threefry kernel launch failed: CUDA error {err}")
@@ -207,12 +273,23 @@ def _on_cpu(device: torch.device) -> bool:
 
 @counted(slots=4)
 def _threefry(mode: int, key, n: int, device, **kw) -> torch.Tensor:
-    """The hash of a run of counters on `device`: the kernel on a CUDA
-    device (counted, one count per mode), the plain version on the CPU."""
+    """The hash of a run of counters on `device`, in a 32-bit mode (KEYS,
+    BITS, UNIFORM, RANDINT): the kernel on a CUDA device (counted, one count
+    per mode), the plain version on the CPU."""
     device = _device(device)
     if _on_cpu(device):
         return threefry_plain(mode, key, n, device, **kw)
     return threefry_kernel(mode, key, n, device, launches=launch_counter(_threefry, device, mode), **kw)
+
+
+@counted(slots=2)
+def _threefry64(mode: int, key, n: int, device, **kw) -> torch.Tensor:
+    """`_threefry` for the 64-bit draws (UNIFORM64, RANDINT64), counted
+    apart: slot 0 the float64 uniform, slot 1 the int64 randint."""
+    device = _device(device)
+    if _on_cpu(device):
+        return threefry_plain(mode, key, n, device, **kw)
+    return threefry_kernel(mode, key, n, device, launches=launch_counter(_threefry64, device, mode - UNIFORM64), **kw)
 
 
 def _key_device(key, device):
@@ -262,29 +339,42 @@ def _random_bits(key, shape: tuple, device) -> torch.Tensor:
 
 
 def uniform(key, shape=(), dtype=torch.float32, minval=0.0, maxval=1.0, device=None) -> torch.Tensor:
-    """`jax.random.uniform` for float32: 23 random mantissa bits under
-    exponent 0, minus one, scaled into [minval, maxval)."""
-    if dtype != torch.float32:
-        raise NotImplementedError("uniform: float32 only")
+    """`jax.random.uniform`: for float32 23 random mantissa bits, for
+    float64 (`jax_enable_x64`) 52, under exponent 0, minus one, scaled into
+    [minval, maxval) in one rounding."""
+    if dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(f"uniform: float32 or float64, not {dtype}")
     shape = _shape(shape)
-    lo = np.float32(minval)
-    span = np.float32(maxval) - lo
-    out = _threefry(UNIFORM, key, math.prod(shape), _key_device(key, device), lo=float(lo), span=float(span))
+    ft = np.float32 if dtype == torch.float32 else np.float64
+    lo = ft(minval)
+    span = ft(maxval) - lo
+    hash_, mode = (_threefry, UNIFORM) if dtype == torch.float32 else (_threefry64, UNIFORM64)
+    out = hash_(mode, key, math.prod(shape), _key_device(key, device), lo=float(lo), span=float(span))
     return out.reshape(shape)
 
 
-def randint(key, shape, minval: int, maxval: int, device=None) -> torch.Tensor:
-    """`jax.random.randint` for int32: two 32-bit streams (the key split in
-    two) combined modulo the span (jax/_src/random.py `_randint`), with
-    uint32 wraparound."""
+def randint(key, shape, minval: int, maxval: int, dtype=torch.int32, device=None) -> torch.Tensor:
+    """`jax.random.randint`: two streams of 32 random bits (int32) or, for
+    int64 (`jax_enable_x64`), of 64, one under each half of the split key,
+    combined modulo the span (jax/_src/random.py `_randint`) with unsigned
+    wraparound."""
     shape = _shape(shape)
     minval, maxval = int(minval), int(maxval)
     if not (-(2**31) <= minval < 2**31 and -(2**31) <= maxval < 2**31):
         raise OverflowError("randint: bounds must fit in int32")
-    out = _threefry(RANDINT, key, math.prod(shape), _key_device(key, device), **_randint_params(minval, maxval))
-    return out.reshape(shape)
+    if dtype == torch.int32:
+        hash_, mode, kw = _threefry, RANDINT, _randint_params(minval, maxval)
+    elif dtype == torch.int64:
+        hash_, mode, kw = _threefry64, RANDINT64, _randint_params(minval, maxval, 64)
+        if kw["rspan"] >= 2**31:
+            raise OverflowError("randint: an int64 draw takes a span below 2^31")
+    else:
+        raise NotImplementedError(f"randint: int32 or int64, not {dtype}")
+    return hash_(mode, key, math.prod(shape), _key_device(key, device), **kw).reshape(shape)
 
 
-def bernoulli(key, p: float = 0.5, shape=(), device=None) -> torch.Tensor:
-    """`jax.random.bernoulli` (mode 'low'): uniform < p."""
-    return uniform(key, shape, device=device) < np.float32(p)
+def bernoulli(key, p: float = 0.5, shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+    """`jax.random.bernoulli` (mode 'low'): a uniform of `dtype`, the dtype
+    of p in the JAX package, below p."""
+    ft = np.float32 if dtype == torch.float32 else np.float64
+    return uniform(key, shape, dtype=dtype, device=device) < ft(p)

@@ -26,6 +26,12 @@ under another `RPT_COMPACT` gets a graph of its own.
 A replay launches the kernels without calling their Python wrappers; their
 launch counts live on the device and are added to by the kernels
 themselves (`kernels.launch_counter`), so every replay counts.
+
+`Renderer(dtype=torch.float64)` renders as the reference does with
+`dtype=jnp.float64` under `jax_enable_x64`: an x64 key (`PRNGKey(seed,
+x64=True)`), 64-bit draws, a float64 scene, pixel grid, sums, `t_min` and
+exposure, and the float64 kernels. The dtype is part of every cache key, so
+a float32 graph is never replayed for a float64 render, nor the reverse.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ from .camera import Camera
 from .integrator import _auto_compact, trace_paths
 from .scene import Scene, SceneData
 from .utils.device import resolve_device
+from .utils.vmath import numpy_real, real_value
 
 __all__ = [
     "Renderer", "render_pass_tiled", "pixel_ndc_tiled", "camera_rays_tiled", "scene_cache_key", "SceneCache",
@@ -71,19 +78,21 @@ def _tile_perm_np(width: int, height: int):
     return perm, inv
 
 
-def pixel_ndc_tiled(width: int, height: int, device=None):
+def pixel_ndc_tiled(width: int, height: int, device=None, dtype=torch.float32):
     """Pixel-center NDC coordinates on the max dimension (y flipped so row 0
-    is the top), in tile order, plus dim and the inverse permutation."""
+    is the top), in tile order, plus dim and the inverse permutation; the
+    coordinates computed on the host in `dtype`, as the reference does."""
+    np_dtype = numpy_real(dtype)
     dim = float(max(width, height))
-    x = np.arange(width, dtype=np.float32)
-    y = np.arange(height, dtype=np.float32)
+    x = np.arange(width, dtype=np_dtype)
+    y = np.arange(height, dtype=np_dtype)
     xn = (2.0 * x + 1.0 - width) / dim
     yn = (2.0 * (height - y) - 1.0 - height) / dim
     xg = np.broadcast_to(xn[None, :], (height, width)).reshape(-1)
     yg = np.broadcast_to(yn[:, None], (height, width)).reshape(-1)
     perm, inv = _tile_perm_np(width, height)
     as_t = lambda a: torch.as_tensor(np.ascontiguousarray(a), device=device)  # noqa: E731
-    return as_t(xg[perm].astype(np.float32)), as_t(yg[perm].astype(np.float32)), dim, as_t(inv.astype(np.int64))
+    return as_t(xg[perm].astype(np_dtype)), as_t(yg[perm].astype(np_dtype)), dim, as_t(inv.astype(np.int64))
 
 
 def camera_rays_tiled(camera: Camera, key, ndc) -> tuple:
@@ -92,7 +101,7 @@ def camera_rays_tiled(camera: Camera, key, ndc) -> tuple:
     `key` a host or a tensor key."""
     xg, yg, dim, _ = ndc
     k_jit, k_cam, k_trace = rnd.split(key, 3)
-    jitter = rnd.uniform(k_jit, (2, xg.shape[0]), minval=-1.0 / dim, maxval=1.0 / dim, device=xg.device)
+    jitter = rnd.uniform(k_jit, (2, xg.shape[0]), dtype=xg.dtype, minval=-1.0 / dim, maxval=1.0 / dim, device=xg.device)
     o, d = camera.cast_rays(xg + jitter[0], yg + jitter[1], k_cam)
     return o, d, k_trace
 
@@ -100,8 +109,8 @@ def camera_rays_tiled(camera: Camera, key, ndc) -> tuple:
 def render_pass_tiled(scene_data: SceneData, camera: Camera, key, ndc, max_bounces: int,
                       t_min: float, ev_scale, compact=None) -> torch.Tensor:
     """Trace one sample per pixel; (H*W, 3) radiance in tile order.
-    `ev_scale` is a float or a 0-d float32 tensor; `compact` the wavefront
-    order (`trace_paths`)."""
+    `ev_scale` is a float or a 0-d tensor of the scene's type; `compact` the
+    wavefront order (`trace_paths`)."""
     o, d, k_trace = camera_rays_tiled(camera, key, ndc)
     return trace_paths(scene_data, o, d, k_trace, max_bounces, t_min, compact=compact) * ev_scale
 
@@ -115,11 +124,12 @@ def scene_cache_key(scene_data: SceneData) -> str:
     """Identity of a compiled scene for the per-scene caches: the content
     digest that Scene.compile stamps, the traversal packs it carries (a
     compile under another kernel choice has the same digest and other
-    kernels) and its device. A SceneData built outside Scene.compile
-    (digest "") falls back to id(), which SceneCache keeps valid by pinning
-    the SceneData while its entry lives."""
+    kernels), its device and its real type. A SceneData built outside
+    Scene.compile (digest "") falls back to id(), which SceneCache keeps
+    valid by pinning the SceneData while its entry lives."""
     packs = ",".join(f for f in ("bvh8", "bvh2", "tlas8", "tlas2") if getattr(scene_data, f) is not None)
-    return f"{scene_data.digest or f'id:{id(scene_data)}'}|{packs}|{scene_data.device}"
+    return f"{scene_data.digest or f'id:{id(scene_data)}'}|{packs}|{scene_data.device}|{scene_data.dtype}"
+
 
 
 class SceneCache:
@@ -155,21 +165,22 @@ class _PassInputs:
     """Everything a sample pass reads or writes, in tensors allocated once:
     a captured graph reads and writes these very tensors on every replay."""
 
-    camera: Camera
+    camera: Camera  # float32 fields, as in the reference
     key: torch.Tensor  # (2,) int64: the base key (or the pass's own key)
     counter: torch.Tensor  # (1,) int64: the index of the next sample
-    ev_scale: torch.Tensor  # () float32
-    s: torch.Tensor  # (H*W, 3) float32, tile order
-    ss: torch.Tensor  # (H*W,) float32
+    ev_scale: torch.Tensor  # () in the render's real type
+    s: torch.Tensor  # (H*W, 3) in the render's real type, tile order
+    ss: torch.Tensor  # (H*W,)
 
     @staticmethod
-    def new(npix: int, device) -> "_PassInputs":
+    def new(npix: int, device, dtype=torch.float32) -> "_PassInputs":
         f32 = dict(dtype=torch.float32, device=device)
+        real = dict(dtype=dtype, device=device)
         camera = Camera(**{f: torch.zeros(getattr(Camera(), f).shape, **f32) for f in _CAMERA_FIELDS})
         return _PassInputs(camera=camera, key=torch.zeros(2, dtype=torch.int64, device=device),
                            counter=torch.zeros(1, dtype=torch.int64, device=device),
-                           ev_scale=torch.zeros((), **f32), s=torch.zeros((npix, 3), **f32),
-                           ss=torch.zeros((npix,), **f32))
+                           ev_scale=torch.zeros((), **real), s=torch.zeros((npix, 3), **real),
+                           ss=torch.zeros((npix,), **real))
 
     def load(self, camera: Camera, key, start: int, ev_scale: float, sums=None) -> None:
         """Write a call's inputs in place; the sums start from `sums` (tile
@@ -178,7 +189,7 @@ class _PassInputs:
             getattr(self.camera, f).copy_(getattr(camera, f))
         self.key.copy_(rnd.to_device(key, "cpu") if not isinstance(key, torch.Tensor) else key)
         self.counter.fill_(int(start))
-        self.ev_scale.fill_(float(np.float32(ev_scale)))
+        self.ev_scale.fill_(real_value(ev_scale, self.ev_scale.dtype))
         if sums is None:
             self.s.zero_()
             self.ss.zero_()
@@ -249,10 +260,11 @@ class _SamplePasses:
         self.compact = compact
         self.fold = fold
         self.device = scene_data.device
+        self.dtype = scene_data.dtype
         self.graphed = self.device.type == "cuda" and not eager
-        self.ndc = pixel_ndc_tiled(width, height, self.device)
+        self.ndc = pixel_ndc_tiled(width, height, self.device, self.dtype)
         self.perm = torch.as_tensor(_tile_perm_np(width, height)[0].astype(np.int64), device=self.device)
-        self.inputs = _PassInputs.new(width * height, self.device)
+        self.inputs = _PassInputs.new(width * height, self.device, self.dtype)
         self.captures: dict = {}  # t_min -> _Capture
 
     def _run(self, t_min: float) -> None:
@@ -260,7 +272,7 @@ class _SamplePasses:
 
     def capture(self, t_min: float) -> _Capture:
         """The graph of a pass at `t_min`, captured on first use."""
-        t_min = float(np.float32(t_min))
+        t_min = real_value(t_min, self.dtype)
         if t_min not in self.captures:
             self.captures[t_min] = _Capture(lambda: self._run(t_min), self.device)
         return self.captures[t_min]
@@ -270,9 +282,11 @@ class _SamplePasses:
         added one by one onto `into`, a (sum, sum_sq) pair, when given (so a
         render in chunks adds in the order of one call, bit for bit)."""
         n = int(n)
-        t_min = float(np.float32(t_min))
+        t_min = real_value(t_min, self.dtype)
         sums = None
         if into is not None:
+            if into[0].dtype != self.dtype or into[1].dtype != self.dtype:
+                raise TypeError(f"{into[0].dtype} sums cannot take the samples of a {self.dtype} render")
             sums = (into[0].reshape(-1, 3)[self.perm], into[1].reshape(-1)[self.perm])
         if self.graphed and n > 0:
             self.capture(t_min)  # its warm-up writes the inputs: load them after
@@ -288,9 +302,11 @@ class _SamplePasses:
 
 
 def _pass_key(scene_data: SceneData, width: int, height: int, max_bounces: int) -> tuple:
-    """The cache key of a scene's passes: the scene, the size, the bounces
-    and the wavefront order `_auto_compact` resolves now (`RPT_COMPACT`
-    included), so a render under another order gets its own graph."""
+    """The cache key of a scene's passes: the scene (`scene_cache_key`,
+    which holds its real type, so a float32 graph is never replayed for a
+    float64 render), the size, the bounces and the wavefront order
+    `_auto_compact` resolves now (`RPT_COMPACT` included), so a render under
+    another order gets its own graph."""
     return (scene_cache_key(scene_data), width, height, max_bounces, _auto_compact(scene_data))
 
 
@@ -301,7 +317,7 @@ def make_render_many_fn(scene_data: SceneData, width: int, height: int, max_boun
     sum_sq) when given. On a CUDA device one pass is a CUDA graph,
     captured at the first call (for each t_min) and replayed n times; a
     failed capture raises. Cached per (scene, width, height, max_bounces,
-    wavefront order)."""
+    real type, wavefront order)."""
     cache_key = _pass_key(scene_data, width, height, max_bounces)
     fn = _MANY_CACHE.get(cache_key)
     if fn is None:
@@ -321,7 +337,7 @@ def _eager_render_many_fn(scene_data: SceneData, width: int, height: int, max_bo
 def make_render_fn(scene_data: SceneData, width: int, height: int, max_bounces: int):
     """(camera, key, t_min, ev_scale) -> one (H, W, 3) frame keyed by `key`,
     as a CUDA graph on a CUDA device; cached per (scene, resolution,
-    bounces, wavefront order)."""
+    bounces, real type, wavefront order)."""
     cache_key = _pass_key(scene_data, width, height, max_bounces)
     fn = _PASS_CACHE.get(cache_key)
     if fn is None:
@@ -341,8 +357,9 @@ def render_pass(scene_data, camera, key, width, height, max_bounces, t_min, ev_s
 
 class Renderer:
     """Fluent builder over a scene + camera. Runs on `device` (the CUDA card
-    when None; raises without one). Defaults: 800x600, EV 0, no filter,
-    0 bounces, 1 sample."""
+    when None; raises without one), in `dtype`, float32 or float64 (see the
+    module docstring). Defaults: 800x600, EV 0, no filter, 0 bounces, 1
+    sample."""
 
     def __init__(
         self,
@@ -359,9 +376,10 @@ class Renderer:
         dtype=torch.float32,
         device=None,
     ):
-        if dtype != torch.float32:
-            raise NotImplementedError("only float32 rendering is ported")
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"a render is float32 or float64, not {dtype}")
         self.device = resolve_device(device)
+        self.dtype = dtype
         self.scene = scene
         self.camera = camera if camera is not None else Camera()
         self.width = width
@@ -398,18 +416,26 @@ class Renderer:
         return self
 
     def scene_data(self) -> SceneData:
-        return self.scene.compile(device=self.device)
+        return self.scene.compile(self.dtype, device=self.device)
+
+    def base_key(self) -> np.ndarray:
+        """PRNGKey(seed) as the reference makes it for a render of this
+        type: an x64 key for a float64 render."""
+        return rnd.PRNGKey(self.seed, x64=self.dtype == torch.float64)
 
     def _pass_args(self, scene_data: Optional[SceneData] = None):
-        """(compiled scene, t_min, ev_scale) of a pass, as f32 values."""
+        """(compiled scene, t_min, ev_scale) of a pass, as values of the
+        render's type. A given scene must be of that type."""
         sd = scene_data if scene_data is not None else self.scene_data()
-        return sd, float(np.float32(self.epsilon)), float(np.float32(2.0 ** self.exposure_value))
+        if sd.dtype != self.dtype:
+            raise TypeError(f"a {self.dtype} render cannot take a {sd.dtype} scene")
+        return sd, real_value(self.epsilon, self.dtype), real_value(2.0 ** self.exposure_value, self.dtype)
 
     def _sample_with(self, make_fn, buffer: Buffer, iterations: int, start_iter: int,
                      scene_data: Optional[SceneData]) -> Buffer:
         sd, t_min, ev_scale = self._pass_args(scene_data)
         fn = make_fn(sd, self.width, self.height, self.max_bounces)
-        s, ss = fn(self.camera, rnd.PRNGKey(self.seed), start_iter, iterations, t_min, ev_scale,
+        s, ss = fn(self.camera, self.base_key(), start_iter, iterations, t_min, ev_scale,
                    into=(buffer.sum, buffer.sum_sq))
         return Buffer(sum=s, sum_sq=ss, count=buffer.count + iterations)
 
@@ -428,7 +454,7 @@ class Renderer:
         return self._sample_with(_eager_render_many_fn, buffer, iterations, start_iter, scene_data)
 
     def render_buffer(self, scene_data: Optional[SceneData] = None) -> Buffer:
-        buffer = Buffer.new(self.width, self.height, device=self.device)
+        buffer = Buffer.new(self.width, self.height, device=self.device, dtype=self.dtype)
         return self.sample_into(buffer, self.num_samples, scene_data=scene_data)
 
     def render(self) -> np.ndarray:
@@ -446,7 +472,7 @@ class Renderer:
         cursor are saved after every interval, and a render resumes from an
         existing checkpoint, bit for bit equal to an uninterrupted one (a
         checkpoint of the JAX package's renderer loads too)."""
-        buffer = Buffer.new(self.width, self.height, device=self.device)
+        buffer = Buffer.new(self.width, self.height, device=self.device, dtype=self.dtype)
         iteration = 0
         if checkpoint_path and os.path.exists(checkpoint_path):
             buffer, ck_seed, iteration = Buffer.load(checkpoint_path, device=self.device)

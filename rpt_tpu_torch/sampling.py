@@ -1,4 +1,7 @@
-"""Monte Carlo sampling primitives on threefry keys (`rpt_tpu/sampling.py`)."""
+"""Monte Carlo sampling primitives on threefry keys (`rpt_tpu/sampling.py`).
+
+`dtype` is the render's real type: the reference draws these at JAX's
+default float type, float32, or float64 under `jax_enable_x64`."""
 
 from __future__ import annotations
 
@@ -11,16 +14,16 @@ from . import random as rnd
 __all__ = ["uniform_disk", "uniform_triangle_barycentric"]
 
 
-def uniform_disk(key, shape=(), device=None) -> torch.Tensor:
+def uniform_disk(key, shape=(), device=None, dtype=torch.float32) -> torch.Tensor:
     """Uniform sample inside the unit disk, shape (..., 2): sqrt(r) * (cos t, sin t)."""
     k1, k2 = rnd.split(key)
-    r = torch.sqrt(rnd.uniform(k1, shape, device=device))
-    theta = rnd.uniform(k2, shape, minval=0.0, maxval=2.0 * math.pi, device=device)
+    r = torch.sqrt(rnd.uniform(k1, shape, dtype=dtype, device=device))
+    theta = rnd.uniform(k2, shape, dtype=dtype, minval=0.0, maxval=2.0 * math.pi, device=device)
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
 
 
-def uniform_triangle_barycentric(key, shape=(), device=None) -> torch.Tensor:
+def uniform_triangle_barycentric(key, shape=(), device=None, dtype=torch.float32) -> torch.Tensor:
     """Uniform barycentric (u, v), u + v <= 1, by the mirror trick."""
-    uv = rnd.uniform(key, rnd._shape(shape) + (2,), device=device)
+    uv = rnd.uniform(key, rnd._shape(shape) + (2,), dtype=dtype, device=device)
     over = torch.sum(uv, dim=-1, keepdim=True) > 1.0
     return torch.where(over, 1.0 - uv, uv)

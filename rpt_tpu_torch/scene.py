@@ -28,6 +28,12 @@ two-level kernels take every scene, where the reference falls back to its
 XLA loop. The kernels run on the card, their plain versions on the CPU.
 Monomial surfaces and HDRI environments are not ported yet and raise
 NotImplementedError.
+
+A scene compiles in float32 or float64 (`Scene.compile(dtype)`), as the
+reference's does: every float array of the compiled scene is in that type
+(the environment color keeps its float32 values, as in the reference), and
+the packs are too (their node boxes stay float32, rounded outward in a
+float64 pack). The kernel choice does not look at the type.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ from .ops.tlas2 import Tlas2Pack, pack_tlas2, tlas2_closest_hit, tlas2_occluded
 from .ops.tlas8 import Tlas8Pack, pack_tlas8, tlas8_closest_hit, tlas8_occluded
 from .shapes import Cube, Group, Mesh, MonomialSurface, Plane, Shape, Sphere, Transformed, unwrap_transform
 from .utils.device import resolve_device
+from .utils.vmath import numpy_real
 
 __all__ = ["Object", "Scene", "SceneData", "compile_scene", "choose_bvh_pack", "choose_instanced_pack"]
 
@@ -106,7 +113,7 @@ class Scene:
         self.objects: List[Object] = []
         self.lights: List[Union[PointLight, AmbientLight, DirectionalLight, ObjectLight]] = []
         self.environment: Environment = Environment.black()
-        self._compiled: Dict[str, tuple] = {}  # device -> ((digest, kernel choice), data)
+        self._compiled: Dict[tuple, tuple] = {}  # (device, dtype) -> ((digest, kernel choice), data)
 
     def add(self, node) -> None:
         self._compiled = {}
@@ -122,20 +129,22 @@ class Scene:
         self.environment = env
 
     def compile(self, dtype=torch.float32, device=None) -> "SceneData":
-        """Compile onto `device` (the CUDA card when None; raises without one).
-        Cached per device on a content digest of the scene and on the kernel
-        choice (`_BVH_KERNEL`, `WIDE_KERNEL_MIN_TRIS`), so in-place edits and
-        a changed choice recompile."""
-        if dtype != torch.float32:
-            raise NotImplementedError("only float32 scenes are ported")
+        """Compile in `dtype` (float32 or float64) onto `device` (the CUDA
+        card when None; raises without one). Cached per device and dtype (the
+        reference keys its cache on the dtype too) on a content digest of the
+        scene and on the kernel choice (`_BVH_KERNEL`, `WIDE_KERNEL_MIN_TRIS`),
+        so in-place edits and a changed choice recompile."""
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"a scene compiles in float32 or float64, not {dtype}")
         device = resolve_device(device)
         digest = _scene_digest(self)
         key = (digest, _BVH_KERNEL, WIDE_KERNEL_MIN_TRIS)
-        cached = self._compiled.get(str(device))
+        slot = (str(device), dtype)
+        cached = self._compiled.get(slot)
         if cached is not None and cached[0] == key:
             return cached[1]
-        data = compile_scene(self, device, digest=digest)
-        self._compiled[str(device)] = (key, data)
+        data = compile_scene(self, device, digest=digest, dtype=dtype)
+        self._compiled[slot] = (key, data)
         return data
 
 
@@ -248,9 +257,15 @@ class SceneData:
     tlas2: Optional[Tlas2Pack]  # the two-level binary kernels' layout (one of the two)
     lights: tuple
     environment: Environment
-    env_color: torch.Tensor  # (3,) float32: the environment's color on `device`
+    env_color: torch.Tensor  # (3,): the environment's (float32) color on `device`, in the scene's type
     device: torch.device
     digest: str = ""
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The scene's real type, float32 or float64 (the reference reads
+        it off the material table too)."""
+        return self.materials.color.dtype
 
     def intersect(self, o: torch.Tensor, d: torch.Tensor, t_min, active=None) -> ops.Hit:
         """Closest hit of N rays against the whole scene. Lanes with
@@ -429,11 +444,12 @@ def _t(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
 
-def compile_scene(scene: Scene, device=None, digest: str = "") -> SceneData:
+def compile_scene(scene: Scene, device=None, digest: str = "", dtype=torch.float32) -> SceneData:
     device = resolve_device(device)
     if not digest:
         digest = _scene_digest(scene)
-    f32, i32 = torch.float32, torch.int32
+    real, i32 = dtype, torch.int32
+    np_real = numpy_real(dtype)
     materials: List[Material] = []
     mat_index = {}
 
@@ -484,7 +500,7 @@ def compile_scene(scene: Scene, device=None, digest: str = "") -> SceneData:
                     slot[id(m)] = len(uniq)
                     uniq.append(m)
             instances = [(slot[id(m)], matrix, mid) for m, matrix, mid in mesh_uses]
-            instanced = build_instanced(uniq, instances, device=device)
+            instanced = build_instanced(uniq, instances, device=device, dtype=dtype)
             tlas8, tlas2 = choose_instanced_pack(instanced, device=device)
         else:
             for m, matrix, mid in mesh_uses:
@@ -497,16 +513,16 @@ def compile_scene(scene: Scene, device=None, digest: str = "") -> SceneData:
         if not rows:
             return None
         return PrimXf(
-            inv_tf=_t(np.stack([r[0] for r in rows]).astype(np.float32), f32, device),
-            nmat=_t(np.stack([r[1] for r in rows]).astype(np.float32), f32, device),
+            inv_tf=_t(np.stack([r[0] for r in rows]).astype(np_real), real, device),
+            nmat=_t(np.stack([r[1] for r in rows]).astype(np_real), real, device),
             mat_id=_t(np.asarray([r[2] for r in rows], np.int32), i32, device),
         )
 
     planes = None
     if plane_rows:
         planes = PlaneArrays(
-            normal=_t(np.stack([r[0] for r in plane_rows]).astype(np.float32), f32, device),
-            value=_t(np.asarray([r[1] for r in plane_rows], np.float32), f32, device),
+            normal=_t(np.stack([r[0] for r in plane_rows]).astype(np_real), real, device),
+            value=_t(np.asarray([r[1] for r in plane_rows], np_real), real, device),
             mat_id=_t(np.asarray([r[2] for r in plane_rows], np.int32), i32, device),
         )
 
@@ -516,17 +532,17 @@ def compile_scene(scene: Scene, device=None, digest: str = "") -> SceneData:
         norms = np.concatenate(tri_norms)
         mats = np.concatenate(tri_mats)
         if verts.shape[0] >= BVH_THRESHOLD:
-            bvh = build_bvh(verts, norms, mats, device=device)
+            bvh = build_bvh(verts, norms, mats, device=device, dtype=dtype)
             bvh8, bvh2 = choose_bvh_pack(bvh, device=device)
         else:
             triangles = TriangleArrays(
-                verts=_t(verts.astype(np.float32), f32, device),
-                norms=_t(norms.astype(np.float32), f32, device),
+                verts=_t(verts.astype(np_real), real, device),
+                norms=_t(norms.astype(np_real), real, device),
                 mat_id=_t(mats.astype(np.int32), i32, device),
             )
 
     return SceneData(
-        materials=MaterialTable.pack(materials, device=device),
+        materials=MaterialTable.pack(materials, device=device, dtype=dtype),
         spheres=pack_primxf(sphere_rows),
         cubes=pack_primxf(cube_rows),
         planes=planes,
@@ -537,17 +553,19 @@ def compile_scene(scene: Scene, device=None, digest: str = "") -> SceneData:
         instanced=instanced,
         tlas8=tlas8,
         tlas2=tlas2,
-        lights=tuple(_compile_light(l, device) for l in scene.lights),
+        lights=tuple(_compile_light(l, device, dtype) for l in scene.lights),
         environment=scene.environment,
-        env_color=torch.tensor(scene.environment.color, dtype=torch.float32, device=device),
+        env_color=torch.tensor(scene.environment.color, dtype=dtype, device=device),
         device=device,
-        digest=f"float32:{digest}",
+        digest=f"{str(dtype).removeprefix('torch.')}:{digest}",
     )
 
 
-def _compile_light(light, device):
+def _compile_light(light, device, dtype=torch.float32):
+    np_real = numpy_real(dtype)
+
     def f(a):
-        return _t(np.asarray(a, np.float32), torch.float32, device)
+        return _t(np.asarray(a, np_real), dtype, device)
 
     if isinstance(light, PointLight):
         return PointLightData(color=f(light.color), position=f(light.position))
@@ -558,18 +576,18 @@ def _compile_light(light, device):
     if isinstance(light, ObjectLight):
         obj = light.object
         m = obj.mat
-        emitted = f((np.asarray(m.color) * m.emittance).astype(np.float32))
+        emitted = f((np.asarray(m.color) * m.emittance).astype(np_real))
         base, matrix = unwrap_transform(obj.shape)
         if isinstance(base, Sphere):
             inv_tf, lin, trans, nmat, det = _affine_parts(matrix)
             return SphereLightData(
                 inv_tf=f(inv_tf), l2w_lin=f(lin), l2w_trans=f(trans), nmat=f(nmat),
-                det=f(np.float32(det)), emitted=emitted,
+                det=f(np_real(det)), emitted=emitted,
             )
         if isinstance(base, Cube):
             _, lin, trans, nmat, det = _affine_parts(matrix)
             return CubeLightData(
-                l2w_lin=f(lin), l2w_trans=f(trans), nmat=f(nmat), det=f(np.float32(det)), emitted=emitted,
+                l2w_lin=f(lin), l2w_trans=f(trans), nmat=f(nmat), det=f(np_real(det)), emitted=emitted,
             )
         if isinstance(base, MonomialSurface):
             raise NotImplementedError("monomial-surface lights are not ported yet")

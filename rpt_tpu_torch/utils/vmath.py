@@ -6,6 +6,7 @@ leading axes, so one call covers a whole wavefront of rays or normals.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = [
@@ -18,6 +19,9 @@ __all__ = [
     "orthonormal_basis",
     "from_local",
     "safe_sqrt",
+    "signed_full",
+    "numpy_real",
+    "real_value",
 ]
 
 
@@ -77,3 +81,25 @@ def from_local(n: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
     """Map a vector in the (t1, t2, n) frame to world space."""
     t1, t2 = orthonormal_basis(n)
     return local[..., 0:1] * t1 + local[..., 1:2] * t2 + local[..., 2:3] * n
+
+
+def signed_full(neg: torch.Tensor, value: float, like: torch.Tensor) -> torch.Tensor:
+    """-value where `neg`, else value, in the dtype of `like` (the
+    reference's `where(x < 0, -value, value)` of a weakly typed scalar; a
+    float64 value stays exact where torch's scalar `where` gives float32)."""
+    if like.dtype == torch.float32:
+        return torch.where(neg, -value, value)
+    return torch.where(neg, torch.full_like(like, -value), torch.full_like(like, value))
+
+
+def numpy_real(dtype: torch.dtype):
+    """The numpy type of the real type `dtype` (float32 or float64) of a
+    render, a scene or a pack."""
+    return np.float64 if dtype == torch.float64 else np.float32
+
+
+def real_value(x: float, dtype: torch.dtype) -> float:
+    """A scalar of a render (`t_min`, the exposure scale) as a computation
+    in the real type `dtype` takes it: rounded to float32 for float32, as
+    given for float64 (the reference's `jnp.asarray(x, dtype)`)."""
+    return float(np.float32(x)) if dtype == torch.float32 else float(x)

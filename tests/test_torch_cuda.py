@@ -582,6 +582,132 @@ def test_a_missing_kernel_library_raises(card, monkeypatch):
         r.render_buffer()
 
 
+# ---------------------------------------------------------------------------
+# float64: the kernels' double instantiations, the 64-bit draws, f64 renders
+# ---------------------------------------------------------------------------
+
+
+def _f64_case(family, card):
+    """A float64 pack of `family` on the card and float64 rays at it."""
+    if family in ("bvh8", "bvh2"):
+        (verts, norms, mats), o, d = _mesh_and_rays(3000, 5000, seed=11)
+        tree = build_bvh(verts, norms, mats, device=card, dtype=torch.float64)
+    else:
+        meshes, instances, o, d = _instanced_and_rays(3, 40, 5000, seed=11)
+        tree = build_instanced(meshes, instances, device=card, dtype=torch.float64)
+    mod = {"bvh8": bvh8, "bvh2": bvh2, "tlas8": tlas8, "tlas2": tlas2}[family]
+    pack = getattr(mod, f"pack_{family}")(tree, device=card)
+    # The rays in float64, off the float32 grid.
+    jitter = torch.as_tensor(np.random.default_rng(5).uniform(-1e-9, 1e-9, (o.shape[0], 3)))
+    o64 = (o.double() + jitter).to(card)
+    d64 = torch.nn.functional.normalize(d.double() + jitter, dim=-1).to(card)
+    return mod, tree, pack, o64, d64
+
+
+@pytest.mark.parametrize("family", ["bvh8", "bvh2", "tlas8", "tlas2"])
+def test_f64_kernels_match_plain_walks(card, family):
+    """The double instantiations repeat their float64 plain walks op for op:
+    t, triangle ids, instance ids and the any-hit bool, bit for bit; and the
+    wrappers launch them, counted in their float64 slot."""
+    mod, tree, pack, o, d = _f64_case(family, card)
+    assert pack.tris.dtype == torch.float64
+    active = torch.arange(o.shape[0], device=card) % 3 != 0
+    out_k = getattr(mod, f"{family}_closest_kernel")(pack, o, d, T_MIN, active)
+    out_p = getattr(mod, f"{family}_closest_plain")(pack, o, d, T_MIN, active)
+    torch.cuda.synchronize()
+    t_p = out_p[0]
+    assert t_p.dtype == torch.float64 and (t_p < 1e38).float().mean() > 0.3
+    assert all(torch.equal(k, p) for k, p in zip(out_k, out_p))
+    t_max = torch.where(t_p < 1e38, t_p, torch.full_like(t_p, 12.0))  # closed interval: t == t_max counts
+    t_max[::5] = 3.0
+    occ_k = getattr(mod, f"{family}_occluded_kernel")(pack, o, d, T_MIN, t_max, active)
+    occ_p = getattr(mod, f"{family}_occluded_plain")(pack, o, d, T_MIN, t_max, active)
+    torch.cuda.synchronize()
+    assert torch.equal(occ_k, occ_p) and torch.equal(occ_k, (t_p <= t_max) & active)
+    closest, occluded = getattr(mod, f"{family}_closest_hit"), getattr(mod, f"{family}_occluded")
+    before = kernels.launch_counts(by_slot=True)
+    closest(tree, pack, o, d, T_MIN)
+    after = kernels.launch_counts(by_slot=True)
+    assert [a - b for a, b in zip(after[closest], before[closest])] == [0, 1]
+    with pytest.raises(TypeError):
+        getattr(mod, f"{family}_closest_kernel")(pack, o.float(), d.float(), T_MIN)
+    assert occluded in after
+
+
+@pytest.mark.parametrize("mode", ["uniform64", "randint64"])
+def test_threefry_64_bit_modes_match_plain(card, mode):
+    """The float64 uniform and the int64 randint, a host key and a tensor
+    key, ragged sizes and the main path's: bit for bit with the plain
+    versions (whose float64 multiply-add is emulated in one rounding)."""
+    params = {
+        "uniform64": [(rnd.UNIFORM64, dict(lo=lo, span=hi - lo))
+                      for lo, hi in ((0.0, 1.0), (-1.0 / 960.0, 1.0 / 960.0), (1e-7, 1.0), (0.0, 2.0 * np.pi),
+                                     (-3.0, 5.5))],
+        "randint64": [(rnd.RANDINT64, rnd._randint_params(lo, hi, 64)) for lo, hi in ((0, 6), (0, 1), (0, 120_000),
+                                                                                     (-100, 123457))],
+    }[mode]
+    host = rnd.fold_in(rnd.PRNGKey(42, x64=True), 7)
+    for m, kw in params:
+        for n in (1, 7, 255, 257, 1000, 518_400, 2 * 518_400 + 5):
+            for key in (host, rnd.to_device(host, card)):
+                got = rnd.threefry_kernel(m, key, n, card, **kw)
+                want = rnd.threefry_plain(m, key, n, card, **kw)
+                torch.cuda.synchronize()
+                assert got.dtype == want.dtype and torch.equal(got, want), (mode, kw, n)
+
+
+def test_f64_draws_are_counted_apart(card):
+    """A float64 uniform and an int64 randint launch the 64-bit modes,
+    counted by `_threefry64`, and leave the 32-bit modes' counts alone."""
+    dev = rnd.to_device(rnd.PRNGKey(3, x64=True), card)
+    rnd.uniform(dev, 10)  # makes the card's table
+    before = kernels.launch_counts(by_slot=True)
+    u = rnd.uniform(dev, (3, 77), dtype=torch.float64, minval=-2.0, maxval=3.0)
+    i = rnd.randint(dev, (100,), 0, 6, dtype=torch.int64)
+    after = kernels.launch_counts(by_slot=True)
+    assert u.dtype == torch.float64 and i.dtype == torch.int64
+    assert after[rnd._threefry] == before[rnd._threefry]
+    assert [a - b for a, b in zip(after[rnd._threefry64], before[rnd._threefry64])] == [1, 1]
+
+
+@pytest.mark.parametrize("name,family", [("dragon", "bvh8"), ("lego", "tlas8")])
+def test_f64_graphed_render_matches_eager(card, name, family, monkeypatch):
+    """A float64 render through its graph equals the same render run
+    eagerly, bit for bit, and launches only float64 kernels and draws."""
+    small = _small_renderer(name, monkeypatch)
+    r = Renderer(small.scene, small.camera, width=small.width, height=small.height, max_bounces=2, num_samples=3,
+                 seed=5, dtype=torch.float64)
+    sd = r.scene_data()
+    assert sd.dtype == torch.float64 and getattr(sd, family).tris.dtype == torch.float64
+    graphed = r.render_buffer()
+    assert graphed.sum.dtype == torch.float64
+    kernels.reset_launch_counts()
+    eager = r._sample_into_eager(Buffer.new(r.width, r.height, dtype=torch.float64), r.num_samples)
+    counts = kernels.launch_counts(by_slot=True)
+    assert torch.equal(graphed.sum, eager.sum) and torch.equal(graphed.sum_sq, eager.sum_sq)
+    walk = getattr(scene_mod, f"{family}_closest_hit")
+    assert counts[walk] == [0, 3 * r.num_samples]
+    assert counts[rnd._threefry][1:] == [0, 0, 0] and counts[rnd._threefry64][0] > 0
+
+
+def test_f32_render_after_f64_replays_the_f32_graph(card):
+    """f32, f64, f32: each type renders through its own graph, captured
+    once, and the two f32 renders are equal bit for bit."""
+    scene, cam = scenes.build_cornell_scene(), scenes.cornell_camera()
+    r32 = Renderer(scene, cam, width=64, height=48, max_bounces=2, num_samples=2, seed=6)
+    r64 = Renderer(scene, cam, width=64, height=48, max_bounces=2, num_samples=2, seed=6, dtype=torch.float64)
+    first = r32.render_buffer()
+    fn32 = renderer_mod.make_render_many_fn(r32.scene_data(), 64, 48, 2)
+    graph32 = fn32.capture(1e-3).graph
+    wide = r64.render_buffer()
+    fn64 = renderer_mod.make_render_many_fn(r64.scene_data(), 64, 48, 2)
+    again = r32.render_buffer()
+    assert fn64 is not fn32 and len(fn32.captures) == 1 and len(fn64.captures) == 1
+    assert fn32.capture(1e-3).graph is graph32
+    assert wide.sum.dtype == torch.float64 and first.sum.dtype == torch.float32
+    assert torch.equal(first.sum, again.sum) and torch.equal(first.sum_sq, again.sum_sq)
+
+
 def test_capture_fails_loudly(card, monkeypatch):
     """A pass that waits on the device cannot be captured: the render
     raises, it does not fall back to eager passes. (Last in the file: the
@@ -597,3 +723,4 @@ def test_capture_fails_loudly(card, monkeypatch):
     r = Renderer(scene, cam, width=40, height=24, max_bounces=1, seed=9)
     with pytest.raises(RuntimeError, match="capturing the sample pass"):
         r.render_buffer()
+
