@@ -12,9 +12,16 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    path's shapes and ragged ones, and times it beside its bound; `[gather]`
    times torch's row gather at a few row widths; `[dtype]` renders one
    scene in float32, float64 and float32 again, each type through a graph
-   of its own, the two float32 renders bit for bit;
-3. for each workload, all at 960x540, in the wavefront order the renderer
-   picks by default (morton-sorted from depth 1 where a wide kernel walks):
+   of its own, the two float32 renders bit for bit; `[hdri]` holds the
+   HDRI lookup of 800x600 directions on a 1024x2048 procedural sky (the
+   quad form) on the card against the CPU, in both types, and times its
+   three layouts in turns (the port's 13-float quad rows, the reference's
+   12-float rows, four gathers of the map), which must read the same values
+   bit for bit; `[mono_light]` renders the monomial light's scene on the
+   CPU and on the card with one seed and compares them as phase c does;
+3. for each workload, at 960x540 unless said otherwise, in the wavefront
+   order the renderer picks by default (morton-sorted from depth 1 where a
+   wide kernel walks):
    - `dragon`, the baked-mesh path: a 120k-triangle trefoil, 2 bounces,
      through the two bvh8 kernels;
    - `dragon871k`: the same scene at the real dragon's 871,022 triangles
@@ -40,6 +47,14 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
      main path checked to launch no kernel or draw of the other type, its
      Mrays/s beside its float32 twin's in turns, and each kernel's ms per
      launch beside its float32 twin's on the same wavefronts, in turns;
+   - `monomial_glass` and its float64 twin `monomial_glass_f64`, the HDRI
+     and monomial path at `examples/monomial_glass.py`'s 800x600 and 1
+     bounce: a metallic monomial surface, a cube, two spheres and a plane
+     under a 1024x2048 procedural sky (a 25.2 MB map and a 109 MB quad
+     table on the card), one point light; no traversal kernel, so phases
+     a, c, `[graph]`, d and e, where `[profile]` adds the share of a
+     replay's device time that the monomial root finds take, read from
+     the profiled replay's trace;
    a. compiles the scene and prints its sizes;
    b. holds each of the path's kernels against its plain torch version on
       the workload's own rays: the camera rays and every wavefront of an
@@ -165,7 +180,24 @@ WORKLOADS = {
                             dtype="float64", twin="lego_binary"),
     "cornell_f64": dict(scene="cornell", bvh_kernel="wide", bounces=2, spp=2, shadow=1, family=None, dtype="float64",
                         twin="cornell"),
+    # The HDRI and monomial path at its source's size (`examples/monomial_glass.py`:
+    # 800x600, 1 bounce, one point light; its 100 spp cut to 4 and 2).
+    "monomial_glass": dict(scene="monomial_glass", bvh_kernel="wide", bounces=1, spp=4, shadow=1, family=None,
+                           size=(800, 600)),
+    "monomial_glass_f64": dict(scene="monomial_glass", bvh_kernel="wide", bounces=1, spp=2, shadow=1, family=None,
+                               size=(800, 600), dtype="float64", twin="monomial_glass"),
 }
+# `[hdri]`: the map's height (a 1024x2048 map, the shape of the reference
+# examples' 2k maps and exactly `_QUAD_MAX_TEXELS`, so the quad form) and
+# the tolerance of card against CPU. In float32 the texel coordinate x (up
+# to w - 1 = 2047) carries an ulp of 1.2e-4 texels, and the card's atan2,
+# acos and division round apart from the CPU's by a few ulps, so a lookup
+# may move by HDRI_ULPS ulps of x (and of y) times the largest contrast
+# between neighbouring texels around the quad it reads (`hdri_slack`); the
+# float64 lookup is held to HDRI_RTOL / HDRI_ATOL alone.
+HDRI_HEIGHT = 1024
+HDRI_RTOL, HDRI_ATOL = 1e-5, 1e-6
+HDRI_ULPS = 4
 # `[compact]`: the workloads whose wavefront orders are compared, each
 # order's RPT_COMPACT value, and the samples of each timed turn.
 COMPACT_WORKLOADS = ("dragon", "lego", "dragon871k")
@@ -557,7 +589,8 @@ def _run_workload(workload: str, card: str):
         say("compile", workload=workload, warning=json.dumps(str(w.message)))
         if "falling back" in str(w.message):
             fail(f"{workload}'s wide pack was refused: {w.message}")
-    renderer = Renderer(scene, camera, width=WIDTH, height=HEIGHT, max_bounces=bounces, num_samples=1,
+    width, height = spec_w.get("size", (WIDTH, HEIGHT))
+    renderer = Renderer(scene, camera, width=width, height=height, max_bounces=bounces, num_samples=1,
                         epsilon=eps, device=DEVICE, dtype=dtype)
     if sd.dtype != dtype:
         fail(f"{workload} compiled in {sd.dtype}, not {dtype}")
@@ -565,8 +598,11 @@ def _run_workload(workload: str, card: str):
     if family is None:
         say("compile", workload=workload, spheres=0 if sd.spheres is None else sd.spheres.inv_tf.shape[0],
             cubes=0 if sd.cubes is None else sd.cubes.inv_tf.shape[0],
+            monomials=0 if sd.monomials is None else sd.monomials.height.shape[0],
             triangles=0 if sd.triangles is None else sd.triangles.verts.shape[0],
             packs=[f for f in modules if getattr(sd, f) is not None], lights=len(sd.lights),
+            hdri="none" if sd.env_hdri is None else "x".join(map(str, sd.env_hdri.shape)),
+            quad_mb="none" if sd.env_quad is None else f"{sd.env_quad.numel() * 4 / 1e6:.1f}",
             dtype=str(sd.dtype), seconds=f"{seconds:.2f}")
         if any(getattr(sd, f) is not None for f in modules):
             fail(f"{workload} compiled with a traversal pack")
@@ -604,7 +640,7 @@ def _run_workload(workload: str, card: str):
     by_slot = kernels.launch_counts(by_slot=True)
     threefry_by_mode = dict(zip(ALL_MODES, by_slot[rnd._threefry] + by_slot[rnd._threefry64]))
     img = buf.mean_image()
-    rays = (bounces + 1) * (1 + shadow) * WIDTH * HEIGHT * spp
+    rays = (bounces + 1) * (1 + shadow) * width * height * spp
     # The same samples eagerly and through the graph again, in turns.
     turns = {"graph": [dt], "eager": []}
     for mode in ("eager", "eager", "graph"):
@@ -616,7 +652,7 @@ def _run_workload(workload: str, card: str):
         torch.cuda.synchronize()
         turns[mode].append(time.perf_counter() - t0)
     mrays = {m: rays / (sum(v) / len(v)) / 1e6 for m, v in turns.items()}
-    say("main_path", workload=workload, size=f"{WIDTH}x{HEIGHT}", bounces=bounces, spp=spp, seconds=f"{dt:.4f}",
+    say("main_path", workload=workload, size=f"{width}x{height}", bounces=bounces, spp=spp, seconds=f"{dt:.4f}",
         mrays_per_s=f"{rays / dt / 1e6:.3f}", image_mean=f"{float(img.mean()):.6f}",
         launches=json.dumps(launches), threefry_launches_by_mode=json.dumps(threefry_by_mode), card=json.dumps(card))
     say("main_path", workload=workload, mode="turns graph, eager, eager, graph",
@@ -664,6 +700,8 @@ def _run_workload(workload: str, card: str):
                 any(n and not seen.get(name) for name, n in per_replay.items()):
             fail(f"the profiler saw one {workload} replay run {seen}, the device counted {per_replay}")
     profile_sample(lambda: renderer._sample_into_eager(fresh(renderer), 1), tag, "eager", workload)
+    if sd.monomials is not None:
+        monomial_share(workload, renderer, card)
     if family is not None:
         rows = timing_phase(workload, family, sd, rec, err, launches, spp, card, scene)
     if workload in COMPACT_WORKLOADS:
@@ -1027,6 +1065,239 @@ def gather_phase(card: str) -> None:
         x = torch.randn((n, w), generator=torch.Generator().manual_seed(w)).to(DEVICE)
         ms[w] = time_graph_ms(lambda x, p: x[p], [(x, perm)], reps=20)
     say("gather", rows=n, ms_by_width=json.dumps({w: round(v, 5) for w, v in ms.items()}), card=json.dumps(card))
+
+
+def trace_events(fn) -> list:
+    """The Chrome-trace events of one call of `fn` under torch.profiler
+    (CPU and CUDA), ending in a synchronize."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+
+
+def device_events(events) -> list:
+    """The device's work (kernels, copies, fills) among trace events, in the
+    order it ran."""
+    return sorted((e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")),
+                  key=lambda e: float(e["ts"]))
+
+
+def find_run(names: list, run: list, start: int) -> int:
+    """The first index >= start at which `run` occurs in `names`, or -1."""
+    for i in range(start, len(names) - len(run) + 1):
+        if names[i] == run[0] and names[i:i + len(run)] == run:
+            return i
+    return -1
+
+
+MONOMIAL_MARK = "intersect_monomials"
+
+
+def monomial_share(workload: str, renderer, card: str) -> None:
+    """`[profile]`, mode `monomial`: the share of one replay's device time
+    that the monomial root finds take, and their kernels in it, both read
+    from the profiled replay's own trace. A graph replay runs no host code,
+    so its trace names no call: an eager pass is profiled first with every
+    `intersect_monomials` call marked (`record_function`), which gives each
+    call's kernels in launch order; the replay runs the same launches in the
+    same order, so each call is the first run of the replay's kernels, after
+    the previous call's, whose names are the call's, one for one. The
+    profiler can lose a record of a replay, so a call not found has the
+    replay profiled again (three times at most)."""
+    import torch
+
+    from rpt_tpu_torch.ops import intersect as ops_intersect
+
+    orig = ops_intersect.intersect_monomials
+
+    def marked(*args, **kwargs):
+        with torch.profiler.record_function(MONOMIAL_MARK):
+            return orig(*args, **kwargs)
+
+    ops_intersect.intersect_monomials = marked
+    try:
+        eager = trace_events(lambda: renderer._sample_into_eager(fresh(renderer), 1))
+    finally:
+        ops_intersect.intersect_monomials = orig
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in eager
+             if e.get("cat") == "user_annotation" and e.get("name") == MONOMIAL_MARK]
+    launched = {e["args"]["correlation"]: float(e["ts"]) for e in eager
+                if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})}
+    calls = [[] for _ in spans]
+    for k in device_events(eager):
+        t = launched.get(k.get("args", {}).get("correlation"))
+        for i, (a, b) in enumerate(spans):
+            if t is not None and a <= t <= b:
+                calls[i].append(k["name"])
+    if not calls or not min(map(len, calls)):
+        say("profile", workload=workload, mode="monomial",
+            device_time="not measured (the eager trace marked no monomial call's kernels)")
+        fail(f"the profiler named no monomial call's kernels in an eager {workload} pass")
+    replay_one = replay_fn(renderer)
+    for attempt in range(1, 4):
+        kernels = device_events(trace_events(replay_one))
+        names = [k["name"] for k in kernels]
+        found, pos = [], 0
+        for run in calls:
+            i = find_run(names, run, pos)
+            if i < 0:
+                break
+            found.append((i, i + len(run)))
+            pos = i + len(run)
+        if len(found) == len(calls):
+            break
+    else:
+        say("profile", workload=workload, mode="monomial", eager_kernels_per_call=json.dumps(list(map(len, calls))),
+            replay_kernels=len(names), calls_found=len(found),
+            device_time="not measured (a call's span was not found in three replay traces)")
+        fail(f"the monomial calls' kernels were not found in a profiled {workload} replay")
+    dur = [float(k["dur"]) for k in kernels]
+    mono_us = sum(sum(dur[i:j]) for i, j in found)
+    total_us = sum(dur)
+    busy_us, end = 0.0, float("-inf")
+    for k in kernels:
+        s, e = float(k["ts"]), float(k["ts"]) + float(k["dur"])
+        if e > end:
+            busy_us += e - max(s, end)
+            end = e
+    say("profile", workload=workload, mode="monomial", calls_per_sample=len(calls),
+        kernels_per_call=json.dumps(list(map(len, calls))), monomial_kernels_in_replay=sum(j - i for i, j in found),
+        replay_kernels=len(kernels), replay_traces=attempt, monomial_device_ms=f"{mono_us / 1e3:.3f}",
+        replay_device_ms=f"{total_us / 1e3:.3f}", replay_device_busy_ms=f"{busy_us / 1e3:.3f}",
+        monomial_share_of_replay_device_time=f"{mono_us / total_us:.3f}", card=json.dumps(card))
+
+
+def hdri_slack(img, dirs):
+    """Per direction and channel, the float32 lookup's slack: HDRI_ULPS ulps
+    of w - 1 times the largest contrast in x, plus as many of h - 1 times
+    the largest in y, between neighbouring texels (x wrapped, y clamped) of
+    the 4x4 texels around the quad the direction reads: that quad, and
+    those an ulp of the coordinate can move the card's lookup into."""
+    import numpy as np
+    import torch
+
+    h, w = img.shape[:2]
+    rows = np.arange(h)
+    contrast = {"x": np.abs(np.roll(img, -1, axis=1) - img), "y": np.abs(img[np.minimum(rows + 1, h - 1)] - img)}
+    around = {}
+    for axis, c in contrast.items():
+        around[axis] = np.zeros_like(c)
+        for dy in (-1, 0, 1, 2):
+            r = c[np.clip(rows + dy, 0, h - 1)]
+            for dx in (-1, 0, 1, 2):
+                np.maximum(around[axis], np.roll(r, -dx, axis=1), out=around[axis])
+    d = dirs.double().numpy()
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    x = (np.arctan2(d[:, 2], d[:, 0]) + np.pi) / (2 * np.pi) * (w - 1)
+    y = np.arccos(np.clip(d[:, 1], -1.0, 1.0)) / np.pi * (h - 1)
+    x0, y0 = np.clip(x.astype(np.int64), 0, w - 1), np.clip(y.astype(np.int64), 0, h - 1)
+    slack = HDRI_ULPS * (float(np.spacing(np.float32(w - 1))) * around["x"][y0, x0]
+                         + float(np.spacing(np.float32(h - 1))) * around["y"][y0, x0])
+    return torch.from_numpy(slack.astype(np.float64))
+
+
+def hdri_phase(card: str) -> None:
+    """`[hdri]`: the HDRI lookup of 800x600 directions (random ones, and
+    `monomial_glass`'s camera rays) on a 1024x2048 procedural sky, in float32
+    and float64: the card against the CPU (rtol HDRI_RTOL, atol HDRI_ATOL,
+    and in float32 `hdri_slack`), then device ms per call inside a CUDA
+    graph, in turns (forward, then back), of the three layouts: the port's
+    13-float quad rows, the reference's 12-float rows and the four gathers
+    of the map; the three must read the same values, bit for bit.
+    `bound_ms` is the bytes one lookup must move (the directions read, four
+    texels gathered, the colors written) over the card's memory rate."""
+    import torch
+
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.environment import Environment, lookup
+    from rpt_tpu_torch.renderer import camera_rays_tiled, pixel_ndc_tiled
+    from rpt_tpu_torch.scenes import monomial_glass_camera, procedural_sky
+
+    t0 = time.perf_counter()
+    env = Environment.from_hdri(procedural_sky(HDRI_HEIGHT))
+    bake_s = time.perf_counter() - t0
+    if env.hdri_quad is None:
+        fail(f"a {HDRI_HEIGHT}x{2 * HDRI_HEIGHT} map took the 4-gather form")
+    w, h = WORKLOADS["monomial_glass"]["size"]
+    n = w * h
+    random_dirs = torch.randn((n, 3), generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+    _, camera_dirs, _ = camera_rays_tiled(monomial_glass_camera(), rnd.fold_in(rnd.PRNGKey(0), 0),
+                                          pixel_ndc_tiled(w, h, "cpu"))
+    for dtype in (torch.float32, torch.float64):
+        color, hdri, quad = env.tensors(DEVICE, dtype)
+        layouts = {"quad13": quad, "quad12": quad[:, :12].contiguous(), "gather4": None}
+        real = 4 if dtype == torch.float32 else 8
+        # The directions read, four texels of 3 float32 gathered, the colors
+        # written (the quad13 row's zero is padding, not needed).
+        bound = n * (2 * 3 * real + 4 * 12) / PEAK_BYTES * 1e3
+        for label, dirs in (("random", random_dirs), ("camera", camera_dirs)):
+            d_cpu = dirs.to(dtype)
+            want = env.get_color(d_cpu)
+            d = d_cpu.to(DEVICE)
+            got = {name: lookup(d, color, hdri, q) for name, q in layouts.items()}
+            torch.cuda.synchronize()
+            same = all(torch.equal(got["quad13"], g) for g in got.values())
+            diff = (got["quad13"].cpu() - want).abs().double()
+            err = float(diff.max())
+            slack = hdri_slack(env.hdri, d_cpu) if dtype == torch.float32 else torch.zeros_like(diff)
+            bar = HDRI_ATOL + slack + HDRI_RTOL * want.abs().double()
+            close = bool((diff <= bar).all())
+            strict = float((diff <= HDRI_ATOL + HDRI_RTOL * want.abs()).float().mean())
+            turns = {name: [] for name in layouts}
+            for name in [*layouts, *reversed(layouts)]:
+                turns[name].append(time_graph_ms(lambda q=layouts[name]: lookup(d, color, hdri, q), [()], reps=20))
+            ms = {name: sum(v) / len(v) for name, v in turns.items()}
+            say("hdri", map=f"{HDRI_HEIGHT}x{2 * HDRI_HEIGHT}", quad_mb=f"{quad.numel() * 4 / 1e6:.1f}",
+                bake_seconds=f"{bake_s:.3f}", dtype=str(dtype).removeprefix("torch."), dirs=label, n=n,
+                max_abs_err_vs_cpu=err, ulp_slack_max=f"{float(slack.max()):.3e}",
+                ulp_slack_median=f"{float(slack.median()):.3e}", worst_err_over_bar=f"{float((diff / bar).max()):.4f}",
+                card_matches_cpu=close,
+                share_within_rtol_atol_alone=f"{strict:.6f}", layouts_bit_equal=same,
+                ms=json.dumps({k: round(v, 5) for k, v in ms.items()}),
+                bound_ms=f"{bound:.5f}",
+                quad12_over_quad13=f"{ms['quad12'] / ms['quad13']:.3f}",
+                gather4_over_quad13=f"{ms['gather4'] / ms['quad13']:.3f}",
+                turns_ms=json.dumps({k: [round(t, 5) for t in v] for k, v in turns.items()}), card=json.dumps(card))
+            if not (close and same):
+                fail(f"the {dtype} HDRI lookup on the card disagrees with the CPU or across layouts")
+
+
+def mono_light_phase(card: str) -> None:
+    """`[mono_light]`: the monomial light's scene (`tests/test_monomial_light.py`)
+    at SMALL_W x SMALL_H, 0 bounces, rendered on the CPU and on the card
+    with the same seed and compared as phase c compares."""
+    import numpy as np
+
+    from rpt_tpu_torch import Renderer
+    from rpt_tpu_torch.lights import MonomialLightData
+    from rpt_tpu_torch.scenes import build_monomial_light_scene, monomial_light_camera
+
+    scene, camera = build_monomial_light_scene(), monomial_light_camera()
+    small = {}
+    for dev in ("cpu", DEVICE):
+        r = Renderer(scene, camera, width=SMALL_W, height=SMALL_H, max_bounces=0, num_samples=1, seed=5,
+                     device=dev)
+        if not isinstance(r.scene_data().lights[0], MonomialLightData):
+            fail("the monomial light compiled to another light")
+        small[dev] = r.render_buffer().mean_image().cpu().numpy()
+    a, b = small["cpu"], small[DEVICE]
+    close = np.isclose(b, a, rtol=1e-3, atol=1e-4).all(-1).mean()
+    mean_rel = abs(float(b.mean()) - float(a.mean())) / max(abs(float(a.mean())), 1e-12)
+    say("mono_light", size=f"{SMALL_W}x{SMALL_H}", pixels_close=f"{close:.5f}", mean_rel=f"{mean_rel:.3e}",
+        image_mean=f"{float(b.mean()):.6f}", card=json.dumps(card))
+    if not (np.isfinite(b).all() and close >= 0.99 and mean_rel <= 1e-3 and float(b.mean()) > 1e-3):
+        fail("the CPU and card renders of the monomial light's scene disagree, or it is dark")
 
 
 def random_phase(card: str) -> dict:
@@ -1491,6 +1762,8 @@ def main():
     threefry_row, threefry64_row = random_phase(card)
     gather_phase(card)
     dtype_phase(card)
+    hdri_phase(card)
+    mono_light_phase(card)
 
     # 3. Each workload's path. One row per kernel: a kernel on several
     # paths (bvh2 on lego_toy and dragon_binary) keeps its first path's row

@@ -1,10 +1,11 @@
 """rpt_tpu_torch -- the rpt_tpu path tracer ported to PyTorch and CUDA.
 
 A second package beside the JAX reference `rpt_tpu`, with the same module
-layout and public names for the parts ported so far: scene building and
-compilation (baked and instanced meshes), OBJ+MTL loading, the masked
-wavefront integrator, the many-sample renderer with checkpoints, and
-profiling. Mesh traversal and the threefry PRNG run in hand-written CUDA
+layout and public names: scene building and compilation (analytic
+primitives, monomial surfaces, baked and instanced meshes, solid and HDRI
+environments), OBJ+MTL, STL and image IO, the masked and sorted wavefront
+integrator, the many-sample renderer with checkpoints, and profiling.
+Mesh traversal and the threefry PRNG run in hand-written CUDA
 kernels for Hopper (`csrc/bvh8.cu`, `csrc/tlas8.cu`, `csrc/bvh2.cu`,
 `csrc/tlas2.cu`, `csrc/threefry.cu`) on a CUDA card, where each sample pass
 is one CUDA graph replay, and in their plain torch versions on the CPU.
@@ -16,6 +17,7 @@ from .camera import Camera
 from .color import SRGB_GAMMA, color_bytes, hex_color
 from .environment import Environment
 from .io.obj import load_obj, load_obj_with_mtl
+from .io.stl import load_stl
 from .lights import AmbientLight, DirectionalLight, ObjectLight, PointLight
 from .materials import Material
 from .renderer import Renderer
@@ -25,11 +27,13 @@ from .shapes import (
     Group,
     KdTree,
     Mesh,
+    MonomialSurface,
     Plane,
     Sphere,
     Transformed,
     cube,
     group,
+    monomial_surface,
     plane,
     polygon,
     sphere,
@@ -58,15 +62,18 @@ __all__ = [
     "Group",
     "KdTree",
     "Mesh",
+    "MonomialSurface",
     "Plane",
     "Sphere",
     "Transformed",
     "cube",
     "group",
+    "monomial_surface",
     "plane",
     "polygon",
     "sphere",
     "triangle_mesh",
     "load_obj",
     "load_obj_with_mtl",
+    "load_stl",
 ]

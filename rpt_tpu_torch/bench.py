@@ -83,6 +83,8 @@ def scene_and_camera(name: str):
         return scenes.build_dragon_scene(target_tris=871_000), scenes.dragon_camera(), 1e-3
     if name == "lego":
         return scenes.build_brick_city(), scenes.lego_camera(), 1e-3
+    if name == "monomial_glass":
+        return scenes.build_monomial_glass_scene(sky_height=1024), scenes.monomial_glass_camera(), 1e-3
     return scenes.build_toy_plane_scene(), scenes.toy_plane_camera(), 1e-3
 
 

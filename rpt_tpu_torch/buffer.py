@@ -33,9 +33,10 @@ class Buffer:
     count: int
 
     @staticmethod
-    def new(width: int, height: int, device=None, dtype=torch.float32) -> "Buffer":
-        """An empty buffer of sums in `dtype` (the render's real type) on
-        `device` (the CUDA card when None; raises without one)."""
+    def new(width: int, height: int, dtype=torch.float32, device=None) -> "Buffer":
+        """An empty buffer of sums in `dtype` (the render's real type; the
+        third argument, as in the reference) on `device` (the CUDA card when
+        None; raises without one)."""
         device = resolve_device(device)
         return Buffer(
             sum=torch.zeros((height, width, 3), dtype=dtype, device=device),

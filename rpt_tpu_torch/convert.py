@@ -3,8 +3,11 @@
 A path tracer's state is its compiled scene. `scene_data_from_arrays` takes
 the leaves of a compiled scene as a nested dict of numpy arrays keyed by the
 field names of the JAX package's `SceneData` (materials, spheres, cubes,
-planes, triangles, bvh, lights, environment), with the lights as a list of
-dicts tagged with their class name under "type", and rebuilds the port's
+planes, monomials, triangles, bvh, lights, environment), with the lights
+as a list of dicts tagged with their class name under "type" and the
+environment as a dict of its `color`, `hdri` and `hdri_quad` (the
+reference's 12-column quad table, padded here to the port's 13; absent or
+None for the 4-gather form), and rebuilds the port's
 `SceneData` on a device. The kernels' layouts are packed afresh from the
 given binary BVH, and from the given instanced meshes (the 16 fields of
 `InstancedMeshes` under "instanced"), by the same decision as
@@ -21,12 +24,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .environment import Environment
+from .environment import Environment, pad_quad
 from .lights import (
     AmbientLightData,
     CubeLightData,
     DirectionalLightData,
     MeshLightData,
+    MonomialLightData,
     PointLightData,
     SphereLightData,
 )
@@ -34,16 +38,24 @@ from .camera import Camera
 from .materials import MaterialTable
 from .ops.bvh import bvh_from_arrays
 from .ops.tlas import instanced_from_arrays
-from .scene import PlaneArrays, PrimXf, SceneData, TriangleArrays, choose_bvh_pack, choose_instanced_pack
+from .scene import (
+    MonomialArrays,
+    PlaneArrays,
+    PrimXf,
+    SceneData,
+    TriangleArrays,
+    choose_bvh_pack,
+    choose_instanced_pack,
+)
 from .utils.device import resolve_device
 
 __all__ = ["scene_data_from_arrays", "camera_from_arrays"]
 
 _LIGHTS = {
     cls.__name__: cls
-    for cls in (PointLightData, AmbientLightData, DirectionalLightData, SphereLightData, CubeLightData, MeshLightData)
+    for cls in (PointLightData, AmbientLightData, DirectionalLightData, SphereLightData, CubeLightData, MeshLightData,
+                MonomialLightData)
 }
-_UNPORTED = ("monomials",)
 
 
 def _tensors(d: dict, device, dtype, ints=("mat_id",)) -> dict:
@@ -56,12 +68,7 @@ def _tensors(d: dict, device, dtype, ints=("mat_id",)) -> dict:
 def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
     """The port's SceneData from the array form of a compiled scene."""
     device = resolve_device(device)
-    for key in _UNPORTED:
-        if tree.get(key) is not None:
-            raise NotImplementedError(f"scene field {key!r} is not ported yet")
     env = tree["environment"]
-    if env.get("hdri") is not None:
-        raise NotImplementedError("HDRI environments are not ported yet")
     dtype = torch.float64 if np.asarray(tree["materials"]["color"]).dtype == np.float64 else torch.float32
 
     def group(cls, key):
@@ -70,10 +77,7 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
     lights = []
     for spec in tree["lights"]:
         spec = dict(spec)
-        cls = _LIGHTS.get(spec.pop("type"))
-        if cls is None:
-            raise NotImplementedError("this light type is not ported yet")
-        lights.append(cls(**_tensors(spec, device, dtype, ints=())))
+        lights.append(_LIGHTS[spec.pop("type")](**_tensors(spec, device, dtype, ints=())))
 
     bvh = bvh8 = bvh2 = None
     if tree.get("bvh") is not None:
@@ -83,12 +87,17 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
     if tree.get("instanced") is not None:
         instanced = instanced_from_arrays(tree["instanced"], device, dtype)
         tlas8, tlas2 = choose_instanced_pack(instanced, device=device)
-    environment = Environment.from_color(env["color"])
+    hdri, quad = env.get("hdri"), env.get("hdri_quad")
+    environment = Environment(color=np.asarray(env["color"], np.float32).reshape(3),
+                              hdri=None if hdri is None else np.asarray(hdri, np.float32),
+                              hdri_quad=None if quad is None else pad_quad(quad))
+    env_color, env_hdri, env_quad = environment.tensors(device, dtype)
     return SceneData(
         materials=MaterialTable(**_tensors(tree["materials"], device, dtype, ints=())),
         spheres=group(PrimXf, "spheres"),
         cubes=group(PrimXf, "cubes"),
         planes=group(PlaneArrays, "planes"),
+        monomials=group(MonomialArrays, "monomials"),
         triangles=group(TriangleArrays, "triangles"),
         bvh=bvh,
         bvh8=bvh8,
@@ -98,8 +107,10 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
         tlas2=tlas2,
         lights=tuple(lights),
         environment=environment,
-        env_color=torch.tensor(environment.color, dtype=dtype, device=device),
+        env_color=env_color,
         device=device,
+        env_hdri=env_hdri,
+        env_quad=env_quad,
         digest=str(tree.get("digest", "")),
     )
 

@@ -240,7 +240,7 @@ def trace_paths(scene, o: torch.Tensor, d: torch.Tensor, key, max_bounces: int, 
         k_lights, k_bsdf = rnd.split(rnd.fold_in(key, depth))
         hit = _intersect(scene, o, d, t_min, active, compact if depth > 0 else False)
         found = hit.valid
-        env = torch.broadcast_to(scene.env_color, d.shape)
+        env = scene.environment_color(d)
 
         t_safe = torch.where(found, hit.t, torch.zeros_like(hit.t))
         pos = o + t_safe[:, None] * d

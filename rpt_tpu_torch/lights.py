@@ -5,8 +5,9 @@ dataclasses of tensors whose `illuminate(key, pos)` returns, for N shading
 points, (intensity (N,3), dir_to_light (N,3), dist_to_light (N,)). Area
 lights sample the sphere, cube and triangle mesh as the reference does,
 drawing in the type of `pos` (float64 and int64 draws in a float64 render,
-as the reference's default-typed draws under `jax_enable_x64`);
-monomial-surface lights are not ported yet.
+as the reference's default-typed draws under `jax_enable_x64`), and the
+monomial surface as the reference samples it: a point of its rim and a
+two-sided normal.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ __all__ = [
     "SphereLightData",
     "CubeLightData",
     "MeshLightData",
+    "MonomialLightData",
 ]
 
 
@@ -256,3 +258,40 @@ class MeshLightData:
         )
         pdf = 1.0 / (torch.clamp(self.areas[tri], min=1e-20) * num)
         return _object_light_intensity(point, nrm, pdf, self.emitted, pos)
+
+
+@dataclasses.dataclass(frozen=True)
+class MonomialLightData:
+    """Emissive (possibly transformed) monomial surface, exp = 4: a uniform
+    point of the rim circle (x, h, z) with x^2 + z^2 = 1, the analytic
+    normal flipped with probability 1/2 (the surface is two-sided), and pdf
+    1 / (2 AREA) with the reference's one-sided area of the height-2 glass."""
+
+    AREA = 6.3406654362
+
+    inv_tf: torch.Tensor  # (3,4) world->local affine (unused; kept as the reference keeps it)
+    l2w_lin: torch.Tensor  # (3,3)
+    l2w_trans: torch.Tensor  # (3,)
+    nmat: torch.Tensor  # (3,3)
+    det: torch.Tensor  # ()
+    height: torch.Tensor  # ()
+    emitted: torch.Tensor  # (3,)
+
+    def illuminate(self, key, pos):
+        shape = tuple(pos.shape[:-1])
+        dev = pos.device
+        k1, k2 = rnd.split(key)
+        theta = rnd.uniform(k1, shape, dtype=pos.dtype, minval=0.0, maxval=2.0 * math.pi, device=dev)
+        x = torch.cos(theta)
+        z = torch.sin(theta)
+        h = self.height
+        p_local = torch.stack([x, torch.broadcast_to(h, shape), z], -1)
+        r2 = x * x + z * z  # 1 on the rim, kept as the reference's formula has it
+        n_local = normalize(torch.stack([h * 4.0 * x * r2, -torch.ones_like(x), h * 4.0 * z * r2], -1))
+        flip = rnd.bernoulli(k2, 0.5, shape, dtype=pos.dtype, device=dev)
+        n_local = torch.where(flip[..., None], -n_local, n_local)
+        pdf = torch.full(shape, 1.0 / (2.0 * self.AREA), dtype=pos.dtype, device=dev)
+        v, nrm, pdf = _transform_sample(
+            self.l2w_lin, self.l2w_trans, self.nmat, self.det, p_local, n_local, pdf
+        )
+        return _object_light_intensity(v, nrm, pdf, self.emitted, pos)

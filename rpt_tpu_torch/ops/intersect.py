@@ -28,6 +28,7 @@ __all__ = [
     "intersect_planes",
     "intersect_cubes",
     "intersect_triangles",
+    "intersect_monomials",
     "triangles_hit_t",
     "occluded_spheres",
     "occluded_planes",
@@ -226,6 +227,100 @@ def intersect_triangles(o, d, t_min, verts, norms, mat_ids) -> Hit:
     nb = norms[best]
     n_interp = ub[:, None] * nb[:, 0] + vb[:, None] * nb[:, 1] + wb[:, None] * nb[:, 2]
     return Hit(t=t_best, normal=normalize(n_interp), mat_id=mat_ids[best])
+
+
+# Monomial surface y = h (x^2 + z^2)^2, x^2 + z^2 <= 1, in local space:
+# Newton steps to bracket the root, then bisection (the reference's fixed
+# 10 and 60 steps, so the loops unroll into a fixed sequence of launches
+# that a CUDA graph captures). Only exp = 4 exists, as in the reference.
+
+_NEWTON_STEPS = 10
+_BISECT_STEPS = 60
+
+
+def _bbox_interval(o_l, d_l, p_min, p_max):
+    d_safe = _safe_div_dir(d_l)
+    t1 = (p_min - o_l) / d_safe
+    t2 = (p_max - o_l) / d_safe
+    return torch.amax(torch.minimum(t1, t2), dim=-1), torch.amin(torch.maximum(t1, t2), dim=-1)
+
+
+def intersect_monomials(o, d, t_min, inv_tf, nmat, heights, mat_ids) -> Hit:
+    o_l, d_l = _local_rays(o, d, inv_tf)  # (N, P, 3)
+    h = heights[None, :]  # (1, P)
+
+    one, zero = torch.ones_like(heights), torch.zeros_like(heights)
+    p_min = torch.stack([-one, zero, -one], -1)
+    p_max = torch.stack([one, heights, one], -1)
+    b_min, b_max = _bbox_interval(o_l, d_l, p_min[None], p_max[None])  # (N, P)
+    gate = torch.clamp(b_min, min=t_min) <= b_max
+
+    ox, oy, oz = o_l[..., 0], o_l[..., 1], o_l[..., 2]
+    dx, dy, dz = d_l[..., 0], d_l[..., 1], d_l[..., 2]
+
+    def dist(t):
+        x = ox + t * dx
+        y = oy + t * dy
+        z = oz + t * dz
+        r2 = x * x + z * z
+        return y - h * r2 * r2
+
+    coef0 = ox * ox + oz * oz
+    coef1 = 2.0 * (ox * dx + oz * dz)
+    coef2 = dx * dx + dz * dz
+
+    def deriv(t):
+        dq = (
+            2.0 * coef0 * coef1
+            + 2.0 * t * (coef1 * coef1 + 2.0 * coef0 * coef2)
+            + 6.0 * t * t * coef1 * coef2
+            + 4.0 * t * t * t * coef2 * coef2
+        )
+        return dy - h * dq
+
+    def deriv2(t):
+        dq = 2.0 * (coef1 * coef1 + 2.0 * coef0 * coef2) + 12.0 * t * coef1 * coef2 + 12.0 * t * t * coef2 * coef2
+        return -h * dq
+
+    maximize = dist(t_min) < 0.0
+
+    # Newton bracketing: walk toward the surface's maximum along the ray,
+    # stopping the lanes where dist > 0.
+    cur = (b_min + b_max) / 2.0
+    for _ in range(_NEWTON_STEPS):
+        stop = dist(cur) > 0.0
+        der2 = deriv2(cur)
+        step = deriv(cur) / torch.where(torch.abs(der2) > 1e-20, der2, torch.full_like(der2, 1e-20))
+        cur = torch.where(stop, cur, cur - step)
+    t_max = torch.where(maximize, cur, torch.full_like(cur, 10000.0))
+    bad_bracket = maximize & (t_max < t_min)
+
+    sign_change = (dist(t_min) < 0.0) != (dist(t_max) < 0.0)
+
+    lo, hi = torch.full_like(t_max, t_min), t_max
+    for _ in range(_BISECT_STEPS):
+        m = (lo + hi) / 2.0
+        go_right = (dist(m) >= 0.0) == maximize
+        lo, hi = torch.where(go_right, lo, m), torch.where(go_right, m, hi)
+    r = hi
+
+    pos_x = ox + r * dx
+    pos_z = oz + r * dz
+    in_disk = pos_x * pos_x + pos_z * pos_z <= 1.0
+
+    ok = gate & (~bad_bracket) & sign_change & in_disk & (r >= t_min)
+    t = torch.where(ok, r, torch.full_like(r, INF))
+
+    t_best, best = _winner(t, t_min)
+    px = _sel(best, pos_x)
+    pz = _sel(best, pos_z)
+    hb = heights[best]
+    r2 = px * px + pz * pz
+    n_local = normalize(torch.stack([hb * 4.0 * px * r2, -torch.ones_like(px), hb * 4.0 * pz * r2], -1))
+    # Two-sided: the normal is flipped toward the ray.
+    flip = dot(n_local, _sel(best, d_l)) > 0.0
+    n_local = torch.where(flip[:, None], -n_local, n_local)
+    return Hit(t=t_best, normal=_world_normal(nmat[best], n_local), mat_id=mat_ids[best])
 
 
 # Any-hit shadow queries: the same per-primitive hit times as the closest-hit

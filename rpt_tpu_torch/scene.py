@@ -26,12 +26,18 @@ one with a warning, as the reference does. The reference's TPU budgets
 (SMEM and node-count eligibility) are not carried over: the binary
 two-level kernels take every scene, where the reference falls back to its
 XLA loop. The kernels run on the card, their plain versions on the CPU.
-Monomial surfaces and HDRI environments are not ported yet and raise
-NotImplementedError.
+
+Monomial surfaces are analytic primitives like spheres and cubes,
+intersected by the fixed Newton-and-bisection root find of
+`ops.intersect.intersect_monomials` (plain torch, as the reference's is
+XLA code); their shadow query compares the closest hit with t_max, as the
+reference's does. An HDRI environment's map and quad table are copied to
+the device once, here, so the pass reads them without a host copy.
 
 A scene compiles in float32 or float64 (`Scene.compile(dtype)`), as the
 reference's does: every float array of the compiled scene is in that type
-(the environment color keeps its float32 values, as in the reference), and
+(the environment color keeps its float32 values, and an HDRI's texels stay
+float32, as in the reference), and
 the packs are too (their node boxes stay float32, rounded outward in a
 float64 pack). The kernel choice does not look at the type.
 """
@@ -47,7 +53,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from .environment import Environment
+from .environment import Environment, lookup
 from .lights import (
     AmbientLight,
     AmbientLightData,
@@ -55,6 +61,7 @@ from .lights import (
     DirectionalLight,
     DirectionalLightData,
     MeshLightData,
+    MonomialLightData,
     ObjectLight,
     PointLight,
     PointLightData,
@@ -72,7 +79,8 @@ from .shapes import Cube, Group, Mesh, MonomialSurface, Plane, Shape, Sphere, Tr
 from .utils.device import resolve_device
 from .utils.vmath import numpy_real
 
-__all__ = ["Object", "Scene", "SceneData", "compile_scene", "choose_bvh_pack", "choose_instanced_pack"]
+__all__ = ["Object", "Scene", "SceneData", "MonomialArrays", "compile_scene", "choose_bvh_pack",
+           "choose_instanced_pack"]
 
 # Meshes with at least this many triangles get a BVH; smaller ones are
 # brute-forced.
@@ -207,8 +215,11 @@ def _scene_digest(scene: "Scene") -> str:
             h.update(repr(light.object.mat).encode())
         else:
             h.update(repr(light).encode())
+    env = scene.environment
     h.update(b"E")
-    _fp_bytes(h, scene.environment.color)
+    _fp_bytes(h, env.color)
+    if env.hdri is not None:
+        h.update(np.ascontiguousarray(env.hdri))  # the map's bytes, uncopied
     return h.hexdigest()
 
 
@@ -241,6 +252,14 @@ class TriangleArrays:
 
 
 @dataclasses.dataclass(frozen=True)
+class MonomialArrays:
+    inv_tf: torch.Tensor  # (P, 3, 4)
+    nmat: torch.Tensor  # (P, 3, 3)
+    height: torch.Tensor  # (P,)
+    mat_id: torch.Tensor  # (P,)
+
+
+@dataclasses.dataclass(frozen=True)
 class SceneData:
     """A compiled scene on one device."""
 
@@ -248,6 +267,7 @@ class SceneData:
     spheres: Optional[PrimXf]
     cubes: Optional[PrimXf]
     planes: Optional[PlaneArrays]
+    monomials: Optional[MonomialArrays]
     triangles: Optional[TriangleArrays]  # small meshes, brute force
     bvh: Optional[BvhData]  # large meshes: triangle data for finalize_hit
     bvh8: Optional[Bvh8Pack]  # the wide-BVH kernels' layout of `bvh`, or
@@ -259,6 +279,8 @@ class SceneData:
     environment: Environment
     env_color: torch.Tensor  # (3,): the environment's (float32) color on `device`, in the scene's type
     device: torch.device
+    env_hdri: Optional[torch.Tensor] = None  # (H, W, 3) float32: the HDRI map on `device`, or None
+    env_quad: Optional[torch.Tensor] = None  # (H*W, 13) float32: its quad table, or None (4-gather form)
     digest: str = ""
 
     @property
@@ -266,6 +288,11 @@ class SceneData:
         """The scene's real type, float32 or float64 (the reference reads
         it off the material table too)."""
         return self.materials.color.dtype
+
+    def environment_color(self, d: torch.Tensor) -> torch.Tensor:
+        """The environment's radiance for directions d (N, 3), read from
+        this scene's device tensors (`Environment.get_color`)."""
+        return lookup(d, self.env_color, self.env_hdri, self.env_quad)
 
     def intersect(self, o: torch.Tensor, d: torch.Tensor, t_min, active=None) -> ops.Hit:
         """Closest hit of N rays against the whole scene. Lanes with
@@ -321,6 +348,8 @@ class SceneData:
                 ops.occluded_planes, (self.planes.normal, self.planes.value, self.planes.mat_id),
                 o, d, t_min, t_max,
             )
+        if self.monomials is not None:
+            occ = occ | (_maybe_chunked(ops.intersect_monomials, self._monomial_arrays(), o, d, t_min).t <= t_max)
         if self.triangles is not None:
             occ = occ | _maybe_chunked_occl(
                 ops.occluded_triangles,
@@ -346,6 +375,8 @@ class SceneData:
                 ops.intersect_planes, (self.planes.normal, self.planes.value, self.planes.mat_id),
                 o, d, t_min,
             ))
+        if self.monomials is not None:
+            hit = ops.merge_hits(hit, _maybe_chunked(ops.intersect_monomials, self._monomial_arrays(), o, d, t_min))
         if self.triangles is not None:
             hit = ops.merge_hits(hit, _maybe_chunked(
                 ops.intersect_triangles,
@@ -353,6 +384,10 @@ class SceneData:
                 o, d, t_min,
             ))
         return hit
+
+    def _monomial_arrays(self) -> tuple:
+        m = self.monomials
+        return m.inv_tf, m.nmat, m.height, m.mat_id
 
 
 def _maybe_chunked(intersect_fn, prim_arrays: tuple, o, d, t_min, chunk: int = PRIM_CHUNK):
@@ -459,7 +494,7 @@ def compile_scene(scene: Scene, device=None, digest: str = "", dtype=torch.float
             materials.append(m)
         return mat_index[m]
 
-    sphere_rows, cube_rows, plane_rows, mesh_uses = [], [], [], []
+    sphere_rows, cube_rows, plane_rows, mono_rows, mesh_uses = [], [], [], [], []
     flat = []
     for obj in scene.objects:
         mid = mat_id(obj.mat)
@@ -474,7 +509,10 @@ def compile_scene(scene: Scene, device=None, digest: str = "", dtype=torch.float
             inv_tf, _, _, nmat, _ = _affine_parts(matrix)
             cube_rows.append((inv_tf, nmat, mid))
         elif isinstance(base, MonomialSurface):
-            raise NotImplementedError("monomial surfaces are not ported yet")
+            if abs(base.exp - 4.0) > 1e-9:
+                raise ValueError("MonomialSurface only supports exp=4 (as the reference)")
+            inv_tf, _, _, nmat, _ = _affine_parts(matrix)
+            mono_rows.append((inv_tf, nmat, base.height, mid))
         elif isinstance(base, Plane):
             # An affine image of a plane is a plane: n' = A^-T n, v' = v + n'.b.
             lin = matrix[:3, :3]
@@ -526,6 +564,15 @@ def compile_scene(scene: Scene, device=None, digest: str = "", dtype=torch.float
             mat_id=_t(np.asarray([r[2] for r in plane_rows], np.int32), i32, device),
         )
 
+    monomials = None
+    if mono_rows:
+        monomials = MonomialArrays(
+            inv_tf=_t(np.stack([r[0] for r in mono_rows]).astype(np_real), real, device),
+            nmat=_t(np.stack([r[1] for r in mono_rows]).astype(np_real), real, device),
+            height=_t(np.asarray([r[2] for r in mono_rows], np_real), real, device),
+            mat_id=_t(np.asarray([r[3] for r in mono_rows], np.int32), i32, device),
+        )
+
     triangles = bvh = bvh8 = bvh2 = None
     if tri_verts:
         verts = np.concatenate(tri_verts)
@@ -541,11 +588,13 @@ def compile_scene(scene: Scene, device=None, digest: str = "", dtype=torch.float
                 mat_id=_t(mats.astype(np.int32), i32, device),
             )
 
+    env_color, env_hdri, env_quad = scene.environment.tensors(device, dtype)
     return SceneData(
         materials=MaterialTable.pack(materials, device=device, dtype=dtype),
         spheres=pack_primxf(sphere_rows),
         cubes=pack_primxf(cube_rows),
         planes=planes,
+        monomials=monomials,
         triangles=triangles,
         bvh=bvh,
         bvh8=bvh8,
@@ -555,8 +604,10 @@ def compile_scene(scene: Scene, device=None, digest: str = "", dtype=torch.float
         tlas2=tlas2,
         lights=tuple(_compile_light(l, device, dtype) for l in scene.lights),
         environment=scene.environment,
-        env_color=torch.tensor(scene.environment.color, dtype=dtype, device=device),
+        env_color=env_color,
         device=device,
+        env_hdri=env_hdri,
+        env_quad=env_quad,
         digest=f"{str(dtype).removeprefix('torch.')}:{digest}",
     )
 
@@ -590,7 +641,13 @@ def _compile_light(light, device, dtype=torch.float32):
                 l2w_lin=f(lin), l2w_trans=f(trans), nmat=f(nmat), det=f(np_real(det)), emitted=emitted,
             )
         if isinstance(base, MonomialSurface):
-            raise NotImplementedError("monomial-surface lights are not ported yet")
+            if abs(base.exp - 4.0) > 1e-9:
+                raise ValueError("MonomialSurface lights support exp=4 only")
+            inv_tf, lin, trans, nmat, det = _affine_parts(matrix)
+            return MonomialLightData(
+                inv_tf=f(inv_tf), l2w_lin=f(lin), l2w_trans=f(trans), nmat=f(nmat), det=f(np_real(det)),
+                height=f(np_real(base.height)), emitted=emitted,
+            )
         if isinstance(base, Mesh):
             verts, norms = _bake_mesh(base, matrix)
             e1 = verts[:, 1] - verts[:, 0]

@@ -22,6 +22,13 @@
   `load_obj_with_mtl` (one object per `usemtl` run: 108 triangles, four
   materials, one of them transparent), scaled and moved as the example
   does, under one sphere area light, with the example's camera.
+- `monomial_glass`: a copy of `examples/monomial_glass.py`'s `build_scene`
+  (a metallic monomial surface, a cube, two spheres, a plane, an ambient
+  and a point light) under an HDRI, as the Rust original renders it: the
+  map is a copy of `examples/_sky.py`'s `procedural_sky`, the asset-free
+  stand-in for the downloaded one. The camera is `Camera()`.
+- `monomial_light`: the scene of `tests/test_monomial_light.py`, an
+  emissive monomial surface over a plane, and that test's camera.
 """
 
 from __future__ import annotations
@@ -34,10 +41,11 @@ import numpy as np
 
 from .camera import Camera
 from .color import hex_color
+from .environment import Environment
 from .lights import AmbientLight, ObjectLight, PointLight
 from .materials import Material
 from .scene import Object, Scene
-from .shapes import Mesh, Transformed, cube, plane, polygon, sphere, triangle_mesh
+from .shapes import Mesh, Transformed, cube, monomial_surface, plane, polygon, sphere, triangle_mesh
 
 __all__ = [
     "build_cornell_scene",
@@ -53,6 +61,11 @@ __all__ = [
     "toy_plane_obj",
     "build_toy_plane_scene",
     "toy_plane_camera",
+    "procedural_sky",
+    "build_monomial_glass_scene",
+    "monomial_glass_camera",
+    "build_monomial_light_scene",
+    "monomial_light_camera",
 ]
 
 
@@ -342,3 +355,66 @@ def build_toy_plane_scene() -> Scene:
 
 def toy_plane_camera() -> Camera:
     return Camera.look_at((2.5, 2.0, 1.5), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), math.pi / 6)
+
+
+def procedural_sky(height: int = 256, sun_azimuth: float = 1.9, sun_polar: float = 1.1,
+                   sun_intensity: float = 40.0) -> np.ndarray:
+    """Gradient sky, warm sun disk and dim ground as an equirectangular
+    map, (H, 2H, 3) float32 (`examples/_sky.py`)."""
+    width = height * 2
+    polar = (np.arange(height) + 0.5) / height * np.pi  # 0 = up
+    azim = (np.arange(width) + 0.5) / width * 2.0 * np.pi
+    pol, az = np.meshgrid(polar, azim, indexing="ij")
+
+    # Sky gradient: zenith blue to horizon haze.
+    t = np.clip(np.cos(pol), 0.0, 1.0)[..., None]
+    zenith = np.array([0.22, 0.38, 0.78])
+    horizon = np.array([0.85, 0.82, 0.75])
+    sky = horizon + (zenith - horizon) * t
+
+    # Ground: dim brown below the horizon.
+    ground = np.array([0.18, 0.15, 0.12])
+    img = np.where((pol > np.pi / 2)[..., None], ground, sky)
+
+    # Sun disk with a soft falloff.
+    cos_angle = np.sin(pol) * np.sin(sun_polar) * np.cos(az - sun_azimuth) + np.cos(pol) * np.cos(sun_polar)
+    sun = np.exp((cos_angle - 1.0) * 1200.0)[..., None]
+    img = img + sun * sun_intensity * np.array([1.0, 0.9, 0.75])
+    return img.astype(np.float32)
+
+
+def build_monomial_glass_scene(sky_height: int) -> Scene:
+    """`examples/monomial_glass.py`'s scene under `procedural_sky(sky_height)`,
+    as the Rust original renders it under an HDRI."""
+    scene = Scene()
+    scene.set_environment(Environment.from_hdri(procedural_sky(sky_height)))
+    scene.add(Object(monomial_surface(2.0, 4.0).translate([0.0, -1.0, 0.0]))
+              .material(Material.metallic_mat(hex_color(0xFFFFFF), 0.0001)))
+    scene.add(Object(cube().rotate_y(math.pi / 6.0).scale([0.5, 0.3, 0.4]).translate([0.4, -0.8, 4.0]))
+              .material(Material.specular(hex_color(0xFF00FF), 0.5)))
+    scene.add(Object(sphere().scale([0.5] * 3).translate([1.5, -0.5, 1.0]))
+              .material(Material.specular(hex_color(0x0000FF), 0.1)))
+    scene.add(Object(sphere().scale([0.5] * 3).translate([-1.5, -0.5, 1.0]))
+              .material(Material.specular(hex_color(0x00FF00), 0.1)))
+    scene.add(Object(plane([0.0, 1.0, 0.0], -1.0)).material(Material.specular(hex_color(0xAAAAAA), 0.5)))
+    scene.add(AmbientLight((0.01, 0.01, 0.01)))
+    scene.add(PointLight((100.0, 100.0, 100.0), (0.0, 5.0, 5.0)))
+    return scene
+
+
+def monomial_glass_camera() -> Camera:
+    return Camera()
+
+
+def build_monomial_light_scene() -> Scene:
+    """An emissive monomial surface (height 2, raised by 3) over a diffuse
+    plane (`tests/test_monomial_light.py`)."""
+    scene = Scene()
+    scene.add(Object(plane([0.0, 1.0, 0.0], 0.0)).material(Material.diffuse(hex_color(0xAAAAAA))))
+    scene.add(ObjectLight(Object(monomial_surface(2.0, 4.0).translate([0.0, 3.0, 0.0]))
+                          .material(Material.light((1.0, 1.0, 1.0), 50.0))))
+    return scene
+
+
+def monomial_light_camera() -> Camera:
+    return Camera.look_at([0.0, 2.0, 8.0], [0.0, 0.5, 0.0], [0.0, 1.0, 0.0], math.pi / 4)

@@ -708,6 +708,36 @@ def test_f32_render_after_f64_replays_the_f32_graph(card):
     assert torch.equal(first.sum, again.sum) and torch.equal(first.sum_sq, again.sum_sq)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", ["monomial_glass", "monomial_glass_gather", "monomial_light"])
+def test_monomial_and_hdri_renders_graphed_match_eager(card, name, dtype, monkeypatch):
+    """A monomial surface under an HDRI (its quad table, or its four
+    gathers), and a monomial light: the render through the captured graph
+    equals the same render run eagerly, and two chunks one call, bit for
+    bit. The pass reads the map from the compiled scene's device tensors."""
+    from rpt_tpu_torch import environment as env_mod
+
+    if name == "monomial_glass_gather":
+        monkeypatch.setattr(env_mod, "_QUAD_MAX_TEXELS", 0)
+    if name == "monomial_light":
+        scene, cam = scenes.build_monomial_light_scene(), scenes.monomial_light_camera()
+    else:
+        scene, cam = scenes.build_monomial_glass_scene(sky_height=64), scenes.monomial_glass_camera()
+    r = Renderer(scene, cam, width=96, height=64, max_bounces=1, num_samples=3, seed=5, dtype=dtype)
+    sd = r.scene_data()
+    if name == "monomial_light":
+        assert sd.env_hdri is None and type(sd.lights[0]).__name__ == "MonomialLightData"
+    else:
+        assert sd.monomials.height.dtype == dtype and sd.env_hdri.device.type == "cuda"
+        assert (sd.env_quad is None) == (name == "monomial_glass_gather")
+    graphed = r.render_buffer()
+    eager = r._sample_into_eager(Buffer.new(r.width, r.height, dtype), r.num_samples)
+    assert graphed.sum.dtype == dtype and bool(torch.isfinite(graphed.sum).all()) and float(graphed.sum.mean()) > 0
+    assert torch.equal(graphed.sum, eager.sum) and torch.equal(graphed.sum_sq, eager.sum_sq)
+    chunked = r.sample_into(r.sample_into(Buffer.new(r.width, r.height, dtype), 1), 2, start_iter=1)
+    assert torch.equal(graphed.sum, chunked.sum) and torch.equal(graphed.sum_sq, chunked.sum_sq)
+
+
 def test_capture_fails_loudly(card, monkeypatch):
     """A pass that waits on the device cannot be captured: the render
     raises, it does not fall back to eager passes. (Last in the file: the

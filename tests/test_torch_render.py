@@ -133,7 +133,8 @@ def reference_tree(sd) -> dict:
         bvh=_fields(sd.bvh),
         instanced=_fields(sd.instanced),
         lights=[dict(type=type(l).__name__, **_fields(l)) for l in sd.lights],
-        environment=dict(color=np.asarray(sd.environment.color), hdri=sd.environment.hdri),
+        environment=dict(color=np.asarray(sd.environment.color), hdri=sd.environment.hdri,
+                         hdri_quad=sd.environment.hdri_quad),
         digest=sd.digest,
     )
 
