@@ -96,8 +96,29 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
       replay, kernels per sample, capture seconds, pool and the sort's own
       ms per call; then the wide kernels' ms per launch on the masked
       render's depth >= 1 rays as they come and morton-sorted;
-4. prints one JSON line `{"kernels": [...]}` with one row for each of the
-   eight traversal kernels and the threefry kernel, then one for each
+4. `[grad]`, the differentiable path (`rpt_tpu_torch.grad`,
+   `make_diff_render`), eager, each sample under activation checkpointing:
+   - at 64x48, card against CPU: the material gradient of the
+     5,000-triangle trefoil through the bvh8 kernels (the plain walks on
+     the CPU), and `cornell`'s camera gradient (eye, direction, fov; no
+     BVH); a camera gradient through the trefoil's BVH must raise;
+   - `dragon` (2 bounces, through the bvh8 kernels) and `lego` (5 bounces,
+     through the tlas8 kernels) at 960x540: the gradient of mean(image)
+     with respect to five material leaves. One forward and backward step
+     at spp 2 is the gradient's main path: every launch count set to 0 just
+     before and read just after, each walk kernel launched twice per
+     sample and path vertex (the backward recomputes the forward). Printed:
+     ms per sample of the forward with autograd off and on and of the
+     backward, Mrays/s of the step (median and range of GRAD_TURNS; the
+     host sets it) and of the profiled step's device-busy time (stable),
+     peak MiB at spp 1 and 2, launches per
+     sample, the gradient through the kernels against the plain walks' on
+     the card under deterministic algorithms (bit for bit, else within
+     GRAD_PLAIN_RTOL of the largest |g|), and one profiled step's idle
+     share and the walks' share of its device time;
+5. prints one JSON line `{"kernels": [...]}` with one row for each of the
+   eight traversal kernels and the threefry kernel (the bvh8 and tlas8
+   rows with their launches per differentiated sample), then one for each
    float64 instantiation (`<kernel>_f64`, and `threefry_f64` for the
    64-bit modes), then the last line `{"ok": true, "device": {...}}`.
 
@@ -107,11 +128,13 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import importlib.util
 import json
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -227,6 +250,22 @@ THREEFRY = dict(source="rpt_tpu_torch/csrc/threefry.cu", modes=("keys", "bits", 
 THREEFRY64 = dict(modes=("uniform64", "randint64"), int_ops={4: 72 + 4, 5: 2 * 72 + 4 + 3 + 1 + 2},
                   int_ops_per_launch={5: 2 * 72}, f64_ops={4: 4, 5: 0}, out_bytes={4: 8, 5: 8})
 ALL_MODES = THREEFRY["modes"] + THREEFRY64["modes"]
+# `[grad]`: the differentiable path (`rpt_tpu_torch.grad`) at the main
+# path's size, per workload its bounces, the samples of its counted step,
+# the walk family on its path and its shadow rays per path vertex; the
+# material leaves differentiated; the card's gradient against the plain
+# walks' on the card (the walks agree bit for bit, so bit for bit is
+# expected under deterministic algorithms; else this share of the largest
+# |g|), and against the CPU's at a small size (phase c's rtol, of the
+# largest |g|).
+GRAD_WORKLOADS = {
+    "dragon": dict(bounces=2, spp=2, family="bvh8", shadow=2),
+    "lego": dict(bounces=5, spp=2, family="tlas8", shadow=2),
+}
+GRAD_FIELDS = ("color", "index", "roughness", "metallic", "emittance")
+GRAD_TURNS = 5  # timed steps (and forwards without autograd); the median and the range are printed
+GRAD_PLAIN_RTOL = 1e-5
+GRAD_CPU_RTOL = 1e-3
 
 
 def fail(msg: str):
@@ -558,6 +597,19 @@ def graph_phase(workload: str, renderer, spp: int, card: str, counters: dict) ->
     return per_replay
 
 
+def counted_wrappers() -> dict:
+    """{name: wrapper} of every counted kernel: the threefry draws (32- and
+    64-bit modes) and each walk family's closest and any hit."""
+    from rpt_tpu_torch import random as rnd
+
+    counters = {"threefry": rnd._threefry, "threefry64": rnd._threefry64}
+    for fam in ("bvh8", "tlas8", "bvh2", "tlas2"):
+        mod = family_module(fam)
+        counters[f"{fam}_closest"] = getattr(mod, f"{fam}_closest_hit")
+        counters[f"{fam}_occluded"] = getattr(mod, f"{fam}_occluded")
+    return counters
+
+
 def _run_workload(workload: str, card: str):
     import numpy as np
     import torch
@@ -571,10 +623,7 @@ def _run_workload(workload: str, card: str):
     bounces, spp, shadow, family = spec_w["bounces"], spec_w["spp"], spec_w["shadow"], spec_w["family"]
     dtype = getattr(torch, spec_w.get("dtype", "float32"))
     modules = {"bvh8": bvh8, "tlas8": tlas8, "bvh2": bvh2, "tlas2": tlas2}
-    counters = {"threefry": rnd._threefry, "threefry64": rnd._threefry64}
-    for fam, mod in modules.items():
-        counters[f"{fam}_closest"] = getattr(mod, f"{fam}_closest_hit")
-        counters[f"{fam}_occluded"] = getattr(mod, f"{fam}_occluded")
+    counters = counted_wrappers()
     if set(counters.values()) != set(kernels.launch_counts()):
         fail("the counted wrappers are not the ones this script reads")
 
@@ -1727,6 +1776,256 @@ def dtype_phase(card: str) -> None:
         fail("float32 and float64 renders of one scene do not keep to graphs of their own")
 
 
+@contextlib.contextmanager
+def plain_walks(family: str):
+    """The family's wrappers launch nothing and run its plain walks on the
+    card instead (the yardstick of a gradient through the kernels)."""
+    mod = family_module(family)
+    names = (f"{family}_closest_kernel", f"{family}_occluded_kernel")
+    saved = {n: getattr(mod, n) for n in names}
+    for n in names:
+        setattr(mod, n, lambda *a, launches=None, _plain=getattr(mod, n.replace("_kernel", "_plain")): _plain(*a))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(mod, n, f)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms (the gather's backward, a
+    scatter-add, without atomics in run-dependent order), their warnings
+    silenced."""
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def grad_step(fn, mats0):
+    """One forward and backward step of mean(image) over fresh material
+    leaves: (image, {leaf: gradient}, forward seconds, backward seconds),
+    each span ending in a synchronize."""
+    import dataclasses
+
+    import torch
+
+    from rpt_tpu_torch.materials import MaterialTable
+
+    leaves = {f.name: getattr(mats0, f.name).detach().clone().requires_grad_(f.name in GRAD_FIELDS)
+              for f in dataclasses.fields(MaterialTable)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = fn(MaterialTable(**leaves))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    img.mean().backward()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    grads = {f: leaves[f].grad if leaves[f].grad is not None else torch.zeros_like(leaves[f]) for f in GRAD_FIELDS}
+    return img.detach(), grads, t1 - t0, t2 - t1
+
+
+def grad_error(got: dict, want: dict) -> tuple:
+    """(largest |got - want| over the leaves, each over its leaf's largest
+    |want|; whether every leaf is bit for bit; whether all are finite)."""
+    import torch
+
+    err = 0.0
+    for f, w in want.items():
+        w, g = w.detach().double().cpu(), got[f].detach().double().cpu()
+        err = max(err, float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30))
+    bit = all(torch.equal(got[f].cpu(), want[f].cpu()) for f in want)
+    finite = all(bool(torch.isfinite(v).all()) for v in [*got.values(), *want.values()])
+    return err, bit, finite
+
+
+def grad_workload(name: str, card: str, counters: dict) -> dict:
+    """`[grad]` of one workload at 960x540: a warm-up step; the forward
+    with autograd off; the gradient's main path, one counted forward and
+    backward step (every launch count set to 0 just before and read just
+    after; the backward recomputes each sample, so each kernel launches
+    twice per sample and path vertex); peak memory at spp 1 and 2; the
+    gradient through the kernels against the plain walks' on the card; one
+    profiled step. Returns the launches per sample by kernel."""
+    import torch
+
+    from rpt_tpu_torch import kernels
+    from rpt_tpu_torch.bench import scene_and_camera
+    from rpt_tpu_torch.grad import make_diff_render
+
+    spec = GRAD_WORKLOADS[name]
+    family, bounces, spp, shadow = spec["family"], spec["bounces"], spec["spp"], spec["shadow"]
+    scene, camera, eps = scene_and_camera(name)
+    fn, mats0 = make_diff_render(scene, camera, WIDTH, HEIGHT, max_bounces=bounces, spp=spp, epsilon=eps,
+                                 device=DEVICE)
+    fn1, _ = make_diff_render(scene, camera, WIDTH, HEIGHT, max_bounces=bounces, spp=1, epsilon=eps, device=DEVICE)
+    if getattr(scene.compile(device=DEVICE), family) is None:
+        fail(f"[grad] {name} compiled without a {family} pack")
+    grad_step(fn, mats0)  # warm-up
+    fwd_off = []
+    for _ in range(GRAD_TURNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fn(mats0)
+        torch.cuda.synchronize()
+        fwd_off.append(time.perf_counter() - t0)
+
+    # The gradient's main path. Peaks are read absolute and above what
+    # was allocated before the step (earlier phases' graphs and scenes).
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    img, grads, fwd_on, bwd = grad_step(fn, mats0)
+    launches = named_counts(counters)
+    peak = {spp: torch.cuda.max_memory_allocated()}
+    steps = [(fwd_on, bwd)] + [grad_step(fn, mats0)[2:] for _ in range(GRAD_TURNS - 1)]
+    fwd_on, bwd = statistics.median(f for f, _ in steps), statistics.median(b for _, b in steps)
+    step = statistics.median(f + b for f, b in steps)
+    want = {n: 0 for n in counters}
+    want[f"{family}_closest"] = 2 * (bounces + 1) * spp
+    want[f"{family}_occluded"] = 2 * shadow * (bounces + 1) * spp
+    walks = {n: c for n, c in launches.items() if not n.startswith("threefry")}
+    if walks != {n: c for n, c in want.items() if not n.startswith("threefry")} or launches["threefry"] <= 0:
+        fail(f"[grad] the {name} step launched {launches}, not the walks {want}")
+    if not bool(torch.isfinite(img).all()) or any(not bool(torch.isfinite(g).all()) for g in grads.values()):
+        fail(f"[grad] the {name} image or gradient is not finite")
+    if not any(float(g.abs().max()) > 0.0 for g in grads.values()):
+        fail(f"[grad] every {name} gradient is zero")
+    torch.cuda.reset_peak_memory_stats()
+    grad_step(fn1, mats0)
+    peak[1] = torch.cuda.max_memory_allocated()
+
+    # Through the kernels and through the plain walks on the card, and the
+    # kernels once more, under deterministic algorithms.
+    with deterministic():
+        _, g_kern, _, _ = grad_step(fn, mats0)
+        _, g_again, _, _ = grad_step(fn, mats0)
+        with plain_walks(family):
+            _, g_plain, _, _ = grad_step(fn, mats0)
+    err, bit, finite = grad_error(g_kern, g_plain)
+    again_bit = grad_error(g_again, g_kern)[1]
+    close = grad_error(grads, g_kern)[0]
+
+    wall_us, busy, events = profiled(lambda: grad_step(fn1, mats0))
+    by_name = device_us_by_name(events) if events else {}
+    total = sum(by_name.values())
+    walk_us = sum(v for k, v in by_name.items() if f"{family}_walk" in k)
+    rays = (bounces + 1) * (1 + shadow) * WIDTH * HEIGHT * spp
+    per_sample = {n: launches[n] / spp for n in counters}
+    # The step's wall rate rides on the host (launch-bound); the profiled
+    # spp-1 step's device-busy time is the stable number beside it.
+    busy_rate = dict(step_device_busy_ms_spp1=f"{busy / 1e3:.2f}",
+                     mrays_per_s_device_busy=f"{rays / spp / (busy / 1e6) / 1e6:.3f}") if events else \
+        dict(step_device_busy_ms_spp1="not measured (the profiler recorded no CUDA kernels)")
+    say("grad", workload=name, size=f"{WIDTH}x{HEIGHT}", bounces=bounces, spp=spp, leaves=",".join(GRAD_FIELDS),
+        turns=GRAD_TURNS, forward_ms_per_sample_grad_off=f"{statistics.median(fwd_off) * 1e3 / spp:.2f}",
+        forward_ms_per_sample_grad_on=f"{fwd_on * 1e3 / spp:.2f}",
+        backward_ms_per_sample=f"{bwd * 1e3 / spp:.2f}", step_seconds=f"{step:.4f}",
+        step_seconds_each=json.dumps([round(f + b, 4) for f, b in steps]),
+        mrays_per_s_step=f"{rays / step / 1e6:.3f}",
+        mrays_per_s_step_range=f"{rays / max(f + b for f, b in steps) / 1e6:.3f}-"
+                               f"{rays / min(f + b for f, b in steps) / 1e6:.3f}",
+        **busy_rate, allocated_before_mib=f"{before / 2**20:.1f}",
+        **{f"peak_mib_spp{k}": f"{v / 2**20:.1f}" for k, v in sorted(peak.items())},
+        **{f"step_peak_mib_spp{k}": f"{(v - before) / 2**20:.1f}" for k, v in sorted(peak.items())},
+        launches=json.dumps(launches),
+        launches_per_sample=json.dumps(per_sample), image_mean=f"{float(img.mean()):.6f}", card=json.dumps(card))
+    say("grad", workload=name, kernels_vs_plain_walks_max_rel_err=f"{err:.3e}", bit_equal=bit,
+        deterministic=True, kernels_run_twice_bit_equal=again_bit, nondeterministic_vs_deterministic=f"{close:.3e}",
+        grad_abs_max=json.dumps({f: float(g.abs().max()) for f, g in g_kern.items()}))
+    if events:
+        say("grad", workload=name, profiled="one step at spp 1", window_ms=f"{wall_us / 1e3:.2f}",
+            device_busy_ms=f"{busy / 1e3:.2f}", idle_share=f"{1.0 - busy / wall_us:.3f}", kernel_launches=len(events),
+            **{f"{family}_share_of_device_time": f"{walk_us / total:.3f}"}, card=json.dumps(card))
+        for k, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+            say("grad", workload=name, profiled="one step at spp 1", kernel=json.dumps(k), device_ms=f"{us / 1e3:.3f}",
+                share=f"{us / total:.3f}")
+    else:
+        say("grad", workload=name, device_time="not measured (the profiler recorded no CUDA kernels)")
+    if not finite or not (bit or err <= GRAD_PLAIN_RTOL):
+        fail(f"[grad] the {name} gradient through the {family} kernels differs from the plain walks': {err:.3e}")
+    return {f"{family}_{kind}": per_sample[f"{family}_{kind}"] for kind in ("closest", "occluded")}
+
+
+def grad_small_phase(card: str) -> None:
+    """`[grad]` at a small size, the card against the CPU: the material
+    gradient of the 5,000-triangle trefoil (64x48, 2 bounces, spp 2)
+    through the bvh8 kernels (the wide threshold lowered below its rows)
+    against the plain walks on the CPU; the camera gradient (eye,
+    direction, fov) of `cornell`, which has no BVH; and a camera gradient
+    through the trefoil's BVH, which must raise."""
+    import dataclasses
+
+    import rpt_tpu_torch.scene as scene_mod
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.bench import scene_and_camera
+    from rpt_tpu_torch.grad import make_diff_render, render_with_camera
+    from rpt_tpu_torch.scenes import build_dragon_scene, dragon_camera
+
+    saved = scene_mod.WIDE_KERNEL_MIN_TRIS
+    scene_mod.WIDE_KERNEL_MIN_TRIS = 4096
+    try:
+        scene, camera = build_dragon_scene(segments=125, sides=20), dragon_camera()
+        grads = {}
+        for dev in ("cpu", DEVICE):
+            fn, mats0 = make_diff_render(scene, camera, SMALL_W, SMALL_H, max_bounces=2, spp=2, device=dev)
+            if scene.compile(device=dev).bvh8 is None:
+                fail("[grad] the small trefoil compiled without a bvh8 pack")
+            grads[dev] = grad_step(fn, mats0)[1]
+        err, _, finite = grad_error(grads[DEVICE], grads["cpu"])
+        say("grad", workload="trefoil_5k", size=f"{SMALL_W}x{SMALL_H}", bounces=2, spp=2, walk="bvh8",
+            card_vs_cpu_max_rel_err=f"{err:.3e}", bar=GRAD_CPU_RTOL, finite=finite)
+        if not finite or err > GRAD_CPU_RTOL:
+            fail(f"[grad] the small trefoil's gradient on the card differs from the CPU's: {err:.3e}")
+
+        eye = camera.eye.detach().clone().requires_grad_()
+        try:
+            render_with_camera(dataclasses.replace(camera, eye=eye), scene.compile(device=DEVICE), rnd.PRNGKey(0),
+                               SMALL_W, SMALL_H, 0, 1e-3, 1.0)
+        except ValueError as e:
+            say("grad", workload="trefoil_5k", camera_gradient_through_bvh="raises", error=json.dumps(str(e)[:80]))
+        else:
+            fail("[grad] a camera gradient through the trefoil's BVH did not raise")
+    finally:
+        scene_mod.WIDE_KERNEL_MIN_TRIS = saved
+
+    scene, camera, eps = scene_and_camera("cornell")
+    grads = {}
+    for dev in ("cpu", DEVICE):
+        sd = scene.compile(device=dev)
+        leaves = {f: getattr(camera, f).detach().clone().requires_grad_() for f in ("eye", "direction", "fov")}
+        img = render_with_camera(dataclasses.replace(camera, **leaves), sd, rnd.PRNGKey(0), SMALL_W, SMALL_H, 2, eps,
+                                 1.0)
+        img.mean().backward()
+        grads[dev] = {f: v.grad for f, v in leaves.items()}
+    err, _, finite = grad_error(grads[DEVICE], grads["cpu"])
+    say("grad", workload="cornell", size=f"{SMALL_W}x{SMALL_H}", bounces=2, spp=1, leaves="eye,direction,fov",
+        card_vs_cpu_max_rel_err=f"{err:.3e}", bar=GRAD_CPU_RTOL, finite=finite,
+        eye_grad=json.dumps([float(v) for v in grads[DEVICE]["eye"]]), card=json.dumps(card))
+    if not finite or err > GRAD_CPU_RTOL:
+        fail(f"[grad] cornell's camera gradient on the card differs from the CPU's: {err:.3e}")
+
+
+def grad_phase(card: str) -> dict:
+    """`[grad]`: the small checks, then each workload of GRAD_WORKLOADS.
+    Returns {kernel name: (workload, launches per differentiated sample)}."""
+    counters = counted_wrappers()
+    grad_small_phase(card)
+    out = {}
+    for name in GRAD_WORKLOADS:
+        for kernel, n in grad_workload(name, card, counters).items():
+            out[kernel] = (name, n)
+    return out
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isfile(os.path.join(root, "rpt_tpu_torch", "__init__.py")):
@@ -1794,6 +2093,10 @@ def main():
                           launches_by_mode=modes64[first64],
                           launches_per_sample={w: sum(modes64[w].values()) / WORKLOADS[w]["spp"] for w in WORKLOADS})
     rows["threefry_f64"] = threefry64_row
+    # The differentiable path: launches per differentiated sample (the
+    # backward's recompute included) of each kernel on it.
+    for kernel, (workload, n) in grad_phase(card).items():
+        rows[kernel].update(grad_workload=workload, grad_launches_per_sample=n)
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

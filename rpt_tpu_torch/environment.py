@@ -30,7 +30,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .utils.vmath import normalize
+from .utils.vmath import clip, normalize
 
 __all__ = ["Environment", "lookup", "pad_quad"]
 
@@ -104,7 +104,7 @@ def lookup(dirs: torch.Tensor, color: torch.Tensor, hdri: Optional[torch.Tensor]
     h, w = hdri.shape[0], hdri.shape[1]
     d = normalize(dirs)
     azimuth = torch.atan2(d[..., 2], d[..., 0]) + math.pi
-    polar = torch.acos(torch.clamp(d[..., 1], -1.0, 1.0))
+    polar = torch.acos(clip(d[..., 1], -1.0, 1.0))
     x = azimuth / (2.0 * math.pi) * (w - 1)
     y = polar / math.pi * (h - 1)
     x0 = torch.clamp(x.to(torch.int32), 0, w - 1)

@@ -10,6 +10,14 @@ reverse fold then applies the per-level firefly clamp,
 as the reference's recursion does. Terminated lanes carry zero weight and
 stay in the wavefront, masked (`active`).
 
+Under autograd the estimator is the reference's detached one: each sampled
+direction and its pdf are constants (`stop_gradient`), so a gradient flows
+through the BSDF's value, the lights and the camera, never through the
+sampler. The clamp and |wi.n| differentiate as the reference's
+`jnp.minimum` and `jnp.abs` (`utils.vmath`). The traversal kernels give a
+hit time and a triangle id with no gradient: a ray that requires grad
+cannot enter them (see `ops.bvh.refuse_ray_grad`).
+
 The reference's wavefront sorts are here too (`compact`). From depth 1 on,
 the rays handed to `SceneData.intersect` and `occluded` may be permuted:
 live lanes first (`True`), grouped by direction octant (`"octant"`), or by
@@ -37,7 +45,7 @@ from . import random as rnd
 from .lights import AmbientLightData
 from .materials import bsdf, sample_f
 from .ops.intersect import Hit
-from .utils.vmath import dot
+from .utils.vmath import absolute, dot, minimum
 
 __all__ = ["trace_paths", "sample_lights", "FIREFLY_CLAMP", "COMPACT_MODES"]
 
@@ -166,6 +174,11 @@ def _intersect(scene, o, d, t_min, active, compact) -> Hit:
     return Hit(t=hit.t[pos], normal=hit.normal[pos], mat_id=hit.mat_id[pos])
 
 
+def stop_gradient(x: torch.Tensor) -> torch.Tensor:
+    """`jax.lax.stop_gradient`: the value of x, as a constant."""
+    return x.detach()
+
+
 def _auto_compact(scene):
     """The wavefront order of a compiled scene, as the reference chooses it:
     `RPT_COMPACT` when set and not empty (`0`, `1`, `octant`, `morton`),
@@ -256,10 +269,15 @@ def trace_paths(scene, o: torch.Tensor, d: torch.Tensor, key, max_bounces: int, 
 
         if depth < max_bounces:
             wi, pdf, valid = sample_f(k_bsdf, mat, hit.normal, wo)
+            # Detached sampling, as in the reference: the sampled direction
+            # and its pdf are constants under differentiation, so gradients
+            # flow through the BSDF's value only (the unbiased detached
+            # estimator; the values are unchanged).
+            wi, pdf = stop_gradient(wi), stop_gradient(pdf)
             f = bsdf(mat, hit.normal, wo, wi)
             ok = found & valid & (pdf > _PDF_EPS)
             pdf_safe = torch.where(ok, pdf, torch.ones_like(pdf))
-            w = f * (torch.abs(dot(wi, hit.normal)) / pdf_safe)[:, None]
+            w = f * (absolute(dot(wi, hit.normal)) / pdf_safe)[:, None]
             weights_per_depth.append(torch.where(ok[:, None], w, torch.zeros_like(w)))
             o, d, active = pos, wi, ok
             if want_stats:
@@ -267,7 +285,7 @@ def trace_paths(scene, o: torch.Tensor, d: torch.Tensor, key, max_bounces: int, 
 
     radiance = locals_per_depth[-1]
     for depth in range(max_bounces - 1, -1, -1):
-        indirect = torch.clamp(weights_per_depth[depth] * radiance, max=firefly_clamp)
+        indirect = minimum(weights_per_depth[depth] * radiance, firefly_clamp)
         radiance = locals_per_depth[depth] + indirect
     if want_stats:
         stats = {

@@ -7,7 +7,8 @@ lights sample the sphere, cube and triangle mesh as the reference does,
 drawing in the type of `pos` (float64 and int64 draws in a float64 render,
 as the reference's default-typed draws under `jax_enable_x64`), and the
 monomial surface as the reference samples it: a point of its rim and a
-two-sided normal.
+two-sided normal. The clamps differentiate as the reference's
+`jnp.maximum` (`utils.vmath.maximum`).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from . import random as rnd
 from .sampling import uniform_disk, uniform_triangle_barycentric
-from .utils.vmath import cross, dot, normalize, safe_sqrt
+from .utils.vmath import cross, dot, maximum, normalize, safe_sqrt
 
 __all__ = [
     "PointLight",
@@ -102,7 +103,7 @@ class PointLightData:
     def illuminate(self, key, pos):
         disp = self.position - pos
         ln = torch.linalg.vector_norm(disp, dim=-1)
-        ln_safe = torch.clamp(ln, min=1e-12)
+        ln_safe = maximum(ln, 1e-12)
         intensity = self.color / (ln_safe * ln_safe)[..., None]
         return intensity, disp / ln_safe[..., None], ln
 
@@ -130,10 +131,10 @@ def _object_light_intensity(v, n, p, emitted, world_pos):
     """Geometric term shared by the emissive-object lights."""
     disp = v - world_pos
     ln = torch.linalg.vector_norm(disp, dim=-1)
-    ln_safe = torch.clamp(ln, min=1e-12)
-    cosine = torch.clamp(-dot(disp, n), min=0.0) / ln_safe
-    surface_area = torch.clamp(cosine, min=0.0) / (ln_safe * ln_safe)
-    p_safe = torch.clamp(p, min=1e-20)
+    ln_safe = maximum(ln, 1e-12)
+    cosine = maximum(-dot(disp, n), 0.0) / ln_safe
+    surface_area = maximum(cosine, 0.0) / (ln_safe * ln_safe)
+    p_safe = maximum(p, 1e-20)
     intensity = emitted * (surface_area / p_safe)[..., None]
     return intensity, disp / ln_safe[..., None], ln
 
@@ -256,7 +257,7 @@ class MeshLightData:
         nrm = normalize(
             u[..., None] * tn[..., 0, :] + v_[..., None] * tn[..., 1, :] + w[..., None] * tn[..., 2, :]
         )
-        pdf = 1.0 / (torch.clamp(self.areas[tri], min=1e-20) * num)
+        pdf = 1.0 / (maximum(self.areas[tri], 1e-20) * num)
         return _object_light_intensity(point, nrm, pdf, self.emitted, pos)
 
 

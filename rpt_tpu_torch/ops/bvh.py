@@ -24,7 +24,7 @@ from ..native import build_bvh_sah
 from ..utils.vmath import cross, dot, normalize, numpy_real, signed_full
 from .intersect import INF, Hit
 
-__all__ = ["BvhData", "build_bvh", "finalize_hit", "outward", "widen", "LEAF_SIZE"]
+__all__ = ["BvhData", "build_bvh", "finalize_hit", "refuse_ray_grad", "outward", "widen", "LEAF_SIZE"]
 
 LEAF_SIZE = 8
 
@@ -146,6 +146,21 @@ def _tri_hit_t(o, d, v0, v1, v2, t_min):
 def _safe_inv(d: torch.Tensor) -> torch.Tensor:
     return 1.0 / torch.where(torch.abs(d) > 1e-20, d, signed_full(d < 0, 1e-20, d))
 
+
+
+def refuse_ray_grad(walk: str, o: torch.Tensor, d: torch.Tensor) -> None:
+    """Raise if rays that require grad would enter a traversal under
+    autograd. The walks (kernel and plain) give a hit time with no gradient,
+    so a gradient through `o + t d` would silently lose dt/d(ray); the
+    reference cannot differentiate its walk either (reverse mode through
+    `lax.while_loop` raises), so a camera gradient exists only for scenes
+    without a BVH. Material gradients never see this: their rays do not
+    depend on the materials."""
+    if torch.is_grad_enabled() and (o.requires_grad or d.requires_grad):
+        raise ValueError(
+            f"{walk}: rays that require grad cannot go through a BVH walk (its hit time carries no gradient); "
+            "differentiate the camera of a scene without a BVH, or the materials"
+        )
 
 
 def finalize_hit(bvh: BvhData, o, d, t_min, t_best, best_tri) -> Hit:

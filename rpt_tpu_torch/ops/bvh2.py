@@ -75,7 +75,7 @@ import torch
 
 from ..kernels import counted, launch_counter
 from ..utils.vmath import numpy_real, real_value
-from .bvh import LEAF_SIZE, BvhData, _safe_inv, widen
+from .bvh import LEAF_SIZE, BvhData, _safe_inv, refuse_ray_grad, widen
 from .bvh8 import (
     _BIG,
     KIND_EMPTY,
@@ -476,6 +476,7 @@ def bvh2_closest_hit(bvh: BvhData, pack: Bvh2Pack, o, d, t_min, active=None) -> 
     """Closest hit through the binary BVH (t = inf on a miss, smooth normal,
     material id). CUDA rays launch the kernel of the pack's type (counted in
     slot 0 for float32, 1 for float64); CPU rays take the plain walk."""
+    refuse_ray_grad("bvh2_closest_hit", o, d)
     check_dtype(pack, o, d)
     if _on_cpu(o):
         t_raw, tri = bvh2_closest_plain(pack, o, d, t_min, active)

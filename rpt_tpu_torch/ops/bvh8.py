@@ -77,7 +77,7 @@ import torch
 
 from ..kernels import counted, launch_counter
 from ..utils.vmath import numpy_real, real_value
-from .bvh import LEAF_SIZE, BvhData, _safe_inv, finalize_hit, widen
+from .bvh import LEAF_SIZE, BvhData, _safe_inv, finalize_hit, refuse_ray_grad, widen
 from .intersect import INF, Hit
 
 __all__ = [
@@ -766,6 +766,7 @@ def bvh8_closest_hit(bvh: BvhData, pack: Bvh8Pack, o, d, t_min, active=None) -> 
     """Closest hit through the wide BVH (t = inf on a miss, smooth normal,
     material id). CUDA rays launch the kernel of the pack's type (counted in
     slot 0 for float32, 1 for float64); CPU rays take the plain walk."""
+    refuse_ray_grad("bvh8_closest_hit", o, d)
     check_dtype(pack, o, d)
     if _on_cpu(o):
         t_raw, tri = bvh8_closest_plain(pack, o, d, t_min, active)

@@ -87,7 +87,7 @@ import torch
 
 from ..kernels import counted, launch_counter
 from ..utils.vmath import numpy_real, real_value
-from .bvh import widen
+from .bvh import refuse_ray_grad, widen
 from .bvh2 import PairNodes, _leaf_refs, _pair_nodes, _pair_walk, _stack_args, _stack_depth
 from .bvh8 import (KIND_INST, _check_rays, _on_cpu, _ptr, _tri_rows, check_dtype, finish_occluded,
                    ray_t_max, real_slot)
@@ -257,6 +257,7 @@ def tlas2_closest_hit(im: InstancedMeshes, pack: Tlas2Pack, o, d, t_min, active=
     """Closest hit over every instance (t = inf on a miss, smooth normal,
     material id). CUDA rays launch the kernel of the pack's type (counted in
     slot 0 for float32, 1 for float64); CPU rays take the plain walk."""
+    refuse_ray_grad("tlas2_closest_hit", o, d)
     check_dtype(pack, o, d)
     if _on_cpu(o):
         t_raw, tri, inst = tlas2_closest_plain(pack, o, d, t_min, active)

@@ -61,7 +61,7 @@ import torch
 from ..kernels import counted, launch_counter
 from ..utils.vmath import numpy_real, real_value
 from ..utils.vmath import normalize
-from .bvh import _tri_hit_t, widen
+from .bvh import _tri_hit_t, refuse_ray_grad, widen
 from .bvh8 import (
     BRANCH,
     EMPTY,
@@ -350,6 +350,7 @@ def tlas8_closest_hit(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, active=
     """Closest hit over every instance (t = inf on a miss, smooth normal,
     material id). CUDA rays launch the kernel of the pack's type (counted in
     slot 0 for float32, 1 for float64); CPU rays take the plain walk."""
+    refuse_ray_grad("tlas8_closest_hit", o, d)
     check_dtype(pack, o, d)
     if _on_cpu(o):
         t_raw, tri, inst = tlas8_closest_plain(pack, o, d, t_min, active)

@@ -19,6 +19,10 @@ __all__ = [
     "orthonormal_basis",
     "from_local",
     "safe_sqrt",
+    "maximum",
+    "minimum",
+    "clip",
+    "absolute",
     "signed_full",
     "numpy_real",
     "real_value",
@@ -30,6 +34,66 @@ def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     inputs, which keeps masked lanes' gradients finite."""
     pos = x > 0.0
     return torch.where(pos, torch.sqrt(torch.where(pos, x, torch.ones_like(x))), torch.zeros_like(x))
+
+
+class _Clip(torch.autograd.Function):
+    """torch.clamp(x, lo, hi) forward; JAX's gradient backward: `jnp.clip`
+    is `minimum(maximum(x, lo), hi)`, and JAX's max and min split a tie
+    evenly, so x at a bound takes half the gradient (torch.clamp gives it
+    all) and a NaN none."""
+
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        ctx.save_for_backward(x)
+        ctx.bounds = (lo, hi)
+        return torch.clamp(x, min=lo, max=hi)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        zero = torch.zeros_like(g)
+        if lo is not None:
+            g = torch.where(x > lo, g, torch.where(x == lo, 0.5 * g, zero))
+        if hi is not None:
+            g = torch.where(x < hi, g, torch.where(x == hi, 0.5 * g, zero))
+        return g, None, None
+
+
+class _Abs(torch.autograd.Function):
+    """torch.abs forward; JAX's gradient backward: +1 at 0 (`jnp.abs`
+    takes g where x >= 0, else -g), where torch.abs takes 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0.0, g, -g)
+
+
+def clip(x: torch.Tensor, lo=None, hi=None) -> torch.Tensor:
+    """`jnp.clip(x, lo, hi)` against constant bounds: the values of
+    torch.clamp, the gradient of the reference (half at a bound)."""
+    return _Clip.apply(x, lo, hi)
+
+
+def maximum(x: torch.Tensor, c: float) -> torch.Tensor:
+    """`jnp.maximum(x, c)` for a constant c (see `clip`)."""
+    return clip(x, lo=c)
+
+
+def minimum(x: torch.Tensor, c: float) -> torch.Tensor:
+    """`jnp.minimum(x, c)` for a constant c (see `clip`)."""
+    return clip(x, hi=c)
+
+
+def absolute(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.abs(x)`: the values of torch.abs, the reference's gradient at 0."""
+    return _Abs.apply(x)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -738,6 +738,78 @@ def test_monomial_and_hdri_renders_graphed_match_eager(card, name, dtype, monkey
     assert torch.equal(graphed.sum, chunked.sum) and torch.equal(graphed.sum_sq, chunked.sum_sq)
 
 
+def _grad_of_mean(fn, mats0, fields=("color", "index", "roughness", "metallic", "emittance")):
+    """{leaf: d mean(image) / d leaf} of the differentiable render `fn`."""
+    from rpt_tpu_torch.materials import MaterialTable
+
+    leaves = {f.name: getattr(mats0, f.name).detach().clone().requires_grad_(f.name in fields)
+              for f in dataclasses.fields(MaterialTable)}
+    fn(MaterialTable(**leaves)).mean().backward()
+    return {f: leaves[f].grad for f in fields}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,family", [("dragon", "bvh8"), ("lego", "tlas8")])
+def test_material_gradient_through_the_kernels_equals_the_plain_walks(card, name, family, monkeypatch):
+    """The walks carry no gradient and agree bit for bit, so the material
+    gradient through the kernels is the plain walks' on the card, bit for
+    bit under deterministic algorithms; each kernel launches twice per
+    sample and path vertex (the backward recomputes the forward)."""
+    from rpt_tpu_torch.grad import make_diff_render
+
+    r = _small_renderer(name, monkeypatch)
+    fn, mats0 = make_diff_render(r.scene, r.camera, 64, 48, max_bounces=2, spp=2, device=card)
+    mod = {"bvh8": bvh8, "tlas8": tlas8}[family]
+    wrapper = getattr(scene_mod, f"{family}_closest_hit")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        before = kernels.launch_counts()
+        got = _grad_of_mean(fn, mats0)
+        after = kernels.launch_counts()
+        for kind in ("closest", "occluded"):
+            monkeypatch.setattr(mod, f"{family}_{kind}_kernel",
+                                lambda *a, launches=None, _p=getattr(mod, f"{family}_{kind}_plain"): _p(*a))
+        want = _grad_of_mean(fn, mats0)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert after[wrapper] - before[wrapper] == 2 * 3 * 2
+    assert any(float(g.abs().max()) > 0.0 for g in want.values())
+    for f in want:
+        assert bool(torch.isfinite(got[f]).all()) and torch.equal(got[f], want[f]), f
+
+
+@pytest.mark.cuda
+def test_camera_gradient_through_a_mesh_raises_on_the_card(card, monkeypatch):
+    from rpt_tpu_torch.grad import render_with_camera
+
+    r = _small_renderer("dragon", monkeypatch)
+    eye = r.camera.eye.detach().clone().requires_grad_()
+    with pytest.raises(ValueError, match="require grad"):
+        render_with_camera(dataclasses.replace(r.camera, eye=eye), r.scene_data(), rnd.PRNGKey(0), 32, 24, 1,
+                           T_MIN, 1.0)
+
+
+@pytest.mark.cuda
+def test_camera_gradient_without_a_bvh_equals_the_cpu(card):
+    """`cornell` (analytic boxes, small brute-force meshes, a mesh light):
+    the camera gradient on the card is the CPU's to 1e-3 of its largest
+    component."""
+    from rpt_tpu_torch.grad import render_with_camera
+
+    scene, cam = scenes.build_cornell_scene(), scenes.cornell_camera()
+    grads = {}
+    for dev in ("cpu", card):
+        leaves = {f: getattr(cam, f).detach().clone().requires_grad_() for f in ("eye", "direction", "fov")}
+        img = render_with_camera(dataclasses.replace(cam, **leaves), scene.compile(device=dev), rnd.PRNGKey(0), 48,
+                                 32, 2, scenes.CORNELL_EPSILON, 1.0)
+        img.mean().backward()
+        grads[str(dev)] = {f: v.grad for f, v in leaves.items()}
+    for f, want in grads["cpu"].items():
+        got = grads[str(card)][f]
+        assert bool(torch.isfinite(got).all())
+        assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max()), f
+
+
 def test_capture_fails_loudly(card, monkeypatch):
     """A pass that waits on the device cannot be captured: the render
     raises, it does not fall back to eager passes. (Last in the file: the
