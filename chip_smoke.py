@@ -116,9 +116,31 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
      the card under deterministic algorithms (bit for bit, else within
      GRAD_PLAIN_RTOL of the largest |g|), and one profiled step's idle
      share and the walks' share of its device time;
-5. prints one JSON line `{"kernels": [...]}` with one row for each of the
+5. `[ode]`: one frame of `examples/marbles.py`'s physics (25 marbles,
+   1/16 s at 1/10000: 624 RK4 steps and a remainder) on the card, through
+   the captured step replayed per step against the eager loop, bit for
+   bit, and against the CPU within the CPU tests' bar, on the example's
+   initial state and on a packed state in contact; ms per step graphed
+   and eager, kernels and device time of one step, the capture's seconds;
+6. `[dynamic]`, the animation path (`Renderer(dynamic=True)`): two cells
+   of 8 frames, `dragon_orbit` (the dragon at 960x540, 2 bounces, spp 2,
+   its large sphere light circling the 120k-triangle trefoil; through the
+   bvh8 kernels) and `marbles` (800x600, 9 bounces, spp 2 of the
+   example's 2000, depth of field; the state advanced a frame on the card
+   by the graphed RK4 between frames). Each frame runs through the
+   dynamic path and the static one in turns: bit for bit, with equal
+   launch counts per pass (a frame that captures runs one eager warm-up
+   pass more; the dynamic loop's counts are its main path, counted from 0
+   per frame); the dynamic loop must capture once. Printed per way: seconds
+   per frame and frames per second, split into compile, lookup (the
+   dynamic path's refill: MiB and ms), capture and replays. A ninth frame
+   of another topology (a trefoil of 100,000 triangles, a 26th marble)
+   must make a second entry and capture, bit for bit with its static
+   render;
+7. prints one JSON line `{"kernels": [...]}` with one row for each of the
    eight traversal kernels and the threefry kernel (the bvh8 and tlas8
-   rows with their launches per differentiated sample), then one for each
+   rows with their launches per differentiated sample, the bvh8 rows also
+   per sample of the dynamic loop), then one for each
    float64 instantiation (`<kernel>_f64`, and `threefry_f64` for the
    64-bit modes), then the last line `{"ok": true, "device": {...}}`.
 
@@ -266,6 +288,20 @@ GRAD_FIELDS = ("color", "index", "roughness", "metallic", "emittance")
 GRAD_TURNS = 5  # timed steps (and forwards without autograd); the median and the range are printed
 GRAD_PLAIN_RTOL = 1e-5
 GRAD_CPU_RTOL = 1e-3
+# `[ode]`: one frame of `examples/marbles.py` (1/16 s at 1/10000: 624
+# steps and a remainder) for 25 marbles of radius 0.15, and the bar of the
+# card against the CPU: the CPU tests' bar of the port against the
+# reference (`tests/test_torch_ode.py` TRAJ_ATOL).
+ODE_FRAME, ODE_STEP = 1.0 / 16.0, 1.0 / 10000.0
+ODE_CPU_ATOL = 1e-6
+# `[dynamic]`: animation cells, each DYNAMIC_FRAMES frames through the
+# dynamic path and the static path in turns, then one frame of another
+# topology.
+DYNAMIC_CELLS = {
+    "dragon_orbit": dict(size=(WIDTH, HEIGHT), bounces=2, spp=2, family="bvh8", shadow=2),
+    "marbles": dict(size=(800, 600), bounces=9, spp=2, family=None),
+}
+DYNAMIC_FRAMES = 8
 
 
 def fail(msg: str):
@@ -2026,6 +2062,248 @@ def grad_phase(card: str) -> dict:
     return out
 
 
+def ode_phase(card: str) -> None:
+    """`[ode]`: one frame of the marbles' RK4 (ODE_FRAME at ODE_STEP) on the
+    card, graphed (one captured step replayed) against eager, bit for bit,
+    and against the CPU within ODE_CPU_ATOL, on the example's initial state
+    and on a packed state in contact; ms per step each way, kernels and
+    device time of one step, the capture's seconds."""
+    import numpy as np
+    import torch
+
+    from rpt_tpu_torch.ode import MarblesSystem, ParticleState
+    from rpt_tpu_torch.scenes import MARBLE_RADIUS, marbles_initial_state
+
+    system = MarblesSystem(MARBLE_RADIUS)
+    packed = np.random.RandomState(42).randn(25, 3) * 0.3 + np.array([0.0, 2.0, 0.0])
+    states = {"initial": marbles_initial_state(device=DEVICE), "packed": ParticleState.create(packed, device=DEVICE)}
+    n_steps = int(np.floor(ODE_FRAME / ODE_STEP - 1e-12))
+    for name, state in states.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graphed = system.rk4_integrate(state, ODE_FRAME, ODE_STEP)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        eager = system._rk4_eager(state, ODE_FRAME, ODE_STEP)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        cpu = system.rk4_integrate(ParticleState.create(state.pos.cpu(), state.vel.cpu(), device="cpu"), ODE_FRAME,
+                                   ODE_STEP)
+        bit = bool(torch.equal(graphed.pos, eager.pos) and torch.equal(graphed.vel, eager.vel))
+        err = max(float((getattr(graphed, f).cpu().double() - getattr(cpu, f).double()).abs().max())
+                  for f in ("pos", "vel"))
+        finite = bool(torch.isfinite(graphed.pos).all() and torch.isfinite(graphed.vel).all())
+        say("ode", state=name, marbles=state.pos.shape[0], steps=n_steps + 1, graphed_vs_eager_bit_equal=bit,
+            card_vs_cpu_max_abs=f"{err:.3e}", bar=ODE_CPU_ATOL, frame_seconds_graphed=f"{t1 - t0:.4f}",
+            frame_seconds_eager=f"{t2 - t1:.4f}", finite=finite)
+        if not (bit and finite and err <= ODE_CPU_ATOL):
+            fail(f"[ode] the {name} frame: graphed == eager {bit}, card against CPU {err:.3e}")
+
+    graph = system._rk4_graph(25, ODE_STEP, DEVICE)
+    state = states["packed"]
+    replay_ms = time_ms(lambda: graph(state, 100), [()], reps=3) / 100
+    eager_ms = time_ms(lambda: system.rk4_step(state, ODE_STEP), [()], reps=50)
+    wall_step_ms = wall_ms(lambda: graph(state, 100), reps=3) / 100
+    wall_eager_ms = wall_ms(lambda: system.rk4_step(state, ODE_STEP), reps=50)
+    _, busy_us, events = profiled(lambda: system.rk4_step(state, ODE_STEP))
+    # On CUDA events: a replay's device time; for the eager step, the pace
+    # at which the host enqueues it (the card idles between its kernels).
+    say("ode", ms_per_step_graphed=f"{wall_step_ms:.4f}", ms_per_step_eager=f"{wall_eager_ms:.4f}",
+        event_ms_per_step_graphed=f"{replay_ms:.4f}", event_ms_per_step_eager=f"{eager_ms:.4f}",
+        kernels_per_step=len(events) if events else "not measured (the profiler recorded no CUDA kernels)",
+        device_busy_ms_per_step=f"{busy_us / 1e3:.4f}" if events else "not measured",
+        capture_seconds=f"{graph.capture.seconds:.3f}", pool_mib=f"{graph.capture.pool_bytes / 2**20:.1f}",
+        card=json.dumps(card))
+
+
+@contextlib.contextmanager
+def timed_lookup(module, name: str, rec: dict):
+    """Time `module.name` (a pass lookup: the cache, and the dynamic path's
+    refill), each call ending in a synchronize; `rec` gets the seconds and
+    the function it returned."""
+    import torch
+
+    orig = getattr(module, name)
+
+    def wrapped(*args):
+        t0 = time.perf_counter()
+        fn = orig(*args)
+        torch.cuda.synchronize()
+        rec.update(seconds=time.perf_counter() - t0, fn=fn)
+        return fn
+
+    setattr(module, name, wrapped)
+    try:
+        yield rec
+    finally:
+        setattr(module, name, orig)
+
+
+def dynamic_frame(cell: str, way: str, scene, camera, eps: float, seed: int, counters: dict):
+    """One frame of a `[dynamic]` cell through the entry point, dynamic or
+    static: (buffer, split in seconds, launches counted from 0). A frame
+    that captures also runs the capture's eager warm-up pass, so it
+    launches `split["passes"]` = spp + captures passes' kernels."""
+    import torch
+
+    from rpt_tpu_torch import Renderer, kernels
+    from rpt_tpu_torch import renderer as renderer_mod
+
+    spec = DYNAMIC_CELLS[cell]
+    (w, h), dynamic = spec["size"], way == "dynamic"
+    r = Renderer(scene, camera, width=w, height=h, max_bounces=spec["bounces"], num_samples=spec["spp"],
+                 epsilon=eps, seed=seed, dynamic=dynamic, device=DEVICE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sd = scene.compile(device=DEVICE)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    cache = renderer_mod._DYNAMIC_CACHE if dynamic else renderer_mod._MANY_CACHE
+    caps = cache.captures()
+    kernels.reset_launch_counts()
+    rec = {}
+    with timed_lookup(renderer_mod, "dynamic_render_many_fn" if dynamic else "make_render_many_fn", rec):
+        buf = r.render_buffer(scene_data=sd)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches = named_counts(counters)
+    captured = cache.captures() - caps
+    capture = rec["fn"].capture(r.epsilon).seconds if captured else 0.0
+    split = dict(compile=t1 - t0, lookup=rec["seconds"], capture=capture,
+                 replays=t2 - t1 - rec["seconds"] - capture, total=t2 - t0, captures=captured,
+                 passes=spec["spp"] + captured)
+    if dynamic:
+        split["refill_bytes"] = sum(t.numel() * t.element_size() for t in renderer_mod._tensor_leaves(sd))
+    return buf, split, launches
+
+
+def dynamic_cell(cell: str, card: str, counters: dict) -> dict:
+    """`[dynamic]` of one cell: DYNAMIC_FRAMES frames, each through the
+    dynamic path and the static one in turns, bit for bit with equal
+    launch counts; the dynamic loop
+    must capture once; then a frame of another topology, which must make a
+    second entry and capture. Returns the dynamic loop's launches."""
+    import torch
+
+    from rpt_tpu_torch import renderer as renderer_mod
+    from rpt_tpu_torch.ode import MarblesSystem, ParticleState
+    from rpt_tpu_torch.renderer import DEFAULT_EPSILON, SceneCache
+    from rpt_tpu_torch.scenes import (MARBLE_RADIUS, build_dragon_orbit_scene, build_marbles_scene, dragon_camera,
+                                      marbles_camera, marbles_initial_state, trefoil_mesh)
+
+    spec = DYNAMIC_CELLS[cell]
+    renderer_mod._MANY_CACHE = SceneCache()  # earlier phases' graphs and pools go
+    torch.cuda.empty_cache()
+    entries0, caps0 = len(renderer_mod._DYNAMIC_CACHE), renderer_mod._DYNAMIC_CACHE.captures()
+    physics = []
+    if cell == "dragon_orbit":
+        mesh, camera, eps = trefoil_mesh(), dragon_camera(), 1e-3
+
+        def scene_of(i):
+            return build_dragon_orbit_scene(i, DYNAMIC_FRAMES, mesh)
+    else:
+        camera, eps, system = marbles_camera(), DEFAULT_EPSILON, MarblesSystem(MARBLE_RADIUS)
+        states = [marbles_initial_state(device=DEVICE)]
+        for _ in range(DYNAMIC_FRAMES - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states.append(system.rk4_integrate(states[-1], ODE_FRAME, ODE_STEP))
+            torch.cuda.synchronize()
+            physics.append(time.perf_counter() - t0)
+
+        def scene_of(i):
+            return build_marbles_scene(states[i], test_mode=False)
+
+    def same_per_pass(a, b) -> bool:
+        (_, sa, la), (_, sb, lb) = a, b
+        return all(la[n] * sb["passes"] == lb[n] * sa["passes"] for n in la)
+
+    splits = {"dynamic": [], "static": []}
+    total, passes = {n: 0 for n in counters}, 0
+    for i in range(DYNAMIC_FRAMES):
+        ways = ("dynamic", "static") if i % 2 == 0 else ("static", "dynamic")
+        out = {}
+        for way in ways:
+            out[way] = dynamic_frame(cell, way, scene_of(i), camera, eps, i, counters)
+            splits[way].append(out[way][1])
+        (dyn, split, launches), stat = out["dynamic"], out["static"][0]
+        passes += split["passes"]
+        for n, c in launches.items():
+            total[n] += c
+        same = bool(torch.equal(dyn.sum, stat.sum) and torch.equal(dyn.sum_sq, stat.sum_sq))
+        if not same or not same_per_pass(out["dynamic"], out["static"]):
+            fail(f"[dynamic] {cell} frame {i}: dynamic == static {same}, launches {launches} in "
+                 f"{split['passes']} passes, static {out['static'][2]} in {out['static'][1]['passes']}")
+        if not bool(torch.isfinite(dyn.sum).all()):
+            fail(f"[dynamic] {cell} frame {i} is not finite")
+    entries, caps = len(renderer_mod._DYNAMIC_CACHE) - entries0, renderer_mod._DYNAMIC_CACHE.captures() - caps0
+    per_sample = {n: c / passes for n, c in total.items()}
+    walks = {n: c for n, c in per_sample.items() if not n.startswith("threefry")}
+    want = {n: 0 for n in walks}
+    if spec["family"]:
+        want[f"{spec['family']}_closest"] = spec["bounces"] + 1
+        want[f"{spec['family']}_occluded"] = spec["shadow"] * (spec["bounces"] + 1)
+    if entries != 1 or caps != 1 or walks != want or per_sample["threefry"] <= 0:
+        fail(f"[dynamic] {cell}: {entries} entries, {caps} captures, launches per sample {per_sample}, not {want}")
+
+    def mean(way, k):
+        vals = [sp[k] for sp in splits[way]]
+        return sum(vals) / len(vals)
+
+    for way in ("dynamic", "static"):
+        n = len(splits[way])
+        say("dynamic", cell=cell, way=way, frames=n, size="x".join(map(str, spec["size"])), bounces=spec["bounces"],
+            spp=spec["spp"], seconds_per_frame=f"{mean(way, 'total'):.4f}", fps=f"{1.0 / mean(way, 'total'):.3f}",
+            compile_s=f"{mean(way, 'compile'):.4f}", lookup_s=f"{mean(way, 'lookup'):.4f}",
+            capture_s_total=f"{sum(sp['capture'] for sp in splits[way]):.3f}",
+            captures=sum(sp["captures"] for sp in splits[way]), replays_s=f"{mean(way, 'replays'):.4f}",
+            **({"refill_bytes": splits[way][0]["refill_bytes"],
+                "refill_ms_after_first": f"{1e3 * sum(sp['lookup'] for sp in splits[way][1:]) / max(n - 1, 1):.3f}"}
+               if way == "dynamic" else {}),
+            frame_seconds=json.dumps([round(sp["total"], 4) for sp in splits[way]]), card=json.dumps(card))
+    say("dynamic", cell=cell, bit_equal_frames=DYNAMIC_FRAMES, entries=entries, captures=caps,
+        launches=json.dumps(total), passes=passes, launches_per_sample=json.dumps(per_sample),
+        **({"physics_seconds_per_frame": f"{sum(physics) / len(physics):.4f}"} if physics else {}))
+
+    # A frame of another topology: a trefoil of another size, one more marble.
+    if cell == "dragon_orbit":
+        scene = build_dragon_orbit_scene(DYNAMIC_FRAMES, DYNAMIC_FRAMES, trefoil_mesh(segments=500, sides=100))
+    else:
+        last = states[-1]
+        extra = ParticleState(torch.cat([last.pos, torch.tensor([[0.0, 3.0, 0.0]], device=DEVICE)]),
+                              torch.cat([last.vel, torch.zeros(1, 3, device=DEVICE)]))
+        scene = build_marbles_scene(extra, test_mode=False)
+    new_dyn = dynamic_frame(cell, "dynamic", scene, camera, eps, DYNAMIC_FRAMES, counters)
+    new_static = dynamic_frame(cell, "static", scene, camera, eps, DYNAMIC_FRAMES, counters)
+    (dyn, split, _), stat = new_dyn, new_static[0]
+    same = bool(torch.equal(dyn.sum, stat.sum) and torch.equal(dyn.sum_sq, stat.sum_sq))
+    entries2 = len(renderer_mod._DYNAMIC_CACHE) - entries0
+    caps2 = renderer_mod._DYNAMIC_CACHE.captures() - caps0
+    say("dynamic", cell=cell, topology_change="trefoil 100,000 triangles" if cell == "dragon_orbit" else "26 marbles",
+        bit_equal=same, entries=entries2, captures=caps2, launches_per_pass_equal=same_per_pass(new_dyn, new_static),
+        capture_s=f"{split['capture']:.3f}")
+    if not same or entries2 != 2 or caps2 != 2 or not same_per_pass(new_dyn, new_static):
+        fail(f"[dynamic] {cell}'s topology change: bit for bit {same}, {entries2} entries, {caps2} captures")
+    return per_sample
+
+
+def dynamic_phase(card: str) -> dict:
+    """`[dynamic]`: each cell of DYNAMIC_CELLS. Returns {kernel name:
+    (cell, launches per sample pass of the dynamic loop)} of the walks on
+    it."""
+    counters = counted_wrappers()
+    out = {}
+    for cell, spec in DYNAMIC_CELLS.items():
+        t0 = time.perf_counter()
+        per_sample = dynamic_cell(cell, card, counters)
+        say("dynamic", cell=cell, phase_seconds=f"{time.perf_counter() - t0:.1f}")
+        if spec["family"]:
+            for kind in ("closest", "occluded"):
+                name = f"{spec['family']}_{kind}"
+                out[name] = (cell, per_sample[name])
+    return out
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isfile(os.path.join(root, "rpt_tpu_torch", "__init__.py")):
@@ -2097,6 +2375,12 @@ def main():
     # backward's recompute included) of each kernel on it.
     for kernel, (workload, n) in grad_phase(card).items():
         rows[kernel].update(grad_workload=workload, grad_launches_per_sample=n)
+    # Animation: the RK4 frame, then the dynamic path's cells.
+    t0 = time.perf_counter()
+    ode_phase(card)
+    say("ode", phase_seconds=f"{time.perf_counter() - t0:.1f}")
+    for kernel, (cell, n) in dynamic_phase(card).items():
+        rows[kernel].update(dynamic_workload=cell, dynamic_launches_per_sample=n)
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -36,6 +36,7 @@ from .lights import (
 )
 from .camera import Camera
 from .materials import MaterialTable
+from .ode import ParticleState
 from .ops.bvh import bvh_from_arrays
 from .ops.tlas import instanced_from_arrays
 from .scene import (
@@ -49,7 +50,7 @@ from .scene import (
 )
 from .utils.device import resolve_device
 
-__all__ = ["scene_data_from_arrays", "camera_from_arrays"]
+__all__ = ["scene_data_from_arrays", "camera_from_arrays", "particle_state_from_arrays"]
 
 _LIGHTS = {
     cls.__name__: cls
@@ -119,3 +120,9 @@ def camera_from_arrays(arrays: dict) -> Camera:
     """A Camera from a dict of its fields (eye, direction, up, fov, aperture,
     focal_distance) as arrays."""
     return Camera(**{k: np.asarray(v, np.float32) for k, v in arrays.items()})
+
+
+def particle_state_from_arrays(pos, vel, device=None):
+    """An `ode.ParticleState` from arrays of positions and velocities, each
+    (N, 3), on `device` (the CUDA card when None)."""
+    return ParticleState.create(np.asarray(pos, np.float32), np.asarray(vel, np.float32), device=device)

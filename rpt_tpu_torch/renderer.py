@@ -23,6 +23,16 @@ reads. The order (`integrator._auto_compact`, `RPT_COMPACT`) is resolved
 when a scene's passes are made and is fixed in their graph, so a render
 under another `RPT_COMPACT` gets a graph of its own.
 
+`Renderer(dynamic=True)` is the path for animation frames, the reference's
+`_render_many_dynamic`. The reference passes the compiled scene as a jit
+argument, so frames of one topology share one executable. Here frames of
+one topology (`_topology_key`: every tensor's shape, dtype and device and
+every other field of the compiled scene by value, the packs' stack depths
+included, but not the digest) share one entry of `_DYNAMIC_CACHE`: a slot,
+a compiled scene whose tensors are the entry's own, and the sample passes
+over it. Each frame's compiled tensors are copied into the slot's in place
+before the replays, so one capture serves every frame.
+
 A replay launches the kernels without calling their Python wrappers; their
 launch counts live on the device and are added to by the kernels
 themselves (`kernels.launch_counter`), so every replay counts.
@@ -38,7 +48,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -50,12 +59,13 @@ from .camera import _FIELDS as _CAMERA_FIELDS
 from .camera import Camera
 from .integrator import _auto_compact, trace_paths
 from .scene import Scene, SceneData
+from .utils.cuda_graph import Capture, GraphCache
 from .utils.device import resolve_device
 from .utils.vmath import numpy_real, real_value
 
 __all__ = [
     "Renderer", "render_pass_tiled", "pixel_ndc_tiled", "camera_rays_tiled", "scene_cache_key", "SceneCache",
-    "make_render_many_fn", "make_render_fn", "render_pass",
+    "make_render_many_fn", "dynamic_render_many_fn", "make_render_fn", "render_pass",
 ]
 
 # The reference's f64 epsilon does not survive f32; default self-intersection offset.
@@ -132,27 +142,19 @@ def scene_cache_key(scene_data: SceneData) -> str:
 
 
 
-class SceneCache:
-    """Insertion-ordered bounded cache of per-scene functions. Every entry
-    pins the SceneData it was built from, and eviction is FIFO at `cap`
-    entries (an evicted graph frees its memory pool)."""
+class SceneCache(GraphCache):
+    """The per-scene cache of the renderer's functions (the reference's
+    `SceneCache`): every entry pins the SceneData it was built from."""
 
-    def __init__(self, cap: int = 16):
-        self.cap = cap
-        self._entries: dict = {}
-
-    def get(self, key):
-        e = self._entries.get(key)
-        return e[0] if e is not None else None
-
-    def put(self, key, fn, scene_data) -> None:
-        while len(self._entries) >= self.cap:
-            self._entries.pop(next(iter(self._entries)))
-        self._entries[key] = (fn, scene_data)
+    def captures(self) -> int:
+        """CUDA graphs held by the live entries that are sample passes
+        (`make_render_many_fn`'s and the dynamic path's)."""
+        return sum(len(fn.captures) for fn in self.values() if isinstance(fn, _SamplePasses))
 
 
 _PASS_CACHE = SceneCache()
 _MANY_CACHE = SceneCache()
+_DYNAMIC_CACHE = SceneCache()
 
 
 # ---------------------------------------------------------------------------
@@ -212,39 +214,6 @@ def _sample_pass(sd: SceneData, inp: _PassInputs, ndc, max_bounces: int, t_min: 
         inp.counter.add_(1)
 
 
-class _Capture:
-    """One captured sample pass: the graph, the capture's seconds (warm-up
-    included) and the device memory it reserved for the graph's pool."""
-
-    def __init__(self, run: Callable[[], None], device):
-        stream = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(stream)
-        t0 = time.perf_counter()
-        # The eager warm-up, on a side stream as torch.cuda.graphs asks: it
-        # loads every kernel's module, raises the kernels' shared-memory
-        # limits once and makes the device's launch-count table, none of
-        # which may happen inside a capture.
-        with torch.cuda.stream(side):
-            run()
-        stream.wait_stream(side)
-        torch.cuda.synchronize(device)
-        # The pool's size: what stays reserved after the allocator's cache
-        # is emptied, before and after (a live graph's pool is kept).
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(device)
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph):
-                run()
-        except Exception as e:
-            raise RuntimeError(f"capturing the sample pass as a CUDA graph failed: {e}") from e
-        torch.cuda.synchronize(device)
-        self.seconds = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-
-
 class _SamplePasses:
     """Sample passes of one compiled scene at one size and bounce count over
     fixed inputs: captured and replayed on a CUDA device, run eagerly on the
@@ -265,16 +234,16 @@ class _SamplePasses:
         self.ndc = pixel_ndc_tiled(width, height, self.device, self.dtype)
         self.perm = torch.as_tensor(_tile_perm_np(width, height)[0].astype(np.int64), device=self.device)
         self.inputs = _PassInputs.new(width * height, self.device, self.dtype)
-        self.captures: dict = {}  # t_min -> _Capture
+        self.captures: dict = {}  # t_min -> Capture
 
     def _run(self, t_min: float) -> None:
         _sample_pass(self.sd, self.inputs, self.ndc, self.max_bounces, t_min, self.fold, self.compact)
 
-    def capture(self, t_min: float) -> _Capture:
+    def capture(self, t_min: float) -> Capture:
         """The graph of a pass at `t_min`, captured on first use."""
         t_min = real_value(t_min, self.dtype)
         if t_min not in self.captures:
-            self.captures[t_min] = _Capture(lambda: self._run(t_min), self.device)
+            self.captures[t_min] = Capture(lambda: self._run(t_min), self.device, "the sample pass")
         return self.captures[t_min]
 
     def __call__(self, camera: Camera, key, start: int, n: int, t_min, ev_scale, into=None):
@@ -334,6 +303,94 @@ def _eager_render_many_fn(scene_data: SceneData, width: int, height: int, max_bo
     return _SamplePasses(scene_data, width, height, max_bounces, _auto_compact(scene_data), eager=True)
 
 
+# ---------------------------------------------------------------------------
+# The dynamic path: one graph per scene topology, refilled frame by frame
+# ---------------------------------------------------------------------------
+
+
+def _scene_fields(x) -> list:
+    """The fields of a dataclass node of a compiled scene's tree that the
+    dynamic path walks, for its key, its slot and its refill alike. The
+    digest names the content, which a topology leaves free; the pass reads
+    the environment through env_color, env_hdri and env_quad, never through
+    the host object."""
+    return [f.name for f in dataclasses.fields(x)
+            if not (isinstance(x, SceneData) and f.name in ("digest", "environment"))]
+
+
+def _leaves(x, path: str = ""):
+    """(path, value) of every leaf of a compiled scene's tree, in field
+    order: tensors, and the non-tensor fields (ints, None, the device)."""
+    if isinstance(x, torch.Tensor):
+        yield path, x
+    elif dataclasses.is_dataclass(x):
+        yield path, type(x).__qualname__
+        for name in _scene_fields(x):
+            yield from _leaves(getattr(x, name), f"{path}.{name}")
+    elif isinstance(x, tuple):
+        yield path, len(x)
+        for i, v in enumerate(x):
+            yield from _leaves(v, f"{path}[{i}]")
+    else:
+        yield path, x
+
+
+def _tensor_leaves(scene_data: SceneData) -> list:
+    return [v for _, v in _leaves(scene_data) if isinstance(v, torch.Tensor)]
+
+
+def _topology_key(scene_data: SceneData, width: int, height: int, max_bounces: int) -> tuple:
+    """The key of a scene's dynamic passes: every tensor leaf's path,
+    shape, dtype and device, every other field by value (the packs'
+    `group_depth`, `stack_depth`, `n_tlas`, which parts are None, the
+    lights' classes in order, the device), and the size, bounces and
+    wavefront order, as `_pass_key`. The digest is left out, as the
+    reference strips it: frames that differ only in tensor values share a
+    key. A captured pass may read a host value of the scene only if it is
+    in this key: the packs' ints are launch arguments and launch geometry
+    that a graph freezes."""
+    leaves = tuple(
+        (path, tuple(v.shape), v.dtype, v.device) if isinstance(v, torch.Tensor) else (path, v)
+        for path, v in _leaves(scene_data)
+    )
+    return (leaves, width, height, max_bounces, _auto_compact(scene_data))
+
+
+def dynamic_render_many_fn(scene_data: SceneData, width: int, height: int, max_bounces: int):
+    """`make_render_many_fn` for animation frames (`Renderer(dynamic=True)`,
+    the reference's `_render_many_dynamic`): frames whose scenes share a
+    topology (`_topology_key`) share one entry of `_DYNAMIC_CACHE`, which
+    owns a slot (a SceneData whose tensors are clones of the first frame's,
+    so no frame's own tensors are captured) and the sample passes over it.
+    Each call copies the frame's tensors into the slot's, in place on the
+    current stream, where the graph replays; the pass then captures on
+    first use and replays, as `make_render_many_fn`'s does. A new topology
+    gets a new entry and a new capture."""
+    key = _topology_key(scene_data, width, height, max_bounces)
+    fn = _DYNAMIC_CACHE.get(key)
+    if fn is None:
+        # The slot keys no content: its digest is cleared.
+        slot = dataclasses.replace(_map_tensors(scene_data, torch.clone), digest="")
+        fn = _SamplePasses(slot, width, height, max_bounces, key[-1])
+        _DYNAMIC_CACHE.put(key, fn, slot)
+    else:
+        for dst, src in zip(_tensor_leaves(fn.sd), _tensor_leaves(scene_data), strict=True):
+            dst.copy_(src)
+    return fn
+
+
+def _map_tensors(x, fn):
+    """A copy of a compiled scene's tree with fn applied to every tensor
+    that `_leaves` yields; the fields it skips are kept as they are."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple):
+        return tuple(_map_tensors(v, fn) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{name: _map_tensors(getattr(x, name), fn) for name in _scene_fields(x)})
+    return x
+
+
 def make_render_fn(scene_data: SceneData, width: int, height: int, max_bounces: int):
     """(camera, key, t_min, ev_scale) -> one (H, W, 3) frame keyed by `key`,
     as a CUDA graph on a CUDA device; cached per (scene, resolution,
@@ -374,6 +431,7 @@ class Renderer:
         epsilon: float = DEFAULT_EPSILON,
         seed: int = 0,
         dtype=torch.float32,
+        dynamic: bool = False,
         device=None,
     ):
         if dtype not in (torch.float32, torch.float64):
@@ -390,6 +448,10 @@ class Renderer:
         self.num_samples = num_samples
         self.epsilon = epsilon
         self.seed = seed
+        # dynamic=True: for frame loops whose geometry moves but whose
+        # topology stays; one graph serves every frame
+        # (`dynamic_render_many_fn`).
+        self.dynamic = dynamic
 
     def set_width(self, width: int) -> "Renderer":
         self.width = width
@@ -444,9 +506,11 @@ class Renderer:
         """Add `iterations` samples per pixel to the buffer, samples
         start_iter .. start_iter+iterations-1 of the seed's stream; on a
         CUDA device one replay of the captured pass per sample
-        (`make_render_many_fn`). `scene_data` overrides the scene's own
-        compile (e.g. a converted reference scene)."""
-        return self._sample_with(make_render_many_fn, buffer, iterations, start_iter, scene_data)
+        (`make_render_many_fn`, or `dynamic_render_many_fn` when
+        `dynamic`). `scene_data` overrides the scene's own compile (e.g. a
+        converted reference scene)."""
+        make_fn = dynamic_render_many_fn if self.dynamic else make_render_many_fn
+        return self._sample_with(make_fn, buffer, iterations, start_iter, scene_data)
 
     def _sample_into_eager(self, buffer: Buffer, iterations: int, start_iter: int = 0,
                            scene_data: Optional[SceneData] = None) -> Buffer:

@@ -29,6 +29,13 @@
   stand-in for the downloaded one. The camera is `Camera()`.
 - `monomial_light`: the scene of `tests/test_monomial_light.py`, an
   emissive monomial surface over a plane, and that test's camera.
+- `dragon_orbit`: `dragon` with its large sphere light circling the
+  trefoil, one frame per call; the mesh and so the scene's topology stay.
+- `marbles`: a copy of `examples/marbles.py` (`initial_state`,
+  `build_scene` and its camera): 25 marbles of radius 0.15 falling into a
+  clear height-2 monomial glass on a table polygon, under the sphere light
+  at y = 5 (or an ambient light in the example's test mode); the state
+  advances by `ode.MarblesSystem(0.15)`.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ from .color import hex_color
 from .environment import Environment
 from .lights import AmbientLight, ObjectLight, PointLight
 from .materials import Material
+from .ode import ParticleState
+from .ode.particle import monomial_closest_point
 from .scene import Object, Scene
 from .shapes import Mesh, Transformed, cube, monomial_surface, plane, polygon, sphere, triangle_mesh
 
@@ -66,6 +75,10 @@ __all__ = [
     "monomial_glass_camera",
     "build_monomial_light_scene",
     "monomial_light_camera",
+    "build_dragon_orbit_scene",
+    "marbles_initial_state",
+    "marbles_camera",
+    "build_marbles_scene",
 ]
 
 
@@ -144,14 +157,17 @@ def dragon_knot_size(target_tris: int) -> tuple:
     return -(-target_tris // (2 * sides)), sides
 
 
-def build_dragon_scene(segments: int = 600, sides: int = 100, target_tris: Optional[int] = None) -> Scene:
+def build_dragon_scene(segments: int = 600, sides: int = 100, target_tris: Optional[int] = None,
+                       mesh: Optional[Mesh] = None, light_position=(0.0, 20.0, 3.0)) -> Scene:
     """The dragon scene; the default knot has 120,000 triangles, and
     `target_tris` sizes it instead (`dragon871k`: 871,000, the real
-    dragon's count)."""
+    dragon's count). `mesh` is a trefoil made before (`trefoil_mesh`), and
+    `light_position` the large sphere light's center."""
     if target_tris:
         segments, sides = dragon_knot_size(target_tris)
     scene = Scene()
-    mesh = trefoil_mesh(segments=segments, sides=sides)
+    if mesh is None:
+        mesh = trefoil_mesh(segments=segments, sides=sides)
     scene.add(
         Object(mesh.scale([3.4, 3.4, 3.4]).rotate_y(math.pi / 2)).material(
             Material.specular(hex_color(0xB7CA79), 0.1)
@@ -161,7 +177,7 @@ def build_dragon_scene(segments: int = 600, sides: int = 100, target_tris: Optio
     scene.add(AmbientLight((0.01, 0.01, 0.01)))
     scene.add(
         ObjectLight(
-            Object(sphere().scale([2.0, 2.0, 2.0]).translate([0.0, 20.0, 3.0])).material(
+            Object(sphere().scale([2.0, 2.0, 2.0]).translate(list(light_position))).material(
                 Material.light((1.0, 1.0, 1.0), 160.0)
             )
         )
@@ -178,6 +194,66 @@ def build_dragon_scene(segments: int = 600, sides: int = 100, target_tris: Optio
 
 def dragon_camera() -> Camera:
     return Camera.look_at((-2.5, 4.0, 6.5), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), math.pi / 6)
+
+
+def build_dragon_orbit_scene(frame: int, frames: int, mesh: Optional[Mesh] = None) -> Scene:
+    """Frame `frame` of `frames` of the `dragon_orbit` animation: the dragon
+    scene with its large sphere light moved from (0, 20, 3) to
+    (3 sin t, 20, 3 cos t), t = 2 pi frame / frames. The trefoil (`mesh`,
+    the default knot when None) is the same every frame, so every frame has
+    one topology."""
+    theta = _TWO_PI * frame / frames
+    return build_dragon_scene(mesh=mesh, light_position=(3.0 * math.sin(theta), 20.0, 3.0 * math.cos(theta)))
+
+
+MARBLE_COLORS = (0x264653, 0x2A9D8F, 0xE9C46A, 0xF4A261, 0xE76F51)
+MARBLES = 25
+MARBLE_RADIUS = 0.15
+
+
+def marbles_initial_state(seed: int = 123, device=None):
+    """The 25 marbles of `examples/marbles.py` above the glass, at rest: a 5
+    x 5 grid in x and z, heights drawn from RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    pos = np.stack([np.array([(i // 5) / 5.0 - 0.375, rng.uniform(4.0, 6.0), (i % 5) / 5.0 - 0.375])
+                    for i in range(MARBLES)])
+    return ParticleState.create(pos, device=device)
+
+
+def marbles_camera() -> Camera:
+    return Camera.look_at([0.0, 1.0, 6.0], [0.0, 1.0, 0.0], [0.0, 1.0, 0.0], math.pi / 4).focus([0.0, 1.0, 0.0], 0.02)
+
+
+def build_marbles_scene(state, test_mode: bool) -> Scene:
+    """`examples/marbles.py`'s frame for a particle state: the height-2
+    monomial glass (clear), one specular sphere per marble (pushed out of
+    the glass to 1.05 radii and onto the table, as the example draws them),
+    the table polygon, and an ambient light (`test_mode`) or the sphere
+    light at y = 5. Every marble of the state is drawn (the example draws
+    its 25)."""
+    scene = Scene()
+    if test_mode:
+        scene.add(AmbientLight((0.01, 0.01, 0.01)))
+    else:
+        scene.add(ObjectLight(Object(sphere().scale([1.5] * 3).translate([0.0, 5.0, 0.0]))
+                              .material(Material.light(hex_color(0xFFFFFF), 15.0))))
+    scene.add(Object(monomial_surface(2.0, 4.0)).material(Material.clear(1.5, 0.0001)))
+
+    pos = state.pos.detach().cpu().numpy()
+    closest = monomial_closest_point(state.pos, 2.0, resolution=2001).cpu().numpy()
+    R = MARBLE_RADIUS
+    for i in range(pos.shape[0]):
+        p = pos[i].copy()
+        vec = p - closest[i]
+        ln = np.linalg.norm(vec)
+        if ln < R * 1.05 and ln > 0:
+            p = closest[i] + vec / ln * R * 1.05
+        p[1] = max(p[1], R - 0.06)
+        scene.add(Object(sphere().scale([R] * 3).translate(p))
+                  .material(Material.specular(hex_color(MARBLE_COLORS[i % len(MARBLE_COLORS)]), 0.1)))
+    scene.add(Object(polygon([[20.0, -0.06, 20.0], [20.0, -0.06, -20.0], [-20.0, -0.06, -20.0],
+                              [-20.0, -0.06, 20.0]])).material(Material.diffuse(hex_color(0xAAAAAA))))
+    return scene
 
 
 def _stud_brick_tris(nx, nz, segments):

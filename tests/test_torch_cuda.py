@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import rpt_tpu_torch
 import rpt_tpu_torch.scene as scene_mod
 from rpt_tpu_torch import (
     Buffer, Camera, Material, Object, Renderer, Scene, Transformed, kernels, sphere, triangle_mesh,
@@ -808,6 +809,90 @@ def test_camera_gradient_without_a_bvh_equals_the_cpu(card):
         got = grads[str(card)][f]
         assert bool(torch.isfinite(got).all())
         assert float((got - want).abs().max()) <= 1e-3 * float(want.abs().max()), f
+
+
+def _dynamic_frames(family, monkeypatch, frames=3):
+    """Frames of one topology through `family`'s kernels: the small trefoil
+    (bvh8) under a sphere light that moves, or shared meshes (tlas8) whose
+    instances all move by one offset, which keeps the TLAS's shape."""
+    if family == "bvh8":
+        monkeypatch.setattr(scene_mod, "WIDE_KERNEL_MIN_TRIS", 4096)
+        mesh = scenes.trefoil_mesh(segments=125, sides=20)
+        return [scenes.build_dragon_scene(mesh=mesh, light_position=(3.0 * np.sin(i), 20.0, 3.0 * np.cos(i)))
+                for i in range(frames)], scenes.dragon_camera()
+    meshes, instances, _, _ = _instanced_and_rays(2, 12, 1, seed=3)
+    out = []
+    for i in range(frames):
+        scene = Scene()
+        for k, m, mat in instances:
+            m = m.copy()
+            m[0, 3] += 0.5 * i
+            scene.add(Object(Transformed(meshes[k], m)).material(Material.diffuse((0.2 + 0.2 * mat, 0.5, 0.5))))
+        scene.add(rpt_tpu_torch.PointLight((30.0, 30.0, 30.0), (0.0, 8.0, 4.0)))
+        out.append(scene)
+    return out, Camera.look_at((0.0, 4.0, 12.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), 0.8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["bvh8", "tlas8"])
+def test_dynamic_frames_equal_static_renders_with_one_capture(card, family, monkeypatch):
+    """Each frame through the dynamic path's one graph equals its static
+    render (a graph of its own), bit for bit, with the same kernels counted
+    per pass (the first frame's capture runs one eager warm-up pass more);
+    the loop captures once."""
+    monkeypatch.setattr(renderer_mod, "_DYNAMIC_CACHE", renderer_mod.SceneCache())
+    frames, cam = _dynamic_frames(family, monkeypatch)
+    keys = {renderer_mod._topology_key(f.compile(), 64, 48, 2) for f in frames}
+    assert len(keys) == 1 and getattr(frames[0].compile(), family) is not None
+    for i, scene in enumerate(frames):
+        r = dict(width=64, height=48, max_bounces=2, num_samples=2, seed=4)
+        before = _counts()
+        dyn = Renderer(scene, cam, dynamic=True, **r).render_buffer()
+        mid = _counts()
+        static_r = Renderer(scene, cam, **r)
+        static_r.render_buffer()  # captures the static graph
+        mid2 = _counts()
+        static = static_r.render_buffer()
+        after = _counts()
+        passes = 2 + (i == 0)
+        assert torch.equal(dyn.sum, static.sum) and torch.equal(dyn.sum_sq, static.sum_sq)
+        assert {k: 2 * (mid[k] - before[k]) for k in mid} == {k: passes * (after[k] - mid2[k]) for k in mid}
+        assert mid[f"{family}_closest"] - before[f"{family}_closest"] == 3 * passes
+    assert len(renderer_mod._DYNAMIC_CACHE) == 1 and renderer_mod._DYNAMIC_CACHE.captures() == 1
+
+
+@pytest.mark.cuda
+def test_dynamic_pack_of_another_depth_gets_its_own_capture(card, monkeypatch):
+    """The same tensors with a deeper group stack: another key, another
+    capture (its launch geometry differs), the same image."""
+    monkeypatch.setattr(renderer_mod, "_DYNAMIC_CACHE", renderer_mod.SceneCache())
+    (scene,), cam = _dynamic_frames("bvh8", monkeypatch, frames=1)
+    sd = scene.compile()
+    deeper = dataclasses.replace(sd, bvh8=dataclasses.replace(sd.bvh8, group_depth=sd.bvh8.group_depth + 1))
+    r = Renderer(scene, cam, width=64, height=48, max_bounces=1, num_samples=1, seed=2, dynamic=True)
+    a = r.render_buffer(scene_data=sd)
+    b = r.render_buffer(scene_data=deeper)
+    assert renderer_mod._DYNAMIC_CACHE.captures() == 2 and len(renderer_mod._DYNAMIC_CACHE) == 2
+    assert torch.equal(a.sum, b.sum) and torch.equal(a.sum_sq, b.sum_sq)
+
+
+@pytest.mark.cuda
+def test_graphed_rk4_equals_eager(card):
+    """`rk4_integrate` replays one captured step; the eager loop runs the
+    same kernels: positions and velocities bit for bit, and the next call
+    does not overwrite a state the caller holds."""
+    from rpt_tpu_torch.ode import MarblesSystem, ParticleState
+
+    packed = np.random.RandomState(42).randn(25, 3) * 0.3 + np.array([0.0, 2.0, 0.0])
+    system = MarblesSystem(0.15)
+    for pos in (scenes.marbles_initial_state().pos, packed):
+        state = ParticleState.create(pos)
+        graphed = system.rk4_integrate(state, 1.0 / 16.0, 1.0 / 2000.0)
+        held = graphed.pos.clone()
+        eager = system._rk4_eager(state, 1.0 / 16.0, 1.0 / 2000.0)
+        assert torch.equal(graphed.pos, eager.pos) and torch.equal(graphed.vel, eager.vel)
+        system.rk4_integrate(eager, 1.0 / 16.0, 1.0 / 2000.0)
+        assert torch.equal(graphed.pos, held)
 
 
 def test_capture_fails_loudly(card, monkeypatch):
