@@ -137,15 +137,45 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    of another topology (a trefoil of 100,000 triangles, a 26th marble)
    must make a second entry and capture, bit for bit with its static
    render;
-7. prints one JSON line `{"kernels": [...]}` with one row for each of the
+7. `[sharded]`, the sharded render (`rpt_tpu_torch.parallel`): `dragon`
+   at 960x540, 2 bounces, spp 4, through `render_distributed` on meshes of
+   1, 2, 4 and 7 shards of the one card (7 pads 518,400 pixels by 6), each
+   shard a CUDA graph of its own walking its slice with the bvh8 kernels:
+   every mesh graphed against its shards run eagerly, bit for bit, and
+   counted on the card from 0 (3 closest and 6 any-hit walks per shard
+   and sample); every bvh8 wavefront of one eager sample of the last shard
+   of the 4- and 7-shard meshes (129,600 and 74,058 rays, neither a whole
+   number of blocks; the 7th holds the 6 pad rays) against the plain walk,
+   bit for bit; `make_sharded_many_fn` in two chunks against one call and
+   `render_pass_sharded` against one sample of it, bit for bit; Mrays/s of
+   each mesh in turns with `render_buffer` (median of 3), and one sample
+   of each profiled (device-busy ms, idle share, kernels); the
+   reference's shard form of the jitter (a draw in [-1, 1) times 1/dim)
+   against the draw in [-1/dim, 1/dim) that every pass takes, bit for bit,
+   and the extra multiply it would cost; each shard's graph pool; a 64x48
+   4-shard render on the card against the CPU;
+8. `[multihost]`: two processes of this script (`--multihost-worker`),
+   each with 2 shards on the one card, joined over gloo, render the
+   4-shard frame with `render_multihost`: both hold the same frame, bit
+   for bit the in-process 4-shard render; the all-gather's ms and its
+   share of the call;
+9. `[sharded_grad]`: `make_sharded_diff_fn` on 4 shards: one forward and
+   backward step and one SGD step on `dragon` at 960x540 (timed, walks
+   counted per shard, a finite loss), and at 64x48 on the 5,000-triangle
+   trefoil the card's gradient against the CPU's within `[grad]`'s bar;
+10. prints one JSON line `{"kernels": [...]}` with one row for each of the
    eight traversal kernels and the threefry kernel (the bvh8 and tlas8
    rows with their launches per differentiated sample, the bvh8 rows also
-   per sample of the dynamic loop), then one for each
+   per sample of the dynamic loop and per shard and sample of the sharded
+   render), then one for each
    float64 instantiation (`<kernel>_f64`, and `threefry_f64` for the
    64-bit modes), then the last line `{"ok": true, "device": {...}}`.
 
 A failed phase prints FAIL and exits nonzero with no result. It imports
-nothing of JAX or of the JAX package.
+nothing of JAX or of the JAX package. `python3 chip_smoke.py --multicard`,
+on a host with several cards, runs the build and `multicard_phase` alone. `python3 chip_smoke.py
+--multihost-worker <rank> <nproc> <port> <dir> <backend> <devices>` is
+one process of a multi-process render; the script starts them itself.
 """
 
 from __future__ import annotations
@@ -302,6 +332,19 @@ DYNAMIC_CELLS = {
     "marbles": dict(size=(800, 600), bounces=9, spp=2, family=None),
 }
 DYNAMIC_FRAMES = 8
+# `[sharded]`: the sharded render (`rpt_tpu_torch.parallel`) of `dragon`
+# at the main path's size, bounces and samples, its pixels split over
+# meshes of SHARDED_MESHES shards of the one card (7 pads 518,400 pixels
+# by 6), each timed in SHARDED_TURNS turns beside `render_buffer`;
+# `[multihost]`: MULTIHOST_PROCS processes of MULTIHOST_SHARDS shards each
+# on the card over gloo (NCCL puts no two processes on one card);
+# `[sharded_grad]`: the sharded material gradient on SHARDED_GRAD_SHARDS.
+SHARDED = dict(workload="dragon", bounces=2, spp=4, shadow=2, family="bvh8")
+SHARDED_MESHES = (1, 2, 4, 7)
+SHARDED_TURNS = 3
+MULTIHOST_PROCS, MULTIHOST_SHARDS = 2, 2
+MULTIHOST_TIMEOUT = 300
+SHARDED_GRAD_SHARDS = 4
 
 
 def fail(msg: str):
@@ -2304,6 +2347,500 @@ def dynamic_phase(card: str) -> dict:
     return out
 
 
+def sharded_renderer(spp: int, size=None, device=None):
+    """The `[sharded]` workload's renderer (`dragon`, 2 bounces), at the
+    main path's size and on the card unless told otherwise."""
+    from rpt_tpu_torch import Renderer
+    from rpt_tpu_torch.bench import scene_and_camera
+
+    scene, camera, eps = scene_and_camera(SHARDED["workload"])
+    (w, h) = size or (WIDTH, HEIGHT)
+    return Renderer(scene, camera, width=w, height=h, max_bounces=SHARDED["bounces"], num_samples=spp,
+                    epsilon=eps, device=device or DEVICE)
+
+
+def shard_parity(sd, camera, key, t_min, ev, counts) -> None:
+    """Every bvh8 wavefront of one eager sample of the last shard of a mesh
+    of each of `counts` shards on the card, against the plain walk, bit for
+    bit (`check_closest`, `check_occluded`): the shards' own lengths, pad
+    rays included, which end in a partial block."""
+    import rpt_tpu_torch.scene as scene_mod
+    from rpt_tpu_torch.integrator import _auto_compact
+    from rpt_tpu_torch.parallel import sharding
+
+    family, bounces, shadow = SHARDED["family"], SHARDED["bounces"], SHARDED["shadow"]
+    closest, occluded = f"{family}_closest", f"{family}_occluded"
+    mod, pack = family_module(family), getattr(sd, family)
+    mat_of = material_of(family, sd, pack)
+    kern = {name: (lambda *a, f=getattr(mod, f"{name}_kernel"): f(pack, *a)) for name in (closest, occluded)}
+    plain = {name: (lambda *a, f=getattr(mod, f"{name}_plain"): f(pack, *a)) for name in (closest, occluded)}
+    for n in counts:
+        mesh = sharding.RayMesh(devices=(DEVICE,) * n, local=(n - 1,))
+        passes = sharding._ShardedPasses(sd, WIDTH, HEIGHT, bounces, mesh, _auto_compact(sd), eager=True)
+        rec = record_wavefronts(scene_mod, (closest, occluded),
+                                lambda: passes.local_sums(camera, key, 0, 1, t_min, ev))
+        m = passes.shards[0].inputs.ss.shape[0]
+        if len(rec[closest]) != bounces + 1 or len(rec[occluded]) != shadow * (bounces + 1) or \
+                any(args[0].shape[0] != m for v in rec.values() for args in v):
+            fail(f"[sharded] shard {n - 1} of {n} made {len(rec[closest])} closest-hit and "
+                 f"{len(rec[occluded])} any-hit calls, or not of its {m} rays")
+        for depth, args in enumerate(rec[closest]):
+            check_closest(closest, f"shard{n - 1}of{n}_depth{depth}", kern[closest], plain[closest], mat_of, *args)
+        for j, args in enumerate(rec[occluded]):
+            check_occluded(occluded, f"shard{n - 1}of{n}_shadow{j}", kern[occluded], plain[occluded],
+                           plain[closest], *args)
+        say("sharded", shard_parity=f"{n - 1} of {n}", rays=m, partial_block_rays=m % 128,
+            pad=m * n - WIDTH * HEIGHT, wavefronts=len(rec[closest]) + len(rec[occluded]), bit_equal=True)
+
+
+def sharded_phase(card: str) -> dict:
+    """`[sharded]` (see the module docstring). Returns the bvh8 walks'
+    launches per shard and sample."""
+    import numpy as np
+    import torch
+
+    from rpt_tpu_torch import kernels
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.parallel import make_ray_mesh, make_sharded_many_fn, render_distributed, render_pass_sharded
+    from rpt_tpu_torch.parallel import sharding
+    from rpt_tpu_torch.renderer import pixel_ndc_tiled
+
+    t_phase = time.perf_counter()
+    counters = counted_wrappers()
+    bounces, spp, shadow, family = SHARDED["bounces"], SHARDED["spp"], SHARDED["shadow"], SHARDED["family"]
+    r = sharded_renderer(spp)
+    sd, t_min, ev = r._pass_args()
+    if getattr(sd, family) is None:
+        fail(f"[sharded] {SHARDED['workload']} compiled without a {family} pack")
+    base = r.base_key()
+    meshes = {n: make_ray_mesh(n, device=DEVICE) for n in SHARDED_MESHES}
+    rays = (bounces + 1) * (1 + shadow) * WIDTH * HEIGHT * spp
+    per_shard = {}
+    for n, mesh in meshes.items():
+        t0 = time.perf_counter()
+        graphed = render_distributed(r, mesh)  # captures every shard's graph
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        eager = sharding._eager_sharded_many_fn(sd, WIDTH, HEIGHT, bounces, mesh)(r.camera, base, 0, spp, t_min, ev)
+        fn = make_sharded_many_fn(sd, WIDTH, HEIGHT, bounces, mesh)
+        # The main path of this slice: every count to 0, drive, read.
+        kernels.reset_launch_counts()
+        again = render_distributed(r, mesh)
+        launches = named_counts(counters)
+        bit = bool(torch.equal(graphed.sum, eager[0]) and torch.equal(graphed.sum_sq, eager[1]))
+        again_bit = bool(torch.equal(graphed.sum, again.sum) and torch.equal(graphed.sum_sq, again.sum_sq))
+        caps = [p.captures[t_min] for p in fn.shards]
+        m = fn.shards[0].inputs.ss.shape[0]
+        per_shard[n] = {k: launches[k] / (n * spp) for k in (f"{family}_closest", f"{family}_occluded")}
+        img = graphed.mean_image()
+        say("sharded", workload=SHARDED["workload"], size=f"{WIDTH}x{HEIGHT}", bounces=bounces, spp=spp, shards=n,
+            pixels_per_shard=m, pad=m * n - WIDTH * HEIGHT, graphed_vs_eager_bit_equal=bit,
+            again_bit_equal=again_bit, first_call_seconds=f"{first_s:.3f}",
+            capture_seconds=json.dumps([round(c.seconds, 3) for c in caps]),
+            pool_mib_per_shard=json.dumps([round(c.pool_bytes / 2**20, 1) for c in caps]),
+            launches=json.dumps(launches), launches_per_shard_sample=json.dumps(per_shard[n]),
+            image_mean=f"{float(img.mean()):.6f}", card=json.dumps(card))
+        want = {name: 0 for name in counters}
+        per_pass = (bounces + 1) * n * spp
+        want.update({f"{family}_closest": per_pass, f"{family}_occluded": shadow * per_pass,
+                     "threefry": launches["threefry"]})
+        if not (bit and again_bit) or launches != want or launches["threefry"] <= 0:
+            fail(f"[sharded] the {n}-shard render differs from its eager shards ({bit}, {again_bit}) or launched "
+                 f"{launches}, not {want}")
+        if not bool(torch.isfinite(img).all()) or float(img.mean()) <= 0.0:
+            fail(f"[sharded] the {n}-shard image is not finite or is black")
+
+    # Both sides of the checks above replay the same kernels: hold them
+    # against the plain walk on the shards' own wavefronts.
+    shard_parity(sd, r.camera, base, t_min, ev, (4, 7))
+
+    # Chunks and one pass, on 4 shards.
+    mesh4 = meshes[4]
+    fn4 = make_sharded_many_fn(sd, WIDTH, HEIGHT, bounces, mesh4)
+    whole = fn4(r.camera, base, 0, spp, t_min, ev)
+    chunked = fn4(r.camera, base, 2, spp - 2, t_min, ev, into=fn4(r.camera, base, 0, 2, t_min, ev))
+    chunk_bit = bool(torch.equal(whole[0], chunked[0]) and torch.equal(whole[1], chunked[1]))
+    one = render_pass_sharded(sd, r.camera, rnd.fold_in(base, 0), WIDTH, HEIGHT, bounces, t_min, ev, mesh4)
+    pass_bit = bool(torch.equal(one, fn4(r.camera, base, 0, 1, t_min, ev)[0]))
+    say("sharded", shards=4, chunks_2_plus_2_vs_one_call_bit_equal=chunk_bit,
+        render_pass_sharded_vs_one_sample_bit_equal=pass_bit)
+    if not (chunk_bit and pass_bit):
+        fail("[sharded] chunks or one sharded pass differ from one call")
+
+    # Mrays/s in turns: render_buffer and every mesh, the order reversed
+    # every other turn.
+    calls = {"render_buffer": r.render_buffer, **{f"{n}_shards": (lambda m=mesh: render_distributed(r, m))
+                                                 for n, mesh in meshes.items()}}
+    r.render_buffer()  # captures the single-device graph
+    seconds = {name: [] for name in calls}
+    for turn in range(SHARDED_TURNS):
+        for name in (list(calls) if turn % 2 == 0 else list(calls)[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[name]()
+            torch.cuda.synchronize()
+            seconds[name].append(time.perf_counter() - t0)
+    mrays = {name: rays / statistics.median(v) / 1e6 for name, v in seconds.items()}
+    for name, v in seconds.items():
+        say("sharded", call=name, turns=SHARDED_TURNS, seconds=json.dumps([round(t, 5) for t in v]),
+            mrays_per_s=f"{mrays[name]:.3f}", over_render_buffer=f"{mrays[name] / mrays['render_buffer']:.4f}",
+            card=json.dumps(card))
+
+    # One sample of each through its cached graphs alone, profiled: the
+    # card's busy time, its idle share and the kernels a sample runs.
+    one_sample = {"render_buffer": replay_fn(r), **{
+        f"{n}_shards": (lambda f=make_sharded_many_fn(sd, WIDTH, HEIGHT, bounces, mesh):
+                        f(r.camera, base, 0, 1, t_min, ev)) for n, mesh in meshes.items()}}
+    for name, f in one_sample.items():
+        wall_us, busy, events = profiled(f)
+        if not events:
+            say("sharded", call=name, profiled="one sample",
+                device_time="not measured (the profiler recorded no CUDA kernels)")
+            continue
+        by_name = device_us_by_name(events)
+        walk = sum(v for k, v in by_name.items() if f"{family}_walk" in k) / sum(by_name.values())
+        say("sharded", call=name, profiled="one sample", window_ms=f"{wall_us / 1e3:.2f}",
+            device_busy_ms=f"{busy / 1e3:.2f}", idle_share=f"{1.0 - busy / wall_us:.3f}", kernel_launches=len(events),
+            **{f"{family}_share_of_device_time": f"{walk:.3f}"}, card=json.dumps(card))
+
+    # The reference's shard form of the jitter (drawn in [-1, 1), times
+    # 1/dim) against the draw in [-1/dim, 1/dim) that every pass takes
+    # (`renderer.jittered_ndc`), on the same key and pixels, and what its
+    # extra multiply would cost in a graph.
+    key = rnd.to_device(rnd.fold_in(base, 0), DEVICE)
+    dim = pixel_ndc_tiled(WIDTH, HEIGHT, DEVICE)[2]
+    single = lambda: rnd.uniform(key, (2, WIDTH * HEIGHT), minval=-1.0 / dim, maxval=1.0 / dim)  # noqa: E731
+    scale = float(np.float32(1.0 / dim))
+    shard = lambda: rnd.uniform(key, (2, WIDTH * HEIGHT), minval=-1.0, maxval=1.0) * scale  # noqa: E731
+    same = bool(torch.equal(single(), shard()))
+    ms = {name: (time_ms(f, [()], 50), time_graph_ms(f, [()], 50))
+          for name, f in (("single", single), ("shard", shard))}
+    say("sharded", jitter="uniform(-1/dim, 1/dim) vs uniform(-1, 1) * f32(1/dim)", n=2 * WIDTH * HEIGHT,
+        bit_equal=same, single_ms=f"{ms['single'][0]:.5f}", single_graph_ms=f"{ms['single'][1]:.5f}",
+        shard_ms=f"{ms['shard'][0]:.5f}", shard_graph_ms=f"{ms['shard'][1]:.5f}",
+        extra_multiply_graph_ms=f"{ms['shard'][1] - ms['single'][1]:.5f}", card=json.dumps(card))
+    if not same:
+        fail("[sharded] the reference's shard form of the jitter differs from the draw every pass takes")
+
+    # The card against the CPU on a small 4-shard render.
+    small = {}
+    for dev in ("cpu", DEVICE):
+        rs = sharded_renderer(1, size=(SMALL_W, SMALL_H), device=dev)
+        small[dev] = render_distributed(rs, make_ray_mesh(4, device=dev)).mean_image().cpu().numpy()
+    a, b = small["cpu"], small[DEVICE]
+    close = float(np.isclose(b, a, rtol=1e-3, atol=1e-4).all(-1).mean())
+    mean_rel = abs(float(b.mean()) - float(a.mean())) / max(abs(float(a.mean())), 1e-12)
+    say("sharded", cpu_vs_card=f"{SMALL_W}x{SMALL_H}", shards=4, pixels_close=f"{close:.5f}",
+        mean_rel=f"{mean_rel:.3e}")
+    if not (np.isfinite(b).all() and close >= 0.99 and mean_rel <= 1e-3):
+        fail("[sharded] the CPU and card 4-shard renders disagree")
+    say("sharded", phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=json.dumps(card))
+    if any(v != per_shard[SHARDED_MESHES[0]] for v in per_shard.values()):
+        fail(f"[sharded] launches per shard and sample differ between meshes: {per_shard}")
+    return per_shard[SHARDED_MESHES[0]]
+
+
+def multihost_worker(rank: int, nproc: int, port: str, outdir: str, backend: str, devices: str) -> None:
+    """One process of a multi-process render: joins the others over
+    `backend` with the shards `devices` names (comma-separated), renders
+    the sharded frame three times (the first captures; the second timed
+    whole; the third with the all-gathers timed apart), saves the frame
+    and prints one JSON line."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rpt_tpu_torch.parallel import init_multihost, is_multihost, make_global_ray_mesh, multihost, render_multihost
+
+    init_multihost(f"localhost:{port}", nproc, rank, local_device_ids=devices.split(","), backend=backend)
+    if not is_multihost():
+        fail("[multihost] the process did not join")
+    mesh = make_global_ray_mesh()
+    r = sharded_renderer(SHARDED["spp"])
+    buf = render_multihost(r, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    timed = render_multihost(r, mesh)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3
+    gathers = []
+    plain = multihost._all_gather
+
+    def timed_gather(x):
+        # Every process reaches the gather before it is timed, so it times
+        # the transfer, not the wait for the others' renders.
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        out = plain(x)
+        torch.cuda.synchronize()
+        gathers.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    multihost._all_gather = timed_gather
+    try:
+        again = render_multihost(r, mesh)
+    finally:
+        multihost._all_gather = plain
+    same = all(torch.equal(buf.sum, b.sum) and torch.equal(buf.sum_sq, b.sum_sq) for b in (timed, again))
+    np.savez(os.path.join(outdir, f"frame_{rank}.npz"), sum=buf.sum.cpu().numpy(), sum_sq=buf.sum_sq.cpu().numpy())
+    dist.destroy_process_group()
+    print(json.dumps(dict(rank=rank, shards=list(mesh.local), devices=[str(mesh.devices[k]) for k in mesh.local],
+                          mesh_size=mesh.size, call_ms=call_ms, gather_ms=sum(gathers), gathers_ms=gathers,
+                          calls_bit_equal=same)), flush=True)
+
+
+def run_workers(nproc: int, backend: str, devices_of) -> tuple:
+    """Start `nproc` processes of this script as `multihost_worker`s,
+    rank i with the shards `devices_of(i)`, wait for them (each under
+    MULTIHOST_TIMEOUT) and return (their JSON reports, their frames)."""
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory(dir=root, prefix=".multihost-") as outdir:
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multihost-worker", str(rank),
+                                   str(nproc), str(port), outdir, backend, ",".join(devices_of(rank))],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for rank in range(nproc)]
+        try:
+            outs = [p.communicate(timeout=MULTIHOST_TIMEOUT)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                fail(f"[multihost] worker {rank} exited {p.returncode}:\n{out[-4000:]}")
+        reports = [json.loads(out.strip().splitlines()[-1]) for out in outs]
+        frames = []
+        for rank in range(nproc):
+            with np.load(os.path.join(outdir, f"frame_{rank}.npz")) as f:
+                frames.append({k: f[k] for k in ("sum", "sum_sq")})
+    return reports, frames
+
+
+def frames_equal(frames: list, buf) -> tuple:
+    """(every process's frame is the first's, the first is `buf`'s), bit
+    for bit."""
+    import numpy as np
+
+    same = all(np.array_equal(f[k], frames[0][k]) for f in frames[1:] for k in ("sum", "sum_sq"))
+    return same, bool(np.array_equal(buf.sum.cpu().numpy(), frames[0]["sum"]) and
+                      np.array_equal(buf.sum_sq.cpu().numpy(), frames[0]["sum_sq"]))
+
+
+def multihost_phase(card: str) -> None:
+    """`[multihost]` (see the module docstring): the workers' frames
+    against each other and against the in-process render on a mesh of as
+    many shards."""
+    from rpt_tpu_torch.parallel import make_ray_mesh, render_distributed
+
+    t_phase = time.perf_counter()
+    reports, frames = run_workers(MULTIHOST_PROCS, "gloo", lambda rank: [DEVICE] * MULTIHOST_SHARDS)
+    r = sharded_renderer(SHARDED["spp"])
+    same, vs_single = frames_equal(
+        frames, render_distributed(r, make_ray_mesh(MULTIHOST_PROCS * MULTIHOST_SHARDS, device=DEVICE)))
+    for rep in reports:
+        say("multihost", rank=rep["rank"], shards=json.dumps(rep["shards"]), mesh_size=rep["mesh_size"],
+            backend="gloo", call_ms=f"{rep['call_ms']:.2f}", all_gather_ms=f"{rep['gather_ms']:.2f}",
+            all_gathers_ms=json.dumps([round(g, 3) for g in rep["gathers_ms"]]),
+            gather_share_of_call=f"{rep['gather_ms'] / rep['call_ms']:.3f}", calls_bit_equal=rep["calls_bit_equal"],
+            card=json.dumps(card))
+    say("multihost", processes=MULTIHOST_PROCS, shards_each=MULTIHOST_SHARDS, frames_bit_equal=same,
+        vs_in_process_4_shards_bit_equal=vs_single, phase_seconds=f"{time.perf_counter() - t_phase:.1f}",
+        card=json.dumps(card))
+    if not (same and vs_single and all(rep["calls_bit_equal"] for rep in reports)):
+        fail("[multihost] the processes' frames differ from each other or from the in-process render")
+
+
+def sharded_grad_phase(card: str) -> dict:
+    """`[sharded_grad]` (see the module docstring). Returns the bvh8
+    walks' launches per shard of the step."""
+    import dataclasses
+
+    import torch
+
+    import rpt_tpu_torch.scene as scene_mod
+    from rpt_tpu_torch import kernels
+    from rpt_tpu_torch.materials import MaterialTable
+    from rpt_tpu_torch.parallel import make_ray_mesh, make_sharded_diff_fn
+    from rpt_tpu_torch.scenes import build_dragon_scene, dragon_camera
+
+    t_phase = time.perf_counter()
+    counters = counted_wrappers()
+    bounces, family, n = SHARDED["bounces"], SHARDED["family"], SHARDED_GRAD_SHARDS
+    r = sharded_renderer(1)
+    sd, t_min, ev = r._pass_args()
+    fn = make_sharded_diff_fn(sd, WIDTH, HEIGHT, bounces, make_ray_mesh(n, device=DEVICE))
+    key = r.base_key()
+
+    def step():
+        leaves = {f.name: getattr(sd.materials, f.name).detach().clone().requires_grad_(f.name in GRAD_FIELDS)
+                  for f in dataclasses.fields(MaterialTable)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = fn(MaterialTable(**leaves), r.camera, key, t_min, ev)
+        loss = torch.mean(img ** 2)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        grads = {f: leaves[f].grad if leaves[f].grad is not None else torch.zeros_like(leaves[f])
+                 for f in GRAD_FIELDS}
+        with torch.no_grad():
+            new = {f: leaves[f] - 1e-2 * grads[f] for f in GRAD_FIELDS}
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return loss.detach(), grads, new, t1 - t0, t2 - t1
+
+    step()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    loss, grads, new, fwd, bwd = step()
+    launches = named_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    turns = [step()[3:] for _ in range(2)]
+    rays = (bounces + 1) * (1 + SHARDED["shadow"]) * WIDTH * HEIGHT
+    finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(v).all()) for v in [*grads.values(), *new.values()])
+    per_shard = {k: launches[k] / n for k in (f"{family}_closest", f"{family}_occluded")}
+    steps = [fwd + bwd] + [f + b for f, b in turns]
+    say("sharded_grad", workload=SHARDED["workload"], size=f"{WIDTH}x{HEIGHT}", bounces=bounces, shards=n,
+        leaves=",".join(GRAD_FIELDS), loss=f"{float(loss):.6e}", finite=finite, forward_ms=f"{fwd * 1e3:.2f}",
+        backward_and_sgd_ms=f"{bwd * 1e3:.2f}", step_seconds_each=json.dumps([round(t, 4) for t in steps]),
+        mrays_per_s_step=f"{rays / statistics.median(steps) / 1e6:.3f}", peak_mib=f"{peak / 2**20:.1f}",
+        launches=json.dumps(launches), launches_per_shard=json.dumps(per_shard), card=json.dumps(card))
+    want = {f"{family}_closest": bounces + 1, f"{family}_occluded": SHARDED["shadow"] * (bounces + 1)}
+    if not finite or per_shard != want:
+        fail(f"[sharded_grad] the step is not finite ({finite}) or launched {per_shard} per shard, not {want}")
+
+    # The card's gradient against the CPU's at a small size, on the 5k
+    # trefoil through the bvh8 walks (the wide threshold lowered).
+    saved = scene_mod.WIDE_KERNEL_MIN_TRIS
+    scene_mod.WIDE_KERNEL_MIN_TRIS = 4096
+    try:
+        scene, camera = build_dragon_scene(segments=125, sides=20), dragon_camera()
+        small = {}
+        for dev in ("cpu", DEVICE):
+            sd_small = scene.compile(device=dev)
+            if sd_small.bvh8 is None:
+                fail("[sharded_grad] the small trefoil compiled without a bvh8 pack")
+            fn_small = make_sharded_diff_fn(sd_small, SMALL_W, SMALL_H, bounces, make_ray_mesh(n, device=dev))
+            leaves = {f.name: getattr(sd_small.materials, f.name).detach().clone().requires_grad_(f.name in GRAD_FIELDS)
+                      for f in dataclasses.fields(MaterialTable)}
+            fn_small(MaterialTable(**leaves), camera, key, t_min, ev).mean().backward()
+            small[dev] = {f: leaves[f].grad if leaves[f].grad is not None else torch.zeros_like(leaves[f])
+                          for f in GRAD_FIELDS}
+    finally:
+        scene_mod.WIDE_KERNEL_MIN_TRIS = saved
+    err, _, finite = grad_error(small[DEVICE], small["cpu"])
+    say("sharded_grad", workload="trefoil_5k", size=f"{SMALL_W}x{SMALL_H}", bounces=bounces, shards=n,
+        card_vs_cpu_max_rel_err=f"{err:.3e}", bar=GRAD_CPU_RTOL, finite=finite,
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=json.dumps(card))
+    if not finite or err > GRAD_CPU_RTOL:
+        fail(f"[sharded_grad] the small trefoil's sharded gradient on the card differs from the CPU's: {err:.3e}")
+    return per_shard
+
+
+def multicard_phase(card: str) -> None:
+    """`[multicard]`, run by `python3 chip_smoke.py --multicard` on a host
+    with several cards (never by the default run): the sharded paths with
+    one shard per card, held bit for bit against the same shards on one
+    card. `render_distributed` over every card, graphed against eager and
+    against the one-card mesh, counted per shard; a bvh8 launch whose group
+    stack takes more than 48 KB of shared memory on every card in turn,
+    against the plain walk; the sharded gradient against the one-card
+    mesh's; `render_multihost` from one process per
+    card over NCCL against the in-process render. Correctness only: no
+    speed is printed."""
+    import dataclasses
+
+    import torch
+
+    from rpt_tpu_torch import kernels
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.ops import bvh8
+    from rpt_tpu_torch.parallel import make_ray_mesh, make_sharded_diff_fn, render_distributed, sharding
+    from rpt_tpu_torch.renderer import camera_rays_tiled, pixel_ndc_tiled
+
+    t_phase = time.perf_counter()
+    n = torch.cuda.device_count()
+    if n < 2:
+        fail(f"[multicard] needs several cards, and {n} is visible")
+    counters = counted_wrappers()
+    bounces, spp, family = SHARDED["bounces"], SHARDED["spp"], SHARDED["family"]
+    r = sharded_renderer(spp)
+    sd, t_min, ev = r._pass_args()
+    cards, one = make_ray_mesh(n), make_ray_mesh(n, device=DEVICE)
+    on_one = render_distributed(r, one)
+    on_cards = render_distributed(r, cards)  # captures a graph on every card
+    eager = sharding._eager_sharded_many_fn(sd, WIDTH, HEIGHT, bounces, cards)(r.camera, r.base_key(), 0, spp,
+                                                                               t_min, ev)
+    kernels.reset_launch_counts()
+    again = render_distributed(r, cards)
+    launches = named_counts(counters)
+    fn = sharding.make_sharded_many_fn(sd, WIDTH, HEIGHT, bounces, cards)
+    bits = dict(cards_vs_one_card=bool(torch.equal(on_cards.sum, on_one.sum) and
+                                       torch.equal(on_cards.sum_sq, on_one.sum_sq)),
+                graphed_vs_eager=bool(torch.equal(on_cards.sum, eager[0]) and torch.equal(on_cards.sum_sq, eager[1])),
+                again=bool(torch.equal(on_cards.sum, again.sum) and torch.equal(on_cards.sum_sq, again.sum_sq)))
+    per_shard = {k: launches[k] / (n * spp) for k in (f"{family}_closest", f"{family}_occluded")}
+    say("multicard", cards=n, shard_devices=json.dumps([str(p.device) for p in fn.shards]),
+        scene_devices=json.dumps(sorted({str(p.sd.device) for p in fn.shards})),
+        **{f"{k}_bit_equal": v for k, v in bits.items()}, launches_per_shard_sample=json.dumps(per_shard),
+        sums_on=str(on_cards.sum.device), card=json.dumps(card))
+    if not all(bits.values()) or per_shard != {f"{family}_closest": bounces + 1,
+                                               f"{family}_occluded": SHARDED["shadow"] * (bounces + 1)}:
+        fail(f"[multicard] the render over {n} cards differs ({bits}) or launched {per_shard} per shard")
+
+    # The walk kernels raise their shared-memory limit once per card: a
+    # group stack over 48 KB (a pack's depth raised to 100 levels) on every
+    # card in turn, each against the plain walk there, on 63x47 rays (a
+    # partial last block).
+    deep = []
+    for i in range(n):
+        dev = torch.device("cuda", i)
+        with torch.cuda.device(dev):
+            pack = dataclasses.replace(sharding._scene_on(sd, dev).bvh8, group_depth=100)
+            o, d, _ = camera_rays_tiled(r.camera.to(dev), rnd.PRNGKey(i),
+                                        pixel_ndc_tiled(SMALL_W - 1, SMALL_H - 1, dev))
+            t_k, id_k = bvh8.bvh8_closest_kernel(pack, o, d, t_min)
+            t_p, id_p = bvh8.bvh8_closest_plain(pack, o, d, t_min)
+            deep.append(bool(torch.equal(t_k, t_p) and torch.equal(id_k, id_p)))
+    say("multicard", deep_group_stack_bytes=100 * 4 * 128, rays=(SMALL_W - 1) * (SMALL_H - 1),
+        kernel_vs_plain_bit_equal_per_card=json.dumps(deep))
+    if not all(deep):
+        fail(f"[multicard] a deep-stack bvh8 launch differs from the plain walk on a card: {deep}")
+
+    grads = {}
+    for name, mesh in (("cards", cards), ("one_card", one)):
+        diff = make_sharded_diff_fn(sd, SMALL_W, SMALL_H, bounces, mesh)
+        leaves = {f: getattr(sd.materials, f).detach().clone().requires_grad_() for f in GRAD_FIELDS}
+        mats = dataclasses.replace(sd.materials, **leaves)
+        diff(mats, r.camera, r.base_key(), t_min, ev).mean().backward()
+        grads[name] = {f: leaves[f].grad if leaves[f].grad is not None else torch.zeros_like(leaves[f])
+                       for f in GRAD_FIELDS}
+    err, bit, finite = grad_error(grads["cards"], grads["one_card"])
+    say("multicard", sharded_grad=f"{SMALL_W}x{SMALL_H}", cards=n, vs_one_card_max_rel_err=f"{err:.3e}",
+        bit_equal=bit, finite=finite, bar=GRAD_PLAIN_RTOL)
+    if not finite or err > GRAD_PLAIN_RTOL:
+        fail(f"[multicard] the sharded gradient over {n} cards differs from one card's: {err:.3e}")
+
+    reports, frames = run_workers(n, "nccl", lambda rank: [f"cuda:{rank}"])
+    same, vs_single = frames_equal(frames, on_cards)
+    say("multicard", processes=n, backend="nccl", devices=json.dumps([rep["devices"] for rep in reports]),
+        frames_bit_equal=same, vs_in_process_bit_equal=vs_single,
+        calls_bit_equal=all(rep["calls_bit_equal"] for rep in reports),
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=json.dumps(card))
+    if not (same and vs_single and all(rep["calls_bit_equal"] for rep in reports)):
+        fail("[multicard] the NCCL processes' frames differ from each other or from the in-process render")
+
+
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isfile(os.path.join(root, "rpt_tpu_torch", "__init__.py")):
@@ -2313,6 +2850,11 @@ def main():
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        rank, nproc, port, outdir, backend, devices = sys.argv[2:8]
+        multihost_worker(int(rank), int(nproc), port, outdir, backend, devices)
+        return
+    multicard = sys.argv[1:2] == ["--multicard"]
 
     # 1. The card.
     card = card_line()
@@ -2333,6 +2875,13 @@ def main():
         for line in res["log"].splitlines():
             if any(k in line for k in ("entry function", "registers", "spill", "stack frame")):
                 say("ptxas", source=name, line=json.dumps(line.strip()))
+
+    if multicard:
+        multicard_phase(card)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     # The threefry kernels' instructions, and the PRNG kernel at the main path's shapes.
     sass_phase(kernels._lib_path("threefry"))
@@ -2381,6 +2930,14 @@ def main():
     say("ode", phase_seconds=f"{time.perf_counter() - t0:.1f}")
     for kernel, (cell, n) in dynamic_phase(card).items():
         rows[kernel].update(dynamic_workload=cell, dynamic_launches_per_sample=n)
+    # Multi-device: the sharded render, several processes, the sharded gradient.
+    t0 = time.perf_counter()
+    for kernel, n in sharded_phase(card).items():
+        rows[kernel].update(sharded_workload=SHARDED["workload"], sharded_launches_per_shard_sample=n)
+    multihost_phase(card)
+    for kernel, n in sharded_grad_phase(card).items():
+        rows[kernel].update(sharded_grad_launches_per_shard=n)
+    say("parallel", phase_seconds=f"{time.perf_counter() - t0:.1f}", card=json.dumps(card))
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

@@ -6,7 +6,9 @@ primitives, monomial surfaces, baked and instanced meshes, solid and HDRI
 environments), OBJ+MTL, STL and image IO, the masked and sorted wavefront
 integrator, the many-sample renderer with checkpoints, profiling, and
 animation (the `ode` subpackage's RK4 particle systems, and
-`Renderer(dynamic=True)`, one CUDA graph per scene topology).
+`Renderer(dynamic=True)`, one CUDA graph per scene topology), and, in
+the `parallel` subpackage, which is imported on its own, rendering with
+the pixels sharded over several devices or processes.
 Mesh traversal and the threefry PRNG run in hand-written CUDA
 kernels for Hopper (`csrc/bvh8.cu`, `csrc/tlas8.cu`, `csrc/bvh2.cu`,
 `csrc/tlas2.cu`, `csrc/threefry.cu`) on a CUDA card, where each sample pass

@@ -58,13 +58,16 @@ bvh2_walk(const float4* __restrict__ nodes, const Real* __restrict__ tris, const
 }
 
 // Lets the shared-stack kernel take the most dynamic shared memory a block
-// holds. Set once per kernel, on the first launch that needs more than the
-// default 48 KB, not on every launch: small trees are launch-bound.
+// holds. Set once per kernel and card, on the first launch there that needs
+// more than the default 48 KB, not on every launch: small trees are
+// launch-bound.
 template <bool kOccl, typename Real>
 cudaError_t allow_shared_stack() {
-  static const cudaError_t err = cudaFuncSetAttribute(bvh2_walk<kOccl, false, Real>,
-                                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
-  return err;
+  static PerCard state;
+  return once_per_card(state, [] {
+    return cudaFuncSetAttribute(bvh2_walk<kOccl, false, Real>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kMaxSmem);
+  });
 }
 
 // Launch on `stream`: `block` threads per block and a stack of `depth`

@@ -63,13 +63,15 @@ tlas2_walk(const float4* __restrict__ nodes, int n_tlas, const Real* __restrict_
 }
 
 // Lets the shared-stack kernel take the most dynamic shared memory a block
-// holds. Set once per kernel, on the first launch that needs more than the
-// default 48 KB, not on every launch.
+// holds. Set once per kernel and card, on the first launch there that needs
+// more than the default 48 KB, not on every launch.
 template <bool kOccl, typename Real>
 cudaError_t allow_shared_stack() {
-  static const cudaError_t err = cudaFuncSetAttribute(tlas2_walk<kOccl, false, Real>,
-                                                      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
-  return err;
+  static PerCard state;
+  return once_per_card(state, [] {
+    return cudaFuncSetAttribute(tlas2_walk<kOccl, false, Real>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kMaxSmem);
+  });
 }
 
 // Launch on `stream`: `block` threads per block and a stack of `depth`

@@ -79,12 +79,15 @@ constexpr auto walk_kernel() {
 }
 
 // Lets the kernel take the most dynamic shared memory a block holds. Set
-// once per kernel, on the first launch that needs more than 48 KB.
+// once per kernel and card, on the first launch there that needs more than
+// 48 KB.
 template <bool kOccl, typename Real>
 cudaError_t allow_group_stack() {
-  static const cudaError_t err =
-      cudaFuncSetAttribute(walk_kernel<kOccl, Real>(), cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
-  return err;
+  static PerCard state;
+  return once_per_card(state, [] {
+    return cudaFuncSetAttribute(walk_kernel<kOccl, Real>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)kMaxSmem);
+  });
 }
 
 // Launch on `stream` with a group stack of `depth` levels per thread.

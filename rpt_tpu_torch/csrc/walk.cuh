@@ -24,6 +24,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr float kBig = 3.0e38f;
@@ -31,6 +33,28 @@ constexpr int kTriStride = 20;  // reals per triangle row
 constexpr int kNode4 = 12;      // float4 of child bounds per wide node
 constexpr int kInst = 12;       // reals per instance: the 3x4 world->local rows
 constexpr int kBlock = 128;
+constexpr int kMaxCards = 64;
+
+// The state of one kernel's `once_per_card` setting: a flag and a result
+// for each card. Each kernel keeps one as a static.
+struct PerCard {
+  std::once_flag flag[kMaxCards];
+  cudaError_t err[kMaxCards] = {};
+};
+
+// Runs `set` (a kernel attribute's setter) once per card and returns its
+// result: an attribute belongs to the current card's context, so a card
+// that has not set it does not have it. A thread that comes while another
+// runs `set` for the same card waits for it and then reads its result.
+template <typename Set>
+cudaError_t once_per_card(PerCard& state, Set set) {
+  int card = 0;
+  const cudaError_t got = cudaGetDevice(&card);
+  if (got != cudaSuccess) return got;
+  if (card < 0 || card >= kMaxCards) return cudaErrorInvalidDevice;
+  std::call_once(state.flag[card], [&] { state.err[card] = set(); });
+  return state.err[card];
+}
 
 // The constants of each real type: the miss sentinel, the parallel-ray
 // guard of the triangle test and the zero guard of the inverse direction,

@@ -64,7 +64,8 @@ from .utils.device import resolve_device
 from .utils.vmath import numpy_real, real_value
 
 __all__ = [
-    "Renderer", "render_pass_tiled", "pixel_ndc_tiled", "camera_rays_tiled", "scene_cache_key", "SceneCache",
+    "Renderer", "render_pass_tiled", "pixel_ndc_tiled", "shard_rows", "shard_ndc",
+    "jittered_ndc", "camera_rays_tiled", "scene_cache_key", "SceneCache",
     "make_render_many_fn", "dynamic_render_many_fn", "make_render_fn", "render_pass",
 ]
 
@@ -105,23 +106,61 @@ def pixel_ndc_tiled(width: int, height: int, device=None, dtype=torch.float32):
     return as_t(xg[perm].astype(np_dtype)), as_t(yg[perm].astype(np_dtype)), dim, as_t(inv.astype(np.int64))
 
 
-def camera_rays_tiled(camera: Camera, key, ndc) -> tuple:
-    """The jittered camera rays of one pass in tile order, and the key left
-    for the path tracer: (o, d, k_trace). `ndc` is `pixel_ndc_tiled(...)`;
-    `key` a host or a tensor key."""
+def shard_rows(x: torch.Tensor, index: int, count: int) -> torch.Tensor:
+    """The rows of shard `index` of `count` of `x`, as the reference's
+    sharded render cuts its pixels: `x` padded with zero rows to a multiple
+    of `count`, then cut into `count` contiguous slices."""
+    m = -(-x.shape[0] // count)
+    x = torch.cat([x, x.new_zeros((m * count - x.shape[0],) + tuple(x.shape[1:]))])
+    return x[index * m:(index + 1) * m]
+
+
+def shard_ndc(ndc, index: int, count: int) -> tuple:
+    """Shard `index` of `count` of a pixel grid (`pixel_ndc_tiled(...)`):
+    (xg, yg, dim, None), its slices of the tile-ordered coordinates
+    (`shard_rows`, the pads at 0.0). The pad pixels are traced too, and
+    dropped when the shards' sums are put back in pixel order."""
     xg, yg, dim, _ = ndc
+    return shard_rows(xg, index, count), shard_rows(yg, index, count), dim, None
+
+
+def jittered_ndc(key, ndc, shard: Optional[int] = None) -> tuple:
+    """The jittered pixel coordinates of one pass in tile order, and the
+    keys left for the camera and the path tracer: (x, y, k_cam, k_trace).
+    `ndc` is `pixel_ndc_tiled(...)` (or a `shard_ndc` of it); `key` a host
+    or a tensor key.
+
+    With `shard`, the index of a slice of a sharded render
+    (`parallel.sharding`), the key is folded with the index first, as the
+    reference's shard body folds it. That body draws its jitter in [-1, 1)
+    and multiplies it by 1/dim rounded to the render's type; on the same key
+    and length this draw in [-1/dim, 1/dim) equals it bit for bit, in either
+    type: 2u - 1 is exact and the span 2/dim is twice the rounded 1/dim, so
+    both are one rounding of (1/dim)(2u - 1). So one form serves both."""
+    xg, yg, dim, _ = ndc
+    if shard is not None:
+        key = rnd.fold_in(key, shard)
     k_jit, k_cam, k_trace = rnd.split(key, 3)
     jitter = rnd.uniform(k_jit, (2, xg.shape[0]), dtype=xg.dtype, minval=-1.0 / dim, maxval=1.0 / dim, device=xg.device)
-    o, d = camera.cast_rays(xg + jitter[0], yg + jitter[1], k_cam)
+    return xg + jitter[0], yg + jitter[1], k_cam, k_trace
+
+
+def camera_rays_tiled(camera: Camera, key, ndc, shard: Optional[int] = None) -> tuple:
+    """The jittered camera rays of one pass in tile order, and the key left
+    for the path tracer: (o, d, k_trace). `ndc`, `key` and `shard` as
+    `jittered_ndc` takes them."""
+    x, y, k_cam, k_trace = jittered_ndc(key, ndc, shard)
+    o, d = camera.cast_rays(x, y, k_cam)
     return o, d, k_trace
 
 
 def render_pass_tiled(scene_data: SceneData, camera: Camera, key, ndc, max_bounces: int,
-                      t_min: float, ev_scale, compact=None) -> torch.Tensor:
+                      t_min: float, ev_scale, compact=None, shard: Optional[int] = None) -> torch.Tensor:
     """Trace one sample per pixel; (H*W, 3) radiance in tile order.
     `ev_scale` is a float or a 0-d tensor of the scene's type; `compact` the
-    wavefront order (`trace_paths`)."""
-    o, d, k_trace = camera_rays_tiled(camera, key, ndc)
+    wavefront order (`trace_paths`); `shard` the index of a sharded
+    render's slice (`camera_rays_tiled`)."""
+    o, d, k_trace = camera_rays_tiled(camera, key, ndc, shard)
     return trace_paths(scene_data, o, d, k_trace, max_bounces, t_min, compact=compact) * ev_scale
 
 
@@ -201,13 +240,14 @@ class _PassInputs:
 
 
 def _sample_pass(sd: SceneData, inp: _PassInputs, ndc, max_bounces: int, t_min: float, fold: bool,
-                 compact) -> None:
+                 compact, shard: Optional[int] = None) -> None:
     """Add one sample per pixel into `inp.s` / `inp.ss` (tile order), the
     wavefronts ordered as `compact` says. With `fold` the sample is keyed
     by fold_in(inp.key, inp.counter), computed on the device, and the
-    counter then advances by one; without, by inp.key itself."""
+    counter then advances by one; without, by inp.key itself. A shard's
+    pass folds its index in after that (`camera_rays_tiled`)."""
     key = rnd.fold_in(inp.key, inp.counter) if fold else inp.key
-    frame = render_pass_tiled(sd, inp.camera, key, ndc, max_bounces, t_min, inp.ev_scale, compact)
+    frame = render_pass_tiled(sd, inp.camera, key, ndc, max_bounces, t_min, inp.ev_scale, compact, shard)
     inp.s.add_(frame)
     inp.ss.add_(torch.sum(frame * frame, dim=-1))
     if fold:
@@ -220,10 +260,13 @@ class _SamplePasses:
     CPU or when `eager`. `fold` keys sample i by fold_in(key, start + i)
     (make_render_many_fn); without it one pass is keyed by the key itself
     (make_render_fn). `compact` is the wavefront order of every pass
-    (`trace_paths`), fixed here: a graph captures one order."""
+    (`trace_paths`), fixed here: a graph captures one order. `shard`,
+    (index, count), makes these the passes of one shard of a sharded render
+    (`parallel.sharding`): its slice of the pixels (`shard_ndc`), its index
+    folded into every key; their sums are that slice's, in tile order."""
 
     def __init__(self, scene_data: SceneData, width: int, height: int, max_bounces: int, compact,
-                 fold: bool = True, eager: bool = False):
+                 fold: bool = True, eager: bool = False, shard: Optional[tuple] = None):
         self.sd = scene_data
         self.width, self.height, self.max_bounces = width, height, max_bounces
         self.compact = compact
@@ -232,12 +275,15 @@ class _SamplePasses:
         self.dtype = scene_data.dtype
         self.graphed = self.device.type == "cuda" and not eager
         self.ndc = pixel_ndc_tiled(width, height, self.device, self.dtype)
+        self.shard = None
+        if shard is not None:
+            self.ndc, self.shard = shard_ndc(self.ndc, *shard), shard[0]
         self.perm = torch.as_tensor(_tile_perm_np(width, height)[0].astype(np.int64), device=self.device)
-        self.inputs = _PassInputs.new(width * height, self.device, self.dtype)
+        self.inputs = _PassInputs.new(self.ndc[0].shape[0], self.device, self.dtype)
         self.captures: dict = {}  # t_min -> Capture
 
     def _run(self, t_min: float) -> None:
-        _sample_pass(self.sd, self.inputs, self.ndc, self.max_bounces, t_min, self.fold, self.compact)
+        _sample_pass(self.sd, self.inputs, self.ndc, self.max_bounces, t_min, self.fold, self.compact, self.shard)
 
     def capture(self, t_min: float) -> Capture:
         """The graph of a pass at `t_min`, captured on first use."""
@@ -251,23 +297,39 @@ class _SamplePasses:
         added one by one onto `into`, a (sum, sum_sq) pair, when given (so a
         render in chunks adds in the order of one call, bit for bit)."""
         n = int(n)
+        t_min = self.load(camera, key, start, n, t_min, ev_scale, self.tiled(into))
+        self.replay(n, t_min)
+        inv = self.ndc[3]
+        return (self.inputs.s[inv].reshape(self.height, self.width, 3),
+                self.inputs.ss[inv].reshape(self.height, self.width))
+
+    def tiled(self, into) -> Optional[tuple]:
+        """A (sum (H, W, 3), sum_sq (H, W)) pair in tile order, or None."""
+        if into is None:
+            return None
+        if into[0].dtype != self.dtype or into[1].dtype != self.dtype:
+            raise TypeError(f"{into[0].dtype} sums cannot take the samples of a {self.dtype} render")
+        return into[0].reshape(-1, 3)[self.perm], into[1].reshape(-1)[self.perm]
+
+    def load(self, camera: Camera, key, start: int, n: int, t_min, ev_scale, sums=None) -> float:
+        """Ready a call of `n` samples: capture the pass at `t_min` on first
+        use (its warm-up writes the inputs, so they are loaded after), then
+        write the call's inputs, the sums from `sums` (tile order, this
+        pass's pixels) or zero. Returns t_min in the render's type."""
         t_min = real_value(t_min, self.dtype)
-        sums = None
-        if into is not None:
-            if into[0].dtype != self.dtype or into[1].dtype != self.dtype:
-                raise TypeError(f"{into[0].dtype} sums cannot take the samples of a {self.dtype} render")
-            sums = (into[0].reshape(-1, 3)[self.perm], into[1].reshape(-1)[self.perm])
         if self.graphed and n > 0:
-            self.capture(t_min)  # its warm-up writes the inputs: load them after
+            self.capture(t_min)
         self.inputs.load(camera, key, start, ev_scale, sums)
+        return t_min
+
+    def replay(self, n: int, t_min: float) -> None:
+        """Add `n` samples onto the loaded sums: `n` replays of the graph,
+        or `n` eager passes. Nothing here waits for the device."""
         for _ in range(n):
             if self.graphed:
                 self.captures[t_min].graph.replay()
             else:
                 self._run(t_min)
-        inv = self.ndc[3]
-        return (self.inputs.s[inv].reshape(self.height, self.width, 3),
-                self.inputs.ss[inv].reshape(self.height, self.width))
 
 
 def _pass_key(scene_data: SceneData, width: int, height: int, max_bounces: int) -> tuple:

@@ -17,6 +17,12 @@ class Capture:
     for the graph's pool. A failed capture raises."""
 
     def __init__(self, run: Callable[[], None], device, what: str):
+        # `device`, which a render sharded over several cards need not have
+        # current, is made the current device for the warm-up and the capture.
+        with torch.cuda.device(device):
+            self._capture(run, device, what)
+
+    def _capture(self, run: Callable[[], None], device, what: str) -> None:
         stream = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(stream)
@@ -35,7 +41,9 @@ class Capture:
         reserved = torch.cuda.memory_reserved(device)
         self.graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(self.graph):
+            # Captured on the side stream: torch.cuda.graph's own default
+            # stream is made once, on the first device that captures.
+            with torch.cuda.graph(self.graph, stream=side):
                 run()
         except Exception as e:
             raise RuntimeError(f"capturing {what} as a CUDA graph failed: {e}") from e

@@ -116,6 +116,24 @@ def test_bvh8_kernels_refuse_a_stack_deeper_than_a_block_holds(card):
         bvh8.bvh8_occluded_kernel(deep, o.to(card), d.to(card), T_MIN, torch.full((64,), 3.0, device=card))
 
 
+@pytest.mark.cuda
+def test_bvh8_kernels_take_a_stack_past_the_default_48_kb(card):
+    """A group stack of 100 levels (51,200 bytes a block) needs the kernels'
+    shared-memory limit raised on this card (`csrc/walk.cuh`
+    `once_per_card`): both walks launch, twice, and equal the plain walk on
+    300 rays (a partial last block)."""
+    (verts, norms, mats), o, d = _mesh_and_rays(100, 300)
+    pack = bvh8.pack_bvh8(build_bvh(verts, norms, mats, device="cpu"), device=card)
+    deep = dataclasses.replace(pack, group_depth=100)
+    o, d = o.to(card), d.to(card)
+    t_max = torch.full((o.shape[0],), 3.0, device=card)
+    for _ in range(2):
+        got, want = bvh8.bvh8_closest_kernel(deep, o, d, T_MIN), bvh8.bvh8_closest_plain(deep, o, d, T_MIN)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(bvh8.bvh8_occluded_kernel(deep, o, d, T_MIN, t_max),
+                           bvh8.bvh8_occluded_plain(deep, o, d, T_MIN, t_max))
+
+
 def _counts():
     counts = kernels.launch_counts()
     return {name: counts[fn] for name, fn in (
@@ -893,6 +911,35 @@ def test_graphed_rk4_equals_eager(card):
         assert torch.equal(graphed.pos, eager.pos) and torch.equal(graphed.vel, eager.vel)
         system.rk4_integrate(eager, 1.0 / 16.0, 1.0 / 2000.0)
         assert torch.equal(graphed.pos, held)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shards", [2, 7])
+def test_sharded_render_graphed_matches_eager(card, n_shards, monkeypatch):
+    """`render_distributed` on shards of the one card (7 pads 96x64 = 6,144
+    pixels by 1), each shard a CUDA graph of its own, equals the same
+    shards run eagerly and two chunks equal one call, bit for bit; each
+    replayed sample launches each shard's walks once per path vertex."""
+    from rpt_tpu_torch.parallel import make_ray_mesh, make_sharded_many_fn, render_distributed, sharding
+
+    r = _small_renderer("dragon", monkeypatch)
+    mesh = make_ray_mesh(n_shards, device=card)
+    assert mesh.devices == (torch.device("cuda", torch.cuda.current_device()),) * n_shards
+    sd, t_min, ev = r._pass_args()
+    graphed = render_distributed(r, mesh)  # captures every shard's graph
+    assert sd.bvh8 is not None and graphed.sum.device.type == "cuda"
+    eager = sharding._eager_sharded_many_fn(sd, r.width, r.height, r.max_bounces, mesh)(
+        r.camera, r.base_key(), 0, r.num_samples, t_min, ev)
+    assert torch.equal(graphed.sum, eager[0]) and torch.equal(graphed.sum_sq, eager[1])
+    fn = make_sharded_many_fn(sd, r.width, r.height, r.max_bounces, mesh)
+    assert len(fn.shards) == n_shards and all(len(p.captures) == 1 for p in fn.shards)
+    kernels.reset_launch_counts()
+    first = fn(r.camera, r.base_key(), 0, 1, t_min, ev)
+    counts = kernels.launch_counts()
+    chunked = fn(r.camera, r.base_key(), 1, r.num_samples - 1, t_min, ev, into=first)
+    assert torch.equal(graphed.sum, chunked[0]) and torch.equal(graphed.sum_sq, chunked[1])
+    assert counts[bvh8.bvh8_closest_hit] == 3 * n_shards and counts[rnd._threefry] > 0
+    assert bool(torch.isfinite(graphed.sum).all()) and float(graphed.sum.mean()) > 0.0
 
 
 def test_capture_fails_loudly(card, monkeypatch):

@@ -68,6 +68,34 @@ def test_default_device_entry_points_raise_without_cuda(monkeypatch):
     assert scene.compile(device="cpu").device.type == "cpu"
 
 
+def test_parallel_entry_points_raise_without_cuda(monkeypatch):
+    """A mesh, a sharded render and a multi-process render default to the
+    cards; without one they raise, and CPU shards are asked for by name."""
+    from rpt_tpu_torch.parallel import make_ray_mesh, render_distributed, render_multihost
+    from rpt_tpu_torch.parallel import multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setitem(multihost._LOCAL, "devices", None)
+    scene = Scene()
+    scene.add(rpt_tpu_torch.Object(rpt_tpu_torch.sphere()))
+    r = Renderer(scene, width=8, height=4, device="cpu")
+    for call in (make_ray_mesh, lambda: render_distributed(r), lambda: render_multihost(r)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert render_distributed(r, make_ray_mesh(2, device="cpu")).sum.device.type == "cpu"
+
+
+def test_package_import_leaves_parallel_unimported():
+    """As `rpt_tpu/__init__.py`, the package does not import `parallel`
+    (torch.distributed) when it is imported."""
+    import subprocess
+    import sys
+
+    code = "import sys, rpt_tpu_torch; print('rpt_tpu_torch.parallel' in sys.modules)"
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "False", out.stderr
+
+
 def test_instanced_scene_compile_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     scene = build_brick_city(n_instances=48)  # one tower: some bricks share a mesh

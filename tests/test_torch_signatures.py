@@ -1,9 +1,12 @@
 """The port's public names take the reference's parameters.
 
-For every name of `rpt_tpu.__all__` and `rpt_tpu.ode.__all__`, and every
-public method a reference class defines, the port's parameters start with
-the reference's names in the reference's order; the only extras allowed
-after them are the port's `device` and `scene_data` keywords.
+For every name of `rpt_tpu.__all__`, `rpt_tpu.ode.__all__` and
+`rpt_tpu.parallel.__all__`, and every public method a reference class
+defines, the port's parameters start with the reference's names in the
+reference's order; the only extras allowed after them are the port's
+`device` and `scene_data` keywords, and `backend`, which lets
+`parallel.init_multihost` ask for gloo where its shards are on a card
+(NCCL does not put two processes on one card).
 """
 
 import inspect
@@ -12,11 +15,13 @@ import pytest
 
 import rpt_tpu
 import rpt_tpu.ode
+import rpt_tpu.parallel
 import rpt_tpu_torch
 import rpt_tpu_torch.ode
+import rpt_tpu_torch.parallel
 
-EXTRAS = ("device", "scene_data")
-MODULES = [(rpt_tpu, rpt_tpu_torch), (rpt_tpu.ode, rpt_tpu_torch.ode)]
+EXTRAS = ("device", "scene_data", "backend")
+MODULES = [(rpt_tpu, rpt_tpu_torch), (rpt_tpu.ode, rpt_tpu_torch.ode), (rpt_tpu.parallel, rpt_tpu_torch.parallel)]
 
 
 def _params(fn):
