@@ -42,8 +42,8 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
      `lego_binary_f64` and `cornell_f64`: their float32 twins' scenes,
      size and bounces rendered with `Renderer(dtype=torch.float64)`,
      through the float64 kernels (bvh8, tlas8, bvh2, tlas2; none on
-     `cornell_f64`) and the 64-bit draws; phases a-f as above (h is
-     skipped: the trees named in RPT_COMPARE have no float64 pack), the
+     `cornell_f64`) and the 64-bit draws; phases a-h as above (h over each
+     named tree's float64 pack of the same scene), the
      main path checked to launch no kernel or draw of the other type, its
      Mrays/s beside its float32 twin's in turns, and each kernel's ms per
      launch beside its float32 twin's on the same wavefronts, in turns;
@@ -83,11 +83,17 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    on `dragon_binary` and `lego_binary`, also:
    g. `[binary_vs_wide]`: the binary kernels against the wide kernels of
       the same trees on every wavefront, and both timed in turns;
-   on every workload with a traversal pack, also:
+   on every workload with a traversal pack, float32 or float64, also:
    h. `[before_after]`: the same kernels of other trees of the repository
       (`RPT_COMPARE=label=dir,...`, e.g. a `git archive` of the parent
       commit), timed in turns with this tree's on the same wavefronts;
       skipped when no tree is named;
+   on `lego_binary` and `lego_binary_f64`, also:
+   `[occupancy]`: each of the four tlas2 kernels (float32 and float64,
+      closest and any hit) at the launch `ops/bvh2.launch_plan` picks for
+      the scene's stack depth: registers and local (spill) bytes a thread,
+      blocks, warps and shared stack bytes resident per SM; of this tree
+      and of each tree named in RPT_COMPARE that has the query;
    on `dragon`, `lego` and `dragon871k` (whose default wavefront order is
    morton, `integrator._auto_compact`), also:
    i. `[compact]`: the four wavefront orders (RPT_COMPACT 0, 1, octant,
@@ -278,6 +284,8 @@ HDRI_ULPS = 4
 COMPACT_WORKLOADS = ("dragon", "lego", "dragon871k")
 COMPACT_ENV = {False: "0", True: "1", "octant": "octant", "morton": "morton"}
 COMPACT_SAMPLES = 4
+# `[occupancy]`: the workloads that print the tlas2 kernels' occupancy.
+OCCUPANCY_WORKLOADS = ("lego_binary", "lego_binary_f64")
 # The threefry kernel's row: its source, its modes (keys, bits, uniform,
 # randint), and what one element of each mode needs (csrc/threefry.cu's
 # note counts it): 32-bit integer operations, 72 per hash (one three-way xor
@@ -898,10 +906,9 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
                                                           bound_plain(occluded), bound_plain(closest), *args))
     if workload in ("dragon_binary", "lego_binary"):
         binary_vs_wide(family, sd, pack, rec, mat_of, card)
-    if str(sd.dtype) == "torch.float32":
-        before_after(family, mod, sd.bvh if family in ("bvh8", "bvh2") else sd.instanced, pack, rec, mat_of, card)
-    else:
-        say("before_after", family=family, skipped="a float64 pack: the trees named in RPT_COMPARE have none")
+    before_after(family, mod, sd.bvh if family in ("bvh8", "bvh2") else sd.instanced, pack, rec, mat_of, card)
+    if workload in OCCUPANCY_WORKLOADS:
+        occupancy_phase(workload, pack.stack_depth, card)
     return err, rec
 
 
@@ -1738,10 +1745,39 @@ def load_tree(label: str, root: str):
     return name
 
 
+def compare_trees() -> list:
+    """[(label, dir)] of the trees named in RPT_COMPARE (`label=dir,...`)."""
+    return [item.split("=", 1) for item in os.environ.get("RPT_COMPARE", "").split(",") if item]
+
+
+def occupancy_phase(workload: str, stack_depth: int, card: str) -> None:
+    """`[occupancy]`: each of the four tlas2 kernels at the launch the
+    wrappers make for a pack of `stack_depth` (`ops/tlas2.tlas2_occupancy`),
+    of this tree and of each tree named in RPT_COMPARE that has the query."""
+    import torch
+
+    from rpt_tpu_torch.ops import tlas2
+
+    mods = {"this": tlas2}
+    for label, root in compare_trees():
+        mods[label] = importlib.import_module(f"{load_tree(label, root)}.ops.tlas2")
+    for label, mod in mods.items():
+        if not hasattr(mod, "tlas2_occupancy"):
+            say("occupancy", workload=workload, tree=label, skipped="the tree has no occupancy query")
+            continue
+        for dtype in (torch.float32, torch.float64):
+            for kind in ("closest", "occluded"):
+                occ = mod.tlas2_occupancy(stack_depth, kind == "occluded", dtype)
+                say("occupancy", workload=workload, tree=label,
+                    kernel=f"tlas2_{kind}" + ("_f64" if dtype == torch.float64 else ""), stack_depth=stack_depth,
+                    **occ, card=json.dumps(card))
+
+
 def before_after(family, mod, tree, pack, rec, mat_of, card):
-    """Every workload: dragon (bvh8), lego (tlas8), lego_toy and
-    dragon_binary (bvh2), lego_binary (tlas2); self-contained (a later PR
-    may delete it whole): the `family` kernels of the trees named in
+    """Every workload with a traversal pack: dragon (bvh8), lego (tlas8),
+    lego_toy and dragon_binary (bvh2), lego_binary (tlas2), and their
+    float64 twins (each tree's float64 pack of the same scene);
+    self-contained (a later PR may delete it whole): the `family` kernels of the trees named in
     RPT_COMPARE (`label=dir,...`), each with its own pack of the same
     scene, against this tree's, on the recorded wavefronts, timed in turns
     (trees, this, this, trees reversed; 30 passes through the wavefronts
@@ -1754,7 +1790,7 @@ def before_after(family, mod, tree, pack, rec, mat_of, card):
     near-ties otherwise). These launches go around the counted wrappers."""
     import torch
 
-    trees = [item.split("=", 1) for item in os.environ.get("RPT_COMPARE", "").split(",") if item]
+    trees = compare_trees()
     if not trees:
         say("before_after", family=family, skipped="RPT_COMPARE names no tree")
         return

@@ -59,14 +59,43 @@
 // kernels and the plain version agree bit for bit. The walk is a template over
 // the real type (walk.cuh): float for float32 renders, double for float64
 // ones, whose rays, triangle rows, instance records and hit distances are
-// double and whose pair nodes keep float boxes, rounded outward, tested in
-// double. An instance record is 16 reals: the 3x4 rows, then [BLAS root,
+// double and whose pair nodes keep float boxes, rounded outward. The
+// one-level double walk tests them in double; the two-level one in float
+// (below). An instance record is 16 reals: the 3x4 rows, then [BLAS root,
 // id] as int32 at real 12.
+//
+// The two-level float64 walk (tlas2.cu's `_f64` kernels). What held it back
+// was the register file, and hence the warps each SM keeps in flight to
+// hide the loads' latency, not FP64 throughput (its operations take 0.01 ms
+// of the card's time a launch, its bytes as long). Instantiated as the
+// float walk in double, it held every ray component, inverse direction,
+// entry distance and the running best as 64-bit pairs: ptxas gave it
+// 132-134 registers (closest hit) and 98-102 (any hit), 12 and 16 warps per
+// SM, against 28 and 32 in float32 (`[occupancy]`, PERF.md). At equal warps
+// it still takes 1.6x its float twin, so warps are not all of it (what
+// else differs: the double triangle tests, the wider rows and instance
+// records; not measured apart). Its design:
+//   - its boxes are tested in float (walk.cuh box_entry_f) against a float
+//     copy of the ray, widened so that it takes every box the double test
+//     takes; the nearer child is chosen by the float entry. The double
+//     inverse direction is then dead, and the box test's registers and
+//     operations are float's;
+//   - a triangle row's plane is tested first and the rest of the row is
+//     loaded only for a t that could count (walk.cuh tri_plane): 6 of its
+//     17 reals live, not 17;
+//   - tlas2.cu caps the kernels so that 8 (closest hit) and 7 (any hit)
+//     blocks of 128 rays fit an SM: 32 and 28 warps, 64 registers with 64
+//     bytes of spill and 72 with none. Each step measured faster in turns
+//     on the brick city (PERF.md): 0.536 -> 0.354 ms a closest-hit launch,
+//     0.264 -> 0.189 an any hit. The float walks and the one-level double
+//     walk compile as before: `kFloatBox` and `kSplit` are false there.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "walk.cuh"  // Ray, load_ray, to_local, box_entry, leaf_closest, leaf_any
 
@@ -89,9 +118,23 @@ __device__ __forceinline__ bool pair_leaf(const Real* __restrict__ tris, int ref
   const int start = (payload >> 3) << 3;
   const int cnt = (payload & 7) + 1;
   const Real* tr = tris + (size_t)start * kTriStride;
-  if (kOccl) return leaf_any(tr, cnt, r, t_min, *upper);
+  // The two-level float64 walk tests a row's plane before it loads the rest
+  // (walk.cuh tri_plane): the same answers, fewer registers held.
+  constexpr bool kSplit = kTwoLevel && std::is_same_v<Real, double>;
+  if constexpr (kOccl) {
+    if constexpr (kSplit) {
+      return leaf_any_split(tr, cnt, r, t_min, *upper);
+    } else {
+      return leaf_any(tr, cnt, r, t_min, *upper);
+    }
+  }
   int kb;
-  const Real t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
+  Real t_leaf;
+  if constexpr (kSplit) {
+    t_leaf = leaf_closest_split(tr, cnt, r, t_min, *upper, &kb);
+  } else {
+    t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
+  }
   const int row = start + kb;
   if constexpr (kTwoLevel) {
     if (t_leaf < *upper || (t_leaf == *upper && *upper < Num<Real>::big &&
@@ -192,6 +235,16 @@ __device__ __forceinline__ void pair_walk(
       if (next < 0) break;
     }
   } else {
+    // The two-level float64 walk tests its boxes in float (walk.cuh
+    // box_entry_f) against rf, the float copy of r, kept beside it.
+    constexpr bool kFloatBox = kTwoLevel && std::is_same_v<Real, double>;
+    using Entry = std::conditional_t<kFloatBox, float, Real>;
+    RayF rf;
+    float t_min_f = 0.0f;
+    if constexpr (kFloatBox) {
+      rf = float_ray(r);
+      t_min_f = __double2float_rd(t_min);
+    }
     int node = 0;  // the TLAS root
     while (true) {
       // Visit `node`, in r's frame: both children's boxes, then its leaves.
@@ -200,9 +253,16 @@ __device__ __forceinline__ void pair_walk(
       const float4 b = __ldg(nb + 1);
       const float4 c = __ldg(nb + 2);
       const int4 m = __ldg(reinterpret_cast<const int4*>(nb + 3));
-      Real lo_a, lo_b;
-      const bool hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, upper, &lo_a);
-      const bool hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, upper, &lo_b) && m.y != 0;
+      Entry lo_a, lo_b;
+      bool hit_a, hit_b;
+      if constexpr (kFloatBox) {
+        const float upper_f = __double2float_ru(upper);
+        hit_a = box_entry_f(a.x, a.y, a.z, a.w, b.x, b.y, rf, t_min_f, upper_f, &lo_a);
+        hit_b = box_entry_f(b.z, b.w, c.x, c.y, c.z, c.w, rf, t_min_f, upper_f, &lo_b) && m.y != 0;
+      } else {
+        hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, upper, &lo_a);
+        hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, upper, &lo_b) && m.y != 0;
+      }
       const bool leaf_a = (m.x & 3) == kRefLeaf;
       const bool leaf_b = (m.y & 3) == kRefLeaf;
       if (hit_a && leaf_a && pair_leaf<kOccl, kTwoLevel>(tris, m.x, r, t_min, rank, &upper, &best, &best_rank)) {
@@ -235,6 +295,7 @@ __device__ __forceinline__ void pair_walk(
           // An instance: the world ray in its frame, then its BLAS root.
           const Real* rec = inst + (size_t)node * kRec;
           to_local(rec, load_ray(o, d, i), &r);
+          if constexpr (kFloatBox) rf = float_ray(r);
           local = true;
           rank = node;
           node = __ldg(reinterpret_cast<const int*>(rec + 12));
@@ -242,6 +303,7 @@ __device__ __forceinline__ void pair_walk(
           // A TLAS node popped in a local frame: every BLAS node of the
           // instance has been popped (LIFO), so back to the world ray.
           r = load_ray(o, d, i);
+          if constexpr (kFloatBox) rf = float_ray(r);
           local = false;
         }
       }

@@ -38,17 +38,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "count.cuh"      // count_launch
 #include "pair_walk.cuh"  // pair_walk, kMaxSmem
 
 namespace {
 
-// No launch bound or register cap: under __launch_bounds__(128) ptxas holds
-// the closest hit to 64 registers and spills 16 bytes (the any hit 8), under
-// __maxnreg__(72) and (80) it spills or runs slower; without either it takes
-// 70-72 (closest) and 60-61 (any hit) registers and spills nothing, at
-// 1.027x and 1.009x the spilling build's time in turns on the brick city
-// (PERF.md). The float64 walk (Real = double) has none either.
+// The float walk has no launch bound or register cap: under
+// __launch_bounds__(128) ptxas holds the closest hit to 64 registers and
+// spills 16 bytes (the any hit 8), under __maxnreg__(72) and (80) it spills
+// or runs slower; without either it takes 70-72 (closest) and 60-61 (any
+// hit) registers and spills nothing, at 1.027x and 1.009x the spilling
+// build's time in turns on the brick city (PERF.md).
 template <bool kOccl, bool kGlobalStack, typename Real>
 __global__ void
 tlas2_walk(const float4* __restrict__ nodes, int n_tlas, const Real* __restrict__ inst,
@@ -62,6 +64,39 @@ tlas2_walk(const float4* __restrict__ nodes, int n_tlas, const Real* __restrict_
                                        depth, t_out, id_out, inst_out, occ_out);
 }
 
+// The float64 walk: the same walk over double rays (pair_walk.cuh's design
+// for it: float boxes, plane-first triangle rows), capped so that
+// kMinBlocksF64 blocks of 128 rays fit an SM's register file. The trade is
+// not the float walk's: the closest hit capped at 8 blocks (64 registers,
+// 64 bytes of spill, 32 warps) and the any hit at 7 (72 registers, no
+// spill, 28 warps) measured faster than either with no cap or with caps of
+// 5 to 9 blocks (PERF.md).
+template <bool kOccl>
+constexpr int kMinBlocksF64 = kOccl ? 7 : 8;
+
+template <bool kOccl, bool kGlobalStack>
+__global__ void __launch_bounds__(kBlock, kMinBlocksF64<kOccl>)
+tlas2_walk_f64(const float4* __restrict__ nodes, int n_tlas, const double* __restrict__ inst,
+               const double* __restrict__ tris, const double* __restrict__ o, const double* __restrict__ d,
+               const bool* __restrict__ active, const double* __restrict__ t_max, int n, double t_min,
+               unsigned* __restrict__ global_stack, int depth, double* __restrict__ t_out,
+               int* __restrict__ id_out, int* __restrict__ inst_out, bool* __restrict__ occ_out,
+               unsigned long long* launches) {
+  count_launch(launches);
+  pair_walk<kOccl, true, kGlobalStack>(nodes, n_tlas, inst, tris, o, d, active, t_max, n, t_min, global_stack,
+                                       depth, t_out, id_out, inst_out, occ_out);
+}
+
+// The kernel of a query, stack space and real type.
+template <bool kOccl, bool kGlobalStack, typename Real>
+auto walk_kernel() {
+  if constexpr (std::is_same_v<Real, double>) {
+    return tlas2_walk_f64<kOccl, kGlobalStack>;
+  } else {
+    return tlas2_walk<kOccl, kGlobalStack, Real>;
+  }
+}
+
 // Lets the shared-stack kernel take the most dynamic shared memory a block
 // holds. Set once per kernel and card, on the first launch there that needs
 // more than the default 48 KB, not on every launch.
@@ -69,7 +104,7 @@ template <bool kOccl, typename Real>
 cudaError_t allow_shared_stack() {
   static PerCard state;
   return once_per_card(state, [] {
-    return cudaFuncSetAttribute(tlas2_walk<kOccl, false, Real>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    return cudaFuncSetAttribute(walk_kernel<kOccl, false, Real>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)kMaxSmem);
   });
 }
@@ -87,9 +122,9 @@ int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t
   const int grid = (int)((n + block - 1) / block);
   const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
   if (global_stack != nullptr) {
-    tlas2_walk<kOccl, true, Real><<<grid, block, 0, stream>>>(nodes4, n_tlas, inst, tris, o, d, active, t_max,
-                                                              (int)n, t_min, global_stack, depth, t_out, id_out,
-                                                              inst_out, occ_out, launches);
+    const auto kernel = walk_kernel<kOccl, true, Real>();
+    kernel<<<grid, block, 0, stream>>>(nodes4, n_tlas, inst, tris, o, d, active, t_max, (int)n, t_min, global_stack,
+                                       depth, t_out, id_out, inst_out, occ_out, launches);
     return (int)cudaGetLastError();
   }
   const size_t smem = (size_t)block * (size_t)depth * sizeof(unsigned);
@@ -98,15 +133,57 @@ int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t
     const cudaError_t err = allow_shared_stack<kOccl, Real>();
     if (err != cudaSuccess) return (int)err;
   }
-  tlas2_walk<kOccl, false, Real><<<grid, block, smem, stream>>>(nodes4, n_tlas, inst, tris, o, d, active, t_max,
-                                                                (int)n, t_min, nullptr, depth, t_out, id_out,
-                                                                inst_out, occ_out, launches);
+  const auto kernel = walk_kernel<kOccl, false, Real>();
+  kernel<<<grid, block, smem, stream>>>(nodes4, n_tlas, inst, tris, o, d, active, t_max, (int)n, t_min, nullptr, depth,
+                                        t_out, id_out, inst_out, occ_out, launches);
   return (int)cudaGetLastError();
+}
+
+// The occupancy of one kernel at a launch of `block` threads and `smem`
+// bytes of dynamic shared memory a block: out[0] registers a thread, out[1]
+// local (spill) bytes a thread (cudaFuncGetAttributes), out[2] blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[3] their warps.
+template <bool kOccl, bool kGlobalStack, typename Real>
+cudaError_t occupancy(int block, size_t smem, int* out) {
+  const auto kernel = walk_kernel<kOccl, kGlobalStack, Real>();
+  if (!kGlobalStack && smem > 48 * 1024) {
+    const cudaError_t err = allow_shared_stack<kOccl, Real>();
+    if (err != cudaSuccess) return err;
+  }
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  out[3] = blocks * ((block + 31) / 32);
+  return cudaSuccess;
 }
 
 }  // namespace
 
 extern "C" {
+
+// The occupancy (above) of the kernel of `kind` on the current card: bit 0
+// the any hit, bit 1 float64, bit 2 the global stack. Returns a CUDA error.
+int rpt_tlas2_occupancy(int kind, int block, int smem, int* out) {
+  if (block <= 0 || block > kBlock || smem < 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes = (size_t)smem;
+  switch (kind) {
+    case 0: return (int)occupancy<false, false, float>(block, bytes, out);
+    case 1: return (int)occupancy<true, false, float>(block, bytes, out);
+    case 2: return (int)occupancy<false, false, double>(block, bytes, out);
+    case 3: return (int)occupancy<true, false, double>(block, bytes, out);
+    case 4: return (int)occupancy<false, true, float>(block, bytes, out);
+    case 5: return (int)occupancy<true, true, float>(block, bytes, out);
+    case 6: return (int)occupancy<false, true, double>(block, bytes, out);
+    case 7: return (int)occupancy<true, true, double>(block, bytes, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 int rpt_tlas2_closest(const float* nodes, int n_tlas, const float* inst, const float* tris, const float* o,
                       const float* d, const bool* active, int64_t n, float t_min, float* t_out, int* id_out,

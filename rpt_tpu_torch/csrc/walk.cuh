@@ -129,6 +129,77 @@ __device__ __forceinline__ bool box_hit(float lox, float loy, float loz, float h
   return box_entry(lox, loy, loz, hix, hiy, hiz, r, t_min, upper, &entry);
 }
 
+// The float box test of a double walk (the two-level float64 pair walk).
+// The boxes are float; testing them in float against a float copy of the
+// double ray holds fewer registers, and its operations are float's. RayF is
+// that copy: the origin rounded to nearest, the inverse of the direction
+// rounded to float (safe_inv in float, its zero guard signed by the double
+// direction), and per axis a slack s = 2 |(double)of - o| |fi| + FLT_MIN
+// that covers the origin's rounding (and any underflow). The double
+// inverse direction is not needed: the walk's double division happens
+// only in the triangle tests.
+//
+// box_entry_f widens each axis's slab [min(t1, t2), max(t1, t2)] outward by
+// 2^-21 |t| + s before it takes the entry and exit, and tests them against
+// t_min rounded down and upper rounded up to float. It accepts every box
+// that box_entry accepts in double: each float slab end t_f lies within
+// 4u |t_d| + s / 2 (u = 2^-24, to first order) of box_entry's t_d, for the
+// roundings of o, of d and its inverse, of the subtraction and of the
+// product; the widening covers that and its own two roundings (8u against
+// the 4u needed, s against the s / 2 needed); min and max keep the order.
+// So the walk reaches every leaf the double test reaches; a box it takes
+// in addition costs only a visit.
+struct RayF {
+  float ox, oy, oz, ix, iy, iz, sx, sy, sz;
+};
+
+constexpr float kFltMin = 1.17549435e-38f;  // the smallest normal float
+constexpr float kWiden = 0x1p-21f;          // 8u
+
+__device__ __forceinline__ float inv_f(double d) {
+  const float x = (float)d;
+  const float s = (fabsf(x) > Num<float>::tiny) ? x : ((d < 0.0) ? -Num<float>::tiny : Num<float>::tiny);
+  return 1.0f / s;
+}
+
+__device__ __forceinline__ float origin_slack(double o, float of, float fi) {
+  return __double2float_rn(2.0 * (fabs((double)of - o) * fabs((double)fi))) + kFltMin;
+}
+
+template <typename Real>
+__device__ __forceinline__ RayF float_ray(const Ray<Real>& r) {
+  RayF f;
+  f.ox = (float)r.ox;
+  f.oy = (float)r.oy;
+  f.oz = (float)r.oz;
+  f.ix = inv_f(r.dx);
+  f.iy = inv_f(r.dy);
+  f.iz = inv_f(r.dz);
+  f.sx = origin_slack(r.ox, f.ox, f.ix);
+  f.sy = origin_slack(r.oy, f.oy, f.iy);
+  f.sz = origin_slack(r.oz, f.oz, f.iz);
+  return f;
+}
+
+__device__ __forceinline__ float widen_lo(float t, float s) { return t - (fabsf(t) * kWiden + s); }
+__device__ __forceinline__ float widen_hi(float t, float s) { return t + (fabsf(t) * kWiden + s); }
+
+__device__ __forceinline__ bool box_entry_f(float lox, float loy, float loz, float hix, float hiy, float hiz,
+                                            const RayF& r, float t_min, float upper, float* entry) {
+  float t1x = (lox - r.ox) * r.ix;
+  float t2x = (hix - r.ox) * r.ix;
+  float t1y = (loy - r.oy) * r.iy;
+  float t2y = (hiy - r.oy) * r.iy;
+  float t1z = (loz - r.oz) * r.iz;
+  float t2z = (hiz - r.oz) * r.iz;
+  float lo = fmaxf(fmaxf(widen_lo(fminf(t1x, t2x), r.sx), widen_lo(fminf(t1y, t2y), r.sy)),
+                   widen_lo(fminf(t1z, t2z), r.sz));
+  float hi = fminf(fminf(widen_hi(fmaxf(t1x, t2x), r.sx), widen_hi(fmaxf(t1y, t2y), r.sy)),
+                   widen_hi(fmaxf(t1z, t2z), r.sz));
+  *entry = lo;
+  return lo <= hi && hi >= t_min && lo <= upper;
+}
+
 // Slab test of the 8 child boxes of one wide node: bit c set if child c's
 // box overlaps [t_min, upper] along the ray.
 template <typename Real>
@@ -215,6 +286,75 @@ __device__ __forceinline__ Real tri_t(const Real* __restrict__ tr, const Ray<Rea
   Real u = ((Real)1 - v) - w;
   *ok = absr(cosv) >= Num<Real>::par && t >= t_min && u >= (Real)0 && v >= (Real)0 && w >= (Real)0;
   return t;
+}
+
+// tri_t in two halves, for a walk short of registers (the two-level float64
+// pair walk): tri_plane loads the row's plane (pn, pv) and returns the ray's
+// t to it, its cosine in *cosv; tri_inside loads the rest of the row and
+// tests whether the point at t lies inside the triangle. The arithmetic is
+// tri_t's, op for op: a row is a hit of tri_t iff |cosv| >= par, t >= t_min
+// and tri_inside holds. The leaf tests below test the plane first and load
+// the rest of a row only for a t that could count.
+template <typename Real>
+__device__ __forceinline__ Real tri_plane(const Real* __restrict__ tr, const Ray<Real>& r, Real* cosv) {
+  const Quad<Real> c = ldq(tr + 8);  // e2z pnx pny pnz
+  const Real pv = __ldg(tr + 12);
+  *cosv = (c.y * r.dx + c.z * r.dy) + c.w * r.dz;
+  const Real cos_safe = (absr(*cosv) > Num<Real>::par) ? *cosv : Num<Real>::par;
+  return (pv - ((c.y * r.ox + c.z * r.oy) + c.w * r.oz)) / cos_safe;
+}
+
+template <typename Real>
+__device__ __forceinline__ bool tri_inside(const Real* __restrict__ tr, const Ray<Real>& r, Real t) {
+  const Quad<Real> a = ldq(tr + 0);  // v0x v0y v0z e1x
+  const Quad<Real> b = ldq(tr + 4);  // e1y e1z e2x e2y
+  const Real e2z = __ldg(tr + 8);
+  const Real d00 = __ldg(tr + 13);
+  const Real d01 = __ldg(tr + 14);
+  const Real d11 = __ldg(tr + 15);
+  const Real inv_den = __ldg(tr + 16);
+  Real ddx = (r.ox + t * r.dx) - a.x;
+  Real ddy = (r.oy + t * r.dy) - a.y;
+  Real ddz = (r.oz + t * r.dz) - a.z;
+  Real d20 = (ddx * a.w + ddy * b.x) + ddz * b.y;
+  Real d21 = (ddx * b.z + ddy * b.w) + ddz * e2z;
+  Real v = (d11 * d20 - d01 * d21) * inv_den;
+  Real w = (d00 * d21 - d01 * d20) * inv_den;
+  Real u = ((Real)1 - v) - w;
+  return u >= (Real)0 && v >= (Real)0 && w >= (Real)0;
+}
+
+// leaf_closest with the plane first: a row whose t exceeds `upper` (the
+// running best) or the leaf's best so far is not loaded further. It cannot
+// become the best hit, so the walk's answer is leaf_closest's.
+template <typename Real>
+__device__ __forceinline__ Real leaf_closest_split(const Real* __restrict__ tr, int cnt, const Ray<Real>& r,
+                                                   Real t_min, Real upper, int* kb) {
+  Real t_leaf = Num<Real>::big;
+  *kb = 0;
+  for (int j = 0; j < cnt; ++j) {
+    const Real* row = tr + j * kTriStride;
+    Real cosv;
+    const Real t = tri_plane(row, r, &cosv);
+    if (absr(cosv) >= Num<Real>::par && t >= t_min && t <= upper && t < t_leaf && tri_inside(row, r, t)) {
+      t_leaf = t;
+      *kb = j;
+    }
+  }
+  return t_leaf;
+}
+
+// leaf_any with the plane first: the same answer.
+template <typename Real>
+__device__ __forceinline__ bool leaf_any_split(const Real* __restrict__ tr, int cnt, const Ray<Real>& r,
+                                               Real t_min, Real t_max) {
+  for (int j = 0; j < cnt; ++j) {
+    const Real* row = tr + j * kTriStride;
+    Real cosv;
+    const Real t = tri_plane(row, r, &cosv);
+    if (absr(cosv) >= Num<Real>::par && t >= t_min && t <= t_max && tri_inside(row, r, t)) return true;
+  }
+  return false;
 }
 
 // Triangle test of one leaf's `cnt` rows for the closest hit: the lowest

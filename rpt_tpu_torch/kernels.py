@@ -70,6 +70,7 @@ _SIGNATURES = {
         "rpt_tlas2_occluded": [_P, _I32] + [_P] * 6 + [_I64, _F32, _P, _I32, _I32, _P, _P, _P],
         "rpt_tlas2_closest_f64": [_P, _I32] + [_P] * 5 + [_I64, _F64] + [_P] * 3 + [_I32, _I32, _P, _P, _P],
         "rpt_tlas2_occluded_f64": [_P, _I32] + [_P] * 6 + [_I64, _F64, _P, _I32, _I32, _P, _P, _P],
+        "rpt_tlas2_occupancy": [_I32, _I32, _I32, _P],
     },
     "threefry": {
         "rpt_threefry": [_I32, _P, _U32, _U32, _P, _U32, _I64, _P, _F64, _F64, _I64, _U64, _U64, _P, _P],

@@ -36,7 +36,10 @@ internal node, holding both children's boxes and references.
 
 A float64 pack (of a float64 `BvhData`) keeps `tris` in float64 and the
 node boxes in float32, widened one ulp outward (`bvh.widen`) to hold the
-float64 triangles; its walks are float64 (csrc/walk.cuh).
+float64 triangles; its walks are float64 (csrc/walk.cuh). The two-level
+float64 walk (`ops/tlas2.py`) tests the boxes in float against a float copy
+of the ray, widened to take every box the double test takes
+(`_slab_f32`, csrc/walk.cuh `box_entry_f`).
 
 Walk. One ray per thread (per lane of the plain version). Visiting a pair
 node slab-tests both children against [t_min, upper] (upper = the running
@@ -68,6 +71,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -236,6 +240,49 @@ def pack_bvh2(bvh: BvhData, device=None) -> Bvh2Pack:
 # ---------------------------------------------------------------------------
 
 
+# csrc/walk.cuh box_entry_f: the smallest normal float, added to each
+# axis's slack, and the relative widening of a slab end (8u, u = 2^-24).
+_FLT_MIN = float(torch.finfo(torch.float32).tiny)
+_WIDEN = 2.0**-21
+
+
+def _float_ray(o, d):
+    """csrc/walk.cuh `float_ray` of double rays o, d (L, 3): (L, 9) float32,
+    the origin rounded to nearest, the float inverse of the direction
+    rounded to float (the zero guard signed by d), then each axis's slack
+    2 |of - o| |fi| + FLT_MIN."""
+    of, x = o.float(), d.float()
+    tiny = torch.full_like(x, 1e-20)
+    fi = 1.0 / torch.where(x.abs() > tiny, x, torch.where(d < 0, -tiny, tiny))
+    slack = ((of.double() - o).abs() * fi.double().abs() * 2.0).float() + _FLT_MIN
+    return torch.cat([of, fi, slack], 1)
+
+
+def _slab_f32(b, fr):
+    """The widened float slabs of csrc/walk.cuh `box_entry_f` for the C
+    children of each row's node: b (L, 6, C) float boxes, fr (L, 9) the rays'
+    `_float_ray`. Returns (lo, hi) (L, C) float32."""
+    lo = hi = None
+    for a in range(3):
+        o_a, i_a, s_a = fr[:, a:a + 1], fr[:, 3 + a:4 + a], fr[:, 6 + a:7 + a]
+        t1 = (b[:, a] - o_a) * i_a
+        t2 = (b[:, 3 + a] - o_a) * i_a
+        mn, mx = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        mn = mn - (mn.abs() * _WIDEN + s_a)
+        mx = mx + (mx.abs() * _WIDEN + s_a)
+        lo = mn if lo is None else torch.maximum(lo, mn)
+        hi = mx if hi is None else torch.minimum(hi, mx)
+    return lo, hi
+
+
+def _to_f32(x, up: bool):
+    """Doubles rounded to float toward +inf (`up`) or -inf, as CUDA's
+    __double2float_ru / _rd."""
+    f = x.float()
+    off = f.double() < x if up else f.double() > x
+    return torch.where(off, torch.nextafter(f, torch.full_like(f, math.inf if up else -math.inf)), f)
+
+
 def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict]):
     """Lockstep version of csrc/pair_walk.cuh over the table of `pack` (its
     nodes, tris and stack_depth): each step visits one pair node for every
@@ -244,7 +291,9 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
     pack carries instance records `inst_rows` (K, 16), the two-level table
     of `ops/tlas2.py`: pair nodes from `n_tlas` on are in an instance's
     frame, an instance child enters its BLAS root, and the tie key is (TLAS
-    leaf rank, row); one-level every rank is 0, so the key is the row.
+    leaf rank, row); one-level every rank is 0, so the key is the row. The
+    two-level float64 walk tests its boxes in float (`_slab_f32`) and takes
+    the nearer child by the float entry, as its kernel does.
 
     Returns the any-hit bool, or for the closest hit (t_raw (N,) in the
     rays' type, BIG on a miss; triangle row (N,) i32), two-level also the instance id (N,)
@@ -255,8 +304,12 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
     N = o.shape[0]
     occl = t_max is not None
     two_level = getattr(pack, "inst_rows", None) is not None
+    float_box = two_level and o.dtype == torch.float64
     t_min = real_value(t_min, o.dtype)
     inv = _safe_inv(d)
+    if float_box:
+        t_min_f = _to_f32(torch.tensor(t_min, dtype=torch.float64), up=False).item()
+        fr = _float_ray(o, d)
     boxes = pack.nodes[:, :12].reshape(-1, 2, 6).transpose(1, 2)  # (P, 6, 2): lo.xyz, hi.xyz by slot
     refs = pack.refs.long()
     kinds = refs & 3
@@ -274,6 +327,8 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
         r = pack.inst_rows.element_size() // 4  # int32 words per real: the ints sit at real 12
         rank_root, rank_inst = pack.inst_rows.view(torch.int32)[:, 12 * r:12 * r + 2].long().unbind(1)
         o_loc, d_loc, inv_loc = torch.zeros_like(o), torch.zeros_like(d), torch.zeros_like(d)
+        if float_box:
+            fr_loc = torch.zeros((N, 9), dtype=torch.float32, device=dev)
     stack = torch.zeros((N, max(pack.stack_depth, 1)), dtype=torch.int64, device=dev)
     sp = torch.zeros(N, dtype=torch.int64, device=dev)
     walking = torch.ones(N, dtype=torch.bool, device=dev) if active is None else active.clone()
@@ -292,14 +347,21 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
             ol = torch.where(local, o_loc[live], o[live])
             dl = torch.where(local, d_loc[live], d[live])
             il = torch.where(local, inv_loc[live], inv[live])
+            if float_box:
+                frl = torch.where(local, fr_loc[live], fr[live])
         else:
             ol, dl, il = o[live], d[live], inv[live]
 
         # Visit: slab-test both children against the best hit so far.
         upper = (t_max[live] if occl else t_best[live])[:, None]
         ref, kind = refs[w], kinds[w]  # (L, 2)
-        lo, hi = _slab(boxes[w], ol, il)
-        hit = (lo <= hi) & (hi >= t_min) & (lo <= upper) & (kind != KIND_EMPTY)
+        if float_box:
+            lo, hi = _slab_f32(boxes[w], frl)
+            hit = (lo <= hi) & (hi >= t_min_f) & (lo <= _to_f32(upper, up=True))
+        else:
+            lo, hi = _slab(boxes[w], ol, il)
+            hit = (lo <= hi) & (hi >= t_min) & (lo <= upper)
+        hit = hit & (kind != KIND_EMPTY)
         if stats is not None:
             n_box += (kind != KIND_EMPTY).sum()
 
@@ -361,6 +423,8 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
             # unnormalized; then its BLAS root.
             r, k = live[enter], payload[enter]
             o_loc[r], d_loc[r], inv_loc[r] = _to_local(aff[k], o[r], d[r])
+            if float_box:
+                fr_loc[r] = _float_ray(o_loc[r], d_loc[r])
             rank[r] = k
             node[r] = rank_root[k]
             n_inst += r.numel()

@@ -55,8 +55,10 @@ a hit triangle leaf at once (A, then B), and goes on: of two hit node or
 instance children, into the nearer for the closest hit (by entry
 distance, A on a tie) and into A for the any hit (left first: its t_max
 does not shrink, and it measured faster), pushing the other; into the one
-hit child; or to the top of the stack.
-An instance re-expresses the world ray in its frame (direction
+hit child; or to the top of the stack. The float64 walk tests the boxes in
+float against a float copy of the ray, widened so that it takes every box
+a double test takes (`bvh2._slab_f32`), and takes the nearer child by that
+float entry. An instance re-expresses the world ray in its frame (direction
 unnormalized, so local t == world t) and enters its BLAS root; a node's
 frame is its index (`>= n_tlas` is local), and LIFO order means one local
 ray serves. The any-hit walk stops at its first occluder.
@@ -88,7 +90,7 @@ import torch
 from ..kernels import counted, launch_counter
 from ..utils.vmath import numpy_real, real_value
 from .bvh import refuse_ray_grad, widen
-from .bvh2 import PairNodes, _leaf_refs, _pair_nodes, _pair_walk, _stack_args, _stack_depth
+from .bvh2 import PairNodes, _leaf_refs, _pair_nodes, _pair_walk, _stack_args, _stack_depth, launch_plan
 from .bvh8 import (KIND_INST, _check_rays, _on_cpu, _ptr, _tri_rows, check_dtype, finish_occluded,
                    ray_t_max, real_slot)
 from .intersect import INF, Hit
@@ -104,6 +106,7 @@ __all__ = [
     "tlas2_occluded_plain",
     "tlas2_closest_kernel",
     "tlas2_occluded_kernel",
+    "tlas2_occupancy",
 ]
 
 @dataclasses.dataclass(frozen=True)
@@ -245,6 +248,25 @@ def tlas2_occluded_kernel(pack: Tlas2Pack, o, d, t_min, t_max, active=None, laun
     if err != 0:
         raise RuntimeError(f"tlas2 any-hit kernel launch failed: CUDA error {err}")
     return occ
+
+
+def tlas2_occupancy(stack_depth: int, occluded: bool, dtype) -> dict:
+    """How the kernel of a query (`occluded`) and real type (`dtype`) fills
+    the current card at the launch the wrappers make for a pack of
+    `stack_depth` (`bvh2.launch_plan`): registers and local (spill) bytes a
+    thread, blocks and warps resident per SM, and the shared stack they
+    hold per SM."""
+    from ..kernels import load_library
+
+    block, smem, on_global = launch_plan(stack_depth)
+    out = torch.zeros(4, dtype=torch.int32)
+    kind = int(occluded) | (2 if dtype == torch.float64 else 0) | (4 if on_global else 0)
+    err = load_library("tlas2").rpt_tlas2_occupancy(kind, block, smem, _ptr(out))
+    if err != 0:
+        raise RuntimeError(f"tlas2 occupancy query failed: CUDA error {err}")
+    regs, local, blocks, warps = out.tolist()
+    return dict(block=block, smem_bytes=smem, global_stack=on_global, registers=regs, local_bytes=local,
+                blocks_per_sm=blocks, warps_per_sm=warps, smem_per_sm=blocks * smem)
 
 
 # ---------------------------------------------------------------------------

@@ -10,8 +10,9 @@ import math
 import torch
 
 from . import random as rnd
+from .utils.vmath import safe_sqrt
 
-__all__ = ["uniform_disk", "uniform_triangle_barycentric"]
+__all__ = ["uniform_disk", "uniform_circle", "cosine_hemisphere", "uniform_triangle_barycentric"]
 
 
 def uniform_disk(key, shape=(), device=None, dtype=torch.float32) -> torch.Tensor:
@@ -20,6 +21,21 @@ def uniform_disk(key, shape=(), device=None, dtype=torch.float32) -> torch.Tenso
     r = torch.sqrt(rnd.uniform(k1, shape, dtype=dtype, device=device))
     theta = rnd.uniform(k2, shape, dtype=dtype, minval=0.0, maxval=2.0 * math.pi, device=device)
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+
+
+def uniform_circle(key, shape=(), device=None, dtype=torch.float32) -> torch.Tensor:
+    """Uniform sample on the unit circle, shape (..., 2): (cos t, sin t)."""
+    theta = rnd.uniform(key, shape, dtype=dtype, minval=0.0, maxval=2.0 * math.pi, device=device)
+    return torch.stack([torch.cos(theta), torch.sin(theta)], dim=-1)
+
+
+def cosine_hemisphere(key, shape=(), device=None, dtype=torch.float32) -> torch.Tensor:
+    """Cosine-weighted hemisphere sample in local (t1, t2, n) coordinates by
+    Malley's method (a disk sample lifted), shape (..., 3), z >= 0; its pdf
+    is z / pi."""
+    xy = uniform_disk(key, shape, device=device, dtype=dtype)
+    z = safe_sqrt(1.0 - torch.sum(xy * xy, dim=-1))
+    return torch.cat([xy, z[..., None]], dim=-1)
 
 
 def uniform_triangle_barycentric(key, shape=(), device=None, dtype=torch.float32) -> torch.Tensor:
