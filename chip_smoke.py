@@ -191,6 +191,7 @@ import importlib
 import importlib.util
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -210,6 +211,7 @@ PEAK_F64_OPS = 34e12
 # architecture white paper) x 132 SMs x the 1.98 GHz boost clock.
 PEAK_INT32_OPS = 64 * 132 * 1.98e9
 PARITY_MIN = 0.9999
+T_MIN_WALK = 1e-3  # the t_min of walk_cases_phase
 T_TOL = 2e-5
 
 # Per kernel: the scene module's wrapper that calls it, its source, the TPU
@@ -285,7 +287,7 @@ COMPACT_WORKLOADS = ("dragon", "lego", "dragon871k")
 COMPACT_ENV = {False: "0", True: "1", "octant": "octant", "morton": "morton"}
 COMPACT_SAMPLES = 4
 # `[occupancy]`: the workloads that print the tlas2 kernels' occupancy.
-OCCUPANCY_WORKLOADS = ("lego_binary", "lego_binary_f64")
+OCCUPANCY_WORKLOADS = ("lego", "lego_f64", "lego_binary", "lego_binary_f64")
 # The threefry kernel's row: its source, its modes (keys, bits, uniform,
 # randint), and what one element of each mode needs (csrc/threefry.cu's
 # note counts it): 32-bit integer operations, 72 per hash (one three-way xor
@@ -908,7 +910,7 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
         binary_vs_wide(family, sd, pack, rec, mat_of, card)
     before_after(family, mod, sd.bvh if family in ("bvh8", "bvh2") else sd.instanced, pack, rec, mat_of, card)
     if workload in OCCUPANCY_WORKLOADS:
-        occupancy_phase(workload, pack.stack_depth, card)
+        occupancy_phase(workload, family, pack.group_depth if family == "tlas8" else pack.stack_depth, card)
     return err, rec
 
 
@@ -1568,6 +1570,52 @@ def random64_phase(card: str, host, dev, npix: int, dim: float, by_mode32: dict)
             "library_ms": None, "shape": [npix], "mode": "uniform64", "by_mode": by_mode}
 
 
+def walk_cases_phase(card: str) -> None:
+    """`[ties]` and `[edge]`: every walk kernel, float32 and float64, against
+    its plain walk on the scenes of tests/walk_scenes.py where the walks'
+    edge cases show (the card tests' `_walk_scene`): on ties (two leaves,
+    or two instances of the same or a wider mesh, at one t) each
+    closest-hit kernel equals its plain walk bit for bit; on `edge_scene`
+    (flat leaves, hits at a leaf's face) so does each closest hit, and each
+    any hit at t_max = the closest hit's t answers `closest.t <= t_max` and
+    equals its plain walk. Any mismatch fails the run."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import walk_scenes
+
+    def scene(family, name, dtype):
+        tree, o, d = walk_scenes.walk_scene(family, name, dtype)
+        mod = family_module(family)
+        return mod, getattr(mod, f"pack_{family}")(tree, device=DEVICE), o.to(DEVICE), d.to(DEVICE)
+
+    cases = [("bvh8", "twin_leaves"), ("bvh2", "twin_leaves"), ("tlas8", "same_mesh"), ("tlas8", "wider_mesh"),
+             ("tlas2", "same_mesh"), ("tlas2", "wider_mesh"), ("bvh8", "edge"), ("bvh2", "edge"), ("tlas8", "edge"),
+             ("tlas2", "edge")]
+    for dtype in (torch.float32, torch.float64):
+        for family, name in cases:
+            mod, pack, o, d = scene(family, name, dtype)
+            out_k = getattr(mod, f"{family}_closest_kernel")(pack, o, d, T_MIN_WALK)
+            out_p = getattr(mod, f"{family}_closest_plain")(pack, o, d, T_MIN_WALK)
+            torch.cuda.synchronize()
+            same = all(torch.equal(k, p) for k, p in zip(out_k, out_p))
+            hit = out_p[0] < 1e38
+            line = dict(family=family, scene=name, dtype=str(dtype).replace("torch.", ""), rays=o.shape[0],
+                        hits=int(hit.sum()), closest_bit_equal=same)
+            ok = same and int(hit.sum()) > 100
+            if name == "edge":
+                t_max = torch.where(hit, out_p[0], torch.full_like(out_p[0], 12.0))
+                occ_k = getattr(mod, f"{family}_occluded_kernel")(pack, o, d, T_MIN_WALK, t_max)
+                occ_p = getattr(mod, f"{family}_occluded_plain")(pack, o, d, T_MIN_WALK, t_max)
+                torch.cuda.synchronize()
+                line.update(any_hit_bit_equal=bool(torch.equal(occ_k, occ_p)),
+                            missed_at_t_max_eq_t=int((hit & ~occ_k).sum()), false_hits=int((occ_k & ~hit).sum()))
+                ok = ok and torch.equal(occ_k, occ_p) and torch.equal(occ_k, hit)
+            say("edge" if name == "edge" else "ties", **line, card=json.dumps(card))
+            if not ok:
+                fail(f"the {family} kernels disagree with their plain walks or miss a hit on {name} ({dtype})")
+
+
 def sass_phase(lib: str) -> None:
     """`[sass]`: the instructions of each threefry kernel of the built
     library by opcode (`cuobjdump -sass`), the check on THREEFRY's counts:
@@ -1738,6 +1786,7 @@ def load_tree(label: str, root: str):
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
     info = importlib.import_module(f"{name}.kernels").build(force=True)
+    TREE_BUILDS[label] = info
     for source in ("bvh8", "tlas8", "bvh2", "tlas2"):
         for line in info[source]["log"].splitlines():
             if any(k in line for k in ("entry function", "registers", "spill", "stack frame")):
@@ -1745,31 +1794,77 @@ def load_tree(label: str, root: str):
     return name
 
 
+TREE_BUILDS = {}  # label -> that tree's `kernels.build()` result (its ptxas logs)
+
+
+def ptxas_kernels(log: str) -> dict:
+    """{mangled entry function: (registers, spill store bytes)} of a ptxas log."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = [0, 0]
+        elif name is not None:
+            regs = re.search(r"Used (\d+) registers", line)
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            if regs:
+                out[name][0] = int(regs.group(1))
+            if spill:
+                out[name][1] = int(spill.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def rule_occupancy(regs: int, smem: int, block: int = 128) -> tuple:
+    """(blocks, warps) per SM of an H100 for a kernel of `regs` registers
+    and `smem` bytes of dynamic shared memory a block, by the occupancy
+    rule: 65,536 registers a SM allocated per warp in 256s (8 a thread),
+    228 KB of shared memory with 1 KB reserved a block, at most 64 warps
+    and 32 blocks."""
+    warps_per_block = (block + 31) // 32
+    by_regs = 65536 // (((regs + 7) // 8) * 8 * 32 * warps_per_block) if regs else 32
+    by_smem = (228 * 1024) // (smem + 1024)
+    blocks = min(by_regs, by_smem, 64 // warps_per_block, 32)
+    return blocks, blocks * warps_per_block
+
+
 def compare_trees() -> list:
     """[(label, dir)] of the trees named in RPT_COMPARE (`label=dir,...`)."""
     return [item.split("=", 1) for item in os.environ.get("RPT_COMPARE", "").split(",") if item]
 
 
-def occupancy_phase(workload: str, stack_depth: int, card: str) -> None:
-    """`[occupancy]`: each of the four tlas2 kernels at the launch the
-    wrappers make for a pack of `stack_depth` (`ops/tlas2.tlas2_occupancy`),
-    of this tree and of each tree named in RPT_COMPARE that has the query."""
+def occupancy_phase(workload: str, family: str, depth: int, card: str) -> None:
+    """`[occupancy]`: each of the four kernels of `family` (tlas8 or tlas2)
+    at the launch the wrappers make for a pack of stack depth `depth`
+    (`ops/tlas8.tlas8_occupancy`, `ops/tlas2.tlas2_occupancy`), of this tree
+    and of each tree named in RPT_COMPARE that has the query."""
     import torch
 
-    from rpt_tpu_torch.ops import tlas2
-
-    mods = {"this": tlas2}
+    mods = {"this": family_module(family)}
     for label, root in compare_trees():
-        mods[label] = importlib.import_module(f"{load_tree(label, root)}.ops.tlas2")
+        mods[label] = importlib.import_module(f"{load_tree(label, root)}.ops.{family}")
     for label, mod in mods.items():
-        if not hasattr(mod, "tlas2_occupancy"):
-            say("occupancy", workload=workload, tree=label, skipped="the tree has no occupancy query")
+        query = getattr(mod, f"{family}_occupancy", None)
+        if query is None:
+            # A tree without the query (the parent of the tlas8 one): its
+            # ptxas registers and spill, blocks and warps by the rule.
+            smem = 128 * depth * 4
+            for entry, (regs, spill) in ptxas_kernels(TREE_BUILDS.get(label, {}).get(family, {}).get("log", "")).items():
+                kind = re.search(rf"{family}_walk(_f64)?ILb([01])", entry)
+                if kind is None:
+                    continue
+                blocks, warps = rule_occupancy(regs, smem)
+                say("occupancy", workload=workload, tree=label,
+                    kernel=f"{family}_{'occluded' if kind.group(2) == '1' else 'closest'}{kind.group(1) or ''}",
+                    stack_depth=depth, block=128, smem_bytes=smem, registers=regs, spill_store_bytes=spill,
+                    blocks_per_sm=blocks, warps_per_sm=warps, smem_per_sm=blocks * smem, read_from="ptxas and the rule",
+                    card=json.dumps(card))
             continue
         for dtype in (torch.float32, torch.float64):
             for kind in ("closest", "occluded"):
-                occ = mod.tlas2_occupancy(stack_depth, kind == "occluded", dtype)
+                occ = query(depth, kind == "occluded", dtype)
                 say("occupancy", workload=workload, tree=label,
-                    kernel=f"tlas2_{kind}" + ("_f64" if dtype == torch.float64 else ""), stack_depth=stack_depth,
+                    kernel=f"{family}_{kind}" + ("_f64" if dtype == torch.float64 else ""), stack_depth=depth,
                     **occ, card=json.dumps(card))
 
 
@@ -2914,6 +3009,18 @@ def main():
 
     if multicard:
         multicard_phase(card)
+        print(card, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
+
+    # Every walk kernel at ties and at t_max = t, against its plain walk.
+    walk_cases_phase(card)
+    if sys.argv[1:2] == ["--workloads"]:
+        # Part of the run, to measure a design (e.g. RPT_COMPARE variants on
+        # one workload): the named workloads' phases alone.
+        for workload in sys.argv[2].split(","):
+            run_workload(workload, card)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}), flush=True)

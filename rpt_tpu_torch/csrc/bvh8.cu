@@ -47,8 +47,8 @@ bvh8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta,
           const float* __restrict__ t_max, int n, float t_min, float* __restrict__ t_out,
           int* __restrict__ id_out, bool* __restrict__ occ_out, unsigned long long* launches) {
   count_launch(launches);
-  group_walk<kOccl, false>(bounds, meta, 0, (const float*)nullptr, nullptr, tris, o, d, active, t_max, n, t_min,
-                           t_out, id_out, nullptr, occ_out);
+  group_walk<kOccl, false>(bounds, meta, 0, (const float*)nullptr, tris, o, d, active, t_max, n, t_min, t_out,
+                           id_out, nullptr, occ_out);
 }
 
 // The float64 walk: a double ray takes twice the registers, so no cap
@@ -61,8 +61,8 @@ bvh8_walk_f64(const float4* __restrict__ bounds, const int* __restrict__ meta,
               const double* __restrict__ t_max, int n, double t_min, double* __restrict__ t_out,
               int* __restrict__ id_out, bool* __restrict__ occ_out, unsigned long long* launches) {
   count_launch(launches);
-  group_walk<kOccl, false>(bounds, meta, 0, (const double*)nullptr, nullptr, tris, o, d, active, t_max, n, t_min,
-                           t_out, id_out, nullptr, occ_out);
+  group_walk<kOccl, false>(bounds, meta, 0, (const double*)nullptr, tris, o, d, active, t_max, n, t_min, t_out,
+                           id_out, nullptr, occ_out);
 }
 
 template <bool kOccl, typename Real>

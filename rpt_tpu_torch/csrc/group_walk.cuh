@@ -27,15 +27,25 @@
 //     the pack's `group_depth`, sizes it in dynamic shared memory, indexed
 //     [level][thread] so that neighbouring lanes fall in different banks;
 //     no per-thread local-memory stack;
-//   - two-level: an instance child loads the 3x4 world->local affine
-//     (walk.cuh to_local), re-expresses the ray with the direction NOT
-//     normalized (so local t == world t and the running-best prune holds at
-//     both levels) and enters its BLAS root. LIFO order means one ray per
-//     thread, in the frame of the nodes being visited, suffices: the world
-//     ray is loaded again at an instance entry and on the return to a TLAS
-//     group. One-level, all of that is compiled out;
-//   - pruning on the running best hit (closest) or on t_max (any hit); the
-//     any-hit walk returns at its first occluder.
+//   - two-level: an instance child (payload its TLAS leaf rank) loads a
+//     record of the 3x4 world->local affine, its BLAS root and its id
+//     (walk.cuh kRec), re-expresses the ray with the direction NOT
+//     normalized (walk.cuh to_local: local t == world t, so the
+//     running-best prune holds at both levels) and enters its BLAS root.
+//     LIFO order means one ray per thread, in the frame of the nodes being
+//     visited, suffices: the world ray is loaded again at an instance entry
+//     and on the return to a TLAS group. One-level, all of that is
+//     compiled out;
+//   - pruning on the running best hit (closest) or on t_max (any hit),
+//     widened by 8 ulps (walk.cuh box_upper) so that a leaf whose entry
+//     rounds past a triangle at that t is still visited; the any-hit walk
+//     returns at its first occluder;
+//   - ties: the reference takes, among equal t, the leaf it visits first in
+//     preorder. A leaf's best row replaces the best hit on t < best, or on
+//     t == best with a smaller key, which is that order: (TLAS leaf rank,
+//     packed row) two-level, the row alone one-level (rows rise in the
+//     binary tree's preorder, ops/bvh8.py). The walk carries the rank and
+//     reads the winner's instance id from its record at the end.
 // The visit order is that of a stack with one entry per hit child, pushed
 // far first: a node's leaves, then its children near to far, each subtree
 // whole before the next sibling. The nodes keep their f32 child boxes: a
@@ -53,15 +63,37 @@
 // references `payload << 2 | kind`, 8 octant words) is documented in
 // rpt_tpu_torch/ops/bvh8.py and ops/tlas8.py. The walk is a template over
 // the real type (walk.cuh): float for float32 renders, double for float64
-// ones, whose rays, triangle rows, instance rows and hit distances are
-// double and whose node boxes, rounded outward to float, are tested in
-// double. A double walk holds twice the registers of a ray, and reads
-// 160-byte triangle rows (PERF.md has its registers and times).
+// ones, whose rays, triangle rows, instance records and hit distances are
+// double and whose node boxes are float, rounded outward. The one-level
+// double walk tests them in double; the two-level one in float (below).
+//
+// The two-level float64 walk (tlas8.cu's `_f64` kernels). As in the
+// binary pair (pair_walk.cuh), what held it back was the register file and
+// so the warps each SM keeps in flight, not FP64 throughput: instantiated
+// as the float walk in double it held every ray component, inverse, entry
+// and the running best as 64-bit pairs, 128 registers (closest hit) and
+// 120 (any hit), 16 warps per SM (PERF.md). Its design, pair_walk.cuh's:
+//   - the 8 child boxes are tested in float (walk.cuh child_mask_f,
+//     box_entry_f) against a float copy of the ray, widened so that it
+//     takes every box the double test takes (its widening covers
+//     box_upper's; tests/test_torch_ties.py); the copy is made again
+//     wherever the ray changes frame;
+//   - a triangle row's plane is tested first and the rest of the row is
+//     loaded only for a t that could count (walk.cuh tri_plane);
+//   - tlas8.cu caps the kernels' registers (kMinBlocksF64): 8 blocks of
+//     128 rays a SM for the closest hit, 7 for the any hit.
+// Measured on the brick city in turns (PERF.md): 0.385 -> 0.312 ms a
+// closest-hit launch, 0.170 -> 0.150 an any hit; the caps, not the float
+// boxes alone (123 registers without a cap), bought the warps. The float
+// walks and the one-level double walk compile as before: `kFloatBox` is
+// false there.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "walk.cuh"  // Ray, load_ray, to_local, child_mask, leaf_closest, leaf_any
 
@@ -71,20 +103,18 @@ constexpr int kMetaG = 16;   // int32 per node: 8 child references, 8 octant wor
 constexpr int kKindNode = 1;  // reference kinds (ops/bvh8.py): 0 empty, 1 node, 2 instance, 3 leaf
 constexpr int kKindInst = 2;
 constexpr int kKindLeaf = 3;
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may hold (227 KB)
 
 // The walk of ray i = blockIdx.x * blockDim.x + threadIdx.x, from node 0,
 // in the real type Real (float or double) of the rays, triangle rows and
-// instance rows; the node boxes are float in both.
-// One-level (kTwoLevel false): n_tlas, inst, inst_root and inst_out are
-// not read. kOccl: writes occ_out; else t_out, id_out (and inst_out).
+// instance records; the node boxes are float in both.
+// One-level (kTwoLevel false): n_tlas, inst and inst_out are not read.
+// kOccl: writes occ_out; else t_out, id_out (and inst_out).
 template <bool kOccl, bool kTwoLevel, typename Real>
 __device__ __forceinline__ void group_walk(
     const float4* __restrict__ bounds, const int* __restrict__ meta, int n_tlas,
-    const Real* __restrict__ inst, const int* __restrict__ inst_root,
-    const Real* __restrict__ tris, const Real* __restrict__ o, const Real* __restrict__ d,
-    const bool* __restrict__ active, const Real* __restrict__ t_max, int n, Real t_min,
-    Real* __restrict__ t_out, int* __restrict__ id_out, int* __restrict__ inst_out,
+    const Real* __restrict__ inst, const Real* __restrict__ tris, const Real* __restrict__ o,
+    const Real* __restrict__ d, const bool* __restrict__ active, const Real* __restrict__ t_max, int n,
+    Real t_min, Real* __restrict__ t_out, int* __restrict__ id_out, int* __restrict__ inst_out,
     bool* __restrict__ occ_out) {
   extern __shared__ unsigned group_stack[];  // [level][threadIdx.x]
   unsigned* stack = group_stack + threadIdx.x;
@@ -100,22 +130,37 @@ __device__ __forceinline__ void group_walk(
     }
     return;
   }
+  // The two-level float64 walk tests its boxes in float against rf, the
+  // float copy of r (walk.cuh box_entry_f), and a row's plane before the
+  // rest of the row (walk.cuh tri_plane); the head of this file says why.
+  constexpr bool kFloatBox = kTwoLevel && std::is_same_v<Real, double>;
   // The ray in the frame of the nodes being visited. The world ray is not
   // kept beside it: it is loaded again where the walk needs it (an instance
   // entry, a return to the TLAS), which saves the registers of a second ray.
   Ray<Real> r = load_ray(o, d, i);
+  RayF rf;
+  float t_min_f = 0.0f;
+  if constexpr (kFloatBox) {
+    rf = float_ray(r);
+    t_min_f = __double2float_rd(t_min);
+  }
   bool local = false;
 
   // Closest hit: `upper` is the running best t. Any hit: it is t_max.
   Real upper = kOccl ? t_max[i] : Num<Real>::big;
   int best = 0;
-  int best_inst = 0;
-  int cur_inst = 0;
+  int best_rank = -1;
+  int cur_rank = 0;  // the current instance's TLAS leaf rank
   int sp = 0;
   int node = 0;  // the root
   while (true) {
     // Visit `node`, in r's frame.
-    const unsigned hit = child_mask(bounds + (size_t)node * kNode4, r, t_min, upper);
+    unsigned hit;
+    if constexpr (kFloatBox) {
+      hit = child_mask_f(bounds + (size_t)node * kNode4, rf, t_min_f, __double2float_ru(upper));
+    } else {
+      hit = child_mask(bounds + (size_t)node * kNode4, r, t_min, box_upper(upper));
+    }
     const int* m = meta + (size_t)node * kMetaG;
     const int4 ra = __ldg(reinterpret_cast<const int4*>(m));
     const int4 rb = __ldg(reinterpret_cast<const int4*>(m) + 1);
@@ -144,17 +189,38 @@ __device__ __forceinline__ void group_walk(
       const int cnt = (payload & 7) + 1;
       const Real* tr = tris + (size_t)start * kTriStride;
       if (kOccl) {
-        if (leaf_any(tr, cnt, r, t_min, upper)) {
+        bool occluded;
+        if constexpr (kFloatBox) {
+          occluded = leaf_any_split(tr, cnt, r, t_min, upper);
+        } else {
+          occluded = leaf_any(tr, cnt, r, t_min, upper);
+        }
+        if (occluded) {
           occ_out[i] = true;
           return;
         }
       } else {
         int kb;
-        const Real t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
-        if (t_leaf < upper) {
+        Real t_leaf;
+        if constexpr (kFloatBox) {
+          t_leaf = leaf_closest_split(tr, cnt, r, t_min, upper, &kb);
+        } else {
+          t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
+        }
+        // Ties: a smaller key, (TLAS leaf rank, row) two-level, the row
+        // one-level, is the reference's preorder.
+        const int row = start + kb;
+        bool better;
+        if constexpr (kTwoLevel) {
+          better = t_leaf < upper || (t_leaf == upper && upper < Num<Real>::big &&
+                                      (cur_rank < best_rank || (cur_rank == best_rank && row < best)));
+        } else {
+          better = t_leaf < upper || (t_leaf == upper && upper < Num<Real>::big && row < best);
+        }
+        if (better) {
           upper = t_leaf;
-          best = start + kb;
-          if (kTwoLevel) best_inst = cur_inst;
+          best = row;
+          if (kTwoLevel) best_rank = cur_rank;
         }
       }
     }
@@ -177,6 +243,7 @@ __device__ __forceinline__ void group_walk(
       // instance's BLAS before any TLAS group below it.
       if (g_node < n_tlas && local) {
         r = load_ray(o, d, i);
+        if constexpr (kFloatBox) rf = float_ray(r);
         local = false;
       }
     }
@@ -184,10 +251,14 @@ __device__ __forceinline__ void group_walk(
     node = ref >> 2;
     if constexpr (kTwoLevel) {
       if ((ref & 3) == kKindInst) {
-        to_local(inst + (size_t)node * kInst, load_ray(o, d, i), &r);
+        // An instance (payload its TLAS leaf rank): the world ray in its
+        // frame, then its BLAS root.
+        const Real* rec = inst + (size_t)node * kRec;
+        to_local(rec, load_ray(o, d, i), &r);
+        if constexpr (kFloatBox) rf = float_ray(r);
         local = true;
-        cur_inst = node;
-        node = __ldg(inst_root + cur_inst);
+        cur_rank = node;
+        node = __ldg(reinterpret_cast<const int*>(rec + 12));
       }
     }
   }
@@ -196,7 +267,10 @@ __device__ __forceinline__ void group_walk(
   } else {
     t_out[i] = upper;
     id_out[i] = best;
-    if (kTwoLevel) inst_out[i] = best_inst;
+    if constexpr (kTwoLevel) {
+      inst_out[i] =
+          best_rank >= 0 ? __ldg(reinterpret_cast<const int*>(inst + (size_t)best_rank * kRec + 12) + 1) : 0;
+    }
   }
 }
 

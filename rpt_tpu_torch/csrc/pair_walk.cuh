@@ -19,7 +19,10 @@
 // children's boxes and references:
 //   - both children are slab-tested against [t_min, upper] (upper = the
 //     running best hit, or t_max for the any hit; inclusive, as in the
-//     reference), so one round trip to L2 buys two box tests;
+//     reference; widened by 8 ulps, walk.cuh box_upper, so that a leaf
+//     whose entry rounds past a triangle at that t is still visited; the
+//     float box test's own widening covers that), so one round trip to L2
+//     buys two box tests;
 //   - a hit triangle leaf is tested at once; of two hit node or instance
 //     children the closest-hit walk enters the nearer (by entry distance,
 //     A on a tie) and pushes the farther, so it shrinks its running best
@@ -102,10 +105,8 @@
 namespace {
 
 constexpr int kPair4 = 4;  // float4 per pair node: 2 boxes, then [refA, refB, 0, 0]
-constexpr int kRec = 16;   // reals per instance record: 3x4 rows, then [BLAS root, id] as int32
 constexpr int kRefInst = 2;  // reference kinds (ops/bvh8.py): 0 empty, 1 node, 2 instance, 3 leaf
 constexpr int kRefLeaf = 3;
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may hold (227 KB)
 
 // Test the triangle leaf `ref` in r's frame. Any hit: true on an occluder in
 // [t_min, upper]. Closest: the leaf's best row replaces the running best on
@@ -211,8 +212,9 @@ __device__ __forceinline__ void pair_walk(
     load_pair(nodes, 0, &a, &b, &c, &m);
     while (true) {
       Real lo_a, lo_b;
-      const bool hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, upper, &lo_a);
-      const bool hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, upper, &lo_b) && m.y != 0;
+      const Real up = box_upper(upper);
+      const bool hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, up, &lo_a);
+      const bool hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, up, &lo_b) && m.y != 0;
       const int ref_a = m.x;
       const int ref_b = m.y;
       const bool leaf_a = (ref_a & 3) == kRefLeaf;
@@ -260,8 +262,9 @@ __device__ __forceinline__ void pair_walk(
         hit_a = box_entry_f(a.x, a.y, a.z, a.w, b.x, b.y, rf, t_min_f, upper_f, &lo_a);
         hit_b = box_entry_f(b.z, b.w, c.x, c.y, c.z, c.w, rf, t_min_f, upper_f, &lo_b) && m.y != 0;
       } else {
-        hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, upper, &lo_a);
-        hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, upper, &lo_b) && m.y != 0;
+        const Real up = box_upper(upper);
+        hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, up, &lo_a);
+        hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, up, &lo_b) && m.y != 0;
       }
       const bool leaf_a = (m.x & 3) == kRefLeaf;
       const bool leaf_b = (m.y & 3) == kRefLeaf;

@@ -31,9 +31,10 @@ namespace {
 constexpr float kBig = 3.0e38f;
 constexpr int kTriStride = 20;  // reals per triangle row
 constexpr int kNode4 = 12;      // float4 of child bounds per wide node
-constexpr int kInst = 12;       // reals per instance: the 3x4 world->local rows
+constexpr int kRec = 16;        // reals per instance record: 3x4 rows, then [BLAS root, id] as int32
 constexpr int kBlock = 128;
 constexpr int kMaxCards = 64;
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may hold (227 KB)
 
 // The state of one kernel's `once_per_card` setting: a flag and a result
 // for each card. Each kernel keeps one as a static.
@@ -63,11 +64,11 @@ template <typename Real>
 struct Num;
 template <>
 struct Num<float> {
-  static constexpr float big = 3.0e38f, par = 1e-8f, tiny = 1e-20f;
+  static constexpr float big = 3.0e38f, par = 1e-8f, tiny = 1e-20f, up = 0x1p-21f;
 };
 template <>
 struct Num<double> {
-  static constexpr double big = 3.0e38, par = 1e-8, tiny = 1e-20;
+  static constexpr double big = 3.0e38, par = 1e-8, tiny = 1e-20, up = 0x1p-50;
 };
 
 __device__ __forceinline__ float absr(float x) { return fabsf(x); }
@@ -102,6 +103,26 @@ template <typename Real>
 __device__ __forceinline__ Real safe_inv(Real c) {
   Real s = (absr(c) > Num<Real>::tiny) ? c : ((c < (Real)0) ? -Num<Real>::tiny : Num<Real>::tiny);
   return (Real)1 / s;
+}
+
+// The upper end of a box test: `upper` (the running best t, or t_max)
+// widened by 8 ulps of itself (Num::up: 2^-21 in float, 2^-50 in double).
+// A slab's entry is rounded three times ((lo - o), the inverse of d, their
+// product) and a triangle's t twice or more, so a box whose entry is, in
+// exact arithmetic, at or before a triangle's t can round to an entry an
+// ulp or two past it: at a flat leaf, whose entry is its exit and lies on
+// its triangles' plane, and at a leaf whose face a hit lies on. Tested
+// against `upper` itself, the any hit at t_max = t would miss that triangle
+// (the reference's rule is closest.t <= t_max), and the closest hit would
+// skip a leaf tied at the running best, whose key could be smaller. Widened,
+// the test takes such a box; a box taken in addition costs only a visit, as
+// the triangle tests keep [t_min, upper] exactly. The flat leaves of
+// tests/test_torch_f64.py `_edge_scene` need 2^-24 (float) and 2^-53
+// (double) of upper, one u: 8u leaves room for the rest of the roundings,
+// as box_entry_f's widening does.
+template <typename Real>
+__device__ __forceinline__ Real box_upper(Real upper) {
+  return upper + absr(upper) * Num<Real>::up;
 }
 
 // Slab test of one box: does [lo, hi] overlap [t_min, upper] along the ray?
@@ -201,7 +222,8 @@ __device__ __forceinline__ bool box_entry_f(float lox, float loy, float loz, flo
 }
 
 // Slab test of the 8 child boxes of one wide node: bit c set if child c's
-// box overlaps [t_min, upper] along the ray.
+// box overlaps [t_min, upper] along the ray (upper already widened by the
+// caller, box_upper).
 template <typename Real>
 __device__ __forceinline__ unsigned child_mask(const float4* __restrict__ nb, const Ray<Real>& r,
                                                Real t_min, Real upper) {
@@ -218,6 +240,30 @@ __device__ __forceinline__ unsigned child_mask(const float4* __restrict__ nb, co
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
     if (box_hit(v[c], v[8 + c], v[16 + c], v[24 + c], v[32 + c], v[40 + c], r, t_min, upper)) {
+      mask |= 1u << c;
+    }
+  }
+  return mask;
+}
+
+// child_mask in float (box_entry_f): the 8 boxes against the float copy of
+// a double ray, t_min rounded down and upper rounded up to float.
+__device__ __forceinline__ unsigned child_mask_f(const float4* __restrict__ nb, const RayF& r, float t_min,
+                                                 float upper) {
+  float v[48];
+#pragma unroll
+  for (int q = 0; q < kNode4; ++q) {
+    float4 x = __ldg(nb + q);
+    v[4 * q + 0] = x.x;
+    v[4 * q + 1] = x.y;
+    v[4 * q + 2] = x.z;
+    v[4 * q + 3] = x.w;
+  }
+  unsigned mask = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    float entry;
+    if (box_entry_f(v[c], v[8 + c], v[16 + c], v[24 + c], v[32 + c], v[40 + c], r, t_min, upper, &entry)) {
       mask |= 1u << c;
     }
   }

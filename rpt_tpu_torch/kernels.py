@@ -54,10 +54,11 @@ _SIGNATURES = {
         "rpt_bvh8_occluded_f64": [_P, _P, _I32] + [_P] * 5 + [_I64, _F64] + [_P] * 3,
     },
     "tlas8": {
-        "rpt_tlas8_closest": [_P, _P, _I32, _I32] + [_P] * 6 + [_I64, _F32] + [_P] * 5,
-        "rpt_tlas8_occluded": [_P, _P, _I32, _I32] + [_P] * 7 + [_I64, _F32] + [_P] * 3,
-        "rpt_tlas8_closest_f64": [_P, _P, _I32, _I32] + [_P] * 6 + [_I64, _F64] + [_P] * 5,
-        "rpt_tlas8_occluded_f64": [_P, _P, _I32, _I32] + [_P] * 7 + [_I64, _F64] + [_P] * 3,
+        "rpt_tlas8_closest": [_P, _P, _I32, _I32] + [_P] * 5 + [_I64, _F32] + [_P] * 5,
+        "rpt_tlas8_occluded": [_P, _P, _I32, _I32] + [_P] * 6 + [_I64, _F32] + [_P] * 3,
+        "rpt_tlas8_closest_f64": [_P, _P, _I32, _I32] + [_P] * 5 + [_I64, _F64] + [_P] * 5,
+        "rpt_tlas8_occluded_f64": [_P, _P, _I32, _I32] + [_P] * 6 + [_I64, _F64] + [_P] * 3,
+        "rpt_tlas8_occupancy": [_I32, _I32, _P],
     },
     "bvh2": {
         "rpt_bvh2_closest": [_P] * 5 + [_I64, _F32] + [_P] * 2 + [_I32, _I32, _P, _P, _P],

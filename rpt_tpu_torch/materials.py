@@ -132,7 +132,7 @@ class MaterialTable:
     transparent: torch.Tensor
 
     @staticmethod
-    def pack(materials, device=None, dtype=torch.float32) -> "MaterialTable":
+    def pack(materials, dtype=torch.float32, device=None) -> "MaterialTable":
         """The materials' columns in the render's real type `dtype`."""
         mats = list(materials) or [Material.default()]
         np_dtype = numpy_real(dtype)

@@ -14,10 +14,11 @@ import ctypes
 import os
 import subprocess
 import threading
+import types
 
 import numpy as np
 
-__all__ = ["build_bvh_sah", "parse_obj", "BUILD_DIR"]
+__all__ = ["get_lib", "native_available", "build_bvh_sah", "parse_obj", "BUILD_DIR"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
@@ -61,6 +62,26 @@ def _load(name: str):
             getattr(lib, fn).argtypes = argtypes
         _loaded[name] = lib
         return lib
+
+
+def get_lib():
+    """The native entry points (`rpt_build_bvh_sah`, `rpt_parse_obj`,
+    `rpt_obj_free`) as attributes of one object, as the reference's one
+    library holds them, or None if a library cannot be built or loaded
+    here (no g++, a failed build, an unwritable build directory)."""
+    try:
+        libs = [_load(name) for name in _LIBS]
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        return None
+    return types.SimpleNamespace(**{fn: getattr(lib, fn) for lib, (_, entries) in zip(libs, _LIBS.values())
+                                    for fn in entries})
+
+
+def native_available() -> bool:
+    """Whether both native libraries build and load here. Where they do
+    not, `build_bvh_sah` and `parse_obj` still raise: the port has no
+    slower stand-in."""
+    return get_lib() is not None
 
 
 def build_bvh_sah(tri_min: np.ndarray, tri_max: np.ndarray, leaf_size: int):

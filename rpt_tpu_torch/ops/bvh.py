@@ -24,7 +24,8 @@ from ..native import build_bvh_sah
 from ..utils.vmath import cross, dot, normalize, numpy_real, signed_full
 from .intersect import INF, Hit
 
-__all__ = ["BvhData", "build_bvh", "finalize_hit", "refuse_ray_grad", "outward", "widen", "LEAF_SIZE"]
+__all__ = ["BvhData", "build_bvh", "bvh_closest_hit", "finalize_hit", "refuse_ray_grad", "outward", "widen",
+           "LEAF_SIZE"]
 
 LEAF_SIZE = 8
 
@@ -64,8 +65,8 @@ def bvh_from_arrays(arrays: dict, device=None, dtype=torch.float32) -> BvhData:
     })
 
 
-def build_bvh(verts: np.ndarray, norms: np.ndarray, mats: np.ndarray, device=None,
-              dtype=torch.float32) -> BvhData:
+def build_bvh(verts: np.ndarray, norms: np.ndarray, mats: np.ndarray, dtype=torch.float32,
+              device=None) -> BvhData:
     """Host-side SAH build over world-space triangles (T, 3, 3); the
     triangles and normals are kept in `dtype`, the node boxes are the
     SAH build's float32 values in it (as the reference keeps them)."""
@@ -178,3 +179,20 @@ def finalize_hit(bvh: BvhData, o, d, t_min, t_best, best_tri) -> Hit:
         normal=n,
         mat_id=bvh.mat_id[tri],
     )
+
+
+def bvh_closest_hit(bvh: BvhData, o, d, t_min, active=None) -> Hit:
+    """Closest hit of N rays against the BVH's triangles, as the reference's
+    XLA loop (`rpt_tpu/ops/bvh.py` `bvh_closest_hit`) answers it: the
+    nearest triangle in [t_min, inf), among equal t the first leaf in
+    preorder; t = inf on a miss and on an inactive lane. It runs the binary
+    walk's plain version (`ops/bvh2.py`) on the rays' device, over a pack
+    made for the call; a scene compiles its pack once and calls the
+    kernels' wrappers instead."""
+    from .bvh2 import bvh2_closest_plain, pack_bvh2
+    from .bvh8 import check_dtype, finish_closest
+
+    pack = pack_bvh2(bvh, device=o.device)
+    check_dtype(pack, o, d)
+    t_raw, tri = bvh2_closest_plain(pack, o, d, t_min, active)
+    return finish_closest(bvh, o, d, t_min, t_raw, tri, active)

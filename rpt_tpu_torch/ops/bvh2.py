@@ -43,7 +43,8 @@ of the ray, widened to take every box the double test takes
 
 Walk. One ray per thread (per lane of the plain version). Visiting a pair
 node slab-tests both children against [t_min, upper] (upper = the running
-best hit, or t_max for the any hit; inclusive, as in the reference), tests
+best hit, or t_max for the any hit; inclusive, as in the reference; widened
+by 8 ulps, `bvh8.box_upper`), tests
 a hit triangle leaf at once (A, then B), and goes on: of two hit node
 children, into the nearer for the closest hit (by entry distance, A on a
 tie) and into A for the any hit (left first: its t_max does not shrink),
@@ -71,7 +72,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import math
 from typing import Optional
 
 import numpy as np
@@ -87,12 +87,16 @@ from .bvh8 import (
     KIND_LEAF,
     KIND_NODE,
     _check_rays,
+    _float_ray,
     _leaf_t,
     _on_cpu,
     _ptr,
     _slab,
+    _slab_f32,
+    _to_f32,
     _to_local,
     _tri_rows,
+    box_upper,
     check_dtype,
     finish_closest,
     finish_occluded,
@@ -240,49 +244,6 @@ def pack_bvh2(bvh: BvhData, device=None) -> Bvh2Pack:
 # ---------------------------------------------------------------------------
 
 
-# csrc/walk.cuh box_entry_f: the smallest normal float, added to each
-# axis's slack, and the relative widening of a slab end (8u, u = 2^-24).
-_FLT_MIN = float(torch.finfo(torch.float32).tiny)
-_WIDEN = 2.0**-21
-
-
-def _float_ray(o, d):
-    """csrc/walk.cuh `float_ray` of double rays o, d (L, 3): (L, 9) float32,
-    the origin rounded to nearest, the float inverse of the direction
-    rounded to float (the zero guard signed by d), then each axis's slack
-    2 |of - o| |fi| + FLT_MIN."""
-    of, x = o.float(), d.float()
-    tiny = torch.full_like(x, 1e-20)
-    fi = 1.0 / torch.where(x.abs() > tiny, x, torch.where(d < 0, -tiny, tiny))
-    slack = ((of.double() - o).abs() * fi.double().abs() * 2.0).float() + _FLT_MIN
-    return torch.cat([of, fi, slack], 1)
-
-
-def _slab_f32(b, fr):
-    """The widened float slabs of csrc/walk.cuh `box_entry_f` for the C
-    children of each row's node: b (L, 6, C) float boxes, fr (L, 9) the rays'
-    `_float_ray`. Returns (lo, hi) (L, C) float32."""
-    lo = hi = None
-    for a in range(3):
-        o_a, i_a, s_a = fr[:, a:a + 1], fr[:, 3 + a:4 + a], fr[:, 6 + a:7 + a]
-        t1 = (b[:, a] - o_a) * i_a
-        t2 = (b[:, 3 + a] - o_a) * i_a
-        mn, mx = torch.minimum(t1, t2), torch.maximum(t1, t2)
-        mn = mn - (mn.abs() * _WIDEN + s_a)
-        mx = mx + (mx.abs() * _WIDEN + s_a)
-        lo = mn if lo is None else torch.maximum(lo, mn)
-        hi = mx if hi is None else torch.minimum(hi, mx)
-    return lo, hi
-
-
-def _to_f32(x, up: bool):
-    """Doubles rounded to float toward +inf (`up`) or -inf, as CUDA's
-    __double2float_ru / _rd."""
-    f = x.float()
-    off = f.double() < x if up else f.double() > x
-    return torch.where(off, torch.nextafter(f, torch.full_like(f, math.inf if up else -math.inf)), f)
-
-
 def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict]):
     """Lockstep version of csrc/pair_walk.cuh over the table of `pack` (its
     nodes, tris and stack_depth): each step visits one pair node for every
@@ -360,7 +321,7 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
             hit = (lo <= hi) & (hi >= t_min_f) & (lo <= _to_f32(upper, up=True))
         else:
             lo, hi = _slab(boxes[w], ol, il)
-            hit = (lo <= hi) & (hi >= t_min) & (lo <= upper)
+            hit = (lo <= hi) & (hi >= t_min) & (lo <= box_upper(upper))
         hit = hit & (kind != KIND_EMPTY)
         if stats is not None:
             n_box += (kind != KIND_EMPTY).sum()

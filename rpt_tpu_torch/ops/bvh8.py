@@ -40,7 +40,8 @@ type and raise on rays of the other.
 Walk: a node-group stack (Ylitie, Karras and Laine, HPG 2017), one ray per
 thread (or per lane of the plain version), near to far by its own
 direction octant. Visiting a node slab-tests its 8 children against
-[t_min, upper] (upper = running best hit, or t_max for the any-hit query),
+[t_min, upper] (upper = running best hit, or t_max for the any-hit query,
+widened by 8 ulps: `box_upper`),
 tests its hit leaves at once, near first, each against the best hit so far,
 and makes its hit wide-node children one group: (node, 8-bit mask of them
 by rank). The walk enters the group's lowest rank and pushes the group back
@@ -49,6 +50,13 @@ tree level. The any-hit walk stops at its first triangle in [t_min, t_max].
 The visit order is exactly that of a stack with one entry per hit child,
 pushed far first (a node's leaves, then its children near to far, each
 subtree whole before the next sibling).
+
+Ties. The reference walks the binary tree in preorder and keeps, among
+equal t, the first leaf it reaches, and within a leaf the lowest row. The
+wide tree's leaves keep the binary tree's rows, which rise in preorder, so
+a leaf's best row replaces the best hit on t < best, or on t == best with a
+smaller row, whatever order the walk takes (two-level, the key is (TLAS
+leaf rank, row), `ops/tlas8.py`).
 
 `group_depth` is the exact worst-case depth of the group stack, which sizes
 it in the kernel's shared memory; `stack_need` the reference's bound for a
@@ -99,6 +107,7 @@ STACK_CAP = 128  # the reference's stack cap (bvh8_pallas.STACK_CAP)
 TRI_STRIDE = 20  # floats per triangle row, as in csrc/walk.cuh
 _BIG = 3.0e38  # in-kernel miss sentinel
 EMPTY = -1  # (a, b) pair b of an empty child slot
+_NO_ROW = 2**62  # above every row: the tie key's "none"
 INST_CHILD = -2  # b of an instance child (two-level tables, ops/tlas8.py)
 KIND_EMPTY, KIND_NODE, KIND_INST, KIND_LEAF = 0, 1, 2, 3  # child reference kinds
 _MAX_NODES = 2**24  # a group stack entry is node << 8 | rank mask in 32 bits
@@ -335,6 +344,8 @@ def _collapse(bvh: BvhData):
     is_leaf = bvh.is_leaf.cpu().numpy().astype(bool)
     leaf_start = bvh.leaf_start.cpu().numpy().astype(np.int64)
     leaf_count = bvh.leaf_count.cpu().numpy().astype(np.int64)
+    # The tie key: a smaller row must mean an earlier leaf in preorder.
+    assert (np.diff(leaf_start[is_leaf]) > 0).all(), "leaf rows must rise in preorder"
     bidx, ca, cb = _collapse_range(skip, is_leaf, leaf_start, leaf_count, 0, bvh.num_nodes)
     valid = bidx >= 0
     bi = np.where(valid, bidx, 0)
@@ -440,30 +451,86 @@ def _slab(b, ol, il):
     return lo, hi
 
 
+# csrc/walk.cuh `Num::up`: the widening of a box test's upper end, 8 ulps.
+_UP = {torch.float32: 2.0**-21, torch.float64: 2.0**-50}
+
+
+def box_upper(upper):
+    """csrc/walk.cuh `box_upper`: a box test's upper end (the running best
+    or t_max), widened by 8 ulps of itself, so that a box whose entry rounds
+    an ulp or two past a triangle's t at `upper` is still taken."""
+    return upper + upper.abs() * _UP[upper.dtype]
+
+
 def _slab_hit(b, ol, il, t_min, upper):
     """Slab test of csrc/walk.cuh `box_hit` for the children of each row's
-    node (`_slab`'s arguments), upper (L, 1). Returns (L, C) bool by slot."""
+    node (`_slab`'s arguments) against [t_min, upper], upper (L, 1) already
+    widened (`box_upper`). Returns (L, C) bool by slot."""
     lo, hi = _slab(b, ol, il)
     return (lo <= hi) & (hi >= t_min) & (lo <= upper)
 
 
-def _best_of_leaves(t, ok, start, li, lk, L, kk):
-    """The closest hit of one visit's leaves, tested near first, each
-    against the best so far: t, ok (P, 8) of the P hit leaves (row li,
-    rank lk) with first rows `start`. Returns (m, id) (L,): the first leaf
-    in rank order that holds the node's minimum m (BIG if none) and its
-    triangle id."""
+# csrc/walk.cuh box_entry_f: the smallest normal float, added to each
+# axis's slack, and the relative widening of a slab end (8u, u = 2^-24).
+_FLT_MIN = float(torch.finfo(torch.float32).tiny)
+_WIDEN = 2.0**-21
+
+
+def _float_ray(o, d):
+    """csrc/walk.cuh `float_ray` of double rays o, d (L, 3): (L, 9) float32,
+    the origin rounded to nearest, the float inverse of the direction
+    rounded to float (the zero guard signed by d), then each axis's slack
+    2 |of - o| |fi| + FLT_MIN."""
+    of, x = o.float(), d.float()
+    tiny = torch.full_like(x, 1e-20)
+    fi = 1.0 / torch.where(x.abs() > tiny, x, torch.where(d < 0, -tiny, tiny))
+    slack = ((of.double() - o).abs() * fi.double().abs() * 2.0).float() + _FLT_MIN
+    return torch.cat([of, fi, slack], 1)
+
+
+def _slab_f32(b, fr):
+    """The widened float slabs of csrc/walk.cuh `box_entry_f` for the C
+    children of each row's node: b (L, 6, C) float boxes, fr (L, 9) the rays'
+    `_float_ray`. Returns (lo, hi) (L, C) float32."""
+    lo = hi = None
+    for a in range(3):
+        o_a, i_a, s_a = fr[:, a:a + 1], fr[:, 3 + a:4 + a], fr[:, 6 + a:7 + a]
+        t1 = (b[:, a] - o_a) * i_a
+        t2 = (b[:, 3 + a] - o_a) * i_a
+        mn, mx = torch.minimum(t1, t2), torch.maximum(t1, t2)
+        mn = mn - (mn.abs() * _WIDEN + s_a)
+        mx = mx + (mx.abs() * _WIDEN + s_a)
+        lo = mn if lo is None else torch.maximum(lo, mn)
+        hi = mx if hi is None else torch.minimum(hi, mx)
+    return lo, hi
+
+
+def _to_f32(x, up: bool):
+    """Doubles rounded to float toward +inf (`up`) or -inf, as CUDA's
+    __double2float_ru / _rd."""
+    f = x.float()
+    off = f.double() < x if up else f.double() > x
+    return torch.where(off, torch.nextafter(f, torch.full_like(f, math.inf if up else -math.inf)), f)
+
+
+def _best_of_leaves(t, ok, start, li, lk, L):
+    """The closest hit of one visit's leaves, each tested against the best
+    so far: t, ok (P, 8) of the P hit leaves (row li, rank lk) with first
+    rows `start`. Returns (m, id) (L,): the node's minimum m (BIG if none)
+    and, of the rows that hold it, the smallest (the tie key: rows rise in
+    the binary tree's preorder, so the reference's first leaf; within a
+    leaf the lowest row, as `leaf_closest`)."""
     dev = t.device
+    rows = start[:, None] + torch.arange(t.shape[1], device=dev)
     th = torch.where(ok, t, torch.full_like(t, _BIG))
     t_leaf = th.min(1).values
-    k_best = torch.where(th == t_leaf[:, None], kk, BRANCH).min(1).values
+    row = torch.where(th == t_leaf[:, None], rows, _NO_ROW).min(1).values
     tl = torch.full((L, BRANCH), _BIG, dtype=t.dtype, device=dev)
     tl[li, lk] = t_leaf
-    ids = torch.zeros((L, BRANCH), dtype=torch.int64, device=dev)
-    ids[li, lk] = start + k_best
+    ids = torch.full((L, BRANCH), _NO_ROW, dtype=torch.int64, device=dev)
+    ids[li, lk] = row
     m = tl.min(1).values
-    r_best = torch.where(tl == m[:, None], kk, BRANCH).min(1).values
-    return m, torch.gather(ids, 1, r_best.clamp(max=BRANCH - 1)[:, None])[:, 0]
+    return m, torch.where(tl == m[:, None], ids, _NO_ROW).min(1).values
 
 
 # Index of the lowest set bit of each byte (0 has none: 8).
@@ -475,12 +542,16 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
     (its bounds, refs, words, tris and group_depth): each step visits one
     node for every ray still walking, then moves it to its next node
     (module docstring). One wide tree, or, where the pack carries instance
-    rows `inst` (K, 12) and BLAS roots `inst_root` (K,), a two-level table
-    whose nodes below `n_tlas` are the TLAS (ops/tlas8.py). Returns (t_raw, tri,
-    instance) for the closest hit (t_raw = BIG on a miss) or the any-hit
-    bool. `stats` accumulates box tests (filled slots of each visited
-    node), triangle tests, instance entries (two-level) and the deepest
-    group stack reached (`max_group_depth`)."""
+    records `inst_rows` (K, 16) by TLAS leaf rank, a two-level table whose
+    nodes below `n_tlas` are the TLAS (ops/tlas8.py). Box tests take
+    [t_min, upper] with upper widened (`box_upper`); the two-level float64
+    walk tests its boxes in float (`_slab_f32`), as its kernel does. A
+    leaf's best row replaces the best hit on a smaller t, or on an equal t
+    with a smaller key: (TLAS leaf rank, row) two-level, the row one-level.
+    Returns (t_raw, tri, instance id) for the closest hit (t_raw = BIG on a
+    miss) or the any-hit bool. `stats` accumulates box tests (filled slots
+    of each visited node), triangle tests, instance entries (two-level) and
+    the deepest group stack reached (`max_group_depth`)."""
     dev = o.device
     N = o.shape[0]
     t_min = real_value(t_min, o.dtype)
@@ -490,20 +561,27 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
     refs = pack.refs.long()
     words = pack.words.long()
     kinds = refs & 3
-    two_level = getattr(pack, "inst", None) is not None
+    two_level = getattr(pack, "inst_rows", None) is not None
+    float_box = two_level and o.dtype == torch.float64
+    if float_box:
+        t_min_f = _to_f32(torch.tensor(t_min, dtype=torch.float64), up=False).item()
+        fr = _float_ray(o, d)
     if two_level:
-        aff = pack.inst.view(-1, 3, 4)
-        roots = pack.inst_root.long()
+        aff = pack.inst_rows[:, :12].reshape(-1, 3, 4)
+        r = pack.inst_rows.element_size() // 4  # int32 words per real: the ints sit at real 12
+        rank_root, rank_inst = pack.inst_rows.view(torch.int32)[:, 12 * r:12 * r + 2].long().unbind(1)
         n_tlas = pack.n_tlas
         o_loc, d_loc, inv_loc = torch.zeros_like(o), torch.zeros_like(d), torch.zeros_like(d)
-        cur_inst = torch.zeros(N, dtype=torch.int64, device=dev)
+        if float_box:
+            fr_loc = torch.zeros((N, 9), dtype=torch.float32, device=dev)
     lowest = _LOWEST_BIT.to(dev)
     shifts = 4 * torch.arange(BRANCH, device=dev)
     kk = torch.arange(BRANCH, device=dev)
 
     t_best = torch.full((N,), _BIG, dtype=o.dtype, device=dev)
     best = torch.zeros(N, dtype=torch.int64, device=dev)
-    best_inst = torch.zeros(N, dtype=torch.int64, device=dev)
+    best_rank = torch.full((N,), -1, dtype=torch.int64, device=dev)
+    rank = torch.zeros(N, dtype=torch.int64, device=dev)  # the current instance's TLAS leaf rank
     occ = torch.zeros(N, dtype=torch.bool, device=dev)
     node = torch.zeros(N, dtype=torch.int64, device=dev)  # the next node to visit; the root first
     stack = torch.zeros((N, max(pack.group_depth, 1)), dtype=torch.int64, device=dev)
@@ -531,7 +609,12 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
         # Visit: slab-test the 8 children against the best hit so far.
         upper = (t_max[live] if occl else t_best[live])[:, None]
         kind = kinds[w]
-        hit = _slab_hit(boxes[w], ol, il, t_min, upper) & (kind != KIND_EMPTY)  # (L, 8) by slot
+        if float_box:
+            lo, hi = _slab_f32(boxes[w], torch.where(local, fr_loc[live], fr[live]))
+            hit = (lo <= hi) & (hi >= t_min_f) & (lo <= _to_f32(upper, up=True))
+        else:
+            hit = _slab_hit(boxes[w], ol, il, t_min, box_upper(upper))
+        hit = hit & (kind != KIND_EMPTY)  # (L, 8) by slot
         if stats is not None:
             n_box += (kind != KIND_EMPTY).sum()
         word = words[w, octant[live]]
@@ -557,13 +640,12 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
                 occ[stop] = True
                 walking[stop] = False  # early exit
             else:
-                m, m_id = _best_of_leaves(t, ok, start, li, lk, L, kk)
-                tb = t_best[live]
-                better = m < tb
+                m, row = _best_of_leaves(t, ok, start, li, lk, L)
+                tb, br, bb, rk = t_best[live], best_rank[live], best[live], rank[live]
+                better = (m < tb) | ((m == tb) & (tb < _BIG) & ((rk < br) | ((rk == br) & (row < bb))))
                 t_best[live] = torch.where(better, m, tb)
-                best[live] = torch.where(better, m_id, best[live])
-                if two_level:
-                    best_inst[live] = torch.where(better, cur_inst[live], best_inst[live])
+                best[live] = torch.where(better, row, bb)
+                best_rank[live] = torch.where(better, rk, br)
 
         # The node's group: its hit wide-node and instance children by rank.
         grp = hit_r & ((kind_r == KIND_NODE) | (kind_r == KIND_INST))
@@ -599,12 +681,15 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
         if two_level:
             enter = (ref & 3) == KIND_INST
             if bool(enter.any()):
-                # Instance children: the world ray in the instance's frame,
-                # direction unnormalized; then its BLAS root.
-                r, k_inst = live[enter], payload[enter]
-                o_loc[r], d_loc[r], inv_loc[r] = _to_local(aff[k_inst], o[r], d[r])
-                cur_inst[r] = k_inst
-                node[r] = roots[k_inst]
+                # Instance children (payload the TLAS leaf rank): the world
+                # ray in the instance's frame, direction unnormalized; then
+                # its BLAS root.
+                r, k_rank = live[enter], payload[enter]
+                o_loc[r], d_loc[r], inv_loc[r] = _to_local(aff[k_rank], o[r], d[r])
+                if float_box:
+                    fr_loc[r] = _float_ray(o_loc[r], d_loc[r])
+                rank[r] = k_rank
+                node[r] = rank_root[k_rank]
                 n_inst += r.numel()
 
     if stats is not None:
@@ -615,6 +700,9 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
         stats["max_group_depth"] = max(stats.get("max_group_depth", 0), int(max_sp))
     if occl:
         return occ
+    if not two_level:
+        return t_best, best.to(torch.int32), torch.zeros_like(best, dtype=torch.int32)
+    best_inst = torch.where(best_rank >= 0, rank_inst[best_rank.clamp(min=0)], torch.zeros_like(best_rank))
     return t_best, best.to(torch.int32), best_inst.to(torch.int32)
 
 

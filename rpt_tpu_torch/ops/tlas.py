@@ -25,8 +25,10 @@ import torch
 
 from ..native import build_bvh_sah
 from .bvh import LEAF_SIZE, outward, widen
+from .intersect import INF, Hit
 
-__all__ = ["InstancedMeshes", "build_instanced", "instanced_from_arrays", "packed_leaves", "holding_boxes"]
+__all__ = ["InstancedMeshes", "build_instanced", "instanced_closest_hit", "instanced_from_arrays", "packed_leaves",
+           "holding_boxes"]
 
 _FLOAT_FIELDS = ("t_min", "t_max", "b_min", "b_max", "verts", "norms", "inst_inv", "inst_nmat")
 
@@ -100,8 +102,8 @@ def _transform_bbox(matrix: np.ndarray, p_min: np.ndarray, p_max: np.ndarray):
 def build_instanced(
     meshes: Sequence,  # Mesh-likes (.vertices, .normals), unique geometry
     instances: Sequence[Tuple[int, np.ndarray, int]],  # (mesh index, 4x4 matrix, material id)
-    device=None,
     dtype=torch.float32,
+    device=None,
 ) -> InstancedMeshes:
     """Build the two-level structure on the host (numpy, in f64, then cast
     to `dtype` as the reference does; its node boxes are the SAH build's
@@ -231,3 +233,24 @@ def _affine(A, p, w: float):
     out elementwise (an einsum runs as a batched gemv on the card)."""
     out = (A[:, :, :3] * p[:, None, :]).sum(-1)
     return out + A[:, :, 3] if w else out
+
+
+def instanced_closest_hit(im: InstancedMeshes, o, d, t_min, active=None) -> Hit:
+    """Closest hit of N rays against every mesh instance, as the reference's
+    XLA loop (`rpt_tpu/ops/tlas.py` `instanced_closest_hit`) answers it: the
+    nearest triangle, among equal t the first TLAS leaf and then the first
+    BLAS leaf in preorder; t = inf on a miss and on an inactive lane. It runs
+    the binary two-level walk's plain version (`ops/tlas2.py`) on the rays'
+    device, over a pack made for the call; a scene compiles its pack once
+    and calls the kernels' wrappers instead."""
+    from .bvh8 import check_dtype
+    from .tlas2 import pack_tlas2, tlas2_closest_plain
+    from .tlas8 import _finalize
+
+    pack = pack_tlas2(im, device=o.device)
+    check_dtype(pack, o, d)
+    t_raw, tri, inst = tlas2_closest_plain(pack, o, d, t_min, active)
+    hit = _finalize(im, pack, o, d, t_min, t_raw, tri, inst)
+    if active is not None:
+        hit = Hit(t=torch.where(active, hit.t, torch.full_like(hit.t, INF)), normal=hit.normal, mat_id=hit.mat_id)
+    return hit

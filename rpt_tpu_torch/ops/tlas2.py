@@ -57,7 +57,7 @@ distance, A on a tie) and into A for the any hit (left first: its t_max
 does not shrink, and it measured faster), pushing the other; into the one
 hit child; or to the top of the stack. The float64 walk tests the boxes in
 float against a float copy of the ray, widened so that it takes every box
-a double test takes (`bvh2._slab_f32`), and takes the nearer child by that
+a double test takes (`bvh8._slab_f32`), and takes the nearer child by that
 float entry. An instance re-expresses the world ray in its frame (direction
 unnormalized, so local t == world t) and enters its BLAS root; a node's
 frame is its index (`>= n_tlas` is local), and LIFO order means one local

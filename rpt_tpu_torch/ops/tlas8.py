@@ -18,16 +18,20 @@ smallest-subtree-first frontier expansion (`_collapse_wide`, copied).
 - `bounds` (Mw, 48) f32 and `meta` (Mw, 16) i32: the one-level pack's
   node layout (`ops/bvh8.py`): 8 child boxes, 8 child references
   `payload << 2 | kind` and 8 octant words; here a reference may also be
-  kind 2, an instance (payload its id).
-- `inst` (K, 12) f32 world->local affine rows and `inst_root` (K,) i32 the
-  wide BLAS root of each instance.
+  kind 2, an instance (payload its TLAS leaf rank, the leaf's position
+  among the binary TLAS's leaves in preorder).
+- `inst_rows` (K, 16) f32 by TLAS leaf rank: the instance's 3x4
+  world->local rows, then `[wide BLAS root, instance id, 0, 0]` as int32
+  bits (the layout of `ops/tlas2.py`'s records); `inst` (K, 12) f32 the
+  world->local rows by instance id, for the finalize.
 - `tris` (L*8, 20) f32: the 20-float rows (`ops/bvh8._tri_rows`) of the
   local-space triangles, leaf-contiguous and 8-aligned, a short leaf padded
   with its first triangle (the reference's packing); `p_verts`, `p_norms`
   the same triangles for the finalize.
 
-A float64 pack (of float64 `InstancedMeshes`) keeps `inst`, `tris`,
-`p_verts` and `p_norms` in float64 and the node boxes in float32: the BLAS
+A float64 pack (of float64 `InstancedMeshes`) keeps `inst_rows` (the two
+int32 in the bytes of float64 12), `inst`, `tris`, `p_verts` and `p_norms`
+in float64 and the node boxes in float32: the BLAS
 boxes widened one ulp outward (`bvh.widen`), the TLAS boxes recomputed to
 hold every instance below them (`tlas.holding_boxes`).
 
@@ -37,7 +41,16 @@ levels. An instance child re-expresses the world ray in its frame
 (direction unnormalized, so local t == world t) and enters its BLAS root; a
 node's frame is its index (`>= n_tlas` is local), and LIFO order means one
 local ray serves. The visit order is exactly that of a stack with one entry
-per hit child, pushed far first.
+per hit child, pushed far first. The float64 walk tests its boxes in float
+against a float copy of the ray, widened to take every box a double test
+takes (`bvh8._slab_f32`, as the float64 tlas2 walk does).
+
+Ties. The reference takes, among equal t, the leaf it visits first in
+preorder: the first TLAS leaf, then the first BLAS leaf. The walk keeps
+that choice, as the binary walks do: a leaf's best row replaces the best
+hit on t < best, or on t == best with a smaller key (TLAS leaf rank,
+packed row); packed rows follow BLAS node order. The kernel carries the
+rank and maps the winner's rank to its instance id at the end.
 
 `group_depth` is the exact worst-case depth of that stack; `stack_need`
 the reference's bound for a stack of single children, which decides, as in
@@ -94,6 +107,7 @@ __all__ = [
     "tlas8_occluded_plain",
     "tlas8_closest_kernel",
     "tlas8_occluded_kernel",
+    "tlas8_occupancy",
     "INST_ENTRY_OPS",
 ]
 
@@ -107,8 +121,8 @@ INST_ENTRY_OPS = 39
 class Tlas8Pack(WideNodes):
     bounds: torch.Tensor  # (Mw, 48) f32
     meta: torch.Tensor  # (Mw, 16) i32: child references, octant words
-    inst: torch.Tensor  # (K, 12) world->local rows, f32 (f64 in a float64 pack)
-    inst_root: torch.Tensor  # (K,) i32 wide BLAS root
+    inst_rows: torch.Tensor  # (K, 16) by TLAS leaf rank: rows, [BLAS root, id] as int32; f32 (f64)
+    inst: torch.Tensor  # (K, 12) world->local rows by instance id, f32 (f64 in a float64 pack)
     tris: torch.Tensor  # (L*8, 20) f32 (f64 in a float64 pack)
     p_verts: torch.Tensor  # (L*8, 3, 3) packed local-space triangles
     p_norms: torch.Tensor  # (L*8, 3, 3)
@@ -119,7 +133,23 @@ class Tlas8Pack(WideNodes):
     @property
     def nbytes(self) -> int:
         """Bytes of the tables the kernels read."""
-        return sum(t.numel() * t.element_size() for t in (self.bounds, self.meta, self.inst, self.inst_root, self.tris))
+        return sum(t.numel() * t.element_size() for t in (self.bounds, self.meta, self.inst_rows, self.tris))
+
+    def _rank_ints(self) -> torch.Tensor:
+        r = self.inst_rows.element_size() // 4  # int32 words per real: the ints sit at real 12
+        return self.inst_rows.view(torch.int32)[:, 12 * r:12 * r + 2]
+
+    @property
+    def rank_inst(self) -> torch.Tensor:
+        """(K,) i32 the instance id of each TLAS leaf rank."""
+        return self._rank_ints()[:, 1]
+
+    @property
+    def inst_root(self) -> torch.Tensor:
+        """(K,) i32 the wide BLAS root of each instance, by instance id."""
+        root = torch.empty_like(self.rank_inst)
+        root[self.rank_inst.long()] = self._rank_ints()[:, 0]
+        return root
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +198,7 @@ def _collapse_wide(skip, is_leaf, payload_a, payload_b, root, out_nodes, node_mi
     return base
 
 
-def _tlas_stack_need(out_nodes, inst_blas_root) -> int:
+def _tlas_stack_need(out_nodes, rank_root) -> int:
     """Exact worst-case stack need of a walk that pushes every hit child
     (the reference's bound, `tlas8_pallas._tlas_stack_need`). Popping a node
     pushes its hit internal and instance children; an instance entry
@@ -178,7 +208,7 @@ def _tlas_stack_need(out_nodes, inst_blas_root) -> int:
     its parent."""
     need = np.zeros(len(out_nodes), np.int64)
     for w in range(len(out_nodes) - 1, -1, -1):
-        targets = [a if b == 0 else inst_blas_root[a] for (_, _, a, b) in out_nodes[w] if b in (0, INST_CHILD)]
+        targets = [a if b == 0 else rank_root[a] for (_, _, a, b) in out_nodes[w] if b in (0, INST_CHILD)]
         if targets:
             n = len(targets)
             need[w] = max(n, n - 1 + int(need[targets].max()))
@@ -187,9 +217,10 @@ def _tlas_stack_need(out_nodes, inst_blas_root) -> int:
 
 def _collapse_instanced(im: InstancedMeshes):
     """The TLAS and every unique BLAS collapsed into one list of wide nodes
-    (TLAS first). Returns (out_nodes, n_tlas, inst_blas_root (K,), p_verts,
-    p_norms). A float64 scene's boxes hold its float64 triangles
-    (`holding_boxes`, `widen`)."""
+    (TLAS first), an instance child's payload its TLAS leaf rank. Returns
+    (out_nodes, n_tlas, rank_root (K,) the wide BLAS root of each rank,
+    inst_of_rank (K,), p_verts, p_norms). A float64 scene's boxes hold its
+    float64 triangles (`holding_boxes`, `widen`)."""
     t_min, t_max = im.t_min.cpu().numpy(), im.t_max.cpu().numpy()
     t_skip, t_leaf_inst = im.t_skip.cpu().numpy().astype(np.int64), im.t_leaf_inst.cpu().numpy().astype(np.int64)
     b_min, b_max = im.b_min.cpu().numpy(), im.b_max.cpu().numpy()
@@ -199,11 +230,16 @@ def _collapse_instanced(im: InstancedMeshes):
     b_skip = im.b_skip.cpu().numpy().astype(np.int64)
     inst_root, inst_end = im.inst_root.cpu().numpy(), im.inst_end.cpu().numpy()
     b_leaf_start, b_leaf_count, p_verts, p_norms = packed_leaves(im)
+    # The tie key: within an instance, a smaller packed row must mean an
+    # earlier BLAS leaf in preorder.
+    assert (np.diff(b_leaf_start[b_leaf_count > 0]) > 0).all(), "packed rows must rise in BLAS preorder"
 
     out_nodes: list = []
-    # The TLAS first (root = wide node 0): its leaves are instances.
-    _collapse_wide(t_skip, t_leaf_inst >= 0, t_leaf_inst, np.full_like(t_leaf_inst, INST_CHILD), 0, out_nodes,
-                   t_min, t_max)
+    # The TLAS first (root = wide node 0): its leaves are instances, each
+    # referenced by its rank among the leaves in preorder (the tie key).
+    t_leaf = t_leaf_inst >= 0
+    rank = np.cumsum(t_leaf) - 1
+    _collapse_wide(t_skip, t_leaf, rank, np.full_like(t_leaf_inst, INST_CHILD), 0, out_nodes, t_min, t_max)
     n_tlas = len(out_nodes)
     # One wide BLAS per unique mesh segment; instances share by (root, end).
     wide_root_of = {
@@ -211,7 +247,8 @@ def _collapse_instanced(im: InstancedMeshes):
         for seg in sorted(set(zip(inst_root.tolist(), inst_end.tolist())))
     }
     inst_blas_root = np.array([wide_root_of[(int(r), int(e))] for r, e in zip(inst_root, inst_end)], np.int64)
-    return out_nodes, n_tlas, inst_blas_root, p_verts, p_norms
+    inst_of_rank = t_leaf_inst[t_leaf]
+    return out_nodes, n_tlas, inst_blas_root[inst_of_rank], inst_of_rank, p_verts, p_norms
 
 
 def _slot_arrays(out_nodes):
@@ -233,23 +270,29 @@ def pack_tlas8(im: InstancedMeshes, device=None) -> Tlas8Pack:
     WidePackRefused if the reference's walk could need a deeper stack than
     STACK_CAP, or an id overflows the kernels' 32-bit references and stack
     entries."""
-    out_nodes, n_tlas, inst_blas_root, p_verts, p_norms = _collapse_instanced(im)
-    need = _tlas_stack_need(out_nodes, inst_blas_root)
+    out_nodes, n_tlas, rank_root, inst_of_rank, p_verts, p_norms = _collapse_instanced(im)
+    need = _tlas_stack_need(out_nodes, rank_root)
     if need > STACK_CAP:
         raise WidePackRefused(f"the two-level wide BVH needs a stack of {need} > {STACK_CAP} entries")
-    K = inst_blas_root.shape[0]
+    K = rank_root.shape[0]
     _refuse_overflow(len(out_nodes), p_verts.shape[0], K)
     bounds, meta = _emit_group(*_slot_arrays(out_nodes))
     real = im.verts.dtype
+    np_real = numpy_real(real)
+    inst_inv = im.inst_inv.cpu().numpy().reshape(K, 12).astype(np_real)
+    inst_rows = np.zeros((K, 16), np_real)
+    inst_rows[:, :12] = inst_inv[inst_of_rank]
+    r = inst_rows.itemsize // 4  # int32 words per real: the ints sit at real 12
+    inst_rows.view(np.int32)[:, 12 * r] = rank_root
+    inst_rows.view(np.int32)[:, 12 * r + 1] = inst_of_rank
 
     def t(a, dtype=real):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
     return Tlas8Pack(
-        bounds=t(bounds, torch.float32), meta=t(meta, torch.int32),
-        inst=t(im.inst_inv.cpu().numpy().reshape(K, 12)), inst_root=t(inst_blas_root, torch.int32),
-        tris=t(_tri_rows(p_verts, numpy_real(real))), p_verts=t(p_verts), p_norms=t(p_norms),
-        n_tlas=n_tlas, group_depth=_group_depth(meta, inst_blas_root), stack_need=need,
+        bounds=t(bounds, torch.float32), meta=t(meta, torch.int32), inst_rows=t(inst_rows), inst=t(inst_inv),
+        tris=t(_tri_rows(p_verts, np_real)), p_verts=t(p_verts), p_norms=t(p_norms),
+        n_tlas=n_tlas, group_depth=_group_depth(meta, rank_root), stack_need=need,
     )
 
 
@@ -291,7 +334,7 @@ def tlas8_closest_kernel(pack: Tlas8Pack, o, d, t_min, active=None, launches=Non
     inst_out = torch.empty(n, dtype=torch.int32, device=o.device)
     entry = lib.rpt_tlas8_closest if o.dtype == torch.float32 else lib.rpt_tlas8_closest_f64
     err = entry(
-        _ptr(pack.bounds), _ptr(pack.meta), pack.n_tlas, pack.group_depth, _ptr(pack.inst), _ptr(pack.inst_root),
+        _ptr(pack.bounds), _ptr(pack.meta), pack.n_tlas, pack.group_depth, _ptr(pack.inst_rows),
         _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n, real_value(t_min, o.dtype), _ptr(t_out), _ptr(id_out),
         _ptr(inst_out), launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
@@ -312,13 +355,32 @@ def tlas8_occluded_kernel(pack: Tlas8Pack, o, d, t_min, t_max, active=None, laun
     occ = torch.empty(n, dtype=torch.bool, device=o.device)
     entry = lib.rpt_tlas8_occluded if o.dtype == torch.float32 else lib.rpt_tlas8_occluded_f64
     err = entry(
-        _ptr(pack.bounds), _ptr(pack.meta), pack.n_tlas, pack.group_depth, _ptr(pack.inst), _ptr(pack.inst_root),
+        _ptr(pack.bounds), _ptr(pack.meta), pack.n_tlas, pack.group_depth, _ptr(pack.inst_rows),
         _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), _ptr(t_max), n, real_value(t_min, o.dtype), _ptr(occ),
         launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"tlas8 any-hit kernel launch failed: CUDA error {err}")
     return occ
+
+
+def tlas8_occupancy(group_depth: int, occluded: bool, dtype) -> dict:
+    """How the kernel of a query (`occluded`) and real type (`dtype`) fills
+    the current card at the launch the wrappers make for a pack of
+    `group_depth` (128-ray blocks, the group stack in dynamic shared
+    memory): registers and local (spill) bytes a thread, blocks and warps
+    resident per SM, and the shared stack they hold per SM."""
+    from ..kernels import load_library
+
+    out = torch.zeros(4, dtype=torch.int32)
+    kind = int(occluded) | (2 if dtype == torch.float64 else 0)
+    err = load_library("tlas8").rpt_tlas8_occupancy(kind, group_depth, _ptr(out))
+    if err != 0:
+        raise RuntimeError(f"tlas8 occupancy query failed: CUDA error {err}")
+    regs, local, blocks, warps = out.tolist()
+    smem = 128 * group_depth * 4
+    return dict(block=128, smem_bytes=smem, registers=regs, local_bytes=local, blocks_per_sm=blocks,
+                warps_per_sm=warps, smem_per_sm=blocks * smem)
 
 
 # ---------------------------------------------------------------------------

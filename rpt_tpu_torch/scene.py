@@ -289,6 +289,12 @@ class SceneData:
         it off the material table too)."""
         return self.materials.color.dtype
 
+    def to_device(self) -> "SceneData":
+        """The scene with every leaf on the device (the reference lifts its
+        host numpy leaves here): a compiled scene of the port already holds
+        device tensors, so it is returned as it is."""
+        return self
+
     def environment_color(self, d: torch.Tensor) -> torch.Tensor:
         """The environment's radiance for directions d (N, 3), read from
         this scene's device tensors (`Environment.get_color`)."""

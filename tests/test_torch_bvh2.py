@@ -23,6 +23,7 @@ from rpt_tpu.ops.bvh_pallas import bvh_closest_hit_pallas, bvh_occluded_pallas
 from rpt_tpu_torch.ops import bvh2, bvh8
 from rpt_tpu_torch.ops.bvh import build_bvh
 from rpt_tpu_torch.ops.bvh8 import KIND_LEAF, KIND_NODE
+import walk_scenes
 from test_bvh_pallas import _random_mesh, _rays_at_mesh
 from test_torch_reference_native import reference_native
 
@@ -123,35 +124,7 @@ def test_single_leaf_tree():
     np.testing.assert_array_equal(bvh2.bvh2_occluded(bvh, pack, to, td, T_MIN, t_max).numpy(), hit)
 
 
-def _twin_leaves(n_groups, seed):
-    """Groups of twenty triangles whose boxes share one center (the
-    builder's centroid; every coordinate a multiple of 1/8, so exactly), so
-    the builder chops each group, in input order, into two subtrees of two
-    leaves each: the first holds a horizontal triangle and nine small
-    vertical ones, the second its exact twin (another material) and nine
-    tall vertical ones, whose box reaches up towards rays from above. A ray
-    down onto the twins enters the second subtree first, finds the twin,
-    and ties with the first subtree's triangle, which comes first in
-    preorder and must win."""
-    rng = np.random.default_rng(seed)
-    flat = np.array([[-0.25, -0.25, 0.0], [0.25, -0.25, 0.0], [-0.25, 0.25, 0.0]])
-    small = np.array([[0.0, -0.125, -0.125], [0.0, 0.125, -0.125], [0.0, -0.125, 0.125]])
-    tall = np.array([[0.0, -0.125, -1.0], [0.0, 0.125, -1.0], [0.0, -0.125, 1.0]])
-    verts, mats = [], []
-    for c in rng.permutation([(3.0 * i, 3.0 * j, 0.125 * ((i + j) % 5)) for i in range(-3, 4) for j in range(-3, 4)])[:n_groups]:
-        verts += [c + flat] + [c + small] * 9 + [c + flat] + [c + tall] * 9
-        mats += [0] + [2] * 9 + [1] + [3] * 9
-    verts = np.array(verts, np.float32)
-    e = np.cross(verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0])
-    norms = np.repeat((e / np.linalg.norm(e, axis=-1, keepdims=True))[:, None], 3, axis=1).astype(np.float32)
-    flats = verts[0::20]
-    w = rng.dirichlet(np.ones(3), 400)
-    target = np.einsum("rk,rkj->rj", w, flats[rng.integers(0, n_groups, 400)])
-    d = np.concatenate([rng.uniform(-0.05, 0.05, (400, 2)), -np.ones((400, 1))], axis=1)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    o = target - 4.0 * d
-    o[::10, 0] += 50.0  # every tenth ray misses
-    return verts, norms, np.array(mats, np.int32), o.astype(np.float32), d.astype(np.float32)
+_twin_leaves = walk_scenes.twin_leaves
 
 
 def test_coincident_triangles_in_two_leaves_keep_the_reference_tie():

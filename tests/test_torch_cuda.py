@@ -15,6 +15,7 @@ import torch
 
 import rpt_tpu_torch
 import rpt_tpu_torch.scene as scene_mod
+import walk_scenes
 from rpt_tpu_torch import (
     Buffer, Camera, Material, Object, Renderer, Scene, Transformed, kernels, sphere, triangle_mesh,
 )
@@ -651,6 +652,65 @@ def test_f64_kernels_match_plain_walks(card, family):
     with pytest.raises(TypeError):
         getattr(mod, f"{family}_closest_kernel")(pack, o.float(), d.float(), T_MIN)
     assert occluded in after
+
+
+def _walk_scene(family, scene, dtype, card):
+    """The `family` pack of `walk_scenes.walk_scene`, on the card, and its rays."""
+    tree, o, d = walk_scenes.walk_scene(family, scene, dtype)
+    mod = {"bvh8": bvh8, "bvh2": bvh2, "tlas8": tlas8, "tlas2": tlas2}[family]
+    return mod, getattr(mod, f"pack_{family}")(tree, device=card), o.to(card), d.to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("family,scene", [("bvh8", "twin_leaves"), ("bvh2", "twin_leaves"), ("tlas8", "same_mesh"),
+                                          ("tlas8", "wider_mesh"), ("tlas2", "same_mesh"), ("tlas2", "wider_mesh")])
+def test_kernels_keep_the_tie_of_their_plain_walks(card, family, scene, dtype):
+    """On scenes where every hit is a tie (two leaves or two instances at
+    one t), each closest-hit kernel returns its plain walk's t, triangle and
+    instance bit for bit: the reference's preorder choice, kept by the key
+    (row, or TLAS leaf rank and row)."""
+    mod, pack, o, d = _walk_scene(family, scene, dtype, card)
+    out_k = getattr(mod, f"{family}_closest_kernel")(pack, o, d, T_MIN)
+    out_p = getattr(mod, f"{family}_closest_plain")(pack, o, d, T_MIN)
+    torch.cuda.synchronize()
+    assert (out_p[0] < 1e38).sum() > 200
+    assert all(torch.equal(k, p) for k, p in zip(out_k, out_p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("family", ["bvh8", "bvh2", "tlas8", "tlas2"])
+def test_any_hit_kernels_find_the_hit_at_t_max_equal_to_its_t(card, family, dtype):
+    """`walk_scenes.edge_scene` (flat leaves, hits at a leaf's face): each
+    closest-hit kernel equals its plain walk, and each any-hit kernel at
+    t_max = the closest hit's t answers `closest.t <= t_max` (true on every
+    hit; 12, past the scene, on a miss) and equals its plain walk."""
+    mod, pack, o, d = _walk_scene(family, "edge", dtype, card)
+    out_k = getattr(mod, f"{family}_closest_kernel")(pack, o, d, T_MIN)
+    out_p = getattr(mod, f"{family}_closest_plain")(pack, o, d, T_MIN)
+    torch.cuda.synchronize()
+    assert all(torch.equal(k, p) for k, p in zip(out_k, out_p))
+    hit = out_p[0] < 1e38
+    assert hit.sum() > 100 and (~hit).any()
+    t_max = torch.where(hit, out_p[0], torch.full_like(out_p[0], 12.0))
+    occ_k = getattr(mod, f"{family}_occluded_kernel")(pack, o, d, T_MIN, t_max)
+    occ_p = getattr(mod, f"{family}_occluded_plain")(pack, o, d, T_MIN, t_max)
+    torch.cuda.synchronize()
+    assert torch.equal(occ_k, occ_p) and torch.equal(occ_k, hit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_tlas8_occupancy_query(card, dtype):
+    """`tlas8_occupancy` reads the kernels' registers and blocks per SM at
+    the wrappers' launch: a deeper group stack never fits more blocks."""
+    for occluded in (False, True):
+        shallow = tlas8.tlas8_occupancy(4, occluded, dtype)
+        deep = tlas8.tlas8_occupancy(120, occluded, dtype)
+        assert 0 < shallow["registers"] <= 255 and shallow["local_bytes"] >= 0
+        assert shallow["warps_per_sm"] == 4 * shallow["blocks_per_sm"] > 0
+        assert deep["blocks_per_sm"] <= shallow["blocks_per_sm"] and deep["smem_bytes"] == 128 * 120 * 4
 
 
 @pytest.mark.parametrize("branch", ["block_128", "smaller_block", "global_stack"])

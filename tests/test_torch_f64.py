@@ -53,6 +53,7 @@ from rpt_tpu_torch.ops import bvh2, bvh8, tlas2, tlas8
 from rpt_tpu_torch.ops.bvh import build_bvh
 from rpt_tpu_torch.ops.tlas import build_instanced
 from rpt_tpu_torch.scenes import build_brick_city, build_dragon_scene, build_toy_plane_scene, lego_camera
+import walk_scenes
 from test_bvh_pallas import _random_mesh
 from test_tlas_pallas import _build_instanced_scene, _FakeMesh
 from test_torch_reference_native import reference_native
@@ -281,56 +282,7 @@ def test_float64_boxes_hold_a_grazing_triangle():
         assert bool(occluded(im, pack, ow, d, T_MIN, 4.0)[0])
 
 
-def _edge_scene():
-    """One mesh under four instances of non-unit, unequal scales: a flat
-    triangle (z = 0) whose right edge stands at x = 1, six smaller flat
-    triangles left of it (the leaf that holds them all is flat, and its
-    x-face is that edge), and a far cluster that widens the mesh's box.
-    Rays meet the triangle at x = 1 - delta, one unit in from its ends, at
-    a slant that leaves the leaf's box just past the hit: a ray's z-slab
-    entry is its exit, and its x-slab exit follows the hit by about
-    20 delta. Negative delta lands just outside the edge. Half the rays
-    start 2 from the hit, half 300: there a float copy of the origin is
-    off by far more than the box's outward ulp. The smallest instance
-    (scales of 1/400 and less) puts a ray's local origin some 1,000 units
-    out, on a local direction of some 400 a unit of t."""
-    rng = np.random.default_rng(21)
-    edge = np.array([[[1.0, -1.0, 0.0], [1.0, 1.0, 0.0], [-1.0, 0.0, 0.0]]])
-    base = rng.uniform([-1.0, -1.0, 0.0], [0.5, 0.7, 0.0], (6, 1, 3))
-    small = base + np.array([[0.0, 0.0, 0.0], [0.3, 0.05, 0.0], [0.1, 0.3, 0.0]])
-    far = rng.uniform([2.0, 4.0, -1.0], [3.5, 5.0, 1.0], (20, 1, 3)) + rng.uniform(-0.2, 0.2, (20, 3, 3))
-    verts = np.concatenate([edge, small, far])
-    e = np.cross(verts[:, 1] - verts[:, 0], verts[:, 2] - verts[:, 0])
-    norms = np.repeat((e / np.linalg.norm(e, axis=-1, keepdims=True))[:, None], 3, axis=1)
-    instances = []
-    for k, (scale, angle, shift) in enumerate([((2.5, 0.75, 1.5), 0.3, (0.0, 0.0, 0.0)),
-                                                ((0.3, 1.7, 0.9), -1.1, (6.0, -2.0, 1.0)),
-                                                ((1.3, 1.3, 0.6), 2.0, (-5.0, 3.0, -2.0)),
-                                                ((0.002, 0.003, 0.0025), 0.7, (2.0, 7.0, 3.0))]):
-        c, s = np.cos(angle), np.sin(angle)
-        m = np.eye(4)
-        m[:3, :3] = np.array([[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]]) @ np.diag(scale)
-        m[:3, 3] = shift
-        instances.append((0, m, k + 1))
-    o, d, delta, inst, dist = [], [], [], [], []
-    for k, (_, m, _) in enumerate(instances):
-        # The smallest instance's local origins lie up to 150,000 units out,
-        # where double rounding alone moves a hit by some 2e-11: its rays
-        # start at 1e-10 inside.
-        for dlt in (1e-12 if k < 3 else 1e-10, 1e-10, 1e-8, 1e-6, -1e-9, -1e-6):
-            y = rng.uniform(-0.5, 0.5, 12)
-            p = np.stack([np.full(12, 1.0 - dlt), y, np.zeros(12)], -1)
-            dl = np.stack([np.full(12, 0.05), rng.uniform(-0.2, 0.2, 12), np.full(12, -1.0)], -1)
-            dw = dl @ m[:3, :3].T
-            dw /= np.linalg.norm(dw, axis=-1, keepdims=True)
-            t0 = np.tile([2.0, 300.0], 6)
-            o.append((p @ m[:3, :3].T + m[:3, 3]) - t0[:, None] * dw)
-            d.append(dw)
-            delta.append(np.full(12, dlt))
-            inst.append(np.full(12, k))
-            dist.append(t0)
-    o, d, delta, inst, dist = (np.concatenate(a) for a in (o, d, delta, inst, dist))
-    return (verts, norms, instances), torch.as_tensor(o), torch.as_tensor(d), delta, inst, dist
+_edge_scene = walk_scenes.edge_scene
 
 
 @pytest.mark.parametrize("family", list(TWO_LEVEL))
@@ -341,9 +293,10 @@ def test_two_level_f64_walk_at_a_box_face_under_scaled_instances(family):
     instances' world-space triangles says and as the reference's float64
     XLA loop finds; the any hit agrees at t_max just past the hit's t.
 
-    At t_max = the hit's t itself the double box test of tlas8 can refuse
-    the flat leaf, whose z-slab entry rounds an ulp past the triangle's t;
-    tlas2's float box test, widened by 2^-21 of t, takes it, as
+    At t_max = the hit's t itself an unwidened box test can refuse the flat
+    leaf, whose z-slab entry rounds an ulp past the triangle's t; both
+    families take it (the float box tests widened by 2^-21 of t, a double
+    one's upper end by 8 ulps, csrc/walk.cuh `box_upper`), as
     `finish_occluded`'s rule `closest.t <= t_max` asks."""
     (verts, norms, instances), o, d, delta, inst, dist = _edge_scene()
     mesh = rpt_tpu_torch.shapes.Mesh(vertices=verts, normals=norms)
@@ -372,9 +325,39 @@ def test_two_level_f64_walk_at_a_box_face_under_scaled_instances(family):
     np.testing.assert_array_equal(got.mat_id.numpy()[inside], np.asarray(ref.mat_id)[inside])
     t_max = torch.where(got.t < 1e38, got.t * (1.0 + 1e-9), torch.full_like(got.t, 12.0))
     assert torch.equal(occluded(im, pack, o, d, T_MIN, t_max), torch.as_tensor(inside))
-    if family == "tlas2":
-        t_max = torch.where(got.t < 1e38, got.t, torch.full_like(got.t, 12.0))
-        assert torch.equal(occluded(im, pack, o, d, T_MIN, t_max), torch.as_tensor(inside))
+    t_max = torch.where(got.t < 1e38, got.t, torch.full_like(got.t, 12.0))
+    assert torch.equal(occluded(im, pack, o, d, T_MIN, t_max), torch.as_tensor(inside))
+
+
+@pytest.mark.parametrize("family", list(ONE_LEVEL))
+def test_one_level_f64_walk_at_a_box_face(family):
+    """The one-level analogue of the test above: `_edge_scene`'s mesh
+    alone, under each ray re-expressed in its instance's frame (direction
+    unnormalized, so t is the world t). Every ray just inside the edge
+    finds the triangle at its t, every ray outside misses, as the
+    reference's float64 XLA loop finds; the any hit agrees just past the
+    hit's t and at the hit's t itself, where the flat leaf's entry can
+    round an ulp past it."""
+    (verts, norms, instances), o, d, delta, inst, dist = _edge_scene()
+    A = np.stack([np.linalg.inv(m)[:3] for _, m, _ in instances])[inst]
+    o = torch.as_tensor(np.einsum("nij,nj->ni", A[:, :, :3], o.numpy()) + A[:, :, 3])
+    d = torch.as_tensor(np.einsum("nij,nj->ni", A[:, :, :3], d.numpy()))
+    mats = np.ones(verts.shape[0], np.int32)
+    bvh = build_bvh(verts, norms, mats, device="cpu", dtype=F64)
+    pack_fn, closest, occluded = ONE_LEVEL[family]
+    pack = pack_fn(bvh)
+    got = closest(bvh, pack, o, d, T_MIN)
+    inside = delta > 0
+    t_got = got.t.numpy()
+    np.testing.assert_array_equal(np.isfinite(t_got), inside)
+    np.testing.assert_allclose(t_got[inside], dist[inside], rtol=1e-12)
+    with x64():
+        ref = ref_bvh_closest_hit(ref_build_bvh(verts, norms, mats, jax.numpy.float64), o.numpy(), d.numpy(), T_MIN)
+    np.testing.assert_array_equal(np.isfinite(np.asarray(ref.t)), inside)
+    np.testing.assert_allclose(t_got[inside], np.asarray(ref.t)[inside], rtol=1e-12, atol=0)
+    for scale in (1.0 + 1e-9, 1.0):
+        t_max = torch.where(got.t < 1e38, got.t * scale, torch.full_like(got.t, 12.0))
+        assert torch.equal(occluded(bvh, pack, o, d, T_MIN, t_max), torch.as_tensor(inside))
 
 
 @pytest.mark.parametrize("family", list(ONE_LEVEL) + list(TWO_LEVEL))

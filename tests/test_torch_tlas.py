@@ -98,6 +98,9 @@ def test_pack_matches_reference_structure():
     inst_nodes = np.flatnonzero((cb == tlas8.INST_CHILD).any(1))
     assert inst_nodes.max() < n_tlas
     meta_ref = np.asarray(ref_pack.meta).reshape(-1, 24)
+    # An instance child's payload is its TLAS leaf rank, the reference's its id.
+    inst_child = cb == tlas8.INST_CHILD
+    ca[inst_child] = pack.rank_inst.numpy()[ca[inst_child]]
     np.testing.assert_array_equal(ca, meta_ref[:, 0:16:2])
     np.testing.assert_array_equal(cb, meta_ref[:, 1:16:2])
 
