@@ -79,7 +79,8 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
       one);
    f. times each of the path's kernels per launch, launched from Python
       and inside a CUDA graph, beside its plain version and its bound (the
-      operations its own plain walk counts);
+      operations its own plain walk counts; a float64 group walk's
+      boxes as the double box test counts them, the reference's work);
    on `dragon_binary` and `lego_binary`, also:
    g. `[binary_vs_wide]`: the binary kernels against the wide kernels of
       the same trees on every wavefront, and both timed in turns;
@@ -88,12 +89,15 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
       (`RPT_COMPARE=label=dir,...`, e.g. a `git archive` of the parent
       commit), timed in turns with this tree's on the same wavefronts;
       skipped when no tree is named;
-   on `lego_binary` and `lego_binary_f64`, also:
-   `[occupancy]`: each of the four tlas2 kernels (float32 and float64,
-      closest and any hit) at the launch `ops/bvh2.launch_plan` picks for
-      the scene's stack depth: registers and local (spill) bytes a thread,
-      blocks, warps and shared stack bytes resident per SM; of this tree
-      and of each tree named in RPT_COMPARE that has the query;
+   on `dragon`, `dragon_f64`, `lego`, `lego_f64`, `lego_binary` and
+   `lego_binary_f64`, also:
+   `[occupancy]`: each of the four kernels of the workload's family
+      (bvh8, tlas8 or tlas2; float32 and float64, closest and any hit) at
+      the launch its wrappers make for the scene's stack depth: registers
+      and local (spill) bytes a thread, blocks, warps and shared stack
+      bytes resident per SM; of this tree and of each tree named in
+      RPT_COMPARE (by its ptxas log and the occupancy rule where it has no
+      query);
    on `dragon`, `lego` and `dragon871k` (whose default wavefront order is
    morton, `integrator._auto_compact`), also:
    i. `[compact]`: the four wavefront orders (RPT_COMPACT 0, 1, octant,
@@ -286,8 +290,8 @@ HDRI_ULPS = 4
 COMPACT_WORKLOADS = ("dragon", "lego", "dragon871k")
 COMPACT_ENV = {False: "0", True: "1", "octant": "octant", "morton": "morton"}
 COMPACT_SAMPLES = 4
-# `[occupancy]`: the workloads that print the tlas2 kernels' occupancy.
-OCCUPANCY_WORKLOADS = ("lego", "lego_f64", "lego_binary", "lego_binary_f64")
+# `[occupancy]`: the workloads that print their kernels' occupancy.
+OCCUPANCY_WORKLOADS = ("dragon", "dragon_f64", "lego", "lego_f64", "lego_binary", "lego_binary_f64")
 # The threefry kernel's row: its source, its modes (keys, bits, uniform,
 # randint), and what one element of each mode needs (csrc/threefry.cu's
 # note counts it): 32-bit integer operations, 72 per hash (one three-way xor
@@ -910,7 +914,7 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
         binary_vs_wide(family, sd, pack, rec, mat_of, card)
     before_after(family, mod, sd.bvh if family in ("bvh8", "bvh2") else sd.instanced, pack, rec, mat_of, card)
     if workload in OCCUPANCY_WORKLOADS:
-        occupancy_phase(workload, family, pack.group_depth if family == "tlas8" else pack.stack_depth, card)
+        occupancy_phase(workload, family, pack.group_depth if family in ("bvh8", "tlas8") else pack.stack_depth, card)
     return err, rec
 
 
@@ -953,7 +957,10 @@ def timing_phase(workload, family, sd, rec, err, launches, spp, card, scene) -> 
         for a in args:  # also the plain version's warm-up
             plain(pack, *a, stats=stats)
         plain_ms = time_ms(lambda *a: plain(pack, *a), args, reps=1, warmup=False)
-        t_bytes, t_ops = bound_ms(spec, pack, args, stats, PEAK_F64_OPS if f64 else PEAK_F32_OPS)
+        # A float64 group walk's bound counts the double box test's work,
+        # the reference's: not the visits its float box test adds.
+        work = double_box_work(pack, kind, args) if f64 and family in ("bvh8", "tlas8") else stats
+        t_bytes, t_ops = bound_ms(spec, pack, args, work, PEAK_F64_OPS if f64 else PEAK_F32_OPS)
         rows.append({
             "name": f"{name}_f64" if f64 else name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": launches[name], "max_abs_err": err[name], "ms": ms,
@@ -964,6 +971,8 @@ def timing_phase(workload, family, sd, rec, err, launches, spp, card, scene) -> 
             "box_tests_per_launch": stats["box_tests"] / len(args),
             "tri_tests_per_launch": stats["tri_tests"] / len(args),
             "inst_entries_per_launch": stats.get("inst_entries", 0) / len(args),
+            "bound_box_tests_per_launch": work["box_tests"] / len(args),
+            "bound_tri_tests_per_launch": work["tri_tests"] / len(args),
         })
         rows[-1].update({k: getattr(pack, k) for k in ("group_depth", "stack_depth", "node_bytes") if hasattr(pack, k)})
         rows[-1].update({f"walk_{k}": v for k, v in stats.items() if k.startswith("max_")})
@@ -991,8 +1000,24 @@ def timing_phase(workload, family, sd, rec, err, launches, spp, card, scene) -> 
             plain_ms=f"{plain_ms:.3f}",
             bound_ms=f"{rows[-1]['bound_ms']:.5f}", bound_by=rows[-1]["bound_by"],
             box_tests_per_launch=f"{rows[-1]['box_tests_per_launch']:.0f}",
-            tri_tests_per_launch=f"{rows[-1]['tri_tests_per_launch']:.0f}", **extra, card=json.dumps(card))
+            tri_tests_per_launch=f"{rows[-1]['tri_tests_per_launch']:.0f}",
+            bound_box_tests_per_launch=f"{rows[-1]['bound_box_tests_per_launch']:.0f}",
+            bound_tri_tests_per_launch=f"{rows[-1]['bound_tri_tests_per_launch']:.0f}", **extra,
+            card=json.dumps(card))
     return rows
+
+
+def double_box_work(pack, kind, args) -> dict:
+    """The counts (`bvh8._group_walk`'s `stats`) of a float64 group walk
+    over the wavefronts `args` with its boxes tested in double, as the
+    reference's walk tests them: the work its bound counts."""
+    from rpt_tpu_torch.ops import bvh8
+
+    stats = {}
+    for o, d, t_min, *t_max, active in args:
+        bvh8._group_walk(pack, o, d, t_min, t_max[0] if t_max else None, active, kind == "occluded", stats,
+                         float_box=False)
+    return stats
 
 
 def f64_vs_f32_mrays(workload, scene, camera, eps, renderer, rays, card) -> None:
@@ -1668,7 +1693,8 @@ def bound_ms(spec, pack, args, stats, peak_ops=PEAK_F32_OPS):
     """(bytes bound, operations bound) in ms per launch over the wavefronts
     `args`: each ray's inputs and outputs once and the whole pack once, over
     the memory rate; the box tests x 25, triangle tests x 48 and instance
-    entries x 39 the kernel's own plain walk counted on the same rays, over
+    entries x 39 in `stats`, the kernel's own plain walk's counts on the
+    same rays (a float64 group walk's: `double_box_work`'s), over
     `peak_ops`, the card's rate for the walk's real type (f32 or f64)."""
     from rpt_tpu_torch.ops import bvh8, tlas8
 
@@ -1834,10 +1860,11 @@ def compare_trees() -> list:
 
 
 def occupancy_phase(workload: str, family: str, depth: int, card: str) -> None:
-    """`[occupancy]`: each of the four kernels of `family` (tlas8 or tlas2)
-    at the launch the wrappers make for a pack of stack depth `depth`
-    (`ops/tlas8.tlas8_occupancy`, `ops/tlas2.tlas2_occupancy`), of this tree
-    and of each tree named in RPT_COMPARE that has the query."""
+    """`[occupancy]`: each of the four kernels of `family` (bvh8, tlas8 or
+    tlas2) at the launch the wrappers make for a pack of stack depth `depth`
+    (`ops/bvh8.bvh8_occupancy`, `ops/tlas8.tlas8_occupancy`,
+    `ops/tlas2.tlas2_occupancy`), of this tree and of each tree named in
+    RPT_COMPARE (a tree without the query by its ptxas log and the rule)."""
     import torch
 
     mods = {"this": family_module(family)}
@@ -1846,7 +1873,7 @@ def occupancy_phase(workload: str, family: str, depth: int, card: str) -> None:
     for label, mod in mods.items():
         query = getattr(mod, f"{family}_occupancy", None)
         if query is None:
-            # A tree without the query (the parent of the tlas8 one): its
+            # A tree without the query (the parent of the bvh8 one): its
             # ptxas registers and spill, blocks and warps by the rule.
             smem = 128 * depth * 4
             for entry, (regs, spill) in ptxas_kernels(TREE_BUILDS.get(label, {}).get(family, {}).get("log", "")).items():

@@ -20,19 +20,23 @@
 // rpt_bvh8_occluded walk float32 rays over the float32 pack, their `_f64`
 // twins float64 rays over the float64 pack (float64 triangle rows, float
 // boxes rounded outward), the counterpart of the reference's float64 XLA
-// loop, since its Pallas kernels do not run under jax_enable_x64.
+// loop, since its Pallas kernels do not run under jax_enable_x64. The
+// float64 walk tests its boxes in float against a float copy of the ray,
+// made once (group_walk.cuh); below, why its rows stay whole and its
+// registers uncapped.
 //
 // C interface for ctypes: each entry point launches on the given stream,
 // allocates nothing, and returns cudaGetLastError() after the launch, or
 // cudaErrorInvalidValue if the stack does not fit in one block's shared
 // memory. The kernel adds one to `launches` when it runs, unless it is null
-// (count.cuh).
+// (count.cuh). rpt_bvh8_occupancy reads a kernel's registers, spill and
+// blocks per SM at that launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "count.cuh"       // count_launch
-#include "group_walk.cuh"  // group_walk, group_stack_smem
+#include "group_walk.cuh"  // group_walk, group_stack_smem, group_walk_occupancy
 
 namespace {
 
@@ -51,8 +55,16 @@ bvh8_walk(const float4* __restrict__ bounds, const int* __restrict__ meta,
                            id_out, nullptr, occ_out);
 }
 
-// The float64 walk: a double ray takes twice the registers, so no cap
-// below the launch bound's (PERF.md has its registers and spills).
+// The float64 walk. Measured on the trefoil's wavefronts in turns
+// (PERF.md): the float box test took the closest hit from 0.48 to 0.41 ms
+// a launch and the any hit from 0.36 to 0.32, at 96 and 86 registers (20
+// warps a SM). What paid two-level did not pay here: plane-first rows
+// (walk.cuh tri_plane) took it to 69 / 64 registers and 28 / 32 warps but
+// made it 1.29x / 1.34x slower, as the rest of a row is then loaded in a
+// second round after the plane test; and every cap of 6, 7 or 8 blocks of
+// 128 rays (80, 72, 64 registers, 16-128 bytes of spill) was 1.02-1.25x
+// slower than none. So whole rows, ten 16-byte loads in flight at once,
+// and no cap below the launch bound's.
 template <bool kOccl>
 __global__ void __launch_bounds__(kBlock)
 bvh8_walk_f64(const float4* __restrict__ bounds, const int* __restrict__ meta,
@@ -103,9 +115,28 @@ int launch(int depth, int64_t n, cudaStream_t stream, const float* bounds, const
   return (int)cudaGetLastError();
 }
 
+// The occupancy of one kernel at the launch of a group stack of `depth`
+// levels (group_walk.cuh group_walk_occupancy).
+template <bool kOccl, typename Real>
+cudaError_t occupancy(int depth, int* out) {
+  return group_walk_occupancy(walk_kernel<kOccl, Real>(), allow_group_stack<kOccl, Real>, depth, out);
+}
+
 }  // namespace
 
 extern "C" {
+
+// The occupancy (above) of the kernel of `kind` on the current card: bit 0
+// the any hit, bit 1 float64. Returns a CUDA error.
+int rpt_bvh8_occupancy(int kind, int depth, int* out) {
+  switch (kind) {
+    case 0: return (int)occupancy<false, float>(depth, out);
+    case 1: return (int)occupancy<true, float>(depth, out);
+    case 2: return (int)occupancy<false, double>(depth, out);
+    case 3: return (int)occupancy<true, double>(depth, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 int rpt_bvh8_closest(const float* bounds, const int* meta, int depth, const float* tris, const float* o,
                      const float* d, const bool* active, int64_t n, float t_min, float* t_out,

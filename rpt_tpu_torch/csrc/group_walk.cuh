@@ -64,29 +64,30 @@
 // rpt_tpu_torch/ops/bvh8.py and ops/tlas8.py. The walk is a template over
 // the real type (walk.cuh): float for float32 renders, double for float64
 // ones, whose rays, triangle rows, instance records and hit distances are
-// double and whose node boxes are float, rounded outward. The one-level
-// double walk tests them in double; the two-level one in float (below).
+// double and whose node boxes are float, rounded outward. Both double
+// walks test those boxes in float (below).
 //
-// The two-level float64 walk (tlas8.cu's `_f64` kernels). As in the
-// binary pair (pair_walk.cuh), what held it back was the register file and
-// so the warps each SM keeps in flight, not FP64 throughput: instantiated
-// as the float walk in double it held every ray component, inverse, entry
-// and the running best as 64-bit pairs, 128 registers (closest hit) and
-// 120 (any hit), 16 warps per SM (PERF.md). Its design, pair_walk.cuh's:
+// The float64 walks (the `_f64` kernels of bvh8.cu and tlas8.cu). As in
+// the binary pair (pair_walk.cuh), what held them back was the register
+// file and so the warps each SM keeps in flight, not FP64 throughput:
+// instantiated as the float walk in double they held every ray component,
+// inverse, entry and the running best as 64-bit pairs, 94-128 registers,
+// 16-20 warps per SM (PERF.md). Their design:
 //   - the 8 child boxes are tested in float (walk.cuh child_mask_f,
 //     box_entry_f) against a float copy of the ray, widened so that it
 //     takes every box the double test takes (its widening covers
-//     box_upper's; tests/test_torch_ties.py); the copy is made again
-//     wherever the ray changes frame;
-//   - a triangle row's plane is tested first and the rest of the row is
-//     loaded only for a t that could count (walk.cuh tri_plane);
-//   - tlas8.cu caps the kernels' registers (kMinBlocksF64): 8 blocks of
-//     128 rays a SM for the closest hit, 7 for the any hit.
-// Measured on the brick city in turns (PERF.md): 0.385 -> 0.312 ms a
-// closest-hit launch, 0.170 -> 0.150 an any hit; the caps, not the float
-// boxes alone (123 registers without a cap), bought the warps. The float
-// walks and the one-level double walk compile as before: `kFloatBox` is
-// false there.
+//     box_upper's; tests/test_torch_ties.py); one-level the copy is made
+//     once, two-level again wherever the ray changes frame;
+//   - two-level, a triangle row's plane is tested first and the rest of
+//     the row is loaded only for a t that could count (walk.cuh tri_plane,
+//     `kSplitRows`), and tlas8.cu caps the kernels' registers
+//     (kMinBlocksF64: 8 blocks of 128 rays a SM for the closest hit, 7 for
+//     the any hit); one-level, rows whole and no cap (bvh8.cu says why).
+// Measured in turns (PERF.md): tlas8 on the brick city 0.385 -> 0.312 ms a
+// closest-hit launch, 0.170 -> 0.150 an any hit, where the caps, not the
+// float boxes alone (123 registers without a cap), bought the warps; bvh8
+// on the trefoil 0.48 -> 0.41 and 0.36 -> 0.32, the float boxes alone.
+// The float walks compile as before: `kFloatBox` is false there.
 
 #pragma once
 
@@ -130,10 +131,12 @@ __device__ __forceinline__ void group_walk(
     }
     return;
   }
-  // The two-level float64 walk tests its boxes in float against rf, the
-  // float copy of r (walk.cuh box_entry_f), and a row's plane before the
-  // rest of the row (walk.cuh tri_plane); the head of this file says why.
-  constexpr bool kFloatBox = kTwoLevel && std::is_same_v<Real, double>;
+  // A float64 walk tests its boxes in float against rf, the float copy of
+  // r (walk.cuh box_entry_f); two-level also a row's plane before the rest
+  // of the row (walk.cuh tri_plane), which was slower one-level. The head
+  // of this file says why.
+  constexpr bool kFloatBox = std::is_same_v<Real, double>;
+  constexpr bool kSplitRows = kFloatBox && kTwoLevel;
   // The ray in the frame of the nodes being visited. The world ray is not
   // kept beside it: it is loaded again where the walk needs it (an instance
   // entry, a return to the TLAS), which saves the registers of a second ray.
@@ -190,7 +193,7 @@ __device__ __forceinline__ void group_walk(
       const Real* tr = tris + (size_t)start * kTriStride;
       if (kOccl) {
         bool occluded;
-        if constexpr (kFloatBox) {
+        if constexpr (kSplitRows) {
           occluded = leaf_any_split(tr, cnt, r, t_min, upper);
         } else {
           occluded = leaf_any(tr, cnt, r, t_min, upper);
@@ -202,7 +205,7 @@ __device__ __forceinline__ void group_walk(
       } else {
         int kb;
         Real t_leaf;
-        if constexpr (kFloatBox) {
+        if constexpr (kSplitRows) {
           t_leaf = leaf_closest_split(tr, cnt, r, t_min, upper, &kb);
         } else {
           t_leaf = leaf_closest(tr, cnt, r, t_min, &kb);
@@ -282,6 +285,30 @@ __device__ __forceinline__ void group_walk(
 inline cudaError_t group_stack_smem(int depth, size_t* smem) {
   *smem = (size_t)kBlock * (size_t)(depth > 0 ? depth : 0) * sizeof(unsigned);
   if (depth < 0 || *smem > kMaxSmem) return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// The occupancy of a walk kernel at the launch of a group stack of `depth`
+// levels (`allow` its caller's allow_group_stack): out[0] registers a
+// thread, out[1] local (spill) bytes a thread (cudaFuncGetAttributes),
+// out[2] blocks per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// out[3] their warps.
+template <typename Kernel, typename Allow>
+cudaError_t group_walk_occupancy(Kernel kernel, Allow allow, int depth, int* out) {
+  size_t smem;
+  cudaError_t err = group_stack_smem(depth, &smem);
+  if (err == cudaSuccess && smem > 48 * 1024) err = allow();
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kBlock, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  out[3] = blocks * (kBlock / 32);
   return cudaSuccess;
 }
 

@@ -40,7 +40,7 @@
 #include <stdint.h>
 
 #include "count.cuh"       // count_launch
-#include "group_walk.cuh"  // group_walk, group_stack_smem
+#include "group_walk.cuh"  // group_walk, group_stack_smem, group_walk_occupancy
 
 namespace {
 
@@ -120,27 +120,10 @@ int launch(int depth, int64_t n, cudaStream_t stream, const float* bounds, const
 }
 
 // The occupancy of one kernel at the launch of a group stack of `depth`
-// levels: out[0] registers a thread, out[1] local (spill) bytes a thread
-// (cudaFuncGetAttributes), out[2] blocks per SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[3] their warps.
+// levels (group_walk.cuh group_walk_occupancy).
 template <bool kOccl, typename Real>
 cudaError_t occupancy(int depth, int* out) {
-  size_t smem;
-  cudaError_t err = group_stack_smem(depth, &smem);
-  if (err == cudaSuccess && smem > 48 * 1024) err = allow_group_stack<kOccl, Real>();
-  if (err != cudaSuccess) return err;
-  const auto kernel = walk_kernel<kOccl, Real>();
-  cudaFuncAttributes attr;
-  err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kBlock, smem);
-  if (err != cudaSuccess) return err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = blocks;
-  out[3] = blocks * (kBlock / 32);
-  return cudaSuccess;
+  return group_walk_occupancy(walk_kernel<kOccl, Real>(), allow_group_stack<kOccl, Real>, depth, out);
 }
 
 }  // namespace

@@ -150,15 +150,15 @@ __device__ __forceinline__ bool box_hit(float lox, float loy, float loz, float h
   return box_entry(lox, loy, loz, hix, hiy, hiz, r, t_min, upper, &entry);
 }
 
-// The float box test of a double walk (the two-level float64 pair walk).
-// The boxes are float; testing them in float against a float copy of the
-// double ray holds fewer registers, and its operations are float's. RayF is
-// that copy: the origin rounded to nearest, the inverse of the direction
-// rounded to float (safe_inv in float, its zero guard signed by the double
-// direction), and per axis a slack s = 2 |(double)of - o| |fi| + FLT_MIN
-// that covers the origin's rounding (and any underflow). The double
-// inverse direction is not needed: the walk's double division happens
-// only in the triangle tests.
+// The float box test of a double walk (the float64 tlas2, tlas8 and bvh8
+// walks). The boxes are float; testing them in float against a float copy
+// of the double ray holds fewer registers, and its operations are float's.
+// RayF is that copy: the origin rounded to nearest, the inverse of the
+// direction rounded to float (safe_inv in float, its zero guard signed by
+// the double direction), and per axis a slack s = 2 |(double)of - o| |fi| +
+// FLT_MIN that covers the origin's rounding (and any underflow). The double
+// inverse direction is not needed: the walk's double division happens only
+// in the triangle tests.
 //
 // box_entry_f widens each axis's slab [min(t1, t2), max(t1, t2)] outward by
 // 2^-21 |t| + s before it takes the entry and exit, and tests them against
@@ -335,9 +335,10 @@ __device__ __forceinline__ Real tri_t(const Real* __restrict__ tr, const Ray<Rea
 }
 
 // tri_t in two halves, for a walk short of registers (the two-level float64
-// pair walk): tri_plane loads the row's plane (pn, pv) and returns the ray's
-// t to it, its cosine in *cosv; tri_inside loads the rest of the row and
-// tests whether the point at t lies inside the triangle. The arithmetic is
+// walks; one-level, bvh8.cu measured it slower): tri_plane loads the row's
+// plane (pn, pv) and returns the ray's t to it, its cosine in *cosv;
+// tri_inside loads the rest of the row and tests whether the point at t
+// lies inside the triangle. The arithmetic is
 // tri_t's, op for op: a row is a hit of tri_t iff |cosv| >= par, t >= t_min
 // and tri_inside holds. The leaf tests below test the plane first and load
 // the rest of a row only for a t that could count.

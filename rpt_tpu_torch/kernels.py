@@ -52,6 +52,7 @@ _SIGNATURES = {
         "rpt_bvh8_occluded": [_P, _P, _I32] + [_P] * 5 + [_I64, _F32] + [_P] * 3,
         "rpt_bvh8_closest_f64": [_P, _P, _I32] + [_P] * 4 + [_I64, _F64] + [_P] * 4,
         "rpt_bvh8_occluded_f64": [_P, _P, _I32] + [_P] * 5 + [_I64, _F64] + [_P] * 3,
+        "rpt_bvh8_occupancy": [_I32, _I32, _P],
     },
     "tlas8": {
         "rpt_tlas8_closest": [_P, _P, _I32, _I32] + [_P] * 5 + [_I64, _F32] + [_P] * 5,

@@ -33,9 +33,11 @@ carried over: the whole tree sits in device memory. Per wide node:
 A float64 pack (of a float64 `BvhData`, for float64 renders) keeps `tris`
 in float64 (ten 16-byte loads a row, no rounding) and the node boxes in
 float32, each widened one ulp outward (`bvh.widen`) so that it holds the
-float64 triangles; its rays, hit distances and `t_min` are float64 and its
-boxes are tested in float64. The wrappers take the kernel of the pack's
-type and raise on rays of the other.
+float64 triangles; its rays, hit distances and `t_min` are float64. Its
+boxes are tested in float against a float copy of each ray, widened so
+that the test takes every box the double test takes (`_slab_f32`;
+csrc/group_walk.cuh and bvh8.cu say why). The wrappers take the kernel of
+the pack's type and raise on rays of the other.
 
 Walk: a node-group stack (Ylitie, Karras and Laine, HPG 2017), one ray per
 thread (or per lane of the plain version), near to far by its own
@@ -98,6 +100,7 @@ __all__ = [
     "bvh8_occluded_plain",
     "bvh8_closest_kernel",
     "bvh8_occluded_kernel",
+    "bvh8_occupancy",
     "BOX_TEST_OPS",
     "TRI_TEST_OPS",
 ]
@@ -537,15 +540,18 @@ def _best_of_leaves(t, ok, start, li, lk, L):
 _LOWEST_BIT = torch.tensor([8] + [(v & -v).bit_length() - 1 for v in range(1, 256)])
 
 
-def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: Optional[dict]):
+def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: Optional[dict],
+                float_box: Optional[bool] = None):
     """Lockstep version of csrc/group_walk.cuh over the table of `pack`
     (its bounds, refs, words, tris and group_depth): each step visits one
     node for every ray still walking, then moves it to its next node
     (module docstring). One wide tree, or, where the pack carries instance
     records `inst_rows` (K, 16) by TLAS leaf rank, a two-level table whose
     nodes below `n_tlas` are the TLAS (ops/tlas8.py). Box tests take
-    [t_min, upper] with upper widened (`box_upper`); the two-level float64
-    walk tests its boxes in float (`_slab_f32`), as its kernel does. A
+    [t_min, upper] with upper widened (`box_upper`); a float64 walk tests
+    its boxes in float (`_slab_f32`), as its kernels do, unless
+    `float_box` is False: the double test (`_slab_hit`) that the kernels'
+    design replaced, whose counts are the bound's yardstick (chip_smoke.py). A
     leaf's best row replaces the best hit on a smaller t, or on an equal t
     with a smaller key: (TLAS leaf rank, row) two-level, the row one-level.
     Returns (t_raw, tri, instance id) for the closest hit (t_raw = BIG on a
@@ -562,7 +568,8 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
     words = pack.words.long()
     kinds = refs & 3
     two_level = getattr(pack, "inst_rows", None) is not None
-    float_box = two_level and o.dtype == torch.float64
+    if float_box is None:
+        float_box = o.dtype == torch.float64
     if float_box:
         t_min_f = _to_f32(torch.tensor(t_min, dtype=torch.float64), up=False).item()
         fr = _float_ray(o, d)
@@ -610,7 +617,7 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
         upper = (t_max[live] if occl else t_best[live])[:, None]
         kind = kinds[w]
         if float_box:
-            lo, hi = _slab_f32(boxes[w], torch.where(local, fr_loc[live], fr[live]))
+            lo, hi = _slab_f32(boxes[w], torch.where(local, fr_loc[live], fr[live]) if two_level else fr[live])
             hit = (lo <= hi) & (hi >= t_min_f) & (lo <= _to_f32(upper, up=True))
         else:
             hit = _slab_hit(boxes[w], ol, il, t_min, box_upper(upper))
@@ -801,6 +808,31 @@ def bvh8_occluded_kernel(pack: Bvh8Pack, o, d, t_min, t_max, active=None, launch
     if err != 0:
         raise RuntimeError(f"bvh8 any-hit kernel launch failed: CUDA error {err}")
     return occ
+
+
+def group_walk_occupancy(library: str, group_depth: int, occluded: bool, dtype) -> dict:
+    """How the kernel of a query (`occluded`) and real type (`dtype`) of
+    the group-walk library `library` ("bvh8" or "tlas8") fills the current
+    card at the launch the wrappers make for a pack of `group_depth`
+    (128-ray blocks, the group stack in dynamic shared memory): registers
+    and local (spill) bytes a thread, blocks and warps resident per SM, and
+    the shared stack they hold per SM."""
+    from ..kernels import load_library
+
+    out = torch.zeros(4, dtype=torch.int32)
+    kind = int(occluded) | (2 if dtype == torch.float64 else 0)
+    err = getattr(load_library(library), f"rpt_{library}_occupancy")(kind, group_depth, _ptr(out))
+    if err != 0:
+        raise RuntimeError(f"{library} occupancy query failed: CUDA error {err}")
+    regs, local, blocks, warps = out.tolist()
+    smem = 128 * group_depth * 4
+    return dict(block=128, smem_bytes=smem, registers=regs, local_bytes=local, blocks_per_sm=blocks,
+                warps_per_sm=warps, smem_per_sm=blocks * smem)
+
+
+def bvh8_occupancy(group_depth: int, occluded: bool, dtype) -> dict:
+    """`group_walk_occupancy` of the bvh8 kernels."""
+    return group_walk_occupancy("bvh8", group_depth, occluded, dtype)
 
 
 def _on_cpu(o: torch.Tensor) -> bool:

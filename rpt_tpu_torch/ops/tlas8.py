@@ -92,6 +92,7 @@ from .bvh8 import (
     _tri_rows,
     check_dtype,
     finish_occluded,
+    group_walk_occupancy,
     ray_t_max,
     real_slot,
 )
@@ -365,22 +366,8 @@ def tlas8_occluded_kernel(pack: Tlas8Pack, o, d, t_min, t_max, active=None, laun
 
 
 def tlas8_occupancy(group_depth: int, occluded: bool, dtype) -> dict:
-    """How the kernel of a query (`occluded`) and real type (`dtype`) fills
-    the current card at the launch the wrappers make for a pack of
-    `group_depth` (128-ray blocks, the group stack in dynamic shared
-    memory): registers and local (spill) bytes a thread, blocks and warps
-    resident per SM, and the shared stack they hold per SM."""
-    from ..kernels import load_library
-
-    out = torch.zeros(4, dtype=torch.int32)
-    kind = int(occluded) | (2 if dtype == torch.float64 else 0)
-    err = load_library("tlas8").rpt_tlas8_occupancy(kind, group_depth, _ptr(out))
-    if err != 0:
-        raise RuntimeError(f"tlas8 occupancy query failed: CUDA error {err}")
-    regs, local, blocks, warps = out.tolist()
-    smem = 128 * group_depth * 4
-    return dict(block=128, smem_bytes=smem, registers=regs, local_bytes=local, blocks_per_sm=blocks,
-                warps_per_sm=warps, smem_per_sm=blocks * smem)
+    """`bvh8.group_walk_occupancy` of the tlas8 kernels."""
+    return group_walk_occupancy("tlas8", group_depth, occluded, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -713,6 +713,20 @@ def test_tlas8_occupancy_query(card, dtype):
         assert deep["blocks_per_sm"] <= shallow["blocks_per_sm"] and deep["smem_bytes"] == 128 * 120 * 4
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_bvh8_occupancy_query(card, dtype):
+    """`bvh8_occupancy` reads the kernels' registers and blocks per SM at
+    the wrappers' launch (the float32 pair under its cap of 64 registers):
+    a deeper group stack never fits more blocks."""
+    for occluded in (False, True):
+        shallow = bvh8.bvh8_occupancy(4, occluded, dtype)
+        deep = bvh8.bvh8_occupancy(120, occluded, dtype)
+        assert 0 < shallow["registers"] <= (64 if dtype == torch.float32 else 255) and shallow["local_bytes"] >= 0
+        assert shallow["warps_per_sm"] == 4 * shallow["blocks_per_sm"] > 0
+        assert deep["blocks_per_sm"] <= shallow["blocks_per_sm"] and deep["smem_bytes"] == 128 * 120 * 4
+
+
 @pytest.mark.parametrize("branch", ["block_128", "smaller_block", "global_stack"])
 def test_tlas2_f64_kernels_take_every_launch_plan(card, branch, monkeypatch):
     """The float64 two-level walk (its float box test, its plane-first

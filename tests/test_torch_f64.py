@@ -360,6 +360,83 @@ def test_one_level_f64_walk_at_a_box_face(family):
         assert torch.equal(occluded(bvh, pack, o, d, T_MIN, t_max), torch.as_tensor(inside))
 
 
+def _brute_closest(bvh, pack, o, d):
+    """Every leaf row of the float64 `pack` tested with `bvh8._leaf_t`
+    (the walk's own triangle test) against every ray: the lowest t, then
+    the lowest row, as (t, row) with bvh8's miss sentinel and row 0 on a
+    miss. The padding rows past a leaf's count are not rows of it."""
+    leaf = bvh.is_leaf.bool()
+    rows = torch.cat([torch.arange(s, s + c) for s, c in zip(bvh.leaf_start[leaf].tolist(),
+                                                             bvh.leaf_count[leaf].tolist())])
+    tris = pack.tris[rows][None]
+    t_out, row_out = [], []
+    for c in range(0, o.shape[0], 256):
+        t, ok = bvh8._leaf_t(tris, o[c:c + 256], d[c:c + 256], T_MIN)
+        t = torch.where(ok, t, torch.full_like(t, bvh8._BIG))
+        best = t.min(1).values
+        row = torch.where(t == best[:, None], rows, bvh8._NO_ROW).min(1).values
+        t_out.append(best)
+        row_out.append(torch.where(best < bvh8._BIG, row, torch.zeros_like(row)))
+    return torch.cat(t_out), torch.cat(row_out).to(torch.int32)
+
+
+def _one_level_f64_case(case):
+    """(bvh, o, d) in float64: `_random_mesh` and a 3,000-triangle trefoil
+    under rays at their triangles from a sphere around them; the trefoil
+    under rays leaving its first hits in random directions (an origin on
+    the surface, t_min above it); and `walk_scenes`' `edge` (flat leaves,
+    hits on a leaf's face) and `twin_leaves` (every hit a tie of two
+    leaves)."""
+    if case in ("edge", "twin_leaves"):
+        return walk_scenes.walk_scene("bvh8", case, F64)
+    if case == "random_mesh":
+        verts, norms, mats = _random_mesh(3000, seed=8)
+        o, d = _rays_at(verts.mean(axis=1), 1500, 4.0, 9)
+    else:
+        knot = rpt_tpu_torch.scenes.trefoil_mesh(segments=50, sides=30)
+        verts, norms = knot.vertices, knot.normals
+        mats = np.arange(verts.shape[0], dtype=np.int32) % 3
+        o, d = _rays_at(verts.mean(axis=1), 1500, 1.5, 10)
+        if case == "trefoil_bounce":
+            t = rpt_tpu_torch.ops.intersect.intersect_triangles(
+                torch.as_tensor(o), torch.as_tensor(d), T_MIN, torch.as_tensor(verts), torch.as_tensor(norms),
+                torch.as_tensor(mats)).t.numpy()
+            hit = np.isfinite(t)
+            o = o[hit] + t[hit, None] * d[hit]
+            d = np.random.default_rng(11).normal(size=o.shape)
+            d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return build_bvh(verts, norms, mats, device="cpu", dtype=F64), torch.as_tensor(o), torch.as_tensor(d)
+
+
+@pytest.mark.parametrize("case", ["random_mesh", "trefoil", "trefoil_bounce", "edge", "twin_leaves"])
+def test_one_level_f64_walk_equals_a_brute_force_scan(case):
+    """The float64 bvh8 walk (float box tests, triangle rows plane first)
+    misses no leaf that holds the closest hit: its t and triangle id equal
+    a brute-force scan of every row bit for bit, ties to the lowest row;
+    its any hit equals `t <= t_max` of the scan, at t_max = the scan's t
+    itself, an ulp below it and at random t_max. So does the walk with its
+    boxes tested in double (the bound's yardstick in chip_smoke.py), which
+    tests no more boxes than the float walk."""
+    bvh, o, d = _one_level_f64_case(case)
+    pack = bvh8.pack_bvh8(bvh)
+    t_brute, row_brute = _brute_closest(bvh, pack, o, d)
+    hit = t_brute < bvh8._BIG
+    assert hit.sum() > 150 and (~hit).sum() > 20
+    stats = {"float": {}, "double": {}}
+    t_walk, row_walk = bvh8.bvh8_closest_plain(pack, o, d, T_MIN, stats=stats["float"])
+    assert torch.equal(t_walk, t_brute) and torch.equal(row_walk, row_brute)
+    t_double, row_double, _ = bvh8._group_walk(pack, o, d, T_MIN, None, None, False, stats["double"], float_box=False)
+    assert torch.equal(t_double, t_brute) and torch.equal(row_double, row_brute)
+    assert 0 < stats["double"]["box_tests"] <= stats["float"]["box_tests"]
+    at_t = torch.where(hit, t_brute, torch.full_like(t_brute, 12.0))
+    below = torch.where(hit, torch.nextafter(t_brute, torch.zeros_like(t_brute)), at_t)
+    random = torch.as_tensor(np.random.default_rng(12).uniform(0.0, 4.0, o.shape[0]))
+    assert torch.equal(t_brute <= at_t, hit) and not (t_brute <= below).any()
+    assert 0 < int((t_brute <= random).sum()) < int(hit.sum())
+    for t_max in (at_t, below, random):
+        assert torch.equal(bvh8.bvh8_occluded_plain(pack, o, d, T_MIN, t_max), t_brute <= t_max)
+
+
 @pytest.mark.parametrize("family", list(ONE_LEVEL) + list(TWO_LEVEL))
 def test_a_wrapper_refuses_rays_of_the_other_type(family):
     verts, norms, mats = _random_mesh(80, seed=1)

@@ -17,9 +17,11 @@ The any hit answers `closest.t <= t_max` (`rpt_tpu/scene.py:373-379`), so at
 t_max = the closest hit's own t it must find that hit, also on a flat leaf
 whose box entry rounds an ulp past the triangle's t (`_edge_scene`): every
 family's box test widens its upper end (csrc/walk.cuh `box_upper`). The
-float64 tlas8 walk tests its boxes in float: it must take every box the
-widened double test takes.
+float64 tlas8 and bvh8 walks test their boxes in float: the float test must
+take every box the widened double test takes.
 """
+
+import math
 
 import jax
 import numpy as np
@@ -283,3 +285,69 @@ def test_float_boxes_take_every_box_the_double_test_takes():
                 taken += int(double.sum())
                 extra += int((single & ~double).sum())
     assert taken > 5_000 and extra > 0
+
+
+def _slab_sweep(kind: str, n: int, seed: int):
+    """Float boxes b (n, 6, 8) and double rays o, d (n, 3) for the box tests
+    of a one-level float64 walk, each ray aimed at a point in (or on a face
+    of) its first box, in one of three kinds: `far` boxes 1e2 to 1e5 from
+    the world's origin and ray origins 1e-2 to 1e5 from them, off the float
+    grid, where the slack of the rounded origin matters; `axis` directions
+    along an axis (two components 0, -0.0 or 1e-30), from origins on the
+    box's own planes; `near` origins within a few box sizes, in any
+    direction."""
+    rng = np.random.default_rng(seed)
+    lo = rng.uniform(-2.0, 2.0, (n, 8, 3))
+    if kind == "far":
+        lo += rng.normal(size=(n, 1, 3)) * 10.0 ** rng.uniform(2.0, 5.0, (n, 1, 1))
+    size = np.exp(rng.uniform(-12.0, 0.0, (n, 8, 3)))
+    size[rng.random((n, 8, 3)) < 0.1] = 0.0  # flat boxes
+    lo = lo.astype(np.float32)
+    hi = np.maximum((lo + size).astype(np.float32), lo)
+    b = np.concatenate([lo.transpose(0, 2, 1), hi.transpose(0, 2, 1)], axis=1)  # (n, 6, 8)
+    u = rng.random((n, 3))
+    on = rng.random((n, 3)) < 0.3  # a coordinate on a face of the box
+    u = np.where(on, rng.integers(0, 2, (n, 3)).astype(float), u)
+    target = lo[:, 0].astype(np.float64) + u * (hi[:, 0].astype(np.float64) - lo[:, 0])
+    if kind == "axis":
+        axis = rng.integers(0, 3, n)
+        d = np.zeros((n, 3))
+        d[np.arange(n), axis] = rng.choice([-1.0, 1.0], n)
+        d[rng.random((n, 3)) < 0.2] *= -0.0
+        d = np.where((d == 0) & (rng.random((n, 3)) < 0.2), rng.choice([-1e-30, 1e-30], (n, 3)), d)
+        o = target - d * rng.uniform(0.0, 8.0, (n, 1))
+    else:
+        d = rng.normal(size=(n, 3))
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        dist = 10.0 ** rng.uniform(-2.0, 5.0, (n, 1)) if kind == "far" else rng.uniform(0.0, 6.0, (n, 1))
+        o = target - d * dist
+        o += rng.uniform(-1.0, 1.0, (n, 3)) * np.abs(o) * 2.0**-30  # off the float grid
+    return torch.as_tensor(b), torch.as_tensor(o), torch.as_tensor(d)
+
+
+@pytest.mark.parametrize("kind", ["far", "axis", "near"])
+def test_float_slabs_take_every_box_the_double_slabs_take(kind):
+    """The one-level float64 walk's box test, `bvh8._slab_f32` against
+    t_min rounded down and upper rounded up to float, takes every box that
+    the widened double test (`_slab_hit` against `box_upper`) takes, on
+    float boxes (flat ones too) and double rays: from far origins, along
+    axes, near the box; at upper equal to the double test's entry into or
+    exit from each box (a face), an ulp below it and at random, and at
+    t_min 0, 1e-3 and each box's exit."""
+    b, o, d = _slab_sweep(kind, 4000, {"far": 31, "axis": 32, "near": 33}[kind])
+    inv = bvh8._safe_inv(d)
+    entry, exit_ = bvh8._slab(b, o, inv)
+    fr = bvh8._float_ray(o, d)
+    lo_f, hi_f = bvh8._slab_f32(b, fr)
+    rng = np.random.default_rng(34)
+    uppers = [entry, exit_, torch.nextafter(entry, torch.full_like(entry, -math.inf)),
+              torch.as_tensor(rng.uniform(0.0, 20.0, entry.shape))]
+    taken = extra = 0
+    for t_min in (torch.tensor(0.0, dtype=F64), torch.tensor(T_MIN, dtype=F64), exit_):
+        for upper in uppers:
+            double = bvh8._slab_hit(b, o, inv, t_min, bvh8.box_upper(upper))
+            single = (lo_f <= hi_f) & (hi_f >= bvh8._to_f32(t_min, up=False)) & (lo_f <= bvh8._to_f32(upper, up=True))
+            assert not (double & ~single).any(), f"{int((double & ~single).sum())} boxes taken in double only"
+            taken += int(double.sum())
+            extra += int((single & ~double).sum())
+    assert taken > 20_000 and extra > 0
