@@ -79,8 +79,8 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
       one);
    f. times each of the path's kernels per launch, launched from Python
       and inside a CUDA graph, beside its plain version and its bound (the
-      operations its own plain walk counts; a float64 group walk's
-      boxes as the double box test counts them, the reference's work);
+      operations its own plain walk counts, each at the card's rate for
+      the type it runs in);
    on `dragon_binary` and `lego_binary`, also:
    g. `[binary_vs_wide]`: the binary kernels against the wide kernels of
       the same trees on every wavefront, and both timed in turns;
@@ -957,10 +957,10 @@ def timing_phase(workload, family, sd, rec, err, launches, spp, card, scene) -> 
         for a in args:  # also the plain version's warm-up
             plain(pack, *a, stats=stats)
         plain_ms = time_ms(lambda *a: plain(pack, *a), args, reps=1, warmup=False)
-        # A float64 group walk's bound counts the double box test's work,
-        # the reference's: not the visits its float box test adds.
-        work = double_box_work(pack, kind, args) if f64 and family in ("bvh8", "tlas8") else stats
-        t_bytes, t_ops = bound_ms(spec, pack, args, work, PEAK_F64_OPS if f64 else PEAK_F32_OPS)
+        # The float64 wide and two-level walks test their boxes in float;
+        # the one-level binary walk (bvh2) tests them in double.
+        t_bytes, t_ops = bound_ms(spec, pack, args, stats, PEAK_F64_OPS if f64 else PEAK_F32_OPS,
+                                  PEAK_F64_OPS if f64 and family == "bvh2" else PEAK_F32_OPS)
         rows.append({
             "name": f"{name}_f64" if f64 else name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": launches[name], "max_abs_err": err[name], "ms": ms,
@@ -971,8 +971,6 @@ def timing_phase(workload, family, sd, rec, err, launches, spp, card, scene) -> 
             "box_tests_per_launch": stats["box_tests"] / len(args),
             "tri_tests_per_launch": stats["tri_tests"] / len(args),
             "inst_entries_per_launch": stats.get("inst_entries", 0) / len(args),
-            "bound_box_tests_per_launch": work["box_tests"] / len(args),
-            "bound_tri_tests_per_launch": work["tri_tests"] / len(args),
         })
         rows[-1].update({k: getattr(pack, k) for k in ("group_depth", "stack_depth", "node_bytes") if hasattr(pack, k)})
         rows[-1].update({f"walk_{k}": v for k, v in stats.items() if k.startswith("max_")})
@@ -1000,24 +998,8 @@ def timing_phase(workload, family, sd, rec, err, launches, spp, card, scene) -> 
             plain_ms=f"{plain_ms:.3f}",
             bound_ms=f"{rows[-1]['bound_ms']:.5f}", bound_by=rows[-1]["bound_by"],
             box_tests_per_launch=f"{rows[-1]['box_tests_per_launch']:.0f}",
-            tri_tests_per_launch=f"{rows[-1]['tri_tests_per_launch']:.0f}",
-            bound_box_tests_per_launch=f"{rows[-1]['bound_box_tests_per_launch']:.0f}",
-            bound_tri_tests_per_launch=f"{rows[-1]['bound_tri_tests_per_launch']:.0f}", **extra,
-            card=json.dumps(card))
+            tri_tests_per_launch=f"{rows[-1]['tri_tests_per_launch']:.0f}", **extra, card=json.dumps(card))
     return rows
-
-
-def double_box_work(pack, kind, args) -> dict:
-    """The counts (`bvh8._group_walk`'s `stats`) of a float64 group walk
-    over the wavefronts `args` with its boxes tested in double, as the
-    reference's walk tests them: the work its bound counts."""
-    from rpt_tpu_torch.ops import bvh8
-
-    stats = {}
-    for o, d, t_min, *t_max, active in args:
-        bvh8._group_walk(pack, o, d, t_min, t_max[0] if t_max else None, active, kind == "occluded", stats,
-                         float_box=False)
-    return stats
 
 
 def f64_vs_f32_mrays(workload, scene, camera, eps, renderer, rays, card) -> None:
@@ -1689,20 +1671,23 @@ def threefry_bound_ms(mode: int, n: int):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bound_ms(spec, pack, args, stats, peak_ops=PEAK_F32_OPS):
+def bound_ms(spec, pack, args, stats, peak_ops=PEAK_F32_OPS, peak_box_ops=None):
     """(bytes bound, operations bound) in ms per launch over the wavefronts
     `args`: each ray's inputs and outputs once and the whole pack once, over
     the memory rate; the box tests x 25, triangle tests x 48 and instance
-    entries x 39 in `stats`, the kernel's own plain walk's counts on the
-    same rays (a float64 group walk's: `double_box_work`'s), over
-    `peak_ops`, the card's rate for the walk's real type (f32 or f64)."""
+    entries x 39 the kernel's own plain walk counted on the same rays, each
+    over the card's rate for the type it runs in: triangle tests and
+    instance entries over `peak_ops` (the walk's real type, f32 or f64),
+    box tests over `peak_box_ops` (default `peak_ops`; f32 for a float64
+    walk that tests its boxes in float), the two times summed."""
     from rpt_tpu_torch.ops import bvh8, tlas8
 
     n_rays = sum(a[0].shape[0] for a in args)
     bytes_per = n_rays * (spec["in_bytes"] + spec["out_bytes"]) / len(args) + pack.nbytes
-    ops = (stats["box_tests"] * bvh8.BOX_TEST_OPS + stats["tri_tests"] * bvh8.TRI_TEST_OPS
-           + stats.get("inst_entries", 0) * tlas8.INST_ENTRY_OPS)
-    return bytes_per / PEAK_BYTES * 1e3, ops / len(args) / peak_ops * 1e3
+    box_ops = stats["box_tests"] * bvh8.BOX_TEST_OPS
+    ops = stats["tri_tests"] * bvh8.TRI_TEST_OPS + stats.get("inst_entries", 0) * tlas8.INST_ENTRY_OPS
+    t_ops = (box_ops / (peak_box_ops or peak_ops) + ops / peak_ops) / len(args)
+    return bytes_per / PEAK_BYTES * 1e3, t_ops * 1e3
 
 
 def compare_hits(out_a, out_b, mat_of) -> dict:

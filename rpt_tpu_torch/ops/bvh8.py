@@ -540,8 +540,7 @@ def _best_of_leaves(t, ok, start, li, lk, L):
 _LOWEST_BIT = torch.tensor([8] + [(v & -v).bit_length() - 1 for v in range(1, 256)])
 
 
-def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: Optional[dict],
-                float_box: Optional[bool] = None):
+def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: Optional[dict]):
     """Lockstep version of csrc/group_walk.cuh over the table of `pack`
     (its bounds, refs, words, tris and group_depth): each step visits one
     node for every ray still walking, then moves it to its next node
@@ -549,9 +548,7 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
     records `inst_rows` (K, 16) by TLAS leaf rank, a two-level table whose
     nodes below `n_tlas` are the TLAS (ops/tlas8.py). Box tests take
     [t_min, upper] with upper widened (`box_upper`); a float64 walk tests
-    its boxes in float (`_slab_f32`), as its kernels do, unless
-    `float_box` is False: the double test (`_slab_hit`) that the kernels'
-    design replaced, whose counts are the bound's yardstick (chip_smoke.py). A
+    its boxes in float (`_slab_f32`), as its kernels do. A
     leaf's best row replaces the best hit on a smaller t, or on an equal t
     with a smaller key: (TLAS leaf rank, row) two-level, the row one-level.
     Returns (t_raw, tri, instance id) for the closest hit (t_raw = BIG on a
@@ -568,8 +565,7 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
     words = pack.words.long()
     kinds = refs & 3
     two_level = getattr(pack, "inst_rows", None) is not None
-    if float_box is None:
-        float_box = o.dtype == torch.float64
+    float_box = o.dtype == torch.float64
     if float_box:
         t_min_f = _to_f32(torch.tensor(t_min, dtype=torch.float64), up=False).item()
         fr = _float_ray(o, d)
@@ -810,29 +806,34 @@ def bvh8_occluded_kernel(pack: Bvh8Pack, o, d, t_min, t_max, active=None, launch
     return occ
 
 
-def group_walk_occupancy(library: str, group_depth: int, occluded: bool, dtype) -> dict:
-    """How the kernel of a query (`occluded`) and real type (`dtype`) of
-    the group-walk library `library` ("bvh8" or "tlas8") fills the current
-    card at the launch the wrappers make for a pack of `group_depth`
-    (128-ray blocks, the group stack in dynamic shared memory): registers
-    and local (spill) bytes a thread, blocks and warps resident per SM, and
-    the shared stack they hold per SM."""
-    from ..kernels import load_library
-
+def read_occupancy(query, *args) -> dict:
+    """Call a kernel library's occupancy query (`rpt_<library>_occupancy`)
+    with `args` and its int32 output on the current card: registers and
+    local (spill) bytes a thread, blocks and warps resident per SM."""
     out = torch.zeros(4, dtype=torch.int32)
-    kind = int(occluded) | (2 if dtype == torch.float64 else 0)
-    err = getattr(load_library(library), f"rpt_{library}_occupancy")(kind, group_depth, _ptr(out))
+    err = query(*args, _ptr(out))
     if err != 0:
-        raise RuntimeError(f"{library} occupancy query failed: CUDA error {err}")
+        raise RuntimeError(f"{query.__name__} failed: CUDA error {err}")
     regs, local, blocks, warps = out.tolist()
+    return dict(registers=regs, local_bytes=local, blocks_per_sm=blocks, warps_per_sm=warps)
+
+
+def group_walk_occupancy(query, group_depth: int, occluded: bool, dtype) -> dict:
+    """How the kernel of a query (`occluded`) and real type (`dtype`) of a
+    group-walk library, whose occupancy query is `query`, fills the current
+    card at the launch the wrappers make for a pack of `group_depth`
+    (128-ray blocks, the group stack in dynamic shared memory):
+    `read_occupancy`'s counts and the shared stack the blocks hold per SM."""
     smem = 128 * group_depth * 4
-    return dict(block=128, smem_bytes=smem, registers=regs, local_bytes=local, blocks_per_sm=blocks,
-                warps_per_sm=warps, smem_per_sm=blocks * smem)
+    occ = read_occupancy(query, int(occluded) | (2 if dtype == torch.float64 else 0), group_depth)
+    return dict(block=128, smem_bytes=smem, **occ, smem_per_sm=occ["blocks_per_sm"] * smem)
 
 
 def bvh8_occupancy(group_depth: int, occluded: bool, dtype) -> dict:
     """`group_walk_occupancy` of the bvh8 kernels."""
-    return group_walk_occupancy("bvh8", group_depth, occluded, dtype)
+    from ..kernels import load_library
+
+    return group_walk_occupancy(load_library("bvh8").rpt_bvh8_occupancy, group_depth, occluded, dtype)
 
 
 def _on_cpu(o: torch.Tensor) -> bool:

@@ -367,7 +367,9 @@ def tlas8_occluded_kernel(pack: Tlas8Pack, o, d, t_min, t_max, active=None, laun
 
 def tlas8_occupancy(group_depth: int, occluded: bool, dtype) -> dict:
     """`bvh8.group_walk_occupancy` of the tlas8 kernels."""
-    return group_walk_occupancy("tlas8", group_depth, occluded, dtype)
+    from ..kernels import load_library
+
+    return group_walk_occupancy(load_library("tlas8").rpt_tlas8_occupancy, group_depth, occluded, dtype)
 
 
 # ---------------------------------------------------------------------------
