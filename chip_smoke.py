@@ -8,8 +8,10 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    per source, all at once, and prints each build's ptxas report and
    (`[sass]`) the instructions of each threefry kernel; then
    `[random]` holds the threefry kernel against its plain version in every
-   mode, the 64-bit ones (float64 uniform, int64 randint) too, at the main
-   path's shapes and ragged ones, and times it beside its bound; `[gather]`
+   mode, the 64-bit ones (float64 uniform, int64 randint at spans from 1
+   to 2^64 - 1) too, at the main path's shapes and ragged ones, and times
+   it beside its bound (and, with RPT_COMPARE, in turns with the named
+   trees' kernels); `[gather]`
    times torch's row gather at a few row widths; `[dtype]` renders one
    scene in float32, float64 and float32 again, each type through a graph
    of its own, the two float32 renders bit for bit; `[hdri]` holds the
@@ -39,9 +41,10 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    - `cornell`, the Cornell box: analytic primitives and small meshes, no
      traversal kernel (phases b, f, g and h do not apply);
    - the float64 workloads, `dragon_f64`, `lego_f64`, `lego_toy_f64`,
-     `lego_binary_f64` and `cornell_f64`: their float32 twins' scenes,
-     size and bounces rendered with `Renderer(dtype=torch.float64)`,
-     through the float64 kernels (bvh8, tlas8, bvh2, tlas2; none on
+     `lego_binary_f64`, `cornell_f64` and `dragon_binary_f64`: their
+     float32 twins' scenes, size and bounces rendered with
+     `Renderer(dtype=torch.float64)`, through the float64 kernels (bvh8,
+     tlas8, bvh2, tlas2, bvh2 on the 120k-triangle trefoil; none on
      `cornell_f64`) and the 64-bit draws; phases a-h as above (h over each
      named tree's float64 pack of the same scene), the
      main path checked to launch no kernel or draw of the other type, its
@@ -89,10 +92,11 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
       (`RPT_COMPARE=label=dir,...`, e.g. a `git archive` of the parent
       commit), timed in turns with this tree's on the same wavefronts;
       skipped when no tree is named;
-   on `dragon`, `dragon_f64`, `lego`, `lego_f64`, `lego_binary` and
-   `lego_binary_f64`, also:
+   on `dragon`, `dragon_f64`, `lego`, `lego_f64`, `lego_toy`,
+   `lego_toy_f64`, `lego_binary`, `lego_binary_f64` and
+   `dragon_binary_f64`, also:
    `[occupancy]`: each of the four kernels of the workload's family
-      (bvh8, tlas8 or tlas2; float32 and float64, closest and any hit) at
+      (bvh8, tlas8, bvh2 or tlas2; float32 and float64, closest and any hit) at
       the launch its wrappers make for the scene's stack depth: registers
       and local (spill) bytes a thread, blocks, warps and shared stack
       bytes resident per SM; of this tree and of each tree named in
@@ -182,7 +186,11 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    64-bit modes), then the last line `{"ok": true, "device": {...}}`.
 
 A failed phase prints FAIL and exits nonzero with no result. It imports
-nothing of JAX or of the JAX package. `python3 chip_smoke.py --multicard`,
+nothing of JAX or of the JAX package. `python3 chip_smoke.py --workloads
+random,lego_toy_f64,...` runs the build, `[ties]` / `[edge]` and the named
+workloads alone (`random`: `[sass]` and `[random]`, where the threefry
+kernel of every tree in RPT_COMPARE is held against this tree's, bit for
+bit, and timed with it in turns). `python3 chip_smoke.py --multicard`,
 on a host with several cards, runs the build and `multicard_phase` alone. `python3 chip_smoke.py
 --multihost-worker <rank> <nproc> <port> <dir> <backend> <devices>` is
 one process of a multi-process render; the script starts them itself.
@@ -265,6 +273,11 @@ WORKLOADS = {
                          dtype="float64", twin="lego_toy"),
     "lego_binary_f64": dict(scene="lego", bvh_kernel="binary", bounces=5, spp=2, shadow=2, family="tlas2",
                             dtype="float64", twin="lego_binary"),
+    # The reference's dragon under binary kernels, rendered under x64: the
+    # float64 bvh2 pair on a 120k-triangle tree (spp cut to 1 to keep the
+    # script's time).
+    "dragon_binary_f64": dict(scene="dragon", bvh_kernel="binary", bounces=2, spp=1, shadow=2, family="bvh2",
+                              dtype="float64", twin="dragon_binary"),
     "cornell_f64": dict(scene="cornell", bvh_kernel="wide", bounces=2, spp=2, shadow=1, family=None, dtype="float64",
                         twin="cornell"),
     # The HDRI and monomial path at its source's size (`examples/monomial_glass.py`:
@@ -291,7 +304,8 @@ COMPACT_WORKLOADS = ("dragon", "lego", "dragon871k")
 COMPACT_ENV = {False: "0", True: "1", "octant": "octant", "morton": "morton"}
 COMPACT_SAMPLES = 4
 # `[occupancy]`: the workloads that print their kernels' occupancy.
-OCCUPANCY_WORKLOADS = ("dragon", "dragon_f64", "lego", "lego_f64", "lego_binary", "lego_binary_f64")
+OCCUPANCY_WORKLOADS = ("dragon", "dragon_f64", "lego", "lego_f64", "lego_toy", "lego_toy_f64", "lego_binary",
+                       "lego_binary_f64", "dragon_binary_f64")
 # The threefry kernel's row: its source, its modes (keys, bits, uniform,
 # randint), and what one element of each mode needs (csrc/threefry.cu's
 # note counts it): 32-bit integer operations, 72 per hash (one three-way xor
@@ -316,6 +330,16 @@ THREEFRY = dict(source="rpt_tpu_torch/csrc/threefry.cu", modes=("keys", "bits", 
 THREEFRY64 = dict(modes=("uniform64", "randint64"), int_ops={4: 72 + 4, 5: 2 * 72 + 4 + 3 + 1 + 2},
                   int_ops_per_launch={5: 2 * 72}, f64_ops={4: 4, 5: 0}, out_bytes={4: 8, 5: 8})
 ALL_MODES = THREEFRY["modes"] + THREEFRY64["modes"]
+# `[random]`: bounds of the int64 randint held against its plain version,
+# whose spans are 1, 2, 3, 6, 7, 120000, 2^32 - 1, 2^32, 2^32 + 1, 2^40 + 3,
+# 2^63 - 1, 2^63 and 2^64 - 1.
+RANDINT64_BOUNDS = ((4, 5), (5, 7), (-1, 2), (0, 6), (0, 7), (0, 120_000), (0, 2**32 - 1), (-2**31, 2**31),
+                    (0, 2**32 + 1), (0, 2**40 + 3), (0, 2**63 - 1), (-2**62, 2**62), (-2**63, 2**63 - 1))
+# `[random]` before / after: each mode, its arguments and its size, timed
+# in turns with the trees of RPT_COMPARE.
+THREEFRY_TURNS = (("keys", 1, {}), ("bits", None, {}), ("uniform", None, dict(lo=0.0, span=1.0)),
+                  ("randint", None, dict(minval=0, maxval=6)), ("uniform64", None, dict(lo=0.0, span=1.0)),
+                  ("randint64", None, dict(minval=0, maxval=6)))
 # `[grad]`: the differentiable path (`rpt_tpu_torch.grad`) at the main
 # path's size, per workload its bounces, the samples of its counted step,
 # the walk family on its path and its shadow rays per path vertex; the
@@ -630,10 +654,12 @@ def run_workload(workload: str, card: str):
 
     saved = scene_mod._BVH_KERNEL
     scene_mod._BVH_KERNEL = WORKLOADS[workload]["bvh_kernel"]
+    t0 = time.perf_counter()
     try:
         return _run_workload(workload, card)
     finally:
         scene_mod._BVH_KERNEL = saved
+        say("workload", name=workload, phase_seconds=f"{time.perf_counter() - t0:.1f}")
 
 
 def fresh(renderer):
@@ -953,14 +979,14 @@ def timing_phase(workload, family, sd, rec, err, launches, spp, card, scene) -> 
         kern, plain = getattr(mod, f"{name}_kernel"), getattr(mod, f"{name}_plain")
         ms = time_ms(lambda *a: kern(pack, *a), args, reps=10)
         graph_ms = time_graph_ms(lambda *a: kern(pack, *a), args, reps=10)
+        # One pass of the plain version, timed, that also counts its box and
+        # triangle tests (phase b ran it on these wavefronts: it is warm).
         stats = {}
-        for a in args:  # also the plain version's warm-up
-            plain(pack, *a, stats=stats)
-        plain_ms = time_ms(lambda *a: plain(pack, *a), args, reps=1, warmup=False)
-        # The float64 wide and two-level walks test their boxes in float;
-        # the one-level binary walk (bvh2) tests them in double.
+        plain_ms = time_ms(lambda *a: plain(pack, *a, stats=stats), args, reps=1, warmup=False)
+        # The float64 walks test their boxes in float, but the one-level
+        # binary any hit (bvh2), which tests them in double.
         t_bytes, t_ops = bound_ms(spec, pack, args, stats, PEAK_F64_OPS if f64 else PEAK_F32_OPS,
-                                  PEAK_F64_OPS if f64 and family == "bvh2" else PEAK_F32_OPS)
+                                  PEAK_F64_OPS if f64 and name == "bvh2_occluded" else PEAK_F32_OPS)
         rows.append({
             "name": f"{name}_f64" if f64 else name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": launches[name], "max_abs_err": err[name], "ms": ms,
@@ -1541,6 +1567,10 @@ def random64_phase(card: str, host, dev, npix: int, dim: float, by_mode32: dict)
         "randint64_6": (rnd.RANDINT64, rnd._randint_params(0, 6, 64)),
         "randint64_tris": (rnd.RANDINT64, rnd._randint_params(0, 120_000, 64)),
     }
+    # The int64 randint at every kind of span its reciprocal takes (1,
+    # powers of two, odd and even spans around 2^32 and 2^63, 2^64 - 1).
+    for lo, hi in RANDINT64_BOUNDS:
+        params[f"randint64_span_{(hi - lo) % 2**64}"] = (rnd.RANDINT64, rnd._randint_params(lo, hi, 64))
     checked = 0
     for label, (mode, kw) in params.items():
         for n in (1, 7, 1000, npix + 3, npix, 2 * npix):
@@ -1570,11 +1600,54 @@ def random64_phase(card: str, host, dev, npix: int, dim: float, by_mode32: dict)
             plain_graph_ms=f"{plain_graph_ms:.4f}", bound_ms=f"{bound:.5f}", bound_by=bound_by,
             graph_over_bound=f"{graph_ms / bound:.3f}", twin=twin,
             over_twin=f"{graph_ms / by_mode32[twin]['graph_ms']:.3f}", card=json.dumps(card))
+    random_before_after(card, dev, npix)
     u = by_mode["uniform64"]
     return {"name": "threefry_f64", "route": "cuda", "source": THREEFRY["source"], "replaces": None,
             "launches": None, "max_abs_err": 0.0, "ms": u["ms"], "graph_ms": u["graph_ms"], "plain_ms": u["plain_ms"],
             "plain_graph_ms": u["plain_graph_ms"], "bound_ms": u["bound_ms"], "bound_by": u["bound_by"],
             "library_ms": None, "shape": [npix], "mode": "uniform64", "by_mode": by_mode}
+
+
+def random_before_after(card: str, dev, npix: int) -> None:
+    """`[random]` before / after: the threefry kernel of each tree named in
+    RPT_COMPARE against this tree's, in every mode at the main path's size
+    (keys at 1 element) under a tensor key: bit for bit, and graph ms per
+    launch in turns (trees, this, this, trees reversed). Skipped when no
+    tree is named."""
+    import torch
+
+    from rpt_tpu_torch import random as rnd
+
+    trees = compare_trees()
+    if not trees:
+        say("random", before_after="skipped: RPT_COMPARE names no tree")
+        return
+    mods = {"this": rnd}
+    for label, root in trees:
+        mods[label] = importlib.import_module(f"{load_tree(label, root)}.random")
+    labels = [label for label, _ in trees]
+    for name, n, kw in THREEFRY_TURNS:
+        mode = ALL_MODES.index(name)
+        n = n or npix
+        if "maxval" in kw:
+            kw = rnd._randint_params(kw["minval"], kw["maxval"], 64 if name == "randint64" else 32)
+        runs = {label: (lambda *a, m=m: m.threefry_kernel(*a, **kw)) for label, m in mods.items()}
+        want = runs["this"](mode, dev, n, DEVICE)
+        same = {}
+        for label in labels:
+            got = runs[label](mode, dev, n, DEVICE)
+            torch.cuda.synchronize()
+            same[label] = bool(torch.equal(got, want))
+        times = {label: [] for label in mods}
+        for label in labels + ["this", "this"] + labels[::-1]:
+            times[label].append(time_graph_ms(runs[label], [(mode, dev, n, DEVICE)], reps=200))
+        ms = {label: sum(v) / len(v) for label, v in times.items()}
+        say("random", before_after=name, n=n, **{f"{label}_bit_equal": same[label] for label in labels},
+            **{f"{label}_graph_ms": f"{ms[label]:.5f}" for label in ms},
+            **{f"{label}_graph_turns_ms": json.dumps([round(t, 6) for t in times[label]]) for label in ms},
+            **{f"{label}_over_this": f"{ms[label] / ms['this']:.3f}" for label in labels}, card=json.dumps(card))
+        if not all(same.values()):
+            fail(f"the threefry {name} kernels of {[k for k, v in same.items() if not v]} and this tree differ")
 
 
 def walk_cases_phase(card: str) -> None:
@@ -1858,17 +1931,26 @@ def occupancy_phase(workload: str, family: str, depth: int, card: str) -> None:
     for label, mod in mods.items():
         query = getattr(mod, f"{family}_occupancy", None)
         if query is None:
-            # A tree without the query (the parent of the bvh8 one): its
-            # ptxas registers and spill, blocks and warps by the rule.
-            smem = 128 * depth * 4
+            # A tree without the query (the parent of the bvh2 one): its
+            # ptxas registers and spill, blocks and warps by the rule, for
+            # the kernels of the wrappers' launch.
+            if family in ("bvh2", "tlas2"):
+                block, smem, on_global = family_module("bvh2").launch_plan(depth)
+            else:
+                block, smem, on_global = 128, 128 * depth * 4, False
             for entry, (regs, spill) in ptxas_kernels(TREE_BUILDS.get(label, {}).get(family, {}).get("log", "")).items():
-                kind = re.search(rf"{family}_walk(_f64)?ILb([01])", entry)
-                if kind is None:
+                # The query, the stack and the real type from the mangled
+                # name: bool template arguments (kOccl, then the pair walks'
+                # kGlobalStack), and `_f64` in the name (bvh8, tlas8, tlas2)
+                # or the type argument `f` / `d` (bvh2, tlas2's float walk).
+                kind = re.search(rf"{family}_walk(_f64)?ILb([01])E(?:Lb([01])E)?([fd])?", entry)
+                if kind is None or (kind.group(3) or "0") != str(int(on_global)):
                     continue
-                blocks, warps = rule_occupancy(regs, smem)
+                f64 = kind.group(1) is not None or kind.group(4) == "d"
+                blocks, warps = rule_occupancy(regs, smem, block)
                 say("occupancy", workload=workload, tree=label,
-                    kernel=f"{family}_{'occluded' if kind.group(2) == '1' else 'closest'}{kind.group(1) or ''}",
-                    stack_depth=depth, block=128, smem_bytes=smem, registers=regs, spill_store_bytes=spill,
+                    kernel=f"{family}_{'occluded' if kind.group(2) == '1' else 'closest'}{'_f64' if f64 else ''}",
+                    stack_depth=depth, block=block, smem_bytes=smem, registers=regs, spill_store_bytes=spill,
                     blocks_per_sm=blocks, warps_per_sm=warps, smem_per_sm=blocks * smem, read_from="ptxas and the rule",
                     card=json.dumps(card))
             continue
@@ -3032,7 +3114,11 @@ def main():
         # Part of the run, to measure a design (e.g. RPT_COMPARE variants on
         # one workload): the named workloads' phases alone.
         for workload in sys.argv[2].split(","):
-            run_workload(workload, card)
+            if workload == "random":
+                sass_phase(kernels._lib_path("threefry"))
+                random_phase(card)
+            else:
+                run_workload(workload, card)
         print(card, flush=True)
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}), flush=True)

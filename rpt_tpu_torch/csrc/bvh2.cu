@@ -25,7 +25,9 @@
 // rpt_bvh2_occluded walk float32 rays over the float32 pack, their `_f64`
 // twins float64 rays over the float64 pack (float64 triangle rows, float
 // boxes rounded outward), the counterpart of the reference's float64 XLA
-// loop, since its Pallas kernels do not run under jax_enable_x64.
+// loop, since its Pallas kernels do not run under jax_enable_x64. The
+// float64 closest hit tests its boxes in float against a float copy of the
+// ray, the float64 any hit in double (pair_walk.cuh; below, why).
 //
 // C interface for ctypes: each entry point launches on the given stream
 // with `block` threads per block, allocates nothing (the caller passes the
@@ -33,19 +35,32 @@
 // cudaGetLastError() after the launch, or cudaErrorInvalidValue for a
 // block size or shared stack the launch cannot take. The kernel adds one
 // to `launches` when it runs, unless it is null (count.cuh).
+// rpt_bvh2_occupancy reads a kernel's registers, spill and blocks per SM
+// at a launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "count.cuh"      // count_launch
-#include "pair_walk.cuh"  // pair_walk, kMaxSmem
+#include "pair_walk.cuh"  // pair_walk, pair_walk_occupancy, kMaxSmem
 
 namespace {
 
 // No launch bound or register cap: __maxnreg__(56) and (48) ran the closest
 // hit 1.01x and 1.03x slower on the dragon in turns ((48) spilled), and
 // under (64) the prefetching closest hit spills (PERF.md). The float64 walk
-// (Real = double) has none either.
+// (Real = double) has none either. Its closest hit tests its boxes in float
+// in the prefetching loop (pair_walk.cuh): in turns, 0.0250 -> 0.0238 ms a
+// launch on the toy plane and 0.526 -> 0.477 on the 120k-triangle trefoil,
+// at the parent's 128 registers and 16 warps a SM. Every step that bought
+// warps was slower than that on both (PERF.md): plane-first rows
+// (70 registers, 28 warps) 1.15x / 1.13x; the loop without prefetch (104
+// registers) 1.23x / 1.30x, with plane-first rows (62, 32 warps) 1.29x /
+// 1.32x; caps of 5, 6, 7 and 8 blocks of 128 rays (96, 80, 72, 64
+// registers; 24-160 bytes of spill) 1.08-1.49x on the toy plane, and on the
+// trefoil 0.99x (cap 5) to 1.21x. The rule that chose: the fastest on the
+// toy plane, the kernel's row, of the designs within 2% of the parent on
+// the trefoil.
 template <bool kOccl, bool kGlobalStack, typename Real>
 __global__ void
 bvh2_walk(const float4* __restrict__ nodes, const Real* __restrict__ tris, const Real* __restrict__ o,
@@ -97,9 +112,35 @@ int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t
   return (int)cudaGetLastError();
 }
 
+// The occupancy (pair_walk.cuh pair_walk_occupancy) of one kernel at a
+// launch of `block` threads and `smem` bytes of dynamic shared memory a
+// block (0 with the global stack).
+template <bool kOccl, bool kGlobalStack, typename Real>
+cudaError_t occupancy(int block, size_t smem, int* out) {
+  return pair_walk_occupancy(bvh2_walk<kOccl, kGlobalStack, Real>, allow_shared_stack<kOccl, Real>, block, smem, out);
+}
+
 }  // namespace
 
 extern "C" {
+
+// The occupancy (above) of the kernel of `kind` on the current card: bit 0
+// the any hit, bit 1 float64, bit 2 the global stack. Returns a CUDA error.
+int rpt_bvh2_occupancy(int kind, int block, int smem, int* out) {
+  if (block <= 0 || block > kBlock || smem < 0) return (int)cudaErrorInvalidValue;
+  const size_t bytes = (size_t)smem;
+  switch (kind) {
+    case 0: return (int)occupancy<false, false, float>(block, bytes, out);
+    case 1: return (int)occupancy<true, false, float>(block, bytes, out);
+    case 2: return (int)occupancy<false, false, double>(block, bytes, out);
+    case 3: return (int)occupancy<true, false, double>(block, bytes, out);
+    case 4: return (int)occupancy<false, true, float>(block, bytes, out);
+    case 5: return (int)occupancy<true, true, float>(block, bytes, out);
+    case 6: return (int)occupancy<false, true, double>(block, bytes, out);
+    case 7: return (int)occupancy<true, true, double>(block, bytes, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
 
 int rpt_bvh2_closest(const float* nodes, const float* tris, const float* o, const float* d, const bool* active,
                      int64_t n, float t_min, float* t_out, int* id_out, int block, int depth,

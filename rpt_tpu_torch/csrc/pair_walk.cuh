@@ -63,9 +63,9 @@
 // the real type (walk.cuh): float for float32 renders, double for float64
 // ones, whose rays, triangle rows, instance records and hit distances are
 // double and whose pair nodes keep float boxes, rounded outward. The
-// one-level double walk tests them in double; the two-level one in float
-// (below). An instance record is 16 reals: the 3x4 rows, then [BLAS root,
-// id] as int32 at real 12.
+// one-level double any hit tests them in double; the other double walks in
+// float (below). An instance record is 16 reals: the 3x4 rows, then [BLAS
+// root, id] as int32 at real 12.
 //
 // The two-level float64 walk (tlas2.cu's `_f64` kernels). What held it back
 // was the register file, and hence the warps each SM keeps in flight to
@@ -90,8 +90,18 @@
 //     blocks of 128 rays fit an SM: 32 and 28 warps, 64 registers with 64
 //     bytes of spill and 72 with none. Each step measured faster in turns
 //     on the brick city (PERF.md): 0.536 -> 0.354 ms a closest-hit launch,
-//     0.264 -> 0.189 an any hit. The float walks and the one-level double
-//     walk compile as before: `kFloatBox` and `kSplit` are false there.
+//     0.264 -> 0.189 an any hit.
+//
+// The one-level float64 closest hit (bvh2.cu's `_f64` closest-hit kernel)
+// takes the float box test alone, in its prefetching loop: the float copy
+// of the ray and float entries in place of the double inverse direction
+// and entries, the nearer child by the float entry. Its registers stay at
+// 128 (16 warps a SM): their peak is the leaf test's whole double row with
+// the next node's loads in flight, not the box test. What bought warps
+// here (plane-first rows, the loop without prefetch, register caps) cost
+// more than it gave; bvh2.cu says what was measured. The one-level double
+// any hit keeps the double box test, and the float walks compile as
+// before: `kFloatBox` and `kSplit` are false there.
 
 #pragma once
 
@@ -193,7 +203,18 @@ __device__ __forceinline__ void pair_walk(
   // The one-level closest hit loads the next node before it tests the
   // current node's leaves (which node comes next does not depend on them).
   constexpr bool kPrefetch = !kOccl && !kTwoLevel;
+  // The float64 walks but the one-level any hit test their boxes in float
+  // (walk.cuh box_entry_f) against rf, the float copy of r, kept beside it,
+  // and take the nearer child by the float entry.
+  constexpr bool kFloatBox = std::is_same_v<Real, double> && (kTwoLevel || !kOccl);
+  using Entry = std::conditional_t<kFloatBox, float, Real>;
   Ray<Real> r = load_ray(o, d, i);  // in the frame of the nodes being visited
+  RayF rf;
+  float t_min_f = 0.0f;
+  if constexpr (kFloatBox) {
+    rf = float_ray(r);
+    t_min_f = __double2float_rd(t_min);
+  }
   bool local = false;
 
   // Closest hit: `upper` is the running best t. Any hit: it is t_max.
@@ -211,10 +232,17 @@ __device__ __forceinline__ void pair_walk(
     int4 m;
     load_pair(nodes, 0, &a, &b, &c, &m);
     while (true) {
-      Real lo_a, lo_b;
-      const Real up = box_upper(upper);
-      const bool hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, up, &lo_a);
-      const bool hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, up, &lo_b) && m.y != 0;
+      Entry lo_a, lo_b;
+      bool hit_a, hit_b;
+      if constexpr (kFloatBox) {
+        const float upper_f = __double2float_ru(upper);
+        hit_a = box_entry_f(a.x, a.y, a.z, a.w, b.x, b.y, rf, t_min_f, upper_f, &lo_a);
+        hit_b = box_entry_f(b.z, b.w, c.x, c.y, c.z, c.w, rf, t_min_f, upper_f, &lo_b) && m.y != 0;
+      } else {
+        const Real up = box_upper(upper);
+        hit_a = box_entry(a.x, a.y, a.z, a.w, b.x, b.y, r, t_min, up, &lo_a);
+        hit_b = box_entry(b.z, b.w, c.x, c.y, c.z, c.w, r, t_min, up, &lo_b) && m.y != 0;
+      }
       const int ref_a = m.x;
       const int ref_b = m.y;
       const bool leaf_a = (ref_a & 3) == kRefLeaf;
@@ -237,16 +265,6 @@ __device__ __forceinline__ void pair_walk(
       if (next < 0) break;
     }
   } else {
-    // The two-level float64 walk tests its boxes in float (walk.cuh
-    // box_entry_f) against rf, the float copy of r, kept beside it.
-    constexpr bool kFloatBox = kTwoLevel && std::is_same_v<Real, double>;
-    using Entry = std::conditional_t<kFloatBox, float, Real>;
-    RayF rf;
-    float t_min_f = 0.0f;
-    if constexpr (kFloatBox) {
-      rf = float_ray(r);
-      t_min_f = __double2float_rd(t_min);
-    }
     int node = 0;  // the TLAS root
     while (true) {
       // Visit `node`, in r's frame: both children's boxes, then its leaves.
@@ -322,6 +340,28 @@ __device__ __forceinline__ void pair_walk(
           best_rank >= 0 ? __ldg(reinterpret_cast<const int*>(inst + (size_t)best_rank * kRec + 12) + 1) : 0;
     }
   }
+}
+
+// The occupancy of a pair-walk kernel at a launch of `block` threads and
+// `smem` bytes of dynamic shared memory a block (`allow` its library's
+// allow_shared_stack, called past 48 KB): out[0] registers a thread, out[1]
+// local (spill) bytes a thread (cudaFuncGetAttributes), out[2] blocks per SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[3] their warps.
+template <typename Kernel, typename Allow>
+cudaError_t pair_walk_occupancy(Kernel kernel, Allow allow, int block, size_t smem, int* out) {
+  cudaError_t err = smem > 48 * 1024 ? allow() : cudaSuccess;
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = blocks;
+  out[3] = blocks * ((block + 31) / 32);
+  return cudaSuccess;
 }
 
 }  // namespace

@@ -31,7 +31,9 @@
 //            XLA contracts it; the plain version emulates it exactly), then
 //            max(., lo);
 //   kRandint64  jax.random.randint's int64: as kRandint with 64-bit streams
-//            x1 << 32 | x2 and uint64 arithmetic.
+//            x1 << 32 | x2 and uint64 arithmetic, the span anywhere in
+//            [1, 2^64). Its key split is hashed once per block, and its
+//            remainders are taken by a multiply-high (below).
 // lo and span come in as doubles; the float32 mode rounds them to float (the
 // wrapper passes float32 values, so the rounding is exact).
 //
@@ -46,14 +48,31 @@
 // which are the same in every thread. kUniform64 writes 8 bytes per element
 // and adds a shift, two ors and three float64 operations (the FP64 rate is
 // half the FP32 rate, still far above what 72 integer operations take);
-// kRandint64 hashes as kRandint, with two 64-bit remainders per stream. The
+// kRandint64 hashes twice per element, as kRandint, with three 64-bit
+// remainders (its key split: below). The
 // kernel keeps the words in registers and writes each output once,
 // coalesced.
 //
+// kRandint64's design. The card has no 64-bit divide: a 64-bit `%` by a
+// span known only at run time is a called routine of several dozen
+// instructions with branches, and the mode took three, beside the two
+// hashes of its key split that every thread made again (1.45x kRandint's
+// time, PERF.md). Here threads 0 and 1 of each block hash one half of the
+// split each into shared memory, before any thread of the block leaves;
+// and each remainder is x - q * span, q = x / span by the multiply-high of
+// Granlund and Montgomery ("Division by invariant integers using
+// multiplication", PLDI 1994, Figure 4.1): with l = ceil(log2 span),
+// m = floor(2^64 (2^l - span) / span) + 1 < 2^64, t = umulhi(x, m),
+// q = (t + ((x - t) >> min(l, 1))) >> max(l - 1, 0) is exact for every
+// 64-bit x and every span in [1, 2^64) (span 1: m = 1, q = x; a power of
+// two: m = 1, q = x >> l). The host computes (m, min(l, 1), max(l - 1, 0))
+// once per draw (random.py `_reciprocal`). kRandint keeps its own code.
+//
 // C interface for ctypes: launches on the given stream, allocates nothing,
 // returns cudaGetLastError() after the launch (cudaErrorInvalidValue for an
-// unknown mode). The kernel adds one to `launches` when it runs, unless it
-// is null (count.cuh).
+// unknown mode, a span of 0 or shifts out of range). (magic, sh1, sh2) is
+// the reciprocal of rspan, read by kRandint64 alone. The kernel adds one to
+// `launches` when it runs, unless it is null (count.cuh).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,13 +119,42 @@ __device__ __forceinline__ uint64_t bits64(uint32_t k1, uint32_t k2, uint32_t c)
   return ((uint64_t)x1 << 32) | x2;
 }
 
+// x % d by the multiply-high reciprocal (m, sh1, sh2) of d (above).
+__device__ __forceinline__ uint64_t urem(uint64_t x, uint64_t d, uint64_t m, int sh1, int sh2) {
+  const uint64_t t = __umul64hi(x, m);
+  return x - ((t + ((x - t) >> sh1)) >> sh2) * d;
+}
+
 template <int kMode>
 __global__ void __launch_bounds__(kBlock)
 threefry_kernel(const int64_t* __restrict__ key, uint32_t k1, uint32_t k2, const int64_t* __restrict__ counter,
                 uint32_t c0, int64_t n, void* __restrict__ out, double lo, double span, int64_t minval,
-                uint64_t rspan, uint64_t mult, unsigned long long* launches) {
+                uint64_t rspan, uint64_t mult, uint64_t magic, int sh1, int sh2, unsigned long long* launches) {
   count_launch(launches);
   const int64_t i = (int64_t)blockIdx.x * kBlock + threadIdx.x;
+  if constexpr (kMode == kRandint64) {
+    // The key split: thread s < 2 hashes the counter pair (0, s) into
+    // split[2s], split[2s + 1], before any thread of the block leaves.
+    __shared__ uint32_t split[4];
+    if (threadIdx.x < 2) {
+      if (key != nullptr) {
+        k1 = (uint32_t)key[0];
+        k2 = (uint32_t)key[1];
+      }
+      uint32_t x1 = 0u, x2 = threadIdx.x;
+      threefry(k1, k2, x1, x2);
+      split[2 * threadIdx.x] = x1;
+      split[2 * threadIdx.x + 1] = x2;
+    }
+    __syncthreads();
+    if (i >= n) return;
+    const uint32_t c = c0 + (counter != nullptr ? (uint32_t)*counter : 0u) + (uint32_t)i;
+    uint64_t off = urem(bits64(split[0], split[1], c), rspan, magic, sh1, sh2) * mult;
+    off += urem(bits64(split[2], split[3], c), rspan, magic, sh1, sh2);
+    off = urem(off, rspan, magic, sh1, sh2);
+    reinterpret_cast<int64_t*>(out)[i] = (int64_t)((uint64_t)minval + off);
+    return;
+  }
   if (i >= n) return;
   if (key != nullptr) {
     k1 = (uint32_t)key[0];
@@ -135,14 +183,6 @@ threefry_kernel(const int64_t* __restrict__ key, uint32_t k1, uint32_t k2, const
     off += bits(l1, l2, c) % rs;
     off %= rs;
     reinterpret_cast<int32_t*>(out)[i] = (int32_t)((uint32_t)minval + off);
-  } else {
-    uint32_t h1 = 0u, h2 = 0u, l1 = 0u, l2 = 1u;
-    threefry(k1, k2, h1, h2);
-    threefry(k1, k2, l1, l2);
-    uint64_t off = (bits64(h1, h2, c) % rspan) * mult;
-    off += bits64(l1, l2, c) % rspan;
-    off %= rspan;
-    reinterpret_cast<int64_t*>(out)[i] = (int64_t)((uint64_t)minval + off);
   }
 }
 
@@ -152,13 +192,14 @@ extern "C" {
 
 int rpt_threefry(int mode, const int64_t* key, uint32_t k1, uint32_t k2, const int64_t* counter, uint32_t c0,
                  int64_t n, void* out, double lo, double span, int64_t minval, uint64_t rspan, uint64_t mult,
-                 unsigned long long* launches, void* stream) {
+                 uint64_t magic, int sh1, int sh2, unsigned long long* launches, void* stream) {
   if (n <= 0) return 0;
-  if (rspan == 0u) return (int)cudaErrorInvalidValue;
+  if (rspan == 0u || sh1 < 0 || sh1 > 1 || sh2 < 0 || sh2 > 63) return (int)cudaErrorInvalidValue;
   const unsigned grid = (unsigned)((n + kBlock - 1) / kBlock);
   cudaStream_t s = (cudaStream_t)stream;
   const auto go = [&](auto kernel) {
-    kernel<<<grid, kBlock, 0, s>>>(key, k1, k2, counter, c0, n, out, lo, span, minval, rspan, mult, launches);
+    kernel<<<grid, kBlock, 0, s>>>(key, k1, k2, counter, c0, n, out, lo, span, minval, rspan, mult, magic, sh1,
+                                   sh2, launches);
   };
   switch (mode) {
     case kKeys: go(threefry_kernel<kKeys>); break;

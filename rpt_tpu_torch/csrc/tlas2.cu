@@ -41,7 +41,7 @@
 #include <type_traits>
 
 #include "count.cuh"      // count_launch
-#include "pair_walk.cuh"  // pair_walk, kMaxSmem
+#include "pair_walk.cuh"  // pair_walk, pair_walk_occupancy, kMaxSmem
 
 namespace {
 
@@ -139,28 +139,13 @@ int launch(int block, int depth, unsigned* global_stack, int64_t n, cudaStream_t
   return (int)cudaGetLastError();
 }
 
-// The occupancy of one kernel at a launch of `block` threads and `smem`
-// bytes of dynamic shared memory a block: out[0] registers a thread, out[1]
-// local (spill) bytes a thread (cudaFuncGetAttributes), out[2] blocks per SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), out[3] their warps.
+// The occupancy (pair_walk.cuh pair_walk_occupancy) of one kernel at a
+// launch of `block` threads and `smem` bytes of dynamic shared memory a
+// block (0 with the global stack).
 template <bool kOccl, bool kGlobalStack, typename Real>
 cudaError_t occupancy(int block, size_t smem, int* out) {
-  const auto kernel = walk_kernel<kOccl, kGlobalStack, Real>();
-  if (!kGlobalStack && smem > 48 * 1024) {
-    const cudaError_t err = allow_shared_stack<kOccl, Real>();
-    if (err != cudaSuccess) return err;
-  }
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, block, smem);
-  if (err != cudaSuccess) return err;
-  out[0] = attr.numRegs;
-  out[1] = (int)attr.localSizeBytes;
-  out[2] = blocks;
-  out[3] = blocks * ((block + 31) / 32);
-  return cudaSuccess;
+  return pair_walk_occupancy(walk_kernel<kOccl, kGlobalStack, Real>(), allow_shared_stack<kOccl, Real>, block, smem,
+                             out);
 }
 
 }  // namespace

@@ -151,7 +151,8 @@ __device__ __forceinline__ bool box_hit(float lox, float loy, float loz, float h
 }
 
 // The float box test of a double walk (the float64 tlas2, tlas8 and bvh8
-// walks). The boxes are float; testing them in float against a float copy
+// walks and the bvh2 closest hit). The boxes are float; testing them in
+// float against a float copy
 // of the double ray holds fewer registers, and its operations are float's.
 // RayF is that copy: the origin rounded to nearest, the inverse of the
 // direction rounded to float (safe_inv in float, its zero guard signed by

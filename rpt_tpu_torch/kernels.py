@@ -66,6 +66,7 @@ _SIGNATURES = {
         "rpt_bvh2_occluded": [_P] * 6 + [_I64, _F32, _P, _I32, _I32, _P, _P, _P],
         "rpt_bvh2_closest_f64": [_P] * 5 + [_I64, _F64] + [_P] * 2 + [_I32, _I32, _P, _P, _P],
         "rpt_bvh2_occluded_f64": [_P] * 6 + [_I64, _F64, _P, _I32, _I32, _P, _P, _P],
+        "rpt_bvh2_occupancy": [_I32, _I32, _I32, _P],
     },
     "tlas2": {
         "rpt_tlas2_closest": [_P, _I32] + [_P] * 5 + [_I64, _F32] + [_P] * 3 + [_I32, _I32, _P, _P, _P],
@@ -75,7 +76,8 @@ _SIGNATURES = {
         "rpt_tlas2_occupancy": [_I32, _I32, _I32, _P],
     },
     "threefry": {
-        "rpt_threefry": [_I32, _P, _U32, _U32, _P, _U32, _I64, _P, _F64, _F64, _I64, _U64, _U64, _P, _P],
+        "rpt_threefry": [_I32, _P, _U32, _U32, _P, _U32, _I64, _P, _F64, _F64, _I64, _U64, _U64, _U64, _I32, _I32,
+                         _P, _P],
     },
 }
 _lock = threading.Lock()

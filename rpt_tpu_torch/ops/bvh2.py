@@ -36,10 +36,11 @@ internal node, holding both children's boxes and references.
 
 A float64 pack (of a float64 `BvhData`) keeps `tris` in float64 and the
 node boxes in float32, widened one ulp outward (`bvh.widen`) to hold the
-float64 triangles; its walks are float64 (csrc/walk.cuh). The two-level
-float64 walk (`ops/tlas2.py`) tests the boxes in float against a float copy
-of the ray, widened to take every box the double test takes
-(`_slab_f32`, csrc/walk.cuh `box_entry_f`).
+float64 triangles; its walks are float64 (csrc/walk.cuh). The float64
+closest hit, and both two-level float64 walks (`ops/tlas2.py`), test the
+boxes in float against a float copy of the ray, widened to take every box
+the double test takes (`_slab_f32`, csrc/walk.cuh `box_entry_f`); the
+one-level float64 any hit tests them in double.
 
 Walk. One ray per thread (per lane of the plain version). Visiting a pair
 node slab-tests both children against [t_min, upper] (upper = the running
@@ -101,6 +102,7 @@ from .bvh8 import (
     finish_closest,
     finish_occluded,
     ray_t_max,
+    read_occupancy,
     real_slot,
 )
 from .intersect import Hit
@@ -115,6 +117,7 @@ __all__ = [
     "bvh2_occluded_plain",
     "bvh2_closest_kernel",
     "bvh2_occluded_kernel",
+    "bvh2_occupancy",
 ]
 
 # Dynamic shared memory one block may hold on Hopper (227 KB), and the
@@ -253,8 +256,9 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
     of `ops/tlas2.py`: pair nodes from `n_tlas` on are in an instance's
     frame, an instance child enters its BLAS root, and the tie key is (TLAS
     leaf rank, row); one-level every rank is 0, so the key is the row. The
-    two-level float64 walk tests its boxes in float (`_slab_f32`) and takes
-    the nearer child by the float entry, as its kernel does.
+    float64 walks but the one-level any hit test their boxes in float
+    (`_slab_f32`) and take the nearer child by the float entry, as their
+    kernels do.
 
     Returns the any-hit bool, or for the closest hit (t_raw (N,) in the
     rays' type, BIG on a miss; triangle row (N,) i32), two-level also the instance id (N,)
@@ -265,7 +269,7 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
     N = o.shape[0]
     occl = t_max is not None
     two_level = getattr(pack, "inst_rows", None) is not None
-    float_box = two_level and o.dtype == torch.float64
+    float_box = o.dtype == torch.float64 and (two_level or not occl)
     t_min = real_value(t_min, o.dtype)
     inv = _safe_inv(d)
     if float_box:
@@ -312,6 +316,8 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
                 frl = torch.where(local, fr_loc[live], fr[live])
         else:
             ol, dl, il = o[live], d[live], inv[live]
+            if float_box:
+                frl = fr[live]
 
         # Visit: slab-test both children against the best hit so far.
         upper = (t_max[live] if occl else t_best[live])[:, None]
@@ -489,6 +495,27 @@ def bvh2_occluded_kernel(pack: Bvh2Pack, o, d, t_min, t_max, active=None, launch
     if err != 0:
         raise RuntimeError(f"bvh2 any-hit kernel launch failed: CUDA error {err}")
     return occ
+
+
+def pair_occupancy(query, stack_depth: int, occluded: bool, dtype) -> dict:
+    """How the kernel of a query (`occluded`) and real type (`dtype`) of a
+    pair-walk library, whose occupancy query is `query` (bvh2's or tlas2's
+    `rpt_<library>_occupancy`), fills the current card at the launch the
+    wrappers make for a pack of `stack_depth` (`launch_plan`):
+    registers and local (spill) bytes a thread, blocks and warps resident
+    per SM (`bvh8.read_occupancy`), and the shared stack they hold per SM."""
+    block, smem, on_global = launch_plan(stack_depth)
+    kind = int(occluded) | (2 if dtype == torch.float64 else 0) | (4 if on_global else 0)
+    occ = read_occupancy(query, kind, block, smem)
+    return dict(block=block, smem_bytes=smem, global_stack=on_global, **occ,
+                smem_per_sm=occ["blocks_per_sm"] * smem)
+
+
+def bvh2_occupancy(stack_depth: int, occluded: bool, dtype) -> dict:
+    """`pair_occupancy` of the bvh2 kernels."""
+    from ..kernels import load_library
+
+    return pair_occupancy(load_library("bvh2").rpt_bvh2_occupancy, stack_depth, occluded, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -90,9 +90,8 @@ import torch
 from ..kernels import counted, launch_counter
 from ..utils.vmath import numpy_real, real_value
 from .bvh import refuse_ray_grad, widen
-from .bvh2 import PairNodes, _leaf_refs, _pair_nodes, _pair_walk, _stack_args, _stack_depth, launch_plan
-from .bvh8 import (KIND_INST, _check_rays, _on_cpu, _ptr, _tri_rows, check_dtype, finish_occluded,
-                   ray_t_max, read_occupancy, real_slot)
+from .bvh2 import PairNodes, _leaf_refs, _pair_nodes, _pair_walk, _stack_args, _stack_depth, pair_occupancy
+from .bvh8 import KIND_INST, _check_rays, _on_cpu, _ptr, _tri_rows, check_dtype, finish_occluded, ray_t_max, real_slot
 from .intersect import INF, Hit
 from .tlas import InstancedMeshes, holding_boxes, packed_leaves
 from .tlas8 import _finalize
@@ -251,18 +250,10 @@ def tlas2_occluded_kernel(pack: Tlas2Pack, o, d, t_min, t_max, active=None, laun
 
 
 def tlas2_occupancy(stack_depth: int, occluded: bool, dtype) -> dict:
-    """How the kernel of a query (`occluded`) and real type (`dtype`) fills
-    the current card at the launch the wrappers make for a pack of
-    `stack_depth` (`bvh2.launch_plan`): registers and local (spill) bytes a
-    thread, blocks and warps resident per SM, and the shared stack they
-    hold per SM (`bvh8.read_occupancy`)."""
+    """`bvh2.pair_occupancy` of the tlas2 kernels."""
     from ..kernels import load_library
 
-    block, smem, on_global = launch_plan(stack_depth)
-    kind = int(occluded) | (2 if dtype == torch.float64 else 0) | (4 if on_global else 0)
-    occ = read_occupancy(load_library("tlas2").rpt_tlas2_occupancy, kind, block, smem)
-    return dict(block=block, smem_bytes=smem, global_stack=on_global, **occ,
-                smem_per_sm=occ["blocks_per_sm"] * smem)
+    return pair_occupancy(load_library("tlas2").rpt_tlas2_occupancy, stack_depth, occluded, dtype)
 
 
 # ---------------------------------------------------------------------------

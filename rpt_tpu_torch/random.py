@@ -128,6 +128,39 @@ def _randint_params(minval: int, maxval: int, bits: int = 32) -> dict:
     return dict(minval=minval, rspan=span, mult=((mult * mult) & mask) % span)
 
 
+def _reciprocal(rspan: int) -> tuple:
+    """(m, sh1, sh2), the multiply-high reciprocal of an unsigned 64-bit
+    division by `rspan` in [1, 2^64) (Granlund and Montgomery, PLDI 1994,
+    Figure 4.1): with l = ceil(log2 rspan) and t = umulhi(x, m), x // rspan
+    is (t + ((x - t) >> sh1)) >> sh2 for every 64-bit x. What the int64
+    randint kernel divides by (csrc/threefry.cu `urem`); made once per
+    draw."""
+    l = (rspan - 1).bit_length()
+    return ((1 << 64) * ((1 << l) - rspan)) // rspan + 1, min(l, 1), max(l - 1, 0)
+
+
+# The int64 sign bit: x ^ _SIGN puts uint64 bits held in int64 in signed order.
+_SIGN = -(1 << 63)
+
+
+def _i64(v: int) -> int:
+    """The int64 whose bits are the uint64 `v`."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _urem64(x: torch.Tensor, s: int) -> torch.Tensor:
+    """x % s in uint64, for an int64 tensor x holding uint64 bits and a
+    Python int s in [1, 2^64), by `%` on values below 2^63: for s < 2^63,
+    the remainder of x >> 1 (made unsigned), doubled, plus x's low bit,
+    less s where that reaches s; for a larger s, x less s where x >= s
+    (both compared unsigned, as the bits' signed order with the sign
+    flipped). int64 products and sums wrap as uint64 ones do."""
+    if s >= 1 << 63:
+        return torch.where((x ^ _SIGN) >= s + _SIGN, x - _i64(s), x)
+    r = ((x >> 1) & ~_SIGN) % s * 2 + (x & 1)
+    return torch.where((r ^ _SIGN) >= s + _SIGN, r - s, r)
+
+
 def _two_sum(a, b):
     """Knuth's error-free sum: (s, e) with s = fl(a + b), s + e = a + b exactly."""
     s = a + b
@@ -193,12 +226,13 @@ def threefry_plain(mode: int, key, n: int, device, counter=None, c0: int = 0, lo
             off = (off + lower % rspan) & MASK
             off = off % rspan
             return (minval + off).to(torch.int32)
-        # The 64-bit words hi << 32 | lo, reduced modulo the span through
-        # their halves (exact in int64 for a span below 2^31).
-        two32 = (1 << 32) % rspan
-        higher, lower = ((w1 % rspan * two32 + w2 % rspan) % rspan
+        # The 64-bit words hi << 32 | lo as the int64 of their bits (hi
+        # sign-extended from 32 bits, then scaled: no int64 overflow), each
+        # reduced modulo the span in uint64, then combined with uint64
+        # wraparound as the kernel does (`_urem64`).
+        higher, lower = (_urem64(((w1 ^ 0x80000000) - 0x80000000) * (1 << 32) + w2, rspan)
                          for w1, w2 in (threefry2x32(h1, h2, zero, idx), threefry2x32(l1, l2, zero, idx)))
-        return minval + (higher * mult + lower) % rspan
+        return minval + _urem64(higher * _i64(mult) + lower, rspan)
     b1, b2 = threefry2x32(k1, k2, zero, idx)
     if mode == UNIFORM64:
         # The top 52 of the 64 bits b1 << 32 | b2 as a mantissa under
@@ -260,7 +294,7 @@ def threefry_kernel(mode: int, key, n: int, device, counter=None, c0: int = 0, l
     lib = load_library("threefry")
     err = lib.rpt_threefry(
         mode, _ptr(kt), k1, k2, _ptr(counter), c0 & MASK, n, _ptr(out), float(lo), float(span), minval, rspan,
-        mult, launches, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
+        mult, *_reciprocal(rspan), launches, ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream),
     )
     if err != 0:
         raise RuntimeError(f"threefry kernel launch failed: CUDA error {err}")
@@ -360,16 +394,14 @@ def randint(key, shape, minval: int, maxval: int, dtype=torch.int32, device=None
     wraparound."""
     shape = _shape(shape)
     minval, maxval = int(minval), int(maxval)
-    if not (-(2**31) <= minval < 2**31 and -(2**31) <= maxval < 2**31):
-        raise OverflowError("randint: bounds must fit in int32")
     if dtype == torch.int32:
-        hash_, mode, kw = _threefry, RANDINT, _randint_params(minval, maxval)
+        hash_, mode, kw, bits = _threefry, RANDINT, _randint_params(minval, maxval), 32
     elif dtype == torch.int64:
-        hash_, mode, kw = _threefry64, RANDINT64, _randint_params(minval, maxval, 64)
-        if kw["rspan"] >= 2**31:
-            raise OverflowError("randint: an int64 draw takes a span below 2^31")
+        hash_, mode, kw, bits = _threefry64, RANDINT64, _randint_params(minval, maxval, 64), 64
     else:
         raise NotImplementedError(f"randint: int32 or int64, not {dtype}")
+    if not all(-(2**(bits - 1)) <= v < 2**(bits - 1) for v in (minval, maxval)):
+        raise OverflowError(f"randint: bounds must fit in int{bits}")
     return hash_(mode, key, math.prod(shape), _key_device(key, device), **kw).reshape(shape)
 
 

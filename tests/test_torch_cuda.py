@@ -727,6 +727,23 @@ def test_bvh8_occupancy_query(card, dtype):
         assert deep["blocks_per_sm"] <= shallow["blocks_per_sm"] and deep["smem_bytes"] == 128 * 120 * 4
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_bvh2_occupancy_query(card, dtype):
+    """`bvh2_occupancy` reads the kernels' registers and blocks per SM at
+    the launch `launch_plan` makes: a deeper shared stack never fits more
+    blocks, and a stack past what one block holds reads the global-stack
+    kernel with no shared memory."""
+    for occluded in (False, True):
+        shallow = bvh2.bvh2_occupancy(4, occluded, dtype)
+        deep = bvh2.bvh2_occupancy(120, occluded, dtype)
+        on_global = bvh2.bvh2_occupancy(2000, occluded, dtype)
+        assert 0 < shallow["registers"] <= 255 and shallow["local_bytes"] >= 0
+        assert shallow["warps_per_sm"] == 4 * shallow["blocks_per_sm"] > 0
+        assert deep["blocks_per_sm"] <= shallow["blocks_per_sm"] and deep["smem_bytes"] == 128 * 120 * 4
+        assert on_global["global_stack"] and on_global["smem_bytes"] == 0 and on_global["blocks_per_sm"] > 0
+
+
 @pytest.mark.parametrize("branch", ["block_128", "smaller_block", "global_stack"])
 def test_tlas2_f64_kernels_take_every_launch_plan(card, branch, monkeypatch):
     """The float64 two-level walk (its float box test, its plane-first
@@ -764,12 +781,16 @@ def test_threefry_64_bit_modes_match_plain(card, mode):
         "uniform64": [(rnd.UNIFORM64, dict(lo=lo, span=hi - lo))
                       for lo, hi in ((0.0, 1.0), (-1.0 / 960.0, 1.0 / 960.0), (1e-7, 1.0), (0.0, 2.0 * np.pi),
                                      (-3.0, 5.5))],
-        "randint64": [(rnd.RANDINT64, rnd._randint_params(lo, hi, 64)) for lo, hi in ((0, 6), (0, 1), (0, 120_000),
-                                                                                     (-100, 123457))],
+        # Spans 6, 1, 120000, 123557, then 2, 3, 7, 2^32 - 1, 2^32, 2^32 + 1,
+        # 2^40 + 3, 2^63 - 1, 2^63 and 2^64 - 1: every kind of reciprocal.
+        "randint64": [(rnd.RANDINT64, rnd._randint_params(lo, hi, 64))
+                      for lo, hi in ((0, 6), (0, 1), (0, 120_000), (-100, 123457), (5, 7), (-1, 2), (0, 7),
+                                     (0, 2**32 - 1), (-2**31, 2**31), (0, 2**32 + 1), (0, 2**40 + 3), (0, 2**63 - 1),
+                                     (-2**62, 2**62), (-2**63, 2**63 - 1))],
     }[mode]
     host = rnd.fold_in(rnd.PRNGKey(42, x64=True), 7)
     for m, kw in params:
-        for n in (1, 7, 255, 257, 1000, 518_400, 2 * 518_400 + 5):
+        for n in (1, 7, 255, 257, 1000, 518_400, 518_403, 2 * 518_400 + 5):
             for key in (host, rnd.to_device(host, card)):
                 got = rnd.threefry_kernel(m, key, n, card, **kw)
                 want = rnd.threefry_plain(m, key, n, card, **kw)

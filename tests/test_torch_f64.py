@@ -107,7 +107,7 @@ def test_64_bit_draws_equal_jax_under_x64(seed, tensor_key):
             np.testing.assert_array_equal(got.numpy(), want)
         want = np.asarray(jax.random.uniform(jkey, (300,)))  # the default type: float64 under x64
         np.testing.assert_array_equal(rnd.uniform(key, (300,), dtype=F64, device=dev).numpy(), want)
-        for lo, hi in [(0, 6), (0, 16428), (-100, 123457)]:
+        for lo, hi in [(0, 6), (0, 16428), (-100, 123457), (-2**62, 2**62), (0, 2**40 + 3)]:
             want = np.asarray(jax.random.randint(jkey, (2000,), lo, hi))
             assert want.dtype == np.int64
             got = rnd.randint(key, (2000,), lo, hi, dtype=torch.int64, device=dev)
@@ -408,19 +408,26 @@ def _one_level_f64_case(case):
     return build_bvh(verts, norms, mats, device="cpu", dtype=F64), torch.as_tensor(o), torch.as_tensor(d)
 
 
-@pytest.mark.parametrize("case", ["random_mesh", "trefoil", "trefoil_bounce", "edge", "twin_leaves"])
-def test_one_level_f64_walk_equals_a_brute_force_scan(case):
-    """The float64 bvh8 walk (float box tests, rows whole) misses no leaf
-    that holds the closest hit: its t and triangle id equal a brute-force
-    scan of every row bit for bit, ties to the lowest row; its any hit
-    equals `t <= t_max` of the scan, at t_max = the scan's t itself, an ulp
-    below it and at random t_max."""
+ONE_LEVEL_CASES = ["random_mesh", "trefoil", "trefoil_bounce", "edge", "twin_leaves"]
+
+
+@pytest.mark.parametrize("family,case", [pytest.param("bvh8", c, id=c) for c in ONE_LEVEL_CASES]
+                         + [pytest.param("bvh2", c, id=f"bvh2-{c}") for c in ONE_LEVEL_CASES])
+def test_one_level_f64_walk_equals_a_brute_force_scan(family, case):
+    """The float64 bvh8 walk (float box tests, rows whole) and the float64
+    bvh2 walk (its closest hit's boxes in float, its any hit's in double)
+    miss no leaf that holds the closest hit: the closest hit's t and
+    triangle id equal a brute-force scan of every row bit for bit, ties to
+    the lowest row; the any hit equals `t <= t_max` of the scan, at t_max =
+    the scan's t itself, an ulp below it and at random t_max."""
+    pack_fn, _, _ = ONE_LEVEL[family]
+    mod = {"bvh8": bvh8, "bvh2": bvh2}[family]
     bvh, o, d = _one_level_f64_case(case)
-    pack = bvh8.pack_bvh8(bvh)
+    pack = pack_fn(bvh)
     t_brute, row_brute = _brute_closest(bvh, pack, o, d)
     hit = t_brute < bvh8._BIG
     assert hit.sum() > 150 and (~hit).sum() > 20
-    t_walk, row_walk = bvh8.bvh8_closest_plain(pack, o, d, T_MIN)
+    t_walk, row_walk = getattr(mod, f"{family}_closest_plain")(pack, o, d, T_MIN)
     assert torch.equal(t_walk, t_brute) and torch.equal(row_walk, row_brute)
     at_t = torch.where(hit, t_brute, torch.full_like(t_brute, 12.0))
     below = torch.where(hit, torch.nextafter(t_brute, torch.zeros_like(t_brute)), at_t)
@@ -428,7 +435,37 @@ def test_one_level_f64_walk_equals_a_brute_force_scan(case):
     assert torch.equal(t_brute <= at_t, hit) and not (t_brute <= below).any()
     assert 0 < int((t_brute <= random).sum()) < int(hit.sum())
     for t_max in (at_t, below, random):
-        assert torch.equal(bvh8.bvh8_occluded_plain(pack, o, d, T_MIN, t_max), t_brute <= t_max)
+        assert torch.equal(getattr(mod, f"{family}_occluded_plain")(pack, o, d, T_MIN, t_max), t_brute <= t_max)
+
+
+def test_bvh2_f64_any_hit_tests_its_boxes_in_double(monkeypatch):
+    """Of the one-level float64 bvh2 walks only the closest hit tests its
+    boxes in float (`_slab_f32`): the any hit takes every slab from the
+    double test (`bvh8._slab` through `bvh2._slab`), and its box count is
+    the filled child slots of the nodes that test saw."""
+    bvh, o, d = _one_level_f64_case("trefoil_bounce")
+    pack = bvh2.pack_bvh2(bvh)
+    seen = {"double": 0, "float": 0}
+    slab, slab_f32 = bvh2._slab, bvh2._slab_f32
+
+    def double_slab(b, ol, il):
+        seen["double"] += int((b[:, 0] <= b[:, 3]).sum())  # filled slots: an empty one's box is inverted
+        return slab(b, ol, il)
+
+    def float_slab(b, fr):
+        seen["float"] += int((b[:, 0] <= b[:, 3]).sum())
+        return slab_f32(b, fr)
+
+    monkeypatch.setattr(bvh2, "_slab", double_slab)
+    monkeypatch.setattr(bvh2, "_slab_f32", float_slab)
+    t_max = torch.as_tensor(np.random.default_rng(13).uniform(0.5, 4.0, o.shape[0]))
+    stats = {}
+    occ = bvh2.bvh2_occluded_plain(pack, o, d, T_MIN, t_max, stats=stats)
+    assert occ.any() and (~occ).any()
+    assert seen == {"double": stats["box_tests"], "float": 0} and stats["box_tests"] > 0
+    double_before, stats = seen["double"], {}
+    bvh2.bvh2_closest_plain(pack, o, d, T_MIN, stats=stats)
+    assert seen["float"] == stats["box_tests"] > 0 and seen["double"] == double_before
 
 
 @pytest.mark.parametrize("family", list(ONE_LEVEL) + list(TWO_LEVEL))

@@ -160,3 +160,21 @@ def test_threefry_plain_of_host_and_tensor_keys_agree(mode):
         a = rnd.threefry_plain(mode, host, 1001, "cpu", counter=ctr, c0=3, **kw)
         b = rnd.threefry_plain(mode, rnd.to_device(host, "cpu"), 1001, "cpu", counter=ctr, c0=3, **kw)
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("span", [1, 2, 3, 6, 7, 120000, 2**32 - 1, 2**32, 2**32 + 1, 2**63 - 1, 2**63, 2**64 - 1])
+def test_randint64_reciprocal_is_the_remainder(span):
+    """The int64 randint kernel's remainder (csrc/threefry.cu `urem`) with
+    the host's reciprocal (`random._reciprocal`), emulated step by step in
+    Python ints: t = umulhi(x, m), q = (t + ((x - t) >> sh1)) >> sh2, then
+    x - q * span, each in 64 bits, equals x % span for the edge values of
+    x and 2,000 random 64-bit x."""
+    m, sh1, sh2 = rnd._reciprocal(span)
+    assert 0 < m < 2**64 and sh1 in (0, 1) and 0 <= sh2 <= 63
+    mask = 2**64 - 1
+    xs = [0, 1, span - 1, span, 2**63, 2**64 - 1]
+    xs += [int(x) for x in np.random.default_rng(0).integers(0, 2**64, 2000, dtype=np.uint64)]
+    for x in (x for x in xs if x <= mask):
+        t = (x * m) >> 64
+        q = (((t + (((x - t) & mask) >> sh1)) & mask) >> sh2) & mask
+        assert (x - q * span) & mask == x % span, (x, span)
