@@ -963,9 +963,10 @@ def timing_phase(workload, family, sd, rec, err, launches, spp, card, scene) -> 
     """f. Each kernel at the main path's shapes (the wavefronts of b): time
     per launch, the plain version's time, and the bound. A float64
     workload's rows are its kernels' float64 instantiations (`<name>_f64`,
-    bound by FP64), each also timed against its float32 twin on the same
-    wavefronts rounded to float32, over the float32 pack of the same scene,
-    in turns (f32, f64, f64, f32) inside CUDA graphs."""
+    their triangle tests and instance entries bound by FP64), each also
+    timed against its float32 twin on the same wavefronts rounded to
+    float32, over the float32 pack of the same scene, in turns (f32, f64,
+    f64, f32) inside CUDA graphs."""
     import torch
 
     mod = family_module(family)
@@ -983,10 +984,9 @@ def timing_phase(workload, family, sd, rec, err, launches, spp, card, scene) -> 
         # triangle tests (phase b ran it on these wavefronts: it is warm).
         stats = {}
         plain_ms = time_ms(lambda *a: plain(pack, *a, stats=stats), args, reps=1, warmup=False)
-        # The float64 walks test their boxes in float, but the one-level
-        # binary any hit (bvh2), which tests them in double.
-        t_bytes, t_ops = bound_ms(spec, pack, args, stats, PEAK_F64_OPS if f64 else PEAK_F32_OPS,
-                                  PEAK_F64_OPS if f64 and name == "bvh2_occluded" else PEAK_F32_OPS)
+        # Box tests at the float rate (bound_ms), triangle tests and
+        # instance entries at the rate of the walk's type.
+        t_bytes, t_ops = bound_ms(spec, pack, args, stats, PEAK_F64_OPS if f64 else PEAK_F32_OPS)
         rows.append({
             "name": f"{name}_f64" if f64 else name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"], "launches": launches[name], "max_abs_err": err[name], "ms": ms,
@@ -1744,22 +1744,22 @@ def threefry_bound_ms(mode: int, n: int):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def bound_ms(spec, pack, args, stats, peak_ops=PEAK_F32_OPS, peak_box_ops=None):
+def bound_ms(spec, pack, args, stats, peak_ops=PEAK_F32_OPS):
     """(bytes bound, operations bound) in ms per launch over the wavefronts
     `args`: each ray's inputs and outputs once and the whole pack once, over
     the memory rate; the box tests x 25, triangle tests x 48 and instance
     entries x 39 the kernel's own plain walk counted on the same rays, each
     over the card's rate for the type it runs in: triangle tests and
     instance entries over `peak_ops` (the walk's real type, f32 or f64),
-    box tests over `peak_box_ops` (default `peak_ops`; f32 for a float64
-    walk that tests its boxes in float), the two times summed."""
+    box tests over the float rate (every walk tests its boxes in float, a
+    float64 walk against a float copy of the ray), the two times summed."""
     from rpt_tpu_torch.ops import bvh8, tlas8
 
     n_rays = sum(a[0].shape[0] for a in args)
     bytes_per = n_rays * (spec["in_bytes"] + spec["out_bytes"]) / len(args) + pack.nbytes
     box_ops = stats["box_tests"] * bvh8.BOX_TEST_OPS
     ops = stats["tri_tests"] * bvh8.TRI_TEST_OPS + stats.get("inst_entries", 0) * tlas8.INST_ENTRY_OPS
-    t_ops = (box_ops / (peak_box_ops or peak_ops) + ops / peak_ops) / len(args)
+    t_ops = (box_ops / PEAK_F32_OPS + ops / peak_ops) / len(args)
     return bytes_per / PEAK_BYTES * 1e3, t_ops * 1e3
 
 

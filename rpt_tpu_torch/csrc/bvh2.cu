@@ -25,9 +25,9 @@
 // rpt_bvh2_occluded walk float32 rays over the float32 pack, their `_f64`
 // twins float64 rays over the float64 pack (float64 triangle rows, float
 // boxes rounded outward), the counterpart of the reference's float64 XLA
-// loop, since its Pallas kernels do not run under jax_enable_x64. The
-// float64 closest hit tests its boxes in float against a float copy of the
-// ray, the float64 any hit in double (pair_walk.cuh; below, why).
+// loop, since its Pallas kernels do not run under jax_enable_x64. Both
+// float64 walks test their boxes in float against a float copy of the ray
+// (pair_walk.cuh; below, what was measured).
 //
 // C interface for ctypes: each entry point launches on the given stream
 // with `block` threads per block, allocates nothing (the caller passes the
@@ -61,6 +61,25 @@ namespace {
 // trefoil 0.99x (cap 5) to 1.21x. The rule that chose: the fastest on the
 // toy plane, the kernel's row, of the designs within 2% of the parent on
 // the trefoil.
+//
+// The float64 any hit tests its boxes in float too, in the loop that tests
+// leaves first, rows whole, no cap: in turns (graph ms a launch, PERF.md)
+// 0.4635 -> 0.4326 on the trefoil (1.071x) and 0.0154 -> 0.0142 on the toy
+// plane (1.087x), at 84 registers and 20 warps a SM (80 and 24 before).
+// Against it (plane-first rows, caps and near-first order against its twin
+// with t_max rounded once a ray, level with it), on the trefoil / the toy
+// plane: plane-first rows (48 registers, 40 warps) 1.124x / 1.288x slower;
+// caps of 6, 7 and 8 blocks of 128 rays (80, 72, 64 registers; 0, 24, 64
+// bytes of spill) 1.073x, 1.006x, 1.062x / 1.16x, 1.10x, 1.17x, and on
+// plane-first rows 1.03-1.05x / 1.13-1.17x; near-first order 1.001x /
+// 1.085x (3.8% more box tests); the prefetching loop (98 registers) 1.070x
+// / 1.001x; a leaf's rows without the early exit (104) 1.10x / 1.12x. t_max
+// rounded to float once a ray (86 registers) and the double ray loaded
+// again at each leaf (84) ran level with it, within what a second copy of
+// the same tree differed by (0.3%).
+// The rule that chose: the fastest on the trefoil, where the kernel lost
+// the most, of the designs within 2% of the parent on the toy plane; of
+// designs level within that 0.3%, the one with the least code.
 template <bool kOccl, bool kGlobalStack, typename Real>
 __global__ void
 bvh2_walk(const float4* __restrict__ nodes, const Real* __restrict__ tris, const Real* __restrict__ o,

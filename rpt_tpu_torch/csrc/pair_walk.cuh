@@ -62,10 +62,9 @@
 // kernels and the plain version agree bit for bit. The walk is a template over
 // the real type (walk.cuh): float for float32 renders, double for float64
 // ones, whose rays, triangle rows, instance records and hit distances are
-// double and whose pair nodes keep float boxes, rounded outward. The
-// one-level double any hit tests them in double; the other double walks in
-// float (below). An instance record is 16 reals: the 3x4 rows, then [BLAS
-// root, id] as int32 at real 12.
+// double and whose pair nodes keep float boxes, rounded outward. Every
+// double walk tests them in float (below). An instance record is 16 reals:
+// the 3x4 rows, then [BLAS root, id] as int32 at real 12.
 //
 // The two-level float64 walk (tlas2.cu's `_f64` kernels). What held it back
 // was the register file, and hence the warps each SM keeps in flight to
@@ -99,9 +98,17 @@
 // 128 (16 warps a SM): their peak is the leaf test's whole double row with
 // the next node's loads in flight, not the box test. What bought warps
 // here (plane-first rows, the loop without prefetch, register caps) cost
-// more than it gave; bvh2.cu says what was measured. The one-level double
-// any hit keeps the double box test, and the float walks compile as
-// before: `kFloatBox` and `kSplit` are false there.
+// more than it gave; bvh2.cu says what was measured.
+//
+// The one-level float64 any hit (bvh2.cu's `_f64` any-hit kernel) takes the
+// float box test too, in the loop that tests leaves first, with rows whole
+// and no cap: its double inverse direction is dead, though the float copy of
+// the ray beside the double one leaves it 84 registers (80 before). t_max
+// rounded to float once a ray in place of once a visit, plane-first rows,
+// register caps, near-first order, the prefetching loop and a leaf's rows
+// without the early exit each measured no faster; bvh2.cu gives the times.
+// The float walks compile as before: `kFloatBox` and `kSplit` are false
+// there.
 
 #pragma once
 
@@ -203,10 +210,10 @@ __device__ __forceinline__ void pair_walk(
   // The one-level closest hit loads the next node before it tests the
   // current node's leaves (which node comes next does not depend on them).
   constexpr bool kPrefetch = !kOccl && !kTwoLevel;
-  // The float64 walks but the one-level any hit test their boxes in float
-  // (walk.cuh box_entry_f) against rf, the float copy of r, kept beside it,
-  // and take the nearer child by the float entry.
-  constexpr bool kFloatBox = std::is_same_v<Real, double> && (kTwoLevel || !kOccl);
+  // The float64 walks test their boxes in float (walk.cuh box_entry_f)
+  // against rf, the float copy of r, kept beside it, and take the nearer
+  // child by the float entry.
+  constexpr bool kFloatBox = std::is_same_v<Real, double>;
   using Entry = std::conditional_t<kFloatBox, float, Real>;
   Ray<Real> r = load_ray(o, d, i);  // in the frame of the nodes being visited
   RayF rf;

@@ -150,10 +150,9 @@ __device__ __forceinline__ bool box_hit(float lox, float loy, float loz, float h
   return box_entry(lox, loy, loz, hix, hiy, hiz, r, t_min, upper, &entry);
 }
 
-// The float box test of a double walk (the float64 tlas2, tlas8 and bvh8
-// walks and the bvh2 closest hit). The boxes are float; testing them in
-// float against a float copy
-// of the double ray holds fewer registers, and its operations are float's.
+// The float box test of a double walk (every float64 walk). The boxes are
+// float; testing them in float against a float copy of the double ray
+// makes the double inverse direction dead, and its operations are float's.
 // RayF is that copy: the origin rounded to nearest, the inverse of the
 // direction rounded to float (safe_inv in float, its zero guard signed by
 // the double direction), and per axis a slack s = 2 |(double)of - o| |fi| +

@@ -36,11 +36,10 @@ internal node, holding both children's boxes and references.
 
 A float64 pack (of a float64 `BvhData`) keeps `tris` in float64 and the
 node boxes in float32, widened one ulp outward (`bvh.widen`) to hold the
-float64 triangles; its walks are float64 (csrc/walk.cuh). The float64
-closest hit, and both two-level float64 walks (`ops/tlas2.py`), test the
-boxes in float against a float copy of the ray, widened to take every box
-the double test takes (`_slab_f32`, csrc/walk.cuh `box_entry_f`); the
-one-level float64 any hit tests them in double.
+float64 triangles; its walks are float64 (csrc/walk.cuh). Every float64
+walk, one-level and two-level (`ops/tlas2.py`), tests the boxes in float
+against a float copy of the ray, widened to take every box the double test
+takes (`_slab_f32`, csrc/walk.cuh `box_entry_f`).
 
 Walk. One ray per thread (per lane of the plain version). Visiting a pair
 node slab-tests both children against [t_min, upper] (upper = the running
@@ -256,9 +255,8 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
     of `ops/tlas2.py`: pair nodes from `n_tlas` on are in an instance's
     frame, an instance child enters its BLAS root, and the tie key is (TLAS
     leaf rank, row); one-level every rank is 0, so the key is the row. The
-    float64 walks but the one-level any hit test their boxes in float
-    (`_slab_f32`) and take the nearer child by the float entry, as their
-    kernels do.
+    float64 walks test their boxes in float (`_slab_f32`) and take the
+    nearer child by the float entry, as their kernels do.
 
     Returns the any-hit bool, or for the closest hit (t_raw (N,) in the
     rays' type, BIG on a miss; triangle row (N,) i32), two-level also the instance id (N,)
@@ -269,7 +267,7 @@ def _pair_walk(pack: PairNodes, o, d, t_min, t_max, active, stats: Optional[dict
     N = o.shape[0]
     occl = t_max is not None
     two_level = getattr(pack, "inst_rows", None) is not None
-    float_box = o.dtype == torch.float64 and (two_level or not occl)
+    float_box = o.dtype == torch.float64
     t_min = real_value(t_min, o.dtype)
     inv = _safe_inv(d)
     if float_box:

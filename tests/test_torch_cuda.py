@@ -745,13 +745,14 @@ def test_bvh2_occupancy_query(card, dtype):
 
 
 @pytest.mark.parametrize("branch", ["block_128", "smaller_block", "global_stack"])
-def test_tlas2_f64_kernels_take_every_launch_plan(card, branch, monkeypatch):
-    """The float64 two-level walk (its float box test, its plane-first
-    triangle rows, its register cap) in a 128-ray block's shared stack, a
-    smaller block's and the global scratch stack, each over a ray count
-    that leaves the last block partial: t, ids and the any hit bit for bit
-    with the plain walk."""
-    _, _, pack, o, d = _f64_case("tlas2", card)
+@pytest.mark.parametrize("family", ["bvh2", "tlas2"])
+def test_tlas2_f64_kernels_take_every_launch_plan(card, family, branch, monkeypatch):
+    """The float64 pair walks, one-level (float box tests, the closest hit
+    prefetching) and two-level (float box tests, plane-first triangle rows,
+    register caps), in a 128-ray block's shared stack, a smaller block's and
+    the global scratch stack, each over a ray count that leaves the last
+    block partial: t, ids and the any hit bit for bit with the plain walk."""
+    mod, _, pack, o, d = _f64_case(family, card)
     limit = {"block_128": bvh2.SMEM_PER_BLOCK, "smaller_block": 64 * pack.stack_depth * 4, "global_stack": 0}[branch]
     monkeypatch.setattr(bvh2, "SMEM_PER_BLOCK", limit)
     block, _, on_global = bvh2.launch_plan(pack.stack_depth)
@@ -759,15 +760,15 @@ def test_tlas2_f64_kernels_take_every_launch_plan(card, branch, monkeypatch):
                                   "global_stack": (128, True)}[branch]
     assert o.shape[0] % block != 0
     active = torch.arange(o.shape[0], device=card) % 3 != 0
-    out_k = tlas2.tlas2_closest_kernel(pack, o, d, T_MIN, active)
-    out_p = tlas2.tlas2_closest_plain(pack, o, d, T_MIN, active)
+    out_k = getattr(mod, f"{family}_closest_kernel")(pack, o, d, T_MIN, active)
+    out_p = getattr(mod, f"{family}_closest_plain")(pack, o, d, T_MIN, active)
     torch.cuda.synchronize()
     assert (out_p[0] < 1e38).float().mean() > 0.3
     assert all(torch.equal(k, p) for k, p in zip(out_k, out_p))
     t_max = torch.where(out_p[0] < 1e38, out_p[0], torch.full_like(out_p[0], 12.0))
     t_max[::5] = 3.0
-    occ_k = tlas2.tlas2_occluded_kernel(pack, o, d, T_MIN, t_max, active)
-    occ_p = tlas2.tlas2_occluded_plain(pack, o, d, T_MIN, t_max, active)
+    occ_k = getattr(mod, f"{family}_occluded_kernel")(pack, o, d, T_MIN, t_max, active)
+    occ_p = getattr(mod, f"{family}_occluded_plain")(pack, o, d, T_MIN, t_max, active)
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p)
 

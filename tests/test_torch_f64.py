@@ -380,15 +380,31 @@ def _brute_closest(bvh, pack, o, d):
     return torch.cat(t_out), torch.cat(row_out).to(torch.int32)
 
 
+# `far_trefoil`'s translation: far from the origin and off the float grid,
+# so a ray's origin rounds to float by up to 1.2e-4 (the float box tests
+# cover that: the pack's boxes lie an ulp outside the float64 triangles).
+FAR_OFFSET = (1000.1, -2000.3, 3000.7)
+# `far_edge`'s: the flat leaves' plane (z = 0) just under 2^22, half a float
+# ulp (0.125) less 1e-9 above a float, so its box's outward rounding leaves
+# it the least room (0.125 and a little); the origins lie above 2^22, where
+# a float copy is off by up to 0.25. Only the float ray's origin slack
+# (csrc/walk.cuh `origin_slack`) keeps such a ray's leaf in its box test.
+FAR_EDGE_OFFSET = (0.0, 0.0, 4194303.875 - 1e-9)
+
+
 def _one_level_f64_case(case):
     """(bvh, o, d) in float64: `_random_mesh` and a 3,000-triangle trefoil
-    under rays at their triangles from a sphere around them; the trefoil
-    under rays leaving its first hits in random directions (an origin on
-    the surface, t_min above it); and `walk_scenes`' `edge` (flat leaves,
-    hits on a leaf's face) and `twin_leaves` (every hit a tie of two
-    leaves)."""
+    under rays at their triangles from a sphere around them; the same
+    trefoil and rays translated by `FAR_OFFSET`, the origins jittered by up
+    to 1e-9 (`far_trefoil`); the trefoil under rays leaving its first hits
+    in random directions (an origin on the surface, t_min above it); and
+    `walk_scenes`' `edge` (flat leaves, hits on a leaf's face), the same
+    translated by `FAR_EDGE_OFFSET` (`far_edge`), and `twin_leaves` (every
+    hit a tie of two leaves)."""
     if case in ("edge", "twin_leaves"):
         return walk_scenes.walk_scene("bvh8", case, F64)
+    if case == "far_edge":
+        return walk_scenes.walk_scene("bvh8", "edge", F64, offset=FAR_EDGE_OFFSET)
     if case == "random_mesh":
         verts, norms, mats = _random_mesh(3000, seed=8)
         o, d = _rays_at(verts.mean(axis=1), 1500, 4.0, 9)
@@ -397,6 +413,9 @@ def _one_level_f64_case(case):
         verts, norms = knot.vertices, knot.normals
         mats = np.arange(verts.shape[0], dtype=np.int32) % 3
         o, d = _rays_at(verts.mean(axis=1), 1500, 1.5, 10)
+        if case == "far_trefoil":
+            verts = verts + np.asarray(FAR_OFFSET)
+            o = o + np.asarray(FAR_OFFSET) + np.random.default_rng(14).uniform(-1e-9, 1e-9, o.shape)
         if case == "trefoil_bounce":
             t = rpt_tpu_torch.ops.intersect.intersect_triangles(
                 torch.as_tensor(o), torch.as_tensor(d), T_MIN, torch.as_tensor(verts), torch.as_tensor(norms),
@@ -408,18 +427,19 @@ def _one_level_f64_case(case):
     return build_bvh(verts, norms, mats, device="cpu", dtype=F64), torch.as_tensor(o), torch.as_tensor(d)
 
 
-ONE_LEVEL_CASES = ["random_mesh", "trefoil", "trefoil_bounce", "edge", "twin_leaves"]
+ONE_LEVEL_CASES = ["random_mesh", "trefoil", "trefoil_bounce", "edge", "twin_leaves", "far_trefoil", "far_edge"]
 
 
 @pytest.mark.parametrize("family,case", [pytest.param("bvh8", c, id=c) for c in ONE_LEVEL_CASES]
                          + [pytest.param("bvh2", c, id=f"bvh2-{c}") for c in ONE_LEVEL_CASES])
 def test_one_level_f64_walk_equals_a_brute_force_scan(family, case):
-    """The float64 bvh8 walk (float box tests, rows whole) and the float64
-    bvh2 walk (its closest hit's boxes in float, its any hit's in double)
-    miss no leaf that holds the closest hit: the closest hit's t and
-    triangle id equal a brute-force scan of every row bit for bit, ties to
-    the lowest row; the any hit equals `t <= t_max` of the scan, at t_max =
-    the scan's t itself, an ulp below it and at random t_max."""
+    """The float64 bvh8 walk (rows whole) and the float64 bvh2 walk, each
+    testing its boxes in float against a float copy of the ray, miss no
+    leaf that holds the closest hit, far from the origin too: the closest
+    hit's t and triangle id equal a brute-force scan of every row bit for
+    bit, ties to the lowest row; the any hit equals `t <= t_max` of the
+    scan, at t_max = the scan's t itself, an ulp below it and at random
+    t_max."""
     pack_fn, _, _ = ONE_LEVEL[family]
     mod = {"bvh8": bvh8, "bvh2": bvh2}[family]
     bvh, o, d = _one_level_f64_case(case)
@@ -438,11 +458,11 @@ def test_one_level_f64_walk_equals_a_brute_force_scan(family, case):
         assert torch.equal(getattr(mod, f"{family}_occluded_plain")(pack, o, d, T_MIN, t_max), t_brute <= t_max)
 
 
-def test_bvh2_f64_any_hit_tests_its_boxes_in_double(monkeypatch):
-    """Of the one-level float64 bvh2 walks only the closest hit tests its
-    boxes in float (`_slab_f32`): the any hit takes every slab from the
-    double test (`bvh8._slab` through `bvh2._slab`), and its box count is
-    the filled child slots of the nodes that test saw."""
+def test_bvh2_f64_walks_test_their_boxes_in_float(monkeypatch):
+    """Both one-level float64 bvh2 walks test their boxes in float: every
+    slab comes from `_slab_f32` and none from the double test (`bvh8._slab`
+    through `bvh2._slab`), and each walk's box count is the filled child
+    slots of the nodes the float test saw."""
     bvh, o, d = _one_level_f64_case("trefoil_bounce")
     pack = bvh2.pack_bvh2(bvh)
     seen = {"double": 0, "float": 0}
@@ -462,10 +482,10 @@ def test_bvh2_f64_any_hit_tests_its_boxes_in_double(monkeypatch):
     stats = {}
     occ = bvh2.bvh2_occluded_plain(pack, o, d, T_MIN, t_max, stats=stats)
     assert occ.any() and (~occ).any()
-    assert seen == {"double": stats["box_tests"], "float": 0} and stats["box_tests"] > 0
-    double_before, stats = seen["double"], {}
+    assert seen == {"double": 0, "float": stats["box_tests"]} and stats["box_tests"] > 0
+    float_before, stats = seen["float"], {}
     bvh2.bvh2_closest_plain(pack, o, d, T_MIN, stats=stats)
-    assert seen["float"] == stats["box_tests"] > 0 and seen["double"] == double_before
+    assert seen["float"] - float_before == stats["box_tests"] > 0 and seen["double"] == 0
 
 
 @pytest.mark.parametrize("family", list(ONE_LEVEL) + list(TWO_LEVEL))

@@ -144,12 +144,13 @@ def coincident_instances(copy: str, seed: int = 11, n_rays: int = 400):
     return meshes, instances, o, d
 
 
-def walk_scene(family: str, name: str, dtype):
+def walk_scene(family: str, name: str, dtype, offset=(0.0, 0.0, 0.0)):
     """The scene `name` for the walk `family` on the CPU, in `dtype`, and its
     rays (o, d) in `dtype`: `twin_leaves` (one-level), `same_mesh` /
     `wider_mesh` coincident instances (two-level), or `edge` (two-level its
     instances; one-level the mesh under the rays re-expressed in each
-    instance's frame, direction unnormalized, so t is the world t)."""
+    instance's frame, direction unnormalized, so t is the world t, the
+    mesh and the origins translated by `offset`)."""
     if name == "twin_leaves":
         verts, norms, mats, o, d = twin_leaves(24, seed=21)
         tree = build_bvh(verts, norms, mats, dtype=dtype, device="cpu")
@@ -158,9 +159,9 @@ def walk_scene(family: str, name: str, dtype):
         o, d = o.numpy(), d.numpy()
         if family in ("bvh8", "bvh2"):
             A = np.stack([np.linalg.inv(m)[:3] for _, m, _ in instances])[inst]
-            o = np.einsum("nij,nj->ni", A[:, :, :3], o) + A[:, :, 3]
+            o = np.einsum("nij,nj->ni", A[:, :, :3], o) + A[:, :, 3] + offset
             d = np.einsum("nij,nj->ni", A[:, :, :3], d)
-            tree = build_bvh(verts, norms, np.zeros(verts.shape[0], np.int32), dtype=dtype, device="cpu")
+            tree = build_bvh(verts + offset, norms, np.zeros(verts.shape[0], np.int32), dtype=dtype, device="cpu")
         else:
             tree = build_instanced([Mesh(vertices=verts, normals=norms)], instances, dtype=dtype, device="cpu")
     else:
