@@ -177,7 +177,17 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    backward step and one SGD step on `dragon` at 960x540 (timed, walks
    counted per shard, a finite loss), and at 64x48 on the 5,000-triangle
    trefoil the card's gradient against the CPU's within `[grad]`'s bar;
-10. prints one JSON line `{"kernels": [...]}` with one row for each of the
+10. `[multihost_grad]`: two processes of this script (`--multihost-worker
+   ... grad`), each with 2 shards on the one card, joined over gloo, take
+   `[sharded_grad]`'s step over the 4-shard global mesh: both processes'
+   loss, gradients and new leaves bit for bit the same, the gradients
+   within 1e-6 of max|g| per leaf of `[sharded_grad]`'s in-process step,
+   3 closest and 6 any-hit walks per shard counted on the card, and
+   `render_pass_sharded` and `make_sharded_many_fn` in two chunks over the
+   global mesh bit for bit the in-process 4-shard calls; forward and
+   backward ms, each collective's ms timed apart after a barrier and its
+   share of the step, the peak MiB;
+11. prints one JSON line `{"kernels": [...]}` with one row for each of the
    eight traversal kernels and the threefry kernel (the bvh8 and tlas8
    rows with their launches per differentiated sample, the bvh8 rows also
    per sample of the dynamic loop and per shard and sample of the sharded
@@ -192,8 +202,9 @@ workloads alone (`random`: `[sass]` and `[random]`, where the threefry
 kernel of every tree in RPT_COMPARE is held against this tree's, bit for
 bit, and timed with it in turns). `python3 chip_smoke.py --multicard`,
 on a host with several cards, runs the build and `multicard_phase` alone. `python3 chip_smoke.py
---multihost-worker <rank> <nproc> <port> <dir> <backend> <devices>` is
-one process of a multi-process render; the script starts them itself.
+--multihost-worker <rank> <nproc> <port> <dir> <backend> <devices> <mode>`
+is one process of a multi-process render (`render`) or gradient step
+(`grad`); the script starts them itself.
 """
 
 from __future__ import annotations
@@ -382,6 +393,10 @@ SHARDED_MESHES = (1, 2, 4, 7)
 SHARDED_TURNS = 3
 MULTIHOST_PROCS, MULTIHOST_SHARDS = 2, 2
 MULTIHOST_TIMEOUT = 300
+# `[multihost_grad]`: the processes' gradient against the in-process one,
+# over max|g| per leaf: the processes add their parts in rank order, the
+# in-process step its shards in autograd's order.
+MULTIHOST_GRAD_RTOL = 1e-6
 SHARDED_GRAD_SHARDS = 4
 
 
@@ -2765,22 +2780,68 @@ def sharded_phase(card: str) -> dict:
     return per_shard[SHARDED_MESHES[0]]
 
 
-def multihost_worker(rank: int, nproc: int, port: str, outdir: str, backend: str, devices: str) -> None:
-    """One process of a multi-process render: joins the others over
-    `backend` with the shards `devices` names (comma-separated), renders
-    the sharded frame three times (the first captures; the second timed
-    whole; the third with the all-gathers timed apart), saves the frame
-    and prints one JSON line."""
-    import numpy as np
+@contextlib.contextmanager
+def timed_collectives(spans: list):
+    """Inside: every collective of `rpt_tpu_torch.parallel.collective`
+    timed apart, after a barrier, so each span times the transfer and not
+    the wait for the other processes' work; (label, ms) appended to
+    `spans`: `check` (the call's agreement check), `frame` (a frame or a
+    sum gathered), `grad` (a gradient's parts gathered)."""
     import torch
     import torch.distributed as dist
 
-    from rpt_tpu_torch.parallel import init_multihost, is_multihost, make_global_ray_mesh, multihost, render_multihost
+    from rpt_tpu_torch.parallel import collective
+
+    plain = collective.all_gather, collective.check_same
+
+    def timed(label, fn, *args):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        spans.append((label, (time.perf_counter() - t) * 1e3))
+        return out
+
+    collective.all_gather = lambda x: timed("frame" if x.dim() > 1 else "grad", plain[0], x)
+    collective.check_same = lambda what, value: timed("check", plain[1], what, value)
+    try:
+        yield
+    finally:
+        collective.all_gather, collective.check_same = plain
+
+
+def multihost_worker(rank: int, nproc: int, port: str, outdir: str, backend: str, devices: str,
+                     mode: str) -> None:
+    """One process of a multi-process run: joins the others over `backend`
+    with the shards `devices` names (comma-separated), runs `mode`'s work
+    (`render`: `multihost_render`; `grad`: `multihost_grad`) over the
+    global mesh, saves its tensors to `<dir>/frame_<rank>.npz` and prints
+    one JSON line."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from rpt_tpu_torch.parallel import init_multihost, is_multihost, make_global_ray_mesh
 
     init_multihost(f"localhost:{port}", nproc, rank, local_device_ids=devices.split(","), backend=backend)
     if not is_multihost():
         fail("[multihost] the process did not join")
     mesh = make_global_ray_mesh()
+    report, arrays = {"render": multihost_render, "grad": multihost_grad}[mode](mesh)
+    np.savez(os.path.join(outdir, f"frame_{rank}.npz"), **arrays)
+    dist.destroy_process_group()
+    print(json.dumps(dict(rank=rank, shards=list(mesh.local), devices=[str(mesh.devices[k]) for k in mesh.local],
+                          mesh_size=mesh.size, **report)), flush=True)
+
+
+def multihost_render(mesh) -> tuple:
+    """`[multihost]`'s work in one process: the sharded frame rendered
+    three times (the first captures; the second timed whole; the third
+    with the all-gathers timed apart). (report, {sum, sum_sq})."""
+    import torch
+
+    from rpt_tpu_torch.parallel import render_multihost
+
     r = sharded_renderer(SHARDED["spp"])
     buf = render_multihost(r, mesh)
     torch.cuda.synchronize()
@@ -2788,37 +2849,92 @@ def multihost_worker(rank: int, nproc: int, port: str, outdir: str, backend: str
     timed = render_multihost(r, mesh)
     torch.cuda.synchronize()
     call_ms = (time.perf_counter() - t0) * 1e3
-    gathers = []
-    plain = multihost._all_gather
-
-    def timed_gather(x):
-        # Every process reaches the gather before it is timed, so it times
-        # the transfer, not the wait for the others' renders.
-        torch.cuda.synchronize()
-        dist.barrier()
-        t = time.perf_counter()
-        out = plain(x)
-        torch.cuda.synchronize()
-        gathers.append((time.perf_counter() - t) * 1e3)
-        return out
-
-    multihost._all_gather = timed_gather
-    try:
+    spans = []
+    with timed_collectives(spans):
         again = render_multihost(r, mesh)
-    finally:
-        multihost._all_gather = plain
+    gathers = [ms for _, ms in spans]
     same = all(torch.equal(buf.sum, b.sum) and torch.equal(buf.sum_sq, b.sum_sq) for b in (timed, again))
-    np.savez(os.path.join(outdir, f"frame_{rank}.npz"), sum=buf.sum.cpu().numpy(), sum_sq=buf.sum_sq.cpu().numpy())
-    dist.destroy_process_group()
-    print(json.dumps(dict(rank=rank, shards=list(mesh.local), devices=[str(mesh.devices[k]) for k in mesh.local],
-                          mesh_size=mesh.size, call_ms=call_ms, gather_ms=sum(gathers), gathers_ms=gathers,
-                          calls_bit_equal=same)), flush=True)
+    return (dict(call_ms=call_ms, gather_ms=sum(gathers), gathers_ms=gathers, calls_bit_equal=same),
+            dict(sum=buf.sum.cpu().numpy(), sum_sq=buf.sum_sq.cpu().numpy()))
 
 
-def run_workers(nproc: int, backend: str, devices_of) -> tuple:
-    """Start `nproc` processes of this script as `multihost_worker`s,
-    rank i with the shards `devices_of(i)`, wait for them (each under
-    MULTIHOST_TIMEOUT) and return (their JSON reports, their frames)."""
+def sharded_grad_step(fn, r, sd, t_min, ev) -> tuple:
+    """`[sharded_grad]`'s step of `fn` (`make_sharded_diff_fn` of `r`'s
+    scene) over fresh leaves, GRAD_FIELDS requiring grad: forward,
+    mean(image^2), backward, an SGD step with lr 1e-2. (loss, {leaf:
+    gradient}, {leaf: new value}, forward s, backward and SGD s), each span
+    ending in a synchronize."""
+    import dataclasses
+
+    import torch
+
+    from rpt_tpu_torch.materials import MaterialTable
+
+    leaves = {f.name: getattr(sd.materials, f.name).detach().clone().requires_grad_(f.name in GRAD_FIELDS)
+              for f in dataclasses.fields(MaterialTable)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = fn(MaterialTable(**leaves), r.camera, r.base_key(), t_min, ev)
+    loss = torch.mean(img ** 2)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    loss.backward()
+    grads = {f: leaves[f].grad if leaves[f].grad is not None else torch.zeros_like(leaves[f]) for f in GRAD_FIELDS}
+    with torch.no_grad():
+        new = {f: leaves[f] - 1e-2 * grads[f] for f in GRAD_FIELDS}
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return loss.detach(), grads, new, t1 - t0, t2 - t1
+
+
+def multihost_grad(mesh) -> tuple:
+    """`[multihost_grad]`'s work in one process: `[sharded_grad]`'s step
+    over the global mesh (a warm-up; one counted from 0, with the peak
+    memory; one with the collectives timed apart), then `render_pass_sharded`
+    and `make_sharded_many_fn` in two chunks over it. (report, {loss,
+    grad/<leaf>, new/<leaf>, pass_frame, chunks_sum, chunks_sum_sq})."""
+    import torch
+
+    from rpt_tpu_torch import kernels
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.parallel import make_sharded_diff_fn, make_sharded_many_fn, render_pass_sharded
+
+    counters = counted_wrappers()
+    family = SHARDED["family"]
+    r = sharded_renderer(1)
+    sd, t_min, ev = r._pass_args()
+    fn = make_sharded_diff_fn(sd, WIDTH, HEIGHT, SHARDED["bounces"], mesh)
+    sharded_grad_step(fn, r, sd, t_min, ev)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    loss, grads, new, fwd, bwd = sharded_grad_step(fn, r, sd, t_min, ev)
+    launches = named_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    spans = []
+    with timed_collectives(spans):
+        timed = sharded_grad_step(fn, r, sd, t_min, ev)
+    half = SHARDED["spp"] // 2
+    frame = render_pass_sharded(sd, r.camera, rnd.fold_in(r.base_key(), 0), WIDTH, HEIGHT, SHARDED["bounces"],
+                                t_min, ev, mesh)
+    many = make_sharded_many_fn(sd, WIDTH, HEIGHT, SHARDED["bounces"], mesh)
+    chunks = many(r.camera, r.base_key(), half, SHARDED["spp"] - half, t_min, ev,
+                  into=many(r.camera, r.base_key(), 0, half, t_min, ev))
+    arrays = dict(loss=loss.cpu().numpy(), pass_frame=frame.cpu().numpy(), chunks_sum=chunks[0].cpu().numpy(),
+                  chunks_sum_sq=chunks[1].cpu().numpy(),
+                  **{f"grad/{f}": g.cpu().numpy() for f, g in grads.items()},
+                  **{f"new/{f}": v.cpu().numpy() for f, v in new.items()})
+    report = dict(forward_ms=fwd * 1e3, backward_ms=bwd * 1e3, timed_step_ms=(timed[3] + timed[4]) * 1e3,
+                  collectives_ms=spans, peak_mib=peak / 2**20,
+                  launches_per_shard={k: launches[k] / len(mesh.local)
+                                      for k in (f"{family}_closest", f"{family}_occluded")})
+    return report, arrays
+
+
+def run_workers(nproc: int, backend: str, devices_of, mode: str = "render") -> tuple:
+    """Start `nproc` processes of this script as `multihost_worker`s of
+    `mode`, rank i with the shards `devices_of(i)`, wait for them (each
+    under MULTIHOST_TIMEOUT) and return (their JSON reports, their saved
+    arrays)."""
     import socket
     import tempfile
 
@@ -2830,7 +2946,7 @@ def run_workers(nproc: int, backend: str, devices_of) -> tuple:
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory(dir=root, prefix=".multihost-") as outdir:
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--multihost-worker", str(rank),
-                                   str(nproc), str(port), outdir, backend, ",".join(devices_of(rank))],
+                                   str(nproc), str(port), outdir, backend, ",".join(devices_of(rank)), mode],
                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                  for rank in range(nproc)]
         try:
@@ -2842,13 +2958,13 @@ def run_workers(nproc: int, backend: str, devices_of) -> tuple:
                     p.wait(timeout=30)
         for rank, (p, out) in enumerate(zip(procs, outs)):
             if p.returncode != 0:
-                fail(f"[multihost] worker {rank} exited {p.returncode}:\n{out[-4000:]}")
+                fail(f"[multihost] worker {rank} ({mode}) exited {p.returncode}:\n{out[-4000:]}")
         reports = [json.loads(out.strip().splitlines()[-1]) for out in outs]
-        frames = []
+        saved = []
         for rank in range(nproc):
             with np.load(os.path.join(outdir, f"frame_{rank}.npz")) as f:
-                frames.append({k: f[k] for k in ("sum", "sum_sq")})
-    return reports, frames
+                saved.append({k: f[k] for k in f.files})
+    return reports, saved
 
 
 def frames_equal(frames: list, buf) -> tuple:
@@ -2885,9 +3001,9 @@ def multihost_phase(card: str) -> None:
         fail("[multihost] the processes' frames differ from each other or from the in-process render")
 
 
-def sharded_grad_phase(card: str) -> dict:
+def sharded_grad_phase(card: str) -> tuple:
     """`[sharded_grad]` (see the module docstring). Returns the bvh8
-    walks' launches per shard of the step."""
+    walks' launches per shard of the step, and the step's gradient."""
     import dataclasses
 
     import torch
@@ -2907,22 +3023,7 @@ def sharded_grad_phase(card: str) -> dict:
     key = r.base_key()
 
     def step():
-        leaves = {f.name: getattr(sd.materials, f.name).detach().clone().requires_grad_(f.name in GRAD_FIELDS)
-                  for f in dataclasses.fields(MaterialTable)}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        img = fn(MaterialTable(**leaves), r.camera, key, t_min, ev)
-        loss = torch.mean(img ** 2)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss.backward()
-        grads = {f: leaves[f].grad if leaves[f].grad is not None else torch.zeros_like(leaves[f])
-                 for f in GRAD_FIELDS}
-        with torch.no_grad():
-            new = {f: leaves[f] - 1e-2 * grads[f] for f in GRAD_FIELDS}
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        return loss.detach(), grads, new, t1 - t0, t2 - t1
+        return sharded_grad_step(fn, r, sd, t_min, ev)
 
     step()  # warm-up
     torch.cuda.reset_peak_memory_stats()
@@ -2969,7 +3070,70 @@ def sharded_grad_phase(card: str) -> dict:
         phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=json.dumps(card))
     if not finite or err > GRAD_CPU_RTOL:
         fail(f"[sharded_grad] the small trefoil's sharded gradient on the card differs from the CPU's: {err:.3e}")
-    return per_shard
+    return per_shard, grads
+
+
+def multihost_grad_check(phase: str, reports: list, saved: list, grads: dict, mesh) -> dict:
+    """The multi-process step's checks: every process's loss, gradients
+    and new leaves bit for bit the first's; the gradients within
+    MULTIHOST_GRAD_RTOL of max|g| per leaf of `grads`, the in-process step
+    on a mesh of as many shards; the bvh8 walks' launches per shard as
+    `[sharded_grad]` counts them; `render_pass_sharded` and
+    `make_sharded_many_fn` in two chunks bit for bit the in-process calls
+    on `mesh`. Fails with FAIL unless all hold; returns the figures."""
+    import numpy as np
+    import torch
+
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.parallel import make_sharded_many_fn, render_pass_sharded
+
+    bounces, family = SHARDED["bounces"], SHARDED["family"]
+    keys = ["loss", *(f"{kind}/{f}" for kind in ("grad", "new") for f in GRAD_FIELDS)]
+    processes_equal = all(np.array_equal(a[k], saved[0][k]) for a in saved[1:] for k in keys)
+    err, _, finite = grad_error({f: torch.from_numpy(saved[0][f"grad/{f}"]) for f in GRAD_FIELDS}, grads)
+    r = sharded_renderer(SHARDED["spp"])
+    sd, t_min, ev = r._pass_args()
+    frame = render_pass_sharded(sd, r.camera, rnd.fold_in(r.base_key(), 0), WIDTH, HEIGHT, bounces, t_min, ev, mesh)
+    whole = make_sharded_many_fn(sd, WIDTH, HEIGHT, bounces, mesh)(r.camera, r.base_key(), 0, SHARDED["spp"],
+                                                                  t_min, ev)
+    renders_equal = all(np.array_equal(a["pass_frame"], frame.cpu().numpy()) and
+                        np.array_equal(a["chunks_sum"], whole[0].cpu().numpy()) and
+                        np.array_equal(a["chunks_sum_sq"], whole[1].cpu().numpy()) for a in saved)
+    want = {f"{family}_closest": bounces + 1, f"{family}_occluded": SHARDED["shadow"] * (bounces + 1)}
+    launches_right = all(rep["launches_per_shard"] == want for rep in reports)
+    out = dict(processes_bit_equal=processes_equal, vs_in_process_max_rel_err=f"{err:.3e}",
+               bar=MULTIHOST_GRAD_RTOL, finite=finite, renders_vs_in_process_bit_equal=renders_equal,
+               launches_per_shard=json.dumps([rep["launches_per_shard"] for rep in reports]))
+    if not (processes_equal and finite and err <= MULTIHOST_GRAD_RTOL and renders_equal and launches_right):
+        fail(f"[{phase}] the multi-process step or renders failed a check: {out}; bvh8 launches per shard "
+             f"should be {want}")
+    return out
+
+
+def multihost_grad_phase(card: str, grads: dict) -> None:
+    """`[multihost_grad]` (see the module docstring): two processes of 2
+    shards each on the card, over gloo, take `[sharded_grad]`'s step over
+    the 4-shard global mesh; held against each other and against
+    `grads`, the in-process 4-shard step's gradient."""
+    from rpt_tpu_torch.parallel import make_ray_mesh
+
+    t_phase = time.perf_counter()
+    reports, saved = run_workers(MULTIHOST_PROCS, "gloo", lambda rank: [DEVICE] * MULTIHOST_SHARDS, mode="grad")
+    for rep in reports:
+        step_ms = rep["forward_ms"] + rep["backward_ms"]
+        by = {}
+        for label, ms in rep["collectives_ms"]:
+            by.setdefault(label, []).append(round(ms, 3))
+        say("multihost_grad", rank=rep["rank"], shards=json.dumps(rep["shards"]), mesh_size=rep["mesh_size"],
+            backend="gloo", workload=SHARDED["workload"], size=f"{WIDTH}x{HEIGHT}", bounces=SHARDED["bounces"],
+            forward_ms=f"{rep['forward_ms']:.2f}", backward_and_sgd_ms=f"{rep['backward_ms']:.2f}",
+            collectives_ms=json.dumps(by),
+            collectives_share_of_step=json.dumps({k: round(sum(v) / step_ms, 4) for k, v in by.items()}),
+            timed_step_ms=f"{rep['timed_step_ms']:.2f}", peak_mib=f"{rep['peak_mib']:.1f}", card=json.dumps(card))
+    figures = multihost_grad_check("multihost_grad", reports, saved, grads,
+                                   make_ray_mesh(MULTIHOST_PROCS * MULTIHOST_SHARDS, device=DEVICE))
+    say("multihost_grad", processes=MULTIHOST_PROCS, shards_each=MULTIHOST_SHARDS, **figures,
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=json.dumps(card))
 
 
 def multicard_phase(card: str) -> None:
@@ -2981,8 +3145,11 @@ def multicard_phase(card: str) -> None:
     stack takes more than 48 KB of shared memory on every card in turn,
     against the plain walk; the sharded gradient against the one-card
     mesh's; `render_multihost` from one process per
-    card over NCCL against the in-process render. Correctness only: no
-    speed is printed."""
+    card over NCCL against the in-process render; `[sharded_grad]`'s step
+    from one NCCL process per card (`multihost_grad`) against the
+    in-process step over the cards, held as `[multihost_grad]` holds its
+    step. Correctness first: only the processes' step and collective ms
+    are printed."""
     import dataclasses
 
     import torch
@@ -3065,6 +3232,21 @@ def multicard_phase(card: str) -> None:
     if not (same and vs_single and all(rep["calls_bit_equal"] for rep in reports)):
         fail("[multicard] the NCCL processes' frames differ from each other or from the in-process render")
 
+    # `[sharded_grad]`'s step from one NCCL process per card, against the
+    # in-process step with one shard per card.
+    r1 = sharded_renderer(1)
+    sd1, t_min1, ev1 = r1._pass_args()
+    grads = sharded_grad_step(make_sharded_diff_fn(sd1, WIDTH, HEIGHT, bounces, cards), r1, sd1, t_min1, ev1)[1]
+    reports, saved = run_workers(n, "nccl", lambda rank: [f"cuda:{rank}"], mode="grad")
+    for rep in reports:
+        say("multicard", grad_rank=rep["rank"], devices=json.dumps(rep["devices"]), backend="nccl",
+            forward_ms=f"{rep['forward_ms']:.2f}", backward_and_sgd_ms=f"{rep['backward_ms']:.2f}",
+            collectives_ms=json.dumps([(label, round(ms, 3)) for label, ms in rep["collectives_ms"]]),
+            peak_mib=f"{rep['peak_mib']:.1f}", card=json.dumps(card))
+    say("multicard", grad_processes=n, backend="nccl",
+        **multihost_grad_check("multicard", reports, saved, grads, cards),
+        phase_seconds=f"{time.perf_counter() - t_phase:.1f}", card=json.dumps(card))
+
 
 def main():
     root = os.path.dirname(os.path.abspath(__file__))
@@ -3076,8 +3258,8 @@ def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a CUDA card")
     if sys.argv[1:2] == ["--multihost-worker"]:
-        rank, nproc, port, outdir, backend, devices = sys.argv[2:8]
-        multihost_worker(int(rank), int(nproc), port, outdir, backend, devices)
+        rank, nproc, port, outdir, backend, devices, mode = sys.argv[2:9]
+        multihost_worker(int(rank), int(nproc), port, outdir, backend, devices, mode)
         return
     multicard = sys.argv[1:2] == ["--multicard"]
 
@@ -3176,8 +3358,10 @@ def main():
     for kernel, n in sharded_phase(card).items():
         rows[kernel].update(sharded_workload=SHARDED["workload"], sharded_launches_per_shard_sample=n)
     multihost_phase(card)
-    for kernel, n in sharded_grad_phase(card).items():
+    per_shard, grads = sharded_grad_phase(card)
+    for kernel, n in per_shard.items():
         rows[kernel].update(sharded_grad_launches_per_shard=n)
+    multihost_grad_phase(card, grads)
     say("parallel", phase_seconds=f"{time.perf_counter() - t0:.1f}", card=json.dumps(card))
 
     print(card, flush=True)

@@ -2,20 +2,33 @@
 (`rpt_tpu/parallel/multihost.py`).
 
 Each process owns some shards of one global mesh, every process's shards in
-process-major order. Every process builds the same scene and calls
-`render_multihost` with the same arguments (the reference's SPMD
-contract); each renders only its own shards, folding their global indices
-into the keys, so its pixels are the ones a single process would trace for
-those shards. Path tracing needs no collective while it renders: the only
-traffic between processes is one all-gather per sum of the finished
-shards, after which every process holds the whole frame, bit for bit the
-single-process `render_distributed` on a mesh of the same shard count on the
-same type of device.
+process-major order. Every process builds the same scene and calls with the
+same arguments (the reference's SPMD contract); each renders only its own
+shards, folding their global indices into the keys, so its pixels are the
+ones a single process would trace for those shards. Every sharded entry
+point of `sharding` takes such a mesh: `render_multihost`,
+`render_distributed`, `make_sharded_render_fn`, `render_pass_sharded`,
+`make_sharded_many_fn` (chunks with `into=` included) and
+`make_sharded_diff_fn`. Path tracing needs no collective while it renders:
+the traffic between processes is one all-gather per sum, or per frame, of
+the finished shards (`collective`), after which every process holds the
+whole frame, bit for bit the single-process render on a mesh of the same
+shard count on the same type of device. That whole frame on every process
+stands in for the reference's global array and its `process_allgather`.
+
+The sharded gradient sums the shards' gradients across processes: every
+tensor of the material table and the camera that requires grad is
+replicated, and its backward gathers every process's part of the gradient
+and adds the parts in rank order on every process, so every process's
+leaves get the same bits and an SGD step keeps the replicas equal. It is
+held to the in-process gradient on a mesh of as many shards within 1e-6
+of the largest |g| (float32): that gradient adds the shards in autograd's
+order.
 
 The processes join through `torch.distributed`: NCCL where the shards are
 on CUDA cards, gloo where they are on the CPU. Two processes cannot share
 one card under NCCL, so a run of several processes on one card asks for
-gloo (`init_multihost(..., backend="gloo")`); its gather then goes through
+gloo (`init_multihost(..., backend="gloo")`); its gathers then go through
 the host.
 
 There is no counterpart of the reference's `_replicate`, which makes its
@@ -33,7 +46,7 @@ import torch
 import torch.distributed as dist
 
 from ..buffer import Buffer
-from .sharding import RayMesh, _pass_args, make_ray_mesh, make_sharded_many_fn, render_distributed
+from .sharding import RayMesh, make_ray_mesh, render_distributed
 
 __all__ = [
     "init_multihost",
@@ -124,27 +137,11 @@ def make_global_ray_mesh() -> RayMesh:
                    rank=rank, world_size=world)
 
 
-def _all_gather(x: torch.Tensor) -> torch.Tensor:
-    """Every process's `x`, concatenated in rank order, on `x`'s device
-    (through the host under gloo)."""
-    on = x.cpu() if dist.get_backend() == "gloo" else x.contiguous()
-    parts = [torch.empty_like(on) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, on)
-    return torch.cat(parts).to(x.device)
-
-
 def render_multihost(renderer, mesh: Optional[RayMesh] = None) -> Buffer:
     """`renderer`'s frame buffer with the pixels sharded over the global
-    mesh (`make_global_ray_mesh()` when None): this process renders its own
-    shards in one call of `make_sharded_many_fn`, then one all-gather per
-    sum gives every process the whole frame, on its first shard's device.
-    On a single-process mesh this is `render_distributed`."""
-    if mesh is None:
-        mesh = make_global_ray_mesh()
-    if mesh.world_size == 1:
-        return render_distributed(renderer, mesh)
-    sd, t_min, ev_scale = _pass_args(renderer, mesh)
-    fn = make_sharded_many_fn(sd, renderer.width, renderer.height, renderer.max_bounces, mesh)
-    s, ss = fn.local_sums(renderer.camera, renderer.base_key(), 0, renderer.num_samples, t_min, ev_scale)
-    s, ss = fn.frame(_all_gather(s), _all_gather(ss))
-    return Buffer(sum=s, sum_sq=ss, count=renderer.num_samples)
+    mesh (`make_global_ray_mesh()` when None): one call of
+    `make_sharded_many_fn`, in which this process renders its own shards
+    and one all-gather per sum gives every process the whole frame, on its
+    first shard's device. On a single-process mesh this is
+    `render_distributed`, and on any mesh it is its code."""
+    return render_distributed(renderer, make_global_ray_mesh() if mesh is None else mesh)

@@ -29,6 +29,12 @@ autograd: the material table reaches each shard's device by a
 differentiable copy, so the backward pass sums the shards' gradients onto
 the caller's table, the counterpart of the reference's psum.
 
+A mesh may hold other processes' shards (`multihost.make_global_ray_mesh`):
+each process renders its own, and the finished sums, or frames, are
+all-gathered (`collective`), so every process returns the whole frame. Its
+sharded gradient sums the processes' parts of each gradient in rank order
+on every process, so every process's leaves get the same bits.
+
 No mesh size gives the image of `Renderer.render_buffer`: sample i of shard
 k is keyed by fold_in(fold_in(base, start + i), k), and its jitter is a draw
 of its own slice's length (`renderer.jittered_ndc`, which also shows why
@@ -54,6 +60,7 @@ from ..renderer import (
 )
 from ..scene import SceneData
 from ..utils.vmath import real_value
+from . import collective
 
 __all__ = [
     "RayMesh",
@@ -190,9 +197,10 @@ class _ShardedPasses:
         return s[self.inv].reshape(self.height, self.width, 3), ss[self.inv].reshape(self.height, self.width)
 
     def __call__(self, camera, key, start: int, n: int, t_min, ev_scale, into=None) -> tuple:
-        if len(self.mesh.local) != self.mesh.size:
-            raise ValueError("this mesh holds other processes' shards: render it with render_multihost")
-        return self.frame(*self.local_sums(camera, key, start, n, t_min, ev_scale, into))
+        s, ss = self.local_sums(camera, key, start, n, t_min, ev_scale, into)
+        if self.mesh.world_size > 1:
+            s, ss = collective.all_gather(s), collective.all_gather(ss)
+        return self.frame(s, ss)
 
 
 # Keyed on the scene's content digest and the mesh, bounded, each entry
@@ -260,6 +268,27 @@ def _materials_on(materials: MaterialTable, device: torch.device) -> MaterialTab
     return MaterialTable(**{f.name: getattr(materials, f.name).to(device) for f in dataclasses.fields(materials)})
 
 
+def _replicated_inputs(materials: MaterialTable, camera, mesh: RayMesh, dtype) -> tuple:
+    """(materials, camera, the tensors replaced) for a call over a mesh of
+    several processes: every tensor of the table and the camera that
+    requires grad passes through `collective.replicated`, so the backward
+    pass sums the processes' gradients. First, every process's names of
+    those tensors and the scene's type must be the same (else each raises)."""
+    tensors = {f"materials.{f.name}": getattr(materials, f.name) for f in dataclasses.fields(materials)}
+    tensors.update({f"camera.{f.name}": getattr(camera, f.name) for f in dataclasses.fields(camera)})
+    grad = {name: t for name, t in tensors.items() if torch.is_grad_enabled() and t.requires_grad}
+    collective.check_same("tensors requiring grad and type", (sorted(grad), str(dtype)))
+    if not grad:
+        return materials, camera, ()
+    grad = collective.replicated(grad, mesh.first)
+
+    def part(obj, prefix):
+        return dataclasses.replace(obj, **{name[len(prefix):]: t for name, t in grad.items()
+                                           if name.startswith(prefix)})
+
+    return part(materials, "materials."), part(camera, "camera."), tuple(grad.values())
+
+
 def make_sharded_diff_fn(scene_data: SceneData, width: int, height: int, max_bounces: int, mesh: RayMesh):
     """(materials, camera, key, t_min, ev_scale) -> (H, W, 3), one sample
     per pixel keyed by `key` with the pixels sharded over `mesh`,
@@ -268,13 +297,19 @@ def make_sharded_diff_fn(scene_data: SceneData, width: int, height: int, max_bou
     each shard's device by a differentiable copy, so the backward pass sums
     the shards' gradients onto the caller's table. Eager; a ray that
     requires grad raises at a walk, as in `grad.make_material_render_fn`.
+
+    Over a mesh of several processes every process calls with the same
+    arguments and renders its own shards; their frames are gathered, so
+    every process returns the whole frame (`collective.gather_rows`). Each
+    tensor of the table and the camera that requires grad is replicated
+    (`collective.replicated`): the backward pass gathers every process's
+    part of its gradient and adds them in rank order, so every process's
+    leaves get the same gradient, bit for bit, the sum over all shards.
     Cached per (scene, size, bounces, mesh, wavefront order)."""
     cache_key = _shard_key("diff", scene_data, width, height, max_bounces, mesh)
     fn = _SHARD_CACHE.get(cache_key)
     if fn is not None:
         return fn
-    if len(mesh.local) != mesh.size:
-        raise ValueError("a sharded gradient runs in one process: this mesh holds other processes' shards")
     compact, dtype = cache_key[-1], scene_data.dtype
     scenes = _scenes_by_device(scene_data, mesh)
     ndc = pixel_ndc_tiled(width, height, mesh.first, dtype)
@@ -284,6 +319,8 @@ def make_sharded_diff_fn(scene_data: SceneData, width: int, height: int, max_bou
     def fn(materials, camera, key, t_min, ev_scale):
         if materials.color.dtype != dtype:
             raise TypeError(f"a {dtype} scene cannot take {materials.color.dtype} materials")
+        if mesh.world_size > 1:
+            materials, camera, replicated = _replicated_inputs(materials, camera, mesh, dtype)
         t = real_value(float(t_min), dtype)
         frames = []
         for k, d, ndc_k in shards:
@@ -291,7 +328,10 @@ def make_sharded_diff_fn(scene_data: SceneData, width: int, height: int, max_bou
             with _on(d):
                 frame = render_pass_tiled(sd, camera.to(d), key, ndc_k, max_bounces, t, ev_scale, compact, shard=k)
             frames.append(frame.to(mesh.first))
-        return torch.cat(frames)[ndc[3]].reshape(height, width, 3)
+        rows = torch.cat(frames)
+        if mesh.world_size > 1:
+            rows = collective.gather_rows(rows, replicated)
+        return rows[ndc[3]].reshape(height, width, 3)
 
     _SHARD_CACHE.put(cache_key, fn, scene_data)
     return fn
@@ -310,7 +350,8 @@ def render_distributed(renderer, mesh: Optional[RayMesh] = None) -> Buffer:
     CUDA card when None; raises without one): all `num_samples` samples in
     one call of `make_sharded_many_fn`, in the renderer's real type (a
     float64 render keys from the x64 key, as `Renderer` does). The buffer
-    lies on the mesh's first device."""
+    lies on the mesh's first device; over a mesh of several processes it is
+    the whole frame on every process."""
     if mesh is None:
         mesh = make_ray_mesh()
     sd, t_min, ev_scale = _pass_args(renderer, mesh)
