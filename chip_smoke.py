@@ -58,6 +58,18 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
      a, c, `[graph]`, d and e, where `[profile]` adds the share of a
      replay's device time that the monomial root finds take, read from
      the profiled replay's trace;
+   - `pegasus_trefoil` and `wine_glass_trefoil`, the reference's two
+     heaviest bench rows (`bench.py:85-86`) at their full sizes, bounces
+     and shadow rays, the 120k-triangle trefoil in their meshes' place (the
+     meshes are assets): `pegasus` 1200x1200, 8 bounces, an ice mesh under
+     a procedural sky, EV -1.5, and no light, so no shadow ray and no
+     any-hit launch on its path (the any hit is held and timed on its
+     camera wavefront); `wine_glass` 1920x1080, 6 bounces, a clear mesh
+     under one sphere light, 2.07 M rays a wavefront; both through the
+     two bvh8 kernels, morton-sorted;
+   - `fractal_spheres`, `examples/fractal_spheres.py` at its 800x600, 0
+     bounces, 1 spp: 937 spheres through the chunked sphere test, no
+     traversal pack (phases a, c, `[graph]`, d and e);
    a. compiles the scene and prints its sizes;
    b. holds each of the path's kernels against its plain torch version on
       the workload's own rays: the camera rays and every wavefront of an
@@ -73,7 +85,8 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
       graph replay per sample), with every kernel's launch count set to 0
       just before and read just after (the kernels count their own
       launches on the card, replays included), checks the image and the
-      counts, and prints Mrays/s, beside the eager pass's in turns;
+      counts, and prints Mrays/s, beside the eager pass's in turns, and
+      the peak of allocated memory during it;
    e. profiles one sample through the entry point, one replay of the
       cached graph alone and one eager sample (device-busy share, idle
       share, kernels launched, the traversal and threefry kernels' shares),
@@ -130,6 +143,12 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
      the card under deterministic algorithms (bit for bit, else within
      GRAD_PLAIN_RTOL of the largest |g|), and one profiled step's idle
      share and the walks' share of its device time;
+   - the other walks (GRAD_FAMILIES): bvh2 (`dragon`) and tlas2 (`lego`)
+     compiled with RPT_BVH_KERNEL=binary, bvh8 and tlas8 in float64: one
+     step at 320x180 through the kernels against the plain walks on the
+     card (bit for bit, each walk launched twice per sample and vertex, in
+     its type's slot), and at 32x24 on the 5,000-triangle trefoil or the
+     96-instance city, the card against the CPU; no timing;
 5. `[ode]`: one frame of `examples/marbles.py`'s physics (25 marbles,
    1/16 s at 1/10000: 624 RK4 steps and a remainder) on the card, through
    the captured step replayed per step against the eager loop, bit for
@@ -150,7 +169,11 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    dynamic path's refill: MiB and ms), capture and replays. A ninth frame
    of another topology (a trefoil of 100,000 triangles, a 26th marble)
    must make a second entry and capture, bit for bit with its static
-   render;
+   render; and three small cells (64x48, 2 bounces, spp 2, 4 frames) of the
+   other walks: `orbit_bvh2` (the 5,000-triangle trefoil under the orbiting
+   light, RPT_BVH_KERNEL=binary), `city_tlas2` (the 96-instance brick city,
+   every instance moved a frame, binary) and `orbit_bvh8_f64` (the trefoil
+   through bvh8 in float64), each with its topology change;
 7. `[sharded]`, the sharded render (`rpt_tpu_torch.parallel`): `dragon`
    at 960x540, 2 bounces, spp 4, through `render_distributed` on meshes of
    1, 2, 4 and 7 shards of the one card (7 pads 518,400 pixels by 6), each
@@ -188,10 +211,10 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    backward ms, each collective's ms timed apart after a barrier and its
    share of the step, the peak MiB;
 11. prints one JSON line `{"kernels": [...]}` with one row for each of the
-   eight traversal kernels and the threefry kernel (the bvh8 and tlas8
-   rows with their launches per differentiated sample, the bvh8 rows also
-   per sample of the dynamic loop and per shard and sample of the sharded
-   render), then one for each
+   eight traversal kernels and the threefry kernel (with their launches
+   per differentiated sample and per sample of the dynamic loop, where a
+   `[grad]` or `[dynamic]` check runs them; the bvh8 rows also per shard
+   and sample of the sharded render), then one for each
    float64 instantiation (`<kernel>_f64`, and `threefry_f64` for the
    64-bit modes), then the last line `{"ok": true, "device": {...}}`.
 
@@ -200,7 +223,8 @@ nothing of JAX or of the JAX package. `python3 chip_smoke.py --workloads
 random,lego_toy_f64,...` runs the build, `[ties]` / `[edge]` and the named
 workloads alone (`random`: `[sass]` and `[random]`, where the threefry
 kernel of every tree in RPT_COMPARE is held against this tree's, bit for
-bit, and timed with it in turns). `python3 chip_smoke.py --multicard`,
+bit, and timed with it in turns; a name of GRAD_FAMILIES or DYNAMIC_CELLS:
+that `[grad]` or `[dynamic]` check alone). `python3 chip_smoke.py --multicard`,
 on a host with several cards, runs the build and `multicard_phase` alone. `python3 chip_smoke.py
 --multihost-worker <rank> <nproc> <port> <dir> <backend> <devices> <mode>`
 is one process of a multi-process render (`render`) or gradient step
@@ -297,6 +321,29 @@ WORKLOADS = {
                            size=(800, 600)),
     "monomial_glass_f64": dict(scene="monomial_glass", bvh_kernel="wide", bounces=1, spp=2, shadow=1, family=None,
                                size=(800, 600), dtype="float64", twin="monomial_glass"),
+    # The reference's two heaviest bench rows (`bench.py:85-86`) at their
+    # full sizes and bounces, the trefoil in their meshes' place (assets):
+    # `pegasus` environment-lit (a 256x512 procedural sky, EV -1.5) with no
+    # light, so no shadow ray and no any-hit launch on its path; 8 bounces
+    # through a dielectric mesh. `wine_glass` a clear mesh under one sphere
+    # light, 1920x1080, 6 bounces: 2.07 M rays a wavefront.
+    "pegasus_trefoil": dict(scene="pegasus_trefoil", bvh_kernel="wide", bounces=8, spp=2, shadow=0, family="bvh8",
+                            size=(1200, 1200), ev=-1.5),
+    "wine_glass_trefoil": dict(scene="wine_glass_trefoil", bvh_kernel="wide", bounces=6, spp=1, shadow=1,
+                               family="bvh8", size=(1920, 1080)),
+    # `examples/fractal_spheres.py` at its 800x600, 0 bounces, 1 spp: 937
+    # spheres through the chunked sphere test (`scene._maybe_chunked`, four
+    # chunks of up to 256), no traversal pack; a directional and a point
+    # light, each a shadow query per vertex. Its card image is held to the
+    # CPU's on `cpu_share` of the pixels, not 0.99 (measured 0.985 at
+    # 64x48): the card's camera rays lie an ulp from the CPU's on 0.71 of
+    # the rays (cot(fov / 2) is the same on both; the likely cause is
+    # `torch.rsqrt` in `normalize`, which CUDA does not round correctly),
+    # and on a sphere of radius 0.0256 an ulp can change the hit; the CPU's
+    # rays traced on both devices hit and shade alike on every ray
+    # (`same_rays_phase`, which fails below 0.99).
+    "fractal_spheres": dict(scene="fractal_spheres", bvh_kernel="wide", bounces=0, spp=1, shadow=2, family=None,
+                            size=(800, 600), cpu_share=0.97),
 }
 # `[hdri]`: the map's height (a 1024x2048 map, the shape of the reference
 # examples' 2k maps and exactly `_QUAD_MAX_TEXELS`, so the quad form) and
@@ -363,6 +410,26 @@ GRAD_WORKLOADS = {
     "dragon": dict(bounces=2, spp=2, family="bvh8", shadow=2),
     "lego": dict(bounces=5, spp=2, family="tlas8", shadow=2),
 }
+# The material gradient through the other walks: the binary ones (compiled
+# under RPT_BVH_KERNEL=binary) and the wide ones in float64. Each takes one
+# step at GRAD_FAMILY_SIZE, 1 spp, GRAD_FAMILY_BOUNCES (the card tests'
+# depth: each walk runs twice per vertex, and `lego`'s 5 would more than
+# double the plain walks' share of the script's time), on the full scene,
+# through the kernels and through the plain walks on the card (bit for bit
+# under deterministic algorithms, or within GRAD_PLAIN_RTOL), its walks
+# counted; and one at GRAD_FAMILY_SMALL (spp 1) on the 5,000-triangle
+# trefoil or the 96-instance city, the card against the CPU within
+# GRAD_CPU_RTOL (a third of `grad_small_phase`'s pixels and half its
+# samples: the CPU's steps held the script's time). No timing turns.
+GRAD_FAMILIES = {
+    "dragon_bvh2": dict(scene="dragon", bvh_kernel="binary", family="bvh2", shadow=2),
+    "lego_tlas2": dict(scene="lego", bvh_kernel="binary", family="tlas2", shadow=2),
+    "dragon_bvh8_f64": dict(scene="dragon", bvh_kernel="wide", family="bvh8", shadow=2, dtype="float64"),
+    "lego_tlas8_f64": dict(scene="lego", bvh_kernel="wide", family="tlas8", shadow=2, dtype="float64"),
+}
+GRAD_FAMILY_SIZE = (320, 180)
+GRAD_FAMILY_SMALL = (32, 24)
+GRAD_FAMILY_BOUNCES = 2
 GRAD_FIELDS = ("color", "index", "roughness", "metallic", "emittance")
 GRAD_TURNS = 5  # timed steps (and forwards without autograd); the median and the range are printed
 GRAD_PLAIN_RTOL = 1e-5
@@ -379,6 +446,17 @@ ODE_CPU_ATOL = 1e-6
 DYNAMIC_CELLS = {
     "dragon_orbit": dict(size=(WIDTH, HEIGHT), bounces=2, spp=2, family="bvh8", shadow=2),
     "marbles": dict(size=(800, 600), bounces=9, spp=2, family=None),
+    # The other walks at a small size, 4 frames each: the 5,000-triangle
+    # trefoil under the orbiting light through bvh2 (RPT_BVH_KERNEL=binary)
+    # and through bvh8 in float64 (the wide threshold lowered below its
+    # rows), and the 96-instance brick city, every instance moved by one
+    # offset a frame (the TLAS keeps its shape), through tlas2.
+    "orbit_bvh2": dict(size=(SMALL_W, SMALL_H), bounces=2, spp=2, family="bvh2", shadow=2, frames=4,
+                       bvh_kernel="binary"),
+    "city_tlas2": dict(size=(SMALL_W, SMALL_H), bounces=2, spp=2, family="tlas2", shadow=2, frames=4,
+                       bvh_kernel="binary"),
+    "orbit_bvh8_f64": dict(size=(SMALL_W, SMALL_H), bounces=2, spp=2, family="bvh8", shadow=2, frames=4,
+                           dtype="float64", wide_min=4096),
 }
 DYNAMIC_FRAMES = 8
 # `[sharded]`: the sharded render (`rpt_tpu_torch.parallel`) of `dragon`
@@ -611,15 +689,34 @@ def active_share(o, active) -> str:
     return "1.0000000" if active is None else f"{active.float().mean().item():.7f}"
 
 
-def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active) -> float:
+def plain_pass(plain, args, run):
+    """`plain(*args)`; with `run` ({"stats": {}, "ms": []}), the plain walk
+    also counts its box and triangle tests into run["stats"] and its
+    milliseconds on CUDA events go to run["ms"] (phase f reads both, so the
+    walk runs once per wavefront)."""
+    import torch
+
+    if run is None:
+        return plain(*args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = plain(*args, stats=run["stats"])
+    end.record()
+    torch.cuda.synchronize()
+    run["ms"].append(start.elapsed_time(end))
+    return out
+
+
+def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active, run=None) -> float:
     """Kernel vs plain closest hit; returns the largest |t| difference.
     `mat_of(outputs, hit mask)` gives the material ids of the hits; an
     instance id, where the kernel returns one, must agree too, and every
-    output must be equal bit for bit."""
+    output must be equal bit for bit. `run`: see `plain_pass`."""
     import torch
 
     out_k = kern(o, d, t_min, active)
-    out_p = plain(o, d, t_min, active)
+    out_p = plain_pass(plain, (o, d, t_min, active), run)
     torch.cuda.synchronize()
     t_k, t_p = out_k[0], out_p[0]
     hit_k, hit_p = t_k < 1e38, t_p < 1e38
@@ -638,14 +735,14 @@ def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active) -> float
     return err
 
 
-def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, active) -> float:
+def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, active, run=None) -> float:
     """Kernel vs plain any-hit, and vs the closest-hit rule t <= t_max;
     returns the share of rays where kernel and plain version disagree,
-    which must be none."""
+    which must be none. `run`: see `plain_pass`."""
     import torch
 
     occ_k = kern(o, d, t_min, t_max, active)
-    occ_p = plain(o, d, t_min, t_max, active)
+    occ_p = plain_pass(plain, (o, d, t_min, t_max, active), run)
     t_p = closest_plain(o, d, t_min, active)[0]
     torch.cuda.synchronize()
     rule = t_p <= t_max  # t_p is 3e38 on a miss; the lights' t_max are finite
@@ -665,15 +762,11 @@ def run_workload(workload: str, card: str):
     (restored after); returns its traversal kernels' rows of the `kernels`
     line, its threefry launches per main-path sample and its main path's
     threefry launches by mode."""
-    import rpt_tpu_torch.scene as scene_mod
-
-    saved = scene_mod._BVH_KERNEL
-    scene_mod._BVH_KERNEL = WORKLOADS[workload]["bvh_kernel"]
     t0 = time.perf_counter()
     try:
-        return _run_workload(workload, card)
+        with kernel_choice(WORKLOADS[workload]["bvh_kernel"]):
+            return _run_workload(workload, card)
     finally:
-        scene_mod._BVH_KERNEL = saved
         say("workload", name=workload, phase_seconds=f"{time.perf_counter() - t0:.1f}")
 
 
@@ -773,8 +866,9 @@ def _run_workload(workload: str, card: str):
         if "falling back" in str(w.message):
             fail(f"{workload}'s wide pack was refused: {w.message}")
     width, height = spec_w.get("size", (WIDTH, HEIGHT))
-    renderer = Renderer(scene, camera, width=width, height=height, max_bounces=bounces, num_samples=1,
-                        epsilon=eps, device=DEVICE, dtype=dtype)
+    ev = spec_w.get("ev", 0.0)
+    renderer = Renderer(scene, camera, width=width, height=height, exposure_value=ev, max_bounces=bounces,
+                        num_samples=1, epsilon=eps, device=DEVICE, dtype=dtype)
     if sd.dtype != dtype:
         fail(f"{workload} compiled in {sd.dtype}, not {dtype}")
     rows = []
@@ -790,21 +884,24 @@ def _run_workload(workload: str, card: str):
         if any(getattr(sd, f) is not None for f in modules):
             fail(f"{workload} compiled with a traversal pack")
     else:
-        err, rec = kernel_phases(workload, family, sd, renderer, camera, seconds, card)
+        err, rec, runs = kernel_phases(workload, family, sd, renderer, camera, seconds, card)
 
     # c. The port on the CPU against the port on the card, same seed.
     small = {}
     for dev in ("cpu", DEVICE):
-        r = Renderer(scene, camera, width=SMALL_W, height=SMALL_H, max_bounces=bounces, num_samples=1,
-                     epsilon=eps, device=dev, dtype=dtype)
+        r = Renderer(scene, camera, width=SMALL_W, height=SMALL_H, exposure_value=ev, max_bounces=bounces,
+                     num_samples=1, epsilon=eps, device=dev, dtype=dtype)
         small[dev] = r.render_buffer().mean_image().cpu().numpy()
     a, b = small["cpu"], small[DEVICE]
     close = np.isclose(b, a, rtol=1e-3, atol=1e-4).all(-1).mean()
     mean_rel = abs(float(b.mean()) - float(a.mean())) / max(abs(float(a.mean())), 1e-12)
-    say("cpu_vs_card", workload=workload, size=f"{SMALL_W}x{SMALL_H}", pixels_close=f"{close:.5f}",
+    bar = spec_w.get("cpu_share", 0.99)
+    say("cpu_vs_card", workload=workload, size=f"{SMALL_W}x{SMALL_H}", pixels_close=f"{close:.5f}", bar=bar,
         mean_rel=f"{mean_rel:.3e}")
-    if not (np.isfinite(b).all() and close >= 0.99 and mean_rel <= 1e-3):
+    if not (np.isfinite(b).all() and close >= bar and mean_rel <= 1e-3):
         fail(f"the CPU and card renders of {workload} disagree")
+    if "cpu_share" in spec_w:
+        same_rays_phase(workload, scene, camera, eps, bounces, dtype)
 
     # The graph against the eager pass (this also captures the main path's graph).
     per_replay = graph_phase(workload, renderer, 2, card, counters)
@@ -814,12 +911,16 @@ def _run_workload(workload: str, card: str):
     renderer.render_buffer()
     torch.cuda.synchronize()
     renderer.num_samples = spp
+    before_mib = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     buf = renderer.render_buffer()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = named_counts(counters)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    peak_reserved_mib = torch.cuda.max_memory_reserved() / 2**20
     by_slot = kernels.launch_counts(by_slot=True)
     threefry_by_mode = dict(zip(ALL_MODES, by_slot[rnd._threefry] + by_slot[rnd._threefry64]))
     img = buf.mean_image()
@@ -836,7 +937,8 @@ def _run_workload(workload: str, card: str):
         turns[mode].append(time.perf_counter() - t0)
     mrays = {m: rays / (sum(v) / len(v)) / 1e6 for m, v in turns.items()}
     say("main_path", workload=workload, size=f"{width}x{height}", bounces=bounces, spp=spp, seconds=f"{dt:.4f}",
-        mrays_per_s=f"{rays / dt / 1e6:.3f}", image_mean=f"{float(img.mean()):.6f}",
+        mrays_per_s=f"{rays / dt / 1e6:.3f}", peak_mib=f"{peak_mib:.1f}", allocated_before_mib=f"{before_mib:.1f}",
+        peak_reserved_mib=f"{peak_reserved_mib:.1f}", image_mean=f"{float(img.mean()):.6f}",
         launches=json.dumps(launches), threefry_launches_by_mode=json.dumps(threefry_by_mode), card=json.dumps(card))
     say("main_path", workload=workload, mode="turns graph, eager, eager, graph",
         graph_seconds=json.dumps([round(t, 5) for t in turns["graph"]]),
@@ -886,7 +988,7 @@ def _run_workload(workload: str, card: str):
     if sd.monomials is not None:
         monomial_share(workload, renderer, card)
     if family is not None:
-        rows = timing_phase(workload, family, sd, rec, err, launches, spp, card, scene)
+        rows = timing_phase(workload, family, sd, rec, runs, err, launches, spp, card, scene)
     if workload in COMPACT_WORKLOADS:
         by_kernel = compact_phase(workload, family, renderer, card, counters)
         for row in rows:
@@ -894,10 +996,61 @@ def _run_workload(workload: str, card: str):
     return rows, launches["threefry"] / spp, threefry_by_mode
 
 
+def same_rays_phase(workload, scene, camera, eps, bounces, dtype) -> None:
+    """`[cpu_vs_card]` of a workload whose card image is held to a lower
+    share (`cpu_share`): where the two devices part. The camera rays of one
+    small pass made on each (the share bit for bit, the largest difference
+    of a direction, and cot(fov / 2), the one transcendental in them); then
+    the CPU's rays on both devices: depth-0 hit masks, materials and `t`,
+    and each ray's radiance at the workload's bounces, which must agree to
+    the port's bar on at least 0.99 of the rays."""
+    import numpy as np
+    import torch
+
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.integrator import trace_paths
+    from rpt_tpu_torch.renderer import camera_rays_tiled, pixel_ndc_tiled
+    from rpt_tpu_torch.utils.vmath import real_value
+
+    key = rnd.fold_in(rnd.PRNGKey(0, x64=dtype == torch.float64), 0)
+    rays, cot = {}, {}
+    for dev in ("cpu", DEVICE):
+        cam = camera.to(dev)
+        o, d, _ = camera_rays_tiled(cam, key, pixel_ndc_tiled(SMALL_W, SMALL_H, dev, dtype))
+        rays[dev] = (o.cpu(), d.cpu())
+        cot[dev] = float((1.0 / torch.tan(cam.fov / 2.0)).cpu())
+    (o, d), d_card = rays["cpu"], rays[DEVICE][1]
+    t_min = real_value(eps, dtype)
+    hits, radiance = {}, {}
+    for dev in ("cpu", DEVICE):
+        sd = scene.compile(dtype, device=dev)
+        h = sd.intersect(o.to(dev), d.to(dev), t_min)
+        hits[dev] = (h.t.cpu(), h.mat_id.cpu())
+        radiance[dev] = trace_paths(sd, o.to(dev), d.to(dev), rnd.PRNGKey(3), bounces, t_min).cpu().numpy()
+    (t_c, m_c), (t_d, m_d) = hits["cpu"], hits[DEVICE]
+    hit_c, hit_d = torch.isfinite(t_c), torch.isfinite(t_d)
+    both = hit_c & hit_d
+    rays_close = np.isclose(radiance[DEVICE], radiance["cpu"], rtol=1e-3, atol=1e-4).all(-1).mean()
+    say("cpu_vs_card", workload=workload, rays=o.shape[0],
+        camera_dirs_bit_equal=f"{bool(torch.equal(rays['cpu'][0], rays[DEVICE][0]))}/"
+                              f"{(d_card == d).all(-1).float().mean().item():.5f}",
+        camera_dir_max_abs_diff=f"{(d_card - d).abs().max().item():.3e}",
+        cot_half_fov_cpu=repr(cot["cpu"]), cot_half_fov_card=repr(cot[DEVICE]),
+        same_rays_hit_mask_agree=f"{(hit_c == hit_d).float().mean().item():.5f}",
+        same_rays_mat_agree=f"{(m_c[both] == m_d[both]).float().mean().item():.5f}",
+        same_rays_t_bit_equal=f"{(t_c[both] == t_d[both]).float().mean().item():.5f}",
+        same_rays_radiance_close=f"{rays_close:.5f}")
+    if rays_close < 0.99:
+        fail(f"the CPU and the card trace the same {workload} rays apart")
+
+
 def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
     """Phases a (sizes), b (parity on every wavefront of an eager 1-spp
     render), g and h of a workload with a traversal pack; returns (the
-    largest errors, the recorded wavefronts)."""
+    largest errors, the recorded wavefronts, each kernel's plain walk on
+    them: its counts and milliseconds, `plain_pass`)."""
+    import torch
+
     import rpt_tpu_torch.scene as scene_mod
     from rpt_tpu_torch import random as rnd
     from rpt_tpu_torch.renderer import camera_rays_tiled, pixel_ndc_tiled
@@ -938,25 +1091,36 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
     t_min = real_value(renderer.epsilon, sd.dtype)
     x64 = str(sd.dtype) == "torch.float64"
     o, d, _ = camera_rays_tiled(camera.to(DEVICE), rnd.fold_in(rnd.PRNGKey(0, x64=x64), 0),
-                                pixel_ndc_tiled(WIDTH, HEIGHT, DEVICE, sd.dtype))
+                                pixel_ndc_tiled(renderer.width, renderer.height, DEVICE, sd.dtype))
     check_closest(closest, "camera", bound(closest), bound_plain(closest), mat_of, o, d, t_min, None)
     rec = record_wavefronts(scene_mod, (closest, occluded), lambda: renderer._sample_into_eager(fresh(renderer), 1))
     n_closest, n_occluded = len(rec[closest]), len(rec[occluded])
     if n_closest != bounces + 1 or n_occluded != shadow * (bounces + 1):
         fail(f"a 1-spp {workload} render made {n_closest} closest-hit and {n_occluded} any-hit calls")
     err = {closest: 0.0, occluded: 0.0}
+    runs = {closest: {"stats": {}, "ms": []}, occluded: {"stats": {}, "ms": []}}
     for depth, args in enumerate(rec[closest]):
-        err[closest] = max(err[closest], check_closest(closest, f"depth{depth}", bound(closest),
-                                                       bound_plain(closest), mat_of, *args))
+        err[closest] = max(err[closest], check_closest(closest, f"depth{depth}", bound(closest), bound_plain(closest),
+                                                       mat_of, *args, run=runs[closest]))
     for j, args in enumerate(rec[occluded]):
-        err[occluded] = max(err[occluded], check_occluded(occluded, f"shadow{j}", bound(occluded),
-                                                          bound_plain(occluded), bound_plain(closest), *args))
+        err[occluded] = max(err[occluded], check_occluded(occluded, f"shadow{j}", bound(occluded), bound_plain(occluded),
+                                                          bound_plain(closest), *args, run=runs[occluded]))
+    if shadow == 0:
+        # No light casts a shadow ray, so the any hit is held (and timed)
+        # on the camera wavefront, at bench.kernel_gate's t_max: the plain
+        # closest t (1e3 on a miss), halved on every other ray.
+        t_p = plain[closest](pack, o, d, t_min, None)[0]
+        t_max = torch.where(t_p < 1e38, t_p, torch.full_like(t_p, 1e3))
+        t_max[1::2] *= 0.5
+        rec[occluded] = [(o, d, t_min, t_max, None)]
+        err[occluded] = check_occluded(occluded, "camera", bound(occluded), bound_plain(occluded),
+                                       bound_plain(closest), *rec[occluded][0], run=runs[occluded])
     if workload in ("dragon_binary", "lego_binary"):
         binary_vs_wide(family, sd, pack, rec, mat_of, card)
     before_after(family, mod, sd.bvh if family in ("bvh8", "bvh2") else sd.instanced, pack, rec, mat_of, card)
     if workload in OCCUPANCY_WORKLOADS:
         occupancy_phase(workload, family, pack.group_depth if family in ("bvh8", "tlas8") else pack.stack_depth, card)
-    return err, rec
+    return err, rec, runs
 
 
 def family_module(family):
@@ -974,9 +1138,10 @@ def material_of(family, sd, pack):
     return lambda out, hit: im.inst_mat[out[2].long().clamp(0, im.inst_mat.shape[0] - 1)][hit]
 
 
-def timing_phase(workload, family, sd, rec, err, launches, spp, card, scene) -> list:
+def timing_phase(workload, family, sd, rec, runs, err, launches, spp, card, scene) -> list:
     """f. Each kernel at the main path's shapes (the wavefronts of b): time
-    per launch, the plain version's time, and the bound. A float64
+    per launch, the plain version's time and counts (phase b's pass over
+    the same wavefronts, `runs`), and the bound. A float64
     workload's rows are its kernels' float64 instantiations (`<name>_f64`,
     their triangle tests and instance entries bound by FP64), each also
     timed against its float32 twin on the same wavefronts rounded to
@@ -995,10 +1160,10 @@ def timing_phase(workload, family, sd, rec, err, launches, spp, card, scene) -> 
         kern, plain = getattr(mod, f"{name}_kernel"), getattr(mod, f"{name}_plain")
         ms = time_ms(lambda *a: kern(pack, *a), args, reps=10)
         graph_ms = time_graph_ms(lambda *a: kern(pack, *a), args, reps=10)
-        # One pass of the plain version, timed, that also counts its box and
-        # triangle tests (phase b ran it on these wavefronts: it is warm).
-        stats = {}
-        plain_ms = time_ms(lambda *a: plain(pack, *a, stats=stats), args, reps=1, warmup=False)
+        # Phase b's pass of the plain version over these wavefronts, timed,
+        # with its box and triangle tests counted.
+        stats = runs[name]["stats"]
+        plain_ms = sum(runs[name]["ms"]) / len(runs[name]["ms"])
         # Box tests at the float rate (bound_ms), triangle tests and
         # instance entries at the rate of the walk's type.
         t_bytes, t_ops = bound_ms(spec, pack, args, stats, PEAK_F64_OPS if f64 else PEAK_F32_OPS)
@@ -2333,14 +2498,102 @@ def grad_small_phase(card: str) -> None:
         fail(f"[grad] cornell's camera gradient on the card differs from the CPU's: {err:.3e}")
 
 
+@contextlib.contextmanager
+def kernel_choice(bvh_kernel: str, wide_min=None):
+    """Scenes compile under RPT_BVH_KERNEL=`bvh_kernel` (and, if given,
+    `WIDE_KERNEL_MIN_TRIS`), restored after."""
+    import rpt_tpu_torch.scene as scene_mod
+
+    saved = scene_mod._BVH_KERNEL, scene_mod.WIDE_KERNEL_MIN_TRIS
+    scene_mod._BVH_KERNEL = bvh_kernel
+    if wide_min is not None:
+        scene_mod.WIDE_KERNEL_MIN_TRIS = wide_min
+    try:
+        yield
+    finally:
+        scene_mod._BVH_KERNEL, scene_mod.WIDE_KERNEL_MIN_TRIS = saved
+
+
+def grad_family(name: str, card: str, counters: dict) -> dict:
+    """`[grad]` of one entry of GRAD_FAMILIES (see there). Returns the
+    walks' launches per differentiated sample by kernel row name."""
+    import torch
+
+    from rpt_tpu_torch import kernels
+    from rpt_tpu_torch.bench import scene_and_camera
+    from rpt_tpu_torch.grad import make_diff_render
+    from rpt_tpu_torch.scenes import build_brick_city, build_dragon_scene, dragon_camera, lego_camera
+
+    spec = GRAD_FAMILIES[name]
+    family, bounces, shadow = spec["family"], GRAD_FAMILY_BOUNCES, spec["shadow"]
+    dtype = getattr(torch, spec.get("dtype", "float32"))
+    slot = 0 if dtype == torch.float32 else 1
+    w, h = GRAD_FAMILY_SIZE
+    t0 = time.perf_counter()
+    with kernel_choice(spec["bvh_kernel"]):
+        scene, camera, eps = scene_and_camera(spec["scene"])
+        if getattr(scene.compile(dtype, device=DEVICE), family) is None:
+            fail(f"[grad] {name} compiled without a {family} pack")
+        fn, mats0 = make_diff_render(scene, camera, w, h, max_bounces=bounces, spp=1, epsilon=eps, device=DEVICE,
+                                     dtype=dtype)
+        with deterministic():
+            kernels.reset_launch_counts()
+            img, g_kern, _, _ = grad_step(fn, mats0)
+            launches = named_counts(counters)
+            by_slot = kernels.launch_counts(by_slot=True)
+            with plain_walks(family):
+                _, g_plain, _, _ = grad_step(fn, mats0)
+    err, bit, finite = grad_error(g_kern, g_plain)
+    want = {n: 0 for n in counters if not n.startswith("threefry")}
+    want[f"{family}_closest"] = 2 * (bounces + 1)
+    want[f"{family}_occluded"] = 2 * shadow * (bounces + 1)
+    walks = {n: c for n, c in launches.items() if not n.startswith("threefry")}
+    in_slot = {n: by_slot[counters[n]][slot] for n in want}
+    if walks != want or in_slot != want:
+        fail(f"[grad] the {name} step launched {launches} ({in_slot} of {dtype}), not the walks {want}")
+    if not finite or not bool(torch.isfinite(img).all()) or not any(float(g.abs().max()) > 0 for g in g_kern.values()):
+        fail(f"[grad] the {name} image or gradient is not finite, or every gradient is zero")
+    if not (bit or err <= GRAD_PLAIN_RTOL):
+        fail(f"[grad] the {name} gradient through the {family} kernels differs from the plain walks': {err:.3e}")
+
+    # The card against the CPU on a small scene of the same kernel choice.
+    small = {}
+    with kernel_choice(spec["bvh_kernel"], wide_min=4096):
+        if spec["scene"] == "dragon":
+            s_scene, s_camera = build_dragon_scene(segments=125, sides=20), dragon_camera()
+        else:
+            s_scene, s_camera = build_brick_city(n_instances=96), lego_camera()
+        for dev in ("cpu", DEVICE):
+            if getattr(s_scene.compile(dtype, device=dev), family) is None:
+                fail(f"[grad] {name}'s small scene compiled without a {family} pack")
+            fn_s, m_s = make_diff_render(s_scene, s_camera, *GRAD_FAMILY_SMALL, max_bounces=bounces, spp=1,
+                                         device=dev, dtype=dtype)
+            small[dev] = grad_step(fn_s, m_s)[1]
+    cpu_err, _, cpu_finite = grad_error(small[DEVICE], small["cpu"])
+    say("grad", workload=name, walk=family, dtype=str(dtype).removeprefix("torch."), size=f"{w}x{h}",
+        bounces=bounces, spp=1, kernels_vs_plain_walks_max_rel_err=f"{err:.3e}", bit_equal=bit, deterministic=True,
+        launches=json.dumps(launches), image_mean=f"{float(img.mean()):.6f}",
+        small_card_vs_cpu_max_rel_err=f"{cpu_err:.3e}", small_size="x".join(map(str, GRAD_FAMILY_SMALL)),
+        bar=GRAD_CPU_RTOL,
+        phase_seconds=f"{time.perf_counter() - t0:.1f}", card=json.dumps(card))
+    if not cpu_finite or cpu_err > GRAD_CPU_RTOL:
+        fail(f"[grad] the small {name} gradient on the card differs from the CPU's: {cpu_err:.3e}")
+    suffix = "_f64" if slot else ""
+    return {f"{family}_{kind}{suffix}": want[f"{family}_{kind}"] for kind in ("closest", "occluded")}
+
+
 def grad_phase(card: str) -> dict:
-    """`[grad]`: the small checks, then each workload of GRAD_WORKLOADS.
-    Returns {kernel name: (workload, launches per differentiated sample)}."""
+    """`[grad]`: the small checks, then each workload of GRAD_WORKLOADS and
+    each entry of GRAD_FAMILIES. Returns {kernel row name: (workload,
+    launches per differentiated sample)}."""
     counters = counted_wrappers()
     grad_small_phase(card)
     out = {}
     for name in GRAD_WORKLOADS:
         for kernel, n in grad_workload(name, card, counters).items():
+            out[kernel] = (name, n)
+    for name in GRAD_FAMILIES:
+        for kernel, n in grad_family(name, card, counters).items():
             out[kernel] = (name, n)
     return out
 
@@ -2434,11 +2687,12 @@ def dynamic_frame(cell: str, way: str, scene, camera, eps: float, seed: int, cou
 
     spec = DYNAMIC_CELLS[cell]
     (w, h), dynamic = spec["size"], way == "dynamic"
+    dtype = getattr(torch, spec.get("dtype", "float32"))
     r = Renderer(scene, camera, width=w, height=h, max_bounces=spec["bounces"], num_samples=spec["spp"],
-                 epsilon=eps, seed=seed, dynamic=dynamic, device=DEVICE)
+                 epsilon=eps, seed=seed, dtype=dtype, dynamic=dynamic, device=DEVICE)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sd = scene.compile(device=DEVICE)
+    sd = scene.compile(dtype, device=DEVICE)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     cache = renderer_mod._DYNAMIC_CACHE if dynamic else renderer_mod._MANY_CACHE
@@ -2460,34 +2714,63 @@ def dynamic_frame(cell: str, way: str, scene, camera, eps: float, seed: int, cou
     return buf, split, launches
 
 
+def moved_city(city, offset: float):
+    """A copy of a brick city's scene with every instance moved by `offset`
+    in x; the plane and the lights stay."""
+    from rpt_tpu_torch import Object, Scene, Transformed
+
+    scene = Scene()
+    for obj in city.objects:
+        shape = obj.shape.translate([offset, 0.0, 0.0]) if isinstance(obj.shape, Transformed) else obj.shape
+        scene.add(Object(shape, obj.mat))
+    for light in city.lights:
+        scene.add(light)
+    return scene
+
+
 def dynamic_cell(cell: str, card: str, counters: dict) -> dict:
-    """`[dynamic]` of one cell: DYNAMIC_FRAMES frames, each through the
-    dynamic path and the static one in turns, bit for bit with equal
-    launch counts; the dynamic loop
-    must capture once; then a frame of another topology, which must make a
-    second entry and capture. Returns the dynamic loop's launches."""
+    """`[dynamic]` of one cell, under its kernel choice: its frames
+    (DYNAMIC_FRAMES unless it says), each through the dynamic path and the
+    static one in turns, bit for bit with equal launch counts; the dynamic
+    loop must capture once; then a frame of another topology, which must
+    make a second entry and capture. Returns the dynamic loop's launches."""
+    spec = DYNAMIC_CELLS[cell]
+    with kernel_choice(spec.get("bvh_kernel", "wide"), spec.get("wide_min")):
+        return _dynamic_cell(cell, card, counters)
+
+
+def _dynamic_cell(cell: str, card: str, counters: dict) -> dict:
     import torch
 
     from rpt_tpu_torch import renderer as renderer_mod
     from rpt_tpu_torch.ode import MarblesSystem, ParticleState
     from rpt_tpu_torch.renderer import DEFAULT_EPSILON, SceneCache
-    from rpt_tpu_torch.scenes import (MARBLE_RADIUS, build_dragon_orbit_scene, build_marbles_scene, dragon_camera,
-                                      marbles_camera, marbles_initial_state, trefoil_mesh)
+    from rpt_tpu_torch.scenes import (MARBLE_RADIUS, build_brick_city, build_dragon_orbit_scene, build_marbles_scene,
+                                      dragon_camera, lego_camera, marbles_camera, marbles_initial_state,
+                                      trefoil_mesh)
 
     spec = DYNAMIC_CELLS[cell]
+    frames = spec.get("frames", DYNAMIC_FRAMES)
+    dtype = getattr(torch, spec.get("dtype", "float32"))
     renderer_mod._MANY_CACHE = SceneCache()  # earlier phases' graphs and pools go
     torch.cuda.empty_cache()
     entries0, caps0 = len(renderer_mod._DYNAMIC_CACHE), renderer_mod._DYNAMIC_CACHE.captures()
     physics = []
-    if cell == "dragon_orbit":
-        mesh, camera, eps = trefoil_mesh(), dragon_camera(), 1e-3
+    if cell == "dragon_orbit" or cell.startswith("orbit_"):
+        knot = {} if cell == "dragon_orbit" else dict(segments=125, sides=20)
+        mesh, camera, eps = trefoil_mesh(**knot), dragon_camera(), 1e-3
 
         def scene_of(i):
-            return build_dragon_orbit_scene(i, DYNAMIC_FRAMES, mesh)
+            return build_dragon_orbit_scene(i, frames, mesh)
+    elif cell.startswith("city_"):
+        city, camera, eps = build_brick_city(n_instances=96), lego_camera(), 1e-3
+
+        def scene_of(i):
+            return moved_city(city, 0.5 * i)
     else:
         camera, eps, system = marbles_camera(), DEFAULT_EPSILON, MarblesSystem(MARBLE_RADIUS)
         states = [marbles_initial_state(device=DEVICE)]
-        for _ in range(DYNAMIC_FRAMES - 1):
+        for _ in range(frames - 1):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             states.append(system.rk4_integrate(states[-1], ODE_FRAME, ODE_STEP))
@@ -2503,7 +2786,9 @@ def dynamic_cell(cell: str, card: str, counters: dict) -> dict:
 
     splits = {"dynamic": [], "static": []}
     total, passes = {n: 0 for n in counters}, 0
-    for i in range(DYNAMIC_FRAMES):
+    if spec["family"] and getattr(scene_of(0).compile(dtype, device=DEVICE), spec["family"]) is None:
+        fail(f"[dynamic] {cell} compiled without a {spec['family']} pack")
+    for i in range(frames):
         ways = ("dynamic", "static") if i % 2 == 0 else ("static", "dynamic")
         out = {}
         for way in ways:
@@ -2544,25 +2829,35 @@ def dynamic_cell(cell: str, card: str, counters: dict) -> dict:
                 "refill_ms_after_first": f"{1e3 * sum(sp['lookup'] for sp in splits[way][1:]) / max(n - 1, 1):.3f}"}
                if way == "dynamic" else {}),
             frame_seconds=json.dumps([round(sp["total"], 4) for sp in splits[way]]), card=json.dumps(card))
-    say("dynamic", cell=cell, bit_equal_frames=DYNAMIC_FRAMES, entries=entries, captures=caps,
+    say("dynamic", cell=cell, bit_equal_frames=frames, dtype=str(dtype).removeprefix("torch."), entries=entries,
+        captures=caps,
         launches=json.dumps(total), passes=passes, launches_per_sample=json.dumps(per_sample),
         **({"physics_seconds_per_frame": f"{sum(physics) / len(physics):.4f}"} if physics else {}))
 
-    # A frame of another topology: a trefoil of another size, one more marble.
+    # A frame of another topology: a trefoil of another size, half the
+    # city, one more marble.
     if cell == "dragon_orbit":
-        scene = build_dragon_orbit_scene(DYNAMIC_FRAMES, DYNAMIC_FRAMES, trefoil_mesh(segments=500, sides=100))
+        scene = build_dragon_orbit_scene(frames, frames, trefoil_mesh(segments=500, sides=100))
+        change = "trefoil 100,000 triangles"
+    elif cell.startswith("orbit_"):
+        scene = build_dragon_orbit_scene(frames, frames, trefoil_mesh(segments=110, sides=20))
+        change = "trefoil 4,400 triangles"
+    elif cell.startswith("city_"):
+        scene = build_brick_city(n_instances=48)
+        change = "48 instances"
     else:
         last = states[-1]
         extra = ParticleState(torch.cat([last.pos, torch.tensor([[0.0, 3.0, 0.0]], device=DEVICE)]),
                               torch.cat([last.vel, torch.zeros(1, 3, device=DEVICE)]))
         scene = build_marbles_scene(extra, test_mode=False)
-    new_dyn = dynamic_frame(cell, "dynamic", scene, camera, eps, DYNAMIC_FRAMES, counters)
-    new_static = dynamic_frame(cell, "static", scene, camera, eps, DYNAMIC_FRAMES, counters)
+        change = "26 marbles"
+    new_dyn = dynamic_frame(cell, "dynamic", scene, camera, eps, frames, counters)
+    new_static = dynamic_frame(cell, "static", scene, camera, eps, frames, counters)
     (dyn, split, _), stat = new_dyn, new_static[0]
     same = bool(torch.equal(dyn.sum, stat.sum) and torch.equal(dyn.sum_sq, stat.sum_sq))
     entries2 = len(renderer_mod._DYNAMIC_CACHE) - entries0
     caps2 = renderer_mod._DYNAMIC_CACHE.captures() - caps0
-    say("dynamic", cell=cell, topology_change="trefoil 100,000 triangles" if cell == "dragon_orbit" else "26 marbles",
+    say("dynamic", cell=cell, topology_change=json.dumps(change),
         bit_equal=same, entries=entries2, captures=caps2, launches_per_pass_equal=same_per_pass(new_dyn, new_static),
         capture_s=f"{split['capture']:.3f}")
     if not same or entries2 != 2 or caps2 != 2 or not same_per_pass(new_dyn, new_static):
@@ -2581,9 +2876,10 @@ def dynamic_phase(card: str) -> dict:
         per_sample = dynamic_cell(cell, card, counters)
         say("dynamic", cell=cell, phase_seconds=f"{time.perf_counter() - t0:.1f}")
         if spec["family"]:
+            suffix = "_f64" if spec.get("dtype") == "float64" else ""
             for kind in ("closest", "occluded"):
                 name = f"{spec['family']}_{kind}"
-                out[name] = (cell, per_sample[name])
+                out[name + suffix] = (cell, per_sample[name])
     return out
 
 
@@ -3249,6 +3545,7 @@ def multicard_phase(card: str) -> None:
 
 
 def main():
+    started = time.perf_counter()
     root = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isfile(os.path.join(root, "rpt_tpu_torch", "__init__.py")):
         fail("rpt_tpu_torch/ is not beside chip_smoke.py; run it from the repository")
@@ -3295,10 +3592,15 @@ def main():
     if sys.argv[1:2] == ["--workloads"]:
         # Part of the run, to measure a design (e.g. RPT_COMPARE variants on
         # one workload): the named workloads' phases alone.
+        counters = counted_wrappers()
         for workload in sys.argv[2].split(","):
             if workload == "random":
                 sass_phase(kernels._lib_path("threefry"))
                 random_phase(card)
+            elif workload in GRAD_FAMILIES:
+                grad_family(workload, card, counters)
+            elif workload in DYNAMIC_CELLS:
+                dynamic_cell(workload, card, counters)
             else:
                 run_workload(workload, card)
         print(card, flush=True)
@@ -3363,6 +3665,7 @@ def main():
         rows[kernel].update(sharded_grad_launches_per_shard=n)
     multihost_grad_phase(card, grads)
     say("parallel", phase_seconds=f"{time.perf_counter() - t0:.1f}", card=json.dumps(card))
+    say("done", seconds=f"{time.perf_counter() - started:.1f}", card=json.dumps(card))
 
     print(card, flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)

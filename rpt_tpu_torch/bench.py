@@ -72,7 +72,10 @@ def card_line():
 
 
 def scene_and_camera(name: str):
-    """(scene, camera, ray offset) of a workload."""
+    """(scene, camera, ray offset) of a workload: the rows of WORKLOADS, and
+    the scenes `chip_smoke.py` drives besides (`monomial_glass`,
+    `pegasus_trefoil`, `wine_glass_trefoil`, `fractal_spheres`; the ray
+    offset of `bench.py`'s rows, the renderer's default for the example)."""
     from . import scenes
 
     if name == "cornell":
@@ -85,6 +88,12 @@ def scene_and_camera(name: str):
         return scenes.build_brick_city(), scenes.lego_camera(), 1e-3
     if name == "monomial_glass":
         return scenes.build_monomial_glass_scene(sky_height=1024), scenes.monomial_glass_camera(), 1e-3
+    if name == "pegasus_trefoil":
+        return scenes.build_pegasus_trefoil_scene(), scenes.pegasus_camera(), 1e-3
+    if name == "wine_glass_trefoil":
+        return scenes.build_wine_glass_trefoil_scene(), scenes.wine_glass_camera(), 1e-3
+    if name == "fractal_spheres":
+        return scenes.build_fractal_spheres_scene(), scenes.fractal_spheres_camera(), 1e-3
     return scenes.build_toy_plane_scene(), scenes.toy_plane_camera(), 1e-3
 
 

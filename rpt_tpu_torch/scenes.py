@@ -36,6 +36,17 @@
   clear height-2 monomial glass on a table polygon, under the sphere light
   at y = 5 (or an ambient light in the example's test mode); the state
   advances by `ode.MarblesSystem(0.15)`.
+- `pegasus_trefoil`: `examples/pegasus.py`'s scene (an ice mesh on a 4x4
+  floor under a procedural sky, no light of any kind; EV -1.5) and camera,
+  with the 120k-triangle trefoil in place of the pegasus mesh (an asset).
+- `wine_glass_trefoil`: `examples/wine_glass.py`'s scene without an HDR
+  (a clear mesh on a 10x10 floor, a solid environment, one sphere light)
+  and camera, with the 120k-triangle trefoil in place of the glass (an
+  asset).
+- `fractal_spheres`: a copy of `examples/fractal_spheres.py` (and of
+  `examples/_fractal.py`'s recursion): 937 specular spheres in five levels
+  (1, 6, 30, 150, 750), a plane, an ambient, a directional and a point
+  light, and the example's camera.
 """
 
 from __future__ import annotations
@@ -49,12 +60,12 @@ import numpy as np
 from .camera import Camera
 from .color import hex_color
 from .environment import Environment
-from .lights import AmbientLight, ObjectLight, PointLight
+from .lights import AmbientLight, DirectionalLight, ObjectLight, PointLight
 from .materials import Material
 from .ode import ParticleState
 from .ode.particle import monomial_closest_point
 from .scene import Object, Scene
-from .shapes import Mesh, Transformed, cube, monomial_surface, plane, polygon, sphere, triangle_mesh
+from .shapes import Mesh, Transformed, cube, group, monomial_surface, plane, polygon, sphere, triangle_mesh
 
 __all__ = [
     "build_cornell_scene",
@@ -79,6 +90,16 @@ __all__ = [
     "marbles_initial_state",
     "marbles_camera",
     "build_marbles_scene",
+    "PEGASUS_TREFOIL",
+    "build_pegasus_trefoil_scene",
+    "pegasus_camera",
+    "WINE_GLASS_TREFOIL",
+    "build_wine_glass_trefoil_scene",
+    "wine_glass_camera",
+    "LEVEL_COLORS",
+    "fractal_placements",
+    "build_fractal_spheres_scene",
+    "fractal_spheres_camera",
 ]
 
 
@@ -494,3 +515,127 @@ def build_monomial_light_scene() -> Scene:
 
 def monomial_light_camera() -> Camera:
     return Camera.look_at([0.0, 2.0, 8.0], [0.0, 0.5, 0.0], [0.0, 1.0, 0.0], math.pi / 4)
+
+
+# The trefoil's place in the two asset scenes: (uniform scale, rotation
+# about y in radians, translation), applied in that order. The default
+# knot spans x +-0.39, y -0.38..0.357, z +-0.2 (in the xy plane).
+# `pegasus`: scaled 2.6 and raised by 1.0, it stands just above the floor
+# (its lowest point at y = 0.012, the floor at -0.01) and is centered near
+# the camera's target (0, 1, 0), facing the camera.
+PEGASUS_TREFOIL = (2.6, 0.0, (0.0, 1.0, 0.0))
+# `wine_glass`: scaled 3.0, turned a quarter of pi to face the camera and
+# raised by 1.15, it stands on the floor (its lowest point at y = 0.01) at
+# the origin, where the glass stands.
+WINE_GLASS_TREFOIL = (3.0, math.pi / 4, (0.0, 1.15, 0.0))
+
+
+def _placed(mesh, placement):
+    """`mesh` scaled, turned about y and moved by `placement`; any
+    package's mesh (the JAX package's in its tests)."""
+    scale, angle, offset = placement
+    out = mesh.scale([scale] * 3)
+    if angle:
+        out = out.rotate_y(angle)
+    return out.translate(list(offset))
+
+
+def build_pegasus_trefoil_scene(mesh: Optional[Mesh] = None, sky_height: int = 256) -> Scene:
+    """`examples/pegasus.py`'s `build_scene` without its assets: the sky is
+    `procedural_sky(sky_height)` (the example's fallback; 256 is its default
+    height), and the ice mesh is the trefoil (`mesh`, the 120,000-triangle
+    knot when None) placed by `PEGASUS_TREFOIL` where the example scales its
+    pegasus by 1.4. Its ice is `transparent_colored(0xF8F8FF, 1.31, 0.2)`,
+    its floor the 4x4 polygon at y = -0.01; it has no light of any kind, so
+    a render casts no shadow ray. Render it at EV -1.5 (`pegasus_camera`)."""
+    scene = Scene()
+    scene.set_environment(Environment.from_hdri(procedural_sky(sky_height)))
+    if mesh is None:
+        mesh = trefoil_mesh()
+    ice = Material.transparent_colored(hex_color(0xF8F8FF), 1.31, 0.2)
+    scene.add(Object(_placed(mesh, PEGASUS_TREFOIL)).material(ice))
+    scene.add(Object(polygon([[2.0, -0.01, 2.0], [2.0, -0.01, -2.0], [-2.0, -0.01, -2.0], [-2.0, -0.01, 2.0]]))
+              .material(Material.diffuse(hex_color(0xDDDDDD))))
+    return scene
+
+
+def pegasus_camera() -> Camera:
+    """`examples/pegasus.py`'s camera; its renderer takes EV -1.5, 8
+    bounces, 1200x1200."""
+    return Camera.look_at((0.0, 1.5, 3.1), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0), math.pi / 4)
+
+
+def build_wine_glass_trefoil_scene(mesh: Optional[Mesh] = None) -> Scene:
+    """`examples/wine_glass.py`'s `build_scene` without an HDR (its solid
+    environment (0.25, 0.25, 0.28)), the glass mesh replaced by the trefoil
+    (`mesh`, the 120,000-triangle knot when None) placed by
+    `WINE_GLASS_TREFOIL`: `Material.clear(1.5, 0.0001)` on it, the 10x10
+    floor in `diffuse(0x6F5D48)`, and the radius-3 sphere light of
+    emittance 200 at (11.15, 13.739, -4.9325)."""
+    scene = Scene()
+    scene.set_environment(Environment.from_color((0.25, 0.25, 0.28)))
+    if mesh is None:
+        mesh = trefoil_mesh()
+    scene.add(Object(_placed(mesh, WINE_GLASS_TREFOIL)).material(Material.clear(1.5, 0.0001)))
+    scene.add(Object(polygon([[-5.0, 0.0, -5.0], [-5.0, 0.0, 5.0], [5.0, 0.0, 5.0], [5.0, 0.0, -5.0]]))
+              .material(Material.diffuse(hex_color(0x6F5D48))))
+    scene.add(ObjectLight(Object(sphere().scale([3.0] * 3).translate([11.15, 13.739, -4.9325]))
+                          .material(Material.light(hex_color(0xFFFFFF), 200.0))))
+    return scene
+
+
+def wine_glass_camera() -> Camera:
+    """`examples/wine_glass.py`'s camera; its renderer takes 6 bounces,
+    1920x1080."""
+    eye = np.array([5.530, 4.375, 5.384])
+    return Camera.look_at(eye, eye + np.array([-0.6962, -0.3754, -0.6119]), [0.0, 1.0, 0.0], 0.6911)
+
+
+LEVEL_COLORS = [0x264653, 0x2A9D8F, 0xE9C46A, 0xF4A261, 0xE76F51]
+
+
+def fractal_placements(levels: int = 5):
+    """Per level, a list of (position, radius) (`examples/_fractal.py`): a
+    root at radius 1 spawns six children at radius 2/5, displaced by 7/5 r
+    along each axis, skipping the direction back at the parent; five levels
+    give 1 + 6 + 30 + 150 + 750 = 937 placements."""
+    out = [[] for _ in range(levels)]
+
+    def gen(p, rad, depth, last_dir):
+        out[depth].append((tuple(p), rad))
+        if depth == levels - 1:
+            return
+        disp = rad * 7.0 / 5.0
+        dirs = [(disp, 0.0, 0.0), (-disp, 0.0, 0.0), (0.0, disp, 0.0), (0.0, -disp, 0.0), (0.0, 0.0, disp),
+                (0.0, 0.0, -disp)]
+        for i, dv in enumerate(dirs):
+            if last_dir is None or i != (last_dir ^ 1):
+                gen((p[0] + dv[0], p[1] + dv[1], p[2] + dv[2]), rad * 2.0 / 5.0, depth + 1, i)
+
+    gen((0.0, 0.0, 0.0), 1.0, 0, None)
+    return out
+
+
+def build_fractal_spheres_scene(levels: int = 5) -> Scene:
+    """`examples/fractal_spheres.py`'s scene: one group of specular spheres
+    per level (`LEVEL_COLORS`), the plane z = -6, an ambient, a directional
+    and a point light. With 5 levels the compiled scene holds 937 spheres,
+    which the sphere test takes in chunks of `scene.PRIM_CHUNK`."""
+    scene = Scene()
+    for i, level in enumerate(fractal_placements(levels)):
+        shapes = [sphere().scale([rad] * 3).translate(list(p)) for p, rad in level]
+        scene.add(Object(group(shapes)).material(Material.specular(hex_color(LEVEL_COLORS[i]), 0.25)))
+    scene.add(Object(plane([0.0, 0.0, 1.0], -6.0)).material(Material.diffuse(hex_color(0xFFCCCC))))
+    scene.add(AmbientLight((0.02, 0.02, 0.02)))
+    d = np.array([0.0, -0.65, -1.0])
+    scene.add(DirectionalLight((0.6, 0.6, 0.6), tuple(d / np.linalg.norm(d))))
+    scene.add(PointLight((100.0, 100.0, 100.0), (0.0, 5.0, 5.0)))
+    return scene
+
+
+def fractal_spheres_camera() -> Camera:
+    """`examples/fractal_spheres.py`'s camera (800x600, 0 bounces, 1 spp)."""
+    direction = np.array([-0.285714, -0.5, -1.0])
+    up = np.array([0.0, 1.0, -0.5])
+    return Camera(eye=(2.0, 3.5, 7.0), direction=tuple(direction / np.linalg.norm(direction)),
+                  up=tuple(up / np.linalg.norm(up)), fov=math.pi / 6)

@@ -892,30 +892,39 @@ def _grad_of_mean(fn, mats0, fields=("color", "index", "roughness", "metallic", 
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,family", [("dragon", "bvh8"), ("lego", "tlas8")])
+@pytest.mark.parametrize("name,family", [("dragon", "bvh8"), ("lego", "tlas8"), ("dragon", "bvh2"), ("lego", "tlas2"),
+                                         ("dragon_f64", "bvh8"), ("lego_f64", "tlas8")])
 def test_material_gradient_through_the_kernels_equals_the_plain_walks(card, name, family, monkeypatch):
     """The walks carry no gradient and agree bit for bit, so the material
     gradient through the kernels is the plain walks' on the card, bit for
     bit under deterministic algorithms; each kernel launches twice per
-    sample and path vertex (the backward recomputes the forward)."""
+    sample and path vertex (the backward recomputes the forward). The
+    binary walks run under RPT_BVH_KERNEL=binary, the `_f64` scenes in
+    float64 (the wrapper's float64 slot)."""
     from rpt_tpu_torch.grad import make_diff_render
 
-    r = _small_renderer(name, monkeypatch)
-    fn, mats0 = make_diff_render(r.scene, r.camera, 64, 48, max_bounces=2, spp=2, device=card)
-    mod = {"bvh8": bvh8, "tlas8": tlas8}[family]
+    if family in ("bvh2", "tlas2"):
+        monkeypatch.setattr(scene_mod, "_BVH_KERNEL", "binary")
+    dtype = torch.float64 if name.endswith("_f64") else torch.float32
+    r = _small_renderer(name.removesuffix("_f64"), monkeypatch)
+    assert getattr(r.scene.compile(dtype), family) is not None
+    fn, mats0 = make_diff_render(r.scene, r.camera, 64, 48, max_bounces=2, spp=2, device=card, dtype=dtype)
+    mod = {"bvh8": bvh8, "tlas8": tlas8, "bvh2": bvh2, "tlas2": tlas2}[family]
     wrapper = getattr(scene_mod, f"{family}_closest_hit")
+    slot = 0 if dtype == torch.float32 else 1
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
-        before = kernels.launch_counts()
+        before = kernels.launch_counts(by_slot=True)
         got = _grad_of_mean(fn, mats0)
-        after = kernels.launch_counts()
+        after = kernels.launch_counts(by_slot=True)
         for kind in ("closest", "occluded"):
             monkeypatch.setattr(mod, f"{family}_{kind}_kernel",
                                 lambda *a, launches=None, _p=getattr(mod, f"{family}_{kind}_plain"): _p(*a))
         want = _grad_of_mean(fn, mats0)
     finally:
         torch.use_deterministic_algorithms(False)
-    assert after[wrapper] - before[wrapper] == 2 * 3 * 2
+    assert after[wrapper][slot] - before[wrapper][slot] == 2 * 3 * 2
+    assert after[wrapper][1 - slot] == before[wrapper][1 - slot]
     assert any(float(g.abs().max()) > 0.0 for g in want.values())
     for f in want:
         assert bool(torch.isfinite(got[f]).all()) and torch.equal(got[f], want[f]), f
@@ -955,9 +964,12 @@ def test_camera_gradient_without_a_bvh_equals_the_cpu(card):
 
 def _dynamic_frames(family, monkeypatch, frames=3):
     """Frames of one topology through `family`'s kernels: the small trefoil
-    (bvh8) under a sphere light that moves, or shared meshes (tlas8) whose
-    instances all move by one offset, which keeps the TLAS's shape."""
-    if family == "bvh8":
+    (bvh8, bvh2) under a sphere light that moves, or shared meshes (tlas8,
+    tlas2) whose instances all move by one offset, which keeps the TLAS's
+    shape. The binary walks run under RPT_BVH_KERNEL=binary."""
+    if family in ("bvh2", "tlas2"):
+        monkeypatch.setattr(scene_mod, "_BVH_KERNEL", "binary")
+    if family in ("bvh8", "bvh2"):
         monkeypatch.setattr(scene_mod, "WIDE_KERNEL_MIN_TRIS", 4096)
         mesh = scenes.trefoil_mesh(segments=125, sides=20)
         return [scenes.build_dragon_scene(mesh=mesh, light_position=(3.0 * np.sin(i), 20.0, 3.0 * np.cos(i)))
@@ -976,18 +988,20 @@ def _dynamic_frames(family, monkeypatch, frames=3):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ["bvh8", "tlas8"])
+@pytest.mark.parametrize("family", ["bvh8", "tlas8", "bvh2", "tlas2", "bvh8_f64"])
 def test_dynamic_frames_equal_static_renders_with_one_capture(card, family, monkeypatch):
     """Each frame through the dynamic path's one graph equals its static
     render (a graph of its own), bit for bit, with the same kernels counted
     per pass (the first frame's capture runs one eager warm-up pass more);
-    the loop captures once."""
+    the loop captures once. `bvh8_f64` renders the bvh8 frames in float64."""
+    dtype = torch.float64 if family.endswith("_f64") else torch.float32
+    family = family.removesuffix("_f64")
     monkeypatch.setattr(renderer_mod, "_DYNAMIC_CACHE", renderer_mod.SceneCache())
     frames, cam = _dynamic_frames(family, monkeypatch)
-    keys = {renderer_mod._topology_key(f.compile(), 64, 48, 2) for f in frames}
-    assert len(keys) == 1 and getattr(frames[0].compile(), family) is not None
+    keys = {renderer_mod._topology_key(f.compile(dtype), 64, 48, 2) for f in frames}
+    assert len(keys) == 1 and getattr(frames[0].compile(dtype), family) is not None
     for i, scene in enumerate(frames):
-        r = dict(width=64, height=48, max_bounces=2, num_samples=2, seed=4)
+        r = dict(width=64, height=48, max_bounces=2, num_samples=2, seed=4, dtype=dtype)
         before = _counts()
         dyn = Renderer(scene, cam, dynamic=True, **r).render_buffer()
         mid = _counts()
