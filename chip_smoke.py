@@ -70,6 +70,12 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    - `fractal_spheres`, `examples/fractal_spheres.py` at its 800x600, 0
      bounces, 1 spp: 937 spheres through the chunked sphere test, no
      traversal pack (phases a, c, `[graph]`, d and e);
+   - `compound`, `examples/compound.py` at its 1024x1024 and 5 bounces,
+     1 spp: five cubes (three mirrored) under three sphere lights, no
+     traversal pack (phases a, c, `[graph]`, d and e);
+   - `fractal_teapots_trefoil`, `bench.py`'s `fractal_teapots` row at its
+     800x600 and 0 bounces: 937 instances of the trefoil cut to the
+     teapot's 2,256 triangles, through the two tlas8 kernels;
    a. compiles the scene and prints its sizes;
    b. holds each of the path's kernels against its plain torch version on
       the workload's own rays: the camera rays and every wavefront of an
@@ -174,7 +180,18 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    light, RPT_BVH_KERNEL=binary), `city_tlas2` (the 96-instance brick city,
    every instance moved a frame, binary) and `orbit_bvh8_f64` (the trefoil
    through bvh8 in float64), each with its topology change;
-7. `[sharded]`, the sharded render (`rpt_tpu_torch.parallel`): `dragon`
+7. `[examples]`: every module of `rpt_tpu_torch.examples` through its
+   `main([...])` on the card, at its script's default size and bounces
+   with 1 spp (`simple_video` and `marbles`: 2 frames), the asset examples
+   on stand-in files written to a temporary directory
+   (`examples._stand_ins`); per example one line: the PNG's shape, the
+   traversal pack the rule gave it (which must be EXAMPLE_PACKS'), the
+   kernels it launched (counted from 0; every kernel of its path and no
+   other), the seconds and Mrays/s of `main` (compile, capture and PNG
+   included) and of a second render through the same renderer, and its
+   card render against the CPU's at 64x48 (0.99 of the pixels, the mean to
+   1e-3);
+8. `[sharded]`, the sharded render (`rpt_tpu_torch.parallel`): `dragon`
    at 960x540, 2 bounces, spp 4, through `render_distributed` on meshes of
    1, 2, 4 and 7 shards of the one card (7 pads 518,400 pixels by 6), each
    shard a CUDA graph of its own walking its slice with the bvh8 kernels:
@@ -191,16 +208,16 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    against the draw in [-1/dim, 1/dim) that every pass takes, bit for bit,
    and the extra multiply it would cost; each shard's graph pool; a 64x48
    4-shard render on the card against the CPU;
-8. `[multihost]`: two processes of this script (`--multihost-worker`),
+9. `[multihost]`: two processes of this script (`--multihost-worker`),
    each with 2 shards on the one card, joined over gloo, render the
    4-shard frame with `render_multihost`: both hold the same frame, bit
    for bit the in-process 4-shard render; the all-gather's ms and its
    share of the call;
-9. `[sharded_grad]`: `make_sharded_diff_fn` on 4 shards: one forward and
+10. `[sharded_grad]`: `make_sharded_diff_fn` on 4 shards: one forward and
    backward step and one SGD step on `dragon` at 960x540 (timed, walks
    counted per shard, a finite loss), and at 64x48 on the 5,000-triangle
    trefoil the card's gradient against the CPU's within `[grad]`'s bar;
-10. `[multihost_grad]`: two processes of this script (`--multihost-worker
+11. `[multihost_grad]`: two processes of this script (`--multihost-worker
    ... grad`), each with 2 shards on the one card, joined over gloo, take
    `[sharded_grad]`'s step over the 4-shard global mesh: both processes'
    loss, gradients and new leaves bit for bit the same, the gradients
@@ -210,11 +227,12 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    global mesh bit for bit the in-process 4-shard calls; forward and
    backward ms, each collective's ms timed apart after a barrier and its
    share of the step, the peak MiB;
-11. prints one JSON line `{"kernels": [...]}` with one row for each of the
+12. prints one JSON line `{"kernels": [...]}` with one row for each of the
    eight traversal kernels and the threefry kernel (with their launches
    per differentiated sample and per sample of the dynamic loop, where a
    `[grad]` or `[dynamic]` check runs them; the bvh8 rows also per shard
-   and sample of the sharded render), then one for each
+   and sample of the sharded render; the launches of each example that
+   ran it), then one for each
    float64 instantiation (`<kernel>_f64`, and `threefry_f64` for the
    64-bit modes), then the last line `{"ok": true, "device": {...}}`.
 
@@ -224,7 +242,7 @@ random,lego_toy_f64,...` runs the build, `[ties]` / `[edge]` and the named
 workloads alone (`random`: `[sass]` and `[random]`, where the threefry
 kernel of every tree in RPT_COMPARE is held against this tree's, bit for
 bit, and timed with it in turns; a name of GRAD_FAMILIES or DYNAMIC_CELLS:
-that `[grad]` or `[dynamic]` check alone). `python3 chip_smoke.py --multicard`,
+that `[grad]` or `[dynamic]` check alone; `examples`: `[examples]`). `python3 chip_smoke.py --multicard`,
 on a host with several cards, runs the build and `multicard_phase` alone. `python3 chip_smoke.py
 --multihost-worker <rank> <nproc> <port> <dir> <backend> <devices> <mode>`
 is one process of a multi-process render (`render`) or gradient step
@@ -243,6 +261,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -344,7 +363,34 @@ WORKLOADS = {
     # (`same_rays_phase`, which fails below 0.99).
     "fractal_spheres": dict(scene="fractal_spheres", bvh_kernel="wide", bounces=0, spp=1, shadow=2, family=None,
                             size=(800, 600), cpu_share=0.97),
+    # `examples/compound.py` at its 1024x1024 and 5 bounces (spp 1 of its
+    # 50): five cubes, three of them mirrored, under three sphere lights;
+    # no traversal kernel.
+    "compound": dict(scene="compound", bvh_kernel="wide", bounces=5, spp=1, shadow=3, family=None,
+                     size=(1024, 1024)),
+    # `bench.py:65`'s `fractal_teapots` row at its 800x600 and 0 bounces
+    # (a directional and a point light): 937 instances of one mesh, the
+    # trefoil cut to the teapot's 2,256 triangles (the teapot is an asset),
+    # through the two-level pack the reference's rule gives it (tlas8).
+    "fractal_teapots_trefoil": dict(scene="fractal_teapots_trefoil", bvh_kernel="wide", bounces=0, spp=4, shadow=2,
+                                    family="tlas8", size=(800, 600)),
 }
+# `[examples]`: every module of `rpt_tpu_torch.examples` through its `main`
+# on the card, at its script's default size and bounces with the flags
+# below (1 spp; the videos 2 frames), the asset examples on the stand-in
+# files of `examples._stand_ins` (the trefoil at the teapot's 2,256
+# triangles and at 120,000, the toy plane, a procedural sky); each one's
+# launches counted from 0, the traversal pack the rule gave it
+# (EXAMPLE_PACKS, else none), and the card against the CPU at SMALL_W x
+# SMALL_H with the example's own settings, at 0.99 of the pixels unless
+# EXAMPLE_CPU_SHARE says otherwise (then `same_rays_phase` shows the cause).
+EXAMPLE_FLAGS = {"simple_video": ["--frames", "2", "--spp", "1"], "marbles": ["--frames", "2"]}
+VIDEO_EXAMPLES = ("simple_video", "marbles")
+EXAMPLE_PACKS = {"teapot": "bvh2", "cylinder": "bvh2", "rustacean": "bvh2", "lego": "bvh2", "dragon": "bvh8",
+                 "pegasus": "bvh8", "wine_glass": "bvh8", "metal": "tlas8", "fractal_teapots": "tlas8"}
+# `fractal_spheres` as its workload (WORKLOADS' `cpu_share`): the card's
+# camera rays an ulp from the CPU's move hits on its smallest spheres.
+EXAMPLE_CPU_SHARE = {"fractal_spheres": 0.97}
 # `[hdri]`: the map's height (a 1024x2048 map, the shape of the reference
 # examples' 2k maps and exactly `_QUAD_MAX_TEXELS`, so the quad form) and
 # the tolerance of card against CPU. In float32 the texel coordinate x (up
@@ -736,20 +782,26 @@ def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active, run=None
 
 
 def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, active, run=None) -> float:
-    """Kernel vs plain any-hit, and vs the closest-hit rule t <= t_max;
-    returns the share of rays where kernel and plain version disagree,
-    which must be none. `run`: see `plain_pass`."""
+    """Kernel vs plain any-hit, and what the wrapper makes of the kernel's
+    answer (`finish_occluded`) vs the closest-hit rule t <= t_max; returns
+    the share of rays where kernel and plain version disagree, which must
+    be none. `run`: see `plain_pass`."""
     import torch
+
+    from rpt_tpu_torch.ops.bvh8 import finish_occluded
 
     occ_k = kern(o, d, t_min, t_max, active)
     occ_p = plain_pass(plain, (o, d, t_min, t_max, active), run)
     t_p = closest_plain(o, d, t_min, active)[0]
     torch.cuda.synchronize()
-    rule = t_p <= t_max  # t_p is 3e38 on a miss; the lights' t_max are finite
+    # t_p is 3e38 on a miss. A point or area light's t_max is finite; a
+    # directional light's is +inf, which the wrapper counts as occluded
+    # (inf <= inf, as the reference) whatever the walk found.
+    rule = t_p <= t_max
     if active is not None:
         rule = rule & active
     disagree = (occ_k != occ_p).float().mean().item()
-    agree_rule = (occ_k == rule).float().mean().item()
+    agree_rule = (finish_occluded(occ_k, t_max, active) == rule).float().mean().item()
     say("parity", kernel=name, rays=rays, n=o.shape[0], active_share=active_share(o, active), occluded=int(occ_p.sum()),
         agree_plain=f"{1.0 - disagree:.7f}", agree_closest_rule=f"{agree_rule:.7f}")
     if agree_rule < PARITY_MIN or disagree > 0.0:
@@ -2883,6 +2935,135 @@ def dynamic_phase(card: str) -> dict:
     return out
 
 
+def png_size(path: str) -> tuple:
+    """(height, width) from a PNG file's IHDR chunk."""
+    import struct
+
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[12:16] != b"IHDR":
+        fail(f"{path} is not a PNG")
+    width, height = struct.unpack(">II", head[16:24])
+    return height, width
+
+
+def example_run(name: str, flags: list, workdir: str, card: str, counters: dict) -> dict:
+    """One example module through its `main` on the card (`[examples]`);
+    returns {kernel name: launches} of the run."""
+    import numpy as np
+    import torch
+
+    from rpt_tpu_torch import Renderer, kernels
+    from rpt_tpu_torch import renderer as renderer_mod
+    from rpt_tpu_torch.lights import AmbientLightData
+    from rpt_tpu_torch.renderer import SceneCache
+
+    mod = importlib.import_module(f"rpt_tpu_torch.examples.{name}")
+    made = []
+
+    class Recording(mod.Renderer):
+        """The module's Renderer, keeping each instance the example makes."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    # Earlier examples' graphs and pools go.
+    renderer_mod._MANY_CACHE, renderer_mod._DYNAMIC_CACHE = SceneCache(), SceneCache()
+    torch.cuda.empty_cache()
+    video = name in VIDEO_EXAMPLES
+    out = os.path.join(workdir, name if video else f"{name}.png")
+    argv = [*flags, "--outdir" if video else "--out", out]
+    base, mod.Renderer = mod.Renderer, Recording
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        img = mod.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        mod.Renderer = base
+    seconds = time.perf_counter() - t0
+    launches = named_counts(counters)
+    r = made[-1]
+    if video:
+        out = os.path.join(out, f"image_{len(made) - 1}.png")
+    png = png_size(out)
+    sd = r.scene_data()
+    packs = [f for f in ("bvh8", "tlas8", "bvh2", "tlas2") if getattr(sd, f) is not None]
+    shadow = sum(not isinstance(light, AmbientLightData) for light in sd.lights)
+    frames = len(made)
+    rays = (r.max_bounces + 1) * (1 + shadow) * r.width * r.height * r.num_samples * frames
+    # The same render again through the entry point, its graph captured.
+    t1 = time.perf_counter()
+    r.render()
+    warm = time.perf_counter() - t1
+
+    # The card against the CPU, the example's own settings at a small size.
+    small = {}
+    for dev in ("cpu", DEVICE):
+        s = Renderer(r.scene, r.camera, width=SMALL_W, height=SMALL_H, exposure_value=r.exposure_value,
+                     filter=r.filter, max_bounces=r.max_bounces, num_samples=1, epsilon=r.epsilon, seed=r.seed,
+                     device=dev)
+        small[dev] = s.render_buffer().mean_image(r.filter).cpu().numpy()
+    a, b = small["cpu"], small[DEVICE]
+    close = np.isclose(b, a, rtol=1e-3, atol=1e-4).all(-1).mean()
+    mean_rel = abs(float(b.mean()) - float(a.mean())) / max(abs(float(a.mean())), 1e-12)
+    bar = EXAMPLE_CPU_SHARE.get(name, 0.99)
+    ran = {k: n for k, n in launches.items() if n}
+    say("examples", example=name, argv=json.dumps(" ".join(flags)), png=f"{png[0]}x{png[1]}x3",
+        size=f"{r.width}x{r.height}", bounces=r.max_bounces, spp=r.num_samples, frames=frames, shadow=shadow,
+        packs=",".join(packs) or "none", launches=json.dumps(ran), seconds=f"{seconds:.3f}",
+        mrays_per_s=f"{rays / seconds / 1e6:.3f}", warm_seconds=f"{warm:.4f}",
+        warm_mrays_per_s=f"{rays / frames / warm / 1e6:.3f}", cpu_vs_card=f"{close:.5f}", bar=bar,
+        mean_rel=f"{mean_rel:.3e}", card=json.dumps(card))
+    if png != tuple(img.shape[:2]) or png != (r.height, r.width) or img.shape[2] != 3 or not img.any():
+        fail(f"{name} wrote a {png} PNG of a {img.shape} image for a {r.width}x{r.height} render")
+    if packs != ([EXAMPLE_PACKS[name]] if name in EXAMPLE_PACKS else []):
+        fail(f"{name} compiled with the packs {packs}, not {EXAMPLE_PACKS.get(name)}")
+    # Every kernel of the example's path ran, no other did.
+    path = {"threefry"} | {f"{f}_closest" for f in packs} | ({f"{f}_occluded" for f in packs} if shadow else set())
+    if set(ran) != path:
+        fail(f"{name} launched {ran}; its path is {sorted(path)}")
+    if not (np.isfinite(b).all() and close >= bar and mean_rel <= 1e-3):
+        fail(f"the CPU and card renders of {name} disagree")
+    if name in EXAMPLE_CPU_SHARE:
+        same_rays_phase(name, r.scene, r.camera, r.epsilon, r.max_bounces, torch.float32)
+    return launches
+
+
+def examples_phase(card: str, flags=None) -> dict:
+    """`[examples]`: every example module (or those of `flags`, {name:
+    flags}) through its `main` on the card, from a temporary directory
+    that holds the stand-in files and the PNGs. Returns {kernel name:
+    {example: launches}}."""
+    from rpt_tpu_torch.examples import _stand_ins
+
+    t0 = time.perf_counter()
+    counters = counted_wrappers()
+    workdir = tempfile.mkdtemp(prefix="rpt_examples_")
+    cwd = os.getcwd()
+    out = {}
+    try:
+        assets = _stand_ins.write_stand_ins(workdir)
+        say("examples", stand_ins_seconds=f"{time.perf_counter() - t0:.2f}")
+        if flags is None:
+            names = sorted(f[:-3] for f in os.listdir(os.path.join(os.path.dirname(_stand_ins.__file__)))
+                           if f.endswith(".py") and not f.startswith("_"))
+            if len(names) != 19:
+                fail(f"rpt_tpu_torch/examples has {len(names)} example modules, not 19")
+            flags = {n: [*assets.get(n, []), *EXAMPLE_FLAGS.get(n, ["--spp", "1"])] for n in names}
+        os.chdir(workdir)  # a video's ffmpeg writes beside it
+        for name, argv in flags.items():
+            for kernel, n in example_run(name, argv, workdir, card, counters).items():
+                if n:
+                    out.setdefault(kernel, {})[name] = n
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(workdir, ignore_errors=True)
+    say("examples", phase_seconds=f"{time.perf_counter() - t0:.1f}", card=json.dumps(card))
+    return out
+
+
 def sharded_renderer(spp: int, size=None, device=None):
     """The `[sharded]` workload's renderer (`dragon`, 2 bounces), at the
     main path's size and on the card unless told otherwise."""
@@ -3601,6 +3782,8 @@ def main():
                 grad_family(workload, card, counters)
             elif workload in DYNAMIC_CELLS:
                 dynamic_cell(workload, card, counters)
+            elif workload == "examples":
+                examples_phase(card)
             else:
                 run_workload(workload, card)
         print(card, flush=True)
@@ -3655,6 +3838,10 @@ def main():
     say("ode", phase_seconds=f"{time.perf_counter() - t0:.1f}")
     for kernel, (cell, n) in dynamic_phase(card).items():
         rows[kernel].update(dynamic_workload=cell, dynamic_launches_per_sample=n)
+    # The example programs through their entry points.
+    for kernel, by_example in examples_phase(card).items():
+        if kernel in rows:
+            rows[kernel].update(examples_launches=by_example)
     # Multi-device: the sharded render, several processes, the sharded gradient.
     t0 = time.perf_counter()
     for kernel, n in sharded_phase(card).items():

@@ -21,7 +21,9 @@
   procedural toy brick plane written as OBJ + MTL text, loaded through
   `load_obj_with_mtl` (one object per `usemtl` run: 108 triangles, four
   materials, one of them transparent), scaled and moved as the example
-  does, under one sphere area light, with the example's camera.
+  does, under one sphere area light, with the example's camera
+  (`build_lego_scene` of the loaded objects, which `examples.lego` builds
+  from a zip too).
 - `monomial_glass`: a copy of `examples/monomial_glass.py`'s `build_scene`
   (a metallic monomial surface, a cube, two spheres, a plane, an ambient
   and a point light) under an HDRI, as the Rust original renders it: the
@@ -47,6 +49,15 @@
   `examples/_fractal.py`'s recursion): 937 specular spheres in five levels
   (1, 6, 30, 150, 750), a plane, an ambient, a directional and a point
   light, and the example's camera.
+- `fractal_teapots_trefoil`: `examples/fractal_teapots.py`'s scene around
+  the trefoil cut to the teapot's size (`TEAPOT_KNOT`, 2,256 triangles; the
+  teapot is an asset): 937 instances of one mesh, so the two-level path.
+
+Where an example reads its mesh from an asset, its scene is one function
+here that takes the mesh (`build_pegasus_scene`, `build_wine_glass_scene`,
+`build_fractal_teapots_scene`, `build_dragon_scene(mesh=...)`,
+`build_lego_scene`): the example module (`rpt_tpu_torch.examples`) calls
+it on the loaded mesh and the workload on the trefoil.
 """
 
 from __future__ import annotations
@@ -79,6 +90,7 @@ __all__ = [
     "lego_camera",
     "TOY_MTL",
     "toy_plane_obj",
+    "build_lego_scene",
     "build_toy_plane_scene",
     "toy_plane_camera",
     "procedural_sky",
@@ -91,15 +103,19 @@ __all__ = [
     "marbles_camera",
     "build_marbles_scene",
     "PEGASUS_TREFOIL",
+    "build_pegasus_scene",
     "build_pegasus_trefoil_scene",
     "pegasus_camera",
     "WINE_GLASS_TREFOIL",
+    "build_wine_glass_scene",
     "build_wine_glass_trefoil_scene",
     "wine_glass_camera",
     "LEVEL_COLORS",
     "fractal_placements",
     "build_fractal_spheres_scene",
     "fractal_spheres_camera",
+    "TEAPOT_KNOT",
+    "build_fractal_teapots_scene",
 ]
 
 
@@ -432,13 +448,12 @@ def toy_plane_obj() -> str:
     return "\n".join(lines)
 
 
-def build_toy_plane_scene() -> Scene:
-    """The toy plane loaded through the OBJ+MTL path, each object scaled by
-    0.002 and moved as the example does, and one sphere area light."""
-    from .io.obj import load_obj_with_mtl
-
+def build_lego_scene(objects) -> Scene:
+    """`examples/lego.py`'s `build_scene` from the objects its OBJ+MTL
+    loader returned (`load_obj_with_mtl`): each scaled by 0.002 and moved
+    as the example does, and one sphere area light."""
     scene = Scene()
-    for obj in load_obj_with_mtl(io.StringIO(toy_plane_obj()), io.StringIO(TOY_MTL)):
+    for obj in objects:
         scene.add(Object(obj.shape.scale([0.002, 0.002, 0.002]).translate([-0.720, -0.243, -0.770]), obj.mat))
     scene.add(
         ObjectLight(
@@ -448,6 +463,13 @@ def build_toy_plane_scene() -> Scene:
         )
     )
     return scene
+
+
+def build_toy_plane_scene() -> Scene:
+    """`build_lego_scene` of the toy plane loaded through the OBJ+MTL path."""
+    from .io.obj import load_obj_with_mtl
+
+    return build_lego_scene(load_obj_with_mtl(io.StringIO(toy_plane_obj()), io.StringIO(TOY_MTL)))
 
 
 def toy_plane_camera() -> Camera:
@@ -480,11 +502,13 @@ def procedural_sky(height: int = 256, sun_azimuth: float = 1.9, sun_polar: float
     return img.astype(np.float32)
 
 
-def build_monomial_glass_scene(sky_height: int) -> Scene:
-    """`examples/monomial_glass.py`'s scene under `procedural_sky(sky_height)`,
-    as the Rust original renders it under an HDRI."""
+def build_monomial_glass_scene(sky_height: int = 256, environment: Optional[Environment] = None) -> Scene:
+    """`examples/monomial_glass.py`'s scene under `environment`, or, when
+    None, under `procedural_sky(sky_height)`, as the Rust original renders
+    it under an HDRI."""
     scene = Scene()
-    scene.set_environment(Environment.from_hdri(procedural_sky(sky_height)))
+    scene.set_environment(environment if environment is not None
+                          else Environment.from_hdri(procedural_sky(sky_height)))
     scene.add(Object(monomial_surface(2.0, 4.0).translate([0.0, -1.0, 0.0]))
               .material(Material.metallic_mat(hex_color(0xFFFFFF), 0.0001)))
     scene.add(Object(cube().rotate_y(math.pi / 6.0).scale([0.5, 0.3, 0.4]).translate([0.4, -0.8, 4.0]))
@@ -540,23 +564,30 @@ def _placed(mesh, placement):
     return out.translate(list(offset))
 
 
-def build_pegasus_trefoil_scene(mesh: Optional[Mesh] = None, sky_height: int = 256) -> Scene:
-    """`examples/pegasus.py`'s `build_scene` without its assets: the sky is
-    `procedural_sky(sky_height)` (the example's fallback; 256 is its default
-    height), and the ice mesh is the trefoil (`mesh`, the 120,000-triangle
-    knot when None) placed by `PEGASUS_TREFOIL` where the example scales its
-    pegasus by 1.4. Its ice is `transparent_colored(0xF8F8FF, 1.31, 0.2)`,
-    its floor the 4x4 polygon at y = -0.01; it has no light of any kind, so
-    a render casts no shadow ray. Render it at EV -1.5 (`pegasus_camera`)."""
+def build_pegasus_scene(ice, environment: Environment) -> Scene:
+    """`examples/pegasus.py`'s `build_scene` around the ice shape `ice` (the
+    loaded mesh, scaled and placed): `transparent_colored(0xF8F8FF, 1.31,
+    0.2)` on it, the 4x4 floor polygon at y = -0.01 in `diffuse(0xDDDDDD)`,
+    `environment` and no light of any kind, so a render casts no shadow
+    ray. Render it at EV -1.5 (`pegasus_camera`)."""
     scene = Scene()
-    scene.set_environment(Environment.from_hdri(procedural_sky(sky_height)))
-    if mesh is None:
-        mesh = trefoil_mesh()
-    ice = Material.transparent_colored(hex_color(0xF8F8FF), 1.31, 0.2)
-    scene.add(Object(_placed(mesh, PEGASUS_TREFOIL)).material(ice))
+    scene.set_environment(environment)
+    ice_mat = Material.transparent_colored(hex_color(0xF8F8FF), 1.31, 0.2)
+    scene.add(Object(ice).material(ice_mat))
     scene.add(Object(polygon([[2.0, -0.01, 2.0], [2.0, -0.01, -2.0], [-2.0, -0.01, -2.0], [-2.0, -0.01, 2.0]]))
               .material(Material.diffuse(hex_color(0xDDDDDD))))
     return scene
+
+
+def build_pegasus_trefoil_scene(mesh: Optional[Mesh] = None, sky_height: int = 256) -> Scene:
+    """`build_pegasus_scene` without the example's assets: the sky is
+    `procedural_sky(sky_height)` (the example's fallback; 256 is its default
+    height), and the ice is the trefoil (`mesh`, the 120,000-triangle knot
+    when None) placed by `PEGASUS_TREFOIL` where the example scales its
+    pegasus by 1.4."""
+    if mesh is None:
+        mesh = trefoil_mesh()
+    return build_pegasus_scene(_placed(mesh, PEGASUS_TREFOIL), Environment.from_hdri(procedural_sky(sky_height)))
 
 
 def pegasus_camera() -> Camera:
@@ -565,23 +596,29 @@ def pegasus_camera() -> Camera:
     return Camera.look_at((0.0, 1.5, 3.1), (0.0, 1.0, 0.0), (0.0, 1.0, 0.0), math.pi / 4)
 
 
-def build_wine_glass_trefoil_scene(mesh: Optional[Mesh] = None) -> Scene:
-    """`examples/wine_glass.py`'s `build_scene` without an HDR (its solid
-    environment (0.25, 0.25, 0.28)), the glass mesh replaced by the trefoil
-    (`mesh`, the 120,000-triangle knot when None) placed by
-    `WINE_GLASS_TREFOIL`: `Material.clear(1.5, 0.0001)` on it, the 10x10
-    floor in `diffuse(0x6F5D48)`, and the radius-3 sphere light of
+def build_wine_glass_scene(glass, environment: Environment) -> Scene:
+    """`examples/wine_glass.py`'s `build_scene` around the glass shape
+    `glass`: `Material.clear(1.5, 0.0001)` on it, the 10x10 floor in
+    `diffuse(0x6F5D48)`, `environment`, and the radius-3 sphere light of
     emittance 200 at (11.15, 13.739, -4.9325)."""
     scene = Scene()
-    scene.set_environment(Environment.from_color((0.25, 0.25, 0.28)))
-    if mesh is None:
-        mesh = trefoil_mesh()
-    scene.add(Object(_placed(mesh, WINE_GLASS_TREFOIL)).material(Material.clear(1.5, 0.0001)))
+    scene.set_environment(environment)
+    scene.add(Object(glass).material(Material.clear(1.5, 0.0001)))
     scene.add(Object(polygon([[-5.0, 0.0, -5.0], [-5.0, 0.0, 5.0], [5.0, 0.0, 5.0], [5.0, 0.0, -5.0]]))
               .material(Material.diffuse(hex_color(0x6F5D48))))
     scene.add(ObjectLight(Object(sphere().scale([3.0] * 3).translate([11.15, 13.739, -4.9325]))
                           .material(Material.light(hex_color(0xFFFFFF), 200.0))))
     return scene
+
+
+def build_wine_glass_trefoil_scene(mesh: Optional[Mesh] = None) -> Scene:
+    """`build_wine_glass_scene` without an HDR (the example's solid
+    environment (0.25, 0.25, 0.28)), the glass mesh replaced by the trefoil
+    (`mesh`, the 120,000-triangle knot when None) placed by
+    `WINE_GLASS_TREFOIL`."""
+    if mesh is None:
+        mesh = trefoil_mesh()
+    return build_wine_glass_scene(_placed(mesh, WINE_GLASS_TREFOIL), Environment.from_color((0.25, 0.25, 0.28)))
 
 
 def wine_glass_camera() -> Camera:
@@ -639,3 +676,27 @@ def fractal_spheres_camera() -> Camera:
     up = np.array([0.0, 1.0, -0.5])
     return Camera(eye=(2.0, 3.5, 7.0), direction=tuple(direction / np.linalg.norm(direction)),
                   up=tuple(up / np.linalg.norm(up)), fov=math.pi / 6)
+
+
+# The trefoil cut to about the teapot's 2.2k triangles (`bench.py`'s
+# `teapot` row): (segments, sides), 2,256 triangles.
+TEAPOT_KNOT = (47, 24)
+
+
+def build_fractal_teapots_scene(teapot: Mesh, levels: int = 5) -> Scene:
+    """`examples/fractal_teapots.py`'s scene around one mesh, `teapot`,
+    shared by every placement of `fractal_placements(levels)` (scaled 0.5,
+    then by the placement's radius, then moved): one group per level in
+    `LEVEL_COLORS`, so the compile takes the two-level path (937 instances
+    at 5 levels), the plane z = -6, an ambient, a directional and a point
+    light. Its camera is `fractal_spheres_camera`, as in the example."""
+    scene = Scene()
+    for i, level in enumerate(fractal_placements(levels)):
+        shapes = [teapot.scale([0.5, 0.5, 0.5]).scale([rad] * 3).translate(list(p)) for p, rad in level]
+        scene.add(Object(group(shapes)).material(Material.specular(hex_color(LEVEL_COLORS[i]), 0.25)))
+    scene.add(Object(plane([0.0, 0.0, 1.0], -6.0)).material(Material.diffuse(hex_color(0xFFCCCC))))
+    scene.add(AmbientLight((0.02, 0.02, 0.02)))
+    d = np.array([0.0, -0.65, -1.0])
+    scene.add(DirectionalLight((0.6, 0.6, 0.6), tuple(d / np.linalg.norm(d))))
+    scene.add(PointLight((100.0, 100.0, 100.0), (0.0, 5.0, 5.0)))
+    return scene

@@ -1080,6 +1080,50 @@ def test_sharded_render_graphed_matches_eager(card, n_shards, monkeypatch):
     assert bool(torch.isfinite(graphed.sum).all()) and float(graphed.sum.mean()) > 0.0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,packs", [("compound", []), ("teapot", ["bvh2"])])
+def test_example_main_on_the_card_renders_as_the_cpu(card, name, packs, monkeypatch, tmp_path):
+    """An example module through its `main` with no `--device` (so on the
+    card), at 64x64 and 1 spp, `teapot` on the stand-in mesh: the PNG is
+    written, every kernel of its path launched, and the card's image agrees
+    with the CPU's render of the same recorded scene on 99% of pixels
+    (rtol 1e-3 / atol 1e-4), the mean to 1e-3."""
+    import importlib
+
+    from rpt_tpu_torch.examples import _stand_ins
+
+    mod = importlib.import_module(f"rpt_tpu_torch.examples.{name}")
+    flags = _stand_ins.write_stand_ins(str(tmp_path), glass_knot=(100, 20), sky_height=16).get(name, [])
+    made = []
+
+    class Recording(mod.Renderer):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    monkeypatch.setattr(mod, "Renderer", Recording)
+    out = tmp_path / f"{name}.png"
+    kernels.reset_launch_counts()
+    img = mod.main([*flags, "--size", "64", "--spp", "1", "--out", str(out)])
+    counts = kernels.launch_counts()
+    (r,) = made
+    assert r.device.type == "cuda" and img.shape == (64, 64, 3) and out.stat().st_size > 0
+    sd = r.scene_data()
+    assert [f for f in ("bvh8", "tlas8", "bvh2", "tlas2") if getattr(sd, f) is not None] == packs
+    assert counts[rnd._threefry] > 0
+    for f in packs:
+        assert counts[getattr(scene_mod, f"{f}_closest_hit")] > 0 and counts[getattr(scene_mod, f"{f}_occluded")] > 0
+    images = {}
+    for dev in ("cpu", "cuda"):
+        s = Renderer(r.scene, r.camera, width=64, height=64, max_bounces=r.max_bounces, num_samples=1,
+                     epsilon=r.epsilon, seed=r.seed, device=dev)
+        images[dev] = s.render_buffer().mean_image().cpu().numpy()
+    got, want = images["cuda"], images["cpu"]
+    assert np.isfinite(got).all() and got.mean() > 0.0
+    assert np.isclose(got, want, rtol=1e-3, atol=1e-4).all(-1).mean() >= 0.99
+    assert abs(got.mean() - want.mean()) <= 1e-3 * abs(want.mean())
+
+
 def test_capture_fails_loudly(card, monkeypatch):
     """A pass that waits on the device cannot be captured: the render
     raises, it does not fall back to eager passes. (Last in the file: the

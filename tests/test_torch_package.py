@@ -103,3 +103,26 @@ def test_instanced_scene_compile_raises_without_cuda(monkeypatch):
         scene.compile()
     sd = scene.compile(device="cpu")
     assert sd.instanced is not None and sd.tlas8.bounds.device.type == "cpu"
+
+
+# The example modules also read and write images and meshes without the
+# scripts' helpers or their image libraries.
+EXAMPLE_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(PIL|imageio|examples|_sky|_fractal)\b")
+
+
+def test_port_imports_no_script_and_no_image_library():
+    scripts = {f[:-3] for f in os.listdir(os.path.join(ROOT, "examples")) if f.endswith(".py")}
+    modules = set()
+    offenders = []
+    for path in _port_sources():
+        if os.path.dirname(path) == os.path.join(ROOT, "rpt_tpu_torch", "examples"):
+            modules.add(os.path.basename(path)[:-3])
+        with open(path) as fh:
+            for no, line in enumerate(fh, 1):
+                code = line.split("#", 1)[0]
+                imported = re.match(r"^\s*(?:import|from)\s+(\w+)", code)
+                if EXAMPLE_FORBIDDEN.search(code) or (imported and imported.group(1) in scripts):
+                    offenders.append(f"{os.path.relpath(path, ROOT)}:{no}: {line.strip()}")
+    assert not offenders, "\n".join(offenders)
+    # The walk reaches every example module.
+    assert {s for s in scripts if not s.startswith("_")} <= modules
