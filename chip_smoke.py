@@ -376,21 +376,20 @@ WORKLOADS = {
                                     family="tlas8", size=(800, 600)),
 }
 # `[examples]`: every module of `rpt_tpu_torch.examples` through its `main`
-# on the card, at its script's default size and bounces with the flags
-# below (1 spp; the videos 2 frames), the asset examples on the stand-in
-# files of `examples._stand_ins` (the trefoil at the teapot's 2,256
-# triangles and at 120,000, the toy plane, a procedural sky); each one's
-# launches counted from 0, the traversal pack the rule gave it
-# (EXAMPLE_PACKS, else none), and the card against the CPU at SMALL_W x
-# SMALL_H with the example's own settings, at 0.99 of the pixels unless
-# EXAMPLE_CPU_SHARE says otherwise (then `same_rays_phase` shows the cause).
-EXAMPLE_FLAGS = {"simple_video": ["--frames", "2", "--spp", "1"], "marbles": ["--frames", "2"]}
-VIDEO_EXAMPLES = ("simple_video", "marbles")
+# on the card, at its script's default size and bounces with `--spp 1`
+# (the videos, which write frames into `--outdir`, with VIDEO_FLAGS), the
+# asset examples on the stand-in files of `examples._stand_ins` (the
+# trefoil at the teapot's 2,256 triangles and at 120,000, the toy plane, a
+# procedural sky); each one's launches counted from 0, the traversal pack
+# the rule gave it (EXAMPLE_PACKS, else none), its kernels against their
+# plain versions on its camera wavefront at its own size
+# (`bench.kernel_gate`), and the card against the CPU at SMALL_W x SMALL_H
+# with the example's own settings, at 0.99 of the pixels unless its
+# workload's `cpu_share` says otherwise (then `same_rays_phase` shows the
+# cause).
+VIDEO_FLAGS = {"simple_video": ["--frames", "2", "--spp", "1"], "marbles": ["--frames", "2"]}
 EXAMPLE_PACKS = {"teapot": "bvh2", "cylinder": "bvh2", "rustacean": "bvh2", "lego": "bvh2", "dragon": "bvh8",
                  "pegasus": "bvh8", "wine_glass": "bvh8", "metal": "tlas8", "fractal_teapots": "tlas8"}
-# `fractal_spheres` as its workload (WORKLOADS' `cpu_share`): the card's
-# camera rays an ulp from the CPU's move hits on its smallest spheres.
-EXAMPLE_CPU_SHARE = {"fractal_spheres": 0.97}
 # `[hdri]`: the map's height (a 1024x2048 map, the shape of the reference
 # examples' 2k maps and exactly `_QUAD_MAX_TEXELS`, so the quad form) and
 # the tolerance of card against CPU. In float32 the texel coordinate x (up
@@ -782,8 +781,9 @@ def check_closest(name, rays, kern, plain, mat_of, o, d, t_min, active, run=None
 
 
 def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, active, run=None) -> float:
-    """Kernel vs plain any-hit, and what the wrapper makes of the kernel's
-    answer (`finish_occluded`) vs the closest-hit rule t <= t_max; returns
+    """Kernel vs plain any-hit; the kernel vs the closest-hit rule (a hit
+    with t <= t_max), and what the wrapper makes of its answer
+    (`finish_occluded`) vs the rule t <= t_max; returns
     the share of rays where kernel and plain version disagree, which must
     be none. `run`: see `plain_pass`."""
     import torch
@@ -794,17 +794,21 @@ def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, a
     occ_p = plain_pass(plain, (o, d, t_min, t_max, active), run)
     t_p = closest_plain(o, d, t_min, active)[0]
     torch.cuda.synchronize()
-    # t_p is 3e38 on a miss. A point or area light's t_max is finite; a
-    # directional light's is +inf, which the wrapper counts as occluded
-    # (inf <= inf, as the reference) whatever the walk found.
-    rule = t_p <= t_max
+    # t_p is 3e38 on a miss. The kernel answers whether a hit lies within
+    # t_max: for a directional light's t_max of +inf, a hit at any distance.
+    # The wrapper (`finish_occluded`) also counts a ray with t_max = +inf
+    # as occluded (inf <= inf, as the reference) whatever the walk found.
+    rule = (t_p < 1e38) & (t_p <= t_max)
+    finished = t_p <= t_max
     if active is not None:
-        rule = rule & active
+        rule, finished = rule & active, finished & active
     disagree = (occ_k != occ_p).float().mean().item()
-    agree_rule = (finish_occluded(occ_k, t_max, active) == rule).float().mean().item()
+    agree_rule = (occ_k == rule).float().mean().item()
+    agree_finished = (finish_occluded(occ_k, t_max, active) == finished).float().mean().item()
     say("parity", kernel=name, rays=rays, n=o.shape[0], active_share=active_share(o, active), occluded=int(occ_p.sum()),
-        agree_plain=f"{1.0 - disagree:.7f}", agree_closest_rule=f"{agree_rule:.7f}")
-    if agree_rule < PARITY_MIN or disagree > 0.0:
+        agree_plain=f"{1.0 - disagree:.7f}", agree_closest_rule=f"{agree_rule:.7f}",
+        agree_finished_rule=f"{agree_finished:.7f}")
+    if agree_rule < PARITY_MIN or agree_finished < PARITY_MIN or disagree > 0.0:
         fail(f"{name} kernel disagrees on {rays}")
     return disagree
 
@@ -2953,7 +2957,7 @@ def example_run(name: str, flags: list, workdir: str, card: str, counters: dict)
     import numpy as np
     import torch
 
-    from rpt_tpu_torch import Renderer, kernels
+    from rpt_tpu_torch import Renderer, bench, kernels
     from rpt_tpu_torch import renderer as renderer_mod
     from rpt_tpu_torch.lights import AmbientLightData
     from rpt_tpu_torch.renderer import SceneCache
@@ -2971,7 +2975,7 @@ def example_run(name: str, flags: list, workdir: str, card: str, counters: dict)
     # Earlier examples' graphs and pools go.
     renderer_mod._MANY_CACHE, renderer_mod._DYNAMIC_CACHE = SceneCache(), SceneCache()
     torch.cuda.empty_cache()
-    video = name in VIDEO_EXAMPLES
+    video = name in VIDEO_FLAGS
     out = os.path.join(workdir, name if video else f"{name}.png")
     argv = [*flags, "--outdir" if video else "--out", out]
     base, mod.Renderer = mod.Renderer, Recording
@@ -2997,6 +3001,11 @@ def example_run(name: str, flags: list, workdir: str, card: str, counters: dict)
     t1 = time.perf_counter()
     r.render()
     warm = time.perf_counter() - t1
+    # Its kernels against their plain versions at its own size.
+    try:
+        gate = bench.kernel_gate(r)
+    except bench.GateFailed as e:
+        fail(f"{name}: {e}")
 
     # The card against the CPU, the example's own settings at a small size.
     small = {}
@@ -3008,13 +3017,14 @@ def example_run(name: str, flags: list, workdir: str, card: str, counters: dict)
     a, b = small["cpu"], small[DEVICE]
     close = np.isclose(b, a, rtol=1e-3, atol=1e-4).all(-1).mean()
     mean_rel = abs(float(b.mean()) - float(a.mean())) / max(abs(float(a.mean())), 1e-12)
-    bar = EXAMPLE_CPU_SHARE.get(name, 0.99)
+    bar = WORKLOADS.get(name, {}).get("cpu_share", 0.99)
     ran = {k: n for k, n in launches.items() if n}
     say("examples", example=name, argv=json.dumps(" ".join(flags)), png=f"{png[0]}x{png[1]}x3",
         size=f"{r.width}x{r.height}", bounces=r.max_bounces, spp=r.num_samples, frames=frames, shadow=shadow,
         packs=",".join(packs) or "none", launches=json.dumps(ran), seconds=f"{seconds:.3f}",
         mrays_per_s=f"{rays / seconds / 1e6:.3f}", warm_seconds=f"{warm:.4f}",
-        warm_mrays_per_s=f"{rays / frames / warm / 1e6:.3f}", cpu_vs_card=f"{close:.5f}", bar=bar,
+        warm_mrays_per_s=f"{rays / frames / warm / 1e6:.3f}", kernel_gate=json.dumps(gate),
+        gate_rays=r.width * r.height, cpu_vs_card=f"{close:.5f}", bar=bar,
         mean_rel=f"{mean_rel:.3e}", card=json.dumps(card))
     if png != tuple(img.shape[:2]) or png != (r.height, r.width) or img.shape[2] != 3 or not img.any():
         fail(f"{name} wrote a {png} PNG of a {img.shape} image for a {r.width}x{r.height} render")
@@ -3026,16 +3036,15 @@ def example_run(name: str, flags: list, workdir: str, card: str, counters: dict)
         fail(f"{name} launched {ran}; its path is {sorted(path)}")
     if not (np.isfinite(b).all() and close >= bar and mean_rel <= 1e-3):
         fail(f"the CPU and card renders of {name} disagree")
-    if name in EXAMPLE_CPU_SHARE:
+    if bar < 0.99:
         same_rays_phase(name, r.scene, r.camera, r.epsilon, r.max_bounces, torch.float32)
     return launches
 
 
-def examples_phase(card: str, flags=None) -> dict:
-    """`[examples]`: every example module (or those of `flags`, {name:
-    flags}) through its `main` on the card, from a temporary directory
-    that holds the stand-in files and the PNGs. Returns {kernel name:
-    {example: launches}}."""
+def examples_phase(card: str) -> dict:
+    """`[examples]`: every example module through its `main` on the card,
+    from a temporary directory that holds the stand-in files and the PNGs.
+    Returns {kernel name: {example: launches}}."""
     from rpt_tpu_torch.examples import _stand_ins
 
     t0 = time.perf_counter()
@@ -3046,14 +3055,13 @@ def examples_phase(card: str, flags=None) -> dict:
     try:
         assets = _stand_ins.write_stand_ins(workdir)
         say("examples", stand_ins_seconds=f"{time.perf_counter() - t0:.2f}")
-        if flags is None:
-            names = sorted(f[:-3] for f in os.listdir(os.path.join(os.path.dirname(_stand_ins.__file__)))
-                           if f.endswith(".py") and not f.startswith("_"))
-            if len(names) != 19:
-                fail(f"rpt_tpu_torch/examples has {len(names)} example modules, not 19")
-            flags = {n: [*assets.get(n, []), *EXAMPLE_FLAGS.get(n, ["--spp", "1"])] for n in names}
+        names = sorted(f[:-3] for f in os.listdir(os.path.dirname(_stand_ins.__file__))
+                       if f.endswith(".py") and not f.startswith("_"))
+        if len(names) != 19:
+            fail(f"rpt_tpu_torch/examples has {len(names)} example modules, not 19")
         os.chdir(workdir)  # a video's ffmpeg writes beside it
-        for name, argv in flags.items():
+        for name in names:
+            argv = [*assets.get(name, []), *VIDEO_FLAGS.get(name, ["--spp", "1"])]
             for kernel, n in example_run(name, argv, workdir, card, counters).items():
                 if n:
                     out.setdefault(kernel, {})[name] = n

@@ -74,8 +74,8 @@ def card_line():
 def scene_and_camera(name: str):
     """(scene, camera, ray offset) of a workload: the rows of WORKLOADS, and
     the scenes `chip_smoke.py` drives besides (`monomial_glass`,
-    `pegasus_trefoil`, `wine_glass_trefoil`, `fractal_spheres`, `compound`
-    (`examples.compound`'s scene and camera), `fractal_teapots_trefoil`
+    `pegasus_trefoil`, `wine_glass_trefoil`, `fractal_spheres`, `compound`,
+    `fractal_teapots_trefoil`
     (`examples.fractal_teapots`' 937 instances of the trefoil cut to the
     teapot's size, `scenes.TEAPOT_KNOT`); the ray offset of `bench.py`'s
     rows, the renderer's default for the example)."""
@@ -98,9 +98,7 @@ def scene_and_camera(name: str):
     if name == "fractal_spheres":
         return scenes.build_fractal_spheres_scene(), scenes.fractal_spheres_camera(), 1e-3
     if name == "compound":
-        from .examples import compound
-
-        return compound.build_scene(), compound.make_camera(), 1e-3
+        return scenes.build_compound_scene(), scenes.compound_camera(), 1e-3
     if name == "fractal_teapots_trefoil":
         teapot = scenes.trefoil_mesh(*scenes.TEAPOT_KNOT)
         return scenes.build_fractal_teapots_scene(teapot), scenes.fractal_spheres_camera(), 1e-3

@@ -55,14 +55,14 @@ def write_binary_stl(path, mesh) -> None:
         f.write(rec.tobytes())
 
 
-def write_stand_ins(directory, teapot_knot=TEAPOT_KNOT, glass_knot=(600, 100), sky_height: int = 256) -> dict:
+def write_stand_ins(directory, glass_knot=(600, 100), sky_height: int = 256) -> dict:
     """Write the stand-in files into `directory` and return {example name:
-    its flags}. `teapot_knot` and `glass_knot` are the (segments, sides) of
-    the two trefoils, `sky_height` the map's height."""
+    its flags}. `glass_knot` is the (segments, sides) of the larger trefoil,
+    `sky_height` the map's height."""
     def path(name):
         return os.path.join(directory, name)
 
-    teapot = trefoil_mesh(*teapot_knot)
+    teapot = trefoil_mesh(*TEAPOT_KNOT)
     with open(path("teapot.obj"), "w") as f:
         f.write(obj_text(teapot))
     write_binary_stl(path("cylinder.stl"), teapot)

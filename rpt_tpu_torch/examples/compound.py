@@ -2,47 +2,31 @@
 
 `examples/compound.py` on the port (1024x1024, 5 bounces, 50 spp): the
 cubes turned by the magic angle about (1, 1, 1), three of them mirrored
-(a transform of negative determinant), on a white floor:
+(a transform of negative determinant), on a white floor. The scene is
+`scenes.build_compound_scene`:
 
     python -m rpt_tpu_torch.examples.compound [--spp N] [--size N] [--out PATH] [--device DEVICE]
 """
 
 import argparse
-import math
 
-from .. import Camera, Material, Object, ObjectLight, Renderer, Scene, cube, hex_color, plane, sphere
+from .. import Camera, ObjectLight, Renderer, Scene
+from ..scenes import build_compound_scene, compound_camera, compound_lamp
 from . import _cli
 
+__all__ = ["lamp", "build_scene", "make_camera", "main"]
 
-def lamp(x, y, z, r, e):
-    return ObjectLight(Object(sphere().scale([r, r, r]).translate([x, y, z])).material(Material.light((1.0, 1.0, 1.0), e)))
+
+def lamp(x, y, z, r, e) -> ObjectLight:
+    return compound_lamp(x, y, z, r, e)
 
 
 def build_scene() -> Scene:
-    scene = Scene()
-    magic_angle = math.acos((3.0 * math.sqrt(5.0) - 1.0) / 8.0)
-
-    c_central = cube()
-    c_green = cube().rotate(-magic_angle, [1.0, 1.0, 1.0])
-    c_red = cube().rotate(-magic_angle, [1.0, 1.0, 1.0]).scale([-1.0, 1.0, 1.0])
-    c_blue = cube().rotate(-magic_angle, [1.0, 1.0, 1.0]).scale([1.0, -1.0, 1.0])
-    c_orange = cube().rotate(-magic_angle, [1.0, 1.0, 1.0]).scale([-1.0, 1.0, 1.0]).scale([1.0, -1.0, 1.0])
-
-    scene.add(Object(c_central).material(Material.specular(hex_color(0xC144EB), 0.4)))
-    scene.add(Object(c_green).material(Material.specular(hex_color(0x45E542), 0.4)))
-    scene.add(Object(c_red).material(Material.specular(hex_color(0xF55142), 0.4)))
-    scene.add(Object(c_blue).material(Material.specular(hex_color(0x4275F5), 0.4)))
-    scene.add(Object(c_orange).material(Material.specular(hex_color(0xF5BF42), 0.4)))
-    scene.add(Object(plane([0.0, 1.0, 0.0], -0.80902)).material(Material.diffuse(hex_color(0xFFFFFF))))
-
-    scene.add(lamp(-2.0, 3.5, 0.5, 0.5, 60.0))
-    scene.add(lamp(0.0, 0.5, 5.0, 1.0, 2.0))
-    scene.add(lamp(2.0, 1.0, -5.0, 0.6, 10.0))
-    return scene
+    return build_compound_scene()
 
 
 def make_camera() -> Camera:
-    return Camera.look_at([-0.9, 1.2, 2.4], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], math.pi / 4)
+    return compound_camera()
 
 
 def main(argv=None):

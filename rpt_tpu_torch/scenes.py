@@ -52,6 +52,10 @@
 - `fractal_teapots_trefoil`: `examples/fractal_teapots.py`'s scene around
   the trefoil cut to the teapot's size (`TEAPOT_KNOT`, 2,256 triangles; the
   teapot is an asset): 937 instances of one mesh, so the two-level path.
+- `compound`: a copy of `examples/compound.py` (`lamp`, `build_scene`,
+  `make_camera`): five specular cubes turned by the magic angle about
+  (1, 1, 1), three of them mirrored (a transform of negative determinant),
+  on a white floor under three sphere lamps. It runs no traversal kernel.
 
 Where an example reads its mesh from an asset, its scene is one function
 here that takes the mesh (`build_pegasus_scene`, `build_wine_glass_scene`,
@@ -116,6 +120,9 @@ __all__ = [
     "fractal_spheres_camera",
     "TEAPOT_KNOT",
     "build_fractal_teapots_scene",
+    "compound_lamp",
+    "build_compound_scene",
+    "compound_camera",
 ]
 
 
@@ -700,3 +707,38 @@ def build_fractal_teapots_scene(teapot: Mesh, levels: int = 5) -> Scene:
     scene.add(DirectionalLight((0.6, 0.6, 0.6), tuple(d / np.linalg.norm(d))))
     scene.add(PointLight((100.0, 100.0, 100.0), (0.0, 5.0, 5.0)))
     return scene
+
+
+def compound_lamp(x, y, z, r, e) -> ObjectLight:
+    """A white sphere lamp of radius `r` and emittance `e` at (x, y, z)
+    (`examples/compound.py`'s `lamp`)."""
+    return ObjectLight(Object(sphere().scale([r, r, r]).translate([x, y, z])).material(Material.light((1.0, 1.0, 1.0), e)))
+
+
+def build_compound_scene() -> Scene:
+    """`examples/compound.py`'s scene: five cubes, three of them mirrored,
+    a white floor and three sphere lamps."""
+    scene = Scene()
+    magic_angle = math.acos((3.0 * math.sqrt(5.0) - 1.0) / 8.0)
+
+    c_central = cube()
+    c_green = cube().rotate(-magic_angle, [1.0, 1.0, 1.0])
+    c_red = cube().rotate(-magic_angle, [1.0, 1.0, 1.0]).scale([-1.0, 1.0, 1.0])
+    c_blue = cube().rotate(-magic_angle, [1.0, 1.0, 1.0]).scale([1.0, -1.0, 1.0])
+    c_orange = cube().rotate(-magic_angle, [1.0, 1.0, 1.0]).scale([-1.0, 1.0, 1.0]).scale([1.0, -1.0, 1.0])
+
+    scene.add(Object(c_central).material(Material.specular(hex_color(0xC144EB), 0.4)))
+    scene.add(Object(c_green).material(Material.specular(hex_color(0x45E542), 0.4)))
+    scene.add(Object(c_red).material(Material.specular(hex_color(0xF55142), 0.4)))
+    scene.add(Object(c_blue).material(Material.specular(hex_color(0x4275F5), 0.4)))
+    scene.add(Object(c_orange).material(Material.specular(hex_color(0xF5BF42), 0.4)))
+    scene.add(Object(plane([0.0, 1.0, 0.0], -0.80902)).material(Material.diffuse(hex_color(0xFFFFFF))))
+
+    scene.add(compound_lamp(-2.0, 3.5, 0.5, 0.5, 60.0))
+    scene.add(compound_lamp(0.0, 0.5, 5.0, 1.0, 2.0))
+    scene.add(compound_lamp(2.0, 1.0, -5.0, 0.6, 10.0))
+    return scene
+
+
+def compound_camera() -> Camera:
+    return Camera.look_at([-0.9, 1.2, 2.4], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], math.pi / 4)

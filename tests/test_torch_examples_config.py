@@ -50,9 +50,9 @@ sys.path.insert(0, EXAMPLES)  # the scripts import `_sky` and `_fractal`
 NAMES = sorted(f[:-3] for f in os.listdir(EXAMPLES) if f.endswith(".py") and not f.startswith("_"))
 FIELDS = ("width", "height", "exposure_value", "max_bounces", "num_samples", "epsilon", "seed", "dynamic")
 CAMERA_FIELDS = ("eye", "direction", "up", "fov", "aperture", "focal_distance")
-# The stand-in trefoils of the CPU tests: (segments, sides). The glass knot
-# (the 120k one on the card) is cut to 4,000 triangles.
-TEAPOT_KNOT = scenes.TEAPOT_KNOT
+# The larger stand-in trefoil of the CPU tests, (segments, sides): the 120k
+# one of the card cut to 4,000 triangles (the teapot's stays at
+# `scenes.TEAPOT_KNOT`).
 GLASS_KNOT = (100, 20)
 SKY_HEIGHT = 16
 # Examples whose script has a `--full` configuration.
@@ -84,7 +84,7 @@ def port(name):
 def stand_ins(tmp_path_factory):
     """{example: its flags} of the stand-in files, written once."""
     d = tmp_path_factory.mktemp("stand_ins")
-    return _stand_ins.write_stand_ins(str(d), teapot_knot=TEAPOT_KNOT, glass_knot=GLASS_KNOT, sky_height=SKY_HEIGHT)
+    return _stand_ins.write_stand_ins(str(d), glass_knot=GLASS_KNOT, sky_height=SKY_HEIGHT)
 
 
 def recorder(real, frame: int):
