@@ -9,6 +9,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import profiling
 from .color import color_bytes
 from .utils.device import resolve_device
 
@@ -74,7 +75,8 @@ class Buffer:
 
     def image(self, filter: Filter = Filter()) -> np.ndarray:
         """Tone-mapped uint8 image (H, W, 3) on the host."""
-        return color_bytes(self.mean_image(filter))
+        with profiling.span("rpt.image"):
+            return color_bytes(self.mean_image(filter))
 
     # The accumulator and the sampling cursor round-trip exactly, in the
     # sums' own type (float32 or float64), so a resumed render equals an

@@ -5,6 +5,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import profiling
+
 SRGB_GAMMA = 2.2
 
 __all__ = ["SRGB_GAMMA", "hex_color", "color_bytes"]
@@ -23,7 +25,10 @@ def hex_color(x: int) -> np.ndarray:
 def color_bytes(color) -> np.ndarray:
     """Clamp a linear color (..., 3) to sRGB u8 (gamma 1/2.2, rounded)."""
     if isinstance(color, torch.Tensor):
-        color = color.detach().cpu().numpy()
-    c = np.asarray(color, dtype=np.float64)
-    c = np.clip(c, 0.0, 1.0) ** (1.0 / SRGB_GAMMA)
-    return np.rint(c * 255.0).astype(np.uint8)
+        # The copy waits for the work queued before it on the device.
+        with profiling.span("rpt.image.to_host", bytes=color.nbytes):
+            color = color.detach().cpu().numpy()
+    with profiling.span("rpt.image.tonemap"):
+        c = np.asarray(color, dtype=np.float64)
+        c = np.clip(c, 0.0, 1.0) ** (1.0 / SRGB_GAMMA)
+        return np.rint(c * 255.0).astype(np.uint8)

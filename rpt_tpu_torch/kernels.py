@@ -28,6 +28,8 @@ import time
 
 import torch
 
+from . import profiling
+
 __all__ = [
     "build", "load_library", "sources", "NVCC_FLAGS", "counted", "launch_counter", "launch_counts",
     "reset_launch_counts",
@@ -205,8 +207,9 @@ def load_library(name: str):
         lib = _libs.get(name)
         if lib is not None:
             return lib
-        build()
-        lib = ctypes.CDLL(_lib_path(name))
+        with profiling.rare_span("rpt.kernels.load") as span:
+            span.set(built=any(b["seconds"] > 0 for b in build().values()))
+            lib = ctypes.CDLL(_lib_path(name))
         for fn, argtypes in _SIGNATURES[name].items():
             getattr(lib, fn).restype = ctypes.c_int
             getattr(lib, fn).argtypes = argtypes

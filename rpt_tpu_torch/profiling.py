@@ -1,9 +1,10 @@
 """Profiling and observability (`rpt_tpu/profiling.py`): device traces, rays/s
-counters, wavefront occupancy.
+counters, wavefront occupancy, and spans of the entry's host work.
 
 - `device_trace(logdir)`: a `torch.profiler` trace of everything inside the
   block (the host's ops and, on a CUDA card, its kernels), written where
-  TensorBoard (`tensorboard --logdir <logdir>`) or Perfetto opens it.
+  TensorBoard (`tensorboard --logdir <logdir>`) or Perfetto opens it, with
+  the program's spans as ranges on the same clock; it yields the profile.
 - `rays_per_sample`: the ray accounting of every rays/s number: one camera
   or bounce ray per depth plus one shadow ray per shadow-casting light per
   path vertex.
@@ -11,39 +12,181 @@ counters, wavefront occupancy.
   many-sample function (on the card, one CUDA graph replay per sample).
 - `depth_stats`: per-depth live-lane occupancy of one 1-spp pass, in the
   32x32-tile ray order the kernels see.
+- `span`, `rare_span`, `recording`, `spans`: the program's own record of
+  where the host spends an entry call (`Renderer.render` /
+  `iterative_render`): the scene's compile and digest, the replays, the
+  image's copy and tone map. A span is recorded inside `with recording():`
+  or while any torch profiler runs; a rare span (a scene build, a graph
+  capture, a kernel library load: once per scene, capture or library) is
+  recorded always. `spans()` returns the last `RING` records, oldest first:
 
-Each takes the renderer's real type, as the reference's take the scene's:
-a float64 renderer times and counts float64 passes.
+      with rpt_tpu_torch.profiling.recording():
+          renderer.render()
+      for s in rpt_tpu_torch.profiling.spans():
+          print(s.name, (s.end_ns - s.start_ns) / 1e6, "ms", s.attrs)
+
+  Records go to torch's profiler (`record_function`) only inside
+  `device_trace`, whose profiler the program runs: a profiler started
+  elsewhere sees nothing of them on its timeline.
+
+The meters take the renderer's real type, as the reference's take the
+scene's: a float64 renderer times and counts float64 passes.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
+import threading
 import time
 
 import numpy as np
 import torch
 
-__all__ = ["device_trace", "rays_per_sample", "measure_rays_per_sec", "depth_stats"]
+__all__ = [
+    "device_trace", "rays_per_sample", "measure_rays_per_sec", "depth_stats",
+    "span", "rare_span", "recording", "spans", "Span", "RING",
+]
+
+# ---------------------------------------------------------------------------
+# Spans
+# ---------------------------------------------------------------------------
+
+RING = 65536  # the records kept: the last RING spans to end
+_ring: collections.deque = collections.deque(maxlen=RING)
+_ids = itertools.count(1)
+_local = threading.local()  # each thread's open spans, innermost last
+_lock = threading.Lock()
+_recording = 0  # open `recording()` blocks
+_mirrored = 0  # open `device_trace` blocks
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+def _open() -> list:
+    try:
+        return _local.open
+    except AttributeError:
+        _local.open = []
+        return _local.open
+
+
+class Span:
+    """One span of the program's host work: `name`, `start_ns` and
+    `end_ns` (`time.perf_counter_ns`), its own `id`, its parent's id
+    (`parent`, None at a root), the id of the root span of its call
+    (`call`: every span of one `render()` or `iterative_render()` shares
+    it) and `attrs`, counts taken at its boundary (bytes, samples)."""
+
+    __slots__ = ("name", "attrs", "id", "parent", "call", "start_ns", "end_ns", "_mirror")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+        self.start_ns = self.end_ns = None
+
+    def set(self, **attrs) -> None:
+        """Attributes known only inside the span."""
+        self.attrs.update(attrs)
+
+    def __enter__(self) -> "Span":
+        stack = _open()
+        self.id = next(_ids)
+        outer = stack[-1] if stack else None
+        self.parent, self.call = (outer.id, outer.call) if outer is not None else (None, self.id)
+        stack.append(self)
+        self._mirror = None
+        if _mirrored:
+            self._mirror = torch.profiler.record_function(self.name)
+            self._mirror.__enter__()
+        self.start_ns = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = time.perf_counter_ns()
+        if self._mirror is not None:
+            self._mirror.__exit__(*exc)
+        _open().pop()
+        _ring.append(self)
+        return False
+
+
+class _NoSpan:
+    """What `span` returns while nothing records: one shared object."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> "_NoSpan":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
+NO_SPAN = _NoSpan()
+
+
+def span(name: str, **attrs):
+    """A span of the entry's host work, recorded inside `recording()` or
+    while a torch profiler runs; else the shared no-op `NO_SPAN`."""
+    if _recording or _profiler_enabled():
+        return Span(name, attrs)
+    return NO_SPAN
+
+
+def rare_span(name: str, **attrs) -> Span:
+    """A span of an event that comes once per scene, capture or library and
+    takes seconds (a scene build, a graph capture, a kernel library load):
+    recorded always, so a rebuild or a recapture shows at any time."""
+    return Span(name, attrs)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every span inside the block (the operator's switch)."""
+    global _recording
+    with _lock:
+        _recording += 1
+    try:
+        yield
+    finally:
+        with _lock:
+            _recording -= 1
+
+
+def spans() -> list:
+    """The recorded spans (the last `RING` to end), oldest first."""
+    return sorted(_ring, key=lambda s: (s.start_ns, s.id))
 
 
 @contextlib.contextmanager
 def device_trace(logdir: str):
     """Trace everything inside the block into `logdir` (a Chrome trace JSON
-    file that TensorBoard's profile plugin and Perfetto open):
+    file that TensorBoard's profile plugin and Perfetto open), the
+    program's spans among the host's ranges; yields the profile, whose
+    `events()` a caller may read once the block has closed:
 
-        with rpt_tpu_torch.profiling.device_trace("traces"):
+        with rpt_tpu_torch.profiling.device_trace("traces") as prof:
             renderer.render()
     """
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
+    global _mirrored
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
-        yield
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+        with _lock:
+            _mirrored += 1
+        try:
+            yield prof
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+        finally:
+            with _lock:
+                _mirrored -= 1
 
 
 def _n_shadow_lights(scene_data) -> int:

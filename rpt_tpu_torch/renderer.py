@@ -53,6 +53,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import profiling
 from . import random as rnd
 from .buffer import Buffer, Filter
 from .camera import _FIELDS as _CAMERA_FIELDS
@@ -297,11 +298,12 @@ class _SamplePasses:
         added one by one onto `into`, a (sum, sum_sq) pair, when given (so a
         render in chunks adds in the order of one call, bit for bit)."""
         n = int(n)
-        t_min = self.load(camera, key, start, n, t_min, ev_scale, self.tiled(into))
-        self.replay(n, t_min)
-        inv = self.ndc[3]
-        return (self.inputs.s[inv].reshape(self.height, self.width, 3),
-                self.inputs.ss[inv].reshape(self.height, self.width))
+        with profiling.span("rpt.passes.run", n=n):
+            t_min = self.load(camera, key, start, n, t_min, ev_scale, self.tiled(into))
+            self.replay(n, t_min)
+            inv = self.ndc[3]
+            return (self.inputs.s[inv].reshape(self.height, self.width, 3),
+                    self.inputs.ss[inv].reshape(self.height, self.width))
 
     def tiled(self, into) -> Optional[tuple]:
         """A (sum (H, W, 3), sum_sq (H, W)) pair in tile order, or None."""
@@ -585,7 +587,8 @@ class Renderer:
 
     def render(self) -> np.ndarray:
         """Render and return a uint8 (H, W, 3) image."""
-        return self.render_buffer().image(self.filter)
+        with profiling.span("rpt.render"):
+            return self.render_buffer().image(self.filter)
 
     def iterative_render(
         self,
@@ -598,17 +601,20 @@ class Renderer:
         cursor are saved after every interval, and a render resumes from an
         existing checkpoint, bit for bit equal to an uninterrupted one (a
         checkpoint of the JAX package's renderer loads too)."""
-        buffer = Buffer.new(self.width, self.height, device=self.device, dtype=self.dtype)
-        iteration = 0
-        if checkpoint_path and os.path.exists(checkpoint_path):
-            buffer, ck_seed, iteration = Buffer.load(checkpoint_path, device=self.device)
-            if ck_seed != self.seed:
-                raise ValueError(f"checkpoint seed {ck_seed} != renderer seed {self.seed}")
-        while iteration < self.num_samples:
-            steps = min(self.num_samples - iteration, callback_interval)
-            buffer = self.sample_into(buffer, steps, start_iter=iteration)
-            iteration += steps
-            if checkpoint_path:
-                buffer.save(checkpoint_path, seed=self.seed, iteration=iteration)
-            callback(iteration, buffer)
-        return buffer
+        with profiling.span("rpt.iterative_render"):
+            buffer = Buffer.new(self.width, self.height, device=self.device, dtype=self.dtype)
+            iteration = 0
+            if checkpoint_path and os.path.exists(checkpoint_path):
+                buffer, ck_seed, iteration = Buffer.load(checkpoint_path, device=self.device)
+                if ck_seed != self.seed:
+                    raise ValueError(f"checkpoint seed {ck_seed} != renderer seed {self.seed}")
+            while iteration < self.num_samples:
+                steps = min(self.num_samples - iteration, callback_interval)
+                with profiling.span("rpt.update", iteration=iteration + steps):
+                    buffer = self.sample_into(buffer, steps, start_iter=iteration)
+                    iteration += steps
+                    if checkpoint_path:
+                        buffer.save(checkpoint_path, seed=self.seed, iteration=iteration)
+                    with profiling.span("rpt.callback"):
+                        callback(iteration, buffer)
+            return buffer

@@ -53,6 +53,7 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import profiling
 from .environment import Environment, lookup
 from .lights import (
     AmbientLight,
@@ -145,15 +146,19 @@ class Scene:
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"a scene compiles in float32 or float64, not {dtype}")
         device = resolve_device(device)
-        digest = _scene_digest(self)
-        key = (digest, _BVH_KERNEL, WIDE_KERNEL_MIN_TRIS)
-        slot = (str(device), dtype)
-        cached = self._compiled.get(slot)
-        if cached is not None and cached[0] == key:
-            return cached[1]
-        data = compile_scene(self, device, digest=digest, dtype=dtype)
-        self._compiled[slot] = (key, data)
-        return data
+        with profiling.span("rpt.scene.compile") as span:
+            digest = _scene_digest(self)
+            key = (digest, _BVH_KERNEL, WIDE_KERNEL_MIN_TRIS)
+            slot = (str(device), dtype)
+            cached = self._compiled.get(slot)
+            hit = cached is not None and cached[0] == key
+            span.set(hit=hit)
+            if hit:
+                return cached[1]
+            with profiling.rare_span("rpt.scene.build"):
+                data = compile_scene(self, device, digest=digest, dtype=dtype)
+            self._compiled[slot] = (key, data)
+            return data
 
 
 # ---------------------------------------------------------------------------
@@ -201,26 +206,43 @@ def _fp_shape(h, shape: Shape, mesh_slots: dict) -> None:
         raise TypeError(f"Unsupported shape type: {type(shape)}")
 
 
+class _CountedHash:
+    """blake2b, counting the bytes fed to it."""
+
+    def __init__(self):
+        self._h = hashlib.blake2b(digest_size=16)
+        self.bytes = 0
+
+    def update(self, data) -> None:
+        self.bytes += memoryview(data).nbytes
+        self._h.update(data)
+
+    def hexdigest(self) -> str:
+        return self._h.hexdigest()
+
+
 def _scene_digest(scene: "Scene") -> str:
-    h = hashlib.blake2b(digest_size=16)
-    mesh_slots: dict = {}
-    for obj in scene.objects:
-        h.update(b"O")
-        _fp_shape(h, obj.shape, mesh_slots)
-        h.update(repr(obj.mat).encode())
-    for light in scene.lights:
-        if isinstance(light, ObjectLight):
-            h.update(b"LO")
-            _fp_shape(h, light.object.shape, mesh_slots)
-            h.update(repr(light.object.mat).encode())
-        else:
-            h.update(repr(light).encode())
-    env = scene.environment
-    h.update(b"E")
-    _fp_bytes(h, env.color)
-    if env.hdri is not None:
-        h.update(np.ascontiguousarray(env.hdri))  # the map's bytes, uncopied
-    return h.hexdigest()
+    with profiling.span("rpt.scene.digest") as span:
+        h = _CountedHash()
+        mesh_slots: dict = {}
+        for obj in scene.objects:
+            h.update(b"O")
+            _fp_shape(h, obj.shape, mesh_slots)
+            h.update(repr(obj.mat).encode())
+        for light in scene.lights:
+            if isinstance(light, ObjectLight):
+                h.update(b"LO")
+                _fp_shape(h, light.object.shape, mesh_slots)
+                h.update(repr(light.object.mat).encode())
+            else:
+                h.update(repr(light).encode())
+        env = scene.environment
+        h.update(b"E")
+        _fp_bytes(h, env.color)
+        if env.hdri is not None:
+            h.update(np.ascontiguousarray(env.hdri))  # the map's bytes, uncopied
+        span.set(bytes=h.bytes)
+        return h.hexdigest()
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,8 @@ from typing import Callable
 
 import torch
 
+from .. import profiling
+
 __all__ = ["Capture", "GraphCache"]
 
 
@@ -19,7 +21,7 @@ class Capture:
     def __init__(self, run: Callable[[], None], device, what: str):
         # `device`, which a render sharded over several cards need not have
         # current, is made the current device for the warm-up and the capture.
-        with torch.cuda.device(device):
+        with profiling.rare_span("rpt.graph.capture"), torch.cuda.device(device):
             self._capture(run, device, what)
 
     def _capture(self, run: Callable[[], None], device, what: str) -> None:

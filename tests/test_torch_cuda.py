@@ -17,7 +17,7 @@ import rpt_tpu_torch
 import rpt_tpu_torch.scene as scene_mod
 import walk_scenes
 from rpt_tpu_torch import (
-    Buffer, Camera, Material, Object, Renderer, Scene, Transformed, kernels, sphere, triangle_mesh,
+    Buffer, Camera, Material, Object, Renderer, Scene, Transformed, kernels, profiling, sphere, triangle_mesh,
 )
 from rpt_tpu_torch import random as rnd
 from rpt_tpu_torch import renderer as renderer_mod
@@ -1140,3 +1140,55 @@ def test_capture_fails_loudly(card, monkeypatch):
     with pytest.raises(RuntimeError, match="capturing the sample pass"):
         r.render_buffer()
 
+
+def _covered(start: float, end: float, intervals) -> float:
+    """The length of [start, end] inside the union of `intervals`."""
+    total, last = 0.0, start
+    for s, e in sorted(intervals):
+        s, e = max(s, last), min(e, end)
+        if e > s:
+            total += e - s
+            last = e
+    return total
+
+
+@pytest.mark.cuda
+def test_the_device_idles_inside_the_entry_s_spans(card, tmp_path):
+    """One `render()` of the 120k-triangle trefoil under
+    `profiling.device_trace`: every interval over 1 ms in which no device
+    operation runs lies, for at least 90% of its length, inside a span
+    below `rpt.render` (the digest, the image's tone map, ...). A profiler
+    the program did not start sees no `rpt.*` event, on the host or on the
+    device's timeline."""
+    cuda = torch.autograd.DeviceType.CUDA
+    r = Renderer(scenes.build_pegasus_trefoil_scene(), scenes.pegasus_camera(), width=400, height=400,
+                 exposure_value=-1.5, max_bounces=8, num_samples=2)
+    r.render()  # the scene's build and the graph's capture
+    with profiling.device_trace(str(tmp_path)) as prof:
+        # The profiler's first launch waits 3-5 ms for its activity buffer
+        # ("Activity Buffer Request"): the profiler's time, kept out of the render.
+        torch.zeros(1, device=card)
+        torch.cuda.synchronize()
+        r.render()
+    events = prof.events()
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
+             if e.name.startswith("rpt.") and e.device_type != cuda]
+    ops = sorted((e.time_range.start, e.time_range.end) for e in events
+                 if e.device_type == cuda and not e.name.startswith("rpt."))
+    (root,) = [(s, e) for n, s, e in spans if n == "rpt.render"]
+    below = [(s, e) for n, s, e in spans if n != "rpt.render"]
+    gaps, last = [], root[0]
+    for s, e in ops:
+        if s > last:
+            gaps.append((last, min(s, root[1])))
+        last = max(last, e)
+    gaps.append((last, root[1]))
+    idle = [(s, e) for s, e in gaps if e - s > 1000.0]  # microseconds
+    assert ops and idle
+    for s, e in idle:
+        assert _covered(s, e, below) >= 0.9 * (e - s), (s - root[0], e - s, sorted(spans, key=lambda x: x[1]))
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as bare:
+        r.render()
+    assert bare.events() and not [e.name for e in bare.events() if e.name.startswith("rpt.")]
