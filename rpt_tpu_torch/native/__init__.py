@@ -3,9 +3,11 @@
 `bvh_builder.cpp` (the binned-SAH BVH builder) and `obj_parser.cpp` (the
 Wavefront .OBJ parser) are copies of the JAX package's, so both packages
 build array-identical trees and load identical triangles from the same
-input. Each source becomes its own shared library in the package's
-git-ignored `_build/` directory. A missing compiler or a failed build
-raises: there is no slower stand-in, because it would give other results.
+input. `digest.cpp` hashes the scene digest's large leaves
+(MurmurHash3_x64_128). Each source becomes its own shared library in the
+package's git-ignored `_build/` directory. A missing compiler or a failed
+build raises: there is no slower stand-in, because it would give other
+results.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import types
 
 import numpy as np
 
-__all__ = ["get_lib", "native_available", "build_bvh_sah", "parse_obj", "BUILD_DIR"]
+__all__ = ["get_lib", "native_available", "build_bvh_sah", "parse_obj", "hash128", "BUILD_DIR"]
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
@@ -32,6 +34,9 @@ _LIBS = {
     "obj": ("obj_parser.cpp", {
         "rpt_parse_obj": (ctypes.c_int, [ctypes.c_char_p, _I64, _PP, _PP, _PP, _PP, _PI64, _PI64]),
         "rpt_obj_free": (None, [_P]),
+    }),
+    "digest": ("digest.cpp", {
+        "rpt_murmur3_x64_128": (None, [_P, _I64, _P]),
     }),
 }
 _lock = threading.Lock()
@@ -66,9 +71,10 @@ def _load(name: str):
 
 def get_lib():
     """The native entry points (`rpt_build_bvh_sah`, `rpt_parse_obj`,
-    `rpt_obj_free`) as attributes of one object, as the reference's one
-    library holds them, or None if a library cannot be built or loaded
-    here (no g++, a failed build, an unwritable build directory)."""
+    `rpt_obj_free`, `rpt_murmur3_x64_128`) as attributes of one object, as
+    the reference's one library holds its own, or None if a library cannot
+    be built or loaded here (no g++, a failed build, an unwritable build
+    directory)."""
     try:
         libs = [_load(name) for name in _LIBS]
     except (OSError, RuntimeError, subprocess.SubprocessError):
@@ -78,9 +84,9 @@ def get_lib():
 
 
 def native_available() -> bool:
-    """Whether both native libraries build and load here. Where they do
-    not, `build_bvh_sah` and `parse_obj` still raise: the port has no
-    slower stand-in."""
+    """Whether the native libraries build and load here. Where they do
+    not, `build_bvh_sah`, `parse_obj` and `hash128` still raise: the port
+    has no slower stand-in."""
     return get_lib() is not None
 
 
@@ -155,3 +161,14 @@ def parse_obj(data: bytes):
     if len(names) != n_runs.value:
         raise RuntimeError(f"native OBJ parser returned {len(names)} run names for {n_runs.value} runs")
     return verts, norms, run, names
+
+
+def hash128(arr: np.ndarray) -> bytes:
+    """MurmurHash3_x64_128 (seed 0) of a C-contiguous array's bytes, read
+    in place: 16 bytes, h1 then h2, each a little-endian 64-bit word."""
+    if not isinstance(arr, np.ndarray) or not arr.flags.c_contiguous:
+        raise ValueError("hash128 takes a C-contiguous numpy array")
+    lib = _load("digest")
+    out = ctypes.create_string_buffer(16)
+    lib.rpt_murmur3_x64_128(arr.ctypes.data, arr.nbytes, out)
+    return out.raw

@@ -120,14 +120,14 @@ def test_submodules_cover_the_reference():
 
 
 def test_native_names_build_and_load():
-    """`native_available` says whether both native libraries build and
+    """`native_available` says whether the native libraries build and
     load; `get_lib` holds their entry points, as the reference's one
-    library does."""
+    library holds its own, and the digest's hash beside them."""
     from rpt_tpu_torch import native
 
     assert native.native_available() is True
     lib = native.get_lib()
-    for fn in ("rpt_build_bvh_sah", "rpt_parse_obj", "rpt_obj_free"):
+    for fn in ("rpt_build_bvh_sah", "rpt_parse_obj", "rpt_obj_free", "rpt_murmur3_x64_128"):
         assert callable(getattr(lib, fn))
 
 

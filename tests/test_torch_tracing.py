@@ -45,6 +45,13 @@ def _digest_bytes(scene) -> int:
             + len(repr(obj.mat).encode()) + len(b"E") + 8 * 3 + env.hdri.nbytes)
 
 
+def _leaf_bytes(scene) -> int:
+    """What the digest's native hash reads of `_scene()`: the mesh's
+    vertices and normals as float64 and the map's own bytes."""
+    (obj,) = scene.objects
+    return 8 * (obj.shape.vertices.size + obj.shape.normals.size) + scene.environment.hdri.nbytes
+
+
 def _run(r, entry):
     """One call of `entry`; the image, as the user takes it."""
     if entry == "render":
@@ -88,7 +95,8 @@ def test_an_entry_call_records_its_tree(entry):
     """Off: nothing but rare spans. On: one call's tree (the compile and its
     digest, the passes, the image's copy and tone map), `passes.run`'s `n`
     adding up to the samples, the digest's `bytes` what the scene's arrays
-    add up to, and the same image bit for bit."""
+    add up to and its `leaf_bytes` the mesh's and the map's, and the same
+    image bit for bit."""
     r = _renderer()
     r.scene_data()  # the build, a rare span, out of the way
     t0 = _now()
@@ -123,6 +131,7 @@ def test_an_entry_call_records_its_tree(entry):
     assert compiles and all(s.attrs["hit"] for s in compiles)
     digests = [s for s in recorded if s.name == "rpt.scene.digest"]
     assert {s.attrs["bytes"] for s in digests} == {_digest_bytes(r.scene)}
+    assert {s.attrs["leaf_bytes"] for s in digests} == {_leaf_bytes(r.scene)}
 
 
 def test_iterative_render_records_an_update_and_a_callback_per_interval():
