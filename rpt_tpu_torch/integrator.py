@@ -42,6 +42,7 @@ import os
 import torch
 
 from . import random as rnd
+from .kernels import add_count, counted
 from .lights import AmbientLightData
 from .materials import bsdf, sample_f
 from .ops.intersect import Hit
@@ -195,9 +196,26 @@ def _auto_compact(scene):
     return False
 
 
+@counted
+def shadow_lanes(found: torch.Tensor) -> None:
+    """Count, on the device, the lanes of a shadow wavefront: every lane is
+    handed to the any-hit query, live or not."""
+    add_count(shadow_lanes, found.device, found.shape[0])
+
+
+@counted
+def shadow_live_lanes(found: torch.Tensor) -> None:
+    """Count, on the device, the live lanes of a shadow wavefront: those
+    whose path found a surface, the only ones whose answer is read."""
+    add_count(shadow_live_lanes, found.device, found.sum())
+
+
 def _shadow_visible(scene, pos, wi, dist, t_min, found, compact) -> torch.Tensor:
     """Lanes whose shadow ray reaches the light, with the wavefront ordered
-    as `compact` says for the any-hit query (as `_intersect` orders it)."""
+    as `compact` says for the any-hit query (as `_intersect` orders it).
+    Its lanes and live lanes are counted on the device (`kernels.add_count`)."""
+    shadow_lanes(found)
+    shadow_live_lanes(found)
     if not compact:
         return ~scene.occluded(pos, wi, t_min, dist, active=found)
     if compact == "morton":

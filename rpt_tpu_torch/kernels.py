@@ -14,6 +14,13 @@ thread of the kernel adds one to it when the kernel runs (`csrc/count.cuh`).
 So a launch recorded in a CUDA graph is counted each time the graph is
 replayed, by the device, and a launch made around the wrappers (a kernel
 compared with its plain version) passes no address and is not counted.
+
+The table holds lane counts as well as launch counts: a counted function
+that launches no kernel of its own adds a number of lanes to its slot with
+a torch op on the device (`add_count`), which a CUDA graph records like any
+other, so every replay counts and the host never waits. The integrator's
+`shadow_lanes` and `shadow_live_lanes` count the lanes handed to each
+any-hit query and the live ones among them, on the CPU too (in a CPU table).
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import torch
 from . import profiling
 
 __all__ = [
-    "build", "load_library", "sources", "NVCC_FLAGS", "counted", "launch_counter", "launch_counts",
+    "build", "load_library", "sources", "NVCC_FLAGS", "counted", "launch_counter", "add_count", "launch_counts",
     "reset_launch_counts",
 ]
 
@@ -93,8 +100,8 @@ _tables: dict = {}
 
 def counted(wrapper=None, *, slots: int = 1):
     """Register a kernel's wrapper, with `slots` launch counts of its own
-    (one per variant it launches, e.g. a mode). Use as `@counted` or
-    `@counted(slots=n)`."""
+    (one per variant it launches, e.g. a mode), or a function that counts
+    lanes (`add_count`). Use as `@counted` or `@counted(slots=n)`."""
     def register(fn):
         first = sum(n for _, n in _COUNTED.values())
         if first + slots > _TABLE_SLOTS:
@@ -105,21 +112,41 @@ def counted(wrapper=None, *, slots: int = 1):
     return register if wrapper is None else register(wrapper)
 
 
-def launch_counter(wrapper, device, slot: int = 0) -> ctypes.c_void_p:
-    """The device address of `wrapper`'s launch count `slot` on `device`,
-    for its kernel to add one to. A device's table is made at its first
-    launch, which must not be inside a CUDA graph capture (a capture's
-    warm-up launches first)."""
+def _table(device) -> torch.Tensor:
+    """The launch-count table of `device`, made at its first use, which must
+    not be inside a CUDA graph capture (a capture's warm-up comes first)."""
     device = torch.device(device)
     table = _tables.get(device)
     if table is None:
-        if torch.cuda.is_current_stream_capturing():
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
             raise RuntimeError("the launch-count table is made at a kernel's first launch, not inside a capture")
         table = _tables[device] = torch.zeros(_TABLE_SLOTS, dtype=torch.int64, device=device)
+    return table
+
+
+def _slot(wrapper, slot: int) -> int:
     first, n = _COUNTED[wrapper]
     if not 0 <= slot < n:
         raise ValueError(f"{wrapper.__name__} has {n} launch counts, not slot {slot}")
-    return ctypes.c_void_p(table.data_ptr() + table.element_size() * (first + slot))
+    return first + slot
+
+
+def launch_counter(wrapper, device, slot: int = 0) -> ctypes.c_void_p:
+    """The device address of `wrapper`'s launch count `slot` on `device`,
+    for its kernel to add one to."""
+    table = _table(device)
+    return ctypes.c_void_p(table.data_ptr() + table.element_size() * _slot(wrapper, slot))
+
+
+def add_count(wrapper, device, amount, slot: int = 0) -> None:
+    """Add `amount` (an int, or an int64 tensor of one element on `device`)
+    to `wrapper`'s count `slot` on `device`, as one op on the device."""
+    _table(device)[_slot(wrapper, slot)].add_(amount)
+
+
+def _wait(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def launch_counts(by_slot: bool = False) -> dict:
@@ -128,7 +155,7 @@ def launch_counts(by_slot: bool = False) -> dict:
     devices after waiting for them."""
     total = torch.zeros(_TABLE_SLOTS, dtype=torch.int64)
     for device, table in _tables.items():
-        torch.cuda.synchronize(device)
+        _wait(device)
         total += table.cpu()
     counts = {fn: total[first:first + n].tolist() for fn, (first, n) in _COUNTED.items()}
     return counts if by_slot else {fn: sum(c) for fn, c in counts.items()}
@@ -137,7 +164,7 @@ def launch_counts(by_slot: bool = False) -> dict:
 def reset_launch_counts() -> None:
     """Set every launch count to 0."""
     for device, table in _tables.items():
-        torch.cuda.synchronize(device)
+        _wait(device)
         table.zero_()
 
 

@@ -508,13 +508,17 @@ def _small_renderer(name, monkeypatch):
 def test_graphed_render_matches_eager(card, name, family, monkeypatch):
     """A render through the captured graph equals the same render run
     eagerly, and two chunks equal one call, bit for bit; `k` replays count
-    `k` times one eager pass's launches."""
+    `k` times one eager pass's launches (and shadow lanes; the live lanes
+    among them depend on each sample's paths)."""
+    from rpt_tpu_torch import integrator
+
     r = _small_renderer(name, monkeypatch)
     assert getattr(r.scene_data(), family) is not None
     graphed = r.render_buffer()
     before = kernels.launch_counts()
     eager = r._sample_into_eager(Buffer.new(r.width, r.height), 1)
-    per_pass = {fn: n - before[fn] for fn, n in kernels.launch_counts().items() if n != before[fn]}
+    per_pass = {fn: n - before[fn] for fn, n in kernels.launch_counts().items()
+                if n != before[fn] and fn is not integrator.shadow_live_lanes}
     eager = r._sample_into_eager(eager, 2, start_iter=1)
     assert torch.equal(graphed.sum, eager.sum) and torch.equal(graphed.sum_sq, eager.sum_sq)
     chunked = r.sample_into(r.sample_into(Buffer.new(r.width, r.height), 1), 2, start_iter=1)
@@ -523,7 +527,8 @@ def test_graphed_render_matches_eager(card, name, family, monkeypatch):
     before = kernels.launch_counts()
     r.sample_into(Buffer.new(r.width, r.height), 4)
     after = kernels.launch_counts()
-    assert {fn: after[fn] - n for fn, n in before.items() if after[fn] != n} == {fn: 4 * n for fn, n in per_pass.items()}
+    assert {fn: after[fn] - n for fn, n in before.items()
+            if after[fn] != n and fn is not integrator.shadow_live_lanes} == {fn: 4 * n for fn, n in per_pass.items()}
 
 
 @pytest.mark.cuda
@@ -553,6 +558,35 @@ def test_every_wavefront_order_renders_the_masked_render(card, name, monkeypatch
         assert torch.equal(renders[value].sum, renders["0"].sum)
         assert torch.equal(renders[value].sum_sq, renders["0"].sum_sq)
         assert counts[value] == counts["0"]
+
+
+@pytest.mark.cuda
+def test_replays_count_the_shadow_wavefront_s_lanes(card, monkeypatch):
+    """The shadow wavefront's lane counts are adds on the card, captured in
+    the sample's graph: n replays of one sample add n times what one eager
+    pass of it adds, every lane of every depth and the live ones among them,
+    through the bvh8 any-hit walk."""
+    from rpt_tpu_torch import integrator
+
+    monkeypatch.setattr(scene_mod, "WIDE_KERNEL_MIN_TRIS", 4096)
+    r = Renderer(scenes.build_wine_glass_trefoil_scene(scenes.trefoil_mesh(125, 20)), scenes.wine_glass_camera(),
+                 width=96, height=54, max_bounces=3, num_samples=1, seed=7)
+    assert r.scene_data().bvh8 is not None
+
+    def counts():
+        c = kernels.launch_counts()
+        return [c[integrator.shadow_lanes], c[integrator.shadow_live_lanes], c[bvh8.bvh8_occluded]]
+
+    r.render_buffer()  # captures the sample's graph
+    before = counts()
+    r._sample_into_eager(Buffer.new(r.width, r.height), 1)
+    one = [a - b for a, b in zip(counts(), before)]
+    assert one[0] == 96 * 54 * 4 and 0 < one[1] < one[0] and one[2] == 4
+    for n in (1, 3):
+        before = counts()
+        for _ in range(n):
+            r.sample_into(Buffer.new(r.width, r.height), 1)
+        assert [a - b for a, b in zip(counts(), before)] == [n * c for c in one]
 
 
 def test_launches_around_the_wrappers_are_not_counted(card):
