@@ -15,7 +15,7 @@ counters, wavefront occupancy, and spans of the entry's host work.
 - `span`, `rare_span`, `recording`, `spans`: the program's own record of
   where the host spends an entry call (`Renderer.render` /
   `iterative_render`): the scene's compile and digest, the replays, the
-  image's copy and tone map. A span is recorded inside `with recording():`
+  image's tone map and byte copy. A span is recorded inside `with recording():`
   or while any torch profiler runs; a rare span (a scene build, a graph
   capture, a kernel library load: once per scene, capture or library) is
   recorded always. `spans()` returns the last `RING` records, oldest first:

@@ -1226,3 +1226,37 @@ def test_the_device_idles_inside_the_entry_s_spans(card, tmp_path):
                                             torch.profiler.ProfilerActivity.CUDA]) as bare:
         r.render()
     assert bare.events() and not [e.name for e in bare.events() if e.name.startswith("rpt.")]
+
+
+def test_the_image_is_tone_mapped_on_the_card(card):
+    """`Buffer.image()` maps the mean on the card (`rpt.image.tonemap` says
+    `on="cuda"`) and copies one byte a channel (`rpt.image.to_host`): the
+    numpy map's bytes of the same mean, bit for bit. The float64 table on
+    the card gives the numpy map's bytes on the values at each side of every
+    threshold, the signed zeros, infinities and NaN."""
+    import time
+
+    from rpt_tpu_torch.color import byte_thresholds, color_bytes
+
+    scene = Scene()
+    scene.add(Object(sphere()).material(Material.diffuse((0.7, 0.6, 0.5))))
+    scene.environment.color[:] = (1.5, 1.0, 0.5)
+    cam = Camera.look_at([0.0, 0.0, 5.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], 0.8)
+    buf = Renderer(scene, cam, width=40, height=24, max_bounces=2, num_samples=2, seed=9).render_buffer()
+    t0 = time.perf_counter_ns()
+    with profiling.recording():
+        img = buf.image()
+    recorded = [s for s in profiling.spans() if s.start_ns >= t0]
+    assert img.dtype == np.uint8 and np.array_equal(img, color_bytes(buf.mean_image().cpu().numpy()))
+    (image,) = [s for s in recorded if s.name == "rpt.image"]
+    tonemap, to_host = sorted((s for s in recorded if s.parent == image.id), key=lambda s: s.start_ns)
+    assert (tonemap.name, to_host.name) == ("rpt.image.tonemap", "rpt.image.to_host")
+    assert tonemap.attrs == {"on": "cuda"} and to_host.attrs == {"bytes": 40 * 24 * 3}
+
+    t, _ = byte_thresholds(np.float64)
+    x = np.concatenate([np.nextafter(t, -np.inf), t, np.nextafter(t, np.inf),
+                        [0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, 5e-324], np.linspace(-0.5, 2.0, 100_001)])
+    with np.errstate(invalid="ignore"):
+        want64, want32 = color_bytes(x), color_bytes(x.astype(np.float32))
+    assert np.array_equal(color_bytes(torch.from_numpy(x).to(card)), want64)
+    assert np.array_equal(color_bytes(torch.from_numpy(x).to(card, torch.float32)), want32)

@@ -79,6 +79,16 @@ def _check_tree(recorded):
     return root, by_id
 
 
+def _check_image(recorded):
+    """`rpt.image`'s children: the tone map on the image's device (its
+    `on`), then the copy of its bytes to the host."""
+    (image,) = [s for s in recorded if s.name == "rpt.image"]
+    children = sorted((s for s in recorded if s.parent == image.id), key=lambda s: s.start_ns)
+    assert [s.name for s in children] == ["rpt.image.tonemap", "rpt.image.to_host"]
+    tonemap, to_host = children
+    assert tonemap.attrs["on"] == "cpu" and tonemap.end_ns <= to_host.start_ns
+
+
 def test_a_span_is_the_shared_no_op_while_nothing_records():
     assert profiling.span("rpt.render") is profiling.NO_SPAN
     assert profiling.span("rpt.image", bytes=3) is profiling.span("rpt.update") is profiling.NO_SPAN
@@ -93,7 +103,7 @@ def test_a_span_is_the_shared_no_op_while_nothing_records():
 @pytest.mark.parametrize("entry", sorted(ROOTS))
 def test_an_entry_call_records_its_tree(entry):
     """Off: nothing but rare spans. On: one call's tree (the compile and its
-    digest, the passes, the image's copy and tone map), `passes.run`'s `n`
+    digest, the passes, the image's tone map and copy), `passes.run`'s `n`
     adding up to the samples, the digest's `bytes` what the scene's arrays
     add up to and its `leaf_bytes` the mesh's and the map's, and the same
     image bit for bit."""
@@ -108,6 +118,7 @@ def test_an_entry_call_records_its_tree(entry):
         on = _run(r, entry)
     assert np.array_equal(on, off)
     recorded = _since(t0)
+    _check_image(recorded)
     if entry == "iterative_render":  # the user's image() is a call of its own, after the render's
         image = [s for s in recorded if s.name == "rpt.image"]
         assert len(image) == 1 and image[0].parent is None
