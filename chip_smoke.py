@@ -280,28 +280,28 @@ PARITY_MIN = 0.9999
 T_MIN_WALK = 1e-3  # the t_min of walk_cases_phase
 T_TOL = 2e-5
 
-# Per kernel: the scene module's wrapper that calls it, its source, the TPU
-# kernel it replaces, and the bytes per ray it must read and write.
+# Per kernel: its source, the TPU kernel it replaces, and the bytes per ray
+# it must read and write.
 KERNELS = {
-    "bvh8_closest": dict(wrapper="bvh8_closest_hit", source="rpt_tpu_torch/csrc/bvh8.cu",
+    "bvh8_closest": dict(source="rpt_tpu_torch/csrc/bvh8.cu",
                          replaces="rpt_tpu/ops/bvh8_pallas.py:368", in_bytes=24 + 1, out_bytes=8),
-    "bvh8_occluded": dict(wrapper="bvh8_occluded", source="rpt_tpu_torch/csrc/bvh8.cu",
+    "bvh8_occluded": dict(source="rpt_tpu_torch/csrc/bvh8.cu",
                           replaces="rpt_tpu/ops/bvh8_pallas.py:368", in_bytes=24 + 1 + 4, out_bytes=1),
-    "tlas8_closest": dict(wrapper="tlas8_closest_hit", source="rpt_tpu_torch/csrc/tlas8.cu",
+    "tlas8_closest": dict(source="rpt_tpu_torch/csrc/tlas8.cu",
                           replaces="rpt_tpu/ops/tlas8_pallas.py:330", in_bytes=24 + 1, out_bytes=12),
-    "tlas8_occluded": dict(wrapper="tlas8_occluded", source="rpt_tpu_torch/csrc/tlas8.cu",
+    "tlas8_occluded": dict(source="rpt_tpu_torch/csrc/tlas8.cu",
                            replaces="rpt_tpu/ops/tlas8_pallas.py:330", in_bytes=24 + 1 + 4, out_bytes=1),
-    "bvh2_closest": dict(wrapper="bvh2_closest_hit", source="rpt_tpu_torch/csrc/bvh2.cu",
+    "bvh2_closest": dict(source="rpt_tpu_torch/csrc/bvh2.cu",
                          replaces="rpt_tpu/ops/bvh_pallas.py:324", in_bytes=24 + 1, out_bytes=8),
-    "bvh2_occluded": dict(wrapper="bvh2_occluded", source="rpt_tpu_torch/csrc/bvh2.cu",
+    "bvh2_occluded": dict(source="rpt_tpu_torch/csrc/bvh2.cu",
                           replaces="rpt_tpu/ops/bvh_pallas.py:466", in_bytes=24 + 1 + 4, out_bytes=1),
-    "tlas2_closest": dict(wrapper="tlas2_closest_hit", source="rpt_tpu_torch/csrc/tlas2.cu",
+    "tlas2_closest": dict(source="rpt_tpu_torch/csrc/tlas2.cu",
                           replaces="rpt_tpu/ops/tlas_pallas.py:165", in_bytes=24 + 1, out_bytes=12),
-    "tlas2_occluded": dict(wrapper="tlas2_occluded", source="rpt_tpu_torch/csrc/tlas2.cu",
+    "tlas2_occluded": dict(source="rpt_tpu_torch/csrc/tlas2.cu",
                            replaces="rpt_tpu/ops/tlas_pallas.py:370", in_bytes=24 + 1 + 4, out_bytes=1),
 }
-# The float64 instantiation of each: the same wrapper, source and TPU
-# kernel; rays of 6 doubles in, a double t (and ids) out.
+# The float64 instantiation of each: the same source and TPU kernel; rays
+# of 6 doubles in, a double t (and ids) out.
 KERNELS_F64 = {
     f"{name}_f64": dict(spec, in_bytes=48 + 1 + (8 if name.endswith("occluded") else 0),
                         out_bytes=spec["out_bytes"] + (4 if name.endswith("closest") else 0))
@@ -383,7 +383,7 @@ WORKLOADS = {
 # procedural sky); each one's launches counted from 0, the traversal pack
 # the rule gave it (EXAMPLE_PACKS, else none), its kernels against their
 # plain versions on its camera wavefront at its own size
-# (`bench.kernel_gate`), and the card against the CPU at SMALL_W x SMALL_H
+# (`kernel_gate`), and the card against the CPU at SMALL_W x SMALL_H
 # with the example's own settings, at 0.99 of the pixels unless its
 # workload's `cpu_share` says otherwise (then `same_rays_phase` shows the
 # cause).
@@ -585,25 +585,29 @@ def time_graph_ms(fn, inputs, reps: int) -> float:
     return start.elapsed_time(end) / (reps * len(inputs))
 
 
-def record_wavefronts(scene_mod, names, render):
-    """Run `render()` and return the rays it handed the wrappers of the
-    kernels `names`: {name: [(o, d, t_min[, t_max], active), ...]}."""
+def record_wavefronts(names, render):
+    """Run `render()` and return the rays it handed the counted wrappers of
+    the kernels `names` (`<family>_closest`, `<family>_occluded`), as they
+    reach the dispatch of `ops/walk.py`: {name: [(o, d, t_min[, t_max],
+    active), ...]}."""
+    from rpt_tpu_torch.ops import walk
+
     rec = {name: [] for name in names}
-    orig = {name: getattr(scene_mod, KERNELS[name]["wrapper"]) for name in names}
+    closest_hit, occluded = walk.closest_hit, walk.occluded
 
-    def recorder(name):
-        def wrapped(tree, pack, o, d, t_min, *rest, active=None):
-            rec[name].append((o, d, t_min, *rest, active))
-            return orig[name](tree, pack, o, d, t_min, *rest, active=active)
-        return wrapped
+    def closest_rec(wrapper, geometry, pack, o, d, t_min, active=None):
+        rec.get(f"{pack.library}_closest", []).append((o, d, t_min, active))
+        return closest_hit(wrapper, geometry, pack, o, d, t_min, active)
 
-    for name in names:
-        setattr(scene_mod, KERNELS[name]["wrapper"], recorder(name))
+    def occluded_rec(wrapper, pack, o, d, t_min, t_max, active=None):
+        rec.get(f"{pack.library}_occluded", []).append((o, d, t_min, t_max, active))
+        return occluded(wrapper, pack, o, d, t_min, t_max, active)
+
+    walk.closest_hit, walk.occluded = closest_rec, occluded_rec
     try:
         render()
     finally:
-        for name in names:
-            setattr(scene_mod, KERNELS[name]["wrapper"], orig[name])
+        walk.closest_hit, walk.occluded = closest_hit, occluded
     return rec
 
 
@@ -788,7 +792,7 @@ def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, a
     be none. `run`: see `plain_pass`."""
     import torch
 
-    from rpt_tpu_torch.ops.bvh8 import finish_occluded
+    from rpt_tpu_torch.ops.walk import finish_occluded
 
     occ_k = kern(o, d, t_min, t_max, active)
     occ_p = plain_pass(plain, (o, d, t_min, t_max, active), run)
@@ -899,13 +903,11 @@ def _run_workload(workload: str, card: str):
 
     from rpt_tpu_torch import Renderer, integrator, kernels
     from rpt_tpu_torch import random as rnd
-    from rpt_tpu_torch.bench import scene_and_camera
-    from rpt_tpu_torch.ops import bvh2, bvh8, tlas2, tlas8
+    from rpt_tpu_torch.scenes import scene_and_camera
 
     spec_w = WORKLOADS[workload]
     bounces, spp, shadow, family = spec_w["bounces"], spec_w["spp"], spec_w["shadow"], spec_w["family"]
     dtype = getattr(torch, spec_w.get("dtype", "float32"))
-    modules = {"bvh8": bvh8, "tlas8": tlas8, "bvh2": bvh2, "tlas2": tlas2}
     counters = counted_wrappers()
     # The table's two lane counts (the shadow wavefront's) are no launches.
     lanes = {integrator.shadow_lanes, integrator.shadow_live_lanes}
@@ -935,11 +937,11 @@ def _run_workload(workload: str, card: str):
             cubes=0 if sd.cubes is None else sd.cubes.inv_tf.shape[0],
             monomials=0 if sd.monomials is None else sd.monomials.height.shape[0],
             triangles=0 if sd.triangles is None else sd.triangles.verts.shape[0],
-            packs=[f for f in modules if getattr(sd, f) is not None], lights=len(sd.lights),
+            packs=[pack.library for pack in sd.packs], lights=len(sd.lights),
             hdri="none" if sd.env_hdri is None else "x".join(map(str, sd.env_hdri.shape)),
             quad_mb="none" if sd.env_quad is None else f"{sd.env_quad.numel() * 4 / 1e6:.1f}",
             dtype=str(sd.dtype), seconds=f"{seconds:.2f}")
-        if any(getattr(sd, f) is not None for f in modules):
+        if sd.packs:
             fail(f"{workload} compiled with a traversal pack")
     else:
         err, rec, runs = kernel_phases(workload, family, sd, renderer, camera, seconds, card)
@@ -1109,7 +1111,6 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
     them: its counts and milliseconds, `plain_pass`)."""
     import torch
 
-    import rpt_tpu_torch.scene as scene_mod
     from rpt_tpu_torch import random as rnd
     from rpt_tpu_torch.renderer import camera_rays_tiled, pixel_ndc_tiled
     from rpt_tpu_torch.utils.vmath import real_value
@@ -1117,9 +1118,8 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
     closest, occluded = f"{family}_closest", f"{family}_occluded"
     bounces, shadow = WORKLOADS[workload]["bounces"], WORKLOADS[workload]["shadow"]
     mod = family_module(family)
-    kern = {closest: getattr(mod, f"{family}_closest_kernel"), occluded: getattr(mod, f"{family}_occluded_kernel")}
     plain = {closest: getattr(mod, f"{family}_closest_plain"), occluded: getattr(mod, f"{family}_occluded_plain")}
-    pack = getattr(sd, family)
+    pack = pack_of(sd, family)
     if pack is None:
         fail(f"{workload} compiled without a {family} pack")
     sizes = dict(nodes=pack.num_nodes, **{k: getattr(pack, k) for k in ("stack_need", "group_depth", "stack_depth",
@@ -1136,8 +1136,8 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
             unique_meshes=len(set(im.inst_root.tolist())), unique_tris=im.verts.shape[0],
             tlas_nodes=im.t_min.shape[0], blas_nodes=im.b_min.shape[0], tri_rows=pack.tris.shape[0], **sizes)
 
-    def bound(name, p=pack):
-        return lambda *a, **kw: kern[name](p, *a, **kw)
+    def bound(name):
+        return kernel_of(mod, name, pack)
 
     def bound_plain(name):
         return lambda *a, **kw: plain[name](pack, *a, **kw)
@@ -1151,7 +1151,7 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
     o, d, _ = camera_rays_tiled(camera.to(DEVICE), rnd.fold_in(rnd.PRNGKey(0, x64=x64), 0),
                                 pixel_ndc_tiled(renderer.width, renderer.height, DEVICE, sd.dtype))
     check_closest(closest, "camera", bound(closest), bound_plain(closest), mat_of, o, d, t_min, None)
-    rec = record_wavefronts(scene_mod, (closest, occluded), lambda: renderer._sample_into_eager(fresh(renderer), 1))
+    rec = record_wavefronts((closest, occluded), lambda: renderer._sample_into_eager(fresh(renderer), 1))
     n_closest, n_occluded = len(rec[closest]), len(rec[occluded])
     if n_closest != bounces + 1 or n_occluded != shadow * (bounces + 1):
         fail(f"a 1-spp {workload} render made {n_closest} closest-hit and {n_occluded} any-hit calls")
@@ -1165,7 +1165,7 @@ def kernel_phases(workload, family, sd, renderer, camera, seconds, card):
                                                           bound_plain(closest), *args, run=runs[occluded]))
     if shadow == 0:
         # No light casts a shadow ray, so the any hit is held (and timed)
-        # on the camera wavefront, at bench.kernel_gate's t_max: the plain
+        # on the camera wavefront, at kernel_gate's t_max: the plain
         # closest t (1e3 on a miss), halved on every other ray.
         t_p = plain[closest](pack, o, d, t_min, None)[0]
         t_max = torch.where(t_p < 1e38, t_p, torch.full_like(t_p, 1e3))
@@ -1185,6 +1185,26 @@ def family_module(family):
     from rpt_tpu_torch.ops import bvh2, bvh8, tlas2, tlas8
 
     return {"bvh8": bvh8, "tlas8": tlas8, "bvh2": bvh2, "tlas2": tlas2}[family]
+
+
+def pack_of(sd, family):
+    """The compiled scene's pack of `family`, or None."""
+    return next((pack for pack in sd.packs if pack.library == family), None)
+
+
+def kernel_of(mod, name, pack):
+    """The kernel `name` (`<family>_closest` or `_occluded`) over `pack`,
+    called with the rays as the wrappers take them, (o, d, t_min[, t_max],
+    active), in the tree whose `ops.<family>` is `mod`: its `walk.launch`,
+    or in a tree from before `ops/walk.py` its `<name>_kernel`. These
+    launches are comparisons: they pass no launch counter."""
+    old = getattr(mod, f"{name}_kernel", None)
+    if old is not None:
+        return lambda *a: old(pack, *a)
+    launch = importlib.import_module(f"{mod.__package__}.walk").launch
+    if name.endswith("_closest"):
+        return lambda o, d, t_min, active=None: launch(pack, o, d, t_min, active=active)
+    return lambda o, d, t_min, t_max, active=None: launch(pack, o, d, t_min, t_max, active)
 
 
 def material_of(family, sd, pack):
@@ -1208,16 +1228,16 @@ def timing_phase(workload, family, sd, rec, runs, err, launches, spp, card, scen
     import torch
 
     mod = family_module(family)
-    pack = getattr(sd, family)
+    pack = pack_of(sd, family)
     f64 = pack.tris.dtype == torch.float64
     rows = []
     for kind in ("closest", "occluded"):
         name = f"{family}_{kind}"
         spec = KERNELS_F64[f"{name}_f64"] if f64 else KERNELS[name]
         args = rec[name]
-        kern, plain = getattr(mod, f"{name}_kernel"), getattr(mod, f"{name}_plain")
-        ms = time_ms(lambda *a: kern(pack, *a), args, reps=10)
-        graph_ms = time_graph_ms(lambda *a: kern(pack, *a), args, reps=10)
+        kern, plain = kernel_of(mod, name, pack), getattr(mod, f"{name}_plain")
+        ms = time_ms(kern, args, reps=10)
+        graph_ms = time_graph_ms(kern, args, reps=10)
         # Phase b's pass of the plain version over these wavefronts, timed,
         # with its box and triangle tests counted.
         stats = runs[name]["stats"]
@@ -1241,13 +1261,13 @@ def timing_phase(workload, family, sd, rec, runs, err, launches, spp, card, scen
         rows[-1]["pack_mb"] = pack.nbytes / 2**20
         extra = {}
         if f64:
-            pack32 = getattr(scene.compile(torch.float32, device=DEVICE), family)
+            pack32 = pack_of(scene.compile(torch.float32, device=DEVICE), family)
             args32 = [tuple(a.float() if torch.is_tensor(a) and a.is_floating_point() else a for a in args_)
                       for args_ in args]
             turns = {"f32": [], "f64": []}
             for label in ("f32", "f64", "f64", "f32"):
                 p, a = (pack32, args32) if label == "f32" else (pack, args)
-                turns[label].append(time_graph_ms(lambda *x, p=p: kern(p, *x), a, reps=10))
+                turns[label].append(time_graph_ms(kernel_of(mod, name, p), a, reps=10))
             f32_ms, f64_ms = (sum(turns[k]) / 2 for k in ("f32", "f64"))
             stats32 = {}
             for a in args32:
@@ -1327,7 +1347,6 @@ def compact_phase(workload, family, renderer, card, counters) -> dict:
     {kernel: {masked/morton ms per launch}} for the `kernels` line."""
     import torch
 
-    import rpt_tpu_torch.scene as scene_mod
     from rpt_tpu_torch import integrator, kernels
     from rpt_tpu_torch import random as rnd
     from rpt_tpu_torch.integrator import COMPACT_MODES
@@ -1351,7 +1370,7 @@ def compact_phase(workload, family, renderer, card, counters) -> dict:
     try:
         # The masked render's depth >= 1 wavefronts, from an eager pass.
         use(False)
-        rec = record_wavefronts(scene_mod, (closest, occluded), lambda: renderer._sample_into_eager(fresh(renderer), 1))
+        rec = record_wavefronts((closest, occluded), lambda: renderer._sample_into_eager(fresh(renderer), 1))
         deep = {closest: rec[closest][1:], occluded: rec[occluded][shadow:]}
         c_args, s_args = deep[closest][0], deep[occluded][0]  # depth 1: (o, d, t_min[, t_max], active)
         nowalk = NoWalk(sd)
@@ -1421,29 +1440,26 @@ def compact_phase(workload, family, renderer, card, counters) -> dict:
 
         # The walks on the depth >= 1 rays, as they come and morton-sorted.
         mod = family_module(family)
-        pack = getattr(sd, family)
+        pack = pack_of(sd, family)
         lo, hi = integrator._scene_box(sd)
         by_kernel = {}
         for name, waves in deep.items():
-            kern = getattr(mod, f"{name}_kernel")
+            kern = kernel_of(mod, name, pack)
             sorted_waves = []
             for o, d, tm, *rest, active in waves:
                 perm, _ = integrator._morton_perm(o, d, active, lo, hi)
                 cols = integrator._gather_packed(perm, (o, d, *rest, active))
                 sorted_waves.append((cols[0], cols[1], tm, *cols[2:]))
-                out_m, out_s = kern(pack, o, d, tm, *rest, active), kern(pack, *sorted_waves[-1])
+                out_m, out_s = kern(o, d, tm, *rest, active), kern(*sorted_waves[-1])
                 out_m = out_m if isinstance(out_m, tuple) else (out_m,)
                 out_s = out_s if isinstance(out_s, tuple) else (out_s,)
                 if not all(torch.equal(x[perm], y) for x, y in zip(out_m, out_s)):
                     fail(f"{name} answers the morton-sorted {workload} rays otherwise than the same rays unsorted")
 
-            def launch(*a, kern=kern):
-                return kern(pack, *a)
-
             turns = [("masked", waves), ("morton", sorted_waves), ("morton", sorted_waves), ("masked", waves)]
             ms = {"masked": [], "morton": []}
             for label, args in turns:
-                ms[label].append(time_graph_ms(launch, args, reps=10))
+                ms[label].append(time_graph_ms(kern, args, reps=10))
             masked_ms, morton_ms = (sum(ms[k]) / 2 for k in ("masked", "morton"))
             share = sum(float(a[-1].float().mean()) for a in waves) / len(waves)
             say("compact", workload=workload, kernel=name, wavefronts=len(waves), active_share=f"{share:.4f}",
@@ -1913,7 +1929,7 @@ def walk_cases_phase(card: str) -> None:
     for dtype in (torch.float32, torch.float64):
         for family, name in cases:
             mod, pack, o, d = scene(family, name, dtype)
-            out_k = getattr(mod, f"{family}_closest_kernel")(pack, o, d, T_MIN_WALK)
+            out_k = kernel_of(mod, f"{family}_closest", pack)(o, d, T_MIN_WALK)
             out_p = getattr(mod, f"{family}_closest_plain")(pack, o, d, T_MIN_WALK)
             torch.cuda.synchronize()
             same = all(torch.equal(k, p) for k, p in zip(out_k, out_p))
@@ -1923,7 +1939,7 @@ def walk_cases_phase(card: str) -> None:
             ok = same and int(hit.sum()) > 100
             if name == "edge":
                 t_max = torch.where(hit, out_p[0], torch.full_like(out_p[0], 12.0))
-                occ_k = getattr(mod, f"{family}_occluded_kernel")(pack, o, d, T_MIN_WALK, t_max)
+                occ_k = kernel_of(mod, f"{family}_occluded", pack)(o, d, T_MIN_WALK, t_max)
                 occ_p = getattr(mod, f"{family}_occluded_plain")(pack, o, d, T_MIN_WALK, t_max)
                 torch.cuda.synchronize()
                 line.update(any_hit_bit_equal=bool(torch.equal(occ_k, occ_p)),
@@ -2054,16 +2070,16 @@ def binary_vs_wide(family, sd, pack2, rec, mat_of, card):
     pack8 = bvh8.pack_bvh8(sd.bvh, device=DEVICE) if wide == "bvh8" else tlas8.pack_tlas8(sd.instanced, device=DEVICE)
     cs = []
     for j, args in enumerate(rec[f"{family}_closest"]):
-        cs.append(compare_hits(getattr(mod2, f"{family}_closest_kernel")(pack2, *args),
-                               getattr(mod8, f"{wide}_closest_kernel")(pack8, *args), mat_of))
+        cs.append(compare_hits(kernel_of(mod2, f"{family}_closest", pack2)(*args),
+                               kernel_of(mod8, f"{wide}_closest", pack8)(*args), mat_of))
         say("parity", kernel=f"{family}_closest vs {wide}_closest", rays=f"depth{j}", n=args[0].shape[0], **cs[-1])
     total = summed(cs)
     say("binary_vs_wide", family=family, kind="closest", rays="all depths", **total)
     if not within_bars(total, 0.0 if family == "bvh2" else 1e-4):
         fail("the binary and wide closest-hit kernels disagree")
     for j, args in enumerate(rec[f"{family}_occluded"]):
-        occ2 = getattr(mod2, f"{family}_occluded_kernel")(pack2, *args)
-        occ8 = getattr(mod8, f"{wide}_occluded_kernel")(pack8, *args)
+        occ2 = kernel_of(mod2, f"{family}_occluded", pack2)(*args)
+        occ8 = kernel_of(mod8, f"{wide}_occluded", pack8)(*args)
         agree = (occ2 == occ8).float().mean().item()
         say("parity", kernel=f"{family}_occluded vs {wide}_occluded", rays=f"shadow{j}", n=args[0].shape[0],
             agree=f"{agree:.7f}")
@@ -2071,13 +2087,13 @@ def binary_vs_wide(family, sd, pack2, rec, mat_of, card):
             fail(f"the binary and wide any-hit kernels disagree on shadow{j}")
     for kind in ("closest", "occluded"):
         args = rec[f"{family}_{kind}"]
-        k2, k8 = getattr(mod2, f"{family}_{kind}_kernel"), getattr(mod8, f"{wide}_{kind}_kernel")
+        k2, k8 = kernel_of(mod2, f"{family}_{kind}", pack2), kernel_of(mod8, f"{wide}_{kind}", pack8)
         p2, p8 = getattr(mod2, f"{family}_{kind}_plain"), getattr(mod8, f"{wide}_{kind}_plain")
         # In turns on one card: binary, wide, wide, binary.
-        ms2 = time_ms(lambda *a: k2(pack2, *a), args, reps=5)
-        ms8 = time_ms(lambda *a: k8(pack8, *a), args, reps=5)
-        ms8 = 0.5 * (ms8 + time_ms(lambda *a: k8(pack8, *a), args, reps=5, warmup=False))
-        ms2 = 0.5 * (ms2 + time_ms(lambda *a: k2(pack2, *a), args, reps=5, warmup=False))
+        ms2 = time_ms(k2, args, reps=5)
+        ms8 = time_ms(k8, args, reps=5)
+        ms8 = 0.5 * (ms8 + time_ms(k8, args, reps=5, warmup=False))
+        ms2 = 0.5 * (ms2 + time_ms(k2, args, reps=5, warmup=False))
         s2, s8 = {}, {}
         for a in args:
             p2(pack2, *a, stats=s2)
@@ -2155,25 +2171,42 @@ def compare_trees() -> list:
     return [item.split("=", 1) for item in os.environ.get("RPT_COMPARE", "").split(",") if item]
 
 
+def occupancy_query(mod, family):
+    """The occupancy query of `family`'s kernels, (depth, occluded, dtype)
+    -> dict, in the tree whose `ops.<family>` is `mod`: `walk.occupancy` of
+    its pack type, or in a tree from before `ops/walk.py` its
+    `<family>_occupancy`; None in a tree without either."""
+    old = getattr(mod, f"{family}_occupancy", None)
+    if old is not None:
+        return old
+    try:
+        walk = importlib.import_module(f"{mod.__package__}.walk")
+    except ModuleNotFoundError:
+        return None
+    layout = getattr(mod, f"{family.capitalize()}Pack")
+    return lambda depth, occluded, dtype: walk.occupancy(layout, depth, occluded, dtype)
+
+
 def occupancy_phase(workload: str, family: str, depth: int, card: str) -> None:
     """`[occupancy]`: each of the four kernels of `family` (bvh8, tlas8 or
-    tlas2) at the launch the wrappers make for a pack of stack depth `depth`
-    (`ops/bvh8.bvh8_occupancy`, `ops/tlas8.tlas8_occupancy`,
-    `ops/tlas2.tlas2_occupancy`), of this tree and of each tree named in
+    tlas2) at the launch `ops/walk.launch` makes for a pack of stack depth
+    `depth` (`occupancy_query`), of this tree and of each tree named in
     RPT_COMPARE (a tree without the query by its ptxas log and the rule)."""
     import torch
+
+    from rpt_tpu_torch.ops import walk
 
     mods = {"this": family_module(family)}
     for label, root in compare_trees():
         mods[label] = importlib.import_module(f"{load_tree(label, root)}.ops.{family}")
     for label, mod in mods.items():
-        query = getattr(mod, f"{family}_occupancy", None)
+        query = occupancy_query(mod, family)
         if query is None:
             # A tree without the query (the parent of the bvh2 one): its
             # ptxas registers and spill, blocks and warps by the rule, for
             # the kernels of the wrappers' launch.
             if family in ("bvh2", "tlas2"):
-                block, smem, on_global = family_module("bvh2").launch_plan(depth)
+                block, smem, on_global = walk.launch_plan(depth)
             else:
                 block, smem, on_global = 128, 128 * depth * 4, False
             for entry, (regs, spill) in ptxas_kernels(TREE_BUILDS.get(label, {}).get(family, {}).get("log", "")).items():
@@ -2234,8 +2267,7 @@ def before_after(family, mod, tree, pack, rec, mat_of, card):
             **{k: getattr(p, k) for k in ("group_depth", "stack_depth", "stack_need") if hasattr(p, k)})
 
     def kernel(label, kind):
-        fn, p = getattr(mods[label], f"{family}_{kind}_kernel"), packs[label]
-        return lambda *a: fn(p, *a)
+        return kernel_of(mods[label], f"{family}_{kind}", packs[label])
 
     for kind in ("closest", "occluded"):
         args = rec[f"{family}_{kind}"]
@@ -2293,8 +2325,8 @@ def dtype_phase(card: str) -> None:
     import torch
 
     from rpt_tpu_torch import Renderer
-    from rpt_tpu_torch.bench import scene_and_camera
     from rpt_tpu_torch.renderer import make_render_many_fn
+    from rpt_tpu_torch.scenes import scene_and_camera
 
     scene, camera, eps = scene_and_camera("cornell")
     w, h, bounces = 320, 180, 2
@@ -2319,19 +2351,19 @@ def dtype_phase(card: str) -> None:
 
 
 @contextlib.contextmanager
-def plain_walks(family: str):
-    """The family's wrappers launch nothing and run its plain walks on the
+def plain_walks():
+    """The walks' wrappers launch nothing and run their plain walks on the
     card instead (the yardstick of a gradient through the kernels)."""
-    mod = family_module(family)
-    names = (f"{family}_closest_kernel", f"{family}_occluded_kernel")
-    saved = {n: getattr(mod, n) for n in names}
-    for n in names:
-        setattr(mod, n, lambda *a, launches=None, _plain=getattr(mod, n.replace("_kernel", "_plain")): _plain(*a))
+    from rpt_tpu_torch.ops import walk
+
+    def plain(pack, o, d, t_min, t_max=None, active=None, launches=None):
+        return pack.plain(o, d, t_min, t_max, active)
+
+    saved, walk.launch = walk.launch, plain
     try:
         yield
     finally:
-        for n, f in saved.items():
-            setattr(mod, n, f)
+        walk.launch = saved
 
 
 @contextlib.contextmanager
@@ -2399,8 +2431,8 @@ def grad_workload(name: str, card: str, counters: dict) -> dict:
     import torch
 
     from rpt_tpu_torch import kernels
-    from rpt_tpu_torch.bench import scene_and_camera
     from rpt_tpu_torch.grad import make_diff_render
+    from rpt_tpu_torch.scenes import scene_and_camera
 
     spec = GRAD_WORKLOADS[name]
     family, bounces, spp, shadow = spec["family"], spec["bounces"], spec["spp"], spec["shadow"]
@@ -2408,7 +2440,7 @@ def grad_workload(name: str, card: str, counters: dict) -> dict:
     fn, mats0 = make_diff_render(scene, camera, WIDTH, HEIGHT, max_bounces=bounces, spp=spp, epsilon=eps,
                                  device=DEVICE)
     fn1, _ = make_diff_render(scene, camera, WIDTH, HEIGHT, max_bounces=bounces, spp=1, epsilon=eps, device=DEVICE)
-    if getattr(scene.compile(device=DEVICE), family) is None:
+    if pack_of(scene.compile(device=DEVICE), family) is None:
         fail(f"[grad] {name} compiled without a {family} pack")
     grad_step(fn, mats0)  # warm-up
     fwd_off = []
@@ -2450,7 +2482,7 @@ def grad_workload(name: str, card: str, counters: dict) -> dict:
     with deterministic():
         _, g_kern, _, _ = grad_step(fn, mats0)
         _, g_again, _, _ = grad_step(fn, mats0)
-        with plain_walks(family):
+        with plain_walks():
             _, g_plain, _, _ = grad_step(fn, mats0)
     err, bit, finite = grad_error(g_kern, g_plain)
     again_bit = grad_error(g_again, g_kern)[1]
@@ -2508,9 +2540,8 @@ def grad_small_phase(card: str) -> None:
 
     import rpt_tpu_torch.scene as scene_mod
     from rpt_tpu_torch import random as rnd
-    from rpt_tpu_torch.bench import scene_and_camera
     from rpt_tpu_torch.grad import make_diff_render, render_with_camera
-    from rpt_tpu_torch.scenes import build_dragon_scene, dragon_camera
+    from rpt_tpu_torch.scenes import build_dragon_scene, dragon_camera, scene_and_camera
 
     saved = scene_mod.WIDE_KERNEL_MIN_TRIS
     scene_mod.WIDE_KERNEL_MIN_TRIS = 4096
@@ -2519,7 +2550,7 @@ def grad_small_phase(card: str) -> None:
         grads = {}
         for dev in ("cpu", DEVICE):
             fn, mats0 = make_diff_render(scene, camera, SMALL_W, SMALL_H, max_bounces=2, spp=2, device=dev)
-            if scene.compile(device=dev).bvh8 is None:
+            if pack_of(scene.compile(device=dev), "bvh8") is None:
                 fail("[grad] the small trefoil compiled without a bvh8 pack")
             grads[dev] = grad_step(fn, mats0)[1]
         err, _, finite = grad_error(grads[DEVICE], grads["cpu"])
@@ -2578,9 +2609,8 @@ def grad_family(name: str, card: str, counters: dict) -> dict:
     import torch
 
     from rpt_tpu_torch import kernels
-    from rpt_tpu_torch.bench import scene_and_camera
     from rpt_tpu_torch.grad import make_diff_render
-    from rpt_tpu_torch.scenes import build_brick_city, build_dragon_scene, dragon_camera, lego_camera
+    from rpt_tpu_torch.scenes import build_brick_city, build_dragon_scene, dragon_camera, lego_camera, scene_and_camera
 
     spec = GRAD_FAMILIES[name]
     family, bounces, shadow = spec["family"], GRAD_FAMILY_BOUNCES, spec["shadow"]
@@ -2590,7 +2620,7 @@ def grad_family(name: str, card: str, counters: dict) -> dict:
     t0 = time.perf_counter()
     with kernel_choice(spec["bvh_kernel"]):
         scene, camera, eps = scene_and_camera(spec["scene"])
-        if getattr(scene.compile(dtype, device=DEVICE), family) is None:
+        if pack_of(scene.compile(dtype, device=DEVICE), family) is None:
             fail(f"[grad] {name} compiled without a {family} pack")
         fn, mats0 = make_diff_render(scene, camera, w, h, max_bounces=bounces, spp=1, epsilon=eps, device=DEVICE,
                                      dtype=dtype)
@@ -2599,7 +2629,7 @@ def grad_family(name: str, card: str, counters: dict) -> dict:
             img, g_kern, _, _ = grad_step(fn, mats0)
             launches = named_counts(counters)
             by_slot = kernels.launch_counts(by_slot=True)
-            with plain_walks(family):
+            with plain_walks():
                 _, g_plain, _, _ = grad_step(fn, mats0)
     err, bit, finite = grad_error(g_kern, g_plain)
     want = {n: 0 for n in counters if not n.startswith("threefry")}
@@ -2622,7 +2652,7 @@ def grad_family(name: str, card: str, counters: dict) -> dict:
         else:
             s_scene, s_camera = build_brick_city(n_instances=96), lego_camera()
         for dev in ("cpu", DEVICE):
-            if getattr(s_scene.compile(dtype, device=dev), family) is None:
+            if pack_of(s_scene.compile(dtype, device=dev), family) is None:
                 fail(f"[grad] {name}'s small scene compiled without a {family} pack")
             fn_s, m_s = make_diff_render(s_scene, s_camera, *GRAD_FAMILY_SMALL, max_bounces=bounces, spp=1,
                                          device=dev, dtype=dtype)
@@ -2844,7 +2874,7 @@ def _dynamic_cell(cell: str, card: str, counters: dict) -> dict:
 
     splits = {"dynamic": [], "static": []}
     total, passes = {n: 0 for n in counters}, 0
-    if spec["family"] and getattr(scene_of(0).compile(dtype, device=DEVICE), spec["family"]) is None:
+    if spec["family"] and pack_of(scene_of(0).compile(dtype, device=DEVICE), spec["family"]) is None:
         fail(f"[dynamic] {cell} compiled without a {spec['family']} pack")
     for i in range(frames):
         ways = ("dynamic", "static") if i % 2 == 0 else ("static", "dynamic")
@@ -2953,13 +2983,51 @@ def png_size(path: str) -> tuple:
     return height, width
 
 
+def kernel_gate(renderer, label: str) -> str:
+    """Every kernel of a renderer's path against its plain version on the
+    camera wavefront of sample 0, bit for bit: the threefry draw of the
+    pixel jitter, and the closest and any hit of each of the scene's packs
+    (the any hit at t_max the plain closest t, 1e3 on a miss, halved on
+    every other ray). Fails the run on a difference; returns what it
+    checked."""
+    import numpy as np
+    import torch
+
+    from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.ops import walk
+    from rpt_tpu_torch.renderer import camera_rays_tiled, pixel_ndc_tiled
+
+    sd, t_min, _ = renderer._pass_args()
+    ndc = pixel_ndc_tiled(renderer.width, renderer.height, sd.device)
+    key = rnd.split(rnd.fold_in(rnd.PRNGKey(renderer.seed), 0), 3)[0]
+    n = 2 * ndc[0].shape[0]
+    dim = ndc[2]
+    kw = dict(lo=float(np.float32(-1.0 / dim)), span=float(np.float32(1.0 / dim) - np.float32(-1.0 / dim)))
+    if not torch.equal(rnd.threefry_kernel(rnd.UNIFORM, key, n, sd.device, **kw),
+                       rnd.threefry_plain(rnd.UNIFORM, key, n, sd.device, **kw)):
+        fail(f"{label}: the threefry kernel differs from its plain version")
+    checked = ["threefry"]
+    o, d, _ = camera_rays_tiled(renderer.camera.to(sd.device), rnd.fold_in(rnd.PRNGKey(renderer.seed), 0), ndc)
+    for pack in sd.packs:
+        out_k, out_p = walk.launch(pack, o, d, t_min), pack.plain(o, d, t_min)
+        if not all(torch.equal(a, b) for a, b in zip(out_k, out_p)):
+            fail(f"{label}: the {pack.library} closest-hit kernel differs from its plain walk")
+        t_p = out_p[0]
+        t_max = torch.where(t_p < 1e38, t_p, torch.full_like(t_p, 1e3))
+        t_max[1::2] *= 0.5
+        if not torch.equal(walk.launch(pack, o, d, t_min, t_max), pack.plain(o, d, t_min, t_max)):
+            fail(f"{label}: the {pack.library} any-hit kernel differs from its plain walk")
+        checked += [f"{pack.library}_closest", f"{pack.library}_occluded"]
+    return "bit_equal: " + ",".join(checked)
+
+
 def example_run(name: str, flags: list, workdir: str, card: str, counters: dict) -> dict:
     """One example module through its `main` on the card (`[examples]`);
     returns {kernel name: launches} of the run."""
     import numpy as np
     import torch
 
-    from rpt_tpu_torch import Renderer, bench, kernels
+    from rpt_tpu_torch import Renderer, kernels
     from rpt_tpu_torch import renderer as renderer_mod
     from rpt_tpu_torch.lights import AmbientLightData
     from rpt_tpu_torch.renderer import SceneCache
@@ -2995,7 +3063,7 @@ def example_run(name: str, flags: list, workdir: str, card: str, counters: dict)
         out = os.path.join(out, f"image_{len(made) - 1}.png")
     png = png_size(out)
     sd = r.scene_data()
-    packs = [f for f in ("bvh8", "tlas8", "bvh2", "tlas2") if getattr(sd, f) is not None]
+    packs = [pack.library for pack in sd.packs]
     shadow = sum(not isinstance(light, AmbientLightData) for light in sd.lights)
     frames = len(made)
     rays = (r.max_bounces + 1) * (1 + shadow) * r.width * r.height * r.num_samples * frames
@@ -3004,10 +3072,7 @@ def example_run(name: str, flags: list, workdir: str, card: str, counters: dict)
     r.render()
     warm = time.perf_counter() - t1
     # Its kernels against their plain versions at its own size.
-    try:
-        gate = bench.kernel_gate(r)
-    except bench.GateFailed as e:
-        fail(f"{name}: {e}")
+    gate = kernel_gate(r, name)
 
     # The card against the CPU, the example's own settings at a small size.
     small = {}
@@ -3078,7 +3143,7 @@ def sharded_renderer(spp: int, size=None, device=None):
     """The `[sharded]` workload's renderer (`dragon`, 2 bounces), at the
     main path's size and on the card unless told otherwise."""
     from rpt_tpu_torch import Renderer
-    from rpt_tpu_torch.bench import scene_and_camera
+    from rpt_tpu_torch.scenes import scene_and_camera
 
     scene, camera, eps = scene_and_camera(SHARDED["workload"])
     (w, h) = size or (WIDTH, HEIGHT)
@@ -3091,21 +3156,19 @@ def shard_parity(sd, camera, key, t_min, ev, counts) -> None:
     of each of `counts` shards on the card, against the plain walk, bit for
     bit (`check_closest`, `check_occluded`): the shards' own lengths, pad
     rays included, which end in a partial block."""
-    import rpt_tpu_torch.scene as scene_mod
     from rpt_tpu_torch.integrator import _auto_compact
     from rpt_tpu_torch.parallel import sharding
 
     family, bounces, shadow = SHARDED["family"], SHARDED["bounces"], SHARDED["shadow"]
     closest, occluded = f"{family}_closest", f"{family}_occluded"
-    mod, pack = family_module(family), getattr(sd, family)
+    mod, pack = family_module(family), pack_of(sd, family)
     mat_of = material_of(family, sd, pack)
-    kern = {name: (lambda *a, f=getattr(mod, f"{name}_kernel"): f(pack, *a)) for name in (closest, occluded)}
+    kern = {name: kernel_of(mod, name, pack) for name in (closest, occluded)}
     plain = {name: (lambda *a, f=getattr(mod, f"{name}_plain"): f(pack, *a)) for name in (closest, occluded)}
     for n in counts:
         mesh = sharding.RayMesh(devices=(DEVICE,) * n, local=(n - 1,))
         passes = sharding._ShardedPasses(sd, WIDTH, HEIGHT, bounces, mesh, _auto_compact(sd), eager=True)
-        rec = record_wavefronts(scene_mod, (closest, occluded),
-                                lambda: passes.local_sums(camera, key, 0, 1, t_min, ev))
+        rec = record_wavefronts((closest, occluded), lambda: passes.local_sums(camera, key, 0, 1, t_min, ev))
         m = passes.shards[0].inputs.ss.shape[0]
         if len(rec[closest]) != bounces + 1 or len(rec[occluded]) != shadow * (bounces + 1) or \
                 any(args[0].shape[0] != m for v in rec.values() for args in v):
@@ -3137,7 +3200,7 @@ def sharded_phase(card: str) -> dict:
     bounces, spp, shadow, family = SHARDED["bounces"], SHARDED["spp"], SHARDED["shadow"], SHARDED["family"]
     r = sharded_renderer(spp)
     sd, t_min, ev = r._pass_args()
-    if getattr(sd, family) is None:
+    if pack_of(sd, family) is None:
         fail(f"[sharded] {SHARDED['workload']} compiled without a {family} pack")
     base = r.base_key()
     meshes = {n: make_ray_mesh(n, device=DEVICE) for n in SHARDED_MESHES}
@@ -3541,7 +3604,7 @@ def sharded_grad_phase(card: str) -> tuple:
         small = {}
         for dev in ("cpu", DEVICE):
             sd_small = scene.compile(device=dev)
-            if sd_small.bvh8 is None:
+            if pack_of(sd_small, "bvh8") is None:
                 fail("[sharded_grad] the small trefoil compiled without a bvh8 pack")
             fn_small = make_sharded_diff_fn(sd_small, SMALL_W, SMALL_H, bounces, make_ray_mesh(n, device=dev))
             leaves = {f.name: getattr(sd_small.materials, f.name).detach().clone().requires_grad_(f.name in GRAD_FIELDS)
@@ -3643,7 +3706,7 @@ def multicard_phase(card: str) -> None:
 
     from rpt_tpu_torch import kernels
     from rpt_tpu_torch import random as rnd
-    from rpt_tpu_torch.ops import bvh8
+    from rpt_tpu_torch.ops import bvh8, walk
     from rpt_tpu_torch.parallel import make_ray_mesh, make_sharded_diff_fn, render_distributed, sharding
     from rpt_tpu_torch.renderer import camera_rays_tiled, pixel_ndc_tiled
 
@@ -3685,10 +3748,10 @@ def multicard_phase(card: str) -> None:
     for i in range(n):
         dev = torch.device("cuda", i)
         with torch.cuda.device(dev):
-            pack = dataclasses.replace(sharding._scene_on(sd, dev).bvh8, group_depth=100)
+            pack = dataclasses.replace(pack_of(sharding._scene_on(sd, dev), "bvh8"), group_depth=100)
             o, d, _ = camera_rays_tiled(r.camera.to(dev), rnd.PRNGKey(i),
                                         pixel_ndc_tiled(SMALL_W - 1, SMALL_H - 1, dev))
-            t_k, id_k = bvh8.bvh8_closest_kernel(pack, o, d, t_min)
+            t_k, id_k = walk.launch(pack, o, d, t_min)
             t_p, id_p = bvh8.bvh8_closest_plain(pack, o, d, t_min)
             deep.append(bool(torch.equal(t_k, t_p) and torch.equal(id_k, id_p)))
     say("multicard", deep_group_stack_bytes=100 * 4 * 128, rays=(SMALL_W - 1) * (SMALL_H - 1),

@@ -80,14 +80,14 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
         spec = dict(spec)
         lights.append(_LIGHTS[spec.pop("type")](**_tensors(spec, device, dtype, ints=())))
 
-    bvh = bvh8 = bvh2 = None
+    bvh = mesh_pack = None
     if tree.get("bvh") is not None:
         bvh = bvh_from_arrays(tree["bvh"], device, dtype)
-        bvh8, bvh2 = choose_bvh_pack(bvh, device=device)
-    instanced = tlas8 = tlas2 = None
+        mesh_pack = choose_bvh_pack(bvh, device=device)
+    instanced = instance_pack = None
     if tree.get("instanced") is not None:
         instanced = instanced_from_arrays(tree["instanced"], device, dtype)
-        tlas8, tlas2 = choose_instanced_pack(instanced, device=device)
+        instance_pack = choose_instanced_pack(instanced, device=device)
     hdri, quad = env.get("hdri"), env.get("hdri_quad")
     environment = Environment(color=np.asarray(env["color"], np.float32).reshape(3),
                               hdri=None if hdri is None else np.asarray(hdri, np.float32),
@@ -101,11 +101,9 @@ def scene_data_from_arrays(tree: dict, device=None) -> SceneData:
         monomials=group(MonomialArrays, "monomials"),
         triangles=group(TriangleArrays, "triangles"),
         bvh=bvh,
-        bvh8=bvh8,
-        bvh2=bvh2,
+        mesh_pack=mesh_pack,
         instanced=instanced,
-        tlas8=tlas8,
-        tlas2=tlas2,
+        instance_pack=instance_pack,
         lights=tuple(lights),
         environment=environment,
         env_color=env_color,

@@ -25,8 +25,9 @@ octant and a Morton cell of the origin (`"morton"`), dead lanes last. The
 results are permuted back, and RNG draws and shading stay in the original
 lane order. A permutation cannot change any lane's hit, so every mode renders
 the masked render bit for bit; the choice is about speed only. `_auto_compact`
-picks the reference's default: morton wherever a wide kernel walks (a `bvh8`
-or `tlas8` pack), masking elsewhere, `RPT_COMPACT=0|1|octant|morton` for A/B.
+picks the reference's default: morton wherever a wide kernel walks (a pack
+whose type is `wide`), masking elsewhere, `RPT_COMPACT=0|1|octant|morton`
+for A/B.
 
 Every step of a sort keeps its sizes fixed and reads nothing back to the
 host (the live count stays a tensor), so a sorted pass is captured in a CUDA
@@ -183,15 +184,15 @@ def stop_gradient(x: torch.Tensor) -> torch.Tensor:
 def _auto_compact(scene):
     """The wavefront order of a compiled scene, as the reference chooses it:
     `RPT_COMPACT` when set and not empty (`0`, `1`, `octant`, `morton`),
-    else "morton" where a wide kernel walks (a `bvh8` or `tlas8` pack) and
-    masking (False) elsewhere. The reference reads its `bvh8_packed` and
+    else "morton" where a wide kernel walks (a pack whose type is `wide`)
+    and masking (False) elsewhere. The reference reads its `bvh8_packed` and
     `instanced8_packed`, so under RPT_BVH_KERNEL=binary it still sorts an
     instanced scene (it keeps the wide two-level pack); the port compiles
     no wide pack then and masks."""
     mode = os.environ.get("RPT_COMPACT")
     if mode is not None and mode != "":
         return mode if mode in ("octant", "morton") else bool(int(mode))
-    if scene.bvh8 is not None or scene.tlas8 is not None:
+    if any(pack.wide for pack in scene.packs):
         return "morton"
     return False
 

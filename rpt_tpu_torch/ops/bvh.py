@@ -24,8 +24,8 @@ from ..native import build_bvh_sah
 from ..utils.vmath import cross, dot, normalize, numpy_real, signed_full
 from .intersect import INF, Hit
 
-__all__ = ["BvhData", "build_bvh", "bvh_closest_hit", "finalize_hit", "refuse_ray_grad", "outward", "widen",
-           "LEAF_SIZE"]
+__all__ = ["BvhData", "build_bvh", "bvh_closest_hit", "finalize_hit", "finish_closest", "refuse_ray_grad", "outward",
+           "widen", "LEAF_SIZE"]
 
 LEAF_SIZE = 8
 
@@ -181,6 +181,17 @@ def finalize_hit(bvh: BvhData, o, d, t_min, t_best, best_tri) -> Hit:
     )
 
 
+def finish_closest(bvh: BvhData, o, d, t_min, t_raw, tri, active) -> Hit:
+    """The Hit of a one-level walk's (t_raw, triangle id): t = inf on a miss
+    and on an inactive lane, the id clamped into the triangle table, then
+    `finalize_hit` for the smooth normal and the material."""
+    t_best = torch.where(t_raw >= 1.0e38, torch.full_like(t_raw, INF), t_raw)
+    if active is not None:
+        t_best = torch.where(active, t_best, torch.full_like(t_best, INF))
+    tri = torch.clamp(tri, 0, bvh.num_tris - 1)
+    return finalize_hit(bvh, o, d, t_min, t_best, tri)
+
+
 def bvh_closest_hit(bvh: BvhData, o, d, t_min, active=None) -> Hit:
     """Closest hit of N rays against the BVH's triangles, as the reference's
     XLA loop (`rpt_tpu/ops/bvh.py` `bvh_closest_hit`) answers it: the
@@ -190,7 +201,7 @@ def bvh_closest_hit(bvh: BvhData, o, d, t_min, active=None) -> Hit:
     made for the call; a scene compiles its pack once and calls the
     kernels' wrappers instead."""
     from .bvh2 import bvh2_closest_plain, pack_bvh2
-    from .bvh8 import check_dtype, finish_closest
+    from .walk import check_dtype
 
     pack = pack_bvh2(bvh, device=o.device)
     check_dtype(pack, o, d)

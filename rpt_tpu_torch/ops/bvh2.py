@@ -7,9 +7,9 @@ Replaces the two TPU kernels of `rpt_tpu/ops/bvh_pallas.py`: `_kernel`
 (shadow any-hit, reached through `bvh_occluded_pallas`). The kernels are in
 `rpt_tpu_torch/csrc/bvh2.cu`, the walk in `csrc/pair_walk.cuh` (one-level
 here, two-level in `csrc/tlas2.cu`); this module holds the host pack, the
-plain torch version of the walk for both levels (`_pair_walk`), the launch
-plan and the wrappers that choose between kernel and plain walk by the
-device of the rays.
+plain torch version of the walk for both levels (`_pair_walk`) and the two
+counted wrappers, whose launch and choice between kernel and plain walk by
+the device of the rays are `ops/walk.py`'s.
 
 The scene compiler takes these kernels for a baked mesh of fewer than
 `WIDE_KERNEL_MIN_TRIS` rows, for every mesh under `RPT_BVH_KERNEL=binary`,
@@ -31,7 +31,7 @@ internal node, holding both children's boxes and references.
   children's lie inside it); a tree that is one leaf is wrapped in a pair
   node with that one child and an empty slot.
 - `tris` (T, 20) f32: the 20-float triangle rows of the wide kernels
-  (`ops/bvh8._tri_rows`), leaf-contiguous and 8-aligned, so a hit's id
+  (`walk._tri_rows`), leaf-contiguous and 8-aligned, so a hit's id
   `leaf_start + k` indexes `BvhData.verts` and `finalize_hit` agrees.
 
 A float64 pack (of a float64 `BvhData`) keeps `tris` in float64 and the
@@ -44,7 +44,7 @@ takes (`_slab_f32`, csrc/walk.cuh `box_entry_f`).
 Walk. One ray per thread (per lane of the plain version). Visiting a pair
 node slab-tests both children against [t_min, upper] (upper = the running
 best hit, or t_max for the any hit; inclusive, as in the reference; widened
-by 8 ulps, `bvh8.box_upper`), tests
+by 8 ulps, `walk.box_upper`), tests
 a hit triangle leaf at once (A, then B), and goes on: of two hit node
 children, into the nearer for the closest hit (by entry distance, A on a
 tie) and into A for the any hit (left first: its t_max does not shrink),
@@ -58,10 +58,10 @@ row is an earlier leaf: a leaf's best row replaces the best hit on t <
 best, or on t == best with a smaller row, whatever order the walk takes.
 
 `stack_depth` is the exact worst-case depth of the stack: the longest chain
-of pushed far children on any path from the root. `launch_plan` places a
-stack of that depth: in the shared memory of a 128-ray block, of a smaller
-block, or past what one block holds, in a global scratch buffer. No tree is
-refused.
+of pushed far children on any path from the root. `walk.launch_plan`
+places a stack of that depth: in the shared memory of a 128-ray block, of a
+smaller block, or past what one block holds, in a global scratch buffer. No
+tree is refused.
 
 The plain version repeats the kernels' arithmetic op for op (the slab and
 triangle tests of `csrc/walk.cuh`; the kernels are built with -fmad=false),
@@ -70,64 +70,42 @@ so the two agree bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..kernels import counted, launch_counter
+from ..kernels import counted
 from ..utils.vmath import numpy_real, real_value
-from .bvh import LEAF_SIZE, BvhData, _safe_inv, refuse_ray_grad, widen
-from .bvh8 import (
-    _BIG,
-    KIND_EMPTY,
-    KIND_INST,
-    KIND_LEAF,
-    KIND_NODE,
-    _check_rays,
-    _float_ray,
-    _leaf_t,
-    _on_cpu,
-    _ptr,
-    _slab,
-    _slab_f32,
-    _to_f32,
-    _to_local,
-    _tri_rows,
-    box_upper,
-    check_dtype,
-    finish_closest,
-    finish_occluded,
-    ray_t_max,
-    read_occupancy,
-    real_slot,
-)
+from . import walk
+from .bvh import LEAF_SIZE, BvhData, _safe_inv, finish_closest, widen
+from .bvh8 import KIND_EMPTY, KIND_INST, KIND_LEAF, KIND_NODE
 from .intersect import Hit
+from .walk import _BIG, _float_ray, _leaf_t, _slab, _slab_f32, _to_f32, _to_local, _tri_rows, box_upper
 
 __all__ = [
     "Bvh2Pack",
     "pack_bvh2",
-    "launch_plan",
     "bvh2_closest_hit",
     "bvh2_occluded",
     "bvh2_closest_plain",
     "bvh2_occluded_plain",
-    "bvh2_closest_kernel",
-    "bvh2_occluded_kernel",
-    "bvh2_occupancy",
 ]
-
-# Dynamic shared memory one block may hold on Hopper (227 KB), and the
-# block sizes the launch plan tries, largest first.
-SMEM_PER_BLOCK = 232448
-BLOCKS = (128, 64, 32)
 
 
 class PairNodes:
     """The child-pair table of the pair-walk packs (`Bvh2Pack`, and
-    `ops/tlas2.Tlas2Pack`): `nodes` (P, 16) f32 and `stack_depth`."""
+    `ops/tlas2.Tlas2Pack`): `nodes` (P, 16) f32 and `stack_depth`, walked
+    by child pairs (not `wide`, `ops/walk.py`)."""
+
+    wide = False
+
+    def plain(self, o, d, t_min, t_max=None, active=None, stats=None):
+        """The plain walk of the pack's kernels (`_pair_walk`): the closest
+        hit without `t_max`, the any hit with it, as `walk.launch` returns
+        them."""
+        return _pair_walk(self, o, d, t_min, t_max, active, stats)
 
     @property
     def num_nodes(self) -> int:
@@ -149,10 +127,24 @@ class Bvh2Pack(PairNodes):
     tris: torch.Tensor  # (T, 20) f32 (f64 in a float64 pack)
     stack_depth: int  # worst-case depth of the walk's stack
 
+    library, two_level = "bvh2", False
+
     @property
     def nbytes(self) -> int:
         """Bytes of the tables the kernels read."""
         return sum(t.numel() * t.element_size() for t in (self.nodes, self.tris))
+
+    def launch_args(self, n: int, device):
+        return (self.nodes, self.tris), walk.pair_stack(self.stack_depth, n, device)
+
+    def finish(self, bvh, o, d, t_min, out, active) -> Hit:
+        return finish_closest(bvh, o, d, t_min, *out, active)
+
+    def closest_hit(self, bvh, o, d, t_min, active=None) -> Hit:
+        return bvh2_closest_hit(bvh, self, o, d, t_min, active)
+
+    def occluded(self, bvh, o, d, t_min, t_max, active=None) -> torch.Tensor:
+        return bvh2_occluded(bvh, self, o, d, t_min, t_max, active)
 
 
 # ---------------------------------------------------------------------------
@@ -160,7 +152,7 @@ class Bvh2Pack(PairNodes):
 # ---------------------------------------------------------------------------
 
 
-def _pair_nodes(node_min, node_max, skip, leaf_ref, roots, base: int):
+def pair_nodes(node_min, node_max, skip, leaf_ref, roots, base: int):
     """Child-pair records (module docstring) of the skip-link preorder trees
     rooted at `roots` in one node array: `leaf_ref` (M,) is the reference
     of each leaf, 0 at internal nodes; pair nodes are numbered from `base`.
@@ -192,7 +184,7 @@ def _pair_nodes(node_min, node_max, skip, leaf_ref, roots, base: int):
     return rec, pid
 
 
-def _stack_depth(refs: np.ndarray, rank_root: Optional[np.ndarray] = None) -> int:
+def pair_stack_depth(refs: np.ndarray, rank_root: Optional[np.ndarray] = None) -> int:
     """Exact worst-case stack depth of the walk from pair node 0 over the
     references `refs` (P, 2): a node whose two children are both node or
     instance children pushes one of them, and either may be the far one,
@@ -214,7 +206,7 @@ def _stack_depth(refs: np.ndarray, rank_root: Optional[np.ndarray] = None) -> in
         need = new
 
 
-def _leaf_refs(start: np.ndarray, count: np.ndarray) -> np.ndarray:
+def leaf_refs(start: np.ndarray, count: np.ndarray) -> np.ndarray:
     """The triangle-leaf references (module docstring) of leaves of `count`
     rows from `start`, 0 where `count` is 0 (an internal node)."""
     start, count = start.astype(np.int64), count.astype(np.int64)
@@ -223,7 +215,7 @@ def _leaf_refs(start: np.ndarray, count: np.ndarray) -> np.ndarray:
 
 def pack_bvh2(bvh: BvhData, device=None) -> Bvh2Pack:
     """A built binary BVH in the kernels' layout (module docstring). Every
-    tree fits: `launch_plan` places any stack depth."""
+    tree fits: `walk.launch_plan` places any stack depth."""
     node_min, node_max, skip, start, count = (t.cpu().numpy() for t in (
         bvh.node_min, bvh.node_max, bvh.skip, bvh.leaf_start, bvh.leaf_count))
     if bvh.verts.dtype == torch.float64:
@@ -233,11 +225,11 @@ def pack_bvh2(bvh: BvhData, device=None) -> Bvh2Pack:
         "leaves must be 8-aligned and hold at most 8 rows"
     # The tie key: a smaller row must mean an earlier leaf in preorder.
     assert (np.diff(start[leaf]) > 0).all(), "leaf rows must rise in preorder"
-    nodes, _ = _pair_nodes(node_min, node_max, skip.astype(np.int64), _leaf_refs(start, count), np.array([0]), 0)
+    nodes, _ = pair_nodes(node_min, node_max, skip.astype(np.int64), leaf_refs(start, count), np.array([0]), 0)
     return Bvh2Pack(
         nodes=torch.as_tensor(nodes, device=device),
         tris=torch.as_tensor(_tri_rows(bvh.verts.cpu().numpy(), numpy_real(bvh.verts.dtype)), device=device),
-        stack_depth=_stack_depth(nodes.view(np.int32)[:, 12:14]),
+        stack_depth=pair_stack_depth(nodes.view(np.int32)[:, 12:14]),
     )
 
 
@@ -422,130 +414,19 @@ def bvh2_occluded_plain(pack: Bvh2Pack, o, d, t_min, t_max, active=None, stats=N
 
 
 # ---------------------------------------------------------------------------
-# Kernel launches
-# ---------------------------------------------------------------------------
-
-
-def launch_plan(stack_depth: int):
-    """Where the pair kernels keep a stack of `stack_depth` levels per ray:
-    (threads per block, bytes of dynamic shared memory per block, on a
-    global scratch buffer?). The first block size of BLOCKS whose stacks
-    fit one block's shared memory; past that, a 128-ray block with the
-    stack in global memory."""
-    for block in BLOCKS:
-        smem = block * stack_depth * 4
-        if smem <= SMEM_PER_BLOCK:
-            return block, smem, False
-    return BLOCKS[0], 0, True
-
-
-def _stack_args(pack: PairNodes, n: int, device):
-    """(block, global stack or None) of a pair-kernel launch over n rays:
-    the global stack, where the plan takes one, is allocated here,
-    `stack_depth` levels per ray of the grid."""
-    block, _, on_global = launch_plan(pack.stack_depth)
-    if not on_global:
-        return block, None
-    grid = -(-n // block)
-    return block, torch.empty(grid * block * pack.stack_depth, dtype=torch.int32, device=device)
-
-
-def bvh2_closest_kernel(pack: Bvh2Pack, o, d, t_min, active=None, launches=None):
-    """Launch the closest-hit kernel: (t_raw, triangle id) as the plain version.
-    `launches`: a launch count's address (`kernels.launch_counter`), or
-    None for a launch not counted."""
-    from ..kernels import load_library
-
-    lib = load_library("bvh2")
-    o, d, active, _ = _check_rays(pack, o, d, active)
-    n = o.shape[0]
-    t_out = torch.empty(n, dtype=o.dtype, device=o.device)
-    id_out = torch.empty(n, dtype=torch.int32, device=o.device)
-    block, stack = _stack_args(pack, n, o.device)
-    entry = lib.rpt_bvh2_closest if o.dtype == torch.float32 else lib.rpt_bvh2_closest_f64
-    err = entry(
-        _ptr(pack.nodes), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n, real_value(t_min, o.dtype),
-        _ptr(t_out), _ptr(id_out), block, pack.stack_depth, _ptr(stack),
-        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"bvh2 closest-hit kernel launch failed: CUDA error {err}")
-    return t_out, id_out
-
-
-def bvh2_occluded_kernel(pack: Bvh2Pack, o, d, t_min, t_max, active=None, launches=None):
-    """Launch the any-hit kernel: bool (N,) as the plain version.
-    `launches`: a launch count's address (`kernels.launch_counter`), or
-    None for a launch not counted."""
-    from ..kernels import load_library
-
-    lib = load_library("bvh2")
-    o, d, active, t_max = _check_rays(pack, o, d, active, t_max)
-    n = o.shape[0]
-    occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    block, stack = _stack_args(pack, n, o.device)
-    entry = lib.rpt_bvh2_occluded if o.dtype == torch.float32 else lib.rpt_bvh2_occluded_f64
-    err = entry(
-        _ptr(pack.nodes), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), _ptr(t_max), n,
-        real_value(t_min, o.dtype), _ptr(occ), block, pack.stack_depth, _ptr(stack),
-        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"bvh2 any-hit kernel launch failed: CUDA error {err}")
-    return occ
-
-
-def pair_occupancy(query, stack_depth: int, occluded: bool, dtype) -> dict:
-    """How the kernel of a query (`occluded`) and real type (`dtype`) of a
-    pair-walk library, whose occupancy query is `query` (bvh2's or tlas2's
-    `rpt_<library>_occupancy`), fills the current card at the launch the
-    wrappers make for a pack of `stack_depth` (`launch_plan`):
-    registers and local (spill) bytes a thread, blocks and warps resident
-    per SM (`bvh8.read_occupancy`), and the shared stack they hold per SM."""
-    block, smem, on_global = launch_plan(stack_depth)
-    kind = int(occluded) | (2 if dtype == torch.float64 else 0) | (4 if on_global else 0)
-    occ = read_occupancy(query, kind, block, smem)
-    return dict(block=block, smem_bytes=smem, global_stack=on_global, **occ,
-                smem_per_sm=occ["blocks_per_sm"] * smem)
-
-
-def bvh2_occupancy(stack_depth: int, occluded: bool, dtype) -> dict:
-    """`pair_occupancy` of the bvh2 kernels."""
-    from ..kernels import load_library
-
-    return pair_occupancy(load_library("bvh2").rpt_bvh2_occupancy, stack_depth, occluded, dtype)
-
-
-# ---------------------------------------------------------------------------
-# Wrappers (what SceneData.intersect / occluded call)
+# Wrappers (what SceneData.intersect / occluded call, through the pack)
 # ---------------------------------------------------------------------------
 
 
 @counted(slots=2)
 def bvh2_closest_hit(bvh: BvhData, pack: Bvh2Pack, o, d, t_min, active=None) -> Hit:
     """Closest hit through the binary BVH (t = inf on a miss, smooth normal,
-    material id). CUDA rays launch the kernel of the pack's type (counted in
-    slot 0 for float32, 1 for float64); CPU rays take the plain walk."""
-    refuse_ray_grad("bvh2_closest_hit", o, d)
-    check_dtype(pack, o, d)
-    if _on_cpu(o):
-        t_raw, tri = bvh2_closest_plain(pack, o, d, t_min, active)
-    else:
-        t_raw, tri = bvh2_closest_kernel(pack, o, d, t_min, active,
-                                         launches=launch_counter(bvh2_closest_hit, o.device, real_slot(o)))
-    return finish_closest(bvh, o, d, t_min, t_raw, tri, active)
-
+    material id): `walk.closest_hit`, counted here."""
+    return walk.closest_hit(bvh2_closest_hit, bvh, pack, o, d, t_min, active)
 
 
 @counted(slots=2)
 def bvh2_occluded(bvh: BvhData, pack: Bvh2Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query through the binary BVH, boolean-equal to
-    `bvh2_closest_hit(...).t <= t_max` (see `bvh8.finish_occluded`)."""
-    check_dtype(pack, o, d)
-    t_max = ray_t_max(t_max, o)
-    if _on_cpu(o):
-        occ = bvh2_occluded_plain(pack, o, d, t_min, t_max, active)
-    else:
-        occ = bvh2_occluded_kernel(pack, o, d, t_min, t_max, active,
-                                   launches=launch_counter(bvh2_occluded, o.device, real_slot(o)))
-    return finish_occluded(occ, t_max, active)
+    `bvh2_closest_hit(...).t <= t_max` (`walk.occluded`, counted here)."""
+    return walk.occluded(bvh2_occluded, pack, o, d, t_min, t_max, active)

@@ -5,9 +5,10 @@ Replaces the two TPU kernels of `rpt_tpu/ops/bvh8_pallas.py`:
 `bvh8_closest_hit_pallas`) and `_make_kernel8(occl=True)` (shadow any-hit,
 reached through `bvh8_occluded_pallas`). The kernels themselves are in
 `rpt_tpu_torch/csrc/bvh8.cu`; this module holds the host pack, the plain
-torch versions with the same contract, and the wrappers that choose between
-them by the device of the rays. The node layout, the node-group walk and
-its plain version are shared with the two-level kernels of `ops/tlas8.py`
+torch versions with the same contract, and the two counted wrappers, whose
+launch and choice between kernel and plain walk by the device of the rays
+are `ops/walk.py`'s. The node layout, the node-group walk and its plain
+version are shared with the two-level kernels of `ops/tlas8.py`
 (`csrc/group_walk.cuh`).
 
 Layout. The binary SAH tree (`ops/bvh.py`) is collapsed into ONE wide tree
@@ -77,18 +78,18 @@ own kernels to. The slab and triangle tests are shared with every kernel
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import math
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..kernels import counted, launch_counter
+from ..kernels import counted
 from ..utils.vmath import numpy_real, real_value
-from .bvh import LEAF_SIZE, BvhData, _safe_inv, finalize_hit, refuse_ray_grad, widen
-from .intersect import INF, Hit
+from . import walk
+from .bvh import LEAF_SIZE, BvhData, _safe_inv, finish_closest, widen
+from .intersect import Hit
+from .walk import _BIG, _float_ray, _leaf_t, _slab, _slab_f32, _to_f32, _to_local, _tri_rows, box_upper
 
 __all__ = [
     "Bvh8Pack",
@@ -98,24 +99,18 @@ __all__ = [
     "bvh8_occluded",
     "bvh8_closest_plain",
     "bvh8_occluded_plain",
-    "bvh8_closest_kernel",
-    "bvh8_occluded_kernel",
-    "bvh8_occupancy",
     "BOX_TEST_OPS",
     "TRI_TEST_OPS",
 ]
 
 BRANCH = 8
 STACK_CAP = 128  # the reference's stack cap (bvh8_pallas.STACK_CAP)
-TRI_STRIDE = 20  # floats per triangle row, as in csrc/walk.cuh
-_BIG = 3.0e38  # in-kernel miss sentinel
 EMPTY = -1  # (a, b) pair b of an empty child slot
 _NO_ROW = 2**62  # above every row: the tie key's "none"
 INST_CHILD = -2  # b of an instance child (two-level tables, ops/tlas8.py)
 KIND_EMPTY, KIND_NODE, KIND_INST, KIND_LEAF = 0, 1, 2, 3  # child reference kinds
 _MAX_NODES = 2**24  # a group stack entry is node << 8 | rank mask in 32 bits
 _MAX_PAYLOAD = 2**30  # a reference is payload << 2 | kind in 32 bits
-_EPS_PAR = float(np.float32(1e-8))
 
 # Floating-point operations per test, counted from the kernel source (the
 # bound in chip_smoke.py divides these by the card's f32 rate).
@@ -137,7 +132,16 @@ class WidePackRefused(ValueError):
 
 class WideNodes:
     """The wide-node table of the group-walk packs (`Bvh8Pack`, and
-    `ops/tlas8.Tlas8Pack`): `bounds` (Mw, 48) f32 and `meta` (Mw, 16) i32."""
+    `ops/tlas8.Tlas8Pack`): `bounds` (Mw, 48) f32 and `meta` (Mw, 16) i32,
+    walked by node groups (`wide`, `ops/walk.py`)."""
+
+    wide = True
+
+    def plain(self, o, d, t_min, t_max=None, active=None, stats=None):
+        """The plain walk of the pack's kernels (`_group_walk`): the closest
+        hit without `t_max`, the any hit with it, as `walk.launch` returns
+        them."""
+        return _group_walk(self, o, d, t_min, t_max, active, t_max is not None, stats)
 
     @property
     def num_nodes(self) -> int:
@@ -163,14 +167,28 @@ class WideNodes:
 class Bvh8Pack(WideNodes):
     bounds: torch.Tensor  # (Mw, 48) f32
     meta: torch.Tensor  # (Mw, 16) i32: child references, octant words
-    tris: torch.Tensor  # (T, TRI_STRIDE) f32, or f64 in a float64 pack
+    tris: torch.Tensor  # (T, 20) f32 (`walk._tri_rows`), or f64 in a float64 pack
     group_depth: int  # worst-case depth of the walk's node-group stack
     stack_need: int  # the reference's worst-case stack of single children
+
+    library, two_level = "bvh8", False
 
     @property
     def nbytes(self) -> int:
         """Bytes of the tables the kernels read."""
         return sum(t.numel() * t.element_size() for t in (self.bounds, self.meta, self.tris))
+
+    def launch_args(self, n: int, device):
+        return (self.bounds, self.meta, self.group_depth, self.tris), ()
+
+    def finish(self, bvh, o, d, t_min, out, active) -> Hit:
+        return finish_closest(bvh, o, d, t_min, *out, active)
+
+    def closest_hit(self, bvh, o, d, t_min, active=None) -> Hit:
+        return bvh8_closest_hit(bvh, self, o, d, t_min, active)
+
+    def occluded(self, bvh, o, d, t_min, t_max, active=None) -> torch.Tensor:
+        return bvh8_occluded(bvh, self, o, d, t_min, t_max, active)
 
 
 # ---------------------------------------------------------------------------
@@ -248,7 +266,7 @@ def _stack_need(ca: np.ndarray, cb: np.ndarray) -> int:
     return int(max(1, need[0]))
 
 
-def _group_depth(meta: np.ndarray, inst_blas_root: Optional[np.ndarray] = None) -> int:
+def group_stack_depth(meta: np.ndarray, inst_blas_root: Optional[np.ndarray] = None) -> int:
     """Exact worst-case depth of the node-group stack of the table `meta`
     (Mw, 16) over every octant and every subset of hit children. Entering
     child C of a node leaves the node's group on the stack iff a group
@@ -301,42 +319,12 @@ def _decode_refs(ref) -> tuple:
     return a, b
 
 
-def _refuse_overflow(n_nodes: int, n_rows: int, n_inst: int = 0):
+def refuse_overflow(n_nodes: int, n_rows: int, n_inst: int = 0):
     """Raise WidePackRefused if a node id, an instance id or a leaf's row
     overflows the kernels' 32-bit references and group stack entries."""
     if n_nodes >= _MAX_NODES or n_inst >= _MAX_PAYLOAD or n_rows // LEAF_SIZE >= _MAX_PAYLOAD >> 3:
         raise WidePackRefused(f"{n_nodes} wide nodes, {n_inst} instances or {n_rows} rows overflow the kernels' "
                               "32-bit references and stack entries")
-
-
-def _tri_rows(verts: np.ndarray, dtype=np.float32) -> np.ndarray:
-    """(T, 3, 3) leaf-contiguous triangles -> (T, TRI_STRIDE) rows of the
-    reference's precomputed fields (rpt_tpu/ops/bvh_pallas.py `_swizzle_tris`),
-    computed in f64 and stored in `dtype`."""
-    v = np.asarray(verts, np.float64)
-    v0, v1, v2 = v[:, 0], v[:, 1], v[:, 2]
-    e1 = v1 - v0
-    e2 = v2 - v0
-    pn = np.cross(e1, e2)
-    nrm = np.linalg.norm(pn, axis=-1, keepdims=True)
-    pn = pn / np.where(nrm > 1e-30, nrm, 1.0)
-    d00 = np.einsum("ij,ij->i", e1, e1)
-    d01 = np.einsum("ij,ij->i", e1, e2)
-    d11 = np.einsum("ij,ij->i", e2, e2)
-    denom = d00 * d11 - d01 * d01
-    inv_denom = 1.0 / np.where(np.abs(denom) > 1e-20, denom, 1e-20)
-    pv = np.einsum("ij,ij->i", pn, v0)
-    rows = np.zeros((v.shape[0], TRI_STRIDE), dtype)
-    rows[:, 0:3] = v0
-    rows[:, 3:6] = e1
-    rows[:, 6:9] = e2
-    rows[:, 9:12] = pn
-    rows[:, 12] = pv
-    rows[:, 13] = d00
-    rows[:, 14] = d01
-    rows[:, 15] = d11
-    rows[:, 16] = inv_denom
-    return rows
 
 
 def _collapse(bvh: BvhData):
@@ -367,18 +355,18 @@ def pack_bvh8(bvh: BvhData, device=None) -> Bvh8Pack:
     need = _stack_need(ca, cb)
     if need > STACK_CAP:
         raise WidePackRefused(f"the wide BVH needs a stack of {need} > {STACK_CAP} entries")
-    _refuse_overflow(ca.shape[0], bvh.num_tris)
-    bounds, meta = _emit_group(lo, hi, valid, ca, cb)
+    refuse_overflow(ca.shape[0], bvh.num_tris)
+    bounds, meta = emit_group(lo, hi, valid, ca, cb)
     return Bvh8Pack(
         bounds=torch.as_tensor(bounds, device=device),
         meta=torch.as_tensor(meta, device=device),
         tris=torch.as_tensor(_tri_rows(bvh.verts.cpu().numpy(), numpy_real(bvh.verts.dtype)), device=device),
-        group_depth=_group_depth(meta),
+        group_depth=group_stack_depth(meta),
         stack_need=need,
     )
 
 
-def _emit_group(lo: np.ndarray, hi: np.ndarray, valid: np.ndarray, ca: np.ndarray, cb: np.ndarray):
+def emit_group(lo: np.ndarray, hi: np.ndarray, valid: np.ndarray, ca: np.ndarray, cb: np.ndarray):
     """Wide nodes in the group walk's layout (module docstring) from
     per-slot child boxes lo, hi (Mw, 8, 3) f32, a mask of the filled slots
     and the (a, b) pairs (Mw, 8) each: (bounds (Mw, 48) f32, meta (Mw, 16)
@@ -406,114 +394,12 @@ def _emit_group(lo: np.ndarray, hi: np.ndarray, valid: np.ndarray, ca: np.ndarra
 # ---------------------------------------------------------------------------
 
 
-def _leaf_t(rows, o, d, t_min):
-    """Triangle test of csrc/walk.cuh `tri_t`, op for op. rows (P, K, 20);
-    o, d (P, 3). Returns (t, ok), each (P, K)."""
-    eps = _EPS_PAR if rows.dtype == torch.float32 else 1e-8
-    ox, oy, oz = (o[:, i:i + 1] for i in range(3))
-    dx, dy, dz = (d[:, i:i + 1] for i in range(3))
-    f = [rows[..., i] for i in range(17)]
-    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, pnx, pny, pnz, pv, d00, d01, d11, inv_den = f
-    cos = (pnx * dx + pny * dy) + pnz * dz
-    cos_safe = torch.where(torch.abs(cos) > eps, cos, torch.full_like(cos, eps))
-    t = (pv - ((pnx * ox + pny * oy) + pnz * oz)) / cos_safe
-    ddx = (ox + t * dx) - v0x
-    ddy = (oy + t * dy) - v0y
-    ddz = (oz + t * dz) - v0z
-    d20 = (ddx * e1x + ddy * e1y) + ddz * e1z
-    d21 = (ddx * e2x + ddy * e2y) + ddz * e2z
-    v = (d11 * d20 - d01 * d21) * inv_den
-    w = (d00 * d21 - d01 * d20) * inv_den
-    u = (1.0 - v) - w
-    ok = (torch.abs(cos) >= eps) & (t >= t_min) & (u >= 0.0) & (v >= 0.0) & (w >= 0.0)
-    return t, ok
-
-
-def _to_local(A, o, d):
-    """World rays o, d (P, 3) in the frames of the world->local rows A
-    (P, 3, 4), as csrc/walk.cuh `to_local` computes them: the direction
-    unnormalized. Returns (o_local, d_local, inverse of d_local)."""
-    ol = ((A[:, :, 0] * o[:, 0:1] + A[:, :, 1] * o[:, 1:2]) + A[:, :, 2] * o[:, 2:3]) + A[:, :, 3]
-    dl = (A[:, :, 0] * d[:, 0:1] + A[:, :, 1] * d[:, 1:2]) + A[:, :, 2] * d[:, 2:3]
-    return ol, dl, _safe_inv(dl)
-
-
-def _slab(b, ol, il):
-    """The slabs of csrc/walk.cuh `box_entry` for the C children of each
-    row's node: b (L, 6, C) boxes (rows lo.x, lo.y, lo.z, hi.x, hi.y, hi.z),
-    ol, il (L, 3) ray origin and inverse direction. Returns (lo, hi), each
-    (L, C): the ray's entry and exit distances."""
-    t1x = (b[:, 0] - ol[:, 0:1]) * il[:, 0:1]
-    t2x = (b[:, 3] - ol[:, 0:1]) * il[:, 0:1]
-    t1y = (b[:, 1] - ol[:, 1:2]) * il[:, 1:2]
-    t2y = (b[:, 4] - ol[:, 1:2]) * il[:, 1:2]
-    t1z = (b[:, 2] - ol[:, 2:3]) * il[:, 2:3]
-    t2z = (b[:, 5] - ol[:, 2:3]) * il[:, 2:3]
-    lo = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)), torch.minimum(t1z, t2z))
-    hi = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)), torch.maximum(t1z, t2z))
-    return lo, hi
-
-
-# csrc/walk.cuh `Num::up`: the widening of a box test's upper end, 8 ulps.
-_UP = {torch.float32: 2.0**-21, torch.float64: 2.0**-50}
-
-
-def box_upper(upper):
-    """csrc/walk.cuh `box_upper`: a box test's upper end (the running best
-    or t_max), widened by 8 ulps of itself, so that a box whose entry rounds
-    an ulp or two past a triangle's t at `upper` is still taken."""
-    return upper + upper.abs() * _UP[upper.dtype]
-
-
 def _slab_hit(b, ol, il, t_min, upper):
     """Slab test of csrc/walk.cuh `box_hit` for the children of each row's
     node (`_slab`'s arguments) against [t_min, upper], upper (L, 1) already
     widened (`box_upper`). Returns (L, C) bool by slot."""
     lo, hi = _slab(b, ol, il)
     return (lo <= hi) & (hi >= t_min) & (lo <= upper)
-
-
-# csrc/walk.cuh box_entry_f: the smallest normal float, added to each
-# axis's slack, and the relative widening of a slab end (8u, u = 2^-24).
-_FLT_MIN = float(torch.finfo(torch.float32).tiny)
-_WIDEN = 2.0**-21
-
-
-def _float_ray(o, d):
-    """csrc/walk.cuh `float_ray` of double rays o, d (L, 3): (L, 9) float32,
-    the origin rounded to nearest, the float inverse of the direction
-    rounded to float (the zero guard signed by d), then each axis's slack
-    2 |of - o| |fi| + FLT_MIN."""
-    of, x = o.float(), d.float()
-    tiny = torch.full_like(x, 1e-20)
-    fi = 1.0 / torch.where(x.abs() > tiny, x, torch.where(d < 0, -tiny, tiny))
-    slack = ((of.double() - o).abs() * fi.double().abs() * 2.0).float() + _FLT_MIN
-    return torch.cat([of, fi, slack], 1)
-
-
-def _slab_f32(b, fr):
-    """The widened float slabs of csrc/walk.cuh `box_entry_f` for the C
-    children of each row's node: b (L, 6, C) float boxes, fr (L, 9) the rays'
-    `_float_ray`. Returns (lo, hi) (L, C) float32."""
-    lo = hi = None
-    for a in range(3):
-        o_a, i_a, s_a = fr[:, a:a + 1], fr[:, 3 + a:4 + a], fr[:, 6 + a:7 + a]
-        t1 = (b[:, a] - o_a) * i_a
-        t2 = (b[:, 3 + a] - o_a) * i_a
-        mn, mx = torch.minimum(t1, t2), torch.maximum(t1, t2)
-        mn = mn - (mn.abs() * _WIDEN + s_a)
-        mx = mx + (mx.abs() * _WIDEN + s_a)
-        lo = mn if lo is None else torch.maximum(lo, mn)
-        hi = mx if hi is None else torch.minimum(hi, mx)
-    return lo, hi
-
-
-def _to_f32(x, up: bool):
-    """Doubles rounded to float toward +inf (`up`) or -inf, as CUDA's
-    __double2float_ru / _rd."""
-    f = x.float()
-    off = f.double() < x if up else f.double() > x
-    return torch.where(off, torch.nextafter(f, torch.full_like(f, math.inf if up else -math.inf)), f)
 
 
 def _best_of_leaves(t, ok, start, li, lk, L):
@@ -551,8 +437,8 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
     its boxes in float (`_slab_f32`), as its kernels do. A
     leaf's best row replaces the best hit on a smaller t, or on an equal t
     with a smaller key: (TLAS leaf rank, row) two-level, the row one-level.
-    Returns (t_raw, tri, instance id) for the closest hit (t_raw = BIG on a
-    miss) or the any-hit bool. `stats` accumulates box tests (filled slots
+    Returns (t_raw, tri[, instance id two-level]) for the closest hit (t_raw
+    = BIG on a miss) or the any-hit bool. `stats` accumulates box tests (filled slots
     of each visited node), triangle tests, instance entries (two-level) and
     the deepest group stack reached (`max_group_depth`)."""
     dev = o.device
@@ -704,7 +590,7 @@ def _group_walk(pack: WideNodes, o, d, t_min, t_max, active, occl: bool, stats: 
     if occl:
         return occ
     if not two_level:
-        return t_best, best.to(torch.int32), torch.zeros_like(best, dtype=torch.int32)
+        return t_best, best.to(torch.int32)
     best_inst = torch.where(best_rank >= 0, rank_inst[best_rank.clamp(min=0)], torch.zeros_like(best_rank))
     return t_best, best.to(torch.int32), best_inst.to(torch.int32)
 
@@ -713,8 +599,7 @@ def bvh8_closest_plain(pack: Bvh8Pack, o, d, t_min, active=None, stats=None):
     """Plain version of the closest-hit kernel: (t_raw (N,) in the rays'
     type with BIG on a miss, triangle id (N,) i32). `stats`, if given, accumulates the
     counts of `_group_walk`."""
-    t_raw, tri, _ = _group_walk(pack, o, d, t_min, None, active, False, stats)
-    return t_raw, tri
+    return _group_walk(pack, o, d, t_min, None, active, False, stats)
 
 
 def bvh8_occluded_plain(pack: Bvh8Pack, o, d, t_min, t_max, active=None, stats=None):
@@ -724,189 +609,19 @@ def bvh8_occluded_plain(pack: Bvh8Pack, o, d, t_min, t_max, active=None, stats=N
 
 
 # ---------------------------------------------------------------------------
-# Kernel launches
+# Wrappers (what SceneData.intersect / occluded call, through the pack)
 # ---------------------------------------------------------------------------
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-
-
-def check_dtype(pack, o, d) -> None:
-    """Raise unless the rays are of the pack's real type (the type of its
-    triangle rows `tris`): float32 rays walk a float32 pack, float64 rays a
-    float64 one, and neither is cast into the other."""
-    if o.dtype != pack.tris.dtype or d.dtype != pack.tris.dtype:
-        raise TypeError(f"{o.dtype} / {d.dtype} rays on a {pack.tris.dtype} pack: a BVH walk takes rays "
-                        "of its pack's type")
-
-
-def _check_rays(pack, o, d, active, t_max=None):
-    """Refuse what the kernels do not take; returns (o, d, active, t_max)
-    contiguous. Every pack of the BVH kernels has its triangle rows in
-    `tris`, whose type (float32 or float64) is the walk's."""
-    if not (o.is_cuda and d.is_cuda and pack.tris.is_cuda):
-        raise ValueError("the BVH kernels need the rays and the pack on a CUDA device")
-    check_dtype(pack, o, d)
-    if o.dim() != 2 or o.shape[1] != 3 or d.shape != o.shape:
-        raise ValueError(f"the BVH kernels take (N, 3) rays, got {tuple(o.shape)}, {tuple(d.shape)}")
-    if active is not None and (active.dtype != torch.bool or active.shape != o.shape[:1]):
-        raise ValueError("active must be a bool (N,) mask")
-    if t_max is not None:
-        if t_max.shape != o.shape[:1] or t_max.device != o.device:
-            raise ValueError("t_max must be an (N,) tensor on the rays' device")
-        t_max = t_max.to(o.dtype).contiguous()
-    if o.shape[0] >= 2**31:
-        raise ValueError("too many rays for one launch")
-    return o.contiguous(), d.contiguous(), None if active is None else active.contiguous(), t_max
-
-
-def bvh8_closest_kernel(pack: Bvh8Pack, o, d, t_min, active=None, launches=None):
-    """Launch the closest-hit kernel: (t_raw, triangle id) as the plain
-    version. Raises if the group stack does not fit one block's shared
-    memory.
-    `launches`: a launch count's address (`kernels.launch_counter`), or
-    None for a launch not counted."""
-    from ..kernels import load_library
-
-    lib = load_library("bvh8")
-    o, d, active, _ = _check_rays(pack, o, d, active)
-    n = o.shape[0]
-    t_out = torch.empty(n, dtype=o.dtype, device=o.device)
-    id_out = torch.empty(n, dtype=torch.int32, device=o.device)
-    entry = lib.rpt_bvh8_closest if o.dtype == torch.float32 else lib.rpt_bvh8_closest_f64
-    err = entry(
-        _ptr(pack.bounds), _ptr(pack.meta), pack.group_depth, _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
-        n, real_value(t_min, o.dtype), _ptr(t_out), _ptr(id_out),
-        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"bvh8 closest-hit kernel launch failed: CUDA error {err}")
-    return t_out, id_out
-
-
-def bvh8_occluded_kernel(pack: Bvh8Pack, o, d, t_min, t_max, active=None, launches=None):
-    """Launch the any-hit kernel: bool (N,) as the plain version.
-    `launches`: a launch count's address (`kernels.launch_counter`), or
-    None for a launch not counted."""
-    from ..kernels import load_library
-
-    lib = load_library("bvh8")
-    o, d, active, t_max = _check_rays(pack, o, d, active, t_max)
-    n = o.shape[0]
-    occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    entry = lib.rpt_bvh8_occluded if o.dtype == torch.float32 else lib.rpt_bvh8_occluded_f64
-    err = entry(
-        _ptr(pack.bounds), _ptr(pack.meta), pack.group_depth, _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
-        _ptr(t_max), n, real_value(t_min, o.dtype), _ptr(occ),
-        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"bvh8 any-hit kernel launch failed: CUDA error {err}")
-    return occ
-
-
-def read_occupancy(query, *args) -> dict:
-    """Call a kernel library's occupancy query (`rpt_<library>_occupancy`)
-    with `args` and its int32 output on the current card: registers and
-    local (spill) bytes a thread, blocks and warps resident per SM."""
-    out = torch.zeros(4, dtype=torch.int32)
-    err = query(*args, _ptr(out))
-    if err != 0:
-        raise RuntimeError(f"{query.__name__} failed: CUDA error {err}")
-    regs, local, blocks, warps = out.tolist()
-    return dict(registers=regs, local_bytes=local, blocks_per_sm=blocks, warps_per_sm=warps)
-
-
-def group_walk_occupancy(query, group_depth: int, occluded: bool, dtype) -> dict:
-    """How the kernel of a query (`occluded`) and real type (`dtype`) of a
-    group-walk library, whose occupancy query is `query`, fills the current
-    card at the launch the wrappers make for a pack of `group_depth`
-    (128-ray blocks, the group stack in dynamic shared memory):
-    `read_occupancy`'s counts and the shared stack the blocks hold per SM."""
-    smem = 128 * group_depth * 4
-    occ = read_occupancy(query, int(occluded) | (2 if dtype == torch.float64 else 0), group_depth)
-    return dict(block=128, smem_bytes=smem, **occ, smem_per_sm=occ["blocks_per_sm"] * smem)
-
-
-def bvh8_occupancy(group_depth: int, occluded: bool, dtype) -> dict:
-    """`group_walk_occupancy` of the bvh8 kernels."""
-    from ..kernels import load_library
-
-    return group_walk_occupancy(load_library("bvh8").rpt_bvh8_occupancy, group_depth, occluded, dtype)
-
-
-def _on_cpu(o: torch.Tensor) -> bool:
-    if o.device.type == "cpu":
-        return True
-    if o.is_cuda:
-        return False
-    raise ValueError(f"BVH walk: unsupported device {o.device}")
-
-
-# ---------------------------------------------------------------------------
-# Wrappers (what SceneData.intersect / occluded call)
-# ---------------------------------------------------------------------------
-
-
-def finish_closest(bvh: BvhData, o, d, t_min, t_raw, tri, active) -> Hit:
-    """The Hit of a one-level walk's (t_raw, triangle id): t = inf on a miss
-    and on an inactive lane, the id clamped into the triangle table, then
-    `finalize_hit` for the smooth normal and the material."""
-    t_best = torch.where(t_raw >= 1.0e38, torch.full_like(t_raw, INF), t_raw)
-    if active is not None:
-        t_best = torch.where(active, t_best, torch.full_like(t_best, INF))
-    tri = torch.clamp(tri, 0, bvh.num_tris - 1)
-    return finalize_hit(bvh, o, d, t_min, t_best, tri)
-
-
-def ray_t_max(t_max, o) -> torch.Tensor:
-    """A scalar or (N,) t_max as an (N,) tensor of the rays' type on their device."""
-    return torch.broadcast_to(torch.as_tensor(t_max, dtype=o.dtype, device=o.device), (o.shape[0],))
-
-
-def real_slot(o) -> int:
-    """A traversal wrapper's launch-count slot: 0 for its float32 kernel,
-    1 for its float64 one."""
-    return 0 if o.dtype == torch.float32 else 1
-
-
-def finish_occluded(occ, t_max, active) -> torch.Tensor:
-    """The any-hit walks' result under the closest-hit rule
-    `closest.t <= t_max`: a ray whose t_max is +inf counts as occluded even
-    with no hit, since inf <= inf (a directional light's distance is +inf;
-    the reference behaves the same); an inactive lane never is."""
-    occ = occ | (t_max == math.inf)
-    if active is not None:
-        occ = occ & active
-    return occ
 
 
 @counted(slots=2)
 def bvh8_closest_hit(bvh: BvhData, pack: Bvh8Pack, o, d, t_min, active=None) -> Hit:
     """Closest hit through the wide BVH (t = inf on a miss, smooth normal,
-    material id). CUDA rays launch the kernel of the pack's type (counted in
-    slot 0 for float32, 1 for float64); CPU rays take the plain walk."""
-    refuse_ray_grad("bvh8_closest_hit", o, d)
-    check_dtype(pack, o, d)
-    if _on_cpu(o):
-        t_raw, tri = bvh8_closest_plain(pack, o, d, t_min, active)
-    else:
-        t_raw, tri = bvh8_closest_kernel(pack, o, d, t_min, active,
-                                         launches=launch_counter(bvh8_closest_hit, o.device, real_slot(o)))
-    return finish_closest(bvh, o, d, t_min, t_raw, tri, active)
-
+    material id): `walk.closest_hit`, counted here."""
+    return walk.closest_hit(bvh8_closest_hit, bvh, pack, o, d, t_min, active)
 
 
 @counted(slots=2)
 def bvh8_occluded(bvh: BvhData, pack: Bvh8Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query through the wide BVH, boolean-equal to
-    `bvh8_closest_hit(...).t <= t_max` (see `finish_occluded`)."""
-    check_dtype(pack, o, d)
-    t_max = ray_t_max(t_max, o)
-    if _on_cpu(o):
-        occ = bvh8_occluded_plain(pack, o, d, t_min, t_max, active)
-    else:
-        occ = bvh8_occluded_kernel(pack, o, d, t_min, t_max, active,
-                                   launches=launch_counter(bvh8_occluded, o.device, real_slot(o)))
-    return finish_occluded(occ, t_max, active)
+    `bvh8_closest_hit(...).t <= t_max` (`walk.occluded`, counted here)."""
+    return walk.occluded(bvh8_occluded, pack, o, d, t_min, t_max, active)

@@ -24,11 +24,12 @@ import numpy as np
 import torch
 
 from ..native import build_bvh_sah
-from .bvh import LEAF_SIZE, outward, widen
+from ..utils.vmath import normalize
+from .bvh import LEAF_SIZE, _tri_hit_t, outward, widen
 from .intersect import INF, Hit
 
 __all__ = ["InstancedMeshes", "build_instanced", "instanced_closest_hit", "instanced_from_arrays", "packed_leaves",
-           "holding_boxes"]
+           "holding_boxes", "finish_instanced"]
 
 _FLOAT_FIELDS = ("t_min", "t_max", "b_min", "b_max", "verts", "norms", "inst_inv", "inst_nmat")
 
@@ -235,6 +236,30 @@ def _affine(A, p, w: float):
     return out + A[:, :, 3] if w else out
 
 
+def finish_instanced(im: InstancedMeshes, pack, o, d, t_min, t_raw, tri, inst, active) -> Hit:
+    """The Hit of a two-level walk's (t_raw, packed triangle id, instance
+    id) over `pack` (`ops/tlas8.py` or `ops/tlas2.py`: both keep the packed
+    triangles of `packed_leaves`): barycentrics in the winner's instance
+    frame, the interpolated normal lifted by the instance's normal matrix,
+    and the instance's material (as the reference's XLA loop finalizes,
+    `rpt_tpu/ops/tlas.py` `instanced_closest_hit`, in the pack's type: its
+    Pallas wrapper reads float32 vertices and does not run under
+    jax_enable_x64); t = inf on a miss and on an inactive lane. The 3x3
+    products are written out elementwise: as an einsum they run as a
+    batched gemv on the card."""
+    tri = torch.clamp(tri.long(), 0, pack.p_verts.shape[0] - 1)
+    inst = torch.clamp(inst.long(), 0, pack.inst.shape[0] - 1)
+    A = pack.inst[inst].view(-1, 3, 4)
+    tv, tn = pack.p_verts[tri], pack.p_norms[tri]
+    _, (u, v, w) = _tri_hit_t(_affine(A, o, 1), _affine(A, d, 0), tv[:, 0], tv[:, 1], tv[:, 2], t_min)
+    n_local = u[:, None] * tn[:, 0] + v[:, None] * tn[:, 1] + w[:, None] * tn[:, 2]
+    n_world = normalize((im.inst_nmat[inst] * n_local[:, None, :]).sum(-1))
+    t = torch.where(t_raw >= 1.0e38, torch.full_like(t_raw, INF), t_raw)
+    if active is not None:
+        t = torch.where(active, t, torch.full_like(t, INF))
+    return Hit(t=t, normal=n_world, mat_id=im.inst_mat[inst])
+
+
 def instanced_closest_hit(im: InstancedMeshes, o, d, t_min, active=None) -> Hit:
     """Closest hit of N rays against every mesh instance, as the reference's
     XLA loop (`rpt_tpu/ops/tlas.py` `instanced_closest_hit`) answers it: the
@@ -243,14 +268,10 @@ def instanced_closest_hit(im: InstancedMeshes, o, d, t_min, active=None) -> Hit:
     the binary two-level walk's plain version (`ops/tlas2.py`) on the rays'
     device, over a pack made for the call; a scene compiles its pack once
     and calls the kernels' wrappers instead."""
-    from .bvh8 import check_dtype
     from .tlas2 import pack_tlas2, tlas2_closest_plain
-    from .tlas8 import _finalize
+    from .walk import check_dtype
 
     pack = pack_tlas2(im, device=o.device)
     check_dtype(pack, o, d)
     t_raw, tri, inst = tlas2_closest_plain(pack, o, d, t_min, active)
-    hit = _finalize(im, pack, o, d, t_min, t_raw, tri, inst)
-    if active is not None:
-        hit = Hit(t=torch.where(active, hit.t, torch.full_like(hit.t, INF)), normal=hit.normal, mat_id=hit.mat_id)
-    return hit
+    return finish_instanced(im, pack, o, d, t_min, t_raw, tri, inst, active)

@@ -6,17 +6,18 @@ Replaces the two TPU kernels of `rpt_tpu/ops/tlas_pallas.py`: `_kernel`
 (any hit, reached through `tlas_occluded_pallas`). The kernels are in
 `rpt_tpu_torch/csrc/tlas2.cu`, the walk in `csrc/pair_walk.cuh`, shared with
 the one-level kernels of `ops/bvh2.py`, which also holds its plain torch
-version (`_pair_walk`) and the launch plan; this module holds the host pack
-and the wrappers that choose between kernel and plain walk by the device of
-the rays. The hit finalize is the wide two-level one (`ops/tlas8._finalize`):
-both packs keep the same packed triangle order.
+version (`_pair_walk`); this module holds the host pack and the two counted
+wrappers, whose launch and choice between kernel and plain walk by the
+device of the rays are `ops/walk.py`'s. The hit finalize is the instanced
+meshes' own (`tlas.finish_instanced`), shared with `ops/tlas8.py`: both
+packs keep the same packed triangle order.
 
 The scene compiler takes these kernels for an instanced scene under
 `RPT_BVH_KERNEL=binary`, and where the wide two-level pack refuses the
 scene (`scene.choose_instanced_pack`), so they take every scene. The
 reference keeps its tables in SMEM and falls back to an XLA loop past a
 700,000-byte budget; these tables sit in device memory, and the stack goes
-where it fits (`bvh2.launch_plan`).
+where it fits (`walk.launch_plan`).
 
 Layout. The two binary trees of `InstancedMeshes` as they are built (the
 same nodes, leaves, instance rows and packed triangles), re-encoded as
@@ -57,7 +58,7 @@ distance, A on a tie) and into A for the any hit (left first: its t_max
 does not shrink, and it measured faster), pushing the other; into the one
 hit child; or to the top of the stack. The float64 walk tests the boxes in
 float against a float copy of the ray, widened so that it takes every box
-a double test takes (`bvh8._slab_f32`), and takes the nearer child by that
+a double test takes (`walk._slab_f32`), and takes the nearer child by that
 float entry. An instance re-expresses the world ray in its frame (direction
 unnormalized, so local t == world t) and enters its BLAS root; a node's
 frame is its index (`>= n_tlas` is local), and LIFO order means one local
@@ -71,7 +72,7 @@ order.
 
 `stack_depth` is the exact worst-case depth of the stack: the longest chain
 of pushed far children on any path from the root, through the TLAS and into
-an instance's BLAS. `bvh2.launch_plan` places a stack of that depth: in
+an instance's BLAS. `walk.launch_plan` places a stack of that depth: in
 the shared memory of a 128-ray block, of a smaller block, or past what one
 block holds, in a global scratch buffer. No scene is refused.
 
@@ -81,20 +82,20 @@ are built with -fmad=false), so the two agree bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
-from ..kernels import counted, launch_counter
-from ..utils.vmath import numpy_real, real_value
-from .bvh import refuse_ray_grad, widen
-from .bvh2 import PairNodes, _leaf_refs, _pair_nodes, _pair_walk, _stack_args, _stack_depth, pair_occupancy
-from .bvh8 import KIND_INST, _check_rays, _on_cpu, _ptr, _tri_rows, check_dtype, finish_occluded, ray_t_max, real_slot
-from .intersect import INF, Hit
-from .tlas import InstancedMeshes, holding_boxes, packed_leaves
-from .tlas8 import _finalize
+from ..kernels import counted
+from ..utils.vmath import numpy_real
+from . import walk
+from .bvh import widen
+from .bvh2 import PairNodes, leaf_refs, pair_nodes, pair_stack_depth
+from .bvh8 import KIND_INST
+from .intersect import Hit
+from .tlas import InstancedMeshes, finish_instanced, holding_boxes, packed_leaves
+from .walk import _tri_rows
 
 __all__ = [
     "Tlas2Pack",
@@ -103,9 +104,6 @@ __all__ = [
     "tlas2_occluded",
     "tlas2_closest_plain",
     "tlas2_occluded_plain",
-    "tlas2_closest_kernel",
-    "tlas2_occluded_kernel",
-    "tlas2_occupancy",
 ]
 
 @dataclasses.dataclass(frozen=True)
@@ -119,10 +117,24 @@ class Tlas2Pack(PairNodes):
     n_tlas: int  # pair nodes 0..n_tlas-1 are the TLAS (world space)
     stack_depth: int  # worst-case depth of the walk's stack
 
+    library, two_level = "tlas2", True
+
     @property
     def nbytes(self) -> int:
         """Bytes of the tables the kernels read."""
         return sum(t.numel() * t.element_size() for t in (self.nodes, self.inst_rows, self.tris))
+
+    def launch_args(self, n: int, device):
+        return (self.nodes, self.n_tlas, self.inst_rows, self.tris), walk.pair_stack(self.stack_depth, n, device)
+
+    def finish(self, im, o, d, t_min, out, active) -> Hit:
+        return finish_instanced(im, self, o, d, t_min, *out, active)
+
+    def closest_hit(self, im, o, d, t_min, active=None) -> Hit:
+        return tlas2_closest_hit(im, self, o, d, t_min, active)
+
+    def occluded(self, im, o, d, t_min, t_max, active=None) -> torch.Tensor:
+        return tlas2_occluded(im, self, o, d, t_min, t_max, active)
 
 
 # ---------------------------------------------------------------------------
@@ -132,7 +144,7 @@ class Tlas2Pack(PairNodes):
 
 def pack_tlas2(im: InstancedMeshes, device=None) -> Tlas2Pack:
     """An instanced scene's two trees in the kernels' layout (module
-    docstring). Every scene fits: `bvh2.launch_plan` places any stack depth."""
+    docstring). Every scene fits: `walk.launch_plan` places any stack depth."""
     K = im.inst_inv.shape[0]
     real = im.verts.dtype
     t_lo, t_hi = im.t_min.cpu().numpy(), im.t_max.cpu().numpy()
@@ -143,7 +155,7 @@ def pack_tlas2(im: InstancedMeshes, device=None) -> Tlas2Pack:
     t_leaf_inst = im.t_leaf_inst.cpu().numpy().astype(np.int64)
     t_leaf = t_leaf_inst >= 0
     rank = np.cumsum(t_leaf) - 1  # TLAS leaf rank, at the leaves
-    t_rec, _ = _pair_nodes(t_lo, t_hi, im.t_skip.cpu().numpy().astype(np.int64),
+    t_rec, _ = pair_nodes(t_lo, t_hi, im.t_skip.cpu().numpy().astype(np.int64),
                            np.where(t_leaf, rank << 2 | KIND_INST, 0), np.array([0]), 0)
     n_tlas = t_rec.shape[0]
 
@@ -152,7 +164,7 @@ def pack_tlas2(im: InstancedMeshes, device=None) -> Tlas2Pack:
     roots = [0]  # one BLAS after another: each root's skip is the next root
     while b_skip[roots[-1]] < b_skip.shape[0]:
         roots.append(int(b_skip[roots[-1]]))
-    b_rec, b_pid = _pair_nodes(b_lo, b_hi, b_skip, _leaf_refs(b_start, b_count), np.array(roots), n_tlas)
+    b_rec, b_pid = pair_nodes(b_lo, b_hi, b_skip, leaf_refs(b_start, b_count), np.array(roots), n_tlas)
     nodes = np.concatenate([t_rec, b_rec])
 
     # Instance records by TLAS leaf rank: the world->local rows, then the
@@ -173,7 +185,7 @@ def pack_tlas2(im: InstancedMeshes, device=None) -> Tlas2Pack:
     return Tlas2Pack(
         nodes=t(nodes, torch.float32), inst_rows=t(inst_rows), inst=t(inst_inv), tris=t(_tri_rows(p_verts, np_real)),
         p_verts=t(p_verts),
-        p_norms=t(p_norms), n_tlas=n_tlas, stack_depth=_stack_depth(nodes.view(np.int32)[:, 12:14], rank_root),
+        p_norms=t(p_norms), n_tlas=n_tlas, stack_depth=pair_stack_depth(nodes.view(np.int32)[:, 12:14], rank_root),
     )
 
 
@@ -186,109 +198,29 @@ def tlas2_closest_plain(pack: Tlas2Pack, o, d, t_min, active=None, stats=None):
     """Plain version of the closest-hit kernel: (t_raw (N,) in the rays'
     type with BIG on a miss, packed triangle id (N,) i32, instance id (N,) i32). `stats`, if
     given, accumulates the counts of `bvh2._pair_walk`."""
-    return _pair_walk(pack, o, d, t_min, None, active, stats)
+    return pack.plain(o, d, t_min, active=active, stats=stats)
 
 
 def tlas2_occluded_plain(pack: Tlas2Pack, o, d, t_min, t_max, active=None, stats=None):
     """Plain version of the any-hit kernel: True iff some instanced triangle
     lies in [t_min, t_max] along the ray."""
-    return _pair_walk(pack, o, d, t_min, t_max, active, stats)
+    return pack.plain(o, d, t_min, t_max, active, stats)
 
 
 # ---------------------------------------------------------------------------
-# Kernel launches
-# ---------------------------------------------------------------------------
-
-
-def tlas2_closest_kernel(pack: Tlas2Pack, o, d, t_min, active=None, launches=None):
-    """Launch the closest-hit kernel: (t_raw, triangle id, instance id) as
-    the plain version.
-    `launches`: a launch count's address (`kernels.launch_counter`), or
-    None for a launch not counted."""
-    from ..kernels import load_library
-
-    lib = load_library("tlas2")
-    o, d, active, _ = _check_rays(pack, o, d, active)
-    n = o.shape[0]
-    t_out = torch.empty(n, dtype=o.dtype, device=o.device)
-    id_out = torch.empty(n, dtype=torch.int32, device=o.device)
-    inst_out = torch.empty(n, dtype=torch.int32, device=o.device)
-    block, stack = _stack_args(pack, n, o.device)
-    entry = lib.rpt_tlas2_closest if o.dtype == torch.float32 else lib.rpt_tlas2_closest_f64
-    err = entry(
-        _ptr(pack.nodes), pack.n_tlas, _ptr(pack.inst_rows), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n,
-        real_value(t_min, o.dtype), _ptr(t_out), _ptr(id_out), _ptr(inst_out), block,
-        pack.stack_depth, _ptr(stack),
-        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"tlas2 closest-hit kernel launch failed: CUDA error {err}")
-    return t_out, id_out, inst_out
-
-
-def tlas2_occluded_kernel(pack: Tlas2Pack, o, d, t_min, t_max, active=None, launches=None):
-    """Launch the any-hit kernel: bool (N,) as the plain version.
-    `launches`: a launch count's address (`kernels.launch_counter`), or
-    None for a launch not counted."""
-    from ..kernels import load_library
-
-    lib = load_library("tlas2")
-    o, d, active, t_max = _check_rays(pack, o, d, active, t_max)
-    n = o.shape[0]
-    occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    block, stack = _stack_args(pack, n, o.device)
-    entry = lib.rpt_tlas2_occluded if o.dtype == torch.float32 else lib.rpt_tlas2_occluded_f64
-    err = entry(
-        _ptr(pack.nodes), pack.n_tlas, _ptr(pack.inst_rows), _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active),
-        _ptr(t_max), n, real_value(t_min, o.dtype), _ptr(occ), block,
-        pack.stack_depth, _ptr(stack),
-        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"tlas2 any-hit kernel launch failed: CUDA error {err}")
-    return occ
-
-
-def tlas2_occupancy(stack_depth: int, occluded: bool, dtype) -> dict:
-    """`bvh2.pair_occupancy` of the tlas2 kernels."""
-    from ..kernels import load_library
-
-    return pair_occupancy(load_library("tlas2").rpt_tlas2_occupancy, stack_depth, occluded, dtype)
-
-
-# ---------------------------------------------------------------------------
-# Wrappers (what SceneData.intersect / occluded call)
+# Wrappers (what SceneData.intersect / occluded call, through the pack)
 # ---------------------------------------------------------------------------
 
 
 @counted(slots=2)
 def tlas2_closest_hit(im: InstancedMeshes, pack: Tlas2Pack, o, d, t_min, active=None) -> Hit:
     """Closest hit over every instance (t = inf on a miss, smooth normal,
-    material id). CUDA rays launch the kernel of the pack's type (counted in
-    slot 0 for float32, 1 for float64); CPU rays take the plain walk."""
-    refuse_ray_grad("tlas2_closest_hit", o, d)
-    check_dtype(pack, o, d)
-    if _on_cpu(o):
-        t_raw, tri, inst = tlas2_closest_plain(pack, o, d, t_min, active)
-    else:
-        t_raw, tri, inst = tlas2_closest_kernel(pack, o, d, t_min, active,
-                                                launches=launch_counter(tlas2_closest_hit, o.device, real_slot(o)))
-    hit = _finalize(im, pack, o, d, t_min, t_raw, tri, inst)
-    if active is not None:
-        hit = Hit(t=torch.where(active, hit.t, torch.full_like(hit.t, INF)), normal=hit.normal, mat_id=hit.mat_id)
-    return hit
-
+    material id): `walk.closest_hit`, counted here."""
+    return walk.closest_hit(tlas2_closest_hit, im, pack, o, d, t_min, active)
 
 
 @counted(slots=2)
 def tlas2_occluded(im: InstancedMeshes, pack: Tlas2Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query over every instance, boolean-equal to
-    `tlas2_closest_hit(...).t <= t_max` (see `bvh8.finish_occluded`)."""
-    check_dtype(pack, o, d)
-    t_max = ray_t_max(t_max, o)
-    if _on_cpu(o):
-        occ = tlas2_occluded_plain(pack, o, d, t_min, t_max, active)
-    else:
-        occ = tlas2_occluded_kernel(pack, o, d, t_min, t_max, active,
-                                    launches=launch_counter(tlas2_occluded, o.device, real_slot(o)))
-    return finish_occluded(occ, t_max, active)
+    `tlas2_closest_hit(...).t <= t_max` (`walk.occluded`, counted here)."""
+    return walk.occluded(tlas2_occluded, pack, o, d, t_min, t_max, active)

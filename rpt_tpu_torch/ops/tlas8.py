@@ -6,8 +6,10 @@ Replaces the two TPU kernels of `rpt_tpu/ops/tlas8_pallas.py`:
 `tlas8_closest_hit_pallas`) and `_make_kernel_t8(occl=True, resident)` (any
 hit, reached through `tlas8_occluded_pallas`). The kernels are in
 `rpt_tpu_torch/csrc/tlas8.cu`; this module holds the host pack, the plain
-torch versions with the same contract, the wrappers that choose between
-them by the device of the rays, and the hit finalize.
+torch versions with the same contract and the two counted wrappers, whose
+launch and choice between kernel and plain walk by the device of the rays
+are `ops/walk.py`'s. The hit finalize is the instanced meshes' own
+(`tlas.finish_instanced`), shared with `ops/tlas2.py`.
 
 Layout. ONE wide-node table holds both levels: the binary TLAS over
 instances collapsed into wide nodes from node 0 on (`n_tlas` of them, world
@@ -24,7 +26,7 @@ smallest-subtree-first frontier expansion (`_collapse_wide`, copied).
   world->local rows, then `[wide BLAS root, instance id, 0, 0]` as int32
   bits (the layout of `ops/tlas2.py`'s records); `inst` (K, 12) f32 the
   world->local rows by instance id, for the finalize.
-- `tris` (L*8, 20) f32: the 20-float rows (`ops/bvh8._tri_rows`) of the
+- `tris` (L*8, 20) f32: the 20-float rows (`walk._tri_rows`) of the
   local-space triangles, leaf-contiguous and 8-aligned, a short leaf padded
   with its first triangle (the reference's packing); `p_verts`, `p_norms`
   the same triangles for the finalize.
@@ -43,7 +45,7 @@ node's frame is its index (`>= n_tlas` is local), and LIFO order means one
 local ray serves. The visit order is exactly that of a stack with one entry
 per hit child, pushed far first. The float64 walk tests its boxes in float
 against a float copy of the ray, widened to take every box a double test
-takes (`bvh8._slab_f32`, as the float64 tlas2 walk does).
+takes (`walk._slab_f32`, as the float64 tlas2 walk does).
 
 Ties. The reference takes, among equal t, the leaf it visits first in
 preorder: the first TLAS leaf, then the first BLAS leaf. The walk keeps
@@ -65,16 +67,15 @@ node-count gate, no (8, 128) tiles.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
-from ..kernels import counted, launch_counter
-from ..utils.vmath import numpy_real, real_value
-from ..utils.vmath import normalize
-from .bvh import _tri_hit_t, refuse_ray_grad, widen
+from ..kernels import counted
+from ..utils.vmath import numpy_real
+from . import walk
+from .bvh import widen
 from .bvh8 import (
     BRANCH,
     EMPTY,
@@ -82,22 +83,13 @@ from .bvh8 import (
     STACK_CAP,
     WideNodes,
     WidePackRefused,
-    _check_rays,
-    _emit_group,
-    _group_depth,
-    _group_walk,
-    _on_cpu,
-    _ptr,
-    _refuse_overflow,
-    _tri_rows,
-    check_dtype,
-    finish_occluded,
-    group_walk_occupancy,
-    ray_t_max,
-    real_slot,
+    emit_group,
+    group_stack_depth,
+    refuse_overflow,
 )
-from .intersect import INF, Hit
-from .tlas import InstancedMeshes, _affine, holding_boxes, packed_leaves
+from .intersect import Hit
+from .tlas import InstancedMeshes, finish_instanced, holding_boxes, packed_leaves
+from .walk import _tri_rows
 
 __all__ = [
     "Tlas8Pack",
@@ -106,9 +98,6 @@ __all__ = [
     "tlas8_occluded",
     "tlas8_closest_plain",
     "tlas8_occluded_plain",
-    "tlas8_closest_kernel",
-    "tlas8_occluded_kernel",
-    "tlas8_occupancy",
     "INST_ENTRY_OPS",
 ]
 
@@ -131,10 +120,24 @@ class Tlas8Pack(WideNodes):
     group_depth: int  # worst-case depth of the walk's node-group stack
     stack_need: int  # the reference's worst-case stack of single children
 
+    library, two_level = "tlas8", True
+
     @property
     def nbytes(self) -> int:
         """Bytes of the tables the kernels read."""
         return sum(t.numel() * t.element_size() for t in (self.bounds, self.meta, self.inst_rows, self.tris))
+
+    def launch_args(self, n: int, device):
+        return (self.bounds, self.meta, self.n_tlas, self.group_depth, self.inst_rows, self.tris), ()
+
+    def finish(self, im, o, d, t_min, out, active) -> Hit:
+        return finish_instanced(im, self, o, d, t_min, *out, active)
+
+    def closest_hit(self, im, o, d, t_min, active=None) -> Hit:
+        return tlas8_closest_hit(im, self, o, d, t_min, active)
+
+    def occluded(self, im, o, d, t_min, t_max, active=None) -> torch.Tensor:
+        return tlas8_occluded(im, self, o, d, t_min, t_max, active)
 
     def _rank_ints(self) -> torch.Tensor:
         r = self.inst_rows.element_size() // 4  # int32 words per real: the ints sit at real 12
@@ -276,8 +279,8 @@ def pack_tlas8(im: InstancedMeshes, device=None) -> Tlas8Pack:
     if need > STACK_CAP:
         raise WidePackRefused(f"the two-level wide BVH needs a stack of {need} > {STACK_CAP} entries")
     K = rank_root.shape[0]
-    _refuse_overflow(len(out_nodes), p_verts.shape[0], K)
-    bounds, meta = _emit_group(*_slot_arrays(out_nodes))
+    refuse_overflow(len(out_nodes), p_verts.shape[0], K)
+    bounds, meta = emit_group(*_slot_arrays(out_nodes))
     real = im.verts.dtype
     np_real = numpy_real(real)
     inst_inv = im.inst_inv.cpu().numpy().reshape(K, 12).astype(np_real)
@@ -293,7 +296,7 @@ def pack_tlas8(im: InstancedMeshes, device=None) -> Tlas8Pack:
     return Tlas8Pack(
         bounds=t(bounds, torch.float32), meta=t(meta, torch.int32), inst_rows=t(inst_rows), inst=t(inst_inv),
         tris=t(_tri_rows(p_verts, np_real)), p_verts=t(p_verts), p_norms=t(p_norms),
-        n_tlas=n_tlas, group_depth=_group_depth(meta, rank_root), stack_need=need,
+        n_tlas=n_tlas, group_depth=group_stack_depth(meta, rank_root), stack_need=need,
     )
 
 
@@ -305,126 +308,31 @@ def pack_tlas8(im: InstancedMeshes, device=None) -> Tlas8Pack:
 def tlas8_closest_plain(pack: Tlas8Pack, o, d, t_min, active=None, stats=None):
     """Plain version of the closest-hit kernel: (t_raw (N,) in the rays'
     type with BIG on a miss, packed triangle id (N,) i32, instance id (N,) i32). `stats`, if
-    given, accumulates the counts of `_group_walk`."""
-    return _group_walk(pack, o, d, t_min, None, active, False, stats)
+    given, accumulates the counts of `bvh8._group_walk`."""
+    return pack.plain(o, d, t_min, active=active, stats=stats)
 
 
 def tlas8_occluded_plain(pack: Tlas8Pack, o, d, t_min, t_max, active=None, stats=None):
     """Plain version of the any-hit kernel: True iff some instanced triangle
     lies in [t_min, t_max] along the ray."""
-    return _group_walk(pack, o, d, t_min, t_max, active, True, stats)
+    return pack.plain(o, d, t_min, t_max, active, stats)
 
 
 # ---------------------------------------------------------------------------
-# Kernel launches
+# Wrappers (what SceneData.intersect / occluded call, through the pack)
 # ---------------------------------------------------------------------------
-
-
-def tlas8_closest_kernel(pack: Tlas8Pack, o, d, t_min, active=None, launches=None):
-    """Launch the closest-hit kernel: (t_raw, triangle id, instance id) as
-    the plain version.
-    `launches`: a launch count's address (`kernels.launch_counter`), or
-    None for a launch not counted."""
-    from ..kernels import load_library
-
-    lib = load_library("tlas8")
-    o, d, active, _ = _check_rays(pack, o, d, active)
-    n = o.shape[0]
-    t_out = torch.empty(n, dtype=o.dtype, device=o.device)
-    id_out = torch.empty(n, dtype=torch.int32, device=o.device)
-    inst_out = torch.empty(n, dtype=torch.int32, device=o.device)
-    entry = lib.rpt_tlas8_closest if o.dtype == torch.float32 else lib.rpt_tlas8_closest_f64
-    err = entry(
-        _ptr(pack.bounds), _ptr(pack.meta), pack.n_tlas, pack.group_depth, _ptr(pack.inst_rows),
-        _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), n, real_value(t_min, o.dtype), _ptr(t_out), _ptr(id_out),
-        _ptr(inst_out), launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"tlas8 closest-hit kernel launch failed: CUDA error {err}")
-    return t_out, id_out, inst_out
-
-
-def tlas8_occluded_kernel(pack: Tlas8Pack, o, d, t_min, t_max, active=None, launches=None):
-    """Launch the any-hit kernel: bool (N,) as the plain version.
-    `launches`: a launch count's address (`kernels.launch_counter`), or
-    None for a launch not counted."""
-    from ..kernels import load_library
-
-    lib = load_library("tlas8")
-    o, d, active, t_max = _check_rays(pack, o, d, active, t_max)
-    n = o.shape[0]
-    occ = torch.empty(n, dtype=torch.bool, device=o.device)
-    entry = lib.rpt_tlas8_occluded if o.dtype == torch.float32 else lib.rpt_tlas8_occluded_f64
-    err = entry(
-        _ptr(pack.bounds), _ptr(pack.meta), pack.n_tlas, pack.group_depth, _ptr(pack.inst_rows),
-        _ptr(pack.tris), _ptr(o), _ptr(d), _ptr(active), _ptr(t_max), n, real_value(t_min, o.dtype), _ptr(occ),
-        launches, ctypes.c_void_p(torch.cuda.current_stream(o.device).cuda_stream),
-    )
-    if err != 0:
-        raise RuntimeError(f"tlas8 any-hit kernel launch failed: CUDA error {err}")
-    return occ
-
-
-def tlas8_occupancy(group_depth: int, occluded: bool, dtype) -> dict:
-    """`bvh8.group_walk_occupancy` of the tlas8 kernels."""
-    from ..kernels import load_library
-
-    return group_walk_occupancy(load_library("tlas8").rpt_tlas8_occupancy, group_depth, occluded, dtype)
-
-
-# ---------------------------------------------------------------------------
-# Wrappers (what SceneData.intersect / occluded call)
-# ---------------------------------------------------------------------------
-
-
-def _finalize(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, t_raw, tri, inst) -> Hit:
-    """The Hit of each ray's winner: barycentrics in its instance's frame,
-    the interpolated normal lifted by the instance's normal matrix, and the
-    instance's material (as the reference's XLA loop finalizes,
-    `rpt_tpu/ops/tlas.py` `instanced_closest_hit`, in the pack's type: its
-    Pallas wrapper reads float32 vertices and does not run under
-    jax_enable_x64). The 3x3 products are written out elementwise: as an
-    einsum they run as a batched gemv on the card."""
-    tri = torch.clamp(tri.long(), 0, pack.p_verts.shape[0] - 1)
-    inst = torch.clamp(inst.long(), 0, pack.inst.shape[0] - 1)
-    A = pack.inst[inst].view(-1, 3, 4)
-    tv, tn = pack.p_verts[tri], pack.p_norms[tri]
-    _, (u, v, w) = _tri_hit_t(_affine(A, o, 1), _affine(A, d, 0), tv[:, 0], tv[:, 1], tv[:, 2], t_min)
-    n_local = u[:, None] * tn[:, 0] + v[:, None] * tn[:, 1] + w[:, None] * tn[:, 2]
-    n_world = normalize((im.inst_nmat[inst] * n_local[:, None, :]).sum(-1))
-    t = torch.where(t_raw >= 1.0e38, torch.full_like(t_raw, INF), t_raw)
-    return Hit(t=t, normal=n_world, mat_id=im.inst_mat[inst])
 
 
 @counted(slots=2)
 def tlas8_closest_hit(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, active=None) -> Hit:
     """Closest hit over every instance (t = inf on a miss, smooth normal,
-    material id). CUDA rays launch the kernel of the pack's type (counted in
-    slot 0 for float32, 1 for float64); CPU rays take the plain walk."""
-    refuse_ray_grad("tlas8_closest_hit", o, d)
-    check_dtype(pack, o, d)
-    if _on_cpu(o):
-        t_raw, tri, inst = tlas8_closest_plain(pack, o, d, t_min, active)
-    else:
-        t_raw, tri, inst = tlas8_closest_kernel(pack, o, d, t_min, active,
-                                                launches=launch_counter(tlas8_closest_hit, o.device, real_slot(o)))
-    hit = _finalize(im, pack, o, d, t_min, t_raw, tri, inst)
-    if active is not None:
-        hit = Hit(t=torch.where(active, hit.t, torch.full_like(hit.t, INF)), normal=hit.normal, mat_id=hit.mat_id)
-    return hit
-
+    material id): `walk.closest_hit`, counted here."""
+    return walk.closest_hit(tlas8_closest_hit, im, pack, o, d, t_min, active)
 
 
 @counted(slots=2)
 def tlas8_occluded(im: InstancedMeshes, pack: Tlas8Pack, o, d, t_min, t_max, active=None) -> torch.Tensor:
     """Shadow query over every instance, boolean-equal to
     `tlas8_closest_hit(...).t <= t_max`, also for t_max = +inf (a miss then
-    counts as occluded, as in the reference; `bvh8.finish_occluded`)."""
-    check_dtype(pack, o, d)
-    t_max = ray_t_max(t_max, o)
-    if _on_cpu(o):
-        occ = tlas8_occluded_plain(pack, o, d, t_min, t_max, active)
-    else:
-        occ = tlas8_occluded_kernel(pack, o, d, t_min, t_max, active,
-                                    launches=launch_counter(tlas8_occluded, o.device, real_slot(o)))
-    return finish_occluded(occ, t_max, active)
+    counts as occluded, as in the reference; `walk.occluded`, counted here)."""
+    return walk.occluded(tlas8_occluded, pack, o, d, t_min, t_max, active)

@@ -177,7 +177,7 @@ def scene_cache_key(scene_data: SceneData) -> str:
     kernels), its device and its real type. A SceneData built outside
     Scene.compile (digest "") falls back to id(), which SceneCache keeps
     valid by pinning the SceneData while its entry lives."""
-    packs = ",".join(f for f in ("bvh8", "bvh2", "tlas8", "tlas2") if getattr(scene_data, f) is not None)
+    packs = ",".join(pack.library for pack in scene_data.packs)
     return f"{scene_data.digest or f'id:{id(scene_data)}'}|{packs}|{scene_data.device}|{scene_data.dtype}"
 
 

@@ -17,15 +17,19 @@ Which kernels walk a tree is the reference's choice too, made once at
 compile time by `choose_bvh_pack` / `choose_instanced_pack` (which
 `convert.py` calls as well) from the module globals `_BVH_KERNEL`
 (env `RPT_BVH_KERNEL`, "wide" or "binary") and `WIDE_KERNEL_MIN_TRIS` (env
-`RPT_WIDE_MIN_TRIS`): a BVH of at least WIDE_KERNEL_MIN_TRIS triangle rows
-takes the wide kernels (`ops/bvh8.py`) under "wide", any other the binary
-kernels (`ops/bvh2.py`); an instanced scene takes the two-level
-wide kernels (`ops/tlas8.py`) under "wide", else the binary two-level ones
-(`ops/tlas2.py`). A wide pack that refuses a tree falls back to the binary
-one with a warning, as the reference does. The reference's TPU budgets
-(SMEM and node-count eligibility) are not carried over: the binary
-two-level kernels take every scene, where the reference falls back to its
-XLA loop. The kernels run on the card, their plain versions on the CPU.
+`RPT_WIDE_MIN_TRIS`), and made nowhere else: the choice is the type of the
+one pack each level holds, `SceneData.mesh_pack` for the BVH and
+`instance_pack` for the instanced meshes. A BVH of at least
+WIDE_KERNEL_MIN_TRIS triangle rows gets a wide pack (`ops/bvh8.Bvh8Pack`)
+under "wide", any other a binary one (`ops/bvh2.Bvh2Pack`); instanced
+meshes get a two-level wide pack (`ops/tlas8.Tlas8Pack`) under "wide", else
+a binary two-level one (`ops/tlas2.Tlas2Pack`). A wide pack that refuses a
+tree falls back to the binary one with a warning, as the reference does.
+The reference's TPU budgets (SMEM and node-count eligibility) are not
+carried over: the binary two-level kernels take every scene, where the
+reference falls back to its XLA loop. Whatever its type, a pack is walked
+through `ops/walk.py`: its kernels on the card, their plain versions on the
+CPU.
 
 Monomial surfaces are analytic primitives like spheres and cubes,
 intersected by the fixed Newton-and-bisection root find of
@@ -48,7 +52,7 @@ import dataclasses
 import hashlib
 import os
 import warnings
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -72,11 +76,11 @@ from .materials import Material, MaterialTable
 from .native import hash128
 from .ops import intersect as ops
 from .ops.bvh import BvhData, build_bvh
-from .ops.bvh2 import Bvh2Pack, bvh2_closest_hit, bvh2_occluded, pack_bvh2
-from .ops.bvh8 import Bvh8Pack, WidePackRefused, bvh8_closest_hit, bvh8_occluded, pack_bvh8
+from .ops.bvh2 import Bvh2Pack, pack_bvh2
+from .ops.bvh8 import Bvh8Pack, WidePackRefused, pack_bvh8
 from .ops.tlas import InstancedMeshes, build_instanced
-from .ops.tlas2 import Tlas2Pack, pack_tlas2, tlas2_closest_hit, tlas2_occluded
-from .ops.tlas8 import Tlas8Pack, pack_tlas8, tlas8_closest_hit, tlas8_occluded
+from .ops.tlas2 import Tlas2Pack, pack_tlas2
+from .ops.tlas8 import Tlas8Pack, pack_tlas8
 from .shapes import Cube, Group, Mesh, MonomialSurface, Plane, Shape, Sphere, Transformed, unwrap_transform
 from .utils.device import resolve_device
 from .utils.vmath import numpy_real
@@ -302,11 +306,9 @@ class SceneData:
     monomials: Optional[MonomialArrays]
     triangles: Optional[TriangleArrays]  # small meshes, brute force
     bvh: Optional[BvhData]  # large meshes: triangle data for finalize_hit
-    bvh8: Optional[Bvh8Pack]  # the wide-BVH kernels' layout of `bvh`, or
-    bvh2: Optional[Bvh2Pack]  # the binary kernels' layout (one of the two)
+    mesh_pack: Optional[Union[Bvh8Pack, Bvh2Pack]]  # the kernels' layout of `bvh` (`choose_bvh_pack`)
     instanced: Optional[InstancedMeshes]  # shared meshes: two-level BVH
-    tlas8: Optional[Tlas8Pack]  # the two-level wide kernels' layout of `instanced`, or
-    tlas2: Optional[Tlas2Pack]  # the two-level binary kernels' layout (one of the two)
+    instance_pack: Optional[Union[Tlas8Pack, Tlas2Pack]]  # the layout of `instanced` (`choose_instanced_pack`)
     lights: tuple
     environment: Environment
     env_color: torch.Tensor  # (3,): the environment's (float32) color on `device`, in the scene's type
@@ -332,18 +334,21 @@ class SceneData:
         this scene's device tensors (`Environment.get_color`)."""
         return lookup(d, self.env_color, self.env_hdri, self.env_quad)
 
+    @property
+    def packs(self) -> tuple:
+        """The traversal packs the scene holds, the mesh pack first."""
+        return tuple(pack for _, pack in self._walks())
+
+    def _walks(self):
+        """(geometry, pack) of each level that holds a pack."""
+        return [(g, p) for g, p in ((self.bvh, self.mesh_pack), (self.instanced, self.instance_pack)) if p is not None]
+
     def intersect(self, o: torch.Tensor, d: torch.Tensor, t_min, active=None) -> ops.Hit:
         """Closest hit of N rays against the whole scene. Lanes with
         `active=False` never walk the BVH and come back as misses."""
         hit = self._analytic_hit(o, d, t_min)
-        if self.bvh8 is not None:
-            hit = ops.merge_hits(hit, bvh8_closest_hit(self.bvh, self.bvh8, o, d, t_min, active=active))
-        if self.bvh2 is not None:
-            hit = ops.merge_hits(hit, bvh2_closest_hit(self.bvh, self.bvh2, o, d, t_min, active=active))
-        if self.tlas8 is not None:
-            hit = ops.merge_hits(hit, tlas8_closest_hit(self.instanced, self.tlas8, o, d, t_min, active=active))
-        if self.tlas2 is not None:
-            hit = ops.merge_hits(hit, tlas2_closest_hit(self.instanced, self.tlas2, o, d, t_min, active=active))
+        for geometry, pack in self._walks():
+            hit = ops.merge_hits(hit, pack.closest_hit(geometry, o, d, t_min, active=active))
         if active is not None:
             hit = ops.Hit(
                 t=torch.where(active, hit.t, torch.full_like(hit.t, ops.INF)),
@@ -357,14 +362,8 @@ class SceneData:
         at t_min, as intersect() is); the mesh walk stops at the first hit."""
         t_max = torch.broadcast_to(torch.as_tensor(t_max, dtype=o.dtype, device=o.device), (o.shape[0],))
         occ = self._analytic_occluded(o, d, t_min, t_max)
-        if self.bvh8 is not None:
-            occ = occ | bvh8_occluded(self.bvh, self.bvh8, o, d, t_min, t_max, active=active)
-        if self.bvh2 is not None:
-            occ = occ | bvh2_occluded(self.bvh, self.bvh2, o, d, t_min, t_max, active=active)
-        if self.tlas8 is not None:
-            occ = occ | tlas8_occluded(self.instanced, self.tlas8, o, d, t_min, t_max, active=active)
-        if self.tlas2 is not None:
-            occ = occ | tlas2_occluded(self.instanced, self.tlas2, o, d, t_min, t_max, active=active)
+        for geometry, pack in self._walks():
+            occ = occ | pack.occluded(geometry, o, d, t_min, t_max, active=active)
         if active is not None:
             occ = occ & active
         return occ
@@ -457,30 +456,30 @@ def _maybe_chunked_occl(occl_fn, prim_arrays: tuple, o, d, t_min, t_max, chunk: 
 # ---------------------------------------------------------------------------
 
 
-def choose_bvh_pack(bvh: BvhData, device=None) -> Tuple[Optional[Bvh8Pack], Optional[Bvh2Pack]]:
-    """(bvh8, bvh2), one of them set: the wide pack for a BVH of at least
+def choose_bvh_pack(bvh: BvhData, device=None) -> Union[Bvh8Pack, Bvh2Pack]:
+    """The BVH's pack: the wide pack for a BVH of at least
     WIDE_KERNEL_MIN_TRIS triangle rows under RPT_BVH_KERNEL=wide, else the
     binary pack; also the binary pack, with a warning, where the wide pack
     refuses the tree (the reference's decision, `rpt_tpu/scene.py:736-754`)."""
     if _BVH_KERNEL == "wide" and bvh.num_tris >= WIDE_KERNEL_MIN_TRIS:
         try:
-            return pack_bvh8(bvh, device=device), None
+            return pack_bvh8(bvh, device=device)
         except WidePackRefused as e:
             warnings.warn(f"{e}; falling back to the binary BVH kernels", stacklevel=2)
-    return None, pack_bvh2(bvh, device=device)
+    return pack_bvh2(bvh, device=device)
 
 
-def choose_instanced_pack(im: InstancedMeshes, device=None) -> Tuple[Optional[Tlas8Pack], Optional[Tlas2Pack]]:
-    """(tlas8, tlas2), one of them set: the two-level wide pack under
+def choose_instanced_pack(im: InstancedMeshes, device=None) -> Union[Tlas8Pack, Tlas2Pack]:
+    """The instanced meshes' pack: the two-level wide pack under
     RPT_BVH_KERNEL=wide, else the binary one; also the binary one, with a
     warning, where the wide pack refuses the scene (as the reference's
     `pack_tlas8_for_pallas` falls back to its binary two-level kernel)."""
     if _BVH_KERNEL == "wide":
         try:
-            return pack_tlas8(im, device=device), None
+            return pack_tlas8(im, device=device)
         except WidePackRefused as e:
             warnings.warn(f"{e}; falling back to the binary two-level kernels", stacklevel=2)
-    return None, pack_tlas2(im, device=device)
+    return pack_tlas2(im, device=device)
 
 
 
@@ -565,7 +564,7 @@ def compile_scene(scene: Scene, device=None, digest: str = "", dtype=torch.float
     # every mesh is used once and the total stays small; shared geometry or
     # very large bakes go through the instanced TLAS + BLAS.
     tri_verts, tri_norms, tri_mats = [], [], []
-    instanced = tlas8 = tlas2 = None
+    instanced = instance_pack = None
     if mesh_uses:
         shared = len({id(m) for m, _, _ in mesh_uses}) < len(mesh_uses)
         if shared or sum(m.num_triangles for m, _, _ in mesh_uses) > BAKE_TRI_LIMIT:
@@ -577,7 +576,7 @@ def compile_scene(scene: Scene, device=None, digest: str = "", dtype=torch.float
                     uniq.append(m)
             instances = [(slot[id(m)], matrix, mid) for m, matrix, mid in mesh_uses]
             instanced = build_instanced(uniq, instances, device=device, dtype=dtype)
-            tlas8, tlas2 = choose_instanced_pack(instanced, device=device)
+            instance_pack = choose_instanced_pack(instanced, device=device)
         else:
             for m, matrix, mid in mesh_uses:
                 verts, norms = _bake_mesh(m, matrix)
@@ -611,14 +610,14 @@ def compile_scene(scene: Scene, device=None, digest: str = "", dtype=torch.float
             mat_id=_t(np.asarray([r[3] for r in mono_rows], np.int32), i32, device),
         )
 
-    triangles = bvh = bvh8 = bvh2 = None
+    triangles = bvh = mesh_pack = None
     if tri_verts:
         verts = np.concatenate(tri_verts)
         norms = np.concatenate(tri_norms)
         mats = np.concatenate(tri_mats)
         if verts.shape[0] >= BVH_THRESHOLD:
             bvh = build_bvh(verts, norms, mats, device=device, dtype=dtype)
-            bvh8, bvh2 = choose_bvh_pack(bvh, device=device)
+            mesh_pack = choose_bvh_pack(bvh, device=device)
         else:
             triangles = TriangleArrays(
                 verts=_t(verts.astype(np_real), real, device),
@@ -635,11 +634,9 @@ def compile_scene(scene: Scene, device=None, digest: str = "", dtype=torch.float
         monomials=monomials,
         triangles=triangles,
         bvh=bvh,
-        bvh8=bvh8,
-        bvh2=bvh2,
+        mesh_pack=mesh_pack,
         instanced=instanced,
-        tlas8=tlas8,
-        tlas2=tlas2,
+        instance_pack=instance_pack,
         lights=tuple(_compile_light(l, device, dtype) for l in scene.lights),
         environment=scene.environment,
         env_color=env_color,

@@ -123,6 +123,7 @@ __all__ = [
     "compound_lamp",
     "build_compound_scene",
     "compound_camera",
+    "scene_and_camera",
 ]
 
 
@@ -742,3 +743,34 @@ def build_compound_scene() -> Scene:
 
 def compound_camera() -> Camera:
     return Camera.look_at([-0.9, 1.2, 2.4], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0], math.pi / 4)
+
+
+def scene_and_camera(name: str):
+    """(scene, camera, ray offset) of a scene by name: `cornell`, `dragon`,
+    `dragon871k`, `lego`, `monomial_glass`, `pegasus_trefoil`,
+    `wine_glass_trefoil`, `fractal_spheres`, `compound`,
+    `fractal_teapots_trefoil` (`examples.fractal_teapots`' 937 instances of
+    the trefoil cut to the teapot's size, `TEAPOT_KNOT`), and `lego_toy` for
+    any other name; the ray offset of the reference's `bench.py` rows, the
+    renderer's default for the examples."""
+    if name == "cornell":
+        return build_cornell_scene(), cornell_camera(), CORNELL_EPSILON
+    if name == "dragon":
+        return build_dragon_scene(), dragon_camera(), 1e-3
+    if name == "dragon871k":
+        return build_dragon_scene(target_tris=871_000), dragon_camera(), 1e-3
+    if name == "lego":
+        return build_brick_city(), lego_camera(), 1e-3
+    if name == "monomial_glass":
+        return build_monomial_glass_scene(sky_height=1024), monomial_glass_camera(), 1e-3
+    if name == "pegasus_trefoil":
+        return build_pegasus_trefoil_scene(), pegasus_camera(), 1e-3
+    if name == "wine_glass_trefoil":
+        return build_wine_glass_trefoil_scene(), wine_glass_camera(), 1e-3
+    if name == "fractal_spheres":
+        return build_fractal_spheres_scene(), fractal_spheres_camera(), 1e-3
+    if name == "compound":
+        return build_compound_scene(), compound_camera(), 1e-3
+    if name == "fractal_teapots_trefoil":
+        return build_fractal_teapots_scene(trefoil_mesh(*TEAPOT_KNOT)), fractal_spheres_camera(), 1e-3
+    return build_toy_plane_scene(), toy_plane_camera(), 1e-3

@@ -99,8 +99,8 @@ def compiled():
             out[name] = {pkg: _compile(pkg, builder) for pkg in (rpt_tpu, rpt_tpu_torch)}
     finally:
         ref_scene_mod.WIDE_KERNEL_MIN_TRIS, scene_mod.WIDE_KERNEL_MIN_TRIS = saved
-    assert out["instanced"][rpt_tpu_torch][0].tlas8 is not None
-    assert out["mesh"][rpt_tpu_torch][0].bvh8 is not None and out["mesh"][rpt_tpu][0].bvh8_packed is not None
+    assert out["instanced"][rpt_tpu_torch][0].instance_pack.library == "tlas8"
+    assert out["mesh"][rpt_tpu_torch][0].mesh_pack.library == "bvh8" and out["mesh"][rpt_tpu][0].bvh8_packed is not None
     return out
 
 

@@ -22,7 +22,7 @@ from rpt_tpu_torch import (
 from rpt_tpu_torch import random as rnd
 from rpt_tpu_torch import renderer as renderer_mod
 from rpt_tpu_torch import scenes
-from rpt_tpu_torch.ops import bvh2, bvh8, tlas2, tlas8
+from rpt_tpu_torch.ops import bvh2, bvh8, tlas2, tlas8, walk
 from rpt_tpu_torch.ops.bvh import build_bvh
 from rpt_tpu_torch.ops.tlas import build_instanced
 
@@ -60,7 +60,7 @@ def test_kernels_match_plain_walks(card):
     pack = bvh8.pack_bvh8(build_bvh(verts, norms, mats, device="cpu"), device=card)
     o, d = o.to(card), d.to(card)
     active = torch.arange(o.shape[0], device=card) % 3 != 0
-    t_k, id_k = bvh8.bvh8_closest_kernel(pack, o, d, T_MIN, active)
+    t_k, id_k = walk.launch(pack, o, d, T_MIN, active=active)
     t_p, id_p = bvh8.bvh8_closest_plain(pack, o, d, T_MIN, active)
     torch.cuda.synchronize()
     hit = t_p < 1e38
@@ -69,7 +69,7 @@ def test_kernels_match_plain_walks(card):
     assert torch.equal(id_k, id_p)
     t_max = torch.where(hit, t_p, torch.full_like(t_p, 4.0))  # closed interval: t == t_max counts
     t_max[::5] = 2.0
-    occ_k = bvh8.bvh8_occluded_kernel(pack, o, d, T_MIN, t_max, active)
+    occ_k = walk.launch(pack, o, d, T_MIN, t_max, active)
     occ_p = bvh8.bvh8_occluded_plain(pack, o, d, T_MIN, t_max, active)
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p)
@@ -90,15 +90,15 @@ def test_bvh8_kernels_match_plain_walks_at_the_deepest_group_stack(card):
     o, d = o.to(card), d.to(card)
     stats = {}
     t_p, id_p = bvh8.bvh8_closest_plain(pack, o, d, T_MIN, stats=stats)
-    t_k, id_k = bvh8.bvh8_closest_kernel(pack, o, d, T_MIN)
-    t_x, id_x = bvh2.bvh2_closest_kernel(binary, o, d, T_MIN)
+    t_k, id_k = walk.launch(pack, o, d, T_MIN)
+    t_x, id_x = walk.launch(binary, o, d, T_MIN)
     torch.cuda.synchronize()
     assert stats["max_group_depth"] == pack.group_depth
     assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p)
     assert torch.equal(t_k, t_x) and (id_k != id_x)[t_x < 1e38].float().mean() <= 1e-3
     t_max = torch.where(t_p < 1e38, t_p, torch.full_like(t_p, 8.0))
     t_max[1::4] = 3.0
-    occ_k = bvh8.bvh8_occluded_kernel(pack, o, d, T_MIN, t_max)
+    occ_k = walk.launch(pack, o, d, T_MIN, t_max)
     occ_p = bvh8.bvh8_occluded_plain(pack, o, d, T_MIN, t_max)
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p)
@@ -112,9 +112,9 @@ def test_bvh8_kernels_refuse_a_stack_deeper_than_a_block_holds(card):
     pack = bvh8.pack_bvh8(build_bvh(verts, norms, mats, device="cpu"), device=card)
     deep = dataclasses.replace(pack, group_depth=1000)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        bvh8.bvh8_closest_kernel(deep, o.to(card), d.to(card), T_MIN)
+        walk.launch(deep, o.to(card), d.to(card), T_MIN)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        bvh8.bvh8_occluded_kernel(deep, o.to(card), d.to(card), T_MIN, torch.full((64,), 3.0, device=card))
+        walk.launch(deep, o.to(card), d.to(card), T_MIN, torch.full((64,), 3.0, device=card))
 
 
 @pytest.mark.cuda
@@ -129,9 +129,9 @@ def test_bvh8_kernels_take_a_stack_past_the_default_48_kb(card):
     o, d = o.to(card), d.to(card)
     t_max = torch.full((o.shape[0],), 3.0, device=card)
     for _ in range(2):
-        got, want = bvh8.bvh8_closest_kernel(deep, o, d, T_MIN), bvh8.bvh8_closest_plain(deep, o, d, T_MIN)
+        got, want = walk.launch(deep, o, d, T_MIN), bvh8.bvh8_closest_plain(deep, o, d, T_MIN)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        assert torch.equal(bvh8.bvh8_occluded_kernel(deep, o, d, T_MIN, t_max),
+        assert torch.equal(walk.launch(deep, o, d, T_MIN, t_max),
                            bvh8.bvh8_occluded_plain(deep, o, d, T_MIN, t_max))
 
 
@@ -144,11 +144,24 @@ def _counts():
         ("tlas2_closest", tlas2.tlas2_closest_hit), ("tlas2_occluded", tlas2.tlas2_occluded))}
 
 
+def _pack_of(sd, family):
+    """The one traversal pack of a compiled scene, which must be `family`'s."""
+    (pack,) = sd.packs
+    assert pack.library == family
+    return pack
+
+
+def _closest_wrapper(family):
+    """The counted closest-hit wrapper of `family`."""
+    mod = {"bvh8": bvh8, "bvh2": bvh2, "tlas8": tlas8, "tlas2": tlas2}[family]
+    return getattr(mod, f"{family}_closest_hit")
+
+
 def _assert_goes_through(scene, family, o, d, t_max):
     """The scene compiled on the card answers through `family`'s two
     kernels, one launch each and no other, and equals its CPU compile."""
     sd = scene.compile()  # the default device is the card
-    assert getattr(sd, family).tris.is_cuda
+    assert _pack_of(sd, family).tris.is_cuda
     before = _counts()
     hit = sd.intersect(o.to("cuda"), d.to("cuda"), T_MIN)
     occ = sd.occluded(o.to("cuda"), d.to("cuda"), T_MIN, t_max)
@@ -181,7 +194,7 @@ def test_scene_over_the_wide_threshold_goes_through_the_bvh8_kernels(card, monke
 def _assert_bvh2_kernels_equal_plain(pack, o, d, active=None):
     """Both bvh2 kernels against the plain walk, bit for bit: t, triangle
     ids and the any-hit bool."""
-    t_k, id_k = bvh2.bvh2_closest_kernel(pack, o, d, T_MIN, active)
+    t_k, id_k = walk.launch(pack, o, d, T_MIN, active=active)
     t_p, id_p = bvh2.bvh2_closest_plain(pack, o, d, T_MIN, active)
     torch.cuda.synchronize()
     hit = t_p < 1e38
@@ -190,7 +203,7 @@ def _assert_bvh2_kernels_equal_plain(pack, o, d, active=None):
     assert torch.equal(id_k, id_p)
     t_max = torch.where(hit, t_p, torch.full_like(t_p, 4.0))  # closed interval: t == t_max counts
     t_max[::5] = 2.0
-    occ_k = bvh2.bvh2_occluded_kernel(pack, o, d, T_MIN, t_max, active)
+    occ_k = walk.launch(pack, o, d, T_MIN, t_max, active)
     occ_p = bvh2.bvh2_occluded_plain(pack, o, d, T_MIN, t_max, active)
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p)
@@ -224,9 +237,9 @@ def test_bvh2_kernels_take_every_launch_plan_at_the_deepest_stack(card, branch, 
     stats = {}
     bvh2.bvh2_closest_plain(pack, o, d, T_MIN, stats=stats)
     assert 0 < stats["max_stack_depth"] <= pack.stack_depth
-    limit = {"block_128": bvh2.SMEM_PER_BLOCK, "smaller_block": 64 * pack.stack_depth * 4, "global_stack": 0}[branch]
-    monkeypatch.setattr(bvh2, "SMEM_PER_BLOCK", limit)
-    block, _, on_global = bvh2.launch_plan(pack.stack_depth)
+    limit = {"block_128": walk.SMEM_PER_BLOCK, "smaller_block": 64 * pack.stack_depth * 4, "global_stack": 0}[branch]
+    monkeypatch.setattr(walk, "SMEM_PER_BLOCK", limit)
+    block, _, on_global = walk.launch_plan(pack.stack_depth)
     assert (block, on_global) == {"block_128": (128, False), "smaller_block": (64, False),
                                   "global_stack": (128, True)}[branch]
     _assert_bvh2_kernels_equal_plain(pack, o, d)
@@ -236,22 +249,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     (verts, norms, mats), o, d = _mesh_and_rays(100, 64)
     pack = bvh8.pack_bvh8(build_bvh(verts, norms, mats, device="cpu"), device=card)
     with pytest.raises(ValueError):
-        bvh8.bvh8_closest_kernel(pack, o, d, T_MIN)  # rays on the CPU
+        walk.launch(pack, o, d, T_MIN)  # rays on the CPU
     with pytest.raises(TypeError):
-        bvh8.bvh8_closest_kernel(pack, o.double().to(card), d.double().to(card), T_MIN)
+        walk.launch(pack, o.double().to(card), d.double().to(card), T_MIN)
 
 
 def test_bvh2_wrappers_refuse_what_the_kernels_do_not_take(card):
     (verts, norms, mats), o, d = _mesh_and_rays(100, 64)
     pack = bvh2.pack_bvh2(build_bvh(verts, norms, mats, device="cpu"), device=card)
     with pytest.raises(ValueError):
-        bvh2.bvh2_closest_kernel(pack, o, d, T_MIN)  # rays on the CPU
+        walk.launch(pack, o, d, T_MIN)  # rays on the CPU
     with pytest.raises(TypeError):
-        bvh2.bvh2_closest_kernel(pack, o.double().to(card), d.double().to(card), T_MIN)
+        walk.launch(pack, o.double().to(card), d.double().to(card), T_MIN)
     with pytest.raises(ValueError):
-        bvh2.bvh2_closest_kernel(pack, o.to(card)[:, :2], d.to(card)[:, :2], T_MIN)
+        walk.launch(pack, o.to(card)[:, :2], d.to(card)[:, :2], T_MIN)
     with pytest.raises(ValueError):
-        bvh2.bvh2_occluded_kernel(pack, o.to(card), d.to(card), T_MIN, torch.ones(3, device=card))
+        walk.launch(pack, o.to(card), d.to(card), T_MIN, torch.ones(3, device=card))
 
 
 def _instanced_and_rays(n_meshes, n_instances, n_rays, seed=0):
@@ -285,7 +298,7 @@ def test_tlas8_kernels_match_plain_walks(card):
     pack = tlas8.pack_tlas8(build_instanced(meshes, instances, device="cpu"), device=card)
     o, d = o.to(card), d.to(card)
     active = torch.arange(o.shape[0], device=card) % 3 != 0
-    t_k, id_k, inst_k = tlas8.tlas8_closest_kernel(pack, o, d, T_MIN, active)
+    t_k, id_k, inst_k = walk.launch(pack, o, d, T_MIN, active=active)
     t_p, id_p, inst_p = tlas8.tlas8_closest_plain(pack, o, d, T_MIN, active)
     torch.cuda.synchronize()
     hit = t_p < 1e38
@@ -295,7 +308,7 @@ def test_tlas8_kernels_match_plain_walks(card):
     assert torch.equal(inst_k, inst_p)
     t_max = torch.where(hit, t_p, torch.full_like(t_p, 12.0))  # closed interval: t == t_max counts
     t_max[::5] = 8.0
-    occ_k = tlas8.tlas8_occluded_kernel(pack, o, d, T_MIN, t_max, active)
+    occ_k = walk.launch(pack, o, d, T_MIN, t_max, active)
     occ_p = tlas8.tlas8_occluded_plain(pack, o, d, T_MIN, t_max, active)
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p)
@@ -314,13 +327,13 @@ def test_tlas8_kernels_match_plain_walks_at_the_deepest_group_stack(card):
     o, d = o.to(card), d.to(card)
     stats = {}
     t_p, id_p, inst_p = tlas8.tlas8_closest_plain(pack, o, d, T_MIN, stats=stats)
-    t_k, id_k, inst_k = tlas8.tlas8_closest_kernel(pack, o, d, T_MIN)
+    t_k, id_k, inst_k = walk.launch(pack, o, d, T_MIN)
     torch.cuda.synchronize()
     assert stats["max_group_depth"] == pack.group_depth
     assert torch.equal(t_k, t_p) and torch.equal(id_k, id_p) and torch.equal(inst_k, inst_p)
     t_max = torch.where(t_p < 1e38, t_p, torch.full_like(t_p, 30.0))
     t_max[1::4] = 9.0
-    occ_k = tlas8.tlas8_occluded_kernel(pack, o, d, T_MIN, t_max)
+    occ_k = walk.launch(pack, o, d, T_MIN, t_max)
     occ_p = tlas8.tlas8_occluded_plain(pack, o, d, T_MIN, t_max)
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p)
@@ -334,9 +347,9 @@ def test_tlas8_kernels_refuse_a_stack_deeper_than_a_block_holds(card):
     pack = tlas8.pack_tlas8(build_instanced(meshes, instances, device="cpu"), device=card)
     deep = dataclasses.replace(pack, group_depth=1000)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        tlas8.tlas8_closest_kernel(deep, o.to(card), d.to(card), T_MIN)
+        walk.launch(deep, o.to(card), d.to(card), T_MIN)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        tlas8.tlas8_occluded_kernel(deep, o.to(card), d.to(card), T_MIN, torch.full((64,), 9.0, device=card))
+        walk.launch(deep, o.to(card), d.to(card), T_MIN, torch.full((64,), 9.0, device=card))
 
 
 def _shared_mesh_scene(seed=3):
@@ -361,7 +374,7 @@ def test_binary_choice_takes_the_tlas2_kernels(card, monkeypatch):
 def _assert_tlas2_kernels_equal_plain(pack, o, d, active=None):
     """Both tlas2 kernels against the plain walk, bit for bit: t, triangle
     ids, instance ids and the any-hit bool."""
-    t_k, id_k, inst_k = tlas2.tlas2_closest_kernel(pack, o, d, T_MIN, active)
+    t_k, id_k, inst_k = walk.launch(pack, o, d, T_MIN, active=active)
     t_p, id_p, inst_p = tlas2.tlas2_closest_plain(pack, o, d, T_MIN, active)
     torch.cuda.synchronize()
     hit = t_p < 1e38
@@ -371,7 +384,7 @@ def _assert_tlas2_kernels_equal_plain(pack, o, d, active=None):
     assert torch.equal(inst_k, inst_p)
     t_max = torch.where(hit, t_p, torch.full_like(t_p, 12.0))  # closed interval: t == t_max counts
     t_max[::5] = 8.0
-    occ_k = tlas2.tlas2_occluded_kernel(pack, o, d, T_MIN, t_max, active)
+    occ_k = walk.launch(pack, o, d, T_MIN, t_max, active)
     occ_p = tlas2.tlas2_occluded_plain(pack, o, d, T_MIN, t_max, active)
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p)
@@ -413,8 +426,8 @@ def test_tlas2_kernels_take_every_launch_plan(card, branch, monkeypatch):
     meshes, instances, o, d = _instanced_and_rays(2, 30, 3000, seed=4)
     pack = tlas2.pack_tlas2(build_instanced(meshes, instances, device="cpu"), device=card)
     limit = 64 * pack.stack_depth * 4 if branch == "smaller_block" else 0
-    monkeypatch.setattr(bvh2, "SMEM_PER_BLOCK", limit)
-    block, _, on_global = bvh2.launch_plan(pack.stack_depth)
+    monkeypatch.setattr(walk, "SMEM_PER_BLOCK", limit)
+    block, _, on_global = walk.launch_plan(pack.stack_depth)
     assert (block, on_global) == ((64, False) if branch == "smaller_block" else (128, True))
     _assert_tlas2_kernels_equal_plain(pack, o.to(card), d.to(card))
 
@@ -423,26 +436,26 @@ def test_tlas2_wrappers_refuse_what_the_kernels_do_not_take(card):
     meshes, instances, o, d = _instanced_and_rays(1, 5, 64)
     pack = tlas2.pack_tlas2(build_instanced(meshes, instances, device="cpu"), device=card)
     with pytest.raises(ValueError):
-        tlas2.tlas2_closest_kernel(pack, o, d, T_MIN)  # rays on the CPU
+        walk.launch(pack, o, d, T_MIN)  # rays on the CPU
     with pytest.raises(TypeError):
-        tlas2.tlas2_closest_kernel(pack, o.double().to(card), d.double().to(card), T_MIN)
+        walk.launch(pack, o.double().to(card), d.double().to(card), T_MIN)
     with pytest.raises(ValueError):
-        tlas2.tlas2_closest_kernel(pack, o.to(card)[:, :2], d.to(card)[:, :2], T_MIN)
+        walk.launch(pack, o.to(card)[:, :2], d.to(card)[:, :2], T_MIN)
     with pytest.raises(ValueError):
-        tlas2.tlas2_occluded_kernel(pack, o.to(card), d.to(card), T_MIN, torch.ones(3, device=card))
+        walk.launch(pack, o.to(card), d.to(card), T_MIN, torch.ones(3, device=card))
 
 
 def test_tlas8_wrappers_refuse_what_the_kernels_do_not_take(card):
     meshes, instances, o, d = _instanced_and_rays(1, 5, 64)
     pack = tlas8.pack_tlas8(build_instanced(meshes, instances, device="cpu"), device=card)
     with pytest.raises(ValueError):
-        tlas8.tlas8_closest_kernel(pack, o, d, T_MIN)  # rays on the CPU
+        walk.launch(pack, o, d, T_MIN)  # rays on the CPU
     with pytest.raises(TypeError):
-        tlas8.tlas8_closest_kernel(pack, o.double().to(card), d.double().to(card), T_MIN)
+        walk.launch(pack, o.double().to(card), d.double().to(card), T_MIN)
     with pytest.raises(ValueError):
-        tlas8.tlas8_closest_kernel(pack, o.to(card)[:, :2], d.to(card)[:, :2], T_MIN)
+        walk.launch(pack, o.to(card)[:, :2], d.to(card)[:, :2], T_MIN)
     with pytest.raises(ValueError):
-        tlas8.tlas8_occluded_kernel(pack, o.to(card), d.to(card), T_MIN, torch.ones(3, device=card))
+        walk.launch(pack, o.to(card), d.to(card), T_MIN, torch.ones(3, device=card))
 
 
 # ---------------------------------------------------------------------------
@@ -513,7 +526,7 @@ def test_graphed_render_matches_eager(card, name, family, monkeypatch):
     from rpt_tpu_torch import integrator
 
     r = _small_renderer(name, monkeypatch)
-    assert getattr(r.scene_data(), family) is not None
+    _pack_of(r.scene_data(), family)
     graphed = r.render_buffer()
     before = kernels.launch_counts()
     eager = r._sample_into_eager(Buffer.new(r.width, r.height), 1)
@@ -523,7 +536,7 @@ def test_graphed_render_matches_eager(card, name, family, monkeypatch):
     assert torch.equal(graphed.sum, eager.sum) and torch.equal(graphed.sum_sq, eager.sum_sq)
     chunked = r.sample_into(r.sample_into(Buffer.new(r.width, r.height), 1), 2, start_iter=1)
     assert torch.equal(graphed.sum, chunked.sum) and torch.equal(graphed.sum_sq, chunked.sum_sq)
-    assert per_pass[rnd._threefry] > 0 and per_pass[getattr(scene_mod, f"{family}_closest_hit")] == 3
+    assert per_pass[rnd._threefry] > 0 and per_pass[_closest_wrapper(family)] == 3
     before = kernels.launch_counts()
     r.sample_into(Buffer.new(r.width, r.height), 4)
     after = kernels.launch_counts()
@@ -571,7 +584,7 @@ def test_replays_count_the_shadow_wavefront_s_lanes(card, monkeypatch):
     monkeypatch.setattr(scene_mod, "WIDE_KERNEL_MIN_TRIS", 4096)
     r = Renderer(scenes.build_wine_glass_trefoil_scene(scenes.trefoil_mesh(125, 20)), scenes.wine_glass_camera(),
                  width=96, height=54, max_bounces=3, num_samples=1, seed=7)
-    assert r.scene_data().bvh8 is not None
+    assert r.scene_data().mesh_pack.library == "bvh8"
 
     def counts():
         c = kernels.launch_counts()
@@ -597,7 +610,7 @@ def test_launches_around_the_wrappers_are_not_counted(card):
     pack = bvh8.pack_bvh8(build_bvh(verts, norms, mats, device="cpu"), device=card)
     rnd.uniform(rnd.to_device(rnd.PRNGKey(1), card), 10)  # makes the card's table
     before = kernels.launch_counts(by_slot=True)
-    bvh8.bvh8_closest_kernel(pack, o.to(card), d.to(card), T_MIN)
+    walk.launch(pack, o.to(card), d.to(card), T_MIN)
     rnd.threefry_kernel(rnd.UNIFORM, rnd.PRNGKey(1), 100, card)
     assert kernels.launch_counts(by_slot=True) == before
     kernels.reset_launch_counts()
@@ -666,7 +679,7 @@ def test_f64_kernels_match_plain_walks(card, family):
     mod, tree, pack, o, d = _f64_case(family, card)
     assert pack.tris.dtype == torch.float64
     active = torch.arange(o.shape[0], device=card) % 3 != 0
-    out_k = getattr(mod, f"{family}_closest_kernel")(pack, o, d, T_MIN, active)
+    out_k = walk.launch(pack, o, d, T_MIN, active=active)
     out_p = getattr(mod, f"{family}_closest_plain")(pack, o, d, T_MIN, active)
     torch.cuda.synchronize()
     t_p = out_p[0]
@@ -674,7 +687,7 @@ def test_f64_kernels_match_plain_walks(card, family):
     assert all(torch.equal(k, p) for k, p in zip(out_k, out_p))
     t_max = torch.where(t_p < 1e38, t_p, torch.full_like(t_p, 12.0))  # closed interval: t == t_max counts
     t_max[::5] = 3.0
-    occ_k = getattr(mod, f"{family}_occluded_kernel")(pack, o, d, T_MIN, t_max, active)
+    occ_k = walk.launch(pack, o, d, T_MIN, t_max, active)
     occ_p = getattr(mod, f"{family}_occluded_plain")(pack, o, d, T_MIN, t_max, active)
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p) and torch.equal(occ_k, (t_p <= t_max) & active)
@@ -684,7 +697,7 @@ def test_f64_kernels_match_plain_walks(card, family):
     after = kernels.launch_counts(by_slot=True)
     assert [a - b for a, b in zip(after[closest], before[closest])] == [0, 1]
     with pytest.raises(TypeError):
-        getattr(mod, f"{family}_closest_kernel")(pack, o.float(), d.float(), T_MIN)
+        walk.launch(pack, o.float(), d.float(), T_MIN)
     assert occluded in after
 
 
@@ -705,7 +718,7 @@ def test_kernels_keep_the_tie_of_their_plain_walks(card, family, scene, dtype):
     instance bit for bit: the reference's preorder choice, kept by the key
     (row, or TLAS leaf rank and row)."""
     mod, pack, o, d = _walk_scene(family, scene, dtype, card)
-    out_k = getattr(mod, f"{family}_closest_kernel")(pack, o, d, T_MIN)
+    out_k = walk.launch(pack, o, d, T_MIN)
     out_p = getattr(mod, f"{family}_closest_plain")(pack, o, d, T_MIN)
     torch.cuda.synchronize()
     assert (out_p[0] < 1e38).sum() > 200
@@ -721,14 +734,14 @@ def test_any_hit_kernels_find_the_hit_at_t_max_equal_to_its_t(card, family, dtyp
     t_max = the closest hit's t answers `closest.t <= t_max` (true on every
     hit; 12, past the scene, on a miss) and equals its plain walk."""
     mod, pack, o, d = _walk_scene(family, "edge", dtype, card)
-    out_k = getattr(mod, f"{family}_closest_kernel")(pack, o, d, T_MIN)
+    out_k = walk.launch(pack, o, d, T_MIN)
     out_p = getattr(mod, f"{family}_closest_plain")(pack, o, d, T_MIN)
     torch.cuda.synchronize()
     assert all(torch.equal(k, p) for k, p in zip(out_k, out_p))
     hit = out_p[0] < 1e38
     assert hit.sum() > 100 and (~hit).any()
     t_max = torch.where(hit, out_p[0], torch.full_like(out_p[0], 12.0))
-    occ_k = getattr(mod, f"{family}_occluded_kernel")(pack, o, d, T_MIN, t_max)
+    occ_k = walk.launch(pack, o, d, T_MIN, t_max)
     occ_p = getattr(mod, f"{family}_occluded_plain")(pack, o, d, T_MIN, t_max)
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p) and torch.equal(occ_k, hit)
@@ -737,11 +750,12 @@ def test_any_hit_kernels_find_the_hit_at_t_max_equal_to_its_t(card, family, dtyp
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_tlas8_occupancy_query(card, dtype):
-    """`tlas8_occupancy` reads the kernels' registers and blocks per SM at
-    the wrappers' launch: a deeper group stack never fits more blocks."""
+    """`walk.occupancy` of the tlas8 kernels reads their registers and
+    blocks per SM at `walk.launch`'s launch: a deeper group stack never
+    fits more blocks."""
     for occluded in (False, True):
-        shallow = tlas8.tlas8_occupancy(4, occluded, dtype)
-        deep = tlas8.tlas8_occupancy(120, occluded, dtype)
+        shallow = walk.occupancy(tlas8.Tlas8Pack, 4, occluded, dtype)
+        deep = walk.occupancy(tlas8.Tlas8Pack, 120, occluded, dtype)
         assert 0 < shallow["registers"] <= 255 and shallow["local_bytes"] >= 0
         assert shallow["warps_per_sm"] == 4 * shallow["blocks_per_sm"] > 0
         assert deep["blocks_per_sm"] <= shallow["blocks_per_sm"] and deep["smem_bytes"] == 128 * 120 * 4
@@ -750,12 +764,12 @@ def test_tlas8_occupancy_query(card, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_bvh8_occupancy_query(card, dtype):
-    """`bvh8_occupancy` reads the kernels' registers and blocks per SM at
-    the wrappers' launch (the float32 pair under its cap of 64 registers):
-    a deeper group stack never fits more blocks."""
+    """`walk.occupancy` of the bvh8 kernels reads their registers and
+    blocks per SM at `walk.launch`'s launch (the float32 pair under its cap
+    of 64 registers): a deeper group stack never fits more blocks."""
     for occluded in (False, True):
-        shallow = bvh8.bvh8_occupancy(4, occluded, dtype)
-        deep = bvh8.bvh8_occupancy(120, occluded, dtype)
+        shallow = walk.occupancy(bvh8.Bvh8Pack, 4, occluded, dtype)
+        deep = walk.occupancy(bvh8.Bvh8Pack, 120, occluded, dtype)
         assert 0 < shallow["registers"] <= (64 if dtype == torch.float32 else 255) and shallow["local_bytes"] >= 0
         assert shallow["warps_per_sm"] == 4 * shallow["blocks_per_sm"] > 0
         assert deep["blocks_per_sm"] <= shallow["blocks_per_sm"] and deep["smem_bytes"] == 128 * 120 * 4
@@ -764,14 +778,14 @@ def test_bvh8_occupancy_query(card, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_bvh2_occupancy_query(card, dtype):
-    """`bvh2_occupancy` reads the kernels' registers and blocks per SM at
-    the launch `launch_plan` makes: a deeper shared stack never fits more
+    """`walk.occupancy` of the bvh2 kernels reads their registers and
+    blocks per SM at the launch `walk.launch_plan` makes: a deeper shared stack never fits more
     blocks, and a stack past what one block holds reads the global-stack
     kernel with no shared memory."""
     for occluded in (False, True):
-        shallow = bvh2.bvh2_occupancy(4, occluded, dtype)
-        deep = bvh2.bvh2_occupancy(120, occluded, dtype)
-        on_global = bvh2.bvh2_occupancy(2000, occluded, dtype)
+        shallow = walk.occupancy(bvh2.Bvh2Pack, 4, occluded, dtype)
+        deep = walk.occupancy(bvh2.Bvh2Pack, 120, occluded, dtype)
+        on_global = walk.occupancy(bvh2.Bvh2Pack, 2000, occluded, dtype)
         assert 0 < shallow["registers"] <= 255 and shallow["local_bytes"] >= 0
         assert shallow["warps_per_sm"] == 4 * shallow["blocks_per_sm"] > 0
         assert deep["blocks_per_sm"] <= shallow["blocks_per_sm"] and deep["smem_bytes"] == 128 * 120 * 4
@@ -787,21 +801,21 @@ def test_tlas2_f64_kernels_take_every_launch_plan(card, family, branch, monkeypa
     the global scratch stack, each over a ray count that leaves the last
     block partial: t, ids and the any hit bit for bit with the plain walk."""
     mod, _, pack, o, d = _f64_case(family, card)
-    limit = {"block_128": bvh2.SMEM_PER_BLOCK, "smaller_block": 64 * pack.stack_depth * 4, "global_stack": 0}[branch]
-    monkeypatch.setattr(bvh2, "SMEM_PER_BLOCK", limit)
-    block, _, on_global = bvh2.launch_plan(pack.stack_depth)
+    limit = {"block_128": walk.SMEM_PER_BLOCK, "smaller_block": 64 * pack.stack_depth * 4, "global_stack": 0}[branch]
+    monkeypatch.setattr(walk, "SMEM_PER_BLOCK", limit)
+    block, _, on_global = walk.launch_plan(pack.stack_depth)
     assert (block, on_global) == {"block_128": (128, False), "smaller_block": (64, False),
                                   "global_stack": (128, True)}[branch]
     assert o.shape[0] % block != 0
     active = torch.arange(o.shape[0], device=card) % 3 != 0
-    out_k = getattr(mod, f"{family}_closest_kernel")(pack, o, d, T_MIN, active)
+    out_k = walk.launch(pack, o, d, T_MIN, active=active)
     out_p = getattr(mod, f"{family}_closest_plain")(pack, o, d, T_MIN, active)
     torch.cuda.synchronize()
     assert (out_p[0] < 1e38).float().mean() > 0.3
     assert all(torch.equal(k, p) for k, p in zip(out_k, out_p))
     t_max = torch.where(out_p[0] < 1e38, out_p[0], torch.full_like(out_p[0], 12.0))
     t_max[::5] = 3.0
-    occ_k = getattr(mod, f"{family}_occluded_kernel")(pack, o, d, T_MIN, t_max, active)
+    occ_k = walk.launch(pack, o, d, T_MIN, t_max, active)
     occ_p = getattr(mod, f"{family}_occluded_plain")(pack, o, d, T_MIN, t_max, active)
     torch.cuda.synchronize()
     assert torch.equal(occ_k, occ_p)
@@ -855,14 +869,14 @@ def test_f64_graphed_render_matches_eager(card, name, family, monkeypatch):
     r = Renderer(small.scene, small.camera, width=small.width, height=small.height, max_bounces=2, num_samples=3,
                  seed=5, dtype=torch.float64)
     sd = r.scene_data()
-    assert sd.dtype == torch.float64 and getattr(sd, family).tris.dtype == torch.float64
+    assert sd.dtype == torch.float64 and _pack_of(sd, family).tris.dtype == torch.float64
     graphed = r.render_buffer()
     assert graphed.sum.dtype == torch.float64
     kernels.reset_launch_counts()
     eager = r._sample_into_eager(Buffer.new(r.width, r.height, dtype=torch.float64), r.num_samples)
     counts = kernels.launch_counts(by_slot=True)
     assert torch.equal(graphed.sum, eager.sum) and torch.equal(graphed.sum_sq, eager.sum_sq)
-    walk = getattr(scene_mod, f"{family}_closest_hit")
+    walk = _closest_wrapper(family)
     assert counts[walk] == [0, 3 * r.num_samples]
     assert counts[rnd._threefry][1:] == [0, 0, 0] and counts[rnd._threefry64][0] > 0
 
@@ -941,19 +955,18 @@ def test_material_gradient_through_the_kernels_equals_the_plain_walks(card, name
         monkeypatch.setattr(scene_mod, "_BVH_KERNEL", "binary")
     dtype = torch.float64 if name.endswith("_f64") else torch.float32
     r = _small_renderer(name.removesuffix("_f64"), monkeypatch)
-    assert getattr(r.scene.compile(dtype), family) is not None
+    assert [pack.library for pack in r.scene.compile(dtype).packs] == [family]
     fn, mats0 = make_diff_render(r.scene, r.camera, 64, 48, max_bounces=2, spp=2, device=card, dtype=dtype)
     mod = {"bvh8": bvh8, "tlas8": tlas8, "bvh2": bvh2, "tlas2": tlas2}[family]
-    wrapper = getattr(scene_mod, f"{family}_closest_hit")
+    wrapper = getattr(mod, f"{family}_closest_hit")
     slot = 0 if dtype == torch.float32 else 1
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         before = kernels.launch_counts(by_slot=True)
         got = _grad_of_mean(fn, mats0)
         after = kernels.launch_counts(by_slot=True)
-        for kind in ("closest", "occluded"):
-            monkeypatch.setattr(mod, f"{family}_{kind}_kernel",
-                                lambda *a, launches=None, _p=getattr(mod, f"{family}_{kind}_plain"): _p(*a))
+        monkeypatch.setattr(walk, "launch", lambda pack, o, d, t_min, t_max=None, active=None, launches=None:
+                            pack.plain(o, d, t_min, t_max, active))
         want = _grad_of_mean(fn, mats0)
     finally:
         torch.use_deterministic_algorithms(False)
@@ -1033,7 +1046,8 @@ def test_dynamic_frames_equal_static_renders_with_one_capture(card, family, monk
     monkeypatch.setattr(renderer_mod, "_DYNAMIC_CACHE", renderer_mod.SceneCache())
     frames, cam = _dynamic_frames(family, monkeypatch)
     keys = {renderer_mod._topology_key(f.compile(dtype), 64, 48, 2) for f in frames}
-    assert len(keys) == 1 and getattr(frames[0].compile(dtype), family) is not None
+    assert len(keys) == 1
+    _pack_of(frames[0].compile(dtype), family)
     for i, scene in enumerate(frames):
         r = dict(width=64, height=48, max_bounces=2, num_samples=2, seed=4, dtype=dtype)
         before = _counts()
@@ -1058,7 +1072,7 @@ def test_dynamic_pack_of_another_depth_gets_its_own_capture(card, monkeypatch):
     monkeypatch.setattr(renderer_mod, "_DYNAMIC_CACHE", renderer_mod.SceneCache())
     (scene,), cam = _dynamic_frames("bvh8", monkeypatch, frames=1)
     sd = scene.compile()
-    deeper = dataclasses.replace(sd, bvh8=dataclasses.replace(sd.bvh8, group_depth=sd.bvh8.group_depth + 1))
+    deeper = dataclasses.replace(sd, mesh_pack=dataclasses.replace(sd.mesh_pack, group_depth=sd.mesh_pack.group_depth + 1))
     r = Renderer(scene, cam, width=64, height=48, max_bounces=1, num_samples=1, seed=2, dynamic=True)
     a = r.render_buffer(scene_data=sd)
     b = r.render_buffer(scene_data=deeper)
@@ -1099,7 +1113,7 @@ def test_sharded_render_graphed_matches_eager(card, n_shards, monkeypatch):
     assert mesh.devices == (torch.device("cuda", torch.cuda.current_device()),) * n_shards
     sd, t_min, ev = r._pass_args()
     graphed = render_distributed(r, mesh)  # captures every shard's graph
-    assert sd.bvh8 is not None and graphed.sum.device.type == "cuda"
+    assert sd.mesh_pack.library == "bvh8" and graphed.sum.device.type == "cuda"
     eager = sharding._eager_sharded_many_fn(sd, r.width, r.height, r.max_bounces, mesh)(
         r.camera, r.base_key(), 0, r.num_samples, t_min, ev)
     assert torch.equal(graphed.sum, eager[0]) and torch.equal(graphed.sum_sq, eager[1])
@@ -1143,10 +1157,11 @@ def test_example_main_on_the_card_renders_as_the_cpu(card, name, packs, monkeypa
     (r,) = made
     assert r.device.type == "cuda" and img.shape == (64, 64, 3) and out.stat().st_size > 0
     sd = r.scene_data()
-    assert [f for f in ("bvh8", "tlas8", "bvh2", "tlas2") if getattr(sd, f) is not None] == packs
+    assert [pack.library for pack in sd.packs] == packs
     assert counts[rnd._threefry] > 0
     for f in packs:
-        assert counts[getattr(scene_mod, f"{f}_closest_hit")] > 0 and counts[getattr(scene_mod, f"{f}_occluded")] > 0
+        ops = {"bvh8": bvh8, "tlas8": tlas8, "bvh2": bvh2, "tlas2": tlas2}[f]
+        assert counts[getattr(ops, f"{f}_closest_hit")] > 0 and counts[getattr(ops, f"{f}_occluded")] > 0
     images = {}
     for dev in ("cpu", "cuda"):
         s = Renderer(r.scene, r.camera, width=64, height=64, max_bounces=r.max_bounces, num_samples=1,

@@ -132,7 +132,7 @@ def test_mesh_frames_with_a_moving_light_match_reference(fresh_cache):
     cam = dict(eye=(-2.5, 4.0, 6.5), target=(0.0, 0.0, 0.0), up=(0.0, 1.0, 0.0), fov=math.pi / 6)
     for frame in (0, 3):
         port_scene = orbit_scene(rpt_tpu_torch, arrays, frame)
-        assert port_scene.compile(device="cpu").bvh8 is not None
+        assert port_scene.compile(device="cpu").mesh_pack.library == "bvh8"
         got = port_image(port_scene, True, w=32, h=24, cam=rpt_tpu_torch.Camera.look_at(*cam.values()), spp=1)
         want = ref_image(orbit_scene(rpt_tpu, arrays, frame), w=32, h=24, cam=rpt_tpu.Camera.look_at(*cam.values()),
                          spp=1)
@@ -167,7 +167,7 @@ def _packed_scene(family, monkeypatch):
             monkeypatch.setattr(scene_mod, "_BVH_KERNEL", "binary")
         scene = build_brick_city(n_instances=48)
     sd = scene.compile(device="cpu")
-    assert getattr(sd, family) is not None
+    assert [pack.library for pack in sd.packs] == [family]
     return sd
 
 
@@ -178,8 +178,9 @@ def test_key_holds_the_packs_ints(family, field, monkeypatch):
     TLAS size) have different keys: the int is a launch argument a graph
     freezes."""
     sd = _packed_scene(family, monkeypatch)
-    pack = getattr(sd, family)
-    other = dataclasses.replace(sd, **{family: dataclasses.replace(pack, **{field: getattr(pack, field) + 1})})
+    level = "mesh_pack" if sd.mesh_pack is not None else "instance_pack"
+    pack = getattr(sd, level)
+    other = dataclasses.replace(sd, **{level: dataclasses.replace(pack, **{field: getattr(pack, field) + 1})})
     key = renderer_mod._topology_key
     assert key(sd, W, H, 1) != key(other, W, H, 1)
     assert key(sd, W, H, 1) == key(dataclasses.replace(sd, digest="another frame"), W, H, 1)

@@ -612,7 +612,7 @@ def test_f64_render_matches_reference(scene_pairs, name, order, monkeypatch):
     port_scene, port_cam, eps = pair["port"]
     sd = port_scene.compile(F64, device="cpu")
     family = FAMILY[name]
-    assert {f for f in ("bvh8", "bvh2", "tlas8", "tlas2") if getattr(sd, f) is not None} == ({family} - {None})
+    assert {pack.library for pack in sd.packs} == ({family} - {None})
     sorts = order == "default" and family in ("bvh8", "tlas8")
     assert renderer_mod._auto_compact(sd) == ("morton" if sorts else False)
     if sorts not in pair["img"]:

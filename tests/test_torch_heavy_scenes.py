@@ -32,6 +32,7 @@ import rpt_tpu.scene as ref_scene_mod
 import rpt_tpu_torch
 import rpt_tpu_torch.scene as scene_mod
 from rpt_tpu_torch import scenes
+from rpt_tpu_torch.ops import walk
 from test_torch_reference_native import reference_native
 
 reference_native()
@@ -114,7 +115,7 @@ def test_row_matches_reference(name, wide):
     want = np.asarray(ref.render_buffer().mean_image())
     port = port_renderer(name)
     sd = port.scene_data()
-    assert sd.bvh8 is not None and sd.bvh.num_tris >= 4000
+    assert sd.mesh_pack.library == "bvh8" and sd.bvh.num_tris >= 4000
     # The sky (256x512 texels) takes the quad form of the lookup at every depth.
     assert (sd.env_quad is not None) == (name == "pegasus")
     assert ref_scene.compile().bvh8_packed is not None
@@ -127,8 +128,8 @@ def test_row_matches_reference(name, wide):
 def test_walks_follow_the_lights(name, wide, monkeypatch):
     """One sample launches the closest hit once per path vertex and the any
     hit once per vertex and light: never on `pegasus`, which has no light,
-    7 times on `wine_glass`. The walks are counted at the scene's wrappers,
-    which run the plain walks on the CPU."""
+    7 times on `wine_glass`. The walks are counted at their dispatch
+    (`ops.walk`), which runs the plain walks on the CPU."""
     calls = {"closest": 0, "occluded": 0}
 
     def counting(kind, fn):
@@ -137,8 +138,8 @@ def test_walks_follow_the_lights(name, wide, monkeypatch):
             return fn(*args, **kw)
         return wrapped
 
-    monkeypatch.setattr(scene_mod, "bvh8_closest_hit", counting("closest", scene_mod.bvh8_closest_hit))
-    monkeypatch.setattr(scene_mod, "bvh8_occluded", counting("occluded", scene_mod.bvh8_occluded))
+    monkeypatch.setattr(walk, "closest_hit", counting("closest", walk.closest_hit))
+    monkeypatch.setattr(walk, "occluded", counting("occluded", walk.occluded))
     r = port_renderer(name)
     r.width = r.height = 16
     sd = r.scene_data()

@@ -56,7 +56,8 @@ def reference_kernels(sd) -> set:
 
 
 def port_kernels(sd) -> set:
-    return {f for f in ("bvh8", "bvh2", "tlas8", "tlas2") if getattr(sd, f) is not None}
+    """The kernel libraries of the packs a compiled scene holds."""
+    return {pack.library for pack in sd.packs}
 
 
 @pytest.mark.parametrize("setting", list(SETTINGS))
@@ -91,7 +92,8 @@ def test_binary_two_level_takes_the_full_city(monkeypatch):
     scene = build_brick_city()
     sd = scene.compile(device="cpu")
     assert port_kernels(sd) == {"tlas2"}
-    assert (sd.tlas2.n_tlas, sd.tlas2.num_nodes, sd.tlas2.inst.shape[0]) == (767, 8571, 768)
+    pack = sd.instance_pack
+    assert (pack.n_tlas, pack.num_nodes, pack.inst.shape[0]) == (767, 8571, 768)
     assert not tlas_pallas_eligible(lego.build_brick_city().compile().instanced)
 
 

@@ -102,7 +102,8 @@ def test_instanced_scene_compile_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         scene.compile()
     sd = scene.compile(device="cpu")
-    assert sd.instanced is not None and sd.tlas8.bounds.device.type == "cpu"
+    assert sd.instanced is not None and sd.instance_pack.library == "tlas8"
+    assert sd.instance_pack.bounds.device.type == "cpu"
 
 
 # The example modules also read and write images and meshes without the

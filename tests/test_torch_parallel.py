@@ -104,7 +104,7 @@ def test_trefoil_through_the_plain_bvh8_walk_matches_reference(monkeypatch):
     below the trefoil's rows), against the reference's walk."""
     monkeypatch.setattr(scene_mod, "WIDE_KERNEL_MIN_TRIS", 1024)
     ref, port = renderers(trefoil, width=32, height=24, max_bounces=1, num_samples=2)
-    assert port.scene_data().bvh8 is not None
+    assert port.scene_data().mesh_pack.library == "bvh8"
     want = np.asarray(ref_render_distributed(ref, ref_make_ray_mesh(4)).mean_image())
     got = render_distributed(port, make_ray_mesh(4, device="cpu")).mean_image().numpy()
     assert_images_agree(got, want)

@@ -251,7 +251,7 @@ def assert_instances_seen(port_sd, ref):
     key = jax.random.fold_in(jax.random.PRNGKey(SEED), 0)
     xg, yg, _, _ = ref_pixel_ndc_tiled(W, H)
     o, d = ref["cam"].cast_rays(xg, yg, key)
-    hit = tlas8.tlas8_closest_hit(port_sd.instanced, port_sd.tlas8, torch.as_tensor(np.array(o)),
+    hit = tlas8.tlas8_closest_hit(port_sd.instanced, port_sd.instance_pack, torch.as_tensor(np.array(o)),
                                   torch.as_tensor(np.array(d)), ref["eps"])
     assert torch.isfinite(hit.t).sum() > 100
 
@@ -299,7 +299,7 @@ def dragon_ref():
 def assert_port_dragon_matches(ref, family):
     _, (port_scene, port_cam, eps) = dragon_scenes()
     port_sd = port_scene.compile(device="cpu")
-    assert {f for f in ("bvh8", "bvh2") if getattr(port_sd, f) is not None} == {family}
+    assert [pack.library for pack in port_sd.packs] == [family] and port_sd.mesh_pack is not None
     ref_hit, got = depth0_hits(ref["scene"], ref["cam"], port_sd, eps)
     assert_depth0_agrees(ref_hit, got)
     assert_images_agree(render_port(port_scene, port_cam, eps, 1), ref["img"])
@@ -331,7 +331,7 @@ def test_dragon_wide_pack_refusal_falls_back_to_binary(dragon_ref, monkeypatch):
 def assert_port_city_matches(ref, family):
     _, (port_scene, port_cam, eps) = brick_city_scenes()
     port_sd = port_scene.compile(device="cpu")
-    assert {f for f in ("tlas8", "tlas2") if getattr(port_sd, f) is not None} == {family}
+    assert [pack.library for pack in port_sd.packs] == [family] and port_sd.instance_pack is not None
     ref_hit, got = depth0_hits(ref["scene"], ref["cam"], port_sd, eps)
     assert_depth0_agrees(ref_hit, got)
     assert_images_agree(render_port(port_scene, port_cam, eps, 1), ref["img"])
@@ -365,7 +365,7 @@ def test_toy_plane_matches_reference():
     port_sd = port_scene.compile(device="cpu")
     # 108 triangles in four usemtl runs, baked into one 160-row BVH: the
     # binary kernels, as in the reference.
-    assert port_sd.bvh2 is not None and port_sd.bvh.num_tris == 160
+    assert port_sd.mesh_pack.library == "bvh2" and port_sd.bvh.num_tris == 160
     assert port_sd.materials.color.shape[0] == 4 and float(port_sd.materials.transparent.max()) == 1.0
     ref_hit, got = depth0_hits(ref_scene, ref_cam, port_sd, eps)
     assert_depth0_agrees(ref_hit, got)

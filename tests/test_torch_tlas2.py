@@ -21,7 +21,7 @@ import torch
 from rpt_tpu.ops.tlas import build_instanced as ref_build_instanced
 from rpt_tpu.ops.tlas import instanced_closest_hit as ref_instanced_closest_hit
 from rpt_tpu.ops.tlas_pallas import pack_tlas_for_pallas, tlas_closest_hit_pallas, tlas_occluded_pallas
-from rpt_tpu_torch.ops import bvh2, tlas2, tlas8
+from rpt_tpu_torch.ops import tlas2, tlas8, walk
 from rpt_tpu_torch.ops.bvh8 import KIND_INST, KIND_LEAF, KIND_NODE
 from rpt_tpu_torch.ops.tlas import build_instanced
 from test_tlas_pallas import _build_instanced_scene, _FakeMesh, _rays_at_instances
@@ -259,4 +259,4 @@ def test_stack_depth_is_the_longest_far_chain(scene):
     (1817, (128, 0, True)),  # past one block's shared memory: a global stack
 ])
 def test_launch_plan_places_every_stack_depth(depth, plan):
-    assert bvh2.launch_plan(depth) == plan
+    assert walk.launch_plan(depth) == plan
