@@ -21,6 +21,15 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    12-float rows, four gathers of the map), which must read the same values
    bit for bit; `[mono_light]` renders the monomial light's scene on the
    CPU and on the card with one seed and compares them as phase c does;
+   `[scatter]` holds the scatter kernel (`csrc/scatter.cu`) against its
+   plain version (`ops.scatter.scatter_plain`) on the same draws, at every
+   depth of one eager sample of `pegasus_trefoil` (1.44 M lanes, float32
+   and float64) and of `wine_glass_trefoil` (2.07 M lanes, float32): wi,
+   w, ok and the weight's divisor bit for bit; at depth 1 the wrapper's
+   autograd path (material columns that require grad) against the plain
+   version, values and gradient bit for bit, in one counted launch; and
+   times the kernel per launch at depths 0 and 1 beside the plain version
+   and its bound;
 3. for each workload, at 960x540 unless said otherwise, in the wavefront
    order the renderer picks by default (morton-sorted from depth 1 where a
    wide kernel walks):
@@ -228,13 +237,16 @@ Run from the repository root with no arguments: `python3 chip_smoke.py`. It
    backward ms, each collective's ms timed apart after a barrier and its
    share of the step, the peak MiB;
 12. prints one JSON line `{"kernels": [...]}` with one row for each of the
-   eight traversal kernels and the threefry kernel (with their launches
+   eight traversal kernels, the threefry kernel and the scatter kernel
+   (the scatter kernel's launches from `pegasus_trefoil`'s main path, and
+   per sample of each workload's; with their launches
    per differentiated sample and per sample of the dynamic loop, where a
    `[grad]` or `[dynamic]` check runs them; the bvh8 rows also per shard
    and sample of the sharded render; the launches of each example that
    ran it), then one for each
-   float64 instantiation (`<kernel>_f64`, and `threefry_f64` for the
-   64-bit modes), then the last line `{"ok": true, "device": {...}}`.
+   float64 instantiation (`<kernel>_f64`, `threefry_f64` for the
+   64-bit modes, `scatter_f64` from the first float64 workload's main
+   path), then the last line `{"ok": true, "device": {...}}`.
 
 A failed phase prints FAIL and exits nonzero with no result. It imports
 nothing of JAX or of the JAX package. `python3 chip_smoke.py --workloads
@@ -279,6 +291,14 @@ PEAK_INT32_OPS = 64 * 132 * 1.98e9
 PARITY_MIN = 0.9999
 T_MIN_WALK = 1e-3  # the t_min of walk_cases_phase
 T_TOL = 2e-5
+
+# The scatter kernel (no TPU kernel stands behind it: XLA fuses the shading
+# math). A lane reads its normal, wo and color (3 reals each), four material
+# columns and five draws, and writes wi and w (3 reals each): 24 reals, and
+# the bytes of found and ok.
+SCATTER = dict(source="rpt_tpu_torch/csrc/scatter.cu", reals_per_lane=24, bool_bytes=2)
+# The wavefronts `[scatter]` holds the kernel to: (workload, type).
+SCATTER_CASES = (("pegasus_trefoil", "float32"), ("pegasus_trefoil", "float64"), ("wine_glass_trefoil", "float32"))
 
 # Per kernel: its source, the TPU kernel it replaces, and the bytes per ray
 # it must read and write.
@@ -721,7 +741,10 @@ def counted_kernel(symbol: str):
     for the threefry kernel's 32-bit modes, "threefry64" for its 64-bit ones
     (modes 4 and 5), `<family>_closest` / `_occluded` for either real type
     of a walk (`<family>_walk<kOccl, ...>`, `<family>_walk_f64<kOccl>`, or
-    `..., double>`; a wrapper counts both types), or None."""
+    `..., double>`; a wrapper counts both types), "scatter" for the scatter
+    kernel of either type, or None."""
+    if "scatter_kernel<" in symbol:
+        return "scatter"
     if "threefry_kernel<" in symbol:
         mode = "".join(c for c in symbol.split("threefry_kernel<", 1)[1].split(">", 1)[0] if c.isdigit())
         return "threefry64" if mode in ("4", "5") else "threefry"
@@ -820,8 +843,8 @@ def check_occluded(name, rays, kern, plain, closest_plain, o, d, t_min, t_max, a
 def run_workload(workload: str, card: str):
     """Phases a-h of one workload, compiled under its RPT_BVH_KERNEL choice
     (restored after); returns its traversal kernels' rows of the `kernels`
-    line, its threefry launches per main-path sample and its main path's
-    threefry launches by mode."""
+    line, its threefry launches per main-path sample, its main path's
+    threefry launches by mode and its main path's launches by counter."""
     t0 = time.perf_counter()
     try:
         with kernel_choice(WORKLOADS[workload]["bvh_kernel"]):
@@ -886,10 +909,12 @@ def graph_phase(workload: str, renderer, spp: int, card: str, counters: dict) ->
 
 def counted_wrappers() -> dict:
     """{name: wrapper} of every counted kernel: the threefry draws (32- and
-    64-bit modes) and each walk family's closest and any hit."""
+    64-bit modes), the scatter step and each walk family's closest and any
+    hit."""
     from rpt_tpu_torch import random as rnd
+    from rpt_tpu_torch.ops import scatter
 
-    counters = {"threefry": rnd._threefry, "threefry64": rnd._threefry64}
+    counters = {"threefry": rnd._threefry, "threefry64": rnd._threefry64, "scatter": scatter.scatter}
     for fam in ("bvh8", "tlas8", "bvh2", "tlas2"):
         mod = family_module(fam)
         counters[f"{fam}_closest"] = getattr(mod, f"{fam}_closest_hit")
@@ -1011,6 +1036,8 @@ def _run_workload(workload: str, card: str):
     want = {name: 0 for name in counters}
     want["threefry"] = per_replay["threefry"] * spp
     want["threefry64"] = per_replay["threefry64"] * spp
+    # The scatter kernel once a depth below max_bounces.
+    want["scatter"] = bounces * spp
     if family is not None:
         want[f"{family}_closest"] = (bounces + 1) * spp
         want[f"{family}_occluded"] = shadow * (bounces + 1) * spp
@@ -1020,7 +1047,8 @@ def _run_workload(workload: str, card: str):
     # one only float64 kernels and 64-bit draws (its keys stay 32-bit): no
     # kernel of the other type stands in.
     slot = 0 if dtype == torch.float32 else 1
-    other = {name: by_slot[fn][1 - slot] for name, fn in counters.items() if name.endswith(("closest", "occluded"))}
+    other = {name: by_slot[fn][1 - slot] for name, fn in counters.items()
+             if name.endswith(("closest", "occluded")) or name == "scatter"}
     draws = dict(uniform=threefry_by_mode["uniform"], randint=threefry_by_mode["randint"],
                  uniform64=threefry_by_mode["uniform64"], randint64=threefry_by_mode["randint64"])
     wrong_draws = draws["uniform64"] + draws["randint64"] if slot == 0 else draws["uniform"] + draws["randint"]
@@ -1053,7 +1081,7 @@ def _run_workload(workload: str, card: str):
         by_kernel = compact_phase(workload, family, renderer, card, counters)
         for row in rows:
             row.update(by_kernel[row["name"]])
-    return rows, launches["threefry"] / spp, threefry_by_mode
+    return rows, launches["threefry"] / spp, threefry_by_mode, launches
 
 
 def same_rays_phase(workload, scene, camera, eps, bounces, dtype) -> None:
@@ -1722,6 +1750,155 @@ def mono_light_phase(card: str) -> None:
         image_mean=f"{float(b.mean()):.6f}", card=json.dumps(card))
     if not (np.isfinite(b).all() and close >= 0.99 and mean_rel <= 1e-3 and float(b.mean()) > 1e-3):
         fail("the CPU and card renders of the monomial light's scene disagree, or it is dark")
+
+
+def same_bits(a, b) -> bool:
+    """a and b hold the same bits (a float's NaN included)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = torch.int64 if a.dtype == torch.float64 else torch.int32
+        a, b = a.view(view), b.view(view)
+    return bool(torch.equal(a, b))
+
+
+def record_scatter(renderer) -> list:
+    """One eager sample of `renderer`: the inputs (key, mat, n, wo, found) it
+    handed the scatter step at each depth, in order."""
+    import torch
+
+    from rpt_tpu_torch import integrator
+
+    seen, scatter = [], integrator.scatter
+
+    def recording(*args):
+        seen.append(args)
+        return scatter(*args)
+
+    integrator.scatter = recording
+    try:
+        renderer._sample_into_eager(fresh(renderer), 1)
+        torch.cuda.synchronize()
+    finally:
+        integrator.scatter = scatter
+    return seen
+
+
+def scatter_autograd_check(label, wave, dtype) -> None:
+    """The wrapper's autograd path on one wavefront: material columns that
+    require grad, so the kernel samples (with the weight's divisor) and torch
+    rebuilds the weight. Values and gradient bit for bit the plain
+    version's, in one counted launch. The leaves are the gathered columns
+    (no gather's backward, whose atomics would reorder sums)."""
+    import dataclasses
+
+    import torch
+
+    from rpt_tpu_torch import kernels
+    from rpt_tpu_torch.materials import sample_draws
+    from rpt_tpu_torch.ops import scatter as sc
+
+    key, mat, n, wo, found = wave
+    slot = 0 if dtype == torch.float32 else 1
+    weights = torch.tensor([0.3, 0.5, 0.7], dtype=dtype, device=n.device)
+    out = {}
+    for way in ("kernel", "plain"):
+        cols = {f.name: getattr(mat, f.name).detach().clone().requires_grad_() for f in dataclasses.fields(mat)}
+        leaves = type(mat)(**cols)
+        before = kernels.launch_counts(by_slot=True)[sc.scatter][slot]
+        if way == "kernel":
+            got = sc.scatter(key, leaves, n, wo, found)
+        else:
+            got = sc.scatter_plain(sample_draws(key, (n.shape[0],), n.device, dtype), leaves, n, wo, found)
+        grads = torch.autograd.grad((got[1] * weights).sum(), list(cols.values()), allow_unused=True)
+        torch.cuda.synchronize()
+        out[way] = (got, dict(zip(cols, grads)), kernels.launch_counts(by_slot=True)[sc.scatter][slot] - before)
+    (got, g_kern, launches), (want, g_plain, _) = out["kernel"], out["plain"]
+    values = all(same_bits(g.detach(), w.detach()) for g, w in zip(got, want))
+    grads = all((g_kern[f] is None) == (g_plain[f] is None) and (g_kern[f] is None or same_bits(g_kern[f], g_plain[f]))
+                for f in g_plain)
+    nonzero = [f for f, g in g_kern.items() if g is not None and float(g.abs().max()) > 0.0]
+    say("scatter", case=label, path="autograd (material columns require grad)", values_bit_equal=values,
+        grads_bit_equal=grads, grads_nonzero=",".join(nonzero), launches=launches)
+    if not (values and grads and nonzero and launches == 1):
+        fail(f"[scatter] {label}: the autograd path's values ({values}) or gradient ({grads}) differ from the plain "
+             f"version's, every gradient is zero ({not nonzero}) or it launched {launches}, not 1")
+
+
+def scatter_phase(card: str) -> dict:
+    """`[scatter]` (see the module docstring). Returns the kernel's rows of
+    the `kernels` line by name (`scatter`, `scatter_f64`), their launches
+    left to the main path."""
+    import torch
+
+    from rpt_tpu_torch import Renderer
+    from rpt_tpu_torch.materials import sample_draws, sample_f_drawn
+    from rpt_tpu_torch.ops import scatter as sc
+    from rpt_tpu_torch.scenes import scene_and_camera
+
+    rows = {}
+    for workload, type_name in SCATTER_CASES:
+        t0 = time.perf_counter()
+        spec, dtype = WORKLOADS[workload], getattr(torch, type_name)
+        width, height = spec["size"]
+        with kernel_choice(spec["bvh_kernel"]):
+            scene, camera, eps = scene_and_camera(spec["scene"])
+            r = Renderer(scene, camera, width=width, height=height, exposure_value=spec.get("ev", 0.0),
+                         max_bounces=spec["bounces"], num_samples=1, epsilon=eps, device=DEVICE, dtype=dtype)
+            waves = record_scatter(r)
+        label = f"{workload} {type_name}"
+        if len(waves) != spec["bounces"]:
+            fail(f"[scatter] one {label} sample scattered {len(waves)} times, not {spec['bounces']}")
+        by_depth = []
+        for depth, (key, mat, n, wo, found) in enumerate(waves):
+            draws = sample_draws(key, (n.shape[0],), n.device, dtype)
+            want = sc.scatter_plain(draws, mat, n, wo, found)
+            _, pdf, valid = sample_f_drawn(draws, mat, n, wo)
+            pdf_safe = torch.where(want[2], pdf, torch.ones_like(pdf))
+            got = sc.scatter_kernel(draws, mat, n, wo, found, with_pdf=True)
+            alone = sc.scatter_kernel(draws, mat, n, wo, found)
+            torch.cuda.synchronize()
+            diff = {name: not same_bits(g, w) for name, g, w in zip(("wi", "w", "ok", "pdf_safe"), got,
+                                                                     (*want, pdf_safe))}
+            diff["without_pdf"] = not all(same_bits(a, g) for a, g in zip(alone, got))
+            by_depth.append(dict(lanes=n.shape[0], found=float(found.float().mean()),
+                                 ok=float(want[2].float().mean()), tir=int((found & ~valid).sum()),
+                                 normal_stride=n.stride(0)))
+            say("scatter", case=label, depth=depth, **by_depth[-1], bit_equal=not any(diff.values()))
+            if any(diff.values()):
+                fail(f"[scatter] {label} depth {depth}: the kernel differs from the plain version in "
+                     f"{[k for k, v in diff.items() if v]}")
+        scatter_autograd_check(label + " depth 1", waves[1], dtype)
+
+        # ms per launch at depths 0 and 1 (the camera's wavefront and a
+        # morton-sorted one), beside the plain version and the bound.
+        timed = {}
+        for depth in (0, 1):
+            key, mat, n, wo, found = waves[depth]
+            args = [(sample_draws(key, (n.shape[0],), n.device, dtype), mat, n, wo, found)]
+            bound = n.shape[0] * (SCATTER["reals_per_lane"] * n.element_size() + SCATTER["bool_bytes"]) \
+                / PEAK_BYTES * 1e3
+            timed[depth] = dict(ms=time_ms(sc.scatter_kernel, args, reps=100),
+                                graph_ms=time_graph_ms(sc.scatter_kernel, args, reps=50),
+                                plain_ms=time_ms(sc.scatter_plain, args, reps=5), bound_ms=bound)
+            say("scatter", case=label, depth=depth, lanes=n.shape[0],
+                **{k: f"{v:.5f}" for k, v in timed[depth].items()},
+                graph_over_bound=f"{timed[depth]['graph_ms'] / bound:.2f}", card=json.dumps(card))
+        name = "scatter" if dtype == torch.float32 else "scatter_f64"
+        row = {"name": name, "route": "cuda", "source": SCATTER["source"], "replaces": None, "launches": None,
+               "max_abs_err": 0.0, **timed[1], "bound_by": "bytes", "library_ms": None, "workload": workload,
+               "dtype": type_name, "shape": [waves[1][2].shape[0]], "depth": 1, "depth0": timed[0],
+               "checked_depths": len(waves), "by_depth": by_depth}
+        if name in rows:
+            rows[name].setdefault("other_workloads", []).append(row)
+        else:
+            rows[name] = row
+        del waves
+        torch.cuda.empty_cache()
+        say("scatter", case=label, phase_seconds=f"{time.perf_counter() - t0:.1f}")
+    return rows
 
 
 def random_phase(card: str) -> dict:
@@ -2466,6 +2643,7 @@ def grad_workload(name: str, card: str, counters: dict) -> dict:
     want = {n: 0 for n in counters}
     want[f"{family}_closest"] = 2 * (bounces + 1) * spp
     want[f"{family}_occluded"] = 2 * shadow * (bounces + 1) * spp
+    want["scatter"] = 2 * bounces * spp
     walks = {n: c for n, c in launches.items() if not n.startswith("threefry")}
     if walks != {n: c for n, c in want.items() if not n.startswith("threefry")} or launches["threefry"] <= 0:
         fail(f"[grad] the {name} step launched {launches}, not the walks {want}")
@@ -2526,7 +2704,8 @@ def grad_workload(name: str, card: str, counters: dict) -> dict:
         say("grad", workload=name, device_time="not measured (the profiler recorded no CUDA kernels)")
     if not finite or not (bit or err <= GRAD_PLAIN_RTOL):
         fail(f"[grad] the {name} gradient through the {family} kernels differs from the plain walks': {err:.3e}")
-    return {f"{family}_{kind}": per_sample[f"{family}_{kind}"] for kind in ("closest", "occluded")}
+    return {f"{family}_{kind}": per_sample[f"{family}_{kind}"] for kind in ("closest", "occluded")} | \
+        {"scatter": per_sample["scatter"]}
 
 
 def grad_small_phase(card: str) -> None:
@@ -2635,6 +2814,7 @@ def grad_family(name: str, card: str, counters: dict) -> dict:
     want = {n: 0 for n in counters if not n.startswith("threefry")}
     want[f"{family}_closest"] = 2 * (bounces + 1)
     want[f"{family}_occluded"] = 2 * shadow * (bounces + 1)
+    want["scatter"] = 2 * bounces
     walks = {n: c for n, c in launches.items() if not n.startswith("threefry")}
     in_slot = {n: by_slot[counters[n]][slot] for n in want}
     if walks != want or in_slot != want:
@@ -2667,7 +2847,8 @@ def grad_family(name: str, card: str, counters: dict) -> dict:
     if not cpu_finite or cpu_err > GRAD_CPU_RTOL:
         fail(f"[grad] the small {name} gradient on the card differs from the CPU's: {cpu_err:.3e}")
     suffix = "_f64" if slot else ""
-    return {f"{family}_{kind}{suffix}": want[f"{family}_{kind}"] for kind in ("closest", "occluded")}
+    return {f"{family}_{kind}{suffix}": want[f"{family}_{kind}"] for kind in ("closest", "occluded")} | \
+        {f"scatter{suffix}": want["scatter"]}
 
 
 def grad_phase(card: str) -> dict:
@@ -2896,6 +3077,7 @@ def _dynamic_cell(cell: str, card: str, counters: dict) -> dict:
     per_sample = {n: c / passes for n, c in total.items()}
     walks = {n: c for n, c in per_sample.items() if not n.startswith("threefry")}
     want = {n: 0 for n in walks}
+    want["scatter"] = spec["bounces"]
     if spec["family"]:
         want[f"{spec['family']}_closest"] = spec["bounces"] + 1
         want[f"{spec['family']}_occluded"] = spec["shadow"] * (spec["bounces"] + 1)
@@ -2963,8 +3145,9 @@ def dynamic_phase(card: str) -> dict:
         t0 = time.perf_counter()
         per_sample = dynamic_cell(cell, card, counters)
         say("dynamic", cell=cell, phase_seconds=f"{time.perf_counter() - t0:.1f}")
+        suffix = "_f64" if spec.get("dtype") == "float64" else ""
+        out["scatter" + suffix] = (cell, per_sample["scatter"])
         if spec["family"]:
-            suffix = "_f64" if spec.get("dtype") == "float64" else ""
             for kind in ("closest", "occluded"):
                 name = f"{spec['family']}_{kind}"
                 out[name + suffix] = (cell, per_sample[name])
@@ -3098,7 +3281,8 @@ def example_run(name: str, flags: list, workdir: str, card: str, counters: dict)
     if packs != ([EXAMPLE_PACKS[name]] if name in EXAMPLE_PACKS else []):
         fail(f"{name} compiled with the packs {packs}, not {EXAMPLE_PACKS.get(name)}")
     # Every kernel of the example's path ran, no other did.
-    path = {"threefry"} | {f"{f}_closest" for f in packs} | ({f"{f}_occluded" for f in packs} if shadow else set())
+    path = {"threefry"} | {f"{f}_closest" for f in packs} | ({f"{f}_occluded" for f in packs} if shadow else set()) | \
+        ({"scatter"} if r.max_bounces else set())
     if set(ran) != path:
         fail(f"{name} launched {ran}; its path is {sorted(path)}")
     if not (np.isfinite(b).all() and close >= bar and mean_rel <= 1e-3):
@@ -3233,7 +3417,7 @@ def sharded_phase(card: str) -> dict:
         want = {name: 0 for name in counters}
         per_pass = (bounces + 1) * n * spp
         want.update({f"{family}_closest": per_pass, f"{family}_occluded": shadow * per_pass,
-                     "threefry": launches["threefry"]})
+                     "scatter": bounces * n * spp, "threefry": launches["threefry"]})
         if not (bit and again_bit) or launches != want or launches["threefry"] <= 0:
             fail(f"[sharded] the {n}-shard render differs from its eager shards ({bit}, {again_bit}) or launched "
                  f"{launches}, not {want}")
@@ -3871,13 +4055,15 @@ def main():
     dtype_phase(card)
     hdri_phase(card)
     mono_light_phase(card)
+    scatter_rows = scatter_phase(card)
 
     # 3. Each workload's path. One row per kernel: a kernel on several
     # paths (bvh2 on lego_toy and dragon_binary) keeps its first path's row
     # and carries the later paths' rows under "other_workloads".
-    rows, threefry_per_sample, threefry_by_mode = {}, {}, {}
+    rows, threefry_per_sample, threefry_by_mode, main_launches = {}, {}, {}, {}
     for workload in WORKLOADS:
-        workload_rows, threefry_per_sample[workload], threefry_by_mode[workload] = run_workload(workload, card)
+        workload_rows, threefry_per_sample[workload], threefry_by_mode[workload], main_launches[workload] = \
+            run_workload(workload, card)
         for row in workload_rows:
             if row["name"] in rows:
                 rows[row["name"]].setdefault("other_workloads", []).append(row)
@@ -3901,6 +4087,16 @@ def main():
                           launches_by_mode=modes64[first64],
                           launches_per_sample={w: sum(modes64[w].values()) / WORKLOADS[w]["spp"] for w in WORKLOADS})
     rows["threefry_f64"] = threefry64_row
+    # The scatter kernel runs on every workload with bounces: its launches
+    # are the main path's of the workload its row was timed on (of the first
+    # float64 one for its float64 row), and each workload's per sample.
+    for name, row in scatter_rows.items():
+        f64 = name.endswith("_f64")
+        of_type = [w for w, spec in WORKLOADS.items() if (spec.get("dtype") == "float64") == f64]
+        source = row["workload"] if not f64 else of_type[0]
+        row.update(launches=main_launches[source]["scatter"], launches_workload=source,
+                   launches_per_sample={w: main_launches[w]["scatter"] / WORKLOADS[w]["spp"] for w in of_type})
+        rows[name] = row
     # The differentiable path: launches per differentiated sample (the
     # backward's recompute included) of each kernel on it.
     for kernel, (workload, n) in grad_phase(card).items():

@@ -10,13 +10,17 @@ reverse fold then applies the per-level firefly clamp,
 as the reference's recursion does. Terminated lanes carry zero weight and
 stay in the wavefront, masked (`active`).
 
-Under autograd the estimator is the reference's detached one: each sampled
-direction and its pdf are constants (`stop_gradient`), so a gradient flows
-through the BSDF's value, the lights and the camera, never through the
-sampler. The clamp and |wi.n| differentiate as the reference's
-`jnp.minimum` and `jnp.abs` (`utils.vmath`). The traversal kernels give a
-hit time and a triangle id with no gradient: a ray that requires grad
-cannot enter them (see `ops.bvh.refuse_ray_grad`).
+Each depth's sampled direction, BSDF value and segment weight come from
+`ops.scatter.scatter`: one fused kernel on the card, its plain torch version
+on the CPU. Under autograd the estimator is the reference's detached one:
+each sampled direction and its pdf are constants
+(`ops.scatter.stop_gradient`), so a gradient flows through the BSDF's value,
+the lights and the camera, never through the sampler (on the card the
+kernel samples and torch rebuilds the weight on its samples). The clamp and |wi.n|
+differentiate as the reference's `jnp.minimum` and `jnp.abs`
+(`utils.vmath`). The traversal kernels give a hit time and a triangle id
+with no gradient: a ray that requires grad cannot enter them (see
+`ops.bvh.refuse_ray_grad`).
 
 The reference's wavefront sorts are here too (`compact`). From depth 1 on,
 the rays handed to `SceneData.intersect` and `occluded` may be permuted:
@@ -45,15 +49,14 @@ import torch
 from . import random as rnd
 from .kernels import add_count, counted
 from .lights import AmbientLightData
-from .materials import bsdf, sample_f
+from .materials import bsdf
 from .ops.intersect import Hit
-from .utils.vmath import absolute, dot, minimum
+from .ops.scatter import scatter
+from .utils.vmath import dot, minimum
 
 __all__ = ["trace_paths", "sample_lights", "FIREFLY_CLAMP", "COMPACT_MODES"]
 
 FIREFLY_CLAMP = 100.0
-# Samples with a pdf this small are dropped (measure zero).
-_PDF_EPS = 1e-10
 # The wavefront orders `compact` takes: masked, live first, octant, morton.
 COMPACT_MODES = (False, True, "octant", "morton")
 
@@ -176,11 +179,6 @@ def _intersect(scene, o, d, t_min, active, compact) -> Hit:
     return Hit(t=hit.t[pos], normal=hit.normal[pos], mat_id=hit.mat_id[pos])
 
 
-def stop_gradient(x: torch.Tensor) -> torch.Tensor:
-    """`jax.lax.stop_gradient`: the value of x, as a constant."""
-    return x.detach()
-
-
 def _auto_compact(scene):
     """The wavefront order of a compiled scene, as the reference chooses it:
     `RPT_COMPACT` when set and not empty (`0`, `1`, `octant`, `morton`),
@@ -287,17 +285,8 @@ def trace_paths(scene, o: torch.Tensor, d: torch.Tensor, key, max_bounces: int, 
         locals_per_depth.append(torch.where(found[:, None], emitted + direct, env))
 
         if depth < max_bounces:
-            wi, pdf, valid = sample_f(k_bsdf, mat, hit.normal, wo)
-            # Detached sampling, as in the reference: the sampled direction
-            # and its pdf are constants under differentiation, so gradients
-            # flow through the BSDF's value only (the unbiased detached
-            # estimator; the values are unchanged).
-            wi, pdf = stop_gradient(wi), stop_gradient(pdf)
-            f = bsdf(mat, hit.normal, wo, wi)
-            ok = found & valid & (pdf > _PDF_EPS)
-            pdf_safe = torch.where(ok, pdf, torch.ones_like(pdf))
-            w = f * (absolute(dot(wi, hit.normal)) / pdf_safe)[:, None]
-            weights_per_depth.append(torch.where(ok[:, None], w, torch.zeros_like(w)))
+            wi, w, ok = scatter(k_bsdf, mat, hit.normal, wo, found)
+            weights_per_depth.append(w)
             o, d, active = pos, wi, ok
             if want_stats:
                 cont_frac.append(ok.float().mean())

@@ -88,6 +88,10 @@ _SIGNATURES = {
         "rpt_threefry": [_I32, _P, _U32, _U32, _P, _U32, _I64, _P, _F64, _F64, _I64, _U64, _U64, _U64, _I32, _I32,
                          _P, _P],
     },
+    "scatter": {
+        "rpt_scatter": [_I64, _P, _I64, _P, _I64, _P, _P, _I64] + [_P] * 9 + [_F32] + [_P] * 6,
+        "rpt_scatter_f64": [_I64, _P, _I64, _P, _I64, _P, _P, _I64] + [_P] * 9 + [_F64] + [_P] * 6,
+    },
 }
 _lock = threading.Lock()
 _libs: dict = {}

@@ -4,7 +4,8 @@ Counterpart of `rpt_tpu/materials.py`. Materials live in a struct-of-arrays
 `MaterialTable` gathered by material id per hit; `bsdf` evaluates the
 reflection and refraction branches branch-free with guarded denominators,
 and `sample_f` draws lobe, Beckmann half-vector, cosine hemisphere and
-refraction from threefry keys, returning (wi, pdf, valid). The f32
+refraction from threefry keys (`sample_draws`, which the fused scatter
+kernel of `ops/scatter.py` reads too), returning (wi, pdf, valid). The f32
 hardening (cross-product sin^2, log-space D and pdf, clamped exponents) is
 kept as in the reference. Every clamp against a constant, and every |x|
 that enters a value, differentiates as the reference's
@@ -16,17 +17,19 @@ at |0|); the values are torch.clamp's and torch.abs's.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from . import random as rnd
-from .sampling import uniform_disk
+from .sampling import disk_point
 from .utils.vmath import (absolute, clip, cross, dot, from_local, maximum, minimum, normalize, numpy_real, safe_sqrt,
                           signed_full)
 
-__all__ = ["Material", "MaterialTable", "MatParams", "bsdf", "sample_f"]
+__all__ = [
+    "Material", "MaterialTable", "MatParams", "SampleDraws", "bsdf", "sample_draws", "sample_f", "sample_f_drawn",
+]
 
 _PI = float(np.pi)
 _TINY = 1e-9
@@ -252,15 +255,43 @@ def _beckmann_pdf(n, h, m2):
     return torch.exp(minimum(expo - log_denom, 80.0))
 
 
+class SampleDraws(NamedTuple):
+    """`sample_f`'s five uniform draws, (...,) each."""
+
+    u: torch.Tensor  # the Beckmann half-vector's tan^2 = -m2 log u, u in [1e-7, 1)
+    phi: torch.Tensor  # its azimuth in [0, 2 pi)
+    disk_r: torch.Tensor  # the cosine lobe's disk point: radius^2 in [0, 1)
+    disk_a: torch.Tensor  # and angle in [0, 2 pi)
+    lobe: torch.Tensor  # the lobe choice in [0, 1)
+
+
+def sample_draws(key, shape, device, dtype) -> SampleDraws:
+    """The draws of `sample_f` under `key`, of the real type `dtype`: the key
+    split in four (lobe, theta, phi, disk), the disk's key split in two as
+    `sampling.uniform_disk` splits it."""
+    k_lobe, k_theta, k_phi, k_disk = rnd.split(key, 4)
+    k_r, k_a = rnd.split(k_disk)
+    return SampleDraws(
+        u=rnd.uniform(k_theta, shape, dtype=dtype, minval=1e-7, maxval=1.0, device=device),
+        phi=rnd.uniform(k_phi, shape, dtype=dtype, minval=0.0, maxval=2.0 * _PI, device=device),
+        disk_r=rnd.uniform(k_r, shape, dtype=dtype, device=device),
+        disk_a=rnd.uniform(k_a, shape, dtype=dtype, minval=0.0, maxval=2.0 * _PI, device=device),
+        lobe=rnd.uniform(k_lobe, shape, dtype=dtype, device=device),
+    )
+
+
 def sample_f(key, mat: MatParams, n: torch.Tensor, wo: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Sample an incident direction: (wi (...,3), mixture pdf (...,), valid
     (...,) bool). Invalid samples (total internal reflection on the
     transmission lobe) must contribute nothing. The draws are of the type of
     `n` (float64 in a float64 render, as the reference's default-typed draws
     under `jax_enable_x64`)."""
-    k_lobe, k_theta, k_phi, k_disk = rnd.split(key, 4)
-    shape = tuple(n.shape[:-1])
-    dev, real = n.device, n.dtype
+    return sample_f_drawn(sample_draws(key, tuple(n.shape[:-1]), n.device, n.dtype), mat, n, wo)
+
+
+def sample_f_drawn(draws: SampleDraws, mat: MatParams, n: torch.Tensor,
+                   wo: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`sample_f` from its draws (`sample_draws`)."""
     m2 = maximum(mat.roughness * mat.roughness, 1e-12)
 
     f0s = ((mat.index - 1.0) / (mat.index + 1.0)) ** 2
@@ -270,17 +301,16 @@ def sample_f(key, mat: MatParams, n: torch.Tensor, wo: torch.Tensor) -> Tuple[to
     n_wo = dot(wo, n)
     eta_t = torch.where(n_wo > 0.0, mat.index, 1.0 / mat.index)
 
-    u = rnd.uniform(k_theta, shape, dtype=real, minval=1e-7, maxval=1.0, device=dev)
-    theta = torch.atan(torch.sqrt(-m2 * torch.log(u)))
+    theta = torch.atan(torch.sqrt(-m2 * torch.log(draws.u)))
     sin_t, cos_t = torch.sin(theta), torch.cos(theta)
-    phi = rnd.uniform(k_phi, shape, dtype=real, minval=0.0, maxval=2.0 * _PI, device=dev)
+    phi = draws.phi
     h_local = torch.stack([torch.cos(phi) * sin_t, torch.sin(phi) * sin_t, cos_t], dim=-1)
     h = from_local(n, h_local)
 
     h_wo = dot(h, wo)
     wi_spec = 2.0 * h_wo[..., None] * h - wo
 
-    xy = uniform_disk(k_disk, shape, device=dev, dtype=real)
+    xy = disk_point(draws.disk_r, draws.disk_a)
     z = safe_sqrt(1.0 - torch.sum(xy * xy, dim=-1))
     wi_diff = from_local(n, torch.cat([xy, z[..., None]], dim=-1))
 
@@ -292,7 +322,7 @@ def sample_f(key, mat: MatParams, n: torch.Tensor, wo: torch.Tensor) -> Tuple[to
     wi_trans = -torch.sign(h_wo)[..., None] * cos_ti[..., None] * h + wi_perp
 
     transparent = mat.transparent > 0.5
-    pick_spec = rnd.uniform(k_lobe, shape, dtype=real, device=dev) < f_est
+    pick_spec = draws.lobe < f_est
     wi_other = torch.where(transparent[..., None], wi_trans, wi_diff)
     wi = torch.where(pick_spec[..., None], wi_spec, wi_other)
     valid = ~((~pick_spec) & transparent & tir)

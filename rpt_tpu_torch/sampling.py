@@ -12,14 +12,19 @@ import torch
 from . import random as rnd
 from .utils.vmath import safe_sqrt
 
-__all__ = ["uniform_disk", "uniform_circle", "cosine_hemisphere", "uniform_triangle_barycentric"]
+__all__ = ["uniform_disk", "disk_point", "uniform_circle", "cosine_hemisphere", "uniform_triangle_barycentric"]
 
 
 def uniform_disk(key, shape=(), device=None, dtype=torch.float32) -> torch.Tensor:
     """Uniform sample inside the unit disk, shape (..., 2): sqrt(r) * (cos t, sin t)."""
     k1, k2 = rnd.split(key)
-    r = torch.sqrt(rnd.uniform(k1, shape, dtype=dtype, device=device))
-    theta = rnd.uniform(k2, shape, dtype=dtype, minval=0.0, maxval=2.0 * math.pi, device=device)
+    u = rnd.uniform(k1, shape, dtype=dtype, device=device)
+    return disk_point(u, rnd.uniform(k2, shape, dtype=dtype, minval=0.0, maxval=2.0 * math.pi, device=device))
+
+
+def disk_point(u: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
+    """The point sqrt(u) * (cos theta, sin theta) of the unit disk, shape (..., 2)."""
+    r = torch.sqrt(u)
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
 
 

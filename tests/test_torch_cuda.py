@@ -1275,3 +1275,134 @@ def test_the_image_is_tone_mapped_on_the_card(card):
         want64, want32 = color_bytes(x), color_bytes(x.astype(np.float32))
     assert np.array_equal(color_bytes(torch.from_numpy(x).to(card)), want64)
     assert np.array_equal(color_bytes(torch.from_numpy(x).to(card, torch.float32)), want32)
+
+
+# ---------------------------------------------------------------------------
+# The scatter kernel
+# ---------------------------------------------------------------------------
+
+
+def _scatter_wavefronts(dtype, monkeypatch):
+    """The scatter inputs (key, mat, n, wo, found) of depths 0 and 3 of one
+    eager sample of the pegasus_trefoil and wine_glass_trefoil scenes at a
+    reduced size, by (scene, depth)."""
+    from rpt_tpu_torch import integrator
+
+    seen = []
+    scatter = integrator.scatter
+
+    def recording(*args):
+        seen.append(args)
+        return scatter(*args)
+
+    monkeypatch.setattr(integrator, "scatter", recording)
+    # The 5,000-triangle knot takes the bvh8 walk and the morton-sorted
+    # wavefront, whose normals come back as a column slice of a packed gather.
+    monkeypatch.setattr(scene_mod, "WIDE_KERNEL_MIN_TRIS", 4096)
+    mesh = scenes.trefoil_mesh(125, 20)
+    cases = {"pegasus": (scenes.build_pegasus_trefoil_scene(mesh, sky_height=64), scenes.pegasus_camera()),
+             "wine_glass": (scenes.build_wine_glass_trefoil_scene(mesh), scenes.wine_glass_camera())}
+    out = {}
+    for name, (scene, cam) in cases.items():
+        seen.clear()
+        r = Renderer(scene, cam, width=96, height=72, max_bounces=4, num_samples=1, seed=3, dtype=dtype)
+        r._sample_into_eager(Buffer.new(r.width, r.height, dtype=dtype), 1)
+        assert len(seen) == 4
+        out[name, 0], out[name, 3] = seen[0], seen[3]
+    return out
+
+
+def _bits(t):
+    return t.view(torch.int64 if t.dtype == torch.float64 else torch.int32) if t.is_floating_point() else t
+
+
+def _assert_scatter_bits(got, want, label):
+    for name, g, w in zip(("wi", "w", "ok"), got, want):
+        bad = (_bits(g) != _bits(w)).reshape(g.shape[0], -1).any(-1)
+        first = bad.nonzero()[:3].flatten().tolist()
+        assert not bad.any(), f"{label} {name}: {int(bad.sum())} lanes differ, first {first}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_scatter_kernel_matches_plain(card, dtype, monkeypatch):
+    """On the depth-0 and depth-3 wavefronts of both configurations (hits
+    and misses, rough ice, near-specular clear glass, the diffuse floors,
+    lanes in total internal reflection), the kernel's wi, w and ok are the
+    plain version's bit for bit, launched eagerly and inside a captured
+    graph; the counted wrapper adds one launch a call, in its type's slot."""
+    from rpt_tpu_torch.materials import sample_draws, sample_f_drawn
+    from rpt_tpu_torch.ops import scatter as scatter_mod
+    from rpt_tpu_torch.utils.cuda_graph import Capture
+
+    slot = 0 if dtype == torch.float32 else 1
+    tir, rough = {}, {}
+    for (name, depth), (key, mat, n, wo, found) in _scatter_wavefronts(dtype, monkeypatch).items():
+        label = f"{name} depth {depth}"
+        assert n.dtype == dtype and found.any() and (~found).any(), label
+        draws = sample_draws(key, (n.shape[0],), card, dtype)
+        want = scatter_mod.scatter_plain(draws, mat, n, wo, found)
+        _assert_scatter_bits(scatter_mod.scatter_kernel(draws, mat, n, wo, found), want, label)
+        rough[name] = rough.get(name, set()) | set(mat.roughness[found].tolist())
+        valid = sample_f_drawn(draws, mat, n, wo)[2]
+        tir[name] = tir.get(name, 0) + int((found & ~valid).sum())
+
+        before = kernels.launch_counts(by_slot=True)[scatter_mod.scatter][slot]
+        _assert_scatter_bits(scatter_mod.scatter(key, mat, n, wo, found), want, label + " (counted)")
+        outs = []
+        graph = Capture(lambda: outs.append(scatter_mod.scatter(key, mat, n, wo, found)), card, "scatter").graph
+        after_capture = kernels.launch_counts(by_slot=True)[scatter_mod.scatter][slot]
+        graph.replay()
+        torch.cuda.synchronize()
+        _assert_scatter_bits(outs[-1], want, label + " (graph)")
+        after = kernels.launch_counts(by_slot=True)[scatter_mod.scatter]
+        assert after_capture - before == 2 and after[slot] - after_capture == 1, label
+    # Both materials of each scene (the light's roughness is the floor's), and
+    # lanes in total internal reflection in both.
+    assert all(len(r) == 2 and 1.0 in r for r in rough.values()) and len(rough) == 2
+    assert tir["pegasus"] > 0 and tir["wine_glass"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_scatter_kernel_under_autograd_matches_plain(card, dtype, monkeypatch):
+    """Where the material columns, the normals and wo require grad, the
+    wrapper still launches the kernel (once, counted), which also returns
+    the weight's divisor, and rebuilds the weight in torch on its samples:
+    values and gradient are the plain version's bit for bit on the depth-0
+    and depth-3 wavefronts of both configurations."""
+    import dataclasses
+
+    from rpt_tpu_torch.materials import sample_draws
+    from rpt_tpu_torch.ops import scatter as scatter_mod
+
+    slot = 0 if dtype == torch.float32 else 1
+    weights = torch.tensor([0.3, 0.5, 0.7], dtype=dtype, device=card)
+    for (name, depth), (key, mat, n, wo, found) in _scatter_wavefronts(dtype, monkeypatch).items():
+        label = f"{name} depth {depth}"
+        out = {}
+        for way in ("kernel", "plain"):
+            # The gathered columns are the leaves: no gather's backward, whose
+            # atomic adds would reorder sums.
+            cols = {f.name: getattr(mat, f.name).detach().clone().requires_grad_() for f in dataclasses.fields(mat)}
+            rays = {"n": n.detach().clone().requires_grad_(), "wo": wo.detach().clone().requires_grad_()}
+            leaves = type(mat)(**cols)
+            before = kernels.launch_counts(by_slot=True)[scatter_mod.scatter][slot]
+            if way == "kernel":
+                got = scatter_mod.scatter(key, leaves, rays["n"], rays["wo"], found)
+            else:
+                draws = sample_draws(key, (n.shape[0],), card, dtype)
+                got = scatter_mod.scatter_plain(draws, leaves, rays["n"], rays["wo"], found)
+            inputs = {**cols, **rays}
+            grads = torch.autograd.grad((got[1] * weights).sum(), list(inputs.values()), allow_unused=True)
+            torch.cuda.synchronize()
+            launched = kernels.launch_counts(by_slot=True)[scatter_mod.scatter][slot] - before
+            out[way] = (tuple(t.detach() for t in got), dict(zip(inputs, grads)), launched)
+        (got, g_kern, launched), (want, g_plain, plain_launched) = out["kernel"], out["plain"]
+        assert launched == 1 and plain_launched == 0, label
+        _assert_scatter_bits(got, want, label + " (autograd)")
+        for f, g in g_plain.items():
+            assert (g_kern[f] is None) == (g is None), f"{label} {f}"
+            if g is not None:
+                assert torch.equal(_bits(g_kern[f]), _bits(g)), f"{label}: the gradient of {f} differs"
+        assert float(g_kern["roughness"].abs().max()) > 0.0 and float(g_kern["n"].abs().max()) > 0.0, label

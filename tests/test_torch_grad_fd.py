@@ -37,6 +37,7 @@ from rpt_tpu_torch import integrator, materials
 from rpt_tpu_torch import random as rnd
 from rpt_tpu_torch.grad import make_diff_render, make_material_render_fn, render_with_camera
 from rpt_tpu_torch.materials import MaterialTable
+from rpt_tpu_torch.ops import scatter as scatter_mod
 from rpt_tpu_torch.scenes import build_dragon_scene, dragon_camera
 from rpt_tpu_torch.utils import vmath
 from test_torch_grad import W, H, assert_grad_agrees, bar, fd_cam, fd_scene, port_grads
@@ -180,7 +181,7 @@ def test_attached_samples_give_another_roughness_gradient(monkeypatch):
                               spp=4, device="cpu")
     detached = port_grads(fn, m0, ("roughness",))["roughness"]
     assert_grad_agrees(detached, want, 2, "roughness")
-    monkeypatch.setattr(integrator, "stop_gradient", lambda x: x)
+    monkeypatch.setattr(scatter_mod, "stop_gradient", lambda x: x)
     attached = port_grads(fn, m0, ("roughness",))["roughness"]
     err = float(np.abs(attached - want).max())
     assert err > 10 * bar(2) * float(np.abs(want).max()), f"attached samples moved the gradient by only {err:.3e}"
